@@ -1,0 +1,104 @@
+"""The hand-written K1 kernel on the card against its plain PyTorch version.
+
+These need an NVIDIA card (sm_90a) and the CUDA toolkit; without a card
+they skip. Kernel and plain version share their rounding points and differ
+only in the order of their f32 sums, which can move an intermediate across
+a bf16 boundary. The kernel's scratch is held at: z before its signed sqrt
+(z * |z| is img @ wq + bq in f32) atol/rtol 1e-4, h1 one bf16 ulp plus
+5e-4 (a zb at a rounding boundary may round apart under the two norms,
+moving h1 by |c1w| * ulp(zb)). The
+output is held per glimpse row at atol 2e-3 + four bf16 ulps (2^-5) of the
+row's largest magnitude: a 1-ulp flip of h1 moves the logits through c2w,
+and the peaked attention then moves every output of the row by up to ~1.2%
+of that magnitude. The inputs peak the attention over the L regions, so a
+fault upstream of the softmax moves the output well past the tolerance.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
+
+pytestmark = pytest.mark.skipif(
+    "not torch.cuda.is_available()",
+    reason="needs an NVIDIA card (the CUDA kernel has no CPU mode)",
+)
+
+ATOL, RTOL_ROW = 2e-3, 2.0 ** -5
+POOLED_TOL = 1e-4
+H1_ATOL, H1_RTOL = 5e-4, 2.0 ** -7
+K, C, G, L = 5, 512, 2, 196
+
+
+def _inputs(n, d, o, seed=0, device="cuda"):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32) * scale
+        ).to(device)
+
+    img = t((n, L, d), 0.5).to(torch.bfloat16)
+    q = t((n, o * K), 0.5)
+    # zb is a few 1e-3 per element after the grid-flat norm: c1w ~ N(0, 1)
+    # with no bias and c2w ~ 3 N(0, 1) make the logits span several units
+    sw = wqf.prepare_stage1_weights(
+        t((d, o * K), 0.05), t((o * K,), 0.05), t((o, C), 1.0), t((C,), 0.0),
+        t((C, G), 3.0), t((G,), 0.05), K,
+    )
+    return img, q, sw
+
+
+def _within(got, want, d):
+    got = got.float().reshape(got.shape[0], -1, d)
+    want = want.float().reshape(got.shape)
+    return (got - want).abs() <= ATOL + RTOL_ROW * want.abs().amax(
+        -1, keepdim=True)
+
+
+@pytest.mark.parametrize("n,d,o", [(4, 128, 100), (8, 2048, 1000)],
+                         ids=["small", "production"])
+def test_kernel_matches_plain_version(n, d, o):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, q, sw = _inputs(n, d, o)
+    before = wqf.launch_count
+    got, z, h1 = wqf.stage1_coattention_cuda(img, q, sw, intermediates=True)
+    torch.cuda.synchronize()
+    assert wqf.launch_count == before + 1
+    want, want_z, want_h1 = wqf.stage1_coattention_reference(
+        img, q, sw, intermediates=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, G * d)
+    assert torch.isfinite(got.float()).all()
+    # control: the check rejects most of a uniform-attention output
+    uniform = img.float().mean(1, keepdim=True).expand(n, G, d)
+    assert (~_within(uniform, want, d)).float().mean() >= 0.5
+    torch.testing.assert_close(z * z.abs(), want_z * want_z.abs(),
+                               atol=POOLED_TOL, rtol=POOLED_TOL)
+    torch.testing.assert_close(h1.float(), want_h1.float(), atol=H1_ATOL,
+                               rtol=H1_RTOL)
+    assert _within(got, want, d).all()
+    # no atomics: a rerun gives the same bits
+    assert torch.equal(got, wqf.stage1_coattention(img, q, sw))
+
+
+def test_wrapper_raises_on_inputs_it_does_not_take():
+    img, q, sw = _inputs(2, 128, 100)
+    with pytest.raises(TypeError):
+        wqf.stage1_coattention_cuda(img.float(), q, sw)
+    with pytest.raises(ValueError, match="CUDA"):
+        wqf.stage1_coattention_cuda(img.cpu(), q.cpu(), sw)
+    with pytest.raises(ValueError, match="on"):
+        wqf.stage1_coattention_cuda(img, q.cpu(), sw)
+    strided = img.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        wqf.stage1_coattention_cuda(strided, q, sw)
+    img124, q124, sw124 = _inputs(2, 124, 100)
+    with pytest.raises(ValueError, match="D % 8"):
+        wqf.stage1_coattention_cuda(img124, q124, sw124)
+    shifted = torch.empty(img.numel() + 1, dtype=img.dtype,
+                          device=img.device)[1:].view(img.shape)
+    shifted.copy_(img)
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        wqf.stage1_coattention_cuda(shifted, q, sw)

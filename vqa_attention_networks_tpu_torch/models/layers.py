@@ -1,0 +1,186 @@
+"""Shared building blocks (port of ``vqa_attention_networks_tpu/models/layers.py``).
+
+Parameters live in PyTorch's layout inside the modules (``weight`` is
+``[out, in]``); ``weights.load_jax_params`` transposes the JAX package's
+``[in, out]`` leaves into it. The initialisers return the JAX layout, so a
+tree they build loads through the same function as a JAX checkpoint.
+
+Rounding points follow the JAX functions exactly:
+
+- ``dense`` rounds the product to the compute dtype, then adds the bias in
+  that dtype: two rounding points (``layers.py:60-68``). ``F.linear`` with a
+  bf16 bias fuses the add at f32 and would give one.
+- ``lstm`` keeps the gates and both carries, h and c, in the compute dtype,
+  with the input projection hoisted out of the loop (``layers.py:127-154``).
+  ``nn.LSTM`` (cuDNN) is not used: it moves the rounding points.
+- f32 compute means full f32 products (the JAX package asks XLA for
+  ``Precision.HIGHEST``); a caller comparing at f32 on a card keeps
+  ``torch.backends.cuda.matmul.allow_tf32`` False, its default.
+
+``dropout`` and ``batchnorm`` come with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+Params = Dict[str, torch.Tensor]
+
+# Config.compute_dtype -> torch dtype
+DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
+}
+
+
+# --------------------------------------------------------------------------
+# initialisers (JAX layout, drawn from an explicit torch.Generator)
+# --------------------------------------------------------------------------
+
+def xavier_uniform(
+    generator: torch.Generator, shape: Tuple[int, ...], fan_in: int,
+    fan_out: int,
+) -> torch.Tensor:
+    """PyTorch-convention xavier uniform: U(-a, a), a = sqrt(6/(fi+fo))."""
+    a = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(shape, dtype=torch.float32).uniform_(
+        -a, a, generator=generator
+    )
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               bias: bool = True) -> Params:
+    p = {"w": xavier_uniform(generator, (d_in, d_out), d_in, d_out)}
+    if bias:
+        p["b"] = torch.zeros(d_out)
+    return p
+
+
+def embedding_init(generator: torch.Generator, vocab: int, dim: int) -> Params:
+    # PyTorch fans for an [V, E] embedding matrix: fan_in=E, fan_out=V
+    return {"table": xavier_uniform(generator, (vocab, dim), dim, vocab)}
+
+
+def lstm_init(generator: torch.Generator, d_in: int, hidden: int) -> Params:
+    return {
+        "w_ih": xavier_uniform(generator, (d_in, 4 * hidden), d_in, 4 * hidden),
+        "w_hh": xavier_uniform(generator, (hidden, 4 * hidden), hidden,
+                               4 * hidden),
+        "b_ih": torch.zeros(4 * hidden),
+        "b_hh": torch.zeros(4 * hidden),
+    }
+
+
+# --------------------------------------------------------------------------
+# parameter holders (PyTorch layout; filled by weights.load_jax_params)
+# --------------------------------------------------------------------------
+
+class Dense(nn.Module):
+    """A projection ``x @ W + b``: the reference's Linear and 1x1 convs."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_out, d_in))
+        self.bias = nn.Parameter(torch.empty(d_out)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias)
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(vocab, dim))
+
+    def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return embed(self.weight, ids, dtype)
+
+
+class LSTM(nn.Module):
+    """One-layer LSTM, gate order i,f,g,o, with ``nn.LSTM``'s parameter
+    names (less the ``_l0`` suffix) and its two separate biases."""
+
+    def __init__(self, d_in: int, hidden: int):
+        super().__init__()
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden, d_in))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
+        self.bias_ih = nn.Parameter(torch.empty(4 * hidden))
+        self.bias_hh = nn.Parameter(torch.empty(4 * hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return lstm(x, self.weight_ih, self.weight_hh, self.bias_ih,
+                    self.bias_hh)
+
+
+# --------------------------------------------------------------------------
+# functions
+# --------------------------------------------------------------------------
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an f32 result: JAX's ``preferred_element_type=f32``.
+    Products of bf16 values are exact in f32, so only the summation order
+    can differ from the JAX function."""
+    return torch.matmul(a.float(), b.float())
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ weight.T`` rounded to x's dtype, then ``+ bias`` in that dtype."""
+    y = torch.matmul(x, weight.to(x.dtype).t())
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return table.to(dtype)[ids.long()]
+
+
+def lstm(
+    x: torch.Tensor,  # [N, T, d_in]
+    w_ih: torch.Tensor,  # [4H, d_in]
+    w_hh: torch.Tensor,  # [4H, H]
+    b_ih: torch.Tensor,
+    b_hh: torch.Tensor,
+) -> torch.Tensor:
+    """All hidden states [N, T, H]; h and c carried in x's dtype."""
+    n, t, _ = x.shape
+    hidden = w_hh.shape[1]
+    dtype = x.dtype
+    # hoisted input projection; the two biases sum in f32 first (lstm_bias)
+    x_proj = torch.matmul(x, w_ih.to(dtype).t()) + (b_ih + b_hh).to(dtype)
+    w_hh_t = w_hh.to(dtype).t()
+    h = torch.zeros(n, hidden, dtype=dtype, device=x.device)
+    c = torch.zeros(n, hidden, dtype=dtype, device=x.device)
+    hs = []
+    for step in range(t):
+        gates = x_proj[:, step] + torch.matmul(h, w_hh_t)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i = torch.sigmoid(i)
+        f = torch.sigmoid(f)
+        g = torch.tanh(g)
+        o = torch.sigmoid(o)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def signed_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Power normalisation sqrt(relu(x)) - sqrt(relu(-x))."""
+    return torch.sqrt(torch.relu(x)) - torch.sqrt(torch.relu(-x))
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """``F.normalize`` semantics with the square-sum in (at least) f32."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xa = x.to(acc)
+    norm = torch.sqrt(torch.sum(xa * xa, dim=dim, keepdim=True))
+    return (xa / torch.clamp_min(norm, eps)).to(x.dtype)

@@ -1,0 +1,169 @@
+"""MHB + co-attention, the flagship (port of the eval forward of
+``vqa_attention_networks_tpu/models/mhb_coatt.py``).
+
+Attribute names are the JAX param-tree keys, so ``weights.load_jax_params``
+maps a JAX tree onto the module one to one. ``init_params`` draws a tree in
+the JAX layout from a ``torch.Generator`` (xavier-uniform weights, zero
+biases, as the JAX ``init``).
+
+Dispatch rule (``mhb_coatt.py:155-160``): at bf16 with
+``cfg.fast_path != "composed"`` the stage-1 fusion and co-attention run as
+one call of K1 (``ops/wq_fusion.stage1_coattention``) — "auto", "pallas" and
+"pallas_pair" all take the one kernel; otherwise the composed chain runs
+(the weight-contracted fusion at bf16, the exact f32 chain at f32).
+
+The plain MHB model and the training forward come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from vqa_attention_networks_tpu.config import Config
+from vqa_attention_networks_tpu_torch.models import layers as L
+from vqa_attention_networks_tpu_torch.ops.attention import glimpse_attention
+from vqa_attention_networks_tpu_torch.ops.fusion import mfb_fuse_pool
+from vqa_attention_networks_tpu_torch.ops.grid_fusion import grid_fuse
+from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
+
+_STAGE1_FIELDS = ("w3", "b3", "c1w", "c1b", "c2w", "c2b")
+
+
+def init_params(cfg: Config, generator: torch.Generator) -> Dict:
+    """A random parameter tree in the JAX layout (``mhb_coatt.init``)."""
+    h, d_img, fusion = cfg.hidden_dim, cfg.img_feature_channel, cfg.fusion_dim
+    g = generator
+    p = {
+        "word_embedding": L.embedding_init(g, cfg.q_vocab_size, cfg.emb_dim),
+        "lstm": L.lstm_init(g, cfg.lstm_input_dim, h),
+        "ques_att_conv1": L.dense_init(g, h, 512),
+        "ques_att_conv2": L.dense_init(g, 512, 2),
+        "ques_proj1": L.dense_init(g, 2 * h, fusion),
+        "img_conv1d": L.dense_init(g, d_img, fusion),
+        "co_att_conv1": L.dense_init(g, cfg.mfb_out, 512),
+        "co_att_conv2": L.dense_init(g, 512, 2),
+        "ques_proj2": L.dense_init(g, 2 * h, fusion),
+        "ques_proj3": L.dense_init(g, 2 * h, fusion),
+        "img_proj2": L.dense_init(g, 2 * d_img, fusion),
+        "img_proj3": L.dense_init(g, 2 * d_img, fusion),
+        "linear_pred": L.dense_init(g, 2 * cfg.mfb_out, cfg.a_vocab_size),
+    }
+    if cfg.glove:
+        # placeholder table, as the JAX init; real runs load the offline one
+        p["glove_table"] = torch.zeros(cfg.q_vocab_size, cfg.emb_dim)
+    return p
+
+
+class MHBCoAtt(nn.Module):
+    """Eval forward of mhb_coAtt: (img [N, L, D], ques [N, T]) -> f32
+    logits [N, a_vocab]. Parameters are allocated empty; load them with
+    ``weights.load_jax_params``, which also lays out the K1 weights."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        h, d_img, fusion = cfg.hidden_dim, cfg.img_feature_channel, cfg.fusion_dim
+        self.word_embedding = L.Embedding(cfg.q_vocab_size, cfg.emb_dim)
+        self.lstm = L.LSTM(cfg.lstm_input_dim, h)
+        self.ques_att_conv1 = L.Dense(h, 512)
+        self.ques_att_conv2 = L.Dense(512, 2)
+        self.ques_proj1 = L.Dense(2 * h, fusion)
+        self.img_conv1d = L.Dense(d_img, fusion)
+        self.co_att_conv1 = L.Dense(cfg.mfb_out, 512)
+        self.co_att_conv2 = L.Dense(512, 2)
+        self.ques_proj2 = L.Dense(2 * h, fusion)
+        self.ques_proj3 = L.Dense(2 * h, fusion)
+        self.img_proj2 = L.Dense(2 * d_img, fusion)
+        self.img_proj3 = L.Dense(2 * d_img, fusion)
+        self.linear_pred = L.Dense(2 * cfg.mfb_out, cfg.a_vocab_size)
+        if cfg.glove:
+            self.register_buffer(
+                "glove_table", torch.empty(cfg.q_vocab_size, cfg.emb_dim)
+            )
+        self._stage1_o: Optional[int] = None  # set by prepare()
+
+    def prepare(self) -> None:
+        """Lay out img_conv1d / co_att_conv1 / co_att_conv2 for K1, once,
+        after the weights are loaded (the JAX wrapper redoes this on every
+        call; in eager PyTorch that would copy 42 MB per batch). The buffers
+        move with the module."""
+        with torch.no_grad():
+            sw = wqf.prepare_stage1_weights(
+                self.img_conv1d.weight.t(), self.img_conv1d.bias,
+                self.co_att_conv1.weight.t(), self.co_att_conv1.bias,
+                self.co_att_conv2.weight.t(), self.co_att_conv2.bias,
+                self.cfg.mfb_factor,
+            )
+        for field in _STAGE1_FIELDS:
+            self.register_buffer(f"stage1_{field}", getattr(sw, field),
+                                 persistent=False)
+        self._stage1_o = sw.o
+
+    def stage1_weights(self) -> wqf.Stage1Weights:
+        if self._stage1_o is None:
+            raise RuntimeError(
+                "K1 weights are not laid out: load the weights with "
+                "weights.load_jax_params (or call prepare())"
+            )
+        return wqf.Stage1Weights(
+            **{f: getattr(self, f"stage1_{f}") for f in _STAGE1_FIELDS},
+            o=self._stage1_o, k=self.cfg.mfb_factor,
+        )
+
+    def _output_fusion(self, stage: str, q_att: torch.Tensor,
+                       v_att: torch.Tensor) -> torch.Tensor:
+        q_proj = getattr(self, f"ques_proj{stage}")(q_att)
+        v_proj = getattr(self, f"img_proj{stage}")(v_att)
+        return L.l2_normalize(mfb_fuse_pool(q_proj, v_proj,
+                                            self.cfg.mfb_factor))
+
+    def forward(
+        self,
+        img: torch.Tensor,  # [N, L, D]
+        ques: torch.Tensor,  # [N, T]
+        *,
+        reference_stage1: bool = False,
+    ) -> torch.Tensor:
+        """``reference_stage1=True`` runs K1's plain PyTorch version in
+        place of the kernel on any device — for the comparisons of the
+        tests and ``chip_smoke.py`` only."""
+        cfg = self.cfg
+        dtype = L.DTYPES[cfg.compute_dtype]
+        n = ques.shape[0]
+        img = img.to(dtype)
+
+        emb = torch.tanh(self.word_embedding(ques, dtype))
+        if cfg.glove:
+            emb = torch.cat([emb, L.embed(self.glove_table, ques, dtype)], -1)
+        h_seq = self.lstm(emb)  # [N, T, H]
+        q_att = glimpse_attention(
+            h_seq, self.ques_att_conv1.weight, self.ques_att_conv1.bias,
+            self.ques_att_conv2.weight, self.ques_att_conv2.bias, h_seq,
+            uniform_quirk=False,
+        )
+        q_proj = self.ques_proj1(q_att)
+
+        if dtype == torch.bfloat16 and cfg.fast_path != "composed":
+            sw = self.stage1_weights()
+            if reference_stage1:
+                v_att = wqf.stage1_coattention_reference(img, q_proj, sw)
+            else:
+                v_att = wqf.stage1_coattention(img, q_proj, sw)
+        else:
+            fused = grid_fuse(img, self.img_conv1d.weight.t(),
+                              self.img_conv1d.bias, q_proj, cfg.mfb_factor)
+            fused = L.l2_normalize(fused.reshape(n, -1)).reshape(fused.shape)
+            v_att = glimpse_attention(
+                fused.to(img.dtype),
+                self.co_att_conv1.weight, self.co_att_conv1.bias,
+                self.co_att_conv2.weight, self.co_att_conv2.bias, img,
+                uniform_quirk=False,
+            )
+
+        out2 = self._output_fusion("2", q_att, v_att)
+        out3 = self._output_fusion("3", q_att, v_att)
+        return self.linear_pred(torch.cat([out2, out3], dim=-1)).float()
+

@@ -1,0 +1,83 @@
+"""MFB fusion and glimpse-pool primitives (port of
+``vqa_attention_networks_tpu/ops/fusion.py``), inference only.
+
+The fusion axis is output-major: channel ``c = o*k + j`` of the o*k-wide
+product pools into output ``o`` (the reference's permute + view).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vqa_attention_networks_tpu_torch.models.layers import (
+    matmul_f32,
+    signed_sqrt,
+)
+
+
+def refactor_output_major(x: torch.Tensor, o: int, k: int,
+                          o_pad: int) -> torch.Tensor:
+    """[..., F=o*k] -> [..., k, o_pad]: split the output-major fusion axis
+    onto its own k axis and zero-pad O. The layout contract of the stage-1
+    kernel (``fusion.py:32-44``)."""
+    x3 = x.reshape(*x.shape[:-1], o, k).transpose(-1, -2)
+    return F.pad(x3, (0, o_pad - o))
+
+
+def mfb_sumpool(z: torch.Tensor, k: int) -> torch.Tensor:
+    """[..., o*k] -> [..., o]: sum over the k bilinear factors."""
+    *lead, d = z.shape
+    if d % k:
+        raise ValueError(f"fusion dim {d} not divisible by factor {k}")
+    return torch.sum(z.reshape(*lead, d // k, k), dim=-1)
+
+
+def mfb_fuse_pool(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """Hadamard -> k-sum-pool -> signed sqrt (eval: no dropout)."""
+    return signed_sqrt(mfb_sumpool(a * b, k))
+
+
+def grid_fuse_weight_contracted(
+    img: torch.Tensor,  # [N, L, D]
+    w: torch.Tensor,  # [D, F] (JAX layout)
+    b: torch.Tensor,  # [F]
+    q_proj: torch.Tensor,  # [N, F]
+    k: int,
+) -> torch.Tensor:
+    """The bf16 weight-contracted image-grid fusion (``fusion.py:73-124``):
+    W, q and the per-sample contracted weights wq all round to bf16, the
+    product accumulates in f32, the output is bf16 [N, L, O]."""
+    n, _, d = img.shape
+    o = w.shape[1] // k
+    w3 = w.reshape(d, o, k).to(torch.bfloat16)
+    q3 = q_proj.reshape(n, o, k)
+    wq = torch.einsum(
+        "dok,nok->ndo", w3.float(), q3.to(torch.bfloat16).float()
+    ).to(torch.bfloat16)
+    bq = torch.einsum("ok,nok->no", b.reshape(o, k).float(), q3.float())
+    pooled = matmul_f32(img.to(torch.bfloat16), wq) + bq[:, None, :]
+    return signed_sqrt(pooled).to(torch.bfloat16)
+
+
+def two_glimpse_pool(
+    att_logits: torch.Tensor,  # [N, P, G]
+    values: torch.Tensor,  # [N, P, D]
+    *,
+    uniform_quirk: bool,
+) -> torch.Tensor:
+    """Pool ``values`` under G glimpses -> [N, G*D] (glimpse-major). The
+    softmax runs in the logits' dtype, the pool in the values' dtype with
+    an (at least) f32 accumulator."""
+    n, _, g = att_logits.shape
+    d = values.shape[-1]
+    if uniform_quirk:
+        weights = torch.ones_like(att_logits)
+    else:
+        weights = torch.softmax(att_logits, dim=1)
+    weights = weights.to(values.dtype).transpose(1, 2)  # [N, G, P]
+    if values.dtype == torch.float32:
+        pooled = torch.matmul(weights, values)
+    else:
+        pooled = matmul_f32(weights, values)
+    return pooled.reshape(n, g * d).to(values.dtype)
