@@ -24,6 +24,24 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
    for information only, flips against ``fast_path="composed"``;
 5. times: K1 and its plain version at N = 256 and 1024 (CUDA events after
    warm-up), and the end-to-end qa-pairs/s of step 4;
+6. K2 (the training fusion with pre-pool dropout, forward and backward)
+   against its plain PyTorch version at production widths (L=196, D=2048,
+   F=5000, k=5), N = 8 and 64, rate 0.1 and 0: each launch (forward, d_img,
+   d_W/d_b, d_q) on the same inputs as its plain version, the backward
+   launches on the kernel's own forward output; bit-equal reruns, finite
+   values, the count of out == 0 (all k factors dropped); and controls:
+   the plain output with another mask seed, and d_W with the zero rule of
+   g_pooled removed or with the mask off, must be rejected;
+7. training: the port's ``Solver`` on ``Config(compute_dtype="bfloat16")``
+   at full width, batch 64, 20 steps through ``Solver.train`` with K2, the
+   same 20 steps with K2's plain version, and 20 steps on one repeated
+   batch: per-step losses (finite, the two runs agreeing over the first
+   steps, the repeated batch's falling), K2's launch counts in the kernel
+   run, and ``val()`` against a model freshly loaded with the trained
+   weights;
+8. times: each K2 launch and its plain version at N = 64, the forward,
+   backward and forward + backward through the autograd functions, and ms
+   per training step and training qa-pairs/s of the kernel and plain runs;
 
 then a JSON line of the kernels, nvidia-smi's line, and as the last line
 ``{"ok": true, "device": {...}}``. With no card it exits non-zero before
@@ -37,6 +55,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,14 +64,20 @@ from vqa_attention_networks_tpu.config import Config
 from vqa_attention_networks_tpu.data.feature_store import (
     make_synthetic_feature_store,
 )
+from vqa_attention_networks_tpu.data.prepare import make_synthetic_qa_data
 from vqa_attention_networks_tpu_torch.models.mhb_coatt import (
     MHBCoAtt,
     init_params,
 )
 from vqa_attention_networks_tpu_torch.ops import _build
+from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
-from vqa_attention_networks_tpu_torch.weights import load_jax_params
+from vqa_attention_networks_tpu_torch.train.solver import Solver
+from vqa_attention_networks_tpu_torch.weights import (
+    load_jax_params,
+    to_jax_params,
+)
 
 # K1's output against its plain version, per glimpse row of D outputs:
 # |diff| <= ATOL + RTOL_ROW * max |row|. The two share their rounding points
@@ -74,6 +99,34 @@ MAX_FLIP_RATE = 1e-3
 BATCH, N_BATCHES, N_IMAGES = 256, 8, 256
 K1_SOURCE = "vqa_attention_networks_tpu_torch/csrc/stage1_coattention.cu"
 K1_REPLACES = "vqa_attention_networks_tpu/ops/pallas_wq_fusion.py:205"
+K2_SOURCE = "vqa_attention_networks_tpu_torch/csrc/train_fusion.cu"
+# the Pallas kernel each K2 launch replaces (pallas_train_fusion.py)
+K2_REPLACES = {
+    "forward": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:67",
+    "d_img": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:95",
+    "d_w": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:140",
+    "d_q": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:140",
+}
+K2_RATES, K2_NS, K2_K = (0.1, 0.0), (8, 64), 5
+K2_FORCED_ZEROS = 100  # outputs of region 0 of sample 0 that pool to 0
+# K2 against its plain version, per tensor: |diff| <= RTOL * max |plain|.
+# The two share every rounding point and differ only in the order of
+# their f32 sums: the forward's D=2048 contraction, d_W's and d_b's sums
+# over N*L rows, d_q's over L rows and its recomputed z0. Those orders
+# move a result by a few f32 ulps of the largest terms, far below 1e-4 of
+# the tensor's largest value. The forward is held as pooled = out * |out|
+# (before the signed sqrt, which turns an f32 difference e near 0 into
+# sqrt(e)). d_img is bf16: a summation-order difference can move an
+# element across a bf16 rounding boundary, one bf16 ulp (2^-8 relative),
+# so its bound is 2^-7 of the largest |d_img|.
+K2_RTOL = {"forward": 1e-4, "d_w": 1e-4, "d_b": 1e-4, "d_q": 1e-4,
+           "d_img": 2.0 ** -7}
+TRAIN_STEPS, TRAIN_BATCH = 20, 64
+# the kernel and plain training runs see the same weights, batches and
+# masks and differ in the order of K2's f32 sums; bf16 roundings
+# downstream and Adam's sign-like first steps amplify that, so their
+# losses are held over the first steps only
+TRAIN_AGREE_STEPS, TRAIN_LOSS_RTOL = 5, 1e-3
 
 
 def say(phase: str, **fields) -> None:
@@ -166,22 +219,323 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def k2_inputs(n: int, seed: int, cfg: Config, device) -> tuple:
+    """Random production-width K2 inputs: bf16 img and q (q_proj is bf16
+    in the bf16 model), f32 W and b, and an f32 cotangent g. Region 0 of
+    sample 0 is all zeros and the bias of the first K2_FORCED_ZEROS outputs
+    is 0 (the model's initial bias), so those outputs pool to exactly 0
+    with the mask on: where pooled is 0 because all k factors were dropped
+    the mask zeroes g_prod anyway, and only these show g_pooled's zero
+    rule (in d_b and d_img)."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.img_feature_channel, cfg.fusion_dim
+
+    def t(shape, scale):
+        x = rng.standard_normal(shape, dtype=np.float32) * scale
+        return torch.from_numpy(x).to(device)
+
+    img = t((n, cfg.img_feature_dim, d), 0.5)
+    img[0, 0] = 0.0
+    b = t((f,), 0.05)
+    b[:K2_FORCED_ZEROS * cfg.mfb_factor] = 0.0
+    q = t((n, f), 0.5).to(torch.bfloat16)
+    g = t((n, cfg.img_feature_dim, cfg.mfb_out), 1.0)
+    return img.to(torch.bfloat16), t((d, f), 0.02), b, q, g
+
+
+def k2_view(name: str, x: torch.Tensor) -> torch.Tensor:
+    """What the check compares: f32, and the forward as pooled =
+    out * |out|."""
+    x = x.float()
+    return x * x.abs() if name == "forward" else x
+
+
+def k2_within(name: str, got: torch.Tensor,
+              want: torch.Tensor) -> torch.Tensor:
+    """Elementwise: is ``got`` within K2_RTOL[name] of ``want``'s largest
+    magnitude?"""
+    got, want = k2_view(name, got), k2_view(name, want)
+    return (got - want).abs() <= K2_RTOL[name] * want.abs().max()
+
+
+def k2_launches(img, w_bf16, b, q, g, seed, rate) -> dict:
+    """Every K2 launch once; the backward ones on the kernel's own forward
+    output."""
+    got = {"forward": tf.forward_cuda(img, w_bf16, b, q, seed, K2_K, rate)}
+    args = (g, got["forward"], img, w_bf16, b, q, seed, K2_K, rate)
+    got["d_img"] = tf.d_img_cuda(*args)
+    got["d_w"], got["d_b"] = tf.d_w_cuda(*args)
+    got["d_q"] = tf.d_q_cuda(*args)
+    return got
+
+
+def k2_plain(img, w_bf16, b, q, g, out, keep) -> dict:
+    """The plain version of every K2 launch; the backward ones on ``out``."""
+    want = {"forward": tf.forward_reference(img, w_bf16, b, q, K2_K, keep),
+            "d_img": tf.d_img_reference(g, out, w_bf16, q, K2_K, keep)}
+    want["d_w"], want["d_b"] = tf.d_w_reference(g, out, img, q, K2_K, keep)
+    want["d_q"] = tf.d_q_reference(g, out, img, w_bf16, b, K2_K, keep)
+    return want
+
+
+def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
+    """K2 at production widths against its plain version, with controls;
+    raises on a failure. Returns max |diff| per launch."""
+    img, w, b, q, g = k2_inputs(n, 100 + n, cfg, device)
+    l, f = img.shape[1], w.shape[1]
+    seed = 1234 + n
+    w_bf16, bf, qf = tf.operands(w, b, q)
+    mask = tf.dropout_mask(seed, n, l, f, rate, device) if rate > 0 else None
+    keep = tf.keep_scale(mask, rate)
+    got = k2_launches(img, w_bf16, bf, qf, g, seed, rate)
+    again = k2_launches(img, w_bf16, bf, qf, g, seed, rate)
+    out = got["forward"]
+    want = k2_plain(img, w_bf16, bf, qf, g, out, keep)
+    torch.cuda.synchronize()
+    fields, max_abs, failed = {}, {}, []
+    for name in got:
+        ok = bool(k2_within(name, got[name], want[name]).all())
+        max_abs[name] = float((got[name].float() - want[name].float())
+                              .abs().max())
+        diff = k2_view(name, got[name]) - k2_view(name, want[name])
+        fields[name] = {
+            "max_abs_diff": max_abs[name],
+            "max_rel_diff_checked": float(diff.abs().max()) / float(
+                k2_view(name, want[name]).abs().max()),
+            "within_tolerance": ok,
+            "rerun_bit_equal": bool(torch.equal(got[name], again[name])),
+            "finite": bool(torch.isfinite(got[name].float()).all()),
+        }
+        if not all(fields[name][key] for key in
+                   ("within_tolerance", "rerun_bit_equal", "finite")):
+            failed.append(name)
+    # pooled is exactly 0 where the mask dropped all k factors of an
+    # output (rate^k of the N*L*O outputs) and at the forced zeros, in
+    # both; elsewhere an f32 sum may cancel to exactly 0 on one side only
+    # (seen once: true pooled -3.9e-7 from terms of +-0.1)
+    zero = torch.zeros_like(out, dtype=torch.bool)
+    if mask is not None:
+        zero |= ~mask.reshape(*out.shape, K2_K).any(-1)
+    zero[0, 0, :K2_FORCED_ZEROS] = True
+    dropped = int(zero.sum())
+    forced = min(K2_FORCED_ZEROS, out.shape[-1])
+    expect = rate ** K2_K * (out.numel() - forced) + forced
+    in_both = bool((out[zero] == 0).all() and (want["forward"][zero] == 0)
+                   .all())
+    fields["zeros"] = {"kernel": int((out == 0).sum()),
+                       "plain": int((want["forward"] == 0).sum()),
+                       "dropped_or_forced": dropped, "expected": expect,
+                       "zero_there_in_both": in_both}
+    if not in_both or abs(dropped - expect) > 5 * expect ** 0.5 + 1:
+        failed.append("zeros")
+    # controls: the check sees a backward without the zero rule (out == 0
+    # taken as 1e-20, the clamp alone), and at rate > 0 a mask that does
+    # not replay and a backward without the mask
+    clamped = torch.where(out == 0, torch.full_like(out, 1e-20), out)
+    no_rule_w, no_rule_b = tf.d_w_reference(g, clamped, img, qf, K2_K, keep)
+    no_rule_img = tf.d_img_reference(g, clamped, w_bf16, qf, K2_K, keep)
+    controls = {
+        "d_w_d_b_without_zero_rule_rejected": not bool(
+            k2_within("d_w", no_rule_w, want["d_w"]).all()
+            and k2_within("d_b", no_rule_b, want["d_b"]).all()),
+        "d_img_without_zero_rule_rejected": not bool(
+            k2_within("d_img", no_rule_img, want["d_img"]).all()),
+    }
+    if rate > 0:
+        other = tf.forward_reference(img, w_bf16, bf, qf, K2_K, tf.keep_scale(
+            tf.dropout_mask(seed + 1, n, l, f, rate, device), rate))
+        controls["other_seed_rejected_share"] = 1.0 - float(
+            k2_within("forward", other, want["forward"]).float().mean())
+        no_mask = tf.d_w_reference(g, out, img, qf, K2_K, None)[0]
+        controls["d_w_without_mask_rejected"] = not bool(
+            k2_within("d_w", no_mask, want["d_w"]).all())
+    fields["controls"] = controls
+    if controls.get("other_seed_rejected_share", 1.0) < 0.5 or not all(
+            v for k, v in controls.items() if k.endswith("_rejected")):
+        failed.append("controls")
+    say("k2_check", n=n, rate=rate, **fields)
+    if failed:
+        raise AssertionError(f"K2 fails {failed} at N={n}, rate={rate}")
+    return max_abs
+
+
+def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
+    """kernel/plain/plain/kernel after one warm-up call of each -> (kernel
+    ms, plain ms, all four runs)."""
+    kernel(), plain()
+    plain_a = time_ms(plain, iters)
+    kernel_a = time_ms(kernel, iters)
+    kernel_b = time_ms(kernel, iters)
+    plain_b = time_ms(plain, iters)
+    return ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2,
+            [kernel_a, kernel_b], [plain_a, plain_b])
+
+
+def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> dict:
+    """Each K2 launch against its plain version at N=64 (the plain
+    backward is handed the mask, as the kernel replays it), then forward,
+    backward (d_W + d_b + d_q) and both through the autograd functions,
+    where the plain forward draws its mask."""
+    n, seed = TRAIN_BATCH, 7
+    img, w, b, q, g = k2_inputs(n, 3, cfg, device)
+    w_bf16, bf, qf = tf.operands(w, b, q)
+    keep = tf.keep_scale(tf.dropout_mask(seed, n, img.shape[1], w.shape[1],
+                                         rate, device), rate)
+    out = tf.forward_cuda(img, w_bf16, bf, qf, seed, K2_K, rate)
+    args = (g, out, img, w_bf16, bf, qf, seed, K2_K, rate)
+    pairs = {
+        "forward": (lambda: tf.forward_cuda(img, w_bf16, bf, qf, seed, K2_K,
+                                            rate),
+                    lambda: tf.forward_reference(img, w_bf16, bf, qf, K2_K,
+                                                 keep)),
+        "d_img": (lambda: tf.d_img_cuda(*args),
+                  lambda: tf.d_img_reference(g, out, w_bf16, qf, K2_K, keep)),
+        "d_w": (lambda: tf.d_w_cuda(*args),
+                lambda: tf.d_w_reference(g, out, img, qf, K2_K, keep)),
+        "d_q": (lambda: tf.d_q_cuda(*args),
+                lambda: tf.d_q_reference(g, out, img, w_bf16, bf, K2_K,
+                                         keep)),
+    }
+    times = {}
+    for name, (kernel, plain) in pairs.items():
+        times[name] = interleaved_ms(kernel, plain)
+        say("k2_time", launch=name, n=n, rate=rate, kernel_ms=times[name][0],
+            plain_ms=times[name][1], kernel_runs_ms=times[name][2],
+            plain_runs_ms=times[name][3], card=smi)
+
+    wr, br, qr = (x.clone().requires_grad_(True) for x in (w, b, q))
+    fns = {"kernel": tf.TrainGridFuse.apply,
+           "plain": tf.train_grid_fuse_reference}
+    outs = {k: fn(img, wr, br, qr, seed, K2_K, rate) for k, fn in fns.items()}
+
+    def fwd(k):
+        return lambda: fns[k](img, wr, br, qr, seed, K2_K, rate)
+
+    def bwd(k):
+        return lambda: torch.autograd.grad(outs[k], (wr, br, qr), g,
+                                           retain_graph=True)
+
+    def both(k):
+        return lambda: torch.autograd.grad(fwd(k)(), (wr, br, qr), g)
+
+    for name, make in (("forward", fwd), ("backward", bwd),
+                       ("forward+backward", both)):
+        k_ms, p_ms, k_runs, p_runs = interleaved_ms(make("kernel"),
+                                                    make("plain"))
+        say("k2_time", autograd=name, n=n, rate=rate, kernel_ms=k_ms,
+            plain_ms=p_ms, kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
+            card=smi)
+    return times
+
+
+def train_run(cfg: Config, qa, store, params, **solver_kw) -> dict:
+    """``Solver.train`` from ``params``: per-step losses, ms per step over
+    steps 4..last (synchronised at both ends), K2's launch counts of the
+    run, and the solver."""
+    solver = Solver(cfg, qa, store, params=params, **solver_kw)
+    losses, marks = [], {}
+    steps = cfg.num_epoch * len(solver.batches["train"])
+
+    def on_step(step, loss):
+        losses.append(loss)
+        if step in (4, steps - 1):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+
+    for name in tf.launch_count:
+        tf.launch_count[name] = 0
+    metrics = solver.train(on_step=on_step)
+    counts = dict(tf.launch_count)
+    ms = (marks[steps - 1] - marks[4]) * 1e3 / (steps - 5)
+    return {"losses": [float(x) for x in losses], "ms_per_step": ms,
+            "qa_pairs_per_s": cfg.batch_size * 1e3 / ms, "launches": counts,
+            "metrics": metrics, "solver": solver}
+
+
+def train_phase(device, smi: str) -> dict:
+    """The port's Solver at full width, bf16, batch 64: kernel run, plain
+    run, repeated-batch run and the val() check; raises on a failure."""
+    cfg = Config(compute_dtype="bfloat16", num_epoch=1)
+    rng = np.random.default_rng(0)
+    qa = make_synthetic_qa_data(
+        rng, n_train=TRAIN_STEPS * TRAIN_BATCH, n_val=TRAIN_BATCH,
+        q_vocab_words=cfg.q_vocab_size - 2, num_answers=cfg.a_vocab_size,
+        max_len=cfg.max_question_length, num_images=N_IMAGES)
+    one = make_synthetic_qa_data(
+        rng, n_train=TRAIN_BATCH, n_val=TRAIN_BATCH,
+        q_vocab_words=cfg.q_vocab_size - 2, num_answers=cfg.a_vocab_size,
+        max_len=cfg.max_question_length, num_images=N_IMAGES)
+    assert (qa.q_vocab_size, qa.a_vocab_size) == (cfg.q_vocab_size,
+                                                  cfg.a_vocab_size)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        store = make_synthetic_feature_store(tmp, list(range(N_IMAGES)))
+        kernel = train_run(cfg, qa, store, params)
+        trained = kernel.pop("solver")
+        val = trained.val()
+        fresh = Solver(cfg, qa, store, params=to_jax_params(trained.model))
+        untrained = Solver(cfg, qa, store, params=params)
+        val_fresh, val_untrained = fresh.val(), untrained.val()
+        del trained, fresh, untrained
+        plain = train_run(cfg, qa, store, params, reference_kernels=True)
+        del plain["solver"]
+        repeated = train_run(cfg.replace(num_epoch=TRAIN_STEPS), one, store,
+                             params)
+        del repeated["solver"]
+    k_loss, p_loss = np.array(kernel["losses"]), np.array(plain["losses"])
+    rel = np.abs(k_loss - p_loss) / np.abs(p_loss)
+    r_loss = repeated["losses"]
+    want_counts = {"forward": TRAIN_STEPS, "d_img": 0, "d_w": TRAIN_STEPS,
+                   "d_q": TRAIN_STEPS}
+    say("train", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+        kernel_losses=kernel["losses"], plain_losses=plain["losses"],
+        rel_diff_by_step=rel.tolist(), repeated_batch_losses=r_loss,
+        k2_launches=kernel["launches"],
+        k2_launches_note="d_img stays at 0: img is data, it needs no "
+                         "gradient, so the backward never launches it",
+        plain_run_k2_launches=plain["launches"],
+        val_after_training=val, val_fresh_load=val_fresh,
+        val_untrained_info=val_untrained,
+        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    if not (np.isfinite(k_loss).all() and np.isfinite(p_loss).all()):
+        raise AssertionError("a training loss is not finite")
+    if (rel[:TRAIN_AGREE_STEPS] > TRAIN_LOSS_RTOL).any():
+        raise AssertionError("the kernel and plain training runs disagree")
+    if kernel["launches"] != want_counts or any(plain["launches"].values()):
+        raise AssertionError(f"K2 launches {kernel['launches']} in the "
+                             f"kernel run, {plain['launches']} in the plain")
+    if not r_loss[-1] < r_loss[0]:
+        raise AssertionError("the loss on a repeated batch does not fall")
+    if val != val_fresh or val == val_untrained:
+        raise AssertionError("val() after training does not score the "
+                             "trained weights")
+    for name, run in (("kernel", kernel), ("plain", plain)):
+        say("train_time", run=name, ms_per_step=run["ms_per_step"],
+            qa_pairs_per_s=run["qa_pairs_per_s"], batch=TRAIN_BATCH,
+            epoch_qa_pairs_per_s_info=run["metrics"]["qps"], card=smi)
+    return kernel
+
+
 def main() -> None:
     # phase 1: the device
-    name, smi = card()
+    card_name, smi = card()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions: f32
     torch.backends.cudnn.allow_tf32 = False
-    say("device", torch_name=name, nvidia_smi=smi,
+    say("device", torch_name=card_name, nvidia_smi=smi,
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    # phase 2: build
-    path, seconds, log = _build.build("stage1_coattention")
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    say("build", library=str(path.relative_to(_build.BUILD_DIR.parents[1])),
-        seconds=round(seconds, 2), arch="sm_90a", ptxas=ptxas)
+    # phase 2: build, one nvcc per source, all started together
+    names = ("stage1_coattention", "train_fusion")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(_build.build, names))
+    for name, (path, seconds, log) in zip(names, built):
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say("build", kernel=name,
+            library=str(path.relative_to(_build.BUILD_DIR.parents[1])),
+            seconds=round(seconds, 2), arch="sm_90a", ptxas=ptxas)
 
     # phase 3: K1 against its plain version at production shapes
     cfg = Config()
@@ -319,15 +673,41 @@ def main() -> None:
     say("e2e", qa_pairs_per_s=n_req / e2e_s, seconds=e2e_s,
         batch=BATCH, requests=n_req, card=smi)
 
-    print(json.dumps({"kernels": [{
+    # phase 6: K2 against its plain version at production widths
+    k2_err = {}
+    for n in K2_NS:
+        for rate in K2_RATES:
+            for name, err in k2_check(n, rate, cfg, dev).items():
+                k2_err[name] = max(k2_err.get(name, 0.0), err)
+    torch.cuda.empty_cache()
+
+    # phase 7: training through the port's Solver (the K2 main path)
+    train = train_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # phase 8: K2 times at the training batch
+    k2_times = k2_time(cfg, dev, smi)
+
+    kernels = [{
         "name": "stage1_coattention", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "max_abs_err": max_err, "ms": times[256][0],
         "plain_ms": times[256][1],
-    }]}))
+    }]
+    for launch, replaces in K2_REPLACES.items():
+        kernels.append({
+            "name": f"train_fusion_{launch}", "route": "cuda",
+            "source": K2_SOURCE, "replaces": replaces,
+            "launches": train["launches"][launch],
+            "max_abs_err": max(k2_err["d_w"], k2_err["d_b"])
+            if launch == "d_w" else k2_err[launch],
+            "ms": k2_times[launch][0], "plain_ms": k2_times[launch][1],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": card_name,
+        "count": torch.cuda.device_count(),
     }}))
 
 

@@ -35,7 +35,19 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 12  # every module
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 16  # every module
+
+
+def test_solver_import_leaves_jax_out():
+    code = ("import sys, vqa_attention_networks_tpu_torch.train.solver\n"
+            "leaked = sorted(m for m in sys.modules\n"
+            "                if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+            "assert not leaked, leaked\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

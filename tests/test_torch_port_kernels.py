@@ -1,4 +1,5 @@
-"""The hand-written K1 kernel on the card against its plain PyTorch version.
+"""The hand-written K1 and K2 kernels on the card against their plain
+PyTorch versions.
 
 These need an NVIDIA card (sm_90a) and the CUDA toolkit; without a card
 they skip. Kernel and plain version share their rounding points and differ
@@ -12,12 +13,20 @@ row's largest magnitude: a 1-ulp flip of h1 moves the logits through c2w,
 and the peaked attention then moves every output of the row by up to ~1.2%
 of that magnitude. The inputs peak the attention over the L regions, so a
 fault upstream of the softmax moves the output well past the tolerance.
+
+K2 (forward, d_img, d_W/d_b, d_q) shares every rounding point with its
+plain version and differs in the order of its f32 sums only; each launch
+is held per tensor at ``K2_RTOL`` of the plain result's largest |value|
+(the forward as pooled = out * |out|; d_img, bf16, at 2^-7: one bf16 ulp
+of the largest value, plus slack), the backward launches on the kernel's
+own forward output.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 
 pytestmark = pytest.mark.skipif(
@@ -102,3 +111,106 @@ def test_wrapper_raises_on_inputs_it_does_not_take():
     assert shifted.is_contiguous()
     with pytest.raises(ValueError, match="aligned"):
         wqf.stage1_coattention_cuda(shifted, q, sw)
+
+
+K2_RTOL = {"forward": 1e-4, "d_img": 2.0 ** -7, "d_w": 1e-4, "d_b": 1e-4,
+           "d_q": 1e-4}
+
+
+def _k2_inputs(n, d, o, seed=0, device="cuda"):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32) * scale
+        ).to(device)
+
+    img = t((n, L, d), 0.5).to(torch.bfloat16)
+    w_bf16, b, q = tf.operands(t((d, o * K), 0.02), t((o * K,), 0.05),
+                               t((n, o * K), 0.5).to(torch.bfloat16))
+    return img, w_bf16, b, q, t((n, L, o), 1.0)
+
+
+def _k2_view(name, x):
+    x = x.float()
+    return x * x.abs() if name == "forward" else x
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("n,d,o", [(4, 128, 128), (8, 2048, 1000)],
+                         ids=["small", "production"])
+def test_k2_launches_match_plain_versions(n, d, o, rate):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, w_bf16, b, q, g = _k2_inputs(n, d, o)
+    seed = 77
+    mask = tf.dropout_mask(seed, n, L, o * K, rate, img.device) \
+        if rate > 0 else None
+    keep = tf.keep_scale(mask, rate)
+
+    def launches():
+        out = tf.forward_cuda(img, w_bf16, b, q, seed, K, rate)
+        args = (g, out, img, w_bf16, b, q, seed, K, rate)
+        d_w, d_b = tf.d_w_cuda(*args)
+        return {"forward": out, "d_img": tf.d_img_cuda(*args), "d_w": d_w,
+                "d_b": d_b, "d_q": tf.d_q_cuda(*args)}
+
+    before = dict(tf.launch_count)
+    got = launches()
+    torch.cuda.synchronize()
+    assert {k: tf.launch_count[k] - before[k] for k in before} == \
+        {"forward": 1, "d_img": 1, "d_w": 1, "d_q": 1}
+    out = got["forward"]
+    d_w, d_b = tf.d_w_reference(g, out, img, q, K, keep)
+    want = {"forward": tf.forward_reference(img, w_bf16, b, q, K, keep),
+            "d_img": tf.d_img_reference(g, out, w_bf16, q, K, keep),
+            "d_w": d_w, "d_b": d_b,
+            "d_q": tf.d_q_reference(g, out, img, w_bf16, b, K, keep)}
+    again = launches()
+    for name, tol in K2_RTOL.items():
+        a, b_ = _k2_view(name, got[name]), _k2_view(name, want[name])
+        assert torch.isfinite(a).all(), name
+        assert (a - b_).abs().max() <= tol * b_.abs().max(), name
+        # no atomics: a rerun gives the same bits
+        assert torch.equal(got[name], again[name]), name
+    # the mask replays: pooled is 0 exactly where all k factors dropped
+    # (elsewhere an f32 sum may cancel to exactly 0 on one side only)
+    if mask is not None:
+        dropped = ~mask.reshape(n, L, o, K).any(-1)
+        assert bool((out[dropped] == 0).all())
+        assert bool((want["forward"][dropped] == 0).all())
+
+
+def test_k2_autograd_launches_the_kernels():
+    img, w_bf16, b, q, g = _k2_inputs(4, 128, 128, seed=1)
+    w = w_bf16.float().requires_grad_(True)
+    bb = b.clone().requires_grad_(True)
+    qq = q.to(torch.bfloat16).requires_grad_(True)
+    before = dict(tf.launch_count)
+    out = tf.train_grid_fuse(img, w, bb, qq, 5, K, 0.1)
+    out.backward(g)
+    torch.cuda.synchronize()
+    # img needs no gradient: d_img is not launched
+    assert {k: tf.launch_count[k] - before[k] for k in before} == \
+        {"forward": 1, "d_img": 0, "d_w": 1, "d_q": 1}
+    assert w.grad.dtype == torch.float32 and qq.grad.dtype == torch.bfloat16
+    assert all(torch.isfinite(x.grad.float()).all() for x in (w, bb, qq))
+
+
+def test_k2_wrappers_raise_on_inputs_they_do_not_take():
+    img, w_bf16, b, q, g = _k2_inputs(2, 128, 128)
+    with pytest.raises(TypeError):
+        tf.forward_cuda(img.float(), w_bf16, b, q, 0, K, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.forward_cuda(img.cpu(), w_bf16.cpu(), b.cpu(), q.cpu(), 0, K, 0.1)
+    with pytest.raises(ValueError, match="on"):
+        tf.forward_cuda(img, w_bf16, b, q.cpu(), 0, K, 0.1)
+    with pytest.raises(ValueError, match="rate"):
+        tf.forward_cuda(img, w_bf16, b, q, 0, K, 1.0)
+    with pytest.raises(ValueError, match="k <="):
+        tf.forward_cuda(img, w_bf16, b, q, 0, 10, 0.1)
+    i124, w124, b124, q124, _ = _k2_inputs(2, 124, 128)
+    with pytest.raises(ValueError, match="D % 8"):
+        tf.forward_cuda(i124, w124, b124, q124, 0, K, 0.1)
+    out = tf.forward_cuda(img, w_bf16, b, q, 0, K, 0.1)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        tf.d_w_cuda(g.double(), out, img, w_bf16, b, q, 0, K, 0.1)

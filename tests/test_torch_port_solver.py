@@ -1,0 +1,189 @@
+"""The port's ``Solver`` (vqa_attention_networks_tpu_torch/train/solver.py)
+against the JAX ``Solver`` on the same synthetic data and feature store.
+
+- f32, dropout 0: the same batches give the same per-step losses (rtol
+  1e-5: full f32 on both sides, summation order only) and the same hit
+  counts, stepping the JAX Solver through its own ``_train_step``.
+- ``train()`` runs end to end on the CPU, the staircase rate reaches the
+  optimizer, a step's randomness is a function of (seed, step), and
+  ``val()`` after a step scores the new weights (the eval forward lays out
+  K1's weights again once they changed), and a non-finite loss aborts.
+- What is not ported raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vqa_attention_networks_tpu.config import Config
+from vqa_attention_networks_tpu.data.feature_store import (
+    make_synthetic_feature_store,
+)
+from vqa_attention_networks_tpu.data.prepare import make_synthetic_qa_data
+from vqa_attention_networks_tpu.parallel import make_mesh
+from vqa_attention_networks_tpu.train.solver import Solver as JaxSolver
+from vqa_attention_networks_tpu_torch.train.solver import (
+    Solver,
+    learning_rate,
+)
+from vqa_attention_networks_tpu_torch.weights import to_jax_params
+
+T = 7
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    rng = np.random.default_rng(0)
+    qa = make_synthetic_qa_data(rng, n_train=40, n_val=16, num_images=6,
+                                max_len=T)
+    store = make_synthetic_feature_store(
+        str(tmp_path_factory.mktemp("feat")),
+        sorted(set(qa.train.image_ids) | set(qa.val.image_ids)), channels=32)
+    return qa, store
+
+
+def small_cfg(qa, **kw) -> Config:
+    base = dict(
+        model_name="mhb_coAtt", q_vocab_size=qa.q_vocab_size,
+        a_vocab_size=qa.a_vocab_size, hidden_dim=16, emb_dim=8,
+        img_feature_channel=32, max_question_length=T, mfb_factor=5,
+        mfb_out=8, batch_size=16, num_epoch=1, checkpoint_every_steps=0,
+        prefetch_workers=1,
+    )
+    base.update(kw)
+    return Config(**base).validate()
+
+
+def test_losses_match_the_jax_solver(data, tmp_path):
+    qa, store = data
+    cfg = small_cfg(qa, dropout_lstm=0.0, dropout_fusion=0.0)
+    jax_solver = JaxSolver(cfg, qa, store, mesh=make_mesh(data=1, model=1),
+                           log_dir=str(tmp_path / "runs"))
+    params = jax.tree_util.tree_map(np.asarray, jax_solver.params)
+    port = Solver(cfg, qa, store, params=params, device="cpu")
+    jax_losses, port_losses = [], []
+    for batch in port.batches["train"].epoch(0):  # 3 batches, the last padded
+        dev = jax_solver._device_batch(batch)
+        key = jax.random.fold_in(jax_solver._rng_base, jax_solver.step)
+        (jax_solver.params, jax_solver.opt_state, loss,
+         correct) = jax_solver._train_step(jax_solver.params,
+                                           jax_solver.opt_state, *dev, key)
+        jax_solver.step += 1
+        jax_losses.append((float(loss), float(correct)))
+        loss, correct = port._train_step(batch)
+        port.step += 1
+        port_losses.append((float(loss), float(correct)))
+    assert len(port_losses) == 3
+    np.testing.assert_allclose([x[0] for x in port_losses],
+                               [x[0] for x in jax_losses], rtol=1e-5)
+    assert [x[1] for x in port_losses] == [x[1] for x in jax_losses]
+    assert port_losses[-1][0] != port_losses[0][0]
+
+
+def test_train_runs_an_epoch_on_the_cpu(data):
+    qa, store = data
+    cfg = small_cfg(qa, compute_dtype="bfloat16")  # K2's plain version
+    solver = Solver(cfg, qa, store, device="cpu")
+    seen = []
+    metrics = solver.train(on_step=lambda step, loss: seen.append(
+        (step, float(loss))))
+    assert [s for s, _ in seen] == [0, 1, 2] and solver.step == 3
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert metrics["train_loss"] == seen[-1][1]
+    assert 0.0 <= metrics["val_acc"] <= 1.0
+
+
+def test_solver_steps_at_the_staircase_rate(data):
+    qa, store = data
+    cfg = small_cfg(qa, decay_step=2, num_epoch=2)
+    solver = Solver(cfg, qa, store, device="cpu")
+    rates = []
+    solver.train(on_step=lambda step, loss: rates.append(
+        solver.optimizer.param_groups[0]["lr"]))
+    assert rates == [learning_rate(cfg, s) for s in range(6)]
+    assert rates[:3] == [cfg.lr, cfg.lr, cfg.lr * cfg.decay_rate]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_step_replays_its_randomness(data, dtype):
+    """Dropout on (LSTM 0.3, fusions 0.1): a solver at step s, as a resumed
+    run would be, draws the same masks as another at step s."""
+    qa, store = data
+    cfg = small_cfg(qa, compute_dtype=dtype)
+    batch = next(Solver(cfg, qa, store, device="cpu")
+                 .batches["train"].epoch(0))
+
+    def loss_at(step):
+        solver = Solver(cfg, qa, store, device="cpu")
+        solver.step = step
+        return float(solver._train_step(batch)[0])
+
+    assert loss_at(5) == loss_at(5)
+    assert loss_at(5) != loss_at(6)
+
+
+def test_val_after_a_step_scores_the_new_weights(data):
+    qa, store = data
+    cfg = small_cfg(qa, compute_dtype="bfloat16")  # K1's plain version
+    solver = Solver(cfg, qa, store, device="cpu")
+    before = solver.val()
+    w3 = solver.model.stage1_w3.clone()
+    solver._train_step(next(solver.batches["train"].epoch(0)))
+    after = solver.val()
+    fresh = Solver(cfg, qa, store, params=to_jax_params(solver.model),
+                   device="cpu")
+    assert after == fresh.val()
+    assert after != before
+    assert not torch.equal(solver.model.stage1_w3, w3)
+
+
+def test_non_finite_loss_aborts_the_run(data):
+    qa, store = data
+    cfg = small_cfg(qa)
+    solver = Solver(cfg, qa, store, device="cpu")
+    with torch.no_grad():
+        solver.model.linear_pred.bias.fill_(float("nan"))
+    with pytest.raises(FloatingPointError, match="non-finite train loss"):
+        solver.train()
+
+
+@pytest.mark.parametrize("switch,item", [
+    (dict(grad_accum_steps=2), "item 6"),
+    (dict(remat=True), "item 6"),
+    (dict(device_feature_bank=True), "item 6"),
+    (dict(early_stopping=True), "item 6"),
+    (dict(loss_override="soft_bce"), "item 6"),
+    (dict(data_parallel=2, batch_size=16), "item 10"),
+])
+def test_unported_switches_name_their_roadmap_item(data, switch, item):
+    qa, store = data
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        Solver(small_cfg(qa, **switch), qa, store, device="cpu")
+
+
+def test_unported_persistence_and_full_val_raise(data):
+    qa, store = data
+    solver = Solver(small_cfg(qa, checkpoint_every_steps=2), qa, store,
+                    device="cpu")
+    for call in (lambda: solver.val(full=True), solver.save_checkpoint,
+                 solver.restore, solver.save):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+            call()
+    # a checkpoint would fall due at step 2 of the epoch: refused up front
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        solver.train()
+    assert solver.step == 0
+    # a run that ends before its first checkpoint trains
+    solver = Solver(small_cfg(qa, checkpoint_every_steps=4), qa, store,
+                    device="cpu")
+    solver.train()
+    assert solver.step == 3
+
+
+def test_default_device_is_the_card(data):
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device exists")
+    qa, store = data
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Solver(small_cfg(qa), qa, store)

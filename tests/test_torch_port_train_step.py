@@ -1,0 +1,265 @@
+"""The port's training step (vqa_attention_networks_tpu_torch
+train/solver.py ``train_step``, models/mhb_coatt.py at ``train=True``,
+train/losses.py) against the JAX package, in the style of
+``tests/test_train_dynamics.py``: the same weights and batches, dropout off.
+
+- f64: per-step losses over 8 steps against ``mhb_coatt.apply(train=True)``
+  + ``soft_cross_entropy`` + ``optax.adam`` at rtol 1e-6 (f64 isolates the
+  semantics from summation order), and the parameters through
+  ``weights.to_jax_params``: per leaf, the norm of the difference within
+  ``UPDATE_RTOL[step]`` of the norm of JAX's update (final minus initial
+  parameters). Both sides cast the logits to f32, so their gradients agree
+  to f32 precision (~1.5e-7 relative at step 0, every leaf), and Adam
+  amplifies that from step to step: measured 1.7e-6 of the update after
+  one step, growing 3-10x a step to 2% after eight (img_conv1d). The two
+  biases a softmax over positions ignores have a gradient of 0 up to
+  rounding (~1e-18); an absolute 1e-10 covers them.
+- bf16: one step's gradients, per tensor: the norm of the difference
+  within ``BF16_GRAD_RTOL`` of the norm of JAX's gradient. Every layer
+  rounds at the same points, but XLA:CPU keeps excess f32 precision inside
+  fused bf16 elementwise chains where PyTorch rounds after each op, so
+  activations differ by bf16 roundings. The signed sqrt's derivative
+  0.5/sqrt|pooled| turns such a rounding into an O(1) change where |pooled|
+  is near 0, and a gradient through that element is then rounding noise on
+  both sides. So the case is one whose output fusions keep |pooled| >=
+  8.8e-5 (seed 4, median 1.7e-3; measured: with one at 6.7e-7, seed 3,
+  the port and JAX differ by 10-40% on most leaves). The stage-1 grid
+  fusion has 12,544 pooled values and always some near 0: its projections
+  img_conv1d and ques_proj1 land 2.4 (port) and 0.4 (JAX) in relative
+  norm from the f32 gradient, where the f32 port and JAX agree to 8e-4, so
+  they are held in f64 above and in K2's tests, and only checked finite
+  here. The two biases a softmax over positions ignores (gradient 0 up to
+  rounding) are checked finite too.
+- The staircase learning rate against optax's schedule; the dropout and
+  per-step randomness semantics; the f64 pool repair against JAX.
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from vqa_attention_networks_tpu.config import Config
+from vqa_attention_networks_tpu.models import get_model as j_get_model
+from vqa_attention_networks_tpu.ops.fusion import (
+    two_glimpse_pool as j_two_glimpse_pool,
+)
+from vqa_attention_networks_tpu.train.losses import (
+    soft_cross_entropy as j_soft_ce,
+)
+from vqa_attention_networks_tpu_torch.models import layers as TL
+from vqa_attention_networks_tpu_torch.models.mhb_coatt import MHBCoAtt
+from vqa_attention_networks_tpu_torch.ops.fusion import two_glimpse_pool
+from vqa_attention_networks_tpu_torch.train.losses import soft_cross_entropy
+from vqa_attention_networks_tpu_torch.train.solver import (
+    learning_rate,
+    make_optimizer,
+    step_randomness,
+    train_step,
+)
+from vqa_attention_networks_tpu_torch.weights import (
+    load_jax_params,
+    to_jax_params,
+)
+
+N, T, L, D = 8, 7, 196, 16
+Q_VOCAB, A_VOCAB, HID, EMB, K, O = 25, 11, 16, 8, 5, 8
+LR = 7e-4
+BF16_GRAD_RTOL = 0.1
+# gradients that are rounding noise at bf16 (see the module docstring)
+BF16_NOISE_LEAVES = {("img_conv1d", "w"), ("img_conv1d", "b"),
+                     ("ques_proj1", "w"), ("ques_proj1", "b"),
+                     ("co_att_conv2", "b"), ("ques_att_conv2", "b")}
+UPDATE_RTOL = {1: 1e-4, 8: 5e-2}  # after 1 step, after 8 steps
+
+
+def small_cfg(**kw) -> Config:
+    base = dict(model_name="mhb_coAtt", q_vocab_size=Q_VOCAB,
+                a_vocab_size=A_VOCAB, hidden_dim=HID, emb_dim=EMB,
+                img_feature_channel=D, max_question_length=T, mfb_factor=K,
+                mfb_out=O, dropout_lstm=0.0, dropout_fusion=0.0)
+    base.update(kw)
+    return Config(**base).validate()
+
+
+def batches(steps, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((steps, N, L, D)),
+            rng.integers(0, Q_VOCAB, size=(steps, N, T)).astype(np.int32),
+            rng.random((steps, N, A_VOCAB)))
+
+
+def _x64(fn):
+    jax.config.update("jax_enable_x64", True)
+    try:
+        return fn()
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def test_two_glimpse_pool_f64_matches_jax():
+    """The pool accumulates in promote_types(values.dtype, f32): f64 at
+    f64, as the JAX function does (it once pooled f64 values in f32)."""
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((3, 196, 2))
+    values = rng.standard_normal((3, 196, 64))
+    got = two_glimpse_pool(torch.from_numpy(logits), torch.from_numpy(values),
+                           uniform_quirk=False)
+    assert got.dtype == torch.float64
+    want = _x64(lambda: np.asarray(j_two_glimpse_pool(
+        jnp.asarray(logits), jnp.asarray(values), uniform_quirk=False)))
+    assert want.dtype == np.float64
+    assert np.abs(got.numpy() - want).max() <= 1e-12
+
+
+def test_f64_loss_trajectory_and_parameters_match_jax():
+    cfg = small_cfg()
+    model_j = j_get_model("mhb_coAtt")
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float64),
+        model_j.init(jax.random.PRNGKey(0), cfg))
+    imgs, quess, softs = batches(8, 0)
+    cfg64 = cfg.replace(compute_dtype="float64")
+
+    model = load_jax_params(MHBCoAtt(cfg64).double(), params)
+    opt = make_optimizer(model, cfg)
+    port_losses, port_params = [], {}
+    for s in range(8):
+        soft = torch.from_numpy(softs[s])
+        loss, _ = train_step(
+            model, opt, lambda out: soft_cross_entropy(out, soft),
+            torch.from_numpy(imgs[s]), torch.from_numpy(quess[s]), lr=LR,
+            generator=torch.Generator(), fusion_seed=0)
+        port_losses.append(float(loss))
+        if s + 1 in UPDATE_RTOL:
+            port_params[s + 1] = to_jax_params(model)
+
+    def jax_run():
+        p = jax.tree_util.tree_map(jnp.asarray, params)
+        tx = optax.adam(LR)
+        o = tx.init(p)
+        key = jax.random.PRNGKey(1)  # dropout rates are 0: the key is inert
+
+        @jax.jit
+        def step(p, o, img, ques, soft):
+            def loss_fn(p):
+                logits, _ = model_j.apply(p, cfg64, img, ques, train=True,
+                                          rng=key)
+                return j_soft_ce(logits, soft)
+
+            loss, grads = jax.value_and_grad(loss_fn)(p)
+            updates, o = tx.update(grads, o, p)
+            return optax.apply_updates(p, updates), o, loss
+
+        losses, trees = [], {}
+        for s in range(8):
+            p, o, loss = step(p, o, jnp.asarray(imgs[s]),
+                              jnp.asarray(quess[s]), jnp.asarray(softs[s]))
+            losses.append(float(loss))
+            if s + 1 in UPDATE_RTOL:
+                trees[s + 1] = jax.tree_util.tree_map(np.asarray, p)
+        return losses, trees
+
+    jax_losses, jax_params = _x64(jax_run)
+    np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-6)
+    assert jax_losses[-1] != jax_losses[0]
+    for steps, rtol in UPDATE_RTOL.items():
+        got, want = port_params[steps], jax_params[steps]
+        assert jax.tree_util.tree_structure(got) == \
+            jax.tree_util.tree_structure(want)
+        for a, b, p0 in zip(jax.tree_util.tree_leaves(got),
+                            jax.tree_util.tree_leaves(want),
+                            jax.tree_util.tree_leaves(params)):
+            assert a.dtype == np.float64
+            moved = np.linalg.norm(b - p0)
+            assert np.linalg.norm(a - b) <= rtol * moved + 1e-10, steps
+
+
+def _grads_tree(model):
+    """The gradients of ``model`` as a JAX-layout tree."""
+    holder = copy.deepcopy(model)
+    with torch.no_grad():
+        for p, h in zip(model.parameters(), holder.parameters()):
+            h.copy_(p.grad)
+    return to_jax_params(holder)
+
+
+def test_bf16_step_gradients_match_jax():
+    cfg = small_cfg(compute_dtype="bfloat16")
+    model_j = j_get_model("mhb_coAtt")
+    params = jax.tree_util.tree_map(
+        np.asarray, model_j.init(jax.random.PRNGKey(4), cfg))
+    imgs, quess, softs = batches(1, 4)
+
+    model = load_jax_params(MHBCoAtt(cfg), params)
+    logits = model(torch.from_numpy(imgs[0]), torch.from_numpy(quess[0]),
+                   train=True, generator=torch.Generator(), fusion_seed=0)
+    loss = soft_cross_entropy(logits, torch.from_numpy(softs[0]))
+    loss.backward()
+    got = _grads_tree(model)
+
+    def loss_fn(p):
+        out, _ = model_j.apply(p, cfg, jnp.asarray(imgs[0]),
+                               jnp.asarray(quess[0]), train=True,
+                               rng=jax.random.PRNGKey(0))
+        return j_soft_ce(out, jnp.asarray(softs[0]))
+
+    want_loss, want = jax.value_and_grad(loss_fn)(params)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-3)
+    compared = 0
+    for layer, leaves in want.items():
+        for leaf, w in leaves.items():
+            g, w = got[layer][leaf], np.asarray(w, np.float32)
+            assert g.shape == w.shape and np.isfinite(g).all(), (layer, leaf)
+            if (layer, leaf) in BF16_NOISE_LEAVES:
+                continue
+            err = np.linalg.norm(g - w) / np.linalg.norm(w)
+            assert err <= BF16_GRAD_RTOL, (layer, leaf, err)
+            compared += 1
+    assert compared == 21
+
+
+def test_staircase_learning_rate_matches_optax():
+    cfg = small_cfg(decay_step=2)
+    schedule = optax.exponential_decay(cfg.lr, cfg.decay_step,
+                                       cfg.decay_rate, staircase=True)
+    got = [learning_rate(cfg, s) for s in range(5)]
+    want = [float(schedule(s)) for s in range(5)]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert got[0] == cfg.lr and got[2] == cfg.lr * cfg.decay_rate
+    assert learning_rate(cfg.replace(lr_decay=False), 4) == cfg.lr
+
+
+def test_dropout_keep_rate_scaling_and_no_op():
+    x = torch.ones(1 << 20)
+    rate = 0.3
+    y = TL.dropout(x, rate, True, torch.Generator().manual_seed(0))
+    kept = y != 0
+    keep = 1.0 - rate
+    assert abs(float(kept.float().mean()) - keep) < 5 * (
+        keep * rate / x.numel()) ** 0.5
+    assert torch.all(y[kept] == torch.tensor(1.0) / keep)
+    assert TL.dropout(x, rate, False, None) is x
+    assert TL.dropout(x, 0.0, True, None) is x
+    with pytest.raises(ValueError, match="Generator"):
+        TL.dropout(x, rate, True, None)
+
+
+def test_step_randomness_is_a_pure_function_of_seed_and_step():
+    assert step_randomness(1, 5) == step_randomness(1, 5)
+    assert step_randomness(1, 5) != step_randomness(1, 6)
+    assert step_randomness(1, 5) != step_randomness(2, 5)
+    gen_seed, fusion_seed = step_randomness(1, 5)
+    assert 0 <= fusion_seed < 2 ** 31
+
+    def mask(seed):
+        return TL.dropout(torch.ones(4096), 0.5, True,
+                          torch.Generator().manual_seed(seed))
+
+    assert torch.equal(mask(gen_seed), mask(step_randomness(1, 5)[0]))
+    assert not torch.equal(mask(gen_seed), mask(step_randomness(1, 6)[0]))

@@ -1,0 +1,594 @@
+// Training-mode grid fusion with pre-pool dropout (mhb_coAtt, bf16), its
+// forward and backward, hand-written for Hopper (sm_90a).
+//
+// Replaces train_grid_fuse (vqa_attention_networks_tpu/ops/
+// pallas_train_fusion.py): its forward kernel _fwd_kernel and its two
+// backward kernels _bwd_img_kernel and _bwd_w_kernel. With F = O*k and
+// channel c = o*k + j, m = n*L + l the flat row:
+//
+//   z0[m,c]   = bf16(img)[m,:] @ bf16(W)[:,c] (f32 accumulate) + b[c]
+//   zd[m,c]   = (z0 * q[n,c]) * (mask[m,c] * inv_keep)
+//   out[m,o]  = signed_sqrt(sum_j zd[m, o*k+j])            f32 [N*L, O]
+//
+//   g_pooled  = g * (out == 0 ? 0 : 0.5 / max(|out|, 1e-20))
+//   g_prod    = (g_pooled[m,o] * (mask * inv_keep)) * q[n,c]    f32
+//   d_img     = bf16(g_prod) @ bf16(W)^T        -> bf16 [N*L, D]
+//   d_W       = bf16(img)^T @ bf16(g_prod)      -> f32 [D, F]
+//   d_b       = sum_m g_prod                    -> f32 [F]
+//   d_q[n,c]  = sum_l (g_pooled * (mask * inv_keep)) * z0   -> f32 [N, F]
+//
+// The mask is Philox4x32-10, key (seed, 0), counter (i, i >> 32, 0, 0) for
+// the flat element index i = m*F + c, kept iff word 0 < thr. It depends on
+// the element and the seed only, so the four launches (and the plain
+// PyTorch version in ops/train_fusion.py) replay the same bits whatever
+// their tiling; thr == 0 means rate 0, and then no bits are drawn. z0 and
+// the mask never reach device memory: the only residual is out.
+//
+// What bounds it on this card. Each of the forward, d_img, d_W and d_q is
+// a product of 2*N*L*D*F operations, 257 GFLOP at N = 64, L = 196,
+// D = 2048, F = 5000; the operands are a few tens of MB. So the tensor
+// cores bound it, and these first kernels use them through WMMA (bf16
+// 16x16x16, f32 accumulators) with a 32-deep shared-memory stage and no
+// load in flight during the MMAs: correct and simple, not yet fast.
+//
+// What the design does about the TPU's structure. The TPU kernels carried
+// d_img and d_W/d_b across sequential grid steps in VMEM scratch. Blocks
+// here run in parallel and in no order, so each block owns its output
+// tile and loops over the whole contraction inside the block: no atomics,
+// and reruns give the same bits. W is read in its natural [D, F] layout
+// (no per-step refactor to [k, D, O_pad]: W changes every step). The
+// operand g_prod of d_img and d_W is built on the fly in shared memory
+// from g, out, q and the replayed mask.
+//
+// Launches:
+//   train_fusion_forward  grid (ceil(O/32), ceil(M/128)): a [128, 32k]
+//       tile of z0 = img @ W on the tensor cores, then bias, *q, mask,
+//       k-pool and signed sqrt in the epilogue -> out [128, 32].
+//   train_fusion_d_img    grid (ceil(D/128), ceil(M/128)): a [128, 128]
+//       d_img tile, looping over all of F in 32-channel chunks of g_prod.
+//   train_fusion_d_w      grid (ceil(F/128), ceil(D/128)): a [128, 128]
+//       d_W tile, looping over all M rows in chunks of 32; the blocks of
+//       the first D tile also sum d_b, in a fixed order.
+//   train_fusion_d_q      grid (ceil(F/128), N): recomputes z0 for the
+//       sample's L rows and one 128-channel tile, and reduces over L.
+// Each entry returns cudaGetLastError() after its launch (0 on success).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = 8;
+constexpr int kChunk = 32;      // contraction depth per shared-memory stage
+constexpr int kTileM = 128;     // rows of img (or D) per block
+constexpr int kTileN = 128;     // columns per block (d_img, d_W, d_q)
+constexpr int kFwdOut = 32;     // pooled outputs per forward block
+constexpr int kLdChunk = kChunk + 8;   // padded against bank conflicts
+constexpr int kLdTile = kTileN + 8;
+constexpr int kRowTilesQ = 13;  // d_q: 13 x 16 = 208 rows >= L
+constexpr int kRowsQ = kRowTilesQ * 16;
+constexpr int kMaxK = 8;
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+    ARow;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
+    ACol;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+    BRow;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+    BCol;
+
+// Word 0 of Philox4x32-10 at key (seed, 0), counter (idx, idx >> 32, 0, 0).
+__device__ __forceinline__ uint32_t philox_word0(uint32_t seed,
+                                                 unsigned long long idx) {
+  uint32_t c0 = (uint32_t)idx, c1 = (uint32_t)(idx >> 32), c2 = 0u, c3 = 0u;
+  uint32_t k0 = seed, k1 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c1 = lo1;
+    c3 = lo0;
+    c0 = n0;
+    c2 = n2;
+  }
+  return c0;
+}
+
+// mask * inv_keep for element idx (only called when thr != 0)
+__device__ __forceinline__ float keep_scale(uint32_t seed, uint32_t thr,
+                                            float inv_keep,
+                                            unsigned long long idx) {
+  return philox_word0(seed, idx) < thr ? inv_keep : 0.0f;
+}
+
+__device__ __forceinline__ float signed_sqrt(float p) {
+  return __fsub_rn(sqrtf(fmaxf(p, 0.0f)), sqrtf(fmaxf(-p, 0.0f)));
+}
+
+// g * d out / d pooled, with the zero-cotangent rule at out == 0
+__device__ __forceinline__ float pooled_grad(float g, float out) {
+  if (out == 0.0f) return 0.0f;
+  return __fmul_rn(g, __fdiv_rn(0.5f, fmaxf(fabsf(out), 1e-20f)));
+}
+
+__device__ __forceinline__ uint4 load16(const bf16* p, bool ok) {
+  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// g_prod[m, c] in f32 (0 outside [0, M) x [0, F))
+__device__ __forceinline__ float g_prod_at(
+    const float* __restrict__ g, const float* __restrict__ out,
+    const float* __restrict__ q, int m, int c, int mrows, int l, int f, int k,
+    int o_dim, uint32_t seed, uint32_t thr, float inv_keep) {
+  if (m >= mrows || c >= f) return 0.0f;
+  const int n = m / l;
+  const size_t po = (size_t)m * o_dim + c / k;
+  float v = pooled_grad(g[po], out[po]);
+  if (thr != 0u)
+    v = __fmul_rn(v, keep_scale(seed, thr, inv_keep,
+                                (unsigned long long)m * f + c));
+  return __fmul_rn(v, q[(size_t)n * f + c]);
+}
+
+// ---------------------------------------------------------------------------
+// forward: out = signed_sqrt(k-pool(((img @ W + b) * q) * mask * inv_keep))
+// ---------------------------------------------------------------------------
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    fwd_kernel(const bf16* __restrict__ img,  // [M, D]
+               const bf16* __restrict__ w,    // [D, F]
+               const float* __restrict__ b,   // [F]
+               const float* __restrict__ q,   // [N, F]
+               float* __restrict__ out,       // [M, O]
+               int mrows, int l, int d, int f, uint32_t seed, uint32_t thr,
+               float inv_keep) {
+  constexpr int kCols = kFwdOut * K;  // channels per block
+  constexpr int kLdB = kCols + 8;
+  constexpr int kWarpCols = 16 * K;   // channels per warp: 16 outputs
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* a_s = reinterpret_cast<bf16*>(smem);                   // [128][40]
+  bf16* b_s = a_s + kTileM * kLdChunk;                         // [32][kLdB]
+  float* stage = reinterpret_cast<float*>(smem);  // reused after the loop
+
+  const int o_dim = f / K;
+  const int o0 = blockIdx.x * kFwdOut;
+  const int c0 = o0 * K;
+  const int m0 = blockIdx.y * kTileM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 2, wc = warp % 2;  // 4 x 2 warps: 32 rows x 16K cols
+
+  AccFrag acc[2][K];
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < K; ++ct) wmma::fill_fragment(acc[rt][ct], 0.0f);
+
+  for (int d0 = 0; d0 < d; d0 += kChunk) {
+    for (int i = tid; i < kTileM * (kChunk / 8); i += kThreads) {
+      const int r = i / (kChunk / 8), v = i % (kChunk / 8);
+      const int m = m0 + r, col = d0 + v * 8;
+      *reinterpret_cast<uint4*>(a_s + r * kLdChunk + v * 8) =
+          load16(img + (size_t)m * d + col, m < mrows && col < d);
+    }
+    for (int i = tid; i < kChunk * (kCols / 8); i += kThreads) {
+      const int r = i / (kCols / 8), v = i % (kCols / 8);
+      const int dd = d0 + r, c = c0 + v * 8;
+      *reinterpret_cast<uint4*>(b_s + r * kLdB + v * 8) =
+          load16(w + (size_t)dd * f + c, dd < d && c < f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      ARow a0, a1;
+      wmma::load_matrix_sync(a0, a_s + (wr * 32) * kLdChunk + kk * 16,
+                             kLdChunk);
+      wmma::load_matrix_sync(a1, a_s + (wr * 32 + 16) * kLdChunk + kk * 16,
+                             kLdChunk);
+#pragma unroll
+      for (int ct = 0; ct < K; ++ct) {
+        BRow bfr;
+        wmma::load_matrix_sync(
+            bfr, b_s + kk * 16 * kLdB + wc * kWarpCols + ct * 16, kLdB);
+        wmma::mma_sync(acc[0][ct], a0, bfr, acc[0][ct]);
+        wmma::mma_sync(acc[1][ct], a1, bfr, acc[1][ct]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // epilogue, one 16-row tile at a time per warp: the warp's 16K channels
+  // are exactly its 16 outputs, so the k-pool stays inside the warp
+  float* st = stage + warp * 16 * kWarpCols;
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+    for (int ct = 0; ct < K; ++ct)
+      wmma::store_matrix_sync(st + ct * 16, acc[rt][ct], kWarpCols,
+                              wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32) {
+      const int r = e / 16, oo = e % 16;
+      const int m = m0 + wr * 32 + rt * 16 + r;
+      const int o = o0 + wc * 16 + oo;
+      if (m < mrows && o < o_dim) {
+        const int n = m / l;
+        float pooled = 0.0f;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const int c = o * K + j;
+          const float z0 = __fadd_rn(st[r * kWarpCols + oo * K + j], b[c]);
+          float zd = __fmul_rn(z0, q[(size_t)n * f + c]);
+          if (thr != 0u)
+            zd = __fmul_rn(zd, keep_scale(seed, thr, inv_keep,
+                                          (unsigned long long)m * f + c));
+          pooled = j == 0 ? zd : __fadd_rn(pooled, zd);
+        }
+        out[(size_t)m * o_dim + o] = signed_sqrt(pooled);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// stage a 16x16 f32 fragment in the warp's buffer and hand each element to
+// fn(row, col, value), 8 per lane
+template <typename Fn>
+__device__ __forceinline__ void drain(const AccFrag& acc, float* st,
+                                      int lane, Fn fn) {
+  wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
+  __syncwarp();
+  for (int e = lane; e < 256; e += 32) fn(e / 16, e % 16, st[e]);
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// d_img = bf16(g_prod) @ bf16(W)^T
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    d_img_kernel(const float* __restrict__ g,    // [M, O]
+                 const float* __restrict__ out,  // [M, O]
+                 const bf16* __restrict__ w,     // [D, F]
+                 const float* __restrict__ q,    // [N, F]
+                 bf16* __restrict__ d_img,       // [M, D]
+                 int mrows, int l, int d, int f, int k, uint32_t seed,
+                 uint32_t thr, float inv_keep) {
+  __shared__ __align__(128) bf16 a_s[kTileM * kLdChunk];  // g_prod [m][c]
+  __shared__ __align__(128) bf16 b_s[kTileN * kLdChunk];  // W [d][c]
+  __shared__ __align__(128) float stage_s[kWarps][256];
+
+  const int o_dim = f / k;
+  const int dt0 = blockIdx.x * kTileN;
+  const int m0 = blockIdx.y * kTileM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 2, wc = warp % 2;  // 32 rows x 64 columns per warp
+
+  AccFrag acc[2][4];
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) wmma::fill_fragment(acc[rt][ct], 0.0f);
+
+  for (int c0 = 0; c0 < f; c0 += kChunk) {
+    // g_prod[m0:m0+128, c0:c0+32]; a thread keeps its channel, so a warp
+    // reads 32 consecutive q values
+    for (int i = tid; i < kTileM * kChunk; i += kThreads) {
+      const int r = i / kChunk, cc = i % kChunk;
+      a_s[r * kLdChunk + cc] = __float2bfloat16(
+          g_prod_at(g, out, q, m0 + r, c0 + cc, mrows, l, f, k, o_dim, seed,
+                    thr, inv_keep));
+    }
+    for (int i = tid; i < kTileN * (kChunk / 8); i += kThreads) {
+      const int r = i / (kChunk / 8), v = i % (kChunk / 8);
+      const int dd = dt0 + r, c = c0 + v * 8;
+      *reinterpret_cast<uint4*>(b_s + r * kLdChunk + v * 8) =
+          load16(w + (size_t)dd * f + c, dd < d && c < f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      ARow a0, a1;
+      wmma::load_matrix_sync(a0, a_s + (wr * 32) * kLdChunk + kk * 16,
+                             kLdChunk);
+      wmma::load_matrix_sync(a1, a_s + (wr * 32 + 16) * kLdChunk + kk * 16,
+                             kLdChunk);
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct) {
+        BCol bfr;  // element (c, d) at b_s[d * ld + c]
+        wmma::load_matrix_sync(
+            bfr, b_s + (wc * 64 + ct * 16) * kLdChunk + kk * 16, kLdChunk);
+        wmma::mma_sync(acc[0][ct], a0, bfr, acc[0][ct]);
+        wmma::mma_sync(acc[1][ct], a1, bfr, acc[1][ct]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) {
+      const int mb = m0 + wr * 32 + rt * 16, db = dt0 + wc * 64 + ct * 16;
+      drain(acc[rt][ct], stage_s[warp], lane, [&](int r, int cc, float v) {
+        if (mb + r < mrows && db + cc < d)
+          d_img[(size_t)(mb + r) * d + db + cc] = __float2bfloat16(v);
+      });
+    }
+}
+
+// ---------------------------------------------------------------------------
+// d_W = bf16(img)^T @ bf16(g_prod), d_b = sum_m g_prod
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    d_w_kernel(const float* __restrict__ g,    // [M, O]
+               const float* __restrict__ out,  // [M, O]
+               const bf16* __restrict__ img,   // [M, D]
+               const float* __restrict__ q,    // [N, F]
+               float* __restrict__ d_w,        // [D, F]
+               float* __restrict__ d_b,        // [F]
+               int mrows, int l, int d, int f, int k, uint32_t seed,
+               uint32_t thr, float inv_keep) {
+  __shared__ __align__(128) bf16 a_s[kChunk * kLdTile];  // img [m][d]
+  __shared__ __align__(128) bf16 b_s[kChunk * kLdTile];  // g_prod [m][c]
+  __shared__ __align__(128) float gp_s[kChunk * kTileN];  // f32 g_prod
+  __shared__ __align__(128) float stage_s[kWarps][256];
+
+  const int o_dim = f / k;
+  const int c0 = blockIdx.x * kTileN;
+  const int dt0 = blockIdx.y * kTileM;
+  const bool with_bias = blockIdx.y == 0;  // uniform over the block
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 2, wc = warp % 2;  // 32 d-rows x 64 channels per warp
+
+  AccFrag acc[2][4];
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) wmma::fill_fragment(acc[rt][ct], 0.0f);
+  float db_acc = 0.0f;
+
+  for (int mc = 0; mc < mrows; mc += kChunk) {
+    for (int i = tid; i < kChunk * (kTileM / 8); i += kThreads) {
+      const int r = i / (kTileM / 8), v = i % (kTileM / 8);
+      const int m = mc + r, col = dt0 + v * 8;
+      *reinterpret_cast<uint4*>(a_s + r * kLdTile + v * 8) =
+          load16(img + (size_t)m * d + col, m < mrows && col < d);
+    }
+    for (int i = tid; i < kChunk * kTileN; i += kThreads) {
+      const int r = i / kTileN, cc = i % kTileN;
+      const float v = g_prod_at(g, out, q, mc + r, c0 + cc, mrows, l, f, k,
+                                o_dim, seed, thr, inv_keep);
+      b_s[r * kLdTile + cc] = __float2bfloat16(v);
+      if (with_bias) gp_s[r * kTileN + cc] = v;
+    }
+    __syncthreads();
+    if (with_bias && tid < kTileN)
+      for (int r = 0; r < kChunk; ++r)
+        db_acc = __fadd_rn(db_acc, gp_s[r * kTileN + tid]);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      ACol a0, a1;  // element (d, m) at a_s[m * ld + d]
+      wmma::load_matrix_sync(a0, a_s + kk * 16 * kLdTile + wr * 32, kLdTile);
+      wmma::load_matrix_sync(a1, a_s + kk * 16 * kLdTile + wr * 32 + 16,
+                             kLdTile);
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct) {
+        BRow bfr;
+        wmma::load_matrix_sync(bfr, b_s + kk * 16 * kLdTile + wc * 64 + ct * 16,
+                               kLdTile);
+        wmma::mma_sync(acc[0][ct], a0, bfr, acc[0][ct]);
+        wmma::mma_sync(acc[1][ct], a1, bfr, acc[1][ct]);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (with_bias && tid < kTileN && c0 + tid < f) d_b[c0 + tid] = db_acc;
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) {
+      const int db = dt0 + wr * 32 + rt * 16, cb = c0 + wc * 64 + ct * 16;
+      drain(acc[rt][ct], stage_s[warp], lane, [&](int r, int cc, float v) {
+        if (db + r < d && cb + cc < f) d_w[(size_t)(db + r) * f + cb + cc] = v;
+      });
+    }
+}
+
+// ---------------------------------------------------------------------------
+// d_q[n, c] = sum_l (g_pooled * mask * inv_keep) * z0, z0 recomputed
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    d_q_kernel(const float* __restrict__ g,    // [M, O]
+               const float* __restrict__ out,  // [M, O]
+               const bf16* __restrict__ img,   // [M, D]
+               const bf16* __restrict__ w,     // [D, F]
+               const float* __restrict__ b,    // [F]
+               float* __restrict__ d_q,        // [N, F]
+               int l, int d, int f, int k, uint32_t seed, uint32_t thr,
+               float inv_keep) {
+  __shared__ __align__(128) bf16 a_s[kRowsQ * kLdChunk];  // img[n] [l][d]
+  __shared__ __align__(128) bf16 b_s[kChunk * kLdTile];   // W [d][c]
+  __shared__ __align__(128) float stage_s[kWarps][256];
+
+  const int o_dim = f / k;
+  const int c0 = blockIdx.x * kTileN;
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bf16* img_n = img + (size_t)n * l * d;
+
+  // rows [l, kRowsQ) of the A stage are zero for the whole kernel
+  for (int i = l * kLdChunk + tid; i < kRowsQ * kLdChunk; i += kThreads)
+    a_s[i] = __float2bfloat16(0.0f);
+
+  AccFrag acc[kRowTilesQ];
+#pragma unroll
+  for (int mt = 0; mt < kRowTilesQ; ++mt) wmma::fill_fragment(acc[mt], 0.0f);
+
+  for (int d0 = 0; d0 < d; d0 += kChunk) {
+    for (int i = tid; i < l * (kChunk / 8); i += kThreads) {
+      const int r = i / (kChunk / 8), v = i % (kChunk / 8);
+      const int col = d0 + v * 8;
+      *reinterpret_cast<uint4*>(a_s + r * kLdChunk + v * 8) =
+          load16(img_n + (size_t)r * d + col, col < d);
+    }
+    for (int i = tid; i < kChunk * (kTileN / 8); i += kThreads) {
+      const int r = i / (kTileN / 8), v = i % (kTileN / 8);
+      const int dd = d0 + r, c = c0 + v * 8;
+      *reinterpret_cast<uint4*>(b_s + r * kLdTile + v * 8) =
+          load16(w + (size_t)dd * f + c, dd < d && c < f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      BRow bfr;
+      wmma::load_matrix_sync(bfr, b_s + kk * 16 * kLdTile + warp * 16,
+                             kLdTile);
+#pragma unroll
+      for (int mt = 0; mt < kRowTilesQ; ++mt) {
+        ARow af;
+        wmma::load_matrix_sync(af, a_s + mt * 16 * kLdChunk + kk * 16,
+                               kLdChunk);
+        wmma::mma_sync(acc[mt], af, bfr, acc[mt]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // lane: channel lane % 16, rows of parity lane / 16, in row order
+  const int c = c0 + warp * 16 + lane % 16;
+  float part = 0.0f;
+#pragma unroll
+  for (int mt = 0; mt < kRowTilesQ; ++mt) {
+    wmma::store_matrix_sync(stage_s[warp], acc[mt], 16, wmma::mem_row_major);
+    __syncwarp();
+    if (c < f) {
+      for (int rr = lane / 16; rr < 16; rr += 2) {
+        const int row = mt * 16 + rr;
+        if (row < l) {
+          const int m = n * l + row;
+          const size_t po = (size_t)m * o_dim + c / k;
+          float gz = pooled_grad(g[po], out[po]);
+          if (thr != 0u)
+            gz = __fmul_rn(gz, keep_scale(seed, thr, inv_keep,
+                                          (unsigned long long)m * f + c));
+          const float z0 = __fadd_rn(stage_s[warp][rr * 16 + lane % 16], b[c]);
+          part = __fadd_rn(part, __fmul_rn(gz, z0));
+        }
+      }
+    }
+    __syncwarp();
+  }
+  part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 16));
+  if (lane < 16 && c < f) d_q[(size_t)n * f + c] = part;
+}
+
+bool dims_ok(int n, int l, int d, int f, int k) {
+  return n >= 1 && n <= 65535 && l >= 1 && l <= kRowsQ && d >= 8 &&
+         d % 8 == 0 && k >= 1 && k <= kMaxK && f >= k && f % k == 0 &&
+         f % 8 == 0 && (long long)n * l <= 65535LL * kTileM;
+}
+
+template <int K>
+int launch_fwd(const void* img, const void* w, const void* b, const void* q,
+               void* out, int mrows, int l, int d, int f, uint32_t seed,
+               uint32_t thr, float inv_keep, cudaStream_t s) {
+  const int smem_ab = kTileM * kLdChunk * 2 + kChunk * (kFwdOut * K + 8) * 2;
+  const int smem_stage = kWarps * 16 * 16 * K * 4;
+  const int smem = smem_ab > smem_stage ? smem_ab : smem_stage;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((f / K + kFwdOut - 1) / kFwdOut,
+                  (mrows + kTileM - 1) / kTileM);
+  fwd_kernel<K><<<grid, kThreads, smem, s>>>(
+      static_cast<const bf16*>(img), static_cast<const bf16*>(w),
+      static_cast<const float*>(b), static_cast<const float*>(q),
+      static_cast<float*>(out), mrows, l, d, f, seed, thr, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int train_fusion_forward(const void* img, const void* w, const void* b,
+                         const void* q, void* out, int n, int l, int d, int f,
+                         int k, uint32_t seed, uint32_t thr, float inv_keep,
+                         void* stream) {
+  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int m = n * l;
+  switch (k) {
+    case 1: return launch_fwd<1>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 2: return launch_fwd<2>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 3: return launch_fwd<3>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 4: return launch_fwd<4>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 5: return launch_fwd<5>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 6: return launch_fwd<6>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 7: return launch_fwd<7>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 8: return launch_fwd<8>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int train_fusion_d_img(const void* g, const void* out, const void* w,
+                       const void* q, void* d_img, int n, int l, int d, int f,
+                       int k, uint32_t seed, uint32_t thr, float inv_keep,
+                       void* stream) {
+  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+  const int m = n * l;
+  const dim3 grid((d + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
+  d_img_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(out),
+      static_cast<const bf16*>(w), static_cast<const float*>(q),
+      static_cast<bf16*>(d_img), m, l, d, f, k, seed, thr, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+int train_fusion_d_w(const void* g, const void* out, const void* img,
+                     const void* q, void* d_w, void* d_b, int n, int l, int d,
+                     int f, int k, uint32_t seed, uint32_t thr,
+                     float inv_keep, void* stream) {
+  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((f + kTileN - 1) / kTileN, (d + kTileM - 1) / kTileM);
+  d_w_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(out),
+      static_cast<const bf16*>(img), static_cast<const float*>(q),
+      static_cast<float*>(d_w), static_cast<float*>(d_b), n * l, l, d, f, k,
+      seed, thr, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+int train_fusion_d_q(const void* g, const void* out, const void* img,
+                     const void* w, const void* b, void* d_q, int n, int l,
+                     int d, int f, int k, uint32_t seed, uint32_t thr,
+                     float inv_keep, void* stream) {
+  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((f + kTileN - 1) / kTileN, n);
+  d_q_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(out),
+      static_cast<const bf16*>(img), static_cast<const bf16*>(w),
+      static_cast<const float*>(b), static_cast<float*>(d_q), l, d, f, k,
+      seed, thr, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+const char* train_fusion_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

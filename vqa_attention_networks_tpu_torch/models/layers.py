@@ -17,7 +17,8 @@ Rounding points follow the JAX functions exactly:
   ``Precision.HIGHEST``); a caller comparing at f32 on a card keeps
   ``torch.backends.cuda.matmul.allow_tf32`` False, its default.
 
-``dropout`` and ``batchnorm`` come with the training slice.
+``dropout`` draws its mask from an explicit ``torch.Generator`` on x's
+device; ``batchnorm`` waits for the families that use it.
 """
 
 from __future__ import annotations
@@ -170,6 +171,20 @@ def lstm(
         h = o * torch.tanh(c)
         hs.append(h)
     return torch.stack(hs, dim=1)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout, ``where(mask, x / keep, 0)`` with the mask drawn
+    from ``generator`` (on x's device); a no-op when ``not train`` or
+    ``rate <= 0`` (``layers.py:161-176``)."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def signed_sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""MHB + co-attention, the flagship (port of the eval forward of
-``vqa_attention_networks_tpu/models/mhb_coatt.py``).
+"""MHB + co-attention, the flagship (port of the eval and training forward
+of ``vqa_attention_networks_tpu/models/mhb_coatt.py``).
 
 Attribute names are the JAX param-tree keys, so ``weights.load_jax_params``
 maps a JAX tree onto the module one to one. ``init_params`` draws a tree in
@@ -25,7 +25,10 @@ from torch import nn
 from vqa_attention_networks_tpu.config import Config
 from vqa_attention_networks_tpu_torch.models import layers as L
 from vqa_attention_networks_tpu_torch.ops.attention import glimpse_attention
-from vqa_attention_networks_tpu_torch.ops.fusion import mfb_fuse_pool
+from vqa_attention_networks_tpu_torch.ops.fusion import (
+    mfb_fuse_pool,
+    two_glimpse_pool,
+)
 from vqa_attention_networks_tpu_torch.ops.grid_fusion import grid_fuse
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 
@@ -84,12 +87,26 @@ class MHBCoAtt(nn.Module):
                 "glove_table", torch.empty(cfg.q_vocab_size, cfg.emb_dim)
             )
         self._stage1_o: Optional[int] = None  # set by prepare()
+        self._stage1_key: Optional[tuple] = None  # the parameters it saw
+
+    def _stage1_params(self) -> tuple:
+        return (self.img_conv1d.weight, self.img_conv1d.bias,
+                self.co_att_conv1.weight, self.co_att_conv1.bias,
+                self.co_att_conv2.weight, self.co_att_conv2.bias)
+
+    def _stage1_state(self) -> tuple:
+        """What identifies the parameters' values: each one's version
+        counter (bumped by every in-place write, as an optimizer step or a
+        load makes) and its storage."""
+        return tuple((p._version, p.data_ptr())
+                     for p in self._stage1_params())
 
     def prepare(self) -> None:
-        """Lay out img_conv1d / co_att_conv1 / co_att_conv2 for K1, once,
-        after the weights are loaded (the JAX wrapper redoes this on every
-        call; in eager PyTorch that would copy 42 MB per batch). The buffers
-        move with the module."""
+        """Lay out img_conv1d / co_att_conv1 / co_att_conv2 for K1 (the JAX
+        wrapper redoes this on every call; in eager PyTorch that would copy
+        42 MB per batch). Called at load, and again by ``stage1_weights``
+        whenever the parameters changed since. The buffers move with the
+        module."""
         with torch.no_grad():
             sw = wqf.prepare_stage1_weights(
                 self.img_conv1d.weight.t(), self.img_conv1d.bias,
@@ -101,6 +118,7 @@ class MHBCoAtt(nn.Module):
             self.register_buffer(f"stage1_{field}", getattr(sw, field),
                                  persistent=False)
         self._stage1_o = sw.o
+        self._stage1_key = self._stage1_state()
 
     def stage1_weights(self) -> wqf.Stage1Weights:
         if self._stage1_o is None:
@@ -108,28 +126,45 @@ class MHBCoAtt(nn.Module):
                 "K1 weights are not laid out: load the weights with "
                 "weights.load_jax_params (or call prepare())"
             )
+        if self._stage1_state() != self._stage1_key:
+            self.prepare()
         return wqf.Stage1Weights(
             **{f: getattr(self, f"stage1_{f}") for f in _STAGE1_FIELDS},
             o=self._stage1_o, k=self.cfg.mfb_factor,
         )
 
     def _output_fusion(self, stage: str, q_att: torch.Tensor,
-                       v_att: torch.Tensor) -> torch.Tensor:
+                       v_att: torch.Tensor, train: bool = False,
+                       generator: Optional[torch.Generator] = None,
+                       ) -> torch.Tensor:
         q_proj = getattr(self, f"ques_proj{stage}")(q_att)
         v_proj = getattr(self, f"img_proj{stage}")(v_att)
-        return L.l2_normalize(mfb_fuse_pool(q_proj, v_proj,
-                                            self.cfg.mfb_factor))
+        return L.l2_normalize(mfb_fuse_pool(
+            q_proj, v_proj, self.cfg.mfb_factor, rate=self.cfg.dropout_fusion,
+            train=train, generator=generator))
 
     def forward(
         self,
         img: torch.Tensor,  # [N, L, D]
         ques: torch.Tensor,  # [N, T]
         *,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        fusion_seed: Optional[int] = None,
         reference_stage1: bool = False,
+        reference_train_fusion: bool = False,
     ) -> torch.Tensor:
-        """``reference_stage1=True`` runs K1's plain PyTorch version in
-        place of the kernel on any device — for the comparisons of the
-        tests and ``chip_smoke.py`` only."""
+        """-> f32 logits [N, a_vocab].
+
+        ``train=True`` runs the training forward: the dropout masks come
+        from ``generator`` (on img's device) in the JAX order (LSTM output,
+        stage-1 fusion when it is composed, output fusion 2, then 3), and
+        K2's mask from ``fusion_seed``.
+
+        ``reference_stage1=True`` (eval) and ``reference_train_fusion=True``
+        (training) run K1's and K2's plain PyTorch versions in place of the
+        kernels on any device — for the comparisons of the tests and
+        ``chip_smoke.py`` only."""
         cfg = self.cfg
         dtype = L.DTYPES[cfg.compute_dtype]
         n = ques.shape[0]
@@ -139,6 +174,9 @@ class MHBCoAtt(nn.Module):
         if cfg.glove:
             emb = torch.cat([emb, L.embed(self.glove_table, ques, dtype)], -1)
         h_seq = self.lstm(emb)  # [N, T, H]
+        if train:
+            return self._train_forward(img, h_seq, generator, fusion_seed,
+                                       reference_train_fusion)
         q_att = glimpse_attention(
             h_seq, self.ques_att_conv1.weight, self.ques_att_conv1.bias,
             self.ques_att_conv2.weight, self.ques_att_conv2.bias, h_seq,
@@ -167,3 +205,30 @@ class MHBCoAtt(nn.Module):
         out3 = self._output_fusion("3", q_att, v_att)
         return self.linear_pred(torch.cat([out2, out3], dim=-1)).float()
 
+    def _train_forward(self, img: torch.Tensor, h_seq: torch.Tensor,
+                       generator: Optional[torch.Generator],
+                       fusion_seed: Optional[int],
+                       reference_kernel: bool) -> torch.Tensor:
+        """``mhb_coatt.py:127-202`` at ``train=True``."""
+        cfg = self.cfg
+        n = h_seq.shape[0]
+        h_seq = L.dropout(h_seq, cfg.dropout_lstm, True, generator)
+        # the question glimpse composed, not glimpse_attention (:132-138)
+        q_logits = self.ques_att_conv2(torch.relu(self.ques_att_conv1(h_seq)))
+        q_att = two_glimpse_pool(q_logits, h_seq, uniform_quirk=False)
+        q_proj = self.ques_proj1(q_att)
+
+        fused = grid_fuse(
+            img, self.img_conv1d.weight.t(), self.img_conv1d.bias, q_proj,
+            cfg.mfb_factor, train=True, rate=cfg.dropout_fusion,
+            site=cfg.dropout_site, seed=fusion_seed, generator=generator,
+            reference_kernel=reference_kernel,
+        )
+        fused = L.l2_normalize(fused.reshape(n, -1)).reshape(fused.shape)
+        # the convs compute in fused's dtype: f32 at bf16 (:181-188)
+        co_logits = self.co_att_conv2(torch.relu(self.co_att_conv1(fused)))
+        v_att = two_glimpse_pool(co_logits, img, uniform_quirk=False)
+
+        out2 = self._output_fusion("2", q_att, v_att, True, generator)
+        out3 = self._output_fusion("3", q_att, v_att, True, generator)
+        return self.linear_pred(torch.cat([out2, out3], dim=-1)).float()

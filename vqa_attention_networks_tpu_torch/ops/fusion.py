@@ -1,5 +1,5 @@
 """MFB fusion and glimpse-pool primitives (port of
-``vqa_attention_networks_tpu/ops/fusion.py``), inference only.
+``vqa_attention_networks_tpu/ops/fusion.py``).
 
 The fusion axis is output-major: channel ``c = o*k + j`` of the o*k-wide
 product pools into output ``o`` (the reference's permute + view).
@@ -7,10 +7,13 @@ product pools into output ``o`` (the reference's permute + view).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from vqa_attention_networks_tpu_torch.models.layers import (
+    dropout,
     matmul_f32,
     signed_sqrt,
 )
@@ -33,9 +36,12 @@ def mfb_sumpool(z: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sum(z.reshape(*lead, d // k, k), dim=-1)
 
 
-def mfb_fuse_pool(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
-    """Hadamard -> k-sum-pool -> signed sqrt (eval: no dropout)."""
-    return signed_sqrt(mfb_sumpool(a * b, k))
+def mfb_fuse_pool(a: torch.Tensor, b: torch.Tensor, k: int, *,
+                  rate: float = 0.0, train: bool = False,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Hadamard -> dropout (training) -> k-sum-pool -> signed sqrt."""
+    z = dropout(a * b, rate, train, generator)
+    return signed_sqrt(mfb_sumpool(z, k))
 
 
 def grid_fuse_weight_contracted(
@@ -68,7 +74,8 @@ def two_glimpse_pool(
 ) -> torch.Tensor:
     """Pool ``values`` under G glimpses -> [N, G*D] (glimpse-major). The
     softmax runs in the logits' dtype, the pool in the values' dtype with
-    an (at least) f32 accumulator."""
+    a ``promote_types(values.dtype, f32)`` accumulator: f32 for bf16 and
+    f32 values, f64 for f64 values."""
     n, _, g = att_logits.shape
     d = values.shape[-1]
     if uniform_quirk:
@@ -76,8 +83,6 @@ def two_glimpse_pool(
     else:
         weights = torch.softmax(att_logits, dim=1)
     weights = weights.to(values.dtype).transpose(1, 2)  # [N, G, P]
-    if values.dtype == torch.float32:
-        pooled = torch.matmul(weights, values)
-    else:
-        pooled = matmul_f32(weights, values)
+    acc = torch.promote_types(values.dtype, torch.float32)
+    pooled = torch.matmul(weights.to(acc), values.to(acc))
     return pooled.reshape(n, g * d).to(values.dtype)

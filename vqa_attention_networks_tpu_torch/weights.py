@@ -1,10 +1,13 @@
-"""Load a JAX parameter tree into a port module.
+"""Move a JAX parameter tree into a port module and back.
 
 The JAX package keeps parameters as nested dicts with projections stored
 ``[in, out]`` (``models/layers.py``); the port keeps PyTorch's ``[out, in]``.
 ``load_jax_params`` maps one onto the other, strictly: a missing key, an
 unexpected key or a wrong shape raises. It is how the tests hand one set of
 weights to both packages, and how ``chip_smoke.py`` loads random weights.
+``to_jax_params`` is its inverse: the module's parameters as a tree of
+numpy arrays in the JAX layout, so a test can hold the parameters after a
+training step against the JAX package's.
 Reference ``.pth`` checkpoints reach the same tree through the JAX package's
 framework-free ``utils/torch_import.import_state_dict``.
 """
@@ -77,7 +80,10 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
         )
     with torch.no_grad():
         for path, (tensor, transpose) in targets.items():
-            value = torch.as_tensor(np.asarray(given[path], np.float32))
+            value = np.asarray(given[path])
+            if value.dtype != np.float64:
+                value = value.astype(np.float32)
+            value = torch.as_tensor(value)
             expect = tuple(tensor.t().shape if transpose else tensor.shape)
             if tuple(value.shape) != expect:
                 raise ValueError(
@@ -88,3 +94,19 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     if hasattr(module, "prepare"):
         module.prepare()
     return module
+
+
+def to_jax_params(module: nn.Module) -> Dict[str, Any]:
+    """The module's parameters and persistent buffers as a nested dict of
+    numpy arrays in the JAX layout (``[in, out]`` projections), in their
+    own dtype."""
+    tree: Dict[str, Any] = {}
+    for path, (tensor, transpose) in _module_leaves(module).items():
+        value = tensor.detach()
+        value = (value.t() if transpose else value).cpu().numpy().copy()
+        *parents, leaf = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
