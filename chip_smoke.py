@@ -42,15 +42,48 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 8. times: each K2 launch and its plain version at N = 64, the forward,
    backward and forward + backward through the autograd functions, and ms
    per training step and training qa-pairs/s of the kernel and plain runs;
+9. K4 (hieCoAtten's co-attention core) against its plain version at
+   N = 8 and 256, L = 196, T = 22, E = 512, on v, q, av and aq, with inputs
+   that peak both softmaxes (the largest av well above 1/196) and a
+   control: the plain outputs with whv and whq zeroed (uniform maps) must
+   be rejected on most elements;
+10. full-width bf16 hieCoAtten served through ``predict_stream`` (batch
+    256, 2048 requests): K4's launch count, flips against the same forward
+    with K4's plain version (at most 0.1%), and a control: the answers of
+    the model with whv and whq zeroed must count as flips;
+11. K5 (the inference fusion, the K2 forward kernel with the mask compiled
+    out) against its plain version at production widths, N = 8 and 256,
+    bit-equal reruns, and a control: the plain output with q permuted
+    across samples must be rejected;
+12. full-width bf16 mfb and mfb-multilayer served with ``VQA_FORCE_PALLAS``
+    and ``keep_reference_quirks=False`` (with the quirk the stage-1 fusion
+    is value-dead and a broken K5 would pass unseen): K5's launch count,
+    flips against K5's plain version, and a control (the fusion's weights
+    zeroed must flip the answers); then, with the quirk on, the logits are
+    bit-equal whether or not K5's output is zeroed: the dead fusion;
+13. K7 (the glimpse block) against its plain version at its two call
+    shapes (the question glimpse, N = 256, P = 22, C = 1024, A = 512,
+    D = 1024; the co-attention, P = 196, C = 1000, D = 2048), in both
+    ``uniform_quirk`` modes, with a control: a uniform pool must be
+    rejected;
+14. full-width bf16 mhb_coAtt served with ``VQA_PALLAS_GLIMPSE`` (K1 and K7)
+    and with ``fast_path="composed"`` plus both switches (K5 and K7): the
+    launch counts and flips against the plain versions;
+15. times: K4, K5 and K7 against their plain versions at N = 256;
 
-then a JSON line of the kernels, nvidia-smi's line, and as the last line
-``{"ok": true, "device": {...}}``. With no card it exits non-zero before
-phase 2.
+then a JSON line of the kernels (each with its bound: the larger of its
+inputs and outputs moved once at 3.35 TB/s and its operations at the
+card's peak rate for their type, from this run's shapes), nvidia-smi's
+line, and as the last line ``{"ok": true, "device": {...}}``. A switch
+(``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``) is set only inside the
+phase that needs it. With no card it exits non-zero before phase 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -60,16 +93,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from vqa_attention_networks_tpu.config import Config
-from vqa_attention_networks_tpu.data.feature_store import (
+from vqa_attention_networks_tpu_torch.config import Config
+from vqa_attention_networks_tpu_torch.data.feature_store import (
     make_synthetic_feature_store,
 )
-from vqa_attention_networks_tpu.data.prepare import make_synthetic_qa_data
-from vqa_attention_networks_tpu_torch.models.mhb_coatt import (
-    MHBCoAtt,
-    init_params,
+from vqa_attention_networks_tpu_torch.data.prepare import (
+    make_synthetic_qa_data,
 )
+from vqa_attention_networks_tpu_torch.models import get_model
+from vqa_attention_networks_tpu_torch.models import hiecoatten, mfb
+from vqa_attention_networks_tpu_torch.models.mhb_coatt import init_params
 from vqa_attention_networks_tpu_torch.ops import _build
+from vqa_attention_networks_tpu_torch.ops import attention as att
+from vqa_attention_networks_tpu_torch.ops import coattention as co
+from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
@@ -127,6 +164,33 @@ TRAIN_STEPS, TRAIN_BATCH = 20, 64
 # downstream and Adam's sign-like first steps amplify that, so their
 # losses are held over the first steps only
 TRAIN_AGREE_STEPS, TRAIN_LOSS_RTOL = 5, 1e-3
+K4_SOURCE = "vqa_attention_networks_tpu_torch/csrc/coattention.cu"
+K4_REPLACES = "vqa_attention_networks_tpu/ops/pallas_coattention.py:106"
+K5_SOURCE = K2_SOURCE  # train_fusion_inference_forward
+K5_REPLACES = "vqa_attention_networks_tpu/ops/pallas_fusion.py:85"
+K7_SOURCE = "vqa_attention_networks_tpu_torch/csrc/glimpse_attention.cu"
+K7_REPLACES = "vqa_attention_networks_tpu/ops/pallas_attention.py:67"
+# K4 and K7 against their plain versions: the two share their rounding
+# points and differ in the order of their f32 sums, which can move an
+# element of C, Hv or Hq (K4), or of the hidden layer or the bf16 output
+# (K7), across a bf16 rounding boundary (2^-8 relative) and with it a
+# logit of a peaked softmax by ~2^-8 |whv| ~ 1.5e-3. 2^-7 of the largest
+# value bounds what that does to K4's pooled v and q and to each glimpse
+# row of K7. K4's maps are held element by element, at 2^-6 of each
+# value (a logit shift d moves av[l] by at most ~2 d av[l]) plus 1e-6:
+# held at 2^-7 of the largest value instead, a uniform map would pass on
+# most elements of a peaked one. K5 is the K2 forward without the mask:
+# pooled = out * |out| within K2's 1e-4.
+K4_RTOL = K7_RTOL_ROW = 2.0 ** -7
+K4_MAP_RTOL, K4_MAP_ATOL = 2.0 ** -6, 1e-6
+K5_RTOL = K2_RTOL["forward"]
+K4_SHAPE = dict(l=196, t=22, e=512)
+# (N, P, C, A, D) of K7's two call shapes on mhb_coAtt's eval path
+K7_SHAPES = {"question": (256, 22, 1024, 512, 1024),
+             "co_attention": (256, 196, 1000, 512, 2048)}
+# the card's rates for the bounds (H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 
 def say(phase: str, **fields) -> None:
@@ -371,11 +435,13 @@ def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
             [kernel_a, kernel_b], [plain_a, plain_b])
 
 
-def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> dict:
+def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
     """Each K2 launch against its plain version at N=64 (the plain
     backward is handed the mask, as the kernel replays it), then forward,
     backward (d_W + d_b + d_q) and both through the autograd functions,
-    where the plain forward draws its mask."""
+    where the plain forward draws its mask. Returns (times, bounds) by
+    launch; a bound counts the launch's product (2 N L D F operations in
+    bf16) and its operands and results, not the mask's integer work."""
     n, seed = TRAIN_BATCH, 7
     img, w, b, q, g = k2_inputs(n, 3, cfg, device)
     w_bf16, bf, qf = tf.operands(w, b, q)
@@ -396,12 +462,22 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> dict:
                 lambda: tf.d_q_reference(g, out, img, w_bf16, bf, K2_K,
                                          keep)),
     }
+    l, d = img.shape[1:]
+    f = w.shape[1]
+    ops = {"bf16": 2 * n * l * d * f}
+    bounds = {
+        "forward": bound(nbytes(img, w_bf16, bf, qf, out), ops),
+        "d_img": bound(nbytes(g, out, w_bf16, qf, img), ops),  # d_img ~ img
+        "d_w": bound(nbytes(g, out, img, qf) + 4 * (d * f + f), ops),
+        "d_q": bound(nbytes(g, out, img, w_bf16, bf) + 4 * n * f, ops),
+    }
     times = {}
     for name, (kernel, plain) in pairs.items():
         times[name] = interleaved_ms(kernel, plain)
         say("k2_time", launch=name, n=n, rate=rate, kernel_ms=times[name][0],
             plain_ms=times[name][1], kernel_runs_ms=times[name][2],
-            plain_runs_ms=times[name][3], card=smi)
+            plain_runs_ms=times[name][3], bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], card=smi)
 
     wr, br, qr = (x.clone().requires_grad_(True) for x in (w, b, q))
     fns = {"kernel": tf.TrainGridFuse.apply,
@@ -425,7 +501,319 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> dict:
         say("k2_time", autograd=name, n=n, rate=rate, kernel_ms=k_ms,
             plain_ms=p_ms, kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
             card=smi)
-    return times
+    return times, bounds
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors given (a tensor passed twice, as the
+    question glimpse passes h_seq as x and v, is read once)."""
+    seen = {t.data_ptr(): t for t in tensors}
+    return sum(t.numel() * t.element_size() for t in seen.values())
+
+
+def bound(moved: int, ops: dict) -> tuple:
+    """(ms, "bytes" or "operations"): the least time this card could take
+    for work that moves ``moved`` bytes (each input read once, each output
+    written once) and does ``ops`` operations by type, each type at its
+    peak rate."""
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()) * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
+@contextlib.contextmanager
+def switches(**env):
+    """Set dispatch switches for one phase and restore them after."""
+    old = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for key, value in old.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def traffic(cfg: Config) -> tuple:
+    """Presampled requests (image ids, questions): each image backs several
+    questions, as in VQA."""
+    rng = np.random.default_rng(0)
+    n_req = BATCH * N_BATCHES
+    image_ids = rng.integers(0, N_IMAGES, n_req)
+    lengths = rng.integers(4, cfg.max_question_length + 1, n_req)
+    ques = rng.integers(1, cfg.q_vocab_size,
+                        (n_req, cfg.max_question_length)).astype(np.int32)
+    ques[np.arange(cfg.max_question_length)[None, :] >= lengths[:, None]] = 0
+    return image_ids, ques
+
+
+def serve_phase(phase: str, cfg: Config, params, store, counters: dict,
+                dev, smi: str, control=None, info=None) -> dict:
+    """Serve BATCH * N_BATCHES requests of full-width ``cfg`` through
+    ``InferenceEngine.predict_stream`` (after a warm-up pass). Each module
+    of ``counters`` (name -> module with a ``launch_count``) is set to 0
+    just before the measured pass and read just after. Then the served
+    answers against the same forward with every kernel's plain version
+    (``reference_kernels=True``): at most MAX_FLIP_RATE flips; with
+    ``control`` (a parameter tree that blinds the kernel's stage), the
+    control's answers must count as flips at 10x that rate; ``info`` maps
+    a label to a Config whose forward is compared for information only.
+    Raises on a failed gate."""
+    engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5)
+    image_ids, ques = traffic(cfg)
+    n_req = len(ques)
+
+    def batches():
+        for s in range(0, n_req, BATCH):
+            feats = store.gather(image_ids[s:s + BATCH], np.float16)
+            yield feats, ques[s:s + BATCH], None
+
+    list(engine.predict_stream(batches()))  # warm-up pass
+    torch.cuda.synchronize()
+    for module in counters.values():
+        module.launch_count = 0
+    t0 = time.perf_counter()
+    preds = [p for batch in engine.predict_stream(batches()) for p in batch]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: module.launch_count for name, module in counters.items()}
+    answers = np.array([p.answer_id for p in preds])
+    probs = np.stack([p.top_probs for p in preds])
+    if len(preds) != n_req or not np.isfinite(probs).all() or (
+            probs.sum(-1) > 1.0 + 1e-3).any():
+        raise AssertionError(f"{phase}: served predictions are malformed")
+
+    def load(c: Config, tree):
+        return load_jax_params(get_model(c.model_name)(c).to(dev), tree).eval()
+
+    others = {label: load(c, params) for label, c in (info or {}).items()}
+    blind = load(engine.cfg, control) if control is not None else None
+    n_flips = n_argmax = n_blind = 0
+    info_flips = dict.fromkeys(others, 0)
+    for s, (feats, qs, _) in zip(range(0, n_req, BATCH), batches()):
+        img = torch.from_numpy(feats).to(dev)
+        qt = torch.from_numpy(qs).to(dev)
+        served = torch.from_numpy(answers[s:s + BATCH]).to(dev)
+        with torch.inference_mode():
+            plain = engine.model(img, qt, reference_kernels=True)
+            n_flips += flips(plain, served)
+            n_argmax += int((plain.argmax(-1) != served).sum())
+            for label, model in others.items():
+                info_flips[label] += flips(model(img, qt), served)
+            if blind is not None:
+                n_blind += flips(plain, blind(img, qt, reference_kernels=True)
+                                 .argmax(-1))
+    del others, blind
+    # the device's share of the run: one batch's forward, already on the
+    # device, timed with CUDA events, against the wall time per batch
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: engine.model(img, qt), 3)
+    fields = dict(model=cfg.model_name, requests=n_req, batch=BATCH,
+                  launches=launches, flips_vs_plain=n_flips,
+                  flip_rate=n_flips / n_req,
+                  argmax_differs_info_only=n_argmax,
+                  distinct_answers=int(len(np.unique(answers))),
+                  qa_pairs_per_s=n_req / seconds, seconds=seconds,
+                  wall_ms_per_batch=seconds * 1e3 / N_BATCHES,
+                  device_forward_ms_per_batch=forward_ms, card=smi)
+    if control is not None:
+        fields["control_flip_rate"] = n_blind / n_req
+    for label, n in info_flips.items():
+        fields[f"flip_rate_vs_{label}_info_only"] = n / n_req
+    say(phase, **fields)
+    if any(n < N_BATCHES for n in launches.values()):
+        raise AssertionError(f"{phase}: kernel launches {launches} in the "
+                             f"run of {N_BATCHES} batches")
+    if control is not None and n_blind / n_req < 10 * MAX_FLIP_RATE:
+        raise AssertionError(f"{phase}: the flip gate does not see the "
+                             "control")
+    if n_flips / n_req > MAX_FLIP_RATE:
+        raise AssertionError(f"{phase}: {n_flips} top-1 flips against the "
+                             "plain versions")
+    return {"launches": launches, "qa_pairs_per_s": n_req / seconds}
+
+
+def randn(rng, shape, scale, device, dtype=torch.float32) -> torch.Tensor:
+    x = rng.standard_normal(shape, dtype=np.float32) * scale
+    return torch.from_numpy(x).to(device).to(dtype)
+
+
+def k4_inputs(n: int, seed: int, device) -> tuple:
+    """bf16 K4 inputs whose two softmaxes are peaked."""
+    rng = np.random.default_rng(seed)
+    l, t, e = K4_SHAPE["l"], K4_SHAPE["t"], K4_SHAPE["e"]
+    bf = torch.bfloat16
+    return (randn(rng, (n, l, e), 0.5, device, bf),
+            randn(rng, (n, t, e), 0.5, device, bf),
+            randn(rng, (n, l, e), 0.3, device, bf),
+            randn(rng, (n, t, e), 0.3, device, bf),
+            randn(rng, (n, l, e), 0.5, device, bf),
+            randn(rng, (n, t, e), 0.5, device, bf),
+            randn(rng, (e, 1), 0.4, device, bf),
+            randn(rng, (e, 1), 0.4, device, bf))
+
+
+def k4_within(name: str, got: torch.Tensor,
+              want: torch.Tensor) -> torch.Tensor:
+    """Elementwise: is K4's output ``name`` within its tolerance?"""
+    if name in ("av", "aq"):
+        return (got - want).abs() <= K4_MAP_RTOL * want.abs() + K4_MAP_ATOL
+    return (got - want).abs() <= K4_RTOL * want.abs().max()
+
+
+def k4_check(n: int, dev) -> float:
+    """K4 against its plain version with its controls; raises on a
+    failure. Returns the largest |diff| over (v, q, av, aq)."""
+    args = k4_inputs(n, 40 + n, dev)
+    got = co.coattention_core_cuda(*args)
+    again = co.coattention_core_cuda(*args)
+    want = co.coattention_core_reference(*args)
+    flat = co.coattention_core_reference(*args[:6], torch.zeros_like(args[6]),
+                                         torch.zeros_like(args[7]))
+    torch.cuda.synchronize()
+    fields, failed, max_abs = {}, [], 0.0
+    for i, name in enumerate(("v", "q", "av", "aq")):
+        diff = (got[i] - want[i]).abs()
+        rec = {"max_abs_diff": float(diff.max()),
+               "max_rel_diff": float(diff.max() / want[i].abs().max()),
+               "within_tolerance": bool(k4_within(name, got[i],
+                                                  want[i]).all()),
+               "rerun_bit_equal": bool(torch.equal(got[i], again[i])),
+               "finite": bool(torch.isfinite(got[i]).all()),
+               "uniform_control_rejected_share": 1.0 - float(
+                   k4_within(name, flat[i], want[i]).float().mean())}
+        fields[name] = rec
+        max_abs = max(max_abs, rec["max_abs_diff"])
+        if not (rec["within_tolerance"] and rec["rerun_bit_equal"]
+                and rec["finite"]):
+            failed.append(name)
+    av_peak = float(got[2].max(1).values.mean())
+    say("k4_check", n=n, **K4_SHAPE, av_max_mean=av_peak,
+        uniform_av=1.0 / K4_SHAPE["l"], **fields)
+    if failed:
+        raise AssertionError(f"K4 disagrees with its plain version on "
+                             f"{failed} at N={n}")
+    if av_peak < 10.0 / K4_SHAPE["l"]:
+        raise AssertionError("the K4 inputs do not peak the region softmax")
+    if min(rec["uniform_control_rejected_share"] for rec in fields.values()
+           if isinstance(rec, dict)) < 0.5:
+        raise AssertionError("the K4 check does not reject uniform maps")
+    return max_abs
+
+
+def k5_inputs(n: int, seed: int, cfg: Config, device) -> tuple:
+    """Production-width K5 inputs: bf16 img and q, f32 W and b."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.img_feature_channel, cfg.fusion_dim
+    return (randn(rng, (n, cfg.img_feature_dim, d), 0.5, device,
+                  torch.bfloat16),
+            randn(rng, (d, f), 0.02, device), randn(rng, (f,), 0.05, device),
+            randn(rng, (n, f), 0.5, device, torch.bfloat16))
+
+
+def k5_check(n: int, cfg: Config, dev) -> float:
+    """K5 against grid_fuse_reference, bit-equal reruns, and the control
+    (q permuted across samples); raises on a failure. Returns max |diff|
+    of the output."""
+    img, w, b, q = k5_inputs(n, 50 + n, cfg, dev)
+    k = cfg.mfb_factor
+    got = gf.inference_fusion_cuda(img, w, b, q, k)
+    again = gf.inference_fusion_cuda(img, w, b, q, k)
+    want = gf.grid_fuse_reference(img, w, b, q, k)
+    torch.cuda.synchronize()
+    pooled, want_pooled = got * got.abs(), want * want.abs()
+    tol = K5_RTOL * want_pooled.abs().max()
+    ok = bool(((pooled - want_pooled).abs() <= tol).all())
+    perm = gf.grid_fuse_reference(img, w, b, q.roll(1, 0), k)
+    rejected = float(((perm * perm.abs() - want_pooled).abs() > tol)
+                     .float().mean())
+    del perm
+    max_abs = float((got - want).abs().max())
+    fields = dict(n=n, max_abs_diff=max_abs, max_rel_diff_pooled=float(
+        (pooled - want_pooled).abs().max() / want_pooled.abs().max()),
+        within_tolerance=ok, rerun_bit_equal=bool(torch.equal(got, again)),
+        finite=bool(torch.isfinite(got).all()),
+        permuted_q_rejected_share=rejected)
+    say("k5_check", **fields)
+    if not (ok and fields["rerun_bit_equal"] and fields["finite"]):
+        raise AssertionError(f"K5 disagrees with its plain version at N={n}")
+    if rejected < 0.5:
+        raise AssertionError("the K5 check does not reject a permuted q")
+    return max_abs
+
+
+def k7_inputs(shape: tuple, seed: int, device) -> tuple:
+    """K7 inputs at one call shape, with the softmax over P peaked: bf16 x
+    and v (the question glimpse pools x itself, as mhb_coAtt pools h_seq),
+    f32 W1 [A, C], b1, W2 [G=2, A], b2."""
+    n, p, c, a, d = shape
+    rng = np.random.default_rng(seed)
+    x = randn(rng, (n, p, c), 1.0, device, torch.bfloat16)
+    v = x if d == c else randn(rng, (n, p, d), 0.5, device, torch.bfloat16)
+    return (x, randn(rng, (a, c), 2.0 / c ** 0.5, device),
+            randn(rng, (a,), 0.1, device), randn(rng, (2, a), 0.2, device),
+            randn(rng, (2,), 0.1, device), v)
+
+
+def k7_check(shape_name: str, quirk: bool, dev) -> float:
+    """K7 against its plain version at one call shape and quirk mode, with
+    the uniform-pool control; raises on a failure. Returns max |diff|."""
+    shape = K7_SHAPES[shape_name]
+    n, _, _, _, d = shape
+    args = k7_inputs(shape, 70, dev)
+    got = att.glimpse_attention_cuda(*args, uniform_quirk=quirk)
+    again = att.glimpse_attention_cuda(*args, uniform_quirk=quirk)
+    want = att.glimpse_attention_reference(*args, uniform_quirk=quirk)
+    torch.cuda.synchronize()
+    g, w = got.float().reshape(n, 2, d), want.float().reshape(n, 2, d)
+    tol = K7_RTOL_ROW * w.abs().amax(-1, keepdim=True)
+    ok = bool(((g - w).abs() <= tol).all())
+    fields = dict(shape=shape_name, n=n, uniform_quirk=quirk,
+                  max_abs_diff=float((g - w).abs().max()),
+                  within_tolerance=ok,
+                  rerun_bit_equal=bool(torch.equal(got, again)),
+                  finite=bool(torch.isfinite(g).all()))
+    if not quirk:
+        uniform = args[5].float().mean(1, keepdim=True).expand(n, 2, d)
+        fields["uniform_pool_rejected_share"] = float(
+            ((uniform - w).abs() > tol).float().mean())
+    say("k7_check", **fields)
+    if not (ok and fields["rerun_bit_equal"] and fields["finite"]):
+        raise AssertionError(f"K7 disagrees with its plain version at "
+                             f"{shape_name}, uniform_quirk={quirk}")
+    if fields.get("uniform_pool_rejected_share", 1.0) < 0.5:
+        raise AssertionError("the K7 check does not reject a uniform pool")
+    return fields["max_abs_diff"]
+
+
+def dead_fusion_check(cfg: Config, params, store, dev) -> None:
+    """With the reference quirk the co-attention weights are all 1, so the
+    logits must be bit-equal whether or not K5's output is zeroed (its
+    weights zeroed): the value-dead stage-1 fusion. K5 must still launch."""
+    quirky = cfg.replace(keep_reference_quirks=True, compute_dtype="bfloat16")
+    zero = dict(params, img_conv1d={
+        "w": torch.zeros_like(params["img_conv1d"]["w"]),
+        "b": torch.zeros_like(params["img_conv1d"]["b"])})
+    model = load_jax_params(mfb.MFB(quirky).to(dev), params).eval()
+    dead = load_jax_params(mfb.MFB(quirky).to(dev), zero).eval()
+    image_ids, ques = traffic(cfg)
+    img = torch.from_numpy(store.gather(image_ids[:BATCH], np.float16)).to(dev)
+    qt = torch.from_numpy(ques[:BATCH]).to(dev)
+    gf.launch_count = 0
+    with torch.inference_mode():
+        live = model(img, qt)
+        zeroed = dead(img, qt)
+    launches = gf.launch_count
+    equal = bool(torch.equal(live, zeroed))
+    say("mfb_quirk_dead_fusion", model=cfg.model_name, k5_launches=launches,
+        logits_bit_equal_with_k5_output_zeroed=equal)
+    if launches != 2 or not equal:
+        raise AssertionError("with the quirk on, the logits depend on K5's "
+                             "output, or K5 did not launch")
 
 
 def train_run(cfg: Config, qa, store, params, **solver_kw) -> dict:
@@ -527,7 +915,8 @@ def main() -> None:
         cuda=torch.version.cuda)
 
     # phase 2: build, one nvcc per source, all started together
-    names = ("stage1_coattention", "train_fusion")
+    names = ("stage1_coattention", "train_fusion", "coattention",
+             "glimpse_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds, log) in zip(names, built):
@@ -563,7 +952,8 @@ def main() -> None:
             rerun_bit_equal=bool(torch.equal(got, again.float())),
             finite=bool(torch.isfinite(got).all()))
         if not ok or not torch.isfinite(got).all():
-            raise AssertionError(f"K1 disagrees with its plain version at N={n}")
+            raise AssertionError(f"K1 disagrees with its plain version at "
+                                 f"N={n}")
         if not (z_ok and h1_ok):
             raise AssertionError(f"K1's z or h1 scratch disagrees with the "
                                  f"plain version at N={n}")
@@ -571,138 +961,224 @@ def main() -> None:
             raise AssertionError("K1 is not deterministic across reruns")
         del img, q, sw, got, want, again, z, h1, want_z, want_h1
 
-    # phase 4: full-width mhb_coAtt served through predict_stream
-    gen = torch.Generator().manual_seed(0)
-    params = init_params(cfg, gen)
-    # xavier co-attention weights with zero biases leave the attention near
-    # uniform (as in step 3); draw them at the scale that peaks it
-    params["co_att_conv1"]["w"] = torch.randn(cfg.mfb_out, 512, generator=gen)
-    params["co_att_conv2"]["w"] = 3.0 * torch.randn(512, 2, generator=gen)
-    engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5)
-    rng = np.random.default_rng(0)
-    n_req = BATCH * N_BATCHES
-    # presampled traffic: each image backs several questions, as in VQA
-    image_ids = rng.integers(0, N_IMAGES, n_req)
-    lengths = rng.integers(4, cfg.max_question_length + 1, n_req)
-    ques = rng.integers(1, cfg.q_vocab_size,
-                        (n_req, cfg.max_question_length)).astype(np.int32)
-    ques[np.arange(cfg.max_question_length)[None, :] >= lengths[:, None]] = 0
+    # launches of each kernel on the main paths, summed over the served runs
+    launches = {"K1": 0, "K4": 0, "K5": 0, "K7": 0}
     with tempfile.TemporaryDirectory() as tmp:
         store = make_synthetic_feature_store(tmp, list(range(N_IMAGES)))
 
-        def batches():
-            for s in range(0, n_req, BATCH):
-                feats = store.gather(image_ids[s:s + BATCH], np.float16)
-                yield feats, ques[s:s + BATCH], None
-
-        list(engine.predict_stream(batches()))  # warm-up pass
-        torch.cuda.synchronize()
-        wqf.launch_count = 0
-        t0 = time.perf_counter()
-        preds = [p for batch in engine.predict_stream(batches())
-                 for p in batch]
-        torch.cuda.synchronize()
-        e2e_s = time.perf_counter() - t0
-        launches = wqf.launch_count
-        if launches < N_BATCHES:
-            raise AssertionError(f"K1 launched {launches} times in the run")
-
-        answers = np.array([p.answer_id for p in preds])
-        probs = np.stack([p.top_probs for p in preds])
-        if len(preds) != n_req or not np.isfinite(probs).all() or (
-                probs.sum(-1) > 1.0 + 1e-3).any():
-            raise AssertionError("served predictions are malformed")
-
-        # the served answers against the same forward with K1's plain
-        # version; for information, against the composed chain; and a
-        # control: with co_att_conv2 zeroed the attention is uniform, which
-        # is what a K1 with a dead fusion or hidden stage gives, and the
-        # gate must count its answers as flips
-        model: MHBCoAtt = engine.model
+        # phase 4: full-width mhb_coAtt served through predict_stream; the
+        # co-attention weights drawn at the scale that peaks the attention
+        # (xavier weights with zero biases leave it near uniform); control:
+        # co_att_conv2 zeroed gives a uniform attention, what a K1 with a
+        # dead fusion or hidden stage gives
+        gen = torch.Generator().manual_seed(0)
+        params = init_params(cfg, gen)
+        params["co_att_conv1"]["w"] = torch.randn(cfg.mfb_out, 512,
+                                                  generator=gen)
+        params["co_att_conv2"]["w"] = 3.0 * torch.randn(512, 2, generator=gen)
+        blind = dict(params, co_att_conv2={"w": torch.zeros(512, 2),
+                                           "b": torch.zeros(2)})
         bf16_cfg = cfg.replace(compute_dtype="bfloat16")
-        composed = load_jax_params(
-            MHBCoAtt(bf16_cfg.replace(fast_path="composed")).to(dev), params)
-        blind = load_jax_params(MHBCoAtt(bf16_cfg).to(dev), dict(
-            params, co_att_conv2={"w": torch.zeros(512, 2),
-                                  "b": torch.zeros(2)}))
-        n_flips = n_composed = n_blind = n_argmax = 0
-        for s, (feats, qs, _) in zip(range(0, n_req, BATCH), batches()):
-            img = torch.from_numpy(feats).to(dev)
-            qt = torch.from_numpy(qs).to(dev)
-            served = torch.from_numpy(answers[s:s + BATCH]).to(dev)
-            with torch.inference_mode():
-                plain = model(img, qt, reference_stage1=True)
-                n_flips += flips(plain, served)
-                n_argmax += int((plain.argmax(-1) != served).sum())
-                n_composed += flips(composed(img, qt), served)
-                n_blind += flips(
-                    plain, blind(img, qt, reference_stage1=True).argmax(-1))
-        del composed, blind
-    say("serve", requests=n_req, batch=BATCH, k1_launches=launches,
-        flips_vs_plain_k1=n_flips, flip_rate=n_flips / n_req,
-        control_uniform_attention_flip_rate=n_blind / n_req,
-        argmax_differs_info_only=n_argmax,
-        flip_rate_vs_composed_info_only=n_composed / n_req,
-        distinct_answers=int(len(np.unique(answers))))
-    if n_blind / n_req < 10 * MAX_FLIP_RATE:
-        raise AssertionError("the flip gate does not see a uniform attention")
-    if n_flips / n_req > MAX_FLIP_RATE:
-        raise AssertionError(f"{n_flips} top-1 flips against the plain K1")
+        served = serve_phase(
+            "serve", cfg, params, store, {"K1": wqf}, dev, smi,
+            control=blind,
+            info={"composed": bf16_cfg.replace(fast_path="composed")})
+        launches["K1"] += served["launches"]["K1"]
+        e2e = {"mhb_coAtt": served["qa_pairs_per_s"]}
 
-    # phase 5: times, on this card at its power limit
-    times = {}
-    for n in (256, 1024):
-        img, q, sw = k1_inputs(n, seed=n, cfg=cfg, device=dev)
+        # phase 5: K1 times, on this card at its power limit
+        times = {}
+        for n in (BATCH, 1024):
+            img, q, sw = k1_inputs(n, seed=n, cfg=cfg, device=dev)
 
-        def kernel():
-            wqf.stage1_coattention(img, q, sw)
+            def kernel():
+                wqf.stage1_coattention(img, q, sw)
 
-        def plain():
-            wqf.stage1_coattention_reference(img, q, sw)
+            def plain():
+                wqf.stage1_coattention_reference(img, q, sw)
 
-        kernel(), plain()  # warm-up
-        plain_a = time_ms(plain, 3)
-        kernel_a = time_ms(kernel, 10)
-        kernel_b = time_ms(kernel, 10)
-        plain_b = time_ms(plain, 3)
-        times[n] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2)
-        say("k1_time", n=n, kernel_ms=times[n][0], plain_ms=times[n][1],
-            kernel_runs_ms=[kernel_a, kernel_b], plain_runs_ms=[plain_a, plain_b],
-            card=smi)
-        del img, q, sw
-    say("e2e", qa_pairs_per_s=n_req / e2e_s, seconds=e2e_s,
-        batch=BATCH, requests=n_req, card=smi)
+            kernel(), plain()  # warm-up
+            plain_a = time_ms(plain, 3)
+            kernel_a = time_ms(kernel, 10)
+            kernel_b = time_ms(kernel, 10)
+            plain_b = time_ms(plain, 3)
+            times[n] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2)
+            if n == BATCH:
+                _, l, d = img.shape
+                c, g = sw.c1w.shape[1], sw.c2w.shape[1]
+                k1_bound = bound(
+                    nbytes(img, q, sw.w3, sw.b3, sw.c1w, sw.c1b, sw.c2w,
+                           sw.c2b) + 2 * n * g * d,
+                    {"bf16": 2 * n * l * (d * sw.o + sw.o * c + c * g
+                                          + g * d),
+                     "f32": 2 * n * sw.k * d * sw.o})  # the wq build
+            say("k1_time", n=n, kernel_ms=times[n][0], plain_ms=times[n][1],
+                kernel_runs_ms=[kernel_a, kernel_b],
+                plain_runs_ms=[plain_a, plain_b], card=smi)
+            del img, q, sw
+        say("e2e", model="mhb_coAtt", qa_pairs_per_s=e2e["mhb_coAtt"],
+            batch=BATCH, requests=BATCH * N_BATCHES, card=smi)
 
-    # phase 6: K2 against its plain version at production widths
-    k2_err = {}
-    for n in K2_NS:
-        for rate in K2_RATES:
-            for name, err in k2_check(n, rate, cfg, dev).items():
-                k2_err[name] = max(k2_err.get(name, 0.0), err)
+        # phase 6: K2 against its plain version at production widths
+        k2_err = {}
+        for n in K2_NS:
+            for rate in K2_RATES:
+                for name, err in k2_check(n, rate, cfg, dev).items():
+                    k2_err[name] = max(k2_err.get(name, 0.0), err)
+        torch.cuda.empty_cache()
+
+        # phase 7: training through the port's Solver (the K2 main path)
+        train = train_phase(dev, smi)
+        torch.cuda.empty_cache()
+
+        # phase 8: K2 times at the training batch
+        k2_times, k2_bounds = k2_time(cfg, dev, smi)
+        torch.cuda.empty_cache()
+
+        # phase 9: K4 against its plain version
+        k4_err = max(k4_check(n, dev) for n in (8, BATCH))
+
+        # phase 10: full-width hieCoAtten served; whv, whq and the question
+        # embedding drawn at 8x xavier so both maps are peaked; control:
+        # whv and whq zeroed give uniform maps
+        hie_cfg = Config(model_name="hieCoAtten")
+        hie_params = hiecoatten.init_params(
+            hie_cfg, torch.Generator().manual_seed(1))
+        for key, leaf in (("fc_Whv", "w"), ("fc_Whq", "w"),
+                          ("que_emb", "table")):
+            hie_params[key][leaf] = hie_params[key][leaf] * 8.0
+        zero_att = {"w": torch.zeros(hie_cfg.embed_size, 1),
+                    "b": torch.zeros(1)}
+        served = serve_phase(
+            "serve_hiecoatten", hie_cfg, hie_params, store, {"K4": co}, dev,
+            smi, control=dict(hie_params, fc_Whv=zero_att, fc_Whq=zero_att))
+        launches["K4"] += served["launches"]["K4"]
+        e2e["hieCoAtten"] = served["qa_pairs_per_s"]
+        torch.cuda.empty_cache()
+
+        # phase 11: K5 against its plain version
+        k5_err = max(k5_check(n, cfg, dev) for n in (8, BATCH))
+        torch.cuda.empty_cache()
+
+        # phase 12: mfb and mfb-multilayer served under VQA_FORCE_PALLAS
+        # with the quirk off; the co-attention weights peak its softmax;
+        # control: the fusion's weights zeroed (K5's output 0) gives a
+        # uniform co-attention; then the quirk's dead fusion
+        for name in ("mfb", "mfb-multilayer"):
+            mfb_cfg = Config(model_name=name, keep_reference_quirks=False)
+            gen = torch.Generator().manual_seed(2)
+            mfb_params = mfb.init_params(mfb_cfg, gen)
+            width = mfb_params["co_att_conv2"]["w"].shape[0]
+            mfb_params["co_att_conv1"]["w"] = torch.randn(
+                mfb_cfg.mfb_out, 1024, generator=gen)
+            mfb_params["co_att_conv2"]["w"] = 3.0 * torch.randn(
+                width, 2, generator=gen)
+            if name == "mfb-multilayer":
+                mfb_params["co_att_multiconv"]["w"] = torch.randn(
+                    1024, 512, generator=gen) * (3.0 / 1024 ** 0.5)
+            dead = dict(mfb_params, img_conv1d={
+                "w": torch.zeros_like(mfb_params["img_conv1d"]["w"]),
+                "b": torch.zeros_like(mfb_params["img_conv1d"]["b"])})
+            with switches(VQA_FORCE_PALLAS="1"):
+                served = serve_phase(f"serve_{name}", mfb_cfg, mfb_params,
+                                     store, {"K5": gf}, dev, smi,
+                                     control=dead)
+                if name == "mfb":
+                    dead_fusion_check(mfb_cfg, mfb_params, store, dev)
+            launches["K5"] += served["launches"]["K5"]
+            e2e[name] = served["qa_pairs_per_s"]
+            del mfb_params, dead
+            torch.cuda.empty_cache()
+
+        # phase 13: K7 against its plain version at both call shapes
+        k7_err = max(k7_check(shape, quirk, dev) for shape in K7_SHAPES
+                     for quirk in (False, True))
+        torch.cuda.empty_cache()
+
+        # phase 14: mhb_coAtt with K7 (question glimpse, beside K1), then
+        # composed with K5 and K7 (both glimpses)
+        with switches(VQA_PALLAS_GLIMPSE="1"):
+            served = serve_phase("serve_glimpse", cfg, params, store,
+                                 {"K1": wqf, "K7": att}, dev, smi)
+        for key in ("K1", "K7"):
+            launches[key] += served["launches"][key]
+        e2e["mhb_coAtt_glimpse"] = served["qa_pairs_per_s"]
+        composed_cfg = cfg.replace(fast_path="composed")
+        with switches(VQA_PALLAS_GLIMPSE="1", VQA_FORCE_PALLAS="1"):
+            served = serve_phase("serve_composed", composed_cfg, params,
+                                 store, {"K5": gf, "K7": att}, dev, smi)
+        for key in ("K5", "K7"):
+            launches[key] += served["launches"][key]
+        e2e["mhb_coAtt_composed"] = served["qa_pairs_per_s"]
+        torch.cuda.empty_cache()
+
+    # phase 15: K4, K5 and K7 against their plain versions at N=256
+    a4 = k4_inputs(BATCH, 4, dev)
+    n, l, e = a4[0].shape
+    t = a4[1].shape[1]
+    k4_bound = bound(nbytes(*a4) + 4 * n * (2 * e + l + t),
+                     {"bf16": 2 * n * (3 * t * l * e + 2 * (l + t) * e)})
+    k4_time = interleaved_ms(lambda: co.coattention_core_cuda(*a4),
+                             lambda: co.coattention_core_reference(*a4), 10)
+    del a4
+    a5 = k5_inputs(BATCH, 5, cfg, dev)
+    k = cfg.mfb_factor
+    w_bf16, b5, q5 = tf.operands(*a5[1:])
+    n, l, d = a5[0].shape
+    f = w_bf16.shape[1]
+    k5_bound = bound(nbytes(a5[0], w_bf16, b5, q5) + 4 * n * l * (f // k),
+                     {"bf16": 2 * n * l * d * f})
+    k5_time = interleaved_ms(lambda: gf.inference_fusion_cuda(*a5, k),
+                             lambda: gf.grid_fuse_reference(*a5, k))
+    del a5, w_bf16, b5, q5
     torch.cuda.empty_cache()
+    k7_times, k7_bounds = {}, {}
+    for shape_name, (n, p, c, a, d) in K7_SHAPES.items():
+        a7 = k7_inputs((n, p, c, a, d), 7, dev)
+        k7_bounds[shape_name] = bound(
+            nbytes(a7[0], a7[1].to(torch.bfloat16), a7[2],
+                   a7[3].to(torch.bfloat16), a7[4], a7[5]) + 4 * n * 2 * d,
+            {"bf16": 2 * n * p * (c * a + a * 2 + 2 * d)})
+        k7_times[shape_name] = interleaved_ms(
+            lambda: att.glimpse_attention_cuda(*a7, uniform_quirk=False),
+            lambda: att.glimpse_attention_reference(*a7,
+                                                    uniform_quirk=False), 10)
+        del a7
+    for name, (run, bnd) in {"K4": (k4_time, k4_bound),
+                             "K5": (k5_time, k5_bound),
+                             **{f"K7_{s}": (k7_times[s], k7_bounds[s])
+                                for s in K7_SHAPES}}.items():
+        say("time", kernel=name, n=BATCH, kernel_ms=run[0], plain_ms=run[1],
+            kernel_runs_ms=run[2], plain_runs_ms=run[3], bound_ms=bnd[0],
+            bound_by=bnd[1], card=smi)
+    say("e2e_served", qa_pairs_per_s=e2e, batch=BATCH,
+        requests=BATCH * N_BATCHES, card=smi)
 
-    # phase 7: training through the port's Solver (the K2 main path)
-    train = train_phase(dev, smi)
-    torch.cuda.empty_cache()
+    def entry(name, source, replaces, n_launches, err, run, bnd) -> dict:
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "ms": run[0], "plain_ms": run[1],
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                # no single PyTorch call computes any of these functions
+                "library_ms": None}
 
-    # phase 8: K2 times at the training batch
-    k2_times = k2_time(cfg, dev, smi)
-
-    kernels = [{
-        "name": "stage1_coattention", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": times[256][0],
-        "plain_ms": times[256][1],
-    }]
+    kernels = [entry("stage1_coattention", K1_SOURCE, K1_REPLACES,
+                     launches["K1"], max_err, times[BATCH], k1_bound)]
     for launch, replaces in K2_REPLACES.items():
-        kernels.append({
-            "name": f"train_fusion_{launch}", "route": "cuda",
-            "source": K2_SOURCE, "replaces": replaces,
-            "launches": train["launches"][launch],
-            "max_abs_err": max(k2_err["d_w"], k2_err["d_b"])
-            if launch == "d_w" else k2_err[launch],
-            "ms": k2_times[launch][0], "plain_ms": k2_times[launch][1],
-        })
+        kernels.append(entry(
+            f"train_fusion_{launch}", K2_SOURCE, replaces,
+            train["launches"][launch],
+            max(k2_err["d_w"], k2_err["d_b"]) if launch == "d_w"
+            else k2_err[launch], k2_times[launch], k2_bounds[launch]))
+    kernels += [
+        entry("coattention", K4_SOURCE, K4_REPLACES, launches["K4"], k4_err,
+              k4_time, k4_bound),
+        entry("inference_fusion", K5_SOURCE, K5_REPLACES, launches["K5"],
+              k5_err, k5_time, k5_bound),
+        # both call shapes launch it; ms and bound at the co-attention's
+        entry("glimpse_attention", K7_SOURCE, K7_REPLACES, launches["K7"],
+              k7_err, k7_times["co_attention"], k7_bounds["co_attention"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

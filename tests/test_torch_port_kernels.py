@@ -1,5 +1,5 @@
-"""The hand-written K1 and K2 kernels on the card against their plain
-PyTorch versions.
+"""The hand-written kernels (K1, K2, K4, K5, K7) on the card against their
+plain PyTorch versions.
 
 These need an NVIDIA card (sm_90a) and the CUDA toolkit; without a card
 they skip. Kernel and plain version share their rounding points and differ
@@ -214,3 +214,163 @@ def test_k2_wrappers_raise_on_inputs_they_do_not_take():
     out = tf.forward_cuda(img, w_bf16, b, q, 0, K, 0.1)
     with pytest.raises(ValueError, match="contiguous f32"):
         tf.d_w_cuda(g.double(), out, img, w_bf16, b, q, 0, K, 0.1)
+
+
+# --------------------------------------------------------------------------
+# K4, K5, K7 (the hieCoAtten core, the inference fusion, the glimpse block)
+# --------------------------------------------------------------------------
+
+# K4 and K7 against their plain versions: the two share their rounding
+# points (bf16 roundings of C, Hv, Hq in K4, of the hidden layer, the
+# weights and the output in K7) and differ in the order of their f32 sums,
+# which can move an element across a bf16 rounding boundary (2^-8
+# relative) and with it a logit of a peaked softmax: 2^-7 of the largest
+# value bounds it for K4's v and q and K7's glimpse rows; K4's maps are
+# held element by element at 2^-6 of each value plus 1e-6 (so that a
+# uniform map cannot pass on the near-zero elements of a peaked one). K5
+# is K2's forward without the mask: pooled = out * |out| at 1e-4 of its
+# largest value, summation order only.
+K4_RTOL = K7_RTOL_ROW = 2.0 ** -7
+K4_MAP_RTOL, K4_MAP_ATOL = 2.0 ** -6, 1e-6
+K5_RTOL = 1e-4
+
+
+def _k4_within(i, got, want):
+    if i >= 2:  # av, aq
+        return (got - want).abs() <= K4_MAP_RTOL * want.abs() + K4_MAP_ATOL
+    return (got - want).abs() <= K4_RTOL * want.abs().max()
+
+
+def _bf16(rng, shape, scale, device="cuda"):
+    return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            * scale).to(device).to(torch.bfloat16)
+
+
+def _k4_inputs(n, l, t, e, seed=0):
+    rng = np.random.default_rng(seed)
+    return (_bf16(rng, (n, l, e), 0.5), _bf16(rng, (n, t, e), 0.5),
+            _bf16(rng, (n, l, e), 0.3), _bf16(rng, (n, t, e), 0.3),
+            _bf16(rng, (n, l, e), 0.5), _bf16(rng, (n, t, e), 0.5),
+            _bf16(rng, (e, 1), 0.4), _bf16(rng, (e, 1), 0.4))
+
+
+@pytest.mark.parametrize("n,l,t,e", [(3, 20, 5, 62), (8, 196, 22, 512)],
+                         ids=["ragged", "production"])
+def test_k4_matches_plain_version(n, l, t, e):
+    from vqa_attention_networks_tpu_torch.ops import coattention as co
+
+    args = _k4_inputs(n, l, t, e)
+    before = co.launch_count
+    got = co.coattention_core(*args)
+    torch.cuda.synchronize()
+    assert co.launch_count == before + 1
+    want = co.coattention_core_reference(*args)
+    flat = co.coattention_core_reference(*args[:6], torch.zeros_like(args[6]),
+                                         torch.zeros_like(args[7]))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float32 and g.shape == w.shape, i
+        assert torch.isfinite(g).all(), i
+        assert _k4_within(i, g, w).all(), i
+        # control: uniform maps are rejected on most elements
+        assert (~_k4_within(i, flat[i], w)).float().mean() > 0.5, i
+    assert float(want[2].max()) > 4.0 / l  # the inputs peak the maps
+    again = co.coattention_core(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_k4_wrapper_raises_on_inputs_it_does_not_take():
+    from vqa_attention_networks_tpu_torch.ops import coattention as co
+
+    args = list(_k4_inputs(2, 10, 4, 64))
+    with pytest.raises(TypeError):
+        co.coattention_core_cuda(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        co.coattention_core_cuda(*(a.cpu() for a in args))
+    with pytest.raises(ValueError, match="T <="):
+        co.coattention_core_cuda(*_k4_inputs(2, 10, 40, 64))
+    odd = _k4_inputs(2, 10, 4, 63)
+    with pytest.raises(ValueError, match="E % 2"):
+        co.coattention_core_cuda(*odd)
+
+
+@pytest.mark.parametrize("n,d,o", [(3, 64, 24), (4, 2048, 1000)],
+                         ids=["ragged", "production"])
+def test_k5_matches_plain_version(n, d, o):
+    from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
+
+    rng = np.random.default_rng(1)
+    img = _bf16(rng, (n, L, d), 0.5)
+    w = torch.from_numpy(rng.standard_normal((d, o * K)).astype(
+        np.float32)).cuda() * 0.02
+    b = torch.from_numpy(rng.standard_normal(o * K).astype(
+        np.float32)).cuda() * 0.05
+    q = _bf16(rng, (n, o * K), 0.5)
+    before = gf.launch_count
+    got = gf.inference_fusion_cuda(img, w, b, q, K)
+    torch.cuda.synchronize()
+    assert gf.launch_count == before + 1
+    want = gf.grid_fuse_reference(img, w, b, q, K)
+    assert got.dtype == torch.float32 and got.shape == (n, L, o)
+    pooled, want_pooled = got * got.abs(), want * want.abs()
+    assert (pooled - want_pooled).abs().max() <= \
+        K5_RTOL * want_pooled.abs().max()
+    assert torch.equal(got, gf.inference_fusion_cuda(img, w, b, q, K))
+    # control: q permuted across samples is rejected
+    perm = gf.grid_fuse_reference(img, w, b, q.flip(0), K)
+    assert (perm * perm.abs() - want_pooled).abs().max() > \
+        100 * K5_RTOL * want_pooled.abs().max()
+
+
+def _k7_inputs(n, p, c, a, g, d, seed=2):
+    rng = np.random.default_rng(seed)
+
+    def f(shape, scale):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda() * scale
+
+    return (_bf16(rng, (n, p, c), 1.0), f((a, c), 0.3 / (c / 48) ** 0.5),
+            f((a,), 0.1), f((g, a), 1.0), f((g,), 0.1),
+            _bf16(rng, (n, p, d), 0.5))
+
+
+@pytest.mark.parametrize("quirk", [False, True], ids=["softmax", "quirk"])
+@pytest.mark.parametrize("n,p,c,a,d", [(3, 22, 48, 100, 40),
+                                       (8, 196, 1000, 512, 2048)],
+                         ids=["ragged", "co_attention"])
+def test_k7_matches_plain_version(n, p, c, a, d, quirk):
+    from vqa_attention_networks_tpu_torch.ops import attention as att
+
+    args = _k7_inputs(n, p, c, a, 2, d)
+    before = att.launch_count
+    got = att.glimpse_attention_cuda(*args, uniform_quirk=quirk)
+    torch.cuda.synchronize()
+    assert att.launch_count == before + 1
+    want = att.glimpse_attention_reference(*args, uniform_quirk=quirk)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, 2 * d)
+    rows_g = got.float().reshape(n, 2, d)
+    rows_w = want.float().reshape(n, 2, d)
+    tol = K7_RTOL_ROW * rows_w.abs().amax(-1, keepdim=True)
+    assert ((rows_g - rows_w).abs() <= tol).all()
+    assert torch.equal(got, att.glimpse_attention_cuda(
+        *args, uniform_quirk=quirk))
+    if not quirk:  # control: a uniform pool is rejected on most elements
+        uniform = args[5].float().mean(1, keepdim=True).expand(n, 2, d)
+        assert ((uniform - rows_w).abs() > tol).float().mean() > 0.5
+
+
+def test_k7_wrapper_raises_on_inputs_it_does_not_take():
+    from vqa_attention_networks_tpu_torch.ops import attention as att
+
+    args = list(_k7_inputs(2, 5, 48, 64, 2, 40))
+    with pytest.raises(TypeError):
+        att.glimpse_attention_cuda(args[0].float(), *args[1:],
+                                   uniform_quirk=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        att.glimpse_attention_cuda(*(x.cpu() for x in args),
+                                   uniform_quirk=False)
+    with pytest.raises(ValueError, match="C % 8"):
+        att.glimpse_attention_cuda(*_k7_inputs(2, 5, 44, 64, 2, 40),
+                                   uniform_quirk=False)
+    with pytest.raises(ValueError, match="G <="):
+        att.glimpse_attention_cuda(*_k7_inputs(2, 5, 48, 64, 5, 40),
+                                   uniform_quirk=False)

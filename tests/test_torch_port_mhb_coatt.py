@@ -11,7 +11,12 @@
   PyTorch rounds after each op.
 - bf16 with ``fast_path="composed"``: the weight-contracted chain on both.
 - ``glove=True``: the frozen table concatenated to the embedding.
+
+The JAX side takes the JAX package's ``Config``, the port its own, built
+from the same fields (``port_config``).
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -20,6 +25,7 @@ import torch
 
 from vqa_attention_networks_tpu.config import Config
 from vqa_attention_networks_tpu.models import mhb_coatt as jmhb
+from vqa_attention_networks_tpu_torch.config import Config as PortConfig
 from vqa_attention_networks_tpu_torch.models import get_model
 from vqa_attention_networks_tpu_torch.models.mhb_coatt import (
     MHBCoAtt,
@@ -40,6 +46,11 @@ def small_cfg(**kw) -> Config:
     )
     base.update(kw)
     return Config(**base).validate()
+
+
+def port_config(cfg: Config) -> PortConfig:
+    """The port's Config with the same fields as the JAX one."""
+    return PortConfig(**dataclasses.asdict(cfg)).validate()
 
 
 def params_for(cfg: Config, seed: int = 0) -> dict:
@@ -76,7 +87,8 @@ def jax_logits(cfg, params, img, ques):
 
 
 def port_logits(cfg, params, img, ques, **kw):
-    model = load_jax_params(get_model("mhb_coAtt")(cfg), params).eval()
+    model = load_jax_params(get_model(cfg.model_name)(port_config(cfg)),
+                            params).eval()
     with torch.inference_mode():
         out = model(torch.from_numpy(img), torch.from_numpy(ques), **kw)
     assert out.dtype == torch.float32
@@ -105,7 +117,7 @@ def test_bf16_kernel_path_matches_jax_interpreted_k1(monkeypatch):
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     np.testing.assert_allclose(got, want, rtol=0, atol=BF16_LOGIT_ATOL)
     # the explicit plain-version switch gives the same result on the CPU
-    again = port_logits(cfg, params, img, ques, reference_stage1=True)
+    again = port_logits(cfg, params, img, ques, reference_kernels=True)
     np.testing.assert_array_equal(again, got)
 
 
@@ -131,7 +143,7 @@ def test_glove_forward_matches_jax():
 def test_load_jax_params_is_strict():
     cfg = small_cfg()
     params = params_for(cfg)
-    model = MHBCoAtt(cfg)
+    model = MHBCoAtt(port_config(cfg))
     extra = dict(params, bogus={"w": np.zeros((1, 1), np.float32)})
     with pytest.raises(ValueError, match="unexpected"):
         load_jax_params(model, extra)
@@ -147,14 +159,14 @@ def test_load_jax_params_is_strict():
 def test_init_params_loads_into_both_packages():
     # the port's torch.Generator init has the JAX tree's structure and shapes
     cfg = small_cfg(glove=True)
-    tree = init_params(cfg, torch.Generator().manual_seed(0))
+    tree = init_params(port_config(cfg), torch.Generator().manual_seed(0))
     ref = jmhb.init(jax.random.PRNGKey(0), cfg)
     shapes = jax.tree_util.tree_map(lambda x: tuple(x.shape), tree)
     assert shapes == jax.tree_util.tree_map(lambda x: tuple(x.shape), ref)
-    load_jax_params(MHBCoAtt(cfg), tree)
+    load_jax_params(MHBCoAtt(port_config(cfg)), tree)
 
 
 def test_unported_families_name_their_roadmap_item():
-    for name in ("mfb", "mhb", "hieCoAtten", "visLstm", "iBOWIMG"):
+    for name in ("mhb", "visLstm", "iBOWIMG", "attentionNet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)

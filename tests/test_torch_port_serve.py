@@ -4,21 +4,30 @@ against the JAX engine on the same weights and requests, on the CPU.
 Probabilities are compared at atol 2e-4: the engines run bf16 activations,
 and the logits agree to a few bf16 ulps (test_torch_port_mhb_coatt.py);
 through the softmax over 40 answers (probabilities near 0.025) that moves a
-probability by about 1e-4.
+probability by about 1e-4. hieCoAtten and mfb serve through the same
+engine: their logits agree to 1e-2 (test_torch_port_hiecoatten.py,
+test_torch_port_mfb.py), and a logit difference e moves a probability p
+by about p * e: up to 4e-3 at their top probabilities (up to ~0.4 over 20
+answers), ``OTHER_PROB_ATOL``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_port_mhb_coatt import params_for, small_cfg
+import test_torch_port_hiecoatten as hie
+import test_torch_port_mfb as mfb
+from test_torch_port_mhb_coatt import params_for, port_config, small_cfg
 from vqa_attention_networks_tpu.data.feature_store import quantize_features
 from vqa_attention_networks_tpu.serve import InferenceEngine as JaxEngine
+from vqa_attention_networks_tpu_torch.ops import coattention as co
+from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
 
 B, TOPK = 8, 5
 PROB_ATOL = 2e-4  # measured 1.0e-4 on this data
+OTHER_PROB_ATOL = 4e-3  # measured 1.2e-3 (hieCoAtten)
 
 
 def _requests(cfg, n, seed):
@@ -37,14 +46,14 @@ def _engines(monkeypatch, fast_path, input_dtype="float16", seed=0):
         monkeypatch.setenv("VQA_PALLAS_INTERPRET", "1")
     cfg = small_cfg(fast_path=fast_path)
     params = params_for(cfg, seed=seed)
-    port = InferenceEngine(cfg, params, batch_size=B, topk=TOPK,
-                           input_dtype=input_dtype, device="cpu")
+    port = InferenceEngine(port_config(cfg), params, batch_size=B,
+                           topk=TOPK, input_dtype=input_dtype, device="cpu")
     ref = JaxEngine(cfg, params, batch_size=B, topk=TOPK,
                     input_dtype=input_dtype)
     return port, ref, cfg
 
 
-def _assert_same(got, want):
+def _assert_same(got, want, atol=PROB_ATOL):
     """Equal top-k ids and close probabilities. Answers whose probabilities
     lie within the tolerance of a neighbour's are a tie that either engine
     may order either way, so the ids are compared at the ranks whose
@@ -52,13 +61,13 @@ def _assert_same(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.top_probs, w.top_probs, rtol=0,
-                                   atol=PROB_ATOL)
+                                   atol=atol)
         assert g.top_probs.dtype == np.float32
         gaps = w.top_probs[:-1] - w.top_probs[1:]
         clear = np.minimum(np.r_[np.inf, gaps], np.r_[gaps, 0.0]) > (
-            2 * PROB_ATOL)
+            2 * atol)
         np.testing.assert_array_equal(g.top_ids[clear], w.top_ids[clear])
-        if clear[0] or gaps[0] > 2 * PROB_ATOL:
+        if clear[0] or gaps[0] > 2 * atol:
             assert g.answer_id == w.answer_id
 
 
@@ -125,7 +134,7 @@ def test_int8_feed_matches_jax_engine(monkeypatch):
 
 
 def test_unported_options_raise(monkeypatch):
-    cfg = small_cfg()
+    cfg = port_config(small_cfg())
     params = params_for(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(cfg, params, artifact_dir="x", device="cpu")
@@ -144,9 +153,40 @@ def test_unported_options_raise(monkeypatch):
 
 def test_topk_clamped_to_answer_vocab(monkeypatch):
     cfg = small_cfg(a_vocab_size=3)
-    engine = InferenceEngine(cfg, params_for(cfg), batch_size=2, topk=5,
-                             device="cpu")
+    engine = InferenceEngine(port_config(cfg), params_for(cfg), batch_size=2,
+                             topk=5, device="cpu")
     assert engine.topk == 3
     preds = engine.predict_batch(*_requests(cfg, 2, seed=12))
     assert preds[0].top_ids.shape == (3,)
     assert (np.diff(preds[0].top_probs) <= 0).all()
+
+
+@pytest.mark.parametrize("family", ["hieCoAtten", "mfb", "mfb-multilayer"])
+def test_engine_serves_other_families_like_the_jax_engine(monkeypatch,
+                                                         family):
+    """hieCoAtten through K4 (JAX's interpreted, the port's plain version);
+    mfb and mfb-multilayer, quirks off, through K5 under VQA_FORCE_PALLAS."""
+    monkeypatch.setenv("VQA_PALLAS_INTERPRET", "1")
+    if family == "hieCoAtten":
+        cfg = hie.small_cfg()
+        params = hie.params_for(cfg)
+    else:
+        monkeypatch.setenv("VQA_FORCE_PALLAS", "1")
+        cfg = mfb.small_cfg(model_name=family, keep_reference_quirks=False)
+        params = mfb.params_for(cfg)
+    port = InferenceEngine(port_config(cfg), params, batch_size=B, topk=TOPK,
+                           device="cpu")
+    ref = JaxEngine(cfg, params, batch_size=B, topk=TOPK)
+    assert type(port.model).__name__ == ("HieCoAtten" if family ==
+                                         "hieCoAtten" else "MFB")
+    img, ques = _requests(cfg, B, seed=13)
+    counts = (co.launch_count, gf.launch_count)
+    got = port.predict_batch(img, ques)
+    assert (co.launch_count, gf.launch_count) == counts  # CPU: plain
+    _assert_same(got, ref.predict_batch(img, ques), atol=OTHER_PROB_ATOL)
+    streamed = list(port.predict_stream(
+        iter([(img[:5], ques[:5], None), (img, ques, None)])))
+    for a, b in zip(streamed[1], got):
+        np.testing.assert_array_equal(a.top_probs, b.top_probs)
+    for a, b in zip(streamed[0], got[:5]):
+        np.testing.assert_array_equal(a.top_ids, b.top_ids)

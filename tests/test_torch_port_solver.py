@@ -1,5 +1,7 @@
 """The port's ``Solver`` (vqa_attention_networks_tpu_torch/train/solver.py)
-against the JAX ``Solver`` on the same synthetic data and feature store.
+against the JAX ``Solver`` on the same synthetic data and feature store:
+each package gets its own ``Config``, QA data and store, made from the same
+fields, seeds and sizes.
 
 - f32, dropout 0: the same batches give the same per-step losses (rtol
   1e-5: full f32 on both sides, summation order only) and the same hit
@@ -11,18 +13,21 @@ against the JAX ``Solver`` on the same synthetic data and feature store.
 - What is not ported raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
 
-from vqa_attention_networks_tpu.config import Config
-from vqa_attention_networks_tpu.data.feature_store import (
-    make_synthetic_feature_store,
-)
-from vqa_attention_networks_tpu.data.prepare import make_synthetic_qa_data
+from vqa_attention_networks_tpu.config import Config as JaxConfig
+from vqa_attention_networks_tpu.data import feature_store as jax_store
+from vqa_attention_networks_tpu.data import prepare as jax_prepare
 from vqa_attention_networks_tpu.parallel import make_mesh
 from vqa_attention_networks_tpu.train.solver import Solver as JaxSolver
+from vqa_attention_networks_tpu_torch.config import Config
+from vqa_attention_networks_tpu_torch.data import feature_store as port_store
+from vqa_attention_networks_tpu_torch.data import prepare as port_prepare
 from vqa_attention_networks_tpu_torch.train.solver import (
     Solver,
     learning_rate,
@@ -32,15 +37,25 @@ from vqa_attention_networks_tpu_torch.weights import to_jax_params
 T = 7
 
 
-@pytest.fixture(scope="module")
-def data(tmp_path_factory):
-    rng = np.random.default_rng(0)
-    qa = make_synthetic_qa_data(rng, n_train=40, n_val=16, num_images=6,
-                                max_len=T)
-    store = make_synthetic_feature_store(
+def _make_data(tmp_path_factory, prepare, store_module):
+    qa = prepare.make_synthetic_qa_data(np.random.default_rng(0), n_train=40,
+                                        n_val=16, num_images=6, max_len=T)
+    store = store_module.make_synthetic_feature_store(
         str(tmp_path_factory.mktemp("feat")),
         sorted(set(qa.train.image_ids) | set(qa.val.image_ids)), channels=32)
     return qa, store
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    """The port's QA data and feature store."""
+    return _make_data(tmp_path_factory, port_prepare, port_store)
+
+
+@pytest.fixture(scope="module")
+def jax_data(tmp_path_factory):
+    """The JAX package's, from the same seed and sizes."""
+    return _make_data(tmp_path_factory, jax_prepare, jax_store)
 
 
 def small_cfg(qa, **kw) -> Config:
@@ -55,16 +70,23 @@ def small_cfg(qa, **kw) -> Config:
     return Config(**base).validate()
 
 
-def test_losses_match_the_jax_solver(data, tmp_path):
+def test_losses_match_the_jax_solver(data, jax_data, tmp_path):
     qa, store = data
     cfg = small_cfg(qa, dropout_lstm=0.0, dropout_fusion=0.0)
-    jax_solver = JaxSolver(cfg, qa, store, mesh=make_mesh(data=1, model=1),
+    jax_solver = JaxSolver(JaxConfig(**dataclasses.asdict(cfg)), *jax_data,
+                           mesh=make_mesh(data=1, model=1),
                            log_dir=str(tmp_path / "runs"))
     params = jax.tree_util.tree_map(np.asarray, jax_solver.params)
     port = Solver(cfg, qa, store, params=params, device="cpu")
     jax_losses, port_losses = [], []
-    for batch in port.batches["train"].epoch(0):  # 3 batches, the last padded
-        dev = jax_solver._device_batch(batch)
+    # 3 batches, the last padded; the two packages' batches are equal
+    for batch, jax_batch in zip(port.batches["train"].epoch(0),
+                                jax_solver.batches["train"].epoch(0)):
+        np.testing.assert_array_equal(batch.image_features,
+                                      jax_batch.image_features)
+        np.testing.assert_array_equal(batch.soft_answers,
+                                      jax_batch.soft_answers)
+        dev = jax_solver._device_batch(jax_batch)
         key = jax.random.fold_in(jax_solver._rng_base, jax_solver.step)
         (jax_solver.params, jax_solver.opt_state, loss,
          correct) = jax_solver._train_step(jax_solver.params,
@@ -168,7 +190,8 @@ def test_unported_persistence_and_full_val_raise(data):
                     device="cpu")
     for call in (lambda: solver.val(full=True), solver.save_checkpoint,
                  solver.restore, solver.save):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 6"):
             call()
     # a checkpoint would fall due at step 2 of the epoch: refused up front
     with pytest.raises(NotImplementedError, match="checkpoint"):

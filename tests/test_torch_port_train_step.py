@@ -43,6 +43,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_port_mhb_coatt import port_config
 from vqa_attention_networks_tpu.config import Config
 from vqa_attention_networks_tpu.models import get_model as j_get_model
 from vqa_attention_networks_tpu.ops.fusion import (
@@ -125,8 +126,8 @@ def test_f64_loss_trajectory_and_parameters_match_jax():
     imgs, quess, softs = batches(8, 0)
     cfg64 = cfg.replace(compute_dtype="float64")
 
-    model = load_jax_params(MHBCoAtt(cfg64).double(), params)
-    opt = make_optimizer(model, cfg)
+    model = load_jax_params(MHBCoAtt(port_config(cfg64)).double(), params)
+    opt = make_optimizer(model, port_config(cfg))
     port_losses, port_params = [], {}
     for s in range(8):
         soft = torch.from_numpy(softs[s])
@@ -195,7 +196,7 @@ def test_bf16_step_gradients_match_jax():
         np.asarray, model_j.init(jax.random.PRNGKey(4), cfg))
     imgs, quess, softs = batches(1, 4)
 
-    model = load_jax_params(MHBCoAtt(cfg), params)
+    model = load_jax_params(MHBCoAtt(port_config(cfg)), params)
     logits = model(torch.from_numpy(imgs[0]), torch.from_numpy(quess[0]),
                    train=True, generator=torch.Generator(), fusion_seed=0)
     loss = soft_cross_entropy(logits, torch.from_numpy(softs[0]))
@@ -228,11 +229,12 @@ def test_staircase_learning_rate_matches_optax():
     cfg = small_cfg(decay_step=2)
     schedule = optax.exponential_decay(cfg.lr, cfg.decay_step,
                                        cfg.decay_rate, staircase=True)
-    got = [learning_rate(cfg, s) for s in range(5)]
+    got = [learning_rate(port_config(cfg), s) for s in range(5)]
     want = [float(schedule(s)) for s in range(5)]
     np.testing.assert_allclose(got, want, rtol=1e-6)
     assert got[0] == cfg.lr and got[2] == cfg.lr * cfg.decay_rate
-    assert learning_rate(cfg.replace(lr_decay=False), 4) == cfg.lr
+    assert learning_rate(port_config(cfg.replace(lr_decay=False)), 4) == \
+        cfg.lr
 
 
 def test_dropout_keep_rate_scaling_and_no_op():

@@ -14,17 +14,19 @@ from typing import Callable, Tuple
 
 import torch
 
-from vqa_attention_networks_tpu.config import Config
+from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch.models.layers import DTYPES
 
 
 def serving_forward(cfg: Config, topk: int,
                     input_dtype: str = "float16") -> Callable[
                         ..., Tuple[torch.Tensor, torch.Tensor]]:
-    """THE serving forward. Returns ``fwd(model, img, ques, qlen)`` for the
-    f16 feed, ``fwd(model, img_q, scale, ques, qlen)`` for the int8 feed;
-    each gives (top ids [N, k] int64, top probabilities [N, k] f32). The
-    top-k is clamped to the answer vocab, as in the JAX function."""
+    """THE serving forward of every ported family. Returns ``fwd(model,
+    img, ques, qlen)`` for the f16 feed, ``fwd(model, img_q, scale, ques,
+    qlen)`` for the int8 feed; each gives (top ids [N, k] int64, top
+    probabilities [N, k] f32). ``qlen`` is taken for the JAX signature: the
+    ported families read no lengths. The top-k is clamped to the answer
+    vocab, as in the JAX function."""
     topk = min(topk, cfg.a_vocab_size)
 
     def _head(logits: torch.Tensor):
@@ -37,7 +39,7 @@ def serving_forward(cfg: Config, topk: int,
     if input_dtype == "int8":
         # quantized feed: dequantise on the device, one multiply
         def fwd_int8(model, img_q, scale, ques, qlen):
-            del qlen  # mhb_coAtt reads no lengths
+            del qlen  # the ported families read no lengths
             dt = DTYPES[cfg.compute_dtype]
             img = img_q.to(dt) * scale[:, None, :].to(dt)
             return _head(model(img, ques))
@@ -47,7 +49,7 @@ def serving_forward(cfg: Config, topk: int,
         raise ValueError(f"input_dtype {input_dtype!r}: float16 or int8")
 
     def fwd(model, img, ques, qlen):
-        del qlen
+        del qlen  # the ported families read no lengths
         return _head(model(img, ques))
 
     return fwd

@@ -44,6 +44,9 @@
 //   train_fusion_forward  grid (ceil(O/32), ceil(M/128)): a [128, 32k]
 //       tile of z0 = img @ W on the tensor cores, then bias, *q, mask,
 //       k-pool and signed sqrt in the epilogue -> out [128, 32].
+//   train_fusion_inference_forward  the same kernel with the mask compiled
+//       out: kernel K5, the inference fusion (pallas_fusion.py
+//       _grid_fuse_pallas), which computes exactly the forward at rate 0.
 //   train_fusion_d_img    grid (ceil(D/128), ceil(M/128)): a [128, 128]
 //       d_img tile, looping over all of F in 32-channel chunks of g_prod.
 //   train_fusion_d_w      grid (ceil(F/128), ceil(D/128)): a [128, 128]
@@ -147,7 +150,8 @@ __device__ __forceinline__ float g_prod_at(
 // ---------------------------------------------------------------------------
 // forward: out = signed_sqrt(k-pool(((img @ W + b) * q) * mask * inv_keep))
 // ---------------------------------------------------------------------------
-template <int K>
+// kMask false compiles the mask out: the inference fusion (K5)
+template <int K, bool kMask>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const bf16* __restrict__ img,  // [M, D]
                const bf16* __restrict__ w,    // [D, F]
@@ -232,7 +236,7 @@ __global__ void __launch_bounds__(kThreads)
           const int c = o * K + j;
           const float z0 = __fadd_rn(st[r * kWarpCols + oo * K + j], b[c]);
           float zd = __fmul_rn(z0, q[(size_t)n * f + c]);
-          if (thr != 0u)
+          if (kMask && thr != 0u)
             zd = __fmul_rn(zd, keep_scale(seed, thr, inv_keep,
                                           (unsigned long long)m * f + c));
           pooled = j == 0 ? zd : __fadd_rn(pooled, zd);
@@ -502,7 +506,7 @@ bool dims_ok(int n, int l, int d, int f, int k) {
          f % 8 == 0 && (long long)n * l <= 65535LL * kTileM;
 }
 
-template <int K>
+template <int K, bool kMask>
 int launch_fwd(const void* img, const void* w, const void* b, const void* q,
                void* out, int mrows, int l, int d, int f, uint32_t seed,
                uint32_t thr, float inv_keep, cudaStream_t s) {
@@ -510,15 +514,34 @@ int launch_fwd(const void* img, const void* w, const void* b, const void* q,
   const int smem_stage = kWarps * 16 * 16 * K * 4;
   const int smem = smem_ab > smem_stage ? smem_ab : smem_stage;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fwd_kernel<K, kMask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((f / K + kFwdOut - 1) / kFwdOut,
                   (mrows + kTileM - 1) / kTileM);
-  fwd_kernel<K><<<grid, kThreads, smem, s>>>(
+  fwd_kernel<K, kMask><<<grid, kThreads, smem, s>>>(
       static_cast<const bf16*>(img), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const float*>(q),
       static_cast<float*>(out), mrows, l, d, f, seed, thr, inv_keep);
   return (int)cudaGetLastError();
+}
+
+template <bool kMask>
+int launch_fwd_k(const void* img, const void* w, const void* b,
+                 const void* q, void* out, int m, int l, int d, int f, int k,
+                 uint32_t seed, uint32_t thr, float inv_keep,
+                 cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_fwd<1, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 2: return launch_fwd<2, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 3: return launch_fwd<3, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 4: return launch_fwd<4, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 5: return launch_fwd<5, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 6: return launch_fwd<6, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 7: return launch_fwd<7, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 8: return launch_fwd<8, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -530,19 +553,20 @@ int train_fusion_forward(const void* img, const void* w, const void* b,
                          int k, uint32_t seed, uint32_t thr, float inv_keep,
                          void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int m = n * l;
-  switch (k) {
-    case 1: return launch_fwd<1>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 2: return launch_fwd<2>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 3: return launch_fwd<3>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 4: return launch_fwd<4>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 5: return launch_fwd<5>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 6: return launch_fwd<6>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 7: return launch_fwd<7>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 8: return launch_fwd<8>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_fwd_k<true>(img, w, b, q, out, n * l, l, d, f, k, seed, thr,
+                            inv_keep, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K5, the inference fusion (replaces _grid_fuse_pallas, vqa_attention_
+// networks_tpu/ops/pallas_fusion.py): the forward above with the mask
+// compiled out, out = signed_sqrt(k-pool((img @ W + b) * q)), f32 [N, L, O].
+int train_fusion_inference_forward(const void* img, const void* w,
+                                   const void* b, const void* q, void* out,
+                                   int n, int l, int d, int f, int k,
+                                   void* stream) {
+  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+  return launch_fwd_k<false>(img, w, b, q, out, n * l, l, d, f, k, 0u, 0u,
+                             1.0f, reinterpret_cast<cudaStream_t>(stream));
 }
 
 int train_fusion_d_img(const void* g, const void* out, const void* w,

@@ -1,28 +1,37 @@
 """Model registry (port of ``vqa_attention_networks_tpu/models/__init__.py``).
 
-Only ``mhb_coAtt`` is ported so far; every other family raises
-``NotImplementedError`` naming its ROADMAP item.
+``mhb_coAtt``, ``hieCoAtten``, ``mfb`` and ``mfb-multilayer`` are ported;
+every other family raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
-from vqa_attention_networks_tpu.config import MODEL_NAMES
+from vqa_attention_networks_tpu_torch.config import MODEL_NAMES
+
+# the training forward of the families served but not yet trained
+TRAINING_PENDING = ("ROADMAP Queue 1 item 7 (training of hieCoAtten, mfb "
+                    "and mfb-multilayer)")
 
 _PENDING = {
-    "mfb": "ROADMAP Queue 1 item 7 (other families)",
-    "mfb-multilayer": "ROADMAP Queue 1 item 7 (other families)",
-    "mhb": "ROADMAP Queue 1 item 7 (other families)",
-    "hieCoAtten": "ROADMAP Queue 1 item 7 (other families, with kernel K4)",
-    "visLstm": "ROADMAP Queue 1 item 7 (other families)",
-    "iBOWIMG": "ROADMAP Queue 1 item 7 (other families)",
-    "attentionNet": "ROADMAP Queue 1 item 7 (other families)",
+    name: "ROADMAP Queue 1 item 7 (other families)"
+    for name in ("mhb", "visLstm", "iBOWIMG", "attentionNet")
 }
 
 
 def get_model(name: str):
-    """The ``nn.Module`` class of a model family."""
+    """The ``nn.Module`` class of a model family; it takes the ``Config``."""
     if name == "mhb_coAtt":
         from vqa_attention_networks_tpu_torch.models.mhb_coatt import MHBCoAtt
 
         return MHBCoAtt
+    if name == "hieCoAtten":
+        from vqa_attention_networks_tpu_torch.models.hiecoatten import (
+            HieCoAtten,
+        )
+
+        return HieCoAtten
+    if name in ("mfb", "mfb-multilayer"):
+        from vqa_attention_networks_tpu_torch.models.mfb import MFB
+
+        return MFB
     if name in _PENDING:
         raise NotImplementedError(
             f"model {name!r} is not ported to PyTorch yet: {_PENDING[name]}"

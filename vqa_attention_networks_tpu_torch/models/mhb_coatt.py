@@ -10,7 +10,10 @@ Dispatch rule (``mhb_coatt.py:155-160``): at bf16 with
 ``cfg.fast_path != "composed"`` the stage-1 fusion and co-attention run as
 one call of K1 (``ops/wq_fusion.stage1_coattention``) — "auto", "pallas" and
 "pallas_pair" all take the one kernel; otherwise the composed chain runs
-(the weight-contracted fusion at bf16, the exact f32 chain at f32).
+(the weight-contracted fusion at bf16, or K5 under ``VQA_FORCE_PALLAS``;
+the exact f32 chain at f32). The two glimpse blocks of the eval forward,
+over the question and (composed) over the fused grid, run as K7 at bf16
+under ``VQA_PALLAS_GLIMPSE`` (``ops/attention.py``).
 
 The plain MHB model and the training forward come with later slices.
 """
@@ -22,7 +25,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from vqa_attention_networks_tpu.config import Config
+from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch.models import layers as L
 from vqa_attention_networks_tpu_torch.ops.attention import glimpse_attention
 from vqa_attention_networks_tpu_torch.ops.fusion import (
@@ -151,8 +154,7 @@ class MHBCoAtt(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         fusion_seed: Optional[int] = None,
-        reference_stage1: bool = False,
-        reference_train_fusion: bool = False,
+        reference_kernels: bool = False,
     ) -> torch.Tensor:
         """-> f32 logits [N, a_vocab].
 
@@ -161,9 +163,9 @@ class MHBCoAtt(nn.Module):
         stage-1 fusion when it is composed, output fusion 2, then 3), and
         K2's mask from ``fusion_seed``.
 
-        ``reference_stage1=True`` (eval) and ``reference_train_fusion=True``
-        (training) run K1's and K2's plain PyTorch versions in place of the
-        kernels on any device — for the comparisons of the tests and
+        ``reference_kernels=True`` runs the plain PyTorch version of every
+        kernel on the path (K1, K5 and K7 in eval, K2 in training) in place
+        of the kernel on any device — for the comparisons of the tests and
         ``chip_smoke.py`` only."""
         cfg = self.cfg
         dtype = L.DTYPES[cfg.compute_dtype]
@@ -176,29 +178,30 @@ class MHBCoAtt(nn.Module):
         h_seq = self.lstm(emb)  # [N, T, H]
         if train:
             return self._train_forward(img, h_seq, generator, fusion_seed,
-                                       reference_train_fusion)
+                                       reference_kernels)
         q_att = glimpse_attention(
             h_seq, self.ques_att_conv1.weight, self.ques_att_conv1.bias,
             self.ques_att_conv2.weight, self.ques_att_conv2.bias, h_seq,
-            uniform_quirk=False,
+            uniform_quirk=False, reference_kernel=reference_kernels,
         )
         q_proj = self.ques_proj1(q_att)
 
         if dtype == torch.bfloat16 and cfg.fast_path != "composed":
             sw = self.stage1_weights()
-            if reference_stage1:
+            if reference_kernels:
                 v_att = wqf.stage1_coattention_reference(img, q_proj, sw)
             else:
                 v_att = wqf.stage1_coattention(img, q_proj, sw)
         else:
             fused = grid_fuse(img, self.img_conv1d.weight.t(),
-                              self.img_conv1d.bias, q_proj, cfg.mfb_factor)
+                              self.img_conv1d.bias, q_proj, cfg.mfb_factor,
+                              reference_kernel=reference_kernels)
             fused = L.l2_normalize(fused.reshape(n, -1)).reshape(fused.shape)
             v_att = glimpse_attention(
                 fused.to(img.dtype),
                 self.co_att_conv1.weight, self.co_att_conv1.bias,
                 self.co_att_conv2.weight, self.co_att_conv2.bias, img,
-                uniform_quirk=False,
+                uniform_quirk=False, reference_kernel=reference_kernels,
             )
 
         out2 = self._output_fusion("2", q_att, v_att)

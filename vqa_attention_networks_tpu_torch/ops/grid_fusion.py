@@ -1,11 +1,21 @@
-"""``grid_fuse`` (port of ``vqa_attention_networks_tpu/ops/pallas_fusion.py``).
+"""``grid_fuse`` (port of ``vqa_attention_networks_tpu/ops/pallas_fusion.py``),
+with the inference fusion kernel K5.
 
 Inference:
 
-- f32: ``_grid_fuse_reference`` — (img @ W + b) * q, k-pool, signed sqrt,
+- f32: ``grid_fuse_reference`` — (img @ W + b) * q, k-pool, signed sqrt,
   all in full f32.
-- bf16: the weight-contracted formulation (``ops/fusion.py``), which is what
-  the JAX dispatcher runs at bf16 unless ``VQA_FORCE_PALLAS`` is set.
+- bf16: the weight-contracted formulation (``ops/fusion.py``), unless
+  ``VQA_FORCE_PALLAS`` is set (read at each call, as
+  ``pallas_fusion.py:267`` reads it). With it set, K5 computes the full
+  fusion, f32 [N, L, O]: on a CUDA tensor the hand-written kernel (the K2
+  forward kernel with its mask compiled out, ``csrc/train_fusion.cu``
+  ``train_fusion_inference_forward``), on a CPU tensor its plain version
+  ``grid_fuse_reference``. The operands are those of
+  ``_grid_fuse_pallas`` (``pallas_fusion.py:106-108``): W rounded to img's
+  dtype, b and q exact in f32. The JAX gates ``n % 4`` and ``F % k`` of
+  the TPU kernel's blocks do not apply: the port's K5 masks its edges.
+  K5 has no autograd path: no caller differentiates the eval forward.
 
 Training at ``site="prepool"`` (``pallas_fusion.py:237-260``), with the
 dropout mask on the pre-pool product:
@@ -16,12 +26,12 @@ dropout mask on the pre-pool product:
   function.)
 - otherwise: the composed chain with its dropout.
 
-``site="pooled"`` (K3) and the full-width inference kernel (K5,
-``_grid_fuse_pallas``) wait for later slices.
+``site="pooled"`` (K3) waits for a later slice.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -36,18 +46,46 @@ from vqa_attention_networks_tpu_torch.ops.fusion import (
     mfb_sumpool,
 )
 
+# K5 launches made by grid_fuse (one per call on a CUDA tensor)
+launch_count = 0
+
 
 def grid_fuse_reference(img: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         q_proj: torch.Tensor, k: int, *, rate: float = 0.0,
                         generator: Optional[torch.Generator] = None,
                         ) -> torch.Tensor:
-    """The composed oracle: f32 accumulation, output in f32 (or wider);
-    with ``rate > 0`` the pre-pool product takes its dropout."""
+    """The composed oracle and K5's plain version: f32 accumulation, output
+    in f32 (or wider); with ``rate > 0`` the pre-pool product takes its
+    dropout."""
     acc = torch.promote_types(img.dtype, torch.float32)
     z = torch.matmul(img.to(acc), w.to(img.dtype).to(acc))
     z = (z + b.to(acc)) * q_proj[:, None, :].to(acc)
     z = dropout(z, rate, True, generator)
     return signed_sqrt(mfb_sumpool(z, k))
+
+
+def inference_fusion_cuda(img: torch.Tensor, w: torch.Tensor,
+                          b: torch.Tensor, q_proj: torch.Tensor,
+                          k: int) -> torch.Tensor:
+    """Launch K5 -> f32 [N, L, O]. Raises on an input it does not take and
+    on a refused launch."""
+    global launch_count
+    w_bf16, bf, qf = train_fusion.operands(w, b, q_proj)
+    train_fusion.check_inputs(img, w_bf16, bf, qf, k, 0.0)
+    n, l, d = img.shape
+    f = w_bf16.shape[1]
+    out = torch.empty(n, l, f // k, dtype=torch.float32, device=img.device)
+    lib = train_fusion.library()
+    rc = lib.train_fusion_inference_forward(
+        img.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), qf.data_ptr(),
+        out.data_ptr(), n, l, d, f, k,
+        torch.cuda.current_stream(img.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"train_fusion inference_forward launch failed: CUDA error {rc} "
+            f"({lib.train_fusion_error_string(rc).decode()})")
+    launch_count += 1
+    return out
 
 
 def grid_fuse(
@@ -64,15 +102,20 @@ def grid_fuse(
     generator: Optional[torch.Generator] = None,
     reference_kernel: bool = False,
 ) -> torch.Tensor:
-    """Eval: weight-contracted at bf16, the composed chain else. Training:
-    K2 at bf16 with ``rate > 0`` (its mask from ``seed``), the composed
-    chain with dropout from ``generator`` else. ``reference_kernel=True``
-    runs K2's plain version in place of the kernels on any device, for the
+    """Eval: at bf16 K5 under ``VQA_FORCE_PALLAS`` and the weight-contracted
+    formulation without it, the composed chain else. Training: K2 at bf16
+    with ``rate > 0`` (its mask from ``seed``), the composed chain with
+    dropout from ``generator`` else. ``reference_kernel=True`` runs K5's or
+    K2's plain version in place of the kernels on any device, for the
     comparisons of the tests and ``chip_smoke.py`` only."""
     if not train:
-        if img.dtype == torch.bfloat16:
+        if img.dtype != torch.bfloat16:
+            return grid_fuse_reference(img, w, b, q_proj, k)
+        if not os.environ.get("VQA_FORCE_PALLAS"):
             return grid_fuse_weight_contracted(img, w, b, q_proj, k)
-        return grid_fuse_reference(img, w, b, q_proj, k)
+        if reference_kernel or img.device.type == "cpu":
+            return grid_fuse_reference(img, w, b, q_proj, k)
+        return inference_fusion_cuda(img, w, b, q_proj, k)
     if site == "pooled":
         raise NotImplementedError(
             "dropout_site='pooled' training (kernel K3) is not ported yet: "

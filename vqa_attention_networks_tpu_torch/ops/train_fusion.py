@@ -223,7 +223,7 @@ def train_grid_fuse_reference(img, w, b, q, seed: int, k: int,
 # --------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
     from vqa_attention_networks_tpu_torch.ops import _build
 
     lib = _build.load("train_fusion")
@@ -235,14 +235,18 @@ def _library() -> ctypes.CDLL:
     lib.train_fusion_d_img.argtypes = [p] * 5 + tail  # g out w q d_img
     lib.train_fusion_d_w.argtypes = [p] * 6 + tail  # g out img q d_w d_b
     lib.train_fusion_d_q.argtypes = [p] * 6 + tail  # g out img w b d_q
-    for name in ("forward", "d_img", "d_w", "d_q"):
+    # K5 (ops/grid_fusion.py): img w b q out, n, l, d, f, k, stream
+    lib.train_fusion_inference_forward.argtypes = [p] * 5 + [i] * 5 + [p]
+    for name in ("forward", "d_img", "d_w", "d_q", "inference_forward"):
         getattr(lib, f"train_fusion_{name}").restype = ctypes.c_int
     lib.train_fusion_error_string.argtypes = [ctypes.c_int]
     lib.train_fusion_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_inputs(img, w_bf16, b, q, k: int, rate: float) -> None:
+def check_inputs(img, w_bf16, b, q, k: int, rate: float) -> None:
+    """Raise on operands the forward kernel (K2's, and K5's, which is the
+    same kernel with the mask compiled out) does not take."""
     if img.device.type != "cuda":
         raise ValueError(f"the K2 kernels need a CUDA tensor, got {img.device}")
     if img.dtype != torch.bfloat16 or w_bf16.dtype != torch.bfloat16:
@@ -291,7 +295,7 @@ def _launch(name: str, pointers, img, w_bf16, seed: int, k: int,
     n, l, d = img.shape
     thr = thr_keep(rate) if rate > 0 else 0  # 0: rate 0, no bits drawn
     stream = torch.cuda.current_stream(img.device).cuda_stream
-    lib = _library()
+    lib = library()
     rc = getattr(lib, f"train_fusion_{name}")(
         *pointers, n, l, d, w_bf16.shape[1], k, int(seed) & _MASK32, thr,
         1.0 / (1.0 - rate), stream)
@@ -316,7 +320,7 @@ def _check_grad(g, out, img, w_bf16, k: int) -> None:
 
 def forward_cuda(img, w_bf16, b, q, seed: int, k: int,
                  rate: float) -> torch.Tensor:
-    _check_inputs(img, w_bf16, b, q, k, rate)
+    check_inputs(img, w_bf16, b, q, k, rate)
     n, l, _ = img.shape
     out = torch.empty(n, l, w_bf16.shape[1] // k, dtype=torch.float32,
                       device=img.device)
@@ -328,7 +332,7 @@ def forward_cuda(img, w_bf16, b, q, seed: int, k: int,
 
 def d_img_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
                rate: float) -> torch.Tensor:
-    _check_inputs(img, w_bf16, b, q, k, rate)
+    check_inputs(img, w_bf16, b, q, k, rate)
     _check_grad(g, out, img, w_bf16, k)
     d_img = torch.empty_like(img)
     _launch("d_img", (g.data_ptr(), out.data_ptr(), w_bf16.data_ptr(),
@@ -338,7 +342,7 @@ def d_img_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
 
 
 def d_w_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
-    _check_inputs(img, w_bf16, b, q, k, rate)
+    check_inputs(img, w_bf16, b, q, k, rate)
     _check_grad(g, out, img, w_bf16, k)
     d, f = w_bf16.shape
     d_w = torch.empty(d, f, dtype=torch.float32, device=img.device)
@@ -351,7 +355,7 @@ def d_w_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
 
 def d_q_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
              rate: float) -> torch.Tensor:
-    _check_inputs(img, w_bf16, b, q, k, rate)
+    check_inputs(img, w_bf16, b, q, k, rate)
     _check_grad(g, out, img, w_bf16, k)
     d_q = torch.empty(img.shape[0], w_bf16.shape[1], dtype=torch.float32,
                       device=img.device)

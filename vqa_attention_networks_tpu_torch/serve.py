@@ -1,10 +1,14 @@
 """Batched inference engine on one device (port of ``InferenceEngine`` in
 ``vqa_attention_networks_tpu/serve.py``).
 
+- Any ported family (``models.get_model``: mhb_coAtt, hieCoAtten, mfb,
+  mfb-multilayer), chosen by ``cfg.model_name``.
 - One fixed batch size: smaller requests are padded, and the padding is
   dropped from the results.
-- bf16 activations and f32 logits; on a CUDA device the stage-1 fusion and
-  co-attention run in the hand-written K1 kernel.
+- bf16 activations and f32 logits; on a CUDA device the family's eval
+  forward launches its hand-written kernels (K1 for mhb_coAtt, K4 for
+  hieCoAtten; K5 and K7 under their switches, ``ops/grid_fusion.py`` and
+  ``ops/attention.py``).
 - ``predict_stream`` keeps one batch in flight: PyTorch's launches return
   before the device finishes, so the host assembles batch t+1 while the
   device runs batch t; ``_collect`` is where the results are copied to the
@@ -22,7 +26,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from vqa_attention_networks_tpu.config import Config
+from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch import aot
 from vqa_attention_networks_tpu_torch.device import cuda_device
 from vqa_attention_networks_tpu_torch.models import get_model

@@ -10,7 +10,7 @@ batch, for ``mhb_coAtt``.
   0.999, eps 1e-8) and the staircase schedule of ``solver.py:159-166``:
   step s runs at ``lr * decay_rate ** (s // decay_step)``. optax reads its
   count before incrementing it, so step 0 runs at ``lr``.
-- **Batches**: ``VqaBatches`` and ``prefetch`` of the framework-free
+- **Batches**: ``VqaBatches`` and ``prefetch`` of the port's
   ``data/dataset.py``, as the JAX Solver feeds them.
 - **The train step** (``solver.py:269-347`` with ``grad_accum_steps=1``
   and no remat): the training forward, the loss with its ``valid`` mask,
@@ -41,10 +41,14 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from vqa_attention_networks_tpu.config import Config
-from vqa_attention_networks_tpu.data.dataset import Batch, VqaBatches, prefetch
-from vqa_attention_networks_tpu.data.feature_store import FeatureStore
-from vqa_attention_networks_tpu.data.prepare import QAData
+from vqa_attention_networks_tpu_torch.config import Config
+from vqa_attention_networks_tpu_torch.data.dataset import (
+    Batch,
+    VqaBatches,
+    prefetch,
+)
+from vqa_attention_networks_tpu_torch.data.feature_store import FeatureStore
+from vqa_attention_networks_tpu_torch.data.prepare import QAData
 from vqa_attention_networks_tpu_torch.device import cuda_device
 from vqa_attention_networks_tpu_torch.models import get_model
 from vqa_attention_networks_tpu_torch.models.mhb_coatt import init_params
@@ -97,7 +101,7 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     logits = model(img, ques, train=True, generator=generator,
                    fusion_seed=fusion_seed,
-                   reference_train_fusion=reference_kernels)
+                   reference_kernels=reference_kernels)
     loss = loss_fn(logits)
     loss.backward()
     optimizer.step()
@@ -105,6 +109,9 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def _check_ported(cfg: Config, store: FeatureStore) -> None:
+    if cfg.model_name != "mhb_coAtt":
+        raise _unported(f"training {cfg.model_name!r}",
+                        "ROADMAP Queue 1 item 7 (other families)")
     if cfg.data_parallel > 1 or cfg.model_parallel > 1:
         raise _unported("data_parallel / model_parallel > 1", _MULTI_GPU_ITEM)
     switches = {
