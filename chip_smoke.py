@@ -42,34 +42,57 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 8. times: each K2 launch and its plain version at N = 64, the forward,
    backward and forward + backward through the autograd functions, and ms
    per training step and training qa-pairs/s of the kernel and plain runs;
-9. K4 (hieCoAtten's co-attention core) against its plain version at
-   N = 8 and 256, L = 196, T = 22, E = 512, on v, q, av and aq, with inputs
-   that peak both softmaxes (the largest av well above 1/196) and a
-   control: the plain outputs with whv and whq zeroed (uniform maps) must
-   be rejected on most elements;
-10. full-width bf16 hieCoAtten served through ``predict_stream`` (batch
+9. K3 (the pooled-site training fusion: forward, d_img, d_W/d_b/d_q)
+   against its plain PyTorch version at production widths (L=196, D=2048,
+   O=1000, k=5), N = 8 and 64: each launch on the same inputs as its plain
+   version, the backward launches on the kernel's own forward output;
+   bit-equal reruns, finite values, the forced zeros of pooled (a zero
+   image row with zero bias, and outputs with zero weights and bias) zero
+   in both; and controls that must be rejected: the plain forward with q
+   permuted across samples, d_W with another sample's q, and d_W, d_b and
+   d_img with the zero rule of g_pooled removed;
+10. pooled-site training: the port's ``Solver`` on
+    ``Config(compute_dtype="bfloat16", dropout_site="pooled")`` at full
+    width, batch 64, 20 steps with K3, the same 20 steps with its plain
+    version and 20 on one repeated batch, with the gates of phase 7 and
+    K3's launch counts (forward and d_W once a step, d_img never);
+11. mfb training, ``keep_reference_quirks=False`` (with the quirk the
+    stage-1 fusion is gradient-dead): mfb at the pre-pool site (K2), mfb
+    and mfb-multilayer at the pooled site (K3), 10 steps each with the
+    same runs and gates; then one quirk-on mfb step, in which no gradient
+    reaches ``img_conv1d`` or ``ques_proj1`` and K3's backward never
+    launches;
+12. times: each K3 launch and its plain version at N = 64 (each training
+    run of phases 7, 10 and 11 prints its ms per step and training
+    qa-pairs/s, kernel and plain, as it ends);
+13. K4 (hieCoAtten's co-attention core) against its plain version at
+    N = 8 and 256, L = 196, T = 22, E = 512, on v, q, av and aq, with inputs
+    that peak both softmaxes (the largest av well above 1/196) and a
+    control: the plain outputs with whv and whq zeroed (uniform maps) must
+    be rejected on most elements;
+14. full-width bf16 hieCoAtten served through ``predict_stream`` (batch
     256, 2048 requests): K4's launch count, flips against the same forward
     with K4's plain version (at most 0.1%), and a control: the answers of
     the model with whv and whq zeroed must count as flips;
-11. K5 (the inference fusion, the K2 forward kernel with the mask compiled
+15. K5 (the inference fusion, the K2 forward kernel with the mask compiled
     out) against its plain version at production widths, N = 8 and 256,
     bit-equal reruns, and a control: the plain output with q permuted
     across samples must be rejected;
-12. full-width bf16 mfb and mfb-multilayer served with ``VQA_FORCE_PALLAS``
+16. full-width bf16 mfb and mfb-multilayer served with ``VQA_FORCE_PALLAS``
     and ``keep_reference_quirks=False`` (with the quirk the stage-1 fusion
     is value-dead and a broken K5 would pass unseen): K5's launch count,
     flips against K5's plain version, and a control (the fusion's weights
     zeroed must flip the answers); then, with the quirk on, the logits are
     bit-equal whether or not K5's output is zeroed: the dead fusion;
-13. K7 (the glimpse block) against its plain version at its two call
+17. K7 (the glimpse block) against its plain version at its two call
     shapes (the question glimpse, N = 256, P = 22, C = 1024, A = 512,
     D = 1024; the co-attention, P = 196, C = 1000, D = 2048), in both
     ``uniform_quirk`` modes, with a control: a uniform pool must be
     rejected;
-14. full-width bf16 mhb_coAtt served with ``VQA_PALLAS_GLIMPSE`` (K1 and K7)
+18. full-width bf16 mhb_coAtt served with ``VQA_PALLAS_GLIMPSE`` (K1 and K7)
     and with ``fast_path="composed"`` plus both switches (K5 and K7): the
     launch counts and flips against the plain versions;
-15. times: K4, K5 and K7 against their plain versions at N = 256;
+19. times: K4, K5 and K7 against their plain versions at N = 256;
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -107,6 +130,7 @@ from vqa_attention_networks_tpu_torch.ops import _build
 from vqa_attention_networks_tpu_torch.ops import attention as att
 from vqa_attention_networks_tpu_torch.ops import coattention as co
 from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
+from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
@@ -188,6 +212,32 @@ K4_SHAPE = dict(l=196, t=22, e=512)
 # (N, P, C, A, D) of K7's two call shapes on mhb_coAtt's eval path
 K7_SHAPES = {"question": (256, 22, 1024, 512, 1024),
              "co_attention": (256, 196, 1000, 512, 2048)}
+K3_SOURCE = "vqa_attention_networks_tpu_torch/csrc/pooled_fusion.cu"
+# the pallas_call each K3 launch replaces (pallas_pooled_fusion.py)
+K3_REPLACES = {
+    "forward": "vqa_attention_networks_tpu/ops/pallas_pooled_fusion.py:218",
+    "d_img": "vqa_attention_networks_tpu/ops/pallas_pooled_fusion.py:257",
+    "d_w": "vqa_attention_networks_tpu/ops/pallas_pooled_fusion.py:295",
+}
+K3_NS = (8, 64)
+# K3 against its plain version, per tensor: |diff| <= K3_RTOL * max |plain|.
+# The two share every rounding point (wq's f32 sum over j in order and its
+# bf16 rounding, bf16 g_pooled, f32 products) and differ only in the order
+# of their f32 sums: the D=2048 contraction of the forward, the O=1000 of
+# d_img, the L=196 of d_wq, and d_W's, d_b's and d_q's sums over N and D.
+# That moves a result by a few f32 ulps of its largest terms, far below 1e-4
+# of the tensor's largest value; the forward is held as pooled = out * |out|.
+# d_img stays f32 here (the autograd function casts it to img's dtype).
+K3_RTOL = 1e-4
+K3_DEAD_OUTPUTS = 3  # outputs with zero weights and bias in k3_check
+# the training runs of each training fusion's path: mfb is trained with the
+# quirk off (with it the stage-1 fusion is gradient-dead, and K2's or K3's
+# backward never runs); MFB_TRAIN_STEPS steps each
+MFB_TRAIN_STEPS = 10
+MFB_TRAIN_RUNS = (("mfb", "prepool", "K2"), ("mfb", "pooled", "K3"),
+                  ("mfb-multilayer", "pooled", "K3"))
+# launch counters of the training fusions, by kernel
+TRAIN_COUNTERS = {"K2": tf.launch_count, "K3": pf.launch_count}
 # the card's rates for the bounds (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -501,6 +551,152 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
         say("k2_time", autograd=name, n=n, rate=rate, kernel_ms=k_ms,
             plain_ms=p_ms, kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
             card=smi)
+    return times, bounds
+
+
+def k3_launches(img, w_bf16, b, q, g) -> dict:
+    """Every K3 launch once; the backward ones on the kernel's own forward
+    output."""
+    got = {"forward": pf.forward_cuda(img, w_bf16, b, q, K2_K)}
+    args = (g, got["forward"], img, w_bf16, b, q, K2_K)
+    got["d_img"] = pf.d_img_cuda(*args)
+    got["d_w"], got["d_b"], got["d_q"] = pf.d_w_cuda(*args)
+    return got
+
+
+def k3_plain(img, w_bf16, b, q, g, out) -> dict:
+    """The plain version of every K3 launch; the backward ones on ``out``."""
+    want = {"forward": pf.forward_reference(img, w_bf16, b, q, K2_K),
+            "d_img": pf.d_img_reference(g, out, w_bf16, q, K2_K)}
+    want["d_w"], want["d_b"], want["d_q"] = pf.d_w_reference(
+        g, out, img, w_bf16, b, q, K2_K)
+    return want
+
+
+def k3_within(name: str, got: torch.Tensor,
+              want: torch.Tensor) -> torch.Tensor:
+    """Elementwise: is ``got`` within K3_RTOL of ``want``'s largest
+    magnitude (the forward as pooled = out * |out|)?"""
+    got, want = k2_view(name, got), k2_view(name, want)
+    return (got - want).abs() <= K3_RTOL * want.abs().max()
+
+
+def k3_check(n: int, cfg: Config, device) -> dict:
+    """K3 at production widths against its plain version, with controls;
+    raises on a failure. Returns max |diff| per launch. The inputs are
+    K2's (region 0 of sample 0 is all zeros and the bias of the first
+    K2_FORCED_ZEROS outputs is 0, so those outputs pool to exactly 0 in
+    that row), and the last K3_DEAD_OUTPUTS outputs, at the ragged edge of
+    every O tile, have zero weights and bias, so they pool to exactly 0 in
+    every row: the places where g_pooled's zero rule acts."""
+    img, w, b, q, g = k2_inputs(n, 300 + n, cfg, device)
+    dead = slice(w.shape[1] - K3_DEAD_OUTPUTS * K2_K, None)
+    w[:, dead] = 0.0
+    b[dead] = 0.0
+    w_bf16, bf, qb = pf.operands(w, b, q)
+    got = k3_launches(img, w_bf16, bf, qb, g)
+    again = k3_launches(img, w_bf16, bf, qb, g)
+    out = got["forward"]
+    want = k3_plain(img, w_bf16, bf, qb, g, out)
+    torch.cuda.synchronize()
+    fields, max_abs, failed = {}, {}, []
+    for name in got:
+        diff = k2_view(name, got[name]) - k2_view(name, want[name])
+        max_abs[name] = float((got[name] - want[name]).abs().max())
+        fields[name] = {
+            "max_abs_diff": max_abs[name],
+            "max_rel_diff_checked": float(diff.abs().max()) / float(
+                k2_view(name, want[name]).abs().max()),
+            "within_tolerance": bool(k3_within(name, got[name],
+                                               want[name]).all()),
+            "rerun_bit_equal": bool(torch.equal(got[name], again[name])),
+            "finite": bool(torch.isfinite(got[name]).all()),
+        }
+        if not all(fields[name][key] for key in
+                   ("within_tolerance", "rerun_bit_equal", "finite")):
+            failed.append(name)
+    forced = torch.zeros_like(out, dtype=torch.bool)
+    forced[0, 0, :K2_FORCED_ZEROS] = True
+    forced[..., -K3_DEAD_OUTPUTS:] = True
+    fields["zeros"] = {
+        "kernel": int((out == 0).sum()),
+        "plain": int((want["forward"] == 0).sum()),
+        "forced": int(forced.sum()),
+        "forced_zero_in_both": bool((out[forced] == 0).all() and (
+            want["forward"][forced] == 0).all())}
+    if not fields["zeros"]["forced_zero_in_both"]:
+        failed.append("zeros")
+    # controls: q permuted across samples in the forward, another sample's
+    # q in d_W, and g_pooled without its zero rule (out == 0 taken as
+    # 1e-20, the clamp alone): d_W and d_b see it at the dead outputs
+    # (img is not 0 there), d_img at the zero region (wq is not 0 there)
+    perm = pf.forward_reference(img, w_bf16, bf, qb.roll(1, 0), K2_K)
+    other_q = pf.d_w_reference(g, out, img, w_bf16, bf, qb.roll(1, 0),
+                               K2_K)[0]
+    clamped = torch.where(out == 0, torch.full_like(out, 1e-20), out)
+    no_rule_w, no_rule_b, _ = pf.d_w_reference(g, clamped, img, w_bf16, bf,
+                                               qb, K2_K)
+    no_rule_img = pf.d_img_reference(g, clamped, w_bf16, qb, K2_K)
+    controls = {
+        "permuted_q_rejected_share": 1.0 - float(
+            k3_within("forward", perm, want["forward"]).float().mean()),
+        "d_w_with_another_samples_q_rejected": not bool(
+            k3_within("d_w", other_q, want["d_w"]).all()),
+        "d_w_without_zero_rule_rejected": not bool(
+            k3_within("d_w", no_rule_w, want["d_w"]).all()),
+        "d_b_without_zero_rule_rejected": not bool(
+            k3_within("d_b", no_rule_b, want["d_b"]).all()),
+        "d_img_without_zero_rule_rejected": not bool(
+            k3_within("d_img", no_rule_img, want["d_img"]).all()),
+    }
+    del perm, other_q, no_rule_w, no_rule_b, no_rule_img
+    fields["controls"] = controls
+    if controls["permuted_q_rejected_share"] < 0.5 or not all(
+            v for key, v in controls.items() if key.endswith("_rejected")):
+        failed.append("controls")
+    say("k3_check", n=n, **fields)
+    if failed:
+        raise AssertionError(f"K3 fails {failed} at N={n}")
+    return max_abs
+
+
+def k3_time(cfg: Config, device, smi: str) -> tuple:
+    """Each K3 launch against its plain version at N=64 (CUDA events after
+    warm-up, kernel/plain/plain/kernel). Returns (times, bounds) by launch:
+    a bound counts the launch's product (2 N L D O operations in bf16), its
+    f32 elementwise work (the wq build, 2 N k D O, in the forward and d_img;
+    d_W's and d_q's contractions with q and W, 4 N D F, in d_W) and its
+    operands and results moved once."""
+    n = TRAIN_BATCH
+    img, w, b, q, g = k2_inputs(n, 3, cfg, device)
+    w_bf16, bf, qb = pf.operands(w, b, q)
+    out = pf.forward_cuda(img, w_bf16, bf, qb, K2_K)
+    args = (g, out, img, w_bf16, bf, qb, K2_K)
+    pairs = {
+        "forward": (lambda: pf.forward_cuda(img, w_bf16, bf, qb, K2_K),
+                    lambda: pf.forward_reference(img, w_bf16, bf, qb, K2_K)),
+        "d_img": (lambda: pf.d_img_cuda(*args),
+                  lambda: pf.d_img_reference(g, out, w_bf16, qb, K2_K)),
+        "d_w": (lambda: pf.d_w_cuda(*args),
+                lambda: pf.d_w_reference(g, out, img, w_bf16, bf, qb, K2_K)),
+    }
+    l, d = img.shape[1:]
+    f = w.shape[1]
+    prod = {"bf16": 2 * n * l * d * (f // K2_K)}
+    build = dict(prod, f32=2 * n * d * f)  # 2 N k D O = 2 N D F
+    bounds = {
+        "forward": bound(nbytes(img, w_bf16, bf, qb, out), build),
+        "d_img": bound(nbytes(g, out, w_bf16, qb) + 4 * img.numel(), build),
+        "d_w": bound(nbytes(g, out, img, w_bf16, bf, qb)
+                     + 4 * (d * f + f + n * f), dict(prod, f32=4 * n * d * f)),
+    }
+    times = {}
+    for name, (kernel, plain) in pairs.items():
+        times[name] = interleaved_ms(kernel, plain)
+        say("k3_time", launch=name, n=n, kernel_ms=times[name][0],
+            plain_ms=times[name][1], kernel_runs_ms=times[name][2],
+            plain_runs_ms=times[name][3], bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], card=smi)
     return times, bounds
 
 
@@ -818,8 +1014,8 @@ def dead_fusion_check(cfg: Config, params, store, dev) -> None:
 
 def train_run(cfg: Config, qa, store, params, **solver_kw) -> dict:
     """``Solver.train`` from ``params``: per-step losses, ms per step over
-    steps 4..last (synchronised at both ends), K2's launch counts of the
-    run, and the solver."""
+    steps 4..last (synchronised at both ends), the launch counts of K2 and
+    K3 in the run (each set to 0 just before it), and the solver."""
     solver = Solver(cfg, qa, store, params=params, **solver_kw)
     losses, marks = [], {}
     steps = cfg.num_epoch * len(solver.batches["train"])
@@ -830,78 +1026,125 @@ def train_run(cfg: Config, qa, store, params, **solver_kw) -> dict:
             torch.cuda.synchronize()
             marks[step] = time.perf_counter()
 
-    for name in tf.launch_count:
-        tf.launch_count[name] = 0
+    for counts in TRAIN_COUNTERS.values():
+        for name in counts:
+            counts[name] = 0
     metrics = solver.train(on_step=on_step)
-    counts = dict(tf.launch_count)
     ms = (marks[steps - 1] - marks[4]) * 1e3 / (steps - 5)
     return {"losses": [float(x) for x in losses], "ms_per_step": ms,
-            "qa_pairs_per_s": cfg.batch_size * 1e3 / ms, "launches": counts,
+            "qa_pairs_per_s": cfg.batch_size * 1e3 / ms,
+            "launches": {k: dict(v) for k, v in TRAIN_COUNTERS.items()},
             "metrics": metrics, "solver": solver}
 
 
-def train_phase(device, smi: str) -> dict:
-    """The port's Solver at full width, bf16, batch 64: kernel run, plain
-    run, repeated-batch run and the val() check; raises on a failure."""
-    cfg = Config(compute_dtype="bfloat16", num_epoch=1)
+def train_data(cfg: Config, steps: int) -> tuple:
+    """Synthetic QA data at the config's vocabularies: ``steps`` batches of
+    TRAIN_BATCH training questions, and one batch to repeat."""
     rng = np.random.default_rng(0)
-    qa = make_synthetic_qa_data(
-        rng, n_train=TRAIN_STEPS * TRAIN_BATCH, n_val=TRAIN_BATCH,
-        q_vocab_words=cfg.q_vocab_size - 2, num_answers=cfg.a_vocab_size,
-        max_len=cfg.max_question_length, num_images=N_IMAGES)
-    one = make_synthetic_qa_data(
-        rng, n_train=TRAIN_BATCH, n_val=TRAIN_BATCH,
-        q_vocab_words=cfg.q_vocab_size - 2, num_answers=cfg.a_vocab_size,
-        max_len=cfg.max_question_length, num_images=N_IMAGES)
+    kw = dict(n_val=TRAIN_BATCH, q_vocab_words=cfg.q_vocab_size - 2,
+              num_answers=cfg.a_vocab_size, max_len=cfg.max_question_length,
+              num_images=N_IMAGES)
+    qa = make_synthetic_qa_data(rng, n_train=steps * TRAIN_BATCH, **kw)
+    one = make_synthetic_qa_data(rng, n_train=TRAIN_BATCH, **kw)
     assert (qa.q_vocab_size, qa.a_vocab_size) == (cfg.q_vocab_size,
                                                   cfg.a_vocab_size)
-    params = init_params(cfg, torch.Generator().manual_seed(0))
-    with tempfile.TemporaryDirectory() as tmp:
-        store = make_synthetic_feature_store(tmp, list(range(N_IMAGES)))
-        kernel = train_run(cfg, qa, store, params)
-        trained = kernel.pop("solver")
-        val = trained.val()
-        fresh = Solver(cfg, qa, store, params=to_jax_params(trained.model))
-        untrained = Solver(cfg, qa, store, params=params)
-        val_fresh, val_untrained = fresh.val(), untrained.val()
-        del trained, fresh, untrained
-        plain = train_run(cfg, qa, store, params, reference_kernels=True)
-        del plain["solver"]
-        repeated = train_run(cfg.replace(num_epoch=TRAIN_STEPS), one, store,
-                             params)
-        del repeated["solver"]
-    k_loss, p_loss = np.array(kernel["losses"]), np.array(plain["losses"])
+    return qa, one
+
+
+def train_phase(phase: str, cfg: Config, params, store, smi: str,
+                steps: int, kernel: str) -> dict:
+    """The port's Solver at full width, bf16, batch TRAIN_BATCH, ``steps``
+    steps: kernel run, plain run (``reference_kernels=True``), repeated-batch
+    run and the val() check; ``kernel`` ("K2" or "K3") is the training
+    fusion the path must launch, forward and d_W once a step and d_img
+    never (img is data: it needs no gradient), and the other must not
+    launch. Raises on a failure; returns the kernel run."""
+    cfg = cfg.replace(num_epoch=1, batch_size=TRAIN_BATCH)
+    qa, one = train_data(cfg, steps)
+    run = train_run(cfg, qa, store, params)
+    trained = run.pop("solver")
+    val = trained.val()
+    fresh = Solver(cfg, qa, store, params=to_jax_params(trained.model))
+    untrained = Solver(cfg, qa, store, params=params)
+    val_fresh, val_untrained = fresh.val(), untrained.val()
+    del trained, fresh, untrained
+    plain = train_run(cfg, qa, store, params, reference_kernels=True)
+    del plain["solver"]
+    repeated = train_run(cfg.replace(num_epoch=steps), one, store, params)
+    del repeated["solver"]
+    torch.cuda.empty_cache()
+    k_loss, p_loss = np.array(run["losses"]), np.array(plain["losses"])
     rel = np.abs(k_loss - p_loss) / np.abs(p_loss)
     r_loss = repeated["losses"]
-    want_counts = {"forward": TRAIN_STEPS, "d_img": 0, "d_w": TRAIN_STEPS,
-                   "d_q": TRAIN_STEPS}
-    say("train", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-        kernel_losses=kernel["losses"], plain_losses=plain["losses"],
-        rel_diff_by_step=rel.tolist(), repeated_batch_losses=r_loss,
-        k2_launches=kernel["launches"],
-        k2_launches_note="d_img stays at 0: img is data, it needs no "
-                         "gradient, so the backward never launches it",
-        plain_run_k2_launches=plain["launches"],
+    want = {name: {key: 0 for key in counts}
+            for name, counts in TRAIN_COUNTERS.items()}
+    want[kernel].update(forward=steps, d_w=steps)
+    if kernel == "K2":
+        want[kernel]["d_q"] = steps
+    say(phase, model=cfg.model_name, dropout_site=cfg.dropout_site,
+        keep_reference_quirks=cfg.keep_reference_quirks, steps=steps,
+        batch=TRAIN_BATCH, kernel_losses=run["losses"],
+        plain_losses=plain["losses"], rel_diff_by_step=rel.tolist(),
+        repeated_batch_losses=r_loss, launches=run["launches"],
+        launches_note="d_img stays at 0: img is data, it needs no "
+                      "gradient, so the backward never launches it",
+        plain_run_launches=plain["launches"],
         val_after_training=val, val_fresh_load=val_fresh,
         val_untrained_info=val_untrained,
         peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
     if not (np.isfinite(k_loss).all() and np.isfinite(p_loss).all()):
-        raise AssertionError("a training loss is not finite")
+        raise AssertionError(f"{phase}: a training loss is not finite")
     if (rel[:TRAIN_AGREE_STEPS] > TRAIN_LOSS_RTOL).any():
-        raise AssertionError("the kernel and plain training runs disagree")
-    if kernel["launches"] != want_counts or any(plain["launches"].values()):
-        raise AssertionError(f"K2 launches {kernel['launches']} in the "
+        raise AssertionError(f"{phase}: the kernel and plain training runs "
+                             "disagree")
+    no_launch = {name: {key: 0 for key in counts}
+                 for name, counts in TRAIN_COUNTERS.items()}
+    if run["launches"] != want or plain["launches"] != no_launch:
+        raise AssertionError(f"{phase}: launches {run['launches']} in the "
                              f"kernel run, {plain['launches']} in the plain")
     if not r_loss[-1] < r_loss[0]:
-        raise AssertionError("the loss on a repeated batch does not fall")
+        raise AssertionError(f"{phase}: the loss on a repeated batch does "
+                             "not fall")
     if val != val_fresh or val == val_untrained:
-        raise AssertionError("val() after training does not score the "
-                             "trained weights")
-    for name, run in (("kernel", kernel), ("plain", plain)):
-        say("train_time", run=name, ms_per_step=run["ms_per_step"],
-            qa_pairs_per_s=run["qa_pairs_per_s"], batch=TRAIN_BATCH,
-            epoch_qa_pairs_per_s_info=run["metrics"]["qps"], card=smi)
-    return kernel
+        raise AssertionError(f"{phase}: val() after training does not score "
+                             "the trained weights")
+    for name, r in (("kernel", run), ("plain", plain)):
+        say(f"{phase}_time", run=name, model=cfg.model_name,
+            dropout_site=cfg.dropout_site, ms_per_step=r["ms_per_step"],
+            qa_pairs_per_s=r["qa_pairs_per_s"], steps_timed=f"4..{steps - 1}",
+            batch=TRAIN_BATCH, epoch_qa_pairs_per_s_info=r["metrics"]["qps"],
+            card=smi)
+    return run
+
+
+def dead_gradient_check(cfg: Config, params, store) -> None:
+    """With the reference quirk on, mfb's stage-1 fusion is gradient-dead:
+    after one training step img_conv1d has no gradient (None: autograd never
+    reaches it, where JAX gives exactly 0), and K3's backward never
+    launches though its forward does."""
+    cfg = cfg.replace(keep_reference_quirks=True, num_epoch=1,
+                      batch_size=TRAIN_BATCH)
+    qa, _ = train_data(cfg, 1)
+    solver = Solver(cfg, qa, store, params=params)
+    for name in pf.launch_count:
+        pf.launch_count[name] = 0
+    loss, _ = solver._train_step(next(solver.batches["train"].epoch(0)))
+    torch.cuda.synchronize()
+    grads = {name: solver.model.get_submodule(name).weight.grad
+             for name in ("img_conv1d", "ques_proj1", "ques_proj2")}
+    dead = {name: g is None or not bool(g.any()) for name, g in grads.items()}
+    say("mfb_quirk_dead_gradient", model=cfg.model_name,
+        dropout_site=cfg.dropout_site, loss=float(loss),
+        k3_launches=dict(pf.launch_count),
+        gradient_is_none_or_zero=dead,
+        img_conv1d_grad_is_none=grads["img_conv1d"] is None)
+    if not (dead["img_conv1d"] and dead["ques_proj1"]) or dead["ques_proj2"]:
+        raise AssertionError("with the quirk on, the stage-1 fusion gets a "
+                             "gradient, or the rest of the model none")
+    if pf.launch_count != {"forward": 1, "d_img": 0, "d_w": 0}:
+        raise AssertionError(f"K3 launches {pf.launch_count} in a quirk-on "
+                             "step")
+    del solver
 
 
 def main() -> None:
@@ -916,7 +1159,7 @@ def main() -> None:
 
     # phase 2: build, one nvcc per source, all started together
     names = ("stage1_coattention", "train_fusion", "coattention",
-             "glimpse_attention")
+             "glimpse_attention", "pooled_fusion")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds, log) in zip(names, built):
@@ -1028,17 +1271,57 @@ def main() -> None:
         torch.cuda.empty_cache()
 
         # phase 7: training through the port's Solver (the K2 main path)
-        train = train_phase(dev, smi)
+        bf16_train = Config(compute_dtype="bfloat16")
+        train_params = init_params(bf16_train, torch.Generator().manual_seed(0))
+        runs = [train_phase("train", bf16_train, train_params, store, smi,
+                            TRAIN_STEPS, "K2")]
         torch.cuda.empty_cache()
 
         # phase 8: K2 times at the training batch
         k2_times, k2_bounds = k2_time(cfg, dev, smi)
         torch.cuda.empty_cache()
 
-        # phase 9: K4 against its plain version
+        # phase 9: K3 against its plain version at production widths
+        k3_err = {}
+        for n in K3_NS:
+            for name, err in k3_check(n, cfg, dev).items():
+                k3_err[name] = max(k3_err.get(name, 0.0), err)
+        torch.cuda.empty_cache()
+
+        # phase 10: pooled-site training of mhb_coAtt (the K3 main path)
+        runs.append(train_phase(
+            "train_pooled", bf16_train.replace(dropout_site="pooled"),
+            train_params, store, smi, TRAIN_STEPS, "K3"))
+        del train_params
+        torch.cuda.empty_cache()
+
+        # phase 11: mfb and mfb-multilayer training, quirk off, at the
+        # pre-pool site (K2) and the pooled site (K3); then one quirk-on
+        # step: the gradient-dead fusion
+        for name, site, kernel in MFB_TRAIN_RUNS:
+            mfb_cfg = Config(model_name=name, compute_dtype="bfloat16",
+                             dropout_site=site, keep_reference_quirks=False)
+            mfb_params = mfb.init_params(mfb_cfg,
+                                         torch.Generator().manual_seed(3))
+            runs.append(train_phase("train_mfb", mfb_cfg, mfb_params, store,
+                                    smi, MFB_TRAIN_STEPS, kernel))
+            if name == "mfb" and site == "pooled":
+                dead_gradient_check(mfb_cfg, mfb_params, store)
+            del mfb_params
+            torch.cuda.empty_cache()
+        train_launches = {
+            kernel: {key: sum(r["launches"][kernel][key] for r in runs)
+                     for key in counts}
+            for kernel, counts in TRAIN_COUNTERS.items()}
+
+        # phase 12: K3 times at the training batch
+        k3_times, k3_bounds = k3_time(cfg, dev, smi)
+        torch.cuda.empty_cache()
+
+        # phase 13: K4 against its plain version
         k4_err = max(k4_check(n, dev) for n in (8, BATCH))
 
-        # phase 10: full-width hieCoAtten served; whv, whq and the question
+        # phase 14: full-width hieCoAtten served; whv, whq and the question
         # embedding drawn at 8x xavier so both maps are peaked; control:
         # whv and whq zeroed give uniform maps
         hie_cfg = Config(model_name="hieCoAtten")
@@ -1056,11 +1339,11 @@ def main() -> None:
         e2e["hieCoAtten"] = served["qa_pairs_per_s"]
         torch.cuda.empty_cache()
 
-        # phase 11: K5 against its plain version
+        # phase 15: K5 against its plain version
         k5_err = max(k5_check(n, cfg, dev) for n in (8, BATCH))
         torch.cuda.empty_cache()
 
-        # phase 12: mfb and mfb-multilayer served under VQA_FORCE_PALLAS
+        # phase 16: mfb and mfb-multilayer served under VQA_FORCE_PALLAS
         # with the quirk off; the co-attention weights peak its softmax;
         # control: the fusion's weights zeroed (K5's output 0) gives a
         # uniform co-attention; then the quirk's dead fusion
@@ -1090,12 +1373,12 @@ def main() -> None:
             del mfb_params, dead
             torch.cuda.empty_cache()
 
-        # phase 13: K7 against its plain version at both call shapes
+        # phase 17: K7 against its plain version at both call shapes
         k7_err = max(k7_check(shape, quirk, dev) for shape in K7_SHAPES
                      for quirk in (False, True))
         torch.cuda.empty_cache()
 
-        # phase 14: mhb_coAtt with K7 (question glimpse, beside K1), then
+        # phase 18: mhb_coAtt with K7 (question glimpse, beside K1), then
         # composed with K5 and K7 (both glimpses)
         with switches(VQA_PALLAS_GLIMPSE="1"):
             served = serve_phase("serve_glimpse", cfg, params, store,
@@ -1112,7 +1395,7 @@ def main() -> None:
         e2e["mhb_coAtt_composed"] = served["qa_pairs_per_s"]
         torch.cuda.empty_cache()
 
-    # phase 15: K4, K5 and K7 against their plain versions at N=256
+    # phase 19: K4, K5 and K7 against their plain versions at N=256
     a4 = k4_inputs(BATCH, 4, dev)
     n, l, e = a4[0].shape
     t = a4[1].shape[1]
@@ -1167,9 +1450,16 @@ def main() -> None:
     for launch, replaces in K2_REPLACES.items():
         kernels.append(entry(
             f"train_fusion_{launch}", K2_SOURCE, replaces,
-            train["launches"][launch],
+            train_launches["K2"][launch],
             max(k2_err["d_w"], k2_err["d_b"]) if launch == "d_w"
             else k2_err[launch], k2_times[launch], k2_bounds[launch]))
+    for launch, replaces in K3_REPLACES.items():
+        kernels.append(entry(
+            f"pooled_fusion_{launch}", K3_SOURCE, replaces,
+            train_launches["K3"][launch],
+            max(k3_err["d_w"], k3_err["d_b"], k3_err["d_q"])
+            if launch == "d_w" else k3_err[launch], k3_times[launch],
+            k3_bounds[launch]))
     kernels += [
         entry("coattention", K4_SOURCE, K4_REPLACES, launches["K4"], k4_err,
               k4_time, k4_bound),

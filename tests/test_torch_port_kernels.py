@@ -1,5 +1,5 @@
-"""The hand-written kernels (K1, K2, K4, K5, K7) on the card against their
-plain PyTorch versions.
+"""The hand-written kernels (K1, K2, K3, K4, K5, K7) on the card against
+their plain PyTorch versions.
 
 These need an NVIDIA card (sm_90a) and the CUDA toolkit; without a card
 they skip. Kernel and plain version share their rounding points and differ
@@ -374,3 +374,117 @@ def test_k7_wrapper_raises_on_inputs_it_does_not_take():
     with pytest.raises(ValueError, match="G <="):
         att.glimpse_attention_cuda(*_k7_inputs(2, 5, 48, 64, 5, 40),
                                    uniform_quirk=False)
+
+
+# --------------------------------------------------------------------------
+# K3 (the pooled-site training fusion: forward, d_img, d_W/d_b/d_q)
+# --------------------------------------------------------------------------
+
+# K3 shares every rounding point with its plain version (wq's f32 sum over
+# j in order and its bf16 rounding, bf16 g_pooled, f32 products) and
+# differs in the order of its f32 sums only: each launch is held per tensor
+# at 1e-4 of the plain result's largest |value|, the forward as
+# pooled = out * |out|; the backward launches on the kernel's own forward
+# output
+K3_RTOL = 1e-4
+
+
+def _k3_inputs(n, l, d, o, seed=0, k=K):
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32) * scale).cuda()
+
+    img = t((n, l, d), 0.5).to(torch.bfloat16)
+    w_bf16, b, q = pf.operands(t((d, o * k), 0.02), t((o * k,), 0.05),
+                               t((n, o * k), 0.5))
+    return img, w_bf16, b, q, t((n, l, o), 1.0)
+
+
+# the largest k the d_W kernel's shared memory holds (7), with ragged L, D
+# and O, at the first k-pool width
+@pytest.mark.parametrize("n,l,d,o,k", [(3, 37, 64, 24, K), (2, 50, 72, 40, 7),
+                                       (8, 196, 2048, 1000, K)],
+                         ids=["ragged", "k7", "production"])
+def test_k3_launches_match_plain_versions(n, l, d, o, k):
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, w_bf16, b, q, g = _k3_inputs(n, l, d, o, k=k)
+
+    def launches():
+        out = pf.forward_cuda(img, w_bf16, b, q, k)
+        args = (g, out, img, w_bf16, b, q, k)
+        d_w, d_b, d_q = pf.d_w_cuda(*args)
+        return {"forward": out, "d_img": pf.d_img_cuda(*args), "d_w": d_w,
+                "d_b": d_b, "d_q": d_q}
+
+    before = dict(pf.launch_count)
+    got = launches()
+    torch.cuda.synchronize()
+    assert {key: pf.launch_count[key] - before[key] for key in before} == \
+        {"forward": 1, "d_img": 1, "d_w": 1}
+    out = got["forward"]
+    d_w, d_b, d_q = pf.d_w_reference(g, out, img, w_bf16, b, q, k)
+    want = {"forward": pf.forward_reference(img, w_bf16, b, q, k),
+            "d_img": pf.d_img_reference(g, out, w_bf16, q, k), "d_w": d_w,
+            "d_b": d_b, "d_q": d_q}
+    again = launches()
+    for name in want:
+        a, b_ = got[name].float(), want[name].float()
+        assert a.shape == b_.shape and torch.isfinite(a).all(), name
+        if name == "forward":
+            a, b_ = a * a.abs(), b_ * b_.abs()
+        assert (a - b_).abs().max() <= K3_RTOL * b_.abs().max(), name
+        # no atomics: a rerun gives the same bits
+        assert torch.equal(got[name], again[name]), name
+    # control: q permuted across samples is rejected
+    perm = pf.forward_reference(img, w_bf16, b, q.flip(0), k)
+    pooled = out * out.abs()
+    assert (perm * perm.abs() - pooled).abs().max() > \
+        100 * K3_RTOL * pooled.abs().max()
+
+
+def test_k3_autograd_launches_the_kernels():
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+
+    img, w_bf16, b, q, g = _k3_inputs(4, 196, 128, 128, seed=1)
+    w = w_bf16.float().requires_grad_(True)
+    bb = b.clone().requires_grad_(True)
+    qq = q.clone().requires_grad_(True)
+    before = dict(pf.launch_count)
+    out = pf.pooled_grid_fuse(img, w, bb, qq, K)
+    out.backward(g)
+    torch.cuda.synchronize()
+    # img needs no gradient: d_img is not launched
+    assert {k: pf.launch_count[k] - before[k] for k in before} == \
+        {"forward": 1, "d_img": 0, "d_w": 1}
+    assert w.grad.dtype == torch.float32 and qq.grad.dtype == torch.bfloat16
+    assert all(torch.isfinite(x.grad.float()).all() for x in (w, bb, qq))
+
+
+def test_k3_wrappers_raise_on_inputs_they_do_not_take():
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+
+    img, w_bf16, b, q, g = _k3_inputs(2, 196, 128, 128)
+    with pytest.raises(TypeError):
+        pf.forward_cuda(img.float(), w_bf16, b, q, K)
+    with pytest.raises(TypeError):
+        pf.forward_cuda(img, w_bf16, b, q.float(), K)
+    with pytest.raises(ValueError, match="CUDA"):
+        pf.forward_cuda(img.cpu(), w_bf16.cpu(), b.cpu(), q.cpu(), K)
+    with pytest.raises(ValueError, match="on"):
+        pf.forward_cuda(img, w_bf16, b, q.cpu(), K)
+    with pytest.raises(ValueError, match="k <= 7"):
+        pf.forward_cuda(*_k3_inputs(2, 196, 128, 128, k=8)[:4], 8)
+    with pytest.raises(ValueError, match="L <="):
+        pf.forward_cuda(torch.cat([img, img], 1), w_bf16, b, q, K)
+    i124, w124, b124, q124, _ = _k3_inputs(2, 196, 124, 128)
+    with pytest.raises(ValueError, match="D % 8"):
+        pf.forward_cuda(i124, w124, b124, q124, K)
+    out = pf.forward_cuda(img, w_bf16, b, q, K)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        pf.d_w_cuda(g.double(), out, img, w_bf16, b, q, K)

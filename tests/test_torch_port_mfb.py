@@ -18,6 +18,8 @@ JAX package, on the CPU.
   each op).
 - With the quirk on, the stage-1 fusion is value-dead: zeroing its output
   leaves the logits bit-equal.
+- The training forward runs; its parity with JAX is in
+  ``test_torch_port_train_pooled.py``.
 """
 
 import jax
@@ -209,11 +211,32 @@ def test_quirk_makes_the_stage1_fusion_value_dead(monkeypatch):
 
 
 def test_training_forward_is_not_ported():
+    """The training forward runs (the test keeps the name it had while the
+    forward raised): with its dropout rates at 0 at the pre-pool site it
+    gives the eval forward's logits (the same composed chain at f32); with
+    dropout on, other finite logits, a function of the generator's seed."""
+    cfg = small_cfg(dropout_lstm=0.0, dropout_fusion=0.0)
+    model = load_jax_params(MFB(port_config(cfg)), params_for(cfg))
+    img, ques = (torch.from_numpy(x) for x in inputs_for(cfg, n=2))
+    with torch.no_grad():
+        eval_logits = model(img, ques)
+        train_logits = model(img, ques, train=True,
+                             generator=torch.Generator(), fusion_seed=0)
+    assert torch.equal(train_logits, eval_logits)
     cfg = small_cfg()
     model = load_jax_params(MFB(port_config(cfg)), params_for(cfg))
-    img, ques = inputs_for(cfg, n=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        model(torch.from_numpy(img), torch.from_numpy(ques), train=True)
+
+    def train(seed):
+        with torch.no_grad():
+            return model(img, ques, train=True,
+                         generator=torch.Generator().manual_seed(seed),
+                         fusion_seed=0)
+
+    out = train(0)
+    assert torch.isfinite(out).all() and out.shape == eval_logits.shape
+    assert torch.equal(out, train(0))
+    assert not torch.equal(out, train(1))
+    assert not torch.equal(out, eval_logits)
 
 
 @pytest.mark.parametrize("name", ["mfb", "mfb-multilayer"])

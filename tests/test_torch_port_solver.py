@@ -10,7 +10,10 @@ fields, seeds and sizes.
   optimizer, a step's randomness is a function of (seed, step), and
   ``val()`` after a step scores the new weights (the eval forward lays out
   K1's weights again once they changed), and a non-finite loss aborts.
-- What is not ported raises ``NotImplementedError`` naming its ROADMAP item.
+- mfb and mfb-multilayer: the same loss parity at f32 at both dropout
+  sites, and ``train()`` at bf16 through K2's and K3's plain versions.
+- What is not ported raises ``NotImplementedError`` naming its ROADMAP item
+  (hieCoAtten training: item 7).
 """
 
 import dataclasses
@@ -71,8 +74,20 @@ def small_cfg(qa, **kw) -> Config:
 
 
 def test_losses_match_the_jax_solver(data, jax_data, tmp_path):
+    _losses_match_the_jax_solver(data, jax_data, tmp_path)
+
+
+@pytest.mark.parametrize("site", ["prepool", "pooled"])
+@pytest.mark.parametrize("name", ["mfb", "mfb-multilayer"])
+def test_mfb_losses_match_the_jax_solver(data, jax_data, tmp_path, name,
+                                         site):
+    _losses_match_the_jax_solver(data, jax_data, tmp_path, model_name=name,
+                                 dropout_site=site)
+
+
+def _losses_match_the_jax_solver(data, jax_data, tmp_path, **kw):
     qa, store = data
-    cfg = small_cfg(qa, dropout_lstm=0.0, dropout_fusion=0.0)
+    cfg = small_cfg(qa, dropout_lstm=0.0, dropout_fusion=0.0, **kw)
     jax_solver = JaxSolver(JaxConfig(**dataclasses.asdict(cfg)), *jax_data,
                            mesh=make_mesh(data=1, model=1),
                            log_dir=str(tmp_path / "runs"))
@@ -114,6 +129,36 @@ def test_train_runs_an_epoch_on_the_cpu(data):
     assert all(np.isfinite(v) for v in metrics.values())
     assert metrics["train_loss"] == seen[-1][1]
     assert 0.0 <= metrics["val_acc"] <= 1.0
+
+
+@pytest.mark.parametrize("site", ["prepool", "pooled"])
+@pytest.mark.parametrize("name", ["mfb", "mfb-multilayer"])
+def test_train_runs_an_mfb_epoch_on_the_cpu(data, name, site):
+    """bf16 with dropout on: K2's plain version at the pre-pool site, K3's
+    at the pooled site (CPU tensors, so no kernel launch)."""
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+    from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
+
+    qa, store = data
+    cfg = small_cfg(qa, model_name=name, dropout_site=site,
+                    compute_dtype="bfloat16")
+    solver = Solver(cfg, qa, store, device="cpu")
+    before = (dict(tf.launch_count), dict(pf.launch_count))
+    seen = []
+    metrics = solver.train(on_step=lambda step, loss: seen.append(
+        float(loss)))
+    assert (dict(tf.launch_count), dict(pf.launch_count)) == before
+    assert len(seen) == 3 and all(np.isfinite(seen))
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert seen[0] != seen[-1]
+
+
+def test_hiecoatten_training_names_its_roadmap_item(data):
+    qa, store = data
+    cfg = small_cfg(qa, model_name="hieCoAtten")
+    with pytest.raises(NotImplementedError,
+                       match="hieCoAtten.*ROADMAP Queue 1 item 7"):
+        Solver(cfg, qa, store, device="cpu")
 
 
 def test_solver_steps_at_the_staircase_rate(data):

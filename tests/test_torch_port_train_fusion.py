@@ -32,6 +32,7 @@ from vqa_attention_networks_tpu.ops.pallas_fusion import (
     _grid_fuse_reference as j_grid_ref,
 )
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
+from vqa_attention_networks_tpu_torch.ops.fusion import grid_fuse_pooled
 from vqa_attention_networks_tpu_torch.ops.grid_fusion import (
     grid_fuse,
     grid_fuse_reference,
@@ -239,9 +240,16 @@ def test_grid_fuse_training_dispatch():
     again = grid_fuse_reference(ti.float(), tw, tb, tq, K, rate=0.5,
                                 generator=torch.Generator().manual_seed(0))
     assert torch.equal(out, again)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        grid_fuse(ti, tw, tb, tq, K, train=True, rate=0.1, seed=1,
-                  site="pooled")
+    # site="pooled": grid_fuse_pooled (K3 at bf16, its plain version on a
+    # CPU tensor), whatever the rate, its mask from the generator
+    for rate in (0.0, 0.1):
+        out = grid_fuse(ti, tw, tb, tq, K, train=True, rate=rate, seed=1,
+                        site="pooled", generator=torch.Generator()
+                        .manual_seed(3))
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, grid_fuse_pooled(
+            ti, tw, tb, tq, K, rate=rate,
+            generator=torch.Generator().manual_seed(3)))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

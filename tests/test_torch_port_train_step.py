@@ -252,6 +252,28 @@ def test_dropout_keep_rate_scaling_and_no_op():
         TL.dropout(x, rate, True, None)
 
 
+def test_dropout_scales_as_jax_at_bf16():
+    """Kept elements are x / keep with keep rounded to x's dtype, as JAX
+    divides an array by a (weakly typed) Python scalar: at bf16, rounding
+    x / 0.9 computed in f32 instead differs on a third of the elements. The
+    two packages draw their masks from different generators, so the
+    elements both keep are compared."""
+    from vqa_attention_networks_tpu.models import layers as JL
+
+    x = np.random.default_rng(0).standard_normal(1 << 16).astype(np.float32)
+    for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16),
+                          (torch.float32, jnp.float32)):
+        for rate in (0.1, 0.3):
+            got = TL.dropout(torch.from_numpy(x).to(dtype), rate, True,
+                             torch.Generator().manual_seed(0)).float().numpy()
+            want = np.asarray(JL.dropout(
+                jax.random.PRNGKey(0), jnp.asarray(x).astype(jdtype), rate,
+                True).astype(jnp.float32))
+            both = (got != 0) & (want != 0)
+            assert both.mean() > 0.4  # (1 - rate)^2 of them
+            np.testing.assert_array_equal(got[both], want[both])
+
+
 def test_step_randomness_is_a_pure_function_of_seed_and_step():
     assert step_randomness(1, 5) == step_randomness(1, 5)
     assert step_randomness(1, 5) != step_randomness(1, 6)

@@ -6,9 +6,11 @@ every other family raises ``NotImplementedError`` naming its ROADMAP item.
 
 from vqa_attention_networks_tpu_torch.config import MODEL_NAMES
 
-# the training forward of the families served but not yet trained
-TRAINING_PENDING = ("ROADMAP Queue 1 item 7 (training of hieCoAtten, mfb "
-                    "and mfb-multilayer)")
+# the training forward of the family served but not yet trained
+TRAINING_PENDING = "ROADMAP Queue 1 item 7 (training of hieCoAtten)"
+
+# the families the Solver trains
+TRAINABLE = ("mhb_coAtt", "mfb", "mfb-multilayer")
 
 _PENDING = {
     name: "ROADMAP Queue 1 item 7 (other families)"

@@ -177,14 +177,17 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout, ``where(mask, x / keep, 0)`` with the mask drawn
     from ``generator`` (on x's device); a no-op when ``not train`` or
-    ``rate <= 0`` (``layers.py:161-176``)."""
+    ``rate <= 0`` (``layers.py:161-176``). ``keep`` is rounded to x's dtype
+    before the division, as JAX rounds a Python scalar: at bf16,
+    x / bf16(0.9) and bf16(x / 0.9) differ on a third of the elements."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    keep_x = torch.tensor(keep, dtype=x.dtype).item()  # on the host
+    return torch.where(mask, x / keep_x, torch.zeros_like(x))
 
 
 def signed_sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """MFB co-attention and its ``mfb-multilayer`` variant (port of the eval
-forward of ``vqa_attention_networks_tpu/models/mfb.py``):
+and training forward of ``vqa_attention_networks_tpu/models/mfb.py``):
 
   embed(tanh) -> LSTM -> 2-glimpse question attention
   -> MFB fusion with the 196x2048 image grid (``grid_fuse``: project to
@@ -14,24 +14,27 @@ attention stacks (the ``*_multiconv`` layers).
 axis: every attention weight is 1, each glimpse an unweighted sum over
 positions. The co-attention logits, and with them the whole stage-1 fusion,
 are then value-dead: the logits do not depend on ``grid_fuse``'s output
-(``ops/fusion.py:216-218``). The port still computes that fusion, as the
-JAX package's eager forward would; under ``jax.jit`` XLA may drop it.
+(``ops/fusion.py:216-218``), and in training gradient-dead too: img_conv1d,
+ques_proj1 and co_att_* get exactly zero gradients. The port still computes
+that fusion, as the JAX package's eager forward would; under ``jax.jit``
+XLA may drop it.
 
-At bf16 ``grid_fuse`` runs the weight-contracted formulation, or K5 under
-``VQA_FORCE_PALLAS`` (``ops/grid_fusion.py``). Attribute names are the JAX
-param-tree keys (``weights.load_jax_params``); ``init_params`` draws a tree
-in the JAX layout. The training forward is not ported yet.
+At bf16 ``grid_fuse`` runs the weight-contracted formulation in eval, or K5
+under ``VQA_FORCE_PALLAS``; in training K2 at ``dropout_site="prepool"``
+(with a dropout rate above 0) and K3 at ``"pooled"``
+(``ops/grid_fusion.py``). Attribute names are the JAX param-tree keys
+(``weights.load_jax_params``); ``init_params`` draws a tree in the JAX
+layout.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from vqa_attention_networks_tpu_torch.config import Config
-from vqa_attention_networks_tpu_torch.models import TRAINING_PENDING
 from vqa_attention_networks_tpu_torch.models import layers as L
 from vqa_attention_networks_tpu_torch.ops.fusion import (
     mfb_fuse_pool,
@@ -103,14 +106,20 @@ class MFB(nn.Module):
 
     def forward(self, img: torch.Tensor, ques: torch.Tensor, *,
                 train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                fusion_seed: Optional[int] = None,
                 reference_kernels: bool = False) -> torch.Tensor:
-        """-> f32 logits [N, a_vocab]. ``reference_kernels=True`` runs K5's
-        plain PyTorch version in place of the kernel on any device, for the
-        comparisons of the tests and ``chip_smoke.py`` only."""
-        if train:
-            raise NotImplementedError(
-                f"the mfb training forward is not ported yet: "
-                f"{TRAINING_PENDING}")
+        """-> f32 logits [N, a_vocab] (``mfb.py:81-140``).
+
+        ``train=True`` runs the training forward: the dropout masks come
+        from ``generator`` (on img's device) in the JAX order (LSTM output,
+        the stage-1 fusion when it is composed or at the pooled site, then
+        the final MFB fusion), and K2's mask from ``fusion_seed``.
+
+        ``reference_kernels=True`` runs the plain PyTorch version of the
+        kernel on the path (K5 in eval, K2 or K3 in training) in place of
+        the kernel on any device, for the comparisons of the tests and
+        ``chip_smoke.py`` only."""
         cfg = self.cfg
         quirk = cfg.keep_reference_quirks
         dtype = L.DTYPES[cfg.compute_dtype]
@@ -118,17 +127,24 @@ class MFB(nn.Module):
         img = img.to(dtype)
 
         h_seq = self.lstm(torch.tanh(self.word_embedding(ques, dtype)))
+        h_seq = L.dropout(h_seq, cfg.dropout_lstm, train, generator)
         q_att = two_glimpse_pool(self._att_logits("ques_att", h_seq), h_seq,
                                  uniform_quirk=quirk)
         fused = grid_fuse(img, self.img_conv1d.weight.t(),
                           self.img_conv1d.bias, self.ques_proj1(q_att),
-                          cfg.mfb_factor, reference_kernel=reference_kernels)
+                          cfg.mfb_factor, train=train,
+                          rate=cfg.dropout_fusion, site=cfg.dropout_site,
+                          seed=fusion_seed, generator=generator,
+                          reference_kernel=reference_kernels)
         # L2 over the flattened grid; the co-attention MLP computes in
-        # fused's dtype (f32 out of K5), the pool over the raw image grid
+        # fused's dtype (at bf16: f32 out of K5, K2 or the composed chain,
+        # bf16 out of the weight-contracted fusion and the pooled site),
+        # the pool over the raw image grid
         fused = L.l2_normalize(fused.reshape(n, -1)).reshape(fused.shape)
         v_att = two_glimpse_pool(self._att_logits("co_att", fused), img,
                                  uniform_quirk=quirk)
 
         final = L.l2_normalize(mfb_fuse_pool(
-            self.ques_proj2(q_att), self.img_proj2(v_att), cfg.mfb_factor))
+            self.ques_proj2(q_att), self.img_proj2(v_att), cfg.mfb_factor,
+            rate=cfg.dropout_fusion, train=train, generator=generator))
         return self.linear_pred(final).float()

@@ -15,7 +15,9 @@ the exact f32 chain at f32). The two glimpse blocks of the eval forward,
 over the question and (composed) over the fused grid, run as K7 at bf16
 under ``VQA_PALLAS_GLIMPSE`` (``ops/attention.py``).
 
-The plain MHB model and the training forward come with later slices.
+The training forward (``train=True``) runs the stage-1 fusion through
+``grid_fuse`` at ``cfg.dropout_site``: K2 at the pre-pool site, K3 at the
+pooled site (bf16). The plain MHB model comes with a later slice.
 """
 
 from __future__ import annotations
@@ -160,13 +162,13 @@ class MHBCoAtt(nn.Module):
 
         ``train=True`` runs the training forward: the dropout masks come
         from ``generator`` (on img's device) in the JAX order (LSTM output,
-        stage-1 fusion when it is composed, output fusion 2, then 3), and
-        K2's mask from ``fusion_seed``.
+        stage-1 fusion when it is composed or at the pooled site, output
+        fusion 2, then 3), and K2's mask from ``fusion_seed``.
 
         ``reference_kernels=True`` runs the plain PyTorch version of every
-        kernel on the path (K1, K5 and K7 in eval, K2 in training) in place
-        of the kernel on any device — for the comparisons of the tests and
-        ``chip_smoke.py`` only."""
+        kernel on the path (K1, K5 and K7 in eval, K2 or K3 in training) in
+        place of the kernel on any device — for the comparisons of the
+        tests and ``chip_smoke.py`` only."""
         cfg = self.cfg
         dtype = L.DTYPES[cfg.compute_dtype]
         n = ques.shape[0]
@@ -228,7 +230,9 @@ class MHBCoAtt(nn.Module):
             reference_kernel=reference_kernel,
         )
         fused = L.l2_normalize(fused.reshape(n, -1)).reshape(fused.shape)
-        # the convs compute in fused's dtype: f32 at bf16 (:181-188)
+        # the convs compute in fused's dtype (:181-188): at bf16 that is f32
+        # at the pre-pool site (K2 and the composed chain return f32) and
+        # bf16 at the pooled site (grid_fuse_pooled casts to img's dtype)
         co_logits = self.co_att_conv2(torch.relu(self.co_att_conv1(fused)))
         v_att = two_glimpse_pool(co_logits, img, uniform_quirk=False)
 

@@ -1,5 +1,6 @@
 """MFB fusion and glimpse-pool primitives (port of
-``vqa_attention_networks_tpu/ops/fusion.py``).
+``vqa_attention_networks_tpu/ops/fusion.py``), with the pooled-site
+training fusion ``grid_fuse_pooled``.
 
 The fusion axis is output-major: channel ``c = o*k + j`` of the o*k-wide
 product pools into output ``o`` (the reference's permute + view).
@@ -17,6 +18,7 @@ from vqa_attention_networks_tpu_torch.models.layers import (
     matmul_f32,
     signed_sqrt,
 )
+from vqa_attention_networks_tpu_torch.ops import pooled_fusion
 
 
 def refactor_output_major(x: torch.Tensor, o: int, k: int,
@@ -64,6 +66,52 @@ def grid_fuse_weight_contracted(
     bq = torch.einsum("ok,nok->no", b.reshape(o, k).float(), q3.float())
     pooled = matmul_f32(img.to(torch.bfloat16), wq) + bq[:, None, :]
     return signed_sqrt(pooled).to(torch.bfloat16)
+
+
+def grid_fuse_pooled(
+    img: torch.Tensor,  # [N, L, D]
+    w: torch.Tensor,  # [D, F] (JAX layout)
+    b: torch.Tensor,  # [F]
+    q_proj: torch.Tensor,  # [N, F]
+    k: int,
+    *,
+    rate: float,
+    generator: Optional[torch.Generator] = None,
+    reference_kernel: bool = False,
+) -> torch.Tensor:
+    """The training fusion with its dropout on the pooled output
+    (``fusion.py:127-200`` at ``train=True``; the eval forward takes
+    ``grid_fuse``'s eval branches):
+    ``dropout(signed_sqrt(k-pool((img@W + b) * q)))`` in img's dtype, the
+    mask drawn from ``generator``.
+
+    - bf16: K3 (``ops/pooled_fusion.pooled_grid_fuse``, the kernels on a
+      CUDA tensor, the plain version on a CPU tensor or with
+      ``reference_kernel=True``), whatever the rate; its f32 map is cast to
+      bf16 before the dropout.
+    - f32 and f64: the weight-contracted chain in img's dtype, with bq, the
+      pooled map and its signed sqrt in f32, as the JAX function's
+      ``preferred_element_type=f32`` gives them (at f64 too: the products
+      run in f64 and round to f32); the output is cast back to img's dtype.
+    """
+    if img.dtype == torch.bfloat16:
+        fuse = (pooled_fusion.pooled_grid_fuse_reference if reference_kernel
+                else pooled_fusion.pooled_grid_fuse)
+        fused = fuse(img, w, b, q_proj, k).to(img.dtype)
+        return dropout(fused, rate, True, generator)
+    n, _, d = img.shape
+    o = w.shape[1] // k
+    dt = img.dtype
+    w3 = w.reshape(d, o, k).to(dt)
+    q3 = q_proj.reshape(n, o, k).to(dt)
+    wq = torch.einsum("dok,nok->ndo", w3, q3)
+    bq = torch.einsum("ok,nok->no", b.reshape(o, k).to(dt), q3).float()
+    pooled = torch.matmul(img, wq).float() + bq[:, None, :]
+    # the f32 map's signed sqrt, correctly rounded (through f64), as XLA
+    # computes it: PyTorch's vectorised f32 sqrt on the CPU is an ulp off
+    # on some elements
+    fused = signed_sqrt(pooled.double()).float().to(dt)
+    return dropout(fused, rate, True, generator)
 
 
 def two_glimpse_pool(

@@ -26,7 +26,10 @@ dropout mask on the pre-pool product:
   function.)
 - otherwise: the composed chain with its dropout.
 
-``site="pooled"`` (K3) waits for a later slice.
+Training at ``site="pooled"`` (``pallas_fusion.py:230-236``), with the
+dropout mask on the pooled output, drawn from ``generator``:
+``ops/fusion.grid_fuse_pooled``, which at bf16 runs K3
+(``ops/pooled_fusion.py``) whatever the rate and returns bf16.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from vqa_attention_networks_tpu_torch.models.layers import (
 )
 from vqa_attention_networks_tpu_torch.ops import train_fusion
 from vqa_attention_networks_tpu_torch.ops.fusion import (
+    grid_fuse_pooled,
     grid_fuse_weight_contracted,
     mfb_sumpool,
 )
@@ -103,11 +107,13 @@ def grid_fuse(
     reference_kernel: bool = False,
 ) -> torch.Tensor:
     """Eval: at bf16 K5 under ``VQA_FORCE_PALLAS`` and the weight-contracted
-    formulation without it, the composed chain else. Training: K2 at bf16
-    with ``rate > 0`` (its mask from ``seed``), the composed chain with
-    dropout from ``generator`` else. ``reference_kernel=True`` runs K5's or
-    K2's plain version in place of the kernels on any device, for the
-    comparisons of the tests and ``chip_smoke.py`` only."""
+    formulation without it, the composed chain else. Training at
+    ``site="prepool"``: K2 at bf16 with ``rate > 0`` (its mask from
+    ``seed``), the composed chain with dropout from ``generator`` else; at
+    ``site="pooled"``: ``grid_fuse_pooled`` (K3 at bf16).
+    ``reference_kernel=True`` runs K5's, K2's or K3's plain version in place
+    of the kernels on any device, for the comparisons of the tests and
+    ``chip_smoke.py`` only."""
     if not train:
         if img.dtype != torch.bfloat16:
             return grid_fuse_reference(img, w, b, q_proj, k)
@@ -117,9 +123,9 @@ def grid_fuse(
             return grid_fuse_reference(img, w, b, q_proj, k)
         return inference_fusion_cuda(img, w, b, q_proj, k)
     if site == "pooled":
-        raise NotImplementedError(
-            "dropout_site='pooled' training (kernel K3) is not ported yet: "
-            "ROADMAP Queue 1 item 8")
+        return grid_fuse_pooled(img, w, b, q_proj, k, rate=rate,
+                                generator=generator,
+                                reference_kernel=reference_kernel)
     if img.dtype == torch.bfloat16 and rate > 0:
         if seed is None:
             raise ValueError("the K2 training fusion needs a mask seed")

@@ -1,9 +1,10 @@
 """Single-device ``Solver`` (port of ``vqa_attention_networks_tpu/train/
 solver.py``): the train step, ``train()`` over epochs and ``val()`` on one
-batch, for ``mhb_coAtt``.
+batch, for ``mhb_coAtt``, ``mfb`` and ``mfb-multilayer`` (``TRAINABLE``),
+at either ``dropout_site``.
 
-- **Parameters**: ``init_params`` drawn from a ``torch.Generator`` seeded
-  by ``cfg.seed``, or a JAX-layout tree (``params=``) through
+- **Parameters**: the family's ``init_params`` drawn from a
+  ``torch.Generator`` seeded by ``cfg.seed``, or a JAX-layout tree (``params=``) through
   ``weights.load_jax_params``. Parameters are f32 whatever the compute
   dtype, as in the JAX Solver.
 - **Optimizer**: ``torch.optim.Adam`` with optax's defaults (b1 0.9, b2
@@ -16,11 +17,12 @@ batch, for ``mhb_coAtt``.
   and no remat): the training forward, the loss with its ``valid`` mask,
   backward, Adam. Its randomness is a pure function of
   ``(cfg.seed + 1, step)`` (``step_randomness``): the dropout generator's
-  seed and K2's mask seed. So a run resumed at step s replays step s's
+  seed and K2's mask seed (the pooled site's mask comes from the
+  generator). So a run resumed at step s replays step s's
   masks, as ``fold_in(base, step)`` does in JAX.
 - **val()** scores one batch through the eval forward (K1 at bf16 on the
-  card), after the model has laid out K1's weights again if a step changed
-  them.
+  card for mhb_coAtt), after the model has laid out K1's weights again if a
+  step changed them.
 - TF32 stays off: f32 products are full f32, the counterpart of the JAX
   package's ``Precision.HIGHEST``.
 
@@ -50,8 +52,13 @@ from vqa_attention_networks_tpu_torch.data.dataset import (
 from vqa_attention_networks_tpu_torch.data.feature_store import FeatureStore
 from vqa_attention_networks_tpu_torch.data.prepare import QAData
 from vqa_attention_networks_tpu_torch.device import cuda_device
-from vqa_attention_networks_tpu_torch.models import get_model
-from vqa_attention_networks_tpu_torch.models.mhb_coatt import init_params
+from vqa_attention_networks_tpu_torch.models import (
+    TRAINABLE,
+    TRAINING_PENDING,
+    get_model,
+    mfb,
+    mhb_coatt,
+)
 from vqa_attention_networks_tpu_torch.train.losses import (
     correct_count,
     cross_entropy,
@@ -61,6 +68,9 @@ from vqa_attention_networks_tpu_torch.weights import load_jax_params
 
 _SOLVER_ITEM = "ROADMAP Queue 1 item 6 (Solver and CLIs)"
 _MULTI_GPU_ITEM = "ROADMAP Queue 1 item 10 (multi-GPU)"
+# each trainable family's random parameter tree (its ``init_params``)
+_INIT_PARAMS = {"mhb_coAtt": mhb_coatt.init_params,
+                "mfb": mfb.init_params, "mfb-multilayer": mfb.init_params}
 
 
 def _unported(what: str, item: str = _SOLVER_ITEM) -> NotImplementedError:
@@ -109,9 +119,10 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def _check_ported(cfg: Config, store: FeatureStore) -> None:
-    if cfg.model_name != "mhb_coAtt":
+    if cfg.model_name not in TRAINABLE:
         raise _unported(f"training {cfg.model_name!r}",
-                        "ROADMAP Queue 1 item 7 (other families)")
+                        TRAINING_PENDING if cfg.model_name == "hieCoAtten"
+                        else "ROADMAP Queue 1 item 7 (other families)")
     if cfg.data_parallel > 1 or cfg.model_parallel > 1:
         raise _unported("data_parallel / model_parallel > 1", _MULTI_GPU_ITEM)
     switches = {
@@ -143,8 +154,9 @@ class Solver:
         """``params`` is a JAX-layout tree (numpy arrays); without it the
         weights are drawn from ``cfg.seed``. ``device`` defaults to the
         card; the CPU runs only when asked for by name.
-        ``reference_kernels=True`` trains through K2's plain version in
-        place of the kernels, for the comparisons of ``chip_smoke.py``."""
+        ``reference_kernels=True`` trains through K2's or K3's plain
+        version in place of the kernels, for the comparisons of
+        ``chip_smoke.py``."""
         cfg.validate()
         _check_ported(cfg, store)
         self.cfg = cfg
@@ -153,7 +165,8 @@ class Solver:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if params is None:
-            params = init_params(cfg, torch.Generator().manual_seed(cfg.seed))
+            params = _INIT_PARAMS[cfg.model_name](
+                cfg, torch.Generator().manual_seed(cfg.seed))
         model = get_model(cfg.model_name)(cfg).to(self.device)
         self.model = load_jax_params(model, params)
         self.optimizer = make_optimizer(self.model, cfg)
