@@ -93,6 +93,29 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     and with ``fast_path="composed"`` plus both switches (K5 and K7): the
     launch counts and flips against the plain versions;
 19. times: K4, K5 and K7 against their plain versions at N = 256;
+20. K6 (the standalone wq fusion + grid-flat L2) against its plain version
+    at production widths (L=196, D=2048, F=5000, k=5), N = 8, 256 and 1024,
+    held as pooled = out * |out|, bit-equal reruns, and two controls that
+    must be rejected on most elements: the plain output with q permuted
+    across samples, and with a per-row L2 norm in place of the grid-flat
+    one;
+21. K6's path, its entry ``wq_grid_fuse`` forward and backward at N = 64
+    (the launch count set to 0 just before): finite gradients of img, W, b
+    and q, equal to ``composed_reference``'s on the card;
+22. K8 (the LSTM scan) against its plain version at mhb_coAtt's serving
+    shape (T=22, E=300, H=1024), N = 8, 256 and 1024, on inputs whose gate
+    pre-activations lie mostly off the sigmoid's flat tails (the share is
+    printed and gated), the share of bit-equal elements, bit-equal reruns,
+    and two controls that must be rejected: W_hh with its i and f blocks
+    swapped, and the output shifted by one step; then K8's path, its entry
+    ``lstm_seq`` at N = 256 (the launch count set to 0 just before), with
+    the port's composed ``layers.lstm`` on the same weights beside it for
+    information;
+23. times: K6 and its plain version at N = 256 and 1024, with the torch
+    composed weight-contracted chain + L2 for information; K8's scan and
+    the whole ``lstm_seq`` against their plain versions at N = 256, and
+    ``torch.nn.LSTM`` (cuDNN, input projection included) on the same
+    weights and input: K8's library time;
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -125,14 +148,18 @@ from vqa_attention_networks_tpu_torch.data.prepare import (
 )
 from vqa_attention_networks_tpu_torch.models import get_model
 from vqa_attention_networks_tpu_torch.models import hiecoatten, mfb
+from vqa_attention_networks_tpu_torch.models import layers
 from vqa_attention_networks_tpu_torch.models.mhb_coatt import init_params
 from vqa_attention_networks_tpu_torch.ops import _build
 from vqa_attention_networks_tpu_torch.ops import attention as att
 from vqa_attention_networks_tpu_torch.ops import coattention as co
+from vqa_attention_networks_tpu_torch.ops import fusion
 from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
+from vqa_attention_networks_tpu_torch.ops import lstm as k8
 from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
+from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
 from vqa_attention_networks_tpu_torch.train.solver import Solver
 from vqa_attention_networks_tpu_torch.weights import (
@@ -238,6 +265,37 @@ MFB_TRAIN_RUNS = (("mfb", "prepool", "K2"), ("mfb", "pooled", "K3"),
                   ("mfb-multilayer", "pooled", "K3"))
 # launch counters of the training fusions, by kernel
 TRAIN_COUNTERS = {"K2": tf.launch_count, "K3": pf.launch_count}
+K6_SOURCE = K3_SOURCE  # pooled_fusion_wq_grid: K3's forward, then the norm
+K6_REPLACES = "vqa_attention_networks_tpu/ops/pallas_wq_fusion.py:88"
+K8_SOURCE = "vqa_attention_networks_tpu_torch/csrc/lstm_scan.cu"
+K8_REPLACES = "vqa_attention_networks_tpu/ops/pallas_lstm.py:74"
+K6_NS = K8_NS = (8, 256, 1024)
+K6_TIME_NS = (BATCH, 1024)
+# K6 against its plain version, per element of pooled = out * |out|: the
+# two share their rounding points and differ in the order of their f32
+# sums (the D=2048 contraction and the norm over 196,000 values), which
+# can move an element of the bf16 output across a rounding boundary: one
+# ulp, at most 2^-7 of its value, 2^-6 once squared. K6_ATOL of the
+# largest value covers the f32 difference of a pooled value near 0. The
+# backward is the composed chain's VJP on the same inputs, on the same
+# card, in both runs: held at K6_GRAD_RTOL of each gradient's largest value.
+K6_RTOL, K6_ATOL = 2.0 ** -6, 1e-4
+K6_GRAD_N, K6_GRAD_RTOL = 64, 1e-6
+# K8 against its plain version. Each step is held on its own: the plain
+# recurrence fed the kernel's own h carry (``h_carry``) must give the
+# kernel's output within one bf16 ulp plus K8_STEP_ATOL. The two share their
+# rounding points (bf16 xp and h, f32 gates and c) and differ in the order
+# of the recurrent product's f32 sums (H=1024) and in the last bits of
+# expf/tanhf: a few f32 ulps of a gate, which can round an h the other way
+# at a bf16 boundary. Run free, the two scans drift further apart, because
+# such a flip feeds the later steps through W_hh (2^-8 at most over 22
+# steps on an H100, on ~12% of the outputs), so the free-running
+# outputs are held at K8_FREE_ATOL only. The check's inputs keep the gate
+# pre-activations off the sigmoid's flat tails (|x| < K8_LIVE on at least
+# K8_LIVE_SHARE of them), where a wrong gate would be invisible.
+K8_STEP_ATOL, K8_FREE_ATOL = 1e-6, 2.0 ** -6
+K8_LIVE, K8_LIVE_SHARE = 3.0, 0.5
+K8_SHAPE = dict(t=22, e=300, h=1024)  # mhb_coAtt: T, emb_dim, hidden_dim
 # the card's rates for the bounds (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -471,6 +529,23 @@ def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
     if failed:
         raise AssertionError(f"K2 fails {failed} at N={n}, rate={rate}")
     return max_abs
+
+
+def device_ms(fn, iters: int = 5):
+    """The card's kernel time per call of ``fn``: the device time that
+    torch.profiler records over ``iters`` calls after a warm-up, without
+    the host's time between launches; None where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0)
+                   for e in prof.key_averages())
+    return total_us / iters / 1e3 if total_us > 0 else None
 
 
 def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
@@ -1147,6 +1222,305 @@ def dead_gradient_check(cfg: Config, params, store) -> None:
     del solver
 
 
+def k6_inputs(n: int, seed: int, cfg: Config, dev) -> tuple:
+    """Production-width K6 inputs, drawn on the card from a seeded
+    generator (N=1024's img is 411M values, seconds of a host draw): bf16
+    img, f32 W, b and q."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, f = cfg.img_feature_channel, cfg.fusion_dim
+
+    def t(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return (t((n, cfg.img_feature_dim, d), 0.5).to(torch.bfloat16),
+            t((d, f), 0.02), t((f,), 0.05), t((n, f), 0.5))
+
+
+def k6_within(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Elementwise: is K6's ``got`` within the tolerance of ``want``, held
+    as pooled = out * |out|?"""
+    got, want = got.float(), want.float()
+    got, want = got * got.abs(), want * want.abs()
+    return (got - want).abs() <= K6_RTOL * want.abs() + \
+        K6_ATOL * want.abs().max()
+
+
+def k6_check(n: int, cfg: Config, dev) -> float:
+    """K6 at production widths against its plain version, with its two
+    controls; raises on a failure. Returns max |diff| of the output."""
+    img, w, b, q = k6_inputs(n, 60 + n, cfg, dev)
+    k = cfg.mfb_factor
+    got = wqg.wq_grid_fuse_cuda(img, w, b, q, k)
+    again = wqg.wq_grid_fuse_cuda(img, w, b, q, k)
+    want = wqg.wq_grid_fuse_reference(img, w, b, q, k)
+    torch.cuda.synchronize()
+    ok = bool(k6_within(got, want).all())
+    perm = wqg.wq_grid_fuse_reference(img, w, b, q.roll(1, 0), k)
+    perm_rejected = 1.0 - float(k6_within(perm, want).float().mean())
+    del perm
+    wf = want.float()
+    row = wf / wf.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    row_rejected = 1.0 - float(k6_within(row, want).float().mean())
+    del row
+    norms = wf.pow(2).sum((1, 2)).sqrt()
+    pooled, want_pooled = got.float() * got.float().abs(), wf * wf.abs()
+    max_abs = float((got.float() - wf).abs().max())
+    fields = dict(
+        n=n, max_abs_diff=max_abs,
+        max_rel_diff_pooled=float((pooled - want_pooled).abs().max()
+                                  / want_pooled.abs().max()),
+        bit_equal_share=float((got == want).float().mean()),
+        within_tolerance=ok, rerun_bit_equal=bool(torch.equal(got, again)),
+        finite=bool(torch.isfinite(got.float()).all()),
+        grid_norm_of_plain_output=[float(norms.min()), float(norms.max())],
+        permuted_q_rejected_share=perm_rejected,
+        per_row_norm_rejected_share=row_rejected)
+    say("k6_check", **fields)
+    if not (ok and fields["rerun_bit_equal"] and fields["finite"]):
+        raise AssertionError(f"K6 disagrees with its plain version at N={n}")
+    if min(perm_rejected, row_rejected) < 0.5:
+        raise AssertionError("the K6 check does not reject a permuted q or a "
+                             "per-row norm")
+    return max_abs
+
+
+def k6_path(cfg: Config, dev) -> int:
+    """K6's path: its entry ``wq_grid_fuse``, forward (the kernel) and
+    backward (the composed chain's VJP), at N = K6_GRAD_N, with its launch
+    count set to 0 just before; the gradients against
+    ``composed_reference``'s on the card. Raises on a failure; returns the
+    launches."""
+    img, w, b, q = k6_inputs(K6_GRAD_N, 61, cfg, dev)
+    args = [x.float().requires_grad_(True) if i else x.requires_grad_(True)
+            for i, x in enumerate((img, w, b, q))]
+    k = cfg.mfb_factor
+    rng = np.random.default_rng(62)
+    g = randn(rng, (K6_GRAD_N, img.shape[1], w.shape[1] // k), 1.0, dev,
+              torch.bfloat16)
+    wqg.launch_count = 0
+    grads = torch.autograd.grad(wqg.wq_grid_fuse(*args, k), args, g)
+    torch.cuda.synchronize()
+    launches = wqg.launch_count
+    want = torch.autograd.grad(wqg.composed_reference(*args, k), args, g)
+    fields, ok = {}, True
+    for name, got, ref, x in zip(("img", "W", "b", "q"), grads, want, args):
+        dtype, got, ref = got.dtype, got.float(), ref.float()
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        fields[name] = {"max_rel_diff": rel, "dtype": str(dtype),
+                        "finite": bool(torch.isfinite(got).all()),
+                        "nonzero_share": float((got != 0).float().mean())}
+        ok &= (rel <= K6_GRAD_RTOL and fields[name]["finite"]
+               and dtype == x.dtype)
+    say("k6_path", entry="wq_grid_fuse", n=K6_GRAD_N, launches=launches,
+        gradients=fields)
+    if launches != 1:
+        raise AssertionError(f"K6 launched {launches} times on its path")
+    if not ok:
+        raise AssertionError("K6's backward disagrees with the composed "
+                             "chain's VJP")
+    return launches
+
+
+def k8_inputs(n: int, seed: int, dev) -> tuple:
+    """x [n, T, E] bf16 and the LSTM's weights in layers.LSTM's layout
+    (f32): xp ~ N(0, 1) and W_hh ~ N(0, 4/H), so that h @ W_hh^T is about
+    half a unit: the gates stay off the sigmoid's flat tails, and W_hh's
+    blocks matter (its i and f blocks swapped move most outputs)."""
+    t, e, h = K8_SHAPE["t"], K8_SHAPE["e"], K8_SHAPE["h"]
+    rng = np.random.default_rng(seed)
+    return (randn(rng, (n, t, e), 1.0, dev, torch.bfloat16),
+            randn(rng, (4 * h, e), e ** -0.5, dev),
+            randn(rng, (4 * h, h), 2.0 * h ** -0.5, dev),
+            randn(rng, (4 * h,), 0.1, dev), randn(rng, (4 * h,), 0.1, dev))
+
+
+def k8_within(got: torch.Tensor, forced: torch.Tensor) -> torch.Tensor:
+    """Elementwise: is each step of ``got`` within one bf16 ulp plus
+    K8_STEP_ATOL of ``forced``, the plain steps fed ``got``'s carry?"""
+    got, forced = got.float(), forced.float()
+    ulp = torch.exp2(torch.floor(torch.log2(forced.abs().clamp_min(1e-30)))
+                     - 7)
+    return (got - forced).abs() <= ulp + K8_STEP_ATOL
+
+
+def k8_steps_rejected(out: torch.Tensor, xp: torch.Tensor,
+                      w_hh: torch.Tensor) -> float:
+    """Control: the share of ``out`` (a faulty scan's output) whose steps
+    the check rejects."""
+    forced = k8.lstm_scan_reference(xp, w_hh, h_carry=out)
+    return 1.0 - float(k8_within(out, forced).float().mean())
+
+
+def k8_check(n: int, dev) -> float:
+    """K8's scan against its plain version, step by step and run free, with
+    its controls; raises on a failure. Returns the free-running max |diff|."""
+    x, w_ih, w_hh, b_ih, b_hh = k8_inputs(n, 80 + n, dev)
+    xp = k8.input_projection(x, w_ih, b_ih, b_hh)
+    got = k8.lstm_scan_cuda(xp, w_hh)
+    again = k8.lstm_scan_cuda(xp, w_hh)
+    want = k8.lstm_scan_reference(xp, w_hh)
+    forced = k8.lstm_scan_reference(xp, w_hh, h_carry=got)
+    torch.cuda.synchronize()
+    max_abs = float((got.float() - want.float()).abs().max())
+    ok = bool(k8_within(got, forced).all()) and max_abs <= K8_FREE_ATOL
+    # the pre-activations the plain run saw: its h carry is its bf16 output
+    h_prev = torch.cat([torch.zeros_like(want[:, :1]), want[:, :-1]], 1)
+    pre = xp.float() + h_prev.float() @ w_hh.to(torch.bfloat16).float().t()
+    live = float((pre.abs() < K8_LIVE).float().mean())
+    del pre
+    h = K8_SHAPE["h"]
+    swapped = k8.lstm_scan_reference(
+        xp, torch.cat([w_hh[h:2 * h], w_hh[:h], w_hh[2 * h:]]))
+    controls = {
+        "i_f_swapped_rejected_share": k8_steps_rejected(swapped, xp, w_hh),
+        "shifted_one_step_rejected_share": k8_steps_rejected(h_prev, xp,
+                                                             w_hh)}
+    del swapped, h_prev
+    say("k8_check", n=n, **K8_SHAPE, max_abs_diff=max_abs,
+        bit_equal_share=float((got == want).float().mean()),
+        step_max_abs_diff=float((got.float() - forced.float()).abs().max()),
+        step_bit_equal_share=float((got == forced).float().mean()),
+        within_tolerance=ok, rerun_bit_equal=bool(torch.equal(got, again)),
+        finite=bool(torch.isfinite(got.float()).all()),
+        gate_preactivations_below_3_share=live, **controls)
+    if not (ok and torch.equal(got, again)
+            and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"K8 disagrees with its plain version at N={n}")
+    if live < K8_LIVE_SHARE:
+        raise AssertionError("the K8 inputs saturate the gates")
+    if min(controls.values()) < 0.5:
+        raise AssertionError("the K8 check does not reject its controls")
+    return max_abs
+
+
+def k8_path(dev) -> int:
+    """K8's path: its entry ``lstm_seq`` at N = BATCH, with its launch count
+    set to 0 just before; held against the plain version as ``k8_check``
+    holds it, and, for information only, against the port's composed
+    ``layers.lstm`` on the same weights (gates and c in bf16). Raises on a
+    failure; returns the launches."""
+    args = k8_inputs(BATCH, 90, dev)
+    k8.launch_count = 0
+    with torch.inference_mode():
+        got = k8.lstm_seq(*args)
+    torch.cuda.synchronize()
+    launches = k8.launch_count
+    with torch.inference_mode():
+        xp = k8.input_projection(args[0], args[1], args[3], args[4])
+        want = k8.lstm_scan_reference(xp, args[2])
+        forced = k8.lstm_scan_reference(xp, args[2], h_carry=got)
+        composed = layers.lstm(*args)
+    max_abs = float((got.float() - want.float()).abs().max())
+    ok = bool(k8_within(got, forced).all()) and max_abs <= K8_FREE_ATOL
+    say("k8_path", entry="lstm_seq", n=BATCH, **K8_SHAPE, launches=launches,
+        within_tolerance=ok, max_abs_diff=max_abs,
+        composed_layers_lstm_max_abs_diff_info=float(
+            (composed.float() - got.float()).abs().max()),
+        composed_layers_lstm_differs_share_info=float(
+            (composed != got).float().mean()))
+    if launches != 1 or not ok:
+        raise AssertionError(f"K8's path: {launches} launches, within "
+                             f"tolerance {ok}")
+    return launches
+
+
+def k6_time(cfg: Config, dev, smi: str) -> tuple:
+    """K6 against its plain version at N = BATCH and 1024 (kernel/plain/
+    plain/kernel), with the torch composed weight-contracted chain + grid
+    L2 for information. Returns (times at BATCH, bound at BATCH): the
+    product (2 N L D O, bf16) and the f32 wq build (2 N k D O) counted at
+    their peak rates, img, W, b, q and the bf16 output moved once."""
+    k = cfg.mfb_factor
+    for n in K6_TIME_NS:
+        img, w, b, q = k6_inputs(n, 6, cfg, dev)
+        _, l, d = img.shape
+        o = w.shape[1] // k
+
+        def composed():
+            z = fusion.grid_fuse_weight_contracted(img, w, b, q, k)
+            return layers.l2_normalize(z.reshape(n, -1)).reshape(z.shape)
+
+        run = interleaved_ms(lambda: wqg.wq_grid_fuse_cuda(img, w, b, q, k),
+                             lambda: wqg.wq_grid_fuse_reference(img, w, b, q,
+                                                                k))
+        composed()
+        composed_ms = time_ms(composed, 3)
+        bnd = bound(nbytes(img, *pf.operands(w, b, q)) + 2 * n * l * o,
+                    {"bf16": 2 * n * l * d * o, "f32": 2 * n * k * d * o})
+        say("k6_time", n=n, kernel_ms=run[0], plain_ms=run[1],
+            kernel_runs_ms=run[2], plain_runs_ms=run[3], bound_ms=bnd[0],
+            bound_by=bnd[1], composed_chain_ms_info=composed_ms, card=smi)
+        if n == BATCH:
+            times, k6_bound = run, bnd
+        del img, w, b, q
+        torch.cuda.empty_cache()
+    return times, k6_bound
+
+
+def k8_time(dev, smi: str) -> tuple:
+    """K8's scan and the whole ``lstm_seq`` against their plain versions at
+    N = BATCH, and ``torch.nn.LSTM`` (cuDNN) on the same weights and input,
+    at bf16 if cuDNN takes bf16, else at f16. Returns (scan times, scan
+    bound, cuDNN ms): the bound counts the recurrent products (2 N T H 4H,
+    bf16) and xp, W_hh and the output moved once; the 22 dependent steps
+    are a latency floor it does not count."""
+    x, w_ih, w_hh, b_ih, b_hh = k8_inputs(BATCH, 9, dev)
+    w_bf16 = w_hh.to(torch.bfloat16)
+    xp = k8.input_projection(x, w_ih, b_ih, b_hh)
+    n, t, h = BATCH, K8_SHAPE["t"], K8_SHAPE["h"]
+    scan = interleaved_ms(lambda: k8.lstm_scan_cuda(xp, w_bf16),
+                          lambda: k8.lstm_scan_reference(xp, w_bf16), 10)
+    seq = interleaved_ms(
+        lambda: k8.lstm_seq(x, w_ih, w_bf16, b_ih, b_hh),
+        lambda: k8.lstm_scan_reference(
+            k8.input_projection(x, w_ih, b_ih, b_hh), w_bf16), 10)
+    scan_bound = bound(nbytes(xp, w_bf16) + 2 * n * t * h,
+                       {"bf16": 2 * n * t * h * 4 * h})
+    # the yardstick: one PyTorch call for the same function; at::lstm takes
+    # cuDNN only for a dtype torch.cudnn_is_acceptable accepts
+    dtype = (torch.bfloat16 if torch.cudnn_is_acceptable(x)
+             else torch.float16)
+    net = torch.nn.LSTM(K8_SHAPE["e"], h, batch_first=True).to(dev, dtype)
+    with torch.no_grad():
+        for name, value in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
+                            ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+            getattr(net, name).copy_(value)
+    net.flatten_parameters()
+    x_lib = x.to(dtype)
+    with torch.inference_mode():
+        lib_out = net(x_lib)[0]
+        library_ms = time_ms(lambda: net(x_lib), 10)
+        want = k8.lstm_seq(x, w_ih, w_bf16, b_ih, b_hh)
+        # for information: the device time alone of cuDNN's call and of
+        # K8's entry (the call's time above includes the host's, and at
+        # bf16 nn.LSTM compacts its weights on every call: its
+        # flatten_parameters() skips a dtype that
+        # torch.backends.cudnn.is_acceptable does not list); and f16, where
+        # the weights stay flattened
+        device = {"cudnn": device_ms(lambda: net(x_lib)),
+                  "lstm_seq": device_ms(
+                      lambda: k8.lstm_seq(x, w_ih, w_bf16, b_ih, b_hh))}
+        net16, x16 = net.half(), x.half()
+        net16.flatten_parameters()
+        net16(x16)
+        f16_ms = time_ms(lambda: net16(x16), 10)
+        device["cudnn_f16"] = device_ms(lambda: net16(x16))
+    say("k8_time", n=n, **K8_SHAPE, scan_kernel_ms=scan[0],
+        scan_plain_ms=scan[1], scan_kernel_runs_ms=scan[2],
+        scan_plain_runs_ms=scan[3], lstm_seq_kernel_ms=seq[0],
+        lstm_seq_plain_ms=seq[1], lstm_seq_kernel_runs_ms=seq[2],
+        lstm_seq_plain_runs_ms=seq[3], bound_ms=scan_bound[0],
+        bound_by=scan_bound[1],
+        bound_note="the 22 dependent steps are a latency floor the bound "
+                   "does not count",
+        cudnn_lstm_ms=library_ms, cudnn_dtype=str(dtype),
+        cudnn_lstm_f16_ms_info=f16_ms, device_ms_profiler_info=device,
+        cudnn_includes_input_projection=True,
+        cudnn_vs_kernel_max_abs_diff_info=float(
+            (lib_out.float() - want.float()).abs().max()), card=smi)
+    return scan, scan_bound, library_ms
+
+
 def main() -> None:
     # phase 1: the device
     card_name, smi = card()
@@ -1159,7 +1533,7 @@ def main() -> None:
 
     # phase 2: build, one nvcc per source, all started together
     names = ("stage1_coattention", "train_fusion", "coattention",
-             "glimpse_attention", "pooled_fusion")
+             "glimpse_attention", "pooled_fusion", "lstm_scan")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds, log) in zip(names, built):
@@ -1436,14 +1810,34 @@ def main() -> None:
             bound_by=bnd[1], card=smi)
     say("e2e_served", qa_pairs_per_s=e2e, batch=BATCH,
         requests=BATCH * N_BATCHES, card=smi)
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, n_launches, err, run, bnd) -> dict:
+    # phase 20: K6 against its plain version at production widths
+    k6_err = max(k6_check(n, cfg, dev) for n in K6_NS)
+    torch.cuda.empty_cache()
+
+    # phase 21: K6's path, its entry forward and backward
+    launches["K6"] = k6_path(cfg, dev)
+    torch.cuda.empty_cache()
+
+    # phase 22: K8 against its plain version, then its path
+    k8_err = max(k8_check(n, dev) for n in K8_NS)
+    launches["K8"] = k8_path(dev)
+    torch.cuda.empty_cache()
+
+    # phase 23: K6 and K8 times, and cuDNN's LSTM beside K8
+    k6_times, k6_bound = k6_time(cfg, dev, smi)
+    k8_times, k8_bound, k8_library_ms = k8_time(dev, smi)
+
+    def entry(name, source, replaces, n_launches, err, run, bnd,
+              library_ms=None) -> dict:
+        # library_ms: one PyTorch call that computes the same function;
+        # only K8's has one (torch.nn.LSTM), none of the fused chains does
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": err, "ms": run[0], "plain_ms": run[1],
                 "bound_ms": bnd[0], "bound_by": bnd[1],
-                # no single PyTorch call computes any of these functions
-                "library_ms": None}
+                "library_ms": library_ms}
 
     kernels = [entry("stage1_coattention", K1_SOURCE, K1_REPLACES,
                      launches["K1"], max_err, times[BATCH], k1_bound)]
@@ -1468,6 +1862,11 @@ def main() -> None:
         # both call shapes launch it; ms and bound at the co-attention's
         entry("glimpse_attention", K7_SOURCE, K7_REPLACES, launches["K7"],
               k7_err, k7_times["co_attention"], k7_bounds["co_attention"]),
+        entry("wq_grid_fusion", K6_SOURCE, K6_REPLACES, launches["K6"],
+              k6_err, k6_times, k6_bound),
+        # one call of the scan: T launches of the step kernel
+        entry("lstm_scan", K8_SOURCE, K8_REPLACES, launches["K8"], k8_err,
+              k8_times, k8_bound, library_ms=k8_library_ms),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

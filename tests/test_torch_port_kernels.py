@@ -1,5 +1,5 @@
-"""The hand-written kernels (K1, K2, K3, K4, K5, K7) on the card against
-their plain PyTorch versions.
+"""The hand-written kernels (K1 to K8) on the card against their plain
+PyTorch versions.
 
 These need an NVIDIA card (sm_90a) and the CUDA toolkit; without a card
 they skip. Kernel and plain version share their rounding points and differ
@@ -488,3 +488,178 @@ def test_k3_wrappers_raise_on_inputs_they_do_not_take():
     out = pf.forward_cuda(img, w_bf16, b, q, K)
     with pytest.raises(ValueError, match="contiguous f32"):
         pf.d_w_cuda(g.double(), out, img, w_bf16, b, q, K)
+
+
+# --------------------------------------------------------------------------
+# K6 (the standalone wq fusion + grid L2) and K8 (the LSTM scan)
+# --------------------------------------------------------------------------
+
+# K6 against its plain version, per element of pooled = out * |out|: the
+# two share their rounding points and differ in the order of their f32
+# sums (the D contraction and the norm), which can move an element of the
+# bf16 output by one ulp (2^-7 of its value at most, 2^-6 once squared);
+# 1e-4 of the largest value covers the f32 difference of a pooled value
+# near 0. The backward is the composed chain's VJP on the same inputs, on
+# the same card: held at 1e-6 of each gradient's largest magnitude.
+K6_RTOL, K6_ATOL = 2.0 ** -6, 1e-4
+K6_GRAD_RTOL = 1e-6
+# K8 against its plain version, step by step: the plain recurrence fed the
+# kernel's own h carry must give each output within one bf16 ulp plus
+# 1e-6. The two share their rounding points (bf16 xp and h, f32 gates and
+# c) and differ in the order of the recurrent product's f32 sums and the
+# last bits of expf/tanhf, which can round an h the other way at a bf16
+# boundary. Run free, such a flip feeds the later steps through W_hh, so
+# the free-running outputs are held at 2^-6 only.
+K8_STEP_ATOL, K8_FREE_ATOL = 1e-6, 2.0 ** -6
+
+
+def _k8_steps_within(got, forced):
+    got, forced = got.float(), forced.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        forced.abs().clamp_min(1e-30))) - 7)
+    return (got - forced).abs() <= ulp + K8_STEP_ATOL
+
+
+def _k6_inputs(n, l, d, o, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32) * scale).cuda()
+
+    return (t((n, l, d), 0.5).to(torch.bfloat16), t((d, o * K), 0.02),
+            t((o * K,), 0.05), t((n, o * K), 0.5))
+
+
+def _k6_within(got, want):
+    got, want = got.float(), want.float()
+    got, want = got * got.abs(), want * want.abs()
+    return (got - want).abs() <= K6_RTOL * want.abs() + \
+        K6_ATOL * want.abs().max()
+
+
+@pytest.mark.parametrize("n,l,d,o", [(3, 37, 64, 104), (4, 196, 2048, 1000)],
+                         ids=["ragged", "production"])
+def test_k6_matches_plain_version(n, l, d, o):
+    from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, w, b, q = _k6_inputs(n, l, d, o)
+    before = wqg.launch_count
+    got = wqg.wq_grid_fuse_cuda(img, w, b, q, K)
+    torch.cuda.synchronize()
+    assert wqg.launch_count == before + 1
+    want = wqg.wq_grid_fuse_reference(img, w, b, q, K)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, l, o)
+    assert torch.isfinite(got.float()).all()
+    assert _k6_within(got, want).all()
+    # no atomics: a rerun gives the same bits
+    assert torch.equal(got, wqg.wq_grid_fuse_cuda(img, w, b, q, K))
+    # controls: q permuted across samples, a per-row norm
+    perm = wqg.wq_grid_fuse_reference(img, w, b, q.roll(1, 0), K)
+    row = want.float() / want.float().norm(dim=-1, keepdim=True)
+    for control in (perm, row):
+        assert (~_k6_within(control, want)).float().mean() > 0.5
+
+
+def test_k6_backward_is_the_composed_chain():
+    from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [x.requires_grad_(True) for x in _k6_inputs(3, 196, 128, 104, 1)]
+    g = torch.randn(3, 196, 104, device="cuda").to(torch.bfloat16)
+    before = wqg.launch_count
+    grads = torch.autograd.grad(wqg.wq_grid_fuse(*args, K), args, g)
+    assert wqg.launch_count == before + 1
+    want = torch.autograd.grad(wqg.composed_reference(*args, K), args, g)
+    for got, ref, x in zip(grads, want, args):
+        assert got.dtype == x.dtype and torch.isfinite(got.float()).all()
+        assert (got.float() - ref.float()).abs().max() <= \
+            K6_GRAD_RTOL * ref.float().abs().max()
+
+
+def test_k6_wrapper_raises_on_inputs_it_does_not_take():
+    from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
+
+    img, w, b, q = _k6_inputs(2, 20, 64, 104)
+    with pytest.raises(TypeError):
+        wqg.wq_grid_fuse_cuda(img.float(), w, b, q, K)
+    with pytest.raises(ValueError, match="CUDA"):
+        wqg.wq_grid_fuse_cuda(img.cpu(), w.cpu(), b.cpu(), q.cpu(), K)
+    with pytest.raises(ValueError, match="on"):
+        wqg.wq_grid_fuse_cuda(img, w, b, q.cpu(), K)
+    with pytest.raises(ValueError, match="L <="):
+        wqg.wq_grid_fuse_cuda(torch.cat([img] * 11, 1), w, b, q, K)
+    with pytest.raises(ValueError, match="F % 8"):
+        wqg.wq_grid_fuse_cuda(*_k6_inputs(2, 20, 64, 100), K)
+
+
+def _k8_inputs(n, t, h, seed=0):
+    rng = np.random.default_rng(seed)
+    xp = torch.from_numpy(rng.standard_normal((n, t, 4 * h)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    w_hh = torch.from_numpy((rng.standard_normal((4 * h, h))
+                             / np.sqrt(h)).astype(np.float32)).cuda()
+    return xp, w_hh
+
+
+@pytest.mark.parametrize("n,t,h", [(5, 3, 96), (70, 22, 1024)],
+                         ids=["ragged", "production"])
+def test_k8_matches_plain_version(n, t, h):
+    from vqa_attention_networks_tpu_torch.ops import lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xp, w_hh = _k8_inputs(n, t, h)
+    before = lstm.launch_count
+    got = lstm.lstm_scan_cuda(xp, w_hh)
+    torch.cuda.synchronize()
+    assert lstm.launch_count == before + 1
+    want = lstm.lstm_scan_reference(xp, w_hh)
+    forced = lstm.lstm_scan_reference(xp, w_hh, h_carry=got)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, t, h)
+    assert torch.isfinite(got.float()).all()
+    assert _k8_steps_within(got, forced).all()
+    assert (got.float() - want.float()).abs().max() <= K8_FREE_ATOL
+    assert torch.equal(got, lstm.lstm_scan_cuda(xp, w_hh))
+    # control: a carry off by one step is rejected on most elements
+    shifted = torch.cat([torch.zeros_like(want[:, :1]), want[:, :-1]], 1)
+    forced = lstm.lstm_scan_reference(xp, w_hh, h_carry=shifted)
+    assert (~_k8_steps_within(shifted, forced)).float().mean() > 0.5
+
+
+def test_k8_entry_launches_the_kernel():
+    from vqa_attention_networks_tpu_torch.ops import lstm
+
+    rng = np.random.default_rng(3)
+    n, t, e, h = 6, 4, 30, 128
+
+    def f(shape, scale):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * scale).cuda()
+
+    x = f((n, t, e), 1.0).to(torch.bfloat16)
+    w_ih, w_hh = f((4 * h, e), e ** -0.5), f((4 * h, h), h ** -0.5)
+    b_ih, b_hh = f((4 * h,), 0.1), f((4 * h,), 0.1)
+    assert lstm.supported(x, h)
+    before = lstm.launch_count
+    got = lstm.lstm_seq(x, w_ih, w_hh, b_ih, b_hh)
+    assert lstm.launch_count == before + 1
+    forced = lstm.lstm_scan_reference(
+        lstm.input_projection(x, w_ih, b_ih, b_hh), w_hh, h_carry=got)
+    assert _k8_steps_within(got, forced).all()
+
+
+def test_k8_wrapper_raises_on_inputs_it_does_not_take():
+    from vqa_attention_networks_tpu_torch.ops import lstm
+
+    xp, w_hh = _k8_inputs(2, 3, 96)
+    with pytest.raises(TypeError):
+        lstm.lstm_scan_cuda(xp.float(), w_hh)
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm.lstm_scan_cuda(xp.cpu(), w_hh.cpu())
+    with pytest.raises(ValueError, match="on"):
+        lstm.lstm_scan_cuda(xp, w_hh.cpu())
+    with pytest.raises(ValueError, match="H % 32"):
+        lstm.lstm_scan_cuda(*_k8_inputs(2, 3, 100))
+    with pytest.raises(ValueError, match="agree"):
+        lstm.lstm_scan_cuda(xp, w_hh[:, :64])

@@ -24,6 +24,23 @@
 // products of two bf16 values are exact), so the bf16 wq the products see
 // has the plain version's bits.
 //
+// The file also carries kernel K6, the standalone weight-contracted grid
+// fusion with grid-flat L2: _wq_grid_fuse_pallas (vqa_attention_networks_
+// tpu/ops/pallas_wq_fusion.py:88, its _kernel :56-85), the forward of the
+// entry _wq_grid_fuse_tpu (:447-465). Its first stage is this forward, with
+// the same operands and rounding points; then, per sample,
+//
+//   out[n]     = bf16(z * (1 / max(||z||, eps)))   z = the forward's out[n],
+//                                                  the norm over all of [L, O]
+//
+// (the TPU kernel pads O to a multiple of 128 with columns that are exactly
+// 0 and sliced off, so the grid here is [L, O]). The TPU instance sees a
+// sample's whole grid and finishes the norm in-kernel; a block here sees
+// 128 outputs of it, so the norm takes two more launches. At N = 256 K6's
+// bound is ~0.29 ms of operations (the 205 GFLOP product and the 5.2 GFLOP
+// f32 wq build); the norm's extra bytes (z written and read twice, f32, and
+// the bf16 out) are ~0.15 ms at 3.35 TB/s, small beside the forward's time.
+//
 // What bounds it on this card, at N = 64, L = 196, D = 2048, O = 1000,
 // k = 5. Each launch is one product of 2*N*L*D*O = 51.4 GFLOP (0.052 ms at
 // 989 TFLOP/s bf16) plus f32 elementwise work: the wq build, 2*N*k*D*O =
@@ -68,6 +85,12 @@
 //       d_W's sums with q and contracted with the block's W tile (kept in
 //       shared memory) into d_q's partial; then d_q's reduction over
 //       ceil(N*F/256) blocks.
+//   pooled_fusion_wq_grid  (K6) three launches: the forward into an f32 z
+//       scratch; grid_ssq_kernel, grid (ceil(L*O/2048), N): each block's
+//       sum of squares of 2048 elements of one sample's z in a fixed order;
+//       grid_scale_kernel, the same grid: the sample's norm from those
+//       sums in chunk order (no atomics: reruns give the same bits), and
+//       bf16(z * (1 / max(norm, eps))).
 // Each entry returns cudaGetLastError() after its launches (0 on success).
 
 #include <cuda_bf16.h>
@@ -570,6 +593,68 @@ __global__ void __launch_bounds__(kThreads)
   d_q[i] = __fadd_rn(s, __fmul_rn(d_bq[(size_t)n * (f / k) + c / k], b[c]));
 }
 
+// ---------------------------------------------------------------------------
+// K6's grid-flat L2 over the forward's output z [N, L, O]:
+// out = bf16(z * (1 / max(||z[n]||, eps)))
+// ---------------------------------------------------------------------------
+constexpr int kNormItems = 8;                      // elements per thread
+constexpr int kNormChunk = kThreads * kNormItems;  // elements per block
+
+// the sum of squares of one kNormChunk-element chunk of a sample's z, in a
+// fixed order: each thread's items, the warp's lanes, the block's warps
+__global__ void __launch_bounds__(kThreads)
+    grid_ssq_kernel(const float* __restrict__ z,  // [N, L*O]
+                    float* __restrict__ ssq,      // [N, chunks]
+                    int grid_size) {
+  __shared__ float red_s[kWarps];
+  const int n = blockIdx.y, tid = threadIdx.x;
+  const float* zn = z + (size_t)n * grid_size;
+  const int base = blockIdx.x * kNormChunk + tid;
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kNormItems; ++i) {
+    const int e = base + i * kThreads;
+    if (e < grid_size) s = __fadd_rn(s, __fmul_rn(zn[e], zn[e]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+  if (tid % 32 == 0) red_s[tid / 32] = s;
+  __syncthreads();
+  if (tid == 0) {
+    float t = red_s[0];
+    for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, red_s[w]);
+    ssq[(size_t)n * gridDim.x + blockIdx.x] = t;
+  }
+}
+
+// the sample's norm from its chunks' sums, in chunk order (no atomics:
+// reruns give the same bits), then the scaled bf16 output
+__global__ void __launch_bounds__(kThreads)
+    grid_scale_kernel(const float* __restrict__ z,    // [N, L*O]
+                      const float* __restrict__ ssq,  // [N, chunks]
+                      bf16* __restrict__ out,         // [N, L*O]
+                      int grid_size, float eps) {
+  __shared__ float inv_s;
+  const int n = blockIdx.y;
+  if (threadIdx.x == 0) {
+    const float* part = ssq + (size_t)n * gridDim.x;
+    float t = part[0];
+    for (int i = 1; i < (int)gridDim.x; ++i) t = __fadd_rn(t, part[i]);
+    inv_s = __fdiv_rn(1.0f, fmaxf(sqrtf(t), eps));
+  }
+  __syncthreads();
+  const float inv = inv_s;
+  const float* zn = z + (size_t)n * grid_size;
+  bf16* on = out + (size_t)n * grid_size;
+  const int base = blockIdx.x * kNormChunk + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kNormItems; ++i) {
+    const int e = base + i * kThreads;
+    if (e < grid_size) on[e] = __float2bfloat16(__fmul_rn(zn[e], inv));
+  }
+}
+
 bool dims_ok(int n, int l, int d, int f, int k) {
   return n >= 1 && n <= 65535 && l >= 1 && l <= kRows && d >= 8 &&
          d % 8 == 0 && k >= 1 && k <= kMaxK && f >= k && f % k == 0 &&
@@ -594,6 +679,30 @@ int pooled_fusion_forward(const void* img, const void* w, const void* b,
       static_cast<const bf16*>(img), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const bf16*>(q),
       static_cast<float*>(out), l, d, f, k);
+  return (int)cudaGetLastError();
+}
+
+// K6: the forward into z (f32 scratch [N, L, O]), then the grid-flat L2
+// into out (bf16 [N, L, O]); ssq is scratch [N, ceil(L*O / 2048)]
+int pooled_fusion_wq_grid(const void* img, const void* w, const void* b,
+                          const void* q, void* z, void* ssq, void* out, int n,
+                          int l, int d, int f, int k, float eps,
+                          void* stream) {
+  if (!dims_ok(n, l, d, f, k) || (size_t)l * (f / k) >= (1u << 31))
+    return (int)cudaErrorInvalidValue;
+  const int err = pooled_fusion_forward(img, w, b, q, z, n, l, d, f, k,
+                                        stream);
+  if (err != 0) return err;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int grid_size = l * (f / k);
+  const dim3 grid((grid_size + kNormChunk - 1) / kNormChunk, n);
+  grid_ssq_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(z), static_cast<float*>(ssq), grid_size);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  grid_scale_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(z), static_cast<const float*>(ssq),
+      static_cast<bf16*>(out), grid_size, eps);
   return (int)cudaGetLastError();
 }
 

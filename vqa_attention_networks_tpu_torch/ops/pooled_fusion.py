@@ -34,6 +34,9 @@ d_q in q's.
   rounding points above, as an ``autograd.Function``.
 - ``launch_count`` counts the kernel launches, by kernel.
 
+The library also carries K6 (``ops/wq_grid_fusion.py``), whose first
+launch is this forward kernel; ``check_inputs`` serves both.
+
 The SPMD wrappers of the TPU module (``custom_partitioning``) are not
 ported: multi-GPU is a later item.
 """
@@ -166,7 +169,10 @@ def library() -> ctypes.CDLL:
     lib.pooled_fusion_d_img.argtypes = [p] * 5 + tail  # g out w q d_img
     # g out img w b q, d_w d_b d_q, scratch: g_pooled, d_bq, d_q partials
     lib.pooled_fusion_d_w.argtypes = [p] * 12 + tail
-    for name in ("forward", "d_img", "d_w"):
+    # K6 (ops/wq_grid_fusion.py): img w b q, z ssq out, n l d f k, eps, stream
+    lib.pooled_fusion_wq_grid.argtypes = (
+        [p] * 7 + [i] * 5 + [ctypes.c_float, p])
+    for name in ("forward", "d_img", "d_w", "wq_grid"):
         getattr(lib, f"pooled_fusion_{name}").restype = ctypes.c_int
     lib.pooled_fusion_error_string.argtypes = [ctypes.c_int]
     lib.pooled_fusion_error_string.restype = ctypes.c_char_p
@@ -174,15 +180,16 @@ def library() -> ctypes.CDLL:
 
 
 def check_inputs(img, w_bf16, b, q, k: int) -> None:
-    """Raise on operands the K3 kernels do not take."""
+    """Raise on operands the K3 and K6 kernels do not take."""
     if img.device.type != "cuda":
-        raise ValueError(f"the K3 kernels need a CUDA tensor, got {img.device}")
+        raise ValueError(
+            f"the K3/K6 kernels need a CUDA tensor, got {img.device}")
     if img.dtype != torch.bfloat16 or w_bf16.dtype != torch.bfloat16 or \
             q.dtype != torch.bfloat16:
-        raise TypeError(f"the K3 kernels take bf16 img, W and q, got "
+        raise TypeError(f"the K3/K6 kernels take bf16 img, W and q, got "
                         f"{img.dtype}, {w_bf16.dtype} and {q.dtype}")
     if b.dtype != torch.float32:
-        raise TypeError(f"the K3 kernels take an f32 b, got {b.dtype}")
+        raise TypeError(f"the K3/K6 kernels take an f32 b, got {b.dtype}")
     if img.dim() != 3 or w_bf16.dim() != 2:
         raise ValueError(f"img must be [N, L, D] and W [D, F], got "
                          f"{tuple(img.shape)} and {tuple(w_bf16.shape)}")
@@ -192,23 +199,24 @@ def check_inputs(img, w_bf16, b, q, k: int) -> None:
         if t.device != img.device:
             raise ValueError(f"img is on {img.device} but {name} on {t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"the K3 kernels need a contiguous {name}")
+            raise ValueError(f"the K3/K6 kernels need a contiguous {name}")
     if w_bf16.shape[0] != d or tuple(b.shape) != (f,) or \
             tuple(q.shape) != (n, f):
         raise ValueError(
             f"shapes do not agree: img {tuple(img.shape)}, "
             f"W {tuple(w_bf16.shape)}, b {tuple(b.shape)}, q {tuple(q.shape)}")
     if not 1 <= l <= _MAX_ROWS:
-        raise ValueError(f"the K3 kernels take 1 <= L <= {_MAX_ROWS}, got {l}")
+        raise ValueError(
+            f"the K3/K6 kernels take 1 <= L <= {_MAX_ROWS}, got {l}")
     if not 1 <= k <= _MAX_K or f % k:
-        raise ValueError(f"the K3 kernels take 1 <= k <= {_MAX_K} with "
+        raise ValueError(f"the K3/K6 kernels take 1 <= k <= {_MAX_K} with "
                          f"F % k == 0, got k={k}, F={f}")
     if d % 8 or f % 8:
         # rows of img and W are read as 16-byte vectors
-        raise ValueError(f"the K3 kernels need D % 8 == 0 and F % 8 == 0, "
+        raise ValueError(f"the K3/K6 kernels need D % 8 == 0 and F % 8 == 0, "
                          f"got D={d}, F={f}")
     if img.data_ptr() % 16 or w_bf16.data_ptr() % 16:
-        raise ValueError("the K3 kernels need img and W 16-byte aligned")
+        raise ValueError("the K3/K6 kernels need img and W 16-byte aligned")
     if not 1 <= n <= 65535 or n * l * max(d, f) >= 2 ** 31:
         raise ValueError(f"N*L*max(D, F) must stay below 2^31, got N={n}, "
                          f"L={l}")
