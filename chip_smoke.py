@@ -27,8 +27,9 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 6. K2 (the training fusion with pre-pool dropout, forward and backward)
    against its plain PyTorch version at production widths (L=196, D=2048,
    F=5000, k=5), N = 8 and 64, rate 0.1 and 0: each launch (forward, d_img,
-   d_W/d_b, d_q) on the same inputs as its plain version, the backward
-   launches on the kernel's own forward output; bit-equal reruns, finite
+   the g_prod build and the d_W/d_b product over it, d_q) on the same
+   inputs as its plain version, the backward launches on the kernel's own
+   forward output, the bf16 g_prod bit for bit; bit-equal reruns, finite
    values, the count of out == 0 (all k factors dropped); and controls:
    the plain output with another mask seed, and d_W with the zero rule of
    g_pooled removed or with the mask off, must be rejected;
@@ -39,9 +40,13 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
    steps, the repeated batch's falling), K2's launch counts in the kernel
    run, and ``val()`` against a model freshly loaded with the trained
    weights;
-8. times: each K2 launch and its plain version at N = 64, the forward,
-   backward and forward + backward through the autograd functions, and ms
-   per training step and training qa-pairs/s of the kernel and plain runs;
+8. times: each K2 launch and its plain version at N = 64 (d_W/d_b as the
+   sum of its two launches, the g_prod build and the product, with each
+   one's share), the forward, backward and forward + backward through the
+   autograd functions, and ms per training step and training qa-pairs/s of
+   the kernel and plain runs; then one pre-pool training step under
+   ``torch.profiler``: the device's busy share of the step and its five
+   longest kernels;
 9. K3 (the pooled-site training fusion: forward, d_img, d_W/d_b/d_q)
    against its plain PyTorch version at production widths (L=196, D=2048,
    O=1000, k=5), N = 8 and 64: each launch on the same inputs as its plain
@@ -102,20 +107,26 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 21. K6's path, its entry ``wq_grid_fuse`` forward and backward at N = 64
     (the launch count set to 0 just before): finite gradients of img, W, b
     and q, equal to ``composed_reference``'s on the card;
-22. K8 (the LSTM scan) against its plain version at mhb_coAtt's serving
-    shape (T=22, E=300, H=1024), N = 8, 256 and 1024, on inputs whose gate
+22. K8 (the LSTM scan, one persistent launch a call) against its plain
+    version at mhb_coAtt's serving shape (T=22, E=300, H=1024), N = 8, 256,
+    1024 and 2048 (past 1,408 rows c leaves shared memory for device
+    memory), fed as ``lstm_seq`` feeds it (the projection without its
+    bias, and the bias, which the kernel adds), on inputs whose gate
     pre-activations lie mostly off the sigmoid's flat tails (the share is
     printed and gated), the share of bit-equal elements, bit-equal reruns,
-    and two controls that must be rejected: W_hh with its i and f blocks
-    swapped, and the output shifted by one step; then K8's path, its entry
-    ``lstm_seq`` at N = 256 (the launch count set to 0 just before), with
-    the port's composed ``layers.lstm`` on the same weights beside it for
+    the launch's blocks, shared memory and barriers (every block arrives
+    at each), and two controls
+    that must be rejected: W_hh with its i and f blocks swapped, and the
+    output shifted by one step; then K8's path, its entry ``lstm_seq`` at
+    N = 256 (the launch count set to 0 just before: one launch), with the
+    port's composed ``layers.lstm`` on the same weights beside it for
     information;
 23. times: K6 and its plain version at N = 256 and 1024, with the torch
     composed weight-contracted chain + L2 for information; K8's scan and
     the whole ``lstm_seq`` against their plain versions at N = 256, and
     ``torch.nn.LSTM`` (cuDNN, input projection included) on the same
-    weights and input: K8's library time;
+    weights and input: K8's library time, and the device times of both
+    calls (``torch.profiler``) in K8_ROUNDS interleaved rounds;
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -192,6 +203,8 @@ K2_SOURCE = "vqa_attention_networks_tpu_torch/csrc/train_fusion.cu"
 K2_REPLACES = {
     "forward": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:67",
     "d_img": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:95",
+    # _bwd_w_kernel's d_W/d_b: the g_prod build, then the product over it
+    "g_prod": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:140",
     "d_w": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:140",
     "d_q": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:140",
 }
@@ -208,7 +221,9 @@ K2_FORCED_ZEROS = 100  # outputs of region 0 of sample 0 that pool to 0
 # element across a bf16 rounding boundary, one bf16 ulp (2^-8 relative),
 # so its bound is 2^-7 of the largest |d_img|.
 K2_RTOL = {"forward": 1e-4, "d_w": 1e-4, "d_b": 1e-4, "d_q": 1e-4,
-           "d_img": 2.0 ** -7}
+           "d_img": 2.0 ** -7, "d_b_partials": 1e-4}
+# d_W/d_b at N=64, rate 0.1: the most the two launches may take together
+K2_DW_TARGET_MS = 3.0
 TRAIN_STEPS, TRAIN_BATCH = 20, 64
 # the kernel and plain training runs see the same weights, batches and
 # masks and differ in the order of K2's f32 sums; bf16 roundings
@@ -269,7 +284,8 @@ K6_SOURCE = K3_SOURCE  # pooled_fusion_wq_grid: K3's forward, then the norm
 K6_REPLACES = "vqa_attention_networks_tpu/ops/pallas_wq_fusion.py:88"
 K8_SOURCE = "vqa_attention_networks_tpu_torch/csrc/lstm_scan.cu"
 K8_REPLACES = "vqa_attention_networks_tpu/ops/pallas_lstm.py:74"
-K6_NS = K8_NS = (8, 256, 1024)
+K6_NS = (8, 256, 1024)
+K8_NS = (8, 256, 1024, 2048)
 K6_TIME_NS = (BATCH, 1024)
 # K6 against its plain version, per element of pooled = out * |out|: the
 # two share their rounding points and differ in the order of their f32
@@ -296,6 +312,7 @@ K6_GRAD_N, K6_GRAD_RTOL = 64, 1e-6
 K8_STEP_ATOL, K8_FREE_ATOL = 1e-6, 2.0 ** -6
 K8_LIVE, K8_LIVE_SHARE = 3.0, 0.5
 K8_SHAPE = dict(t=22, e=300, h=1024)  # mhb_coAtt: T, emb_dim, hidden_dim
+K8_ROUNDS = 5  # of the device times of lstm_seq and cuDNN's nn.LSTM
 # the card's rates for the bounds (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -436,7 +453,9 @@ def k2_launches(img, w_bf16, b, q, g, seed, rate) -> dict:
     got = {"forward": tf.forward_cuda(img, w_bf16, b, q, seed, K2_K, rate)}
     args = (g, got["forward"], img, w_bf16, b, q, seed, K2_K, rate)
     got["d_img"] = tf.d_img_cuda(*args)
-    got["d_w"], got["d_b"] = tf.d_w_cuda(*args)
+    got["g_prod"], got["d_b_partials"] = tf.g_prod_cuda(*args)
+    got["d_w"], got["d_b"] = tf.d_w_from_operand_cuda(
+        img, got["g_prod"], got["d_b_partials"])
     got["d_q"] = tf.d_q_cuda(*args)
     return got
 
@@ -445,6 +464,8 @@ def k2_plain(img, w_bf16, b, q, g, out, keep) -> dict:
     """The plain version of every K2 launch; the backward ones on ``out``."""
     want = {"forward": tf.forward_reference(img, w_bf16, b, q, K2_K, keep),
             "d_img": tf.d_img_reference(g, out, w_bf16, q, K2_K, keep)}
+    want["g_prod"], want["d_b_partials"] = tf.g_prod_reference(
+        g, out, q, K2_K, keep)
     want["d_w"], want["d_b"] = tf.d_w_reference(g, out, img, q, K2_K, keep)
     want["d_q"] = tf.d_q_reference(g, out, img, w_bf16, b, K2_K, keep)
     return want
@@ -465,6 +486,21 @@ def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
     want = k2_plain(img, w_bf16, bf, qf, g, out, keep)
     torch.cuda.synchronize()
     fields, max_abs, failed = {}, {}, []
+    # d_W's operand, bit for bit (as int16: a -0 is not a +0), and its rerun
+    g_prod, g_prod_again = got.pop("g_prod"), again.pop("g_prod")
+    g_prod_plain = want.pop("g_prod")
+    max_abs["g_prod"] = float((g_prod.float() - g_prod_plain.float()).abs()
+                              .max())
+    fields["g_prod"] = {
+        "bit_equal": bool(torch.equal(g_prod.view(torch.int16),
+                                      g_prod_plain.view(torch.int16))),
+        "max_abs_diff": max_abs["g_prod"],
+        "rerun_bit_equal": bool(torch.equal(g_prod, g_prod_again)),
+        "bytes": g_prod.numel() * g_prod.element_size()}
+    if not all(fields["g_prod"][key] for key in ("bit_equal",
+                                                  "rerun_bit_equal")):
+        failed.append("g_prod")
+    del g_prod, g_prod_again, g_prod_plain
     for name in got:
         ok = bool(k2_within(name, got[name], want[name]).all())
         max_abs[name] = float((got[name].float() - want[name].float())
@@ -531,10 +567,16 @@ def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
     return max_abs
 
 
-def device_ms(fn, iters: int = 5):
-    """The card's kernel time per call of ``fn``: the device time that
-    torch.profiler records over ``iters`` calls after a warm-up, without
-    the host's time between launches; None where it records none."""
+def device_ms(fn, iters: int = 5) -> dict:
+    """The card's kernel time per call of ``fn`` from one torch.profiler
+    trace of ``iters`` calls after a warm-up, without the host's time
+    between launches, by two formulas: ``ms``, all the device time the
+    trace recorded over ``iters``, and ``ms_per_launch``, each kernel's
+    mean time per recorded launch times its launches per call
+    (round(count / iters)), which a launch the trace did not record does
+    not lower. ``unrecorded`` names the kernels whose recorded launches
+    are not a multiple of ``iters``: where it is empty the two agree. The
+    times are None where the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -543,9 +585,14 @@ def device_ms(fn, iters: int = 5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0)
-                   for e in prof.key_averages())
-    return total_us / iters / 1e3 if total_us > 0 else None
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    total_us = sum(e.self_device_time_total for e in events)
+    scaled_us = sum(e.self_device_time_total / e.count
+                    * max(1, round(e.count / iters)) for e in events)
+    return {"ms": total_us / iters / 1e3 if total_us > 0 else None,
+            "ms_per_launch": scaled_us / 1e3 if scaled_us > 0 else None,
+            "unrecorded": [e.key[:60] for e in events if e.count % iters]}
 
 
 def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
@@ -562,11 +609,13 @@ def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
 
 def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
     """Each K2 launch against its plain version at N=64 (the plain
-    backward is handed the mask, as the kernel replays it), then forward,
-    backward (d_W + d_b + d_q) and both through the autograd functions,
-    where the plain forward draws its mask. Returns (times, bounds) by
-    launch; a bound counts the launch's product (2 N L D F operations in
-    bf16) and its operands and results, not the mask's integer work."""
+    backward is handed the mask, as the kernel replays it), d_W/d_b as the
+    sum of its two launches (the g_prod build and the product) with each
+    one's share, then forward, backward (d_W + d_b + d_q) and both through
+    the autograd functions, where the plain forward draws its mask. Returns
+    (times, bounds) by launch; a bound counts the launch's product (2 N L D
+    F operations in bf16; the g_prod build's 4 f32 operations an element)
+    and its operands and results, not the mask's integer work."""
     n, seed = TRAIN_BATCH, 7
     img, w, b, q, g = k2_inputs(n, 3, cfg, device)
     w_bf16, bf, qf = tf.operands(w, b, q)
@@ -574,6 +623,7 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
                                          rate, device), rate)
     out = tf.forward_cuda(img, w_bf16, bf, qf, seed, K2_K, rate)
     args = (g, out, img, w_bf16, bf, qf, seed, K2_K, rate)
+    g_prod, parts = tf.g_prod_cuda(*args)
     pairs = {
         "forward": (lambda: tf.forward_cuda(img, w_bf16, bf, qf, seed, K2_K,
                                             rate),
@@ -581,8 +631,13 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
                                                  keep)),
         "d_img": (lambda: tf.d_img_cuda(*args),
                   lambda: tf.d_img_reference(g, out, w_bf16, qf, K2_K, keep)),
-        "d_w": (lambda: tf.d_w_cuda(*args),
-                lambda: tf.d_w_reference(g, out, img, qf, K2_K, keep)),
+        "g_prod": (lambda: tf.g_prod_cuda(*args),
+                   lambda: tf.g_prod_reference(g, out, qf, K2_K, keep)),
+        "d_w": (lambda: tf.d_w_from_operand_cuda(img, g_prod, parts),
+                lambda: (tf.d_w_from_operand_reference(img, g_prod),
+                         parts.sum(0))),
+        "d_w_total": (lambda: tf.d_w_cuda(*args),
+                      lambda: tf.d_w_reference(g, out, img, qf, K2_K, keep)),
         "d_q": (lambda: tf.d_q_cuda(*args),
                 lambda: tf.d_q_reference(g, out, img, w_bf16, bf, K2_K,
                                          keep)),
@@ -593,7 +648,10 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
     bounds = {
         "forward": bound(nbytes(img, w_bf16, bf, qf, out), ops),
         "d_img": bound(nbytes(g, out, w_bf16, qf, img), ops),  # d_img ~ img
-        "d_w": bound(nbytes(g, out, img, qf) + 4 * (d * f + f), ops),
+        "g_prod": bound(nbytes(g, out, qf, g_prod, parts),
+                        {"f32": 4 * n * l * f}),
+        "d_w": bound(nbytes(img, g_prod, parts) + 4 * (d * f + f), ops),
+        "d_w_total": bound(nbytes(g, out, img, qf) + 4 * (d * f + f), ops),
         "d_q": bound(nbytes(g, out, img, w_bf16, bf) + 4 * n * f, ops),
     }
     times = {}
@@ -603,6 +661,16 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
             plain_ms=times[name][1], kernel_runs_ms=times[name][2],
             plain_runs_ms=times[name][3], bound_ms=bounds[name][0],
             bound_by=bounds[name][1], card=smi)
+    # d_W/d_b: the two launches timed one by one, and their sum
+    parts_ms = {key: times[key][0] for key in ("g_prod", "d_w")}
+    say("k2_time", launch="d_w/d_b", n=n, rate=rate,
+        kernel_ms_sum_of_launches=sum(parts_ms.values()),
+        kernel_ms_both_in_one_call=times["d_w_total"][0],
+        share_by_launch={key: v / sum(parts_ms.values())
+                         for key, v in parts_ms.items()},
+        plain_ms=times["d_w_total"][1], bound_ms=bounds["d_w_total"][0],
+        target_ms=K2_DW_TARGET_MS, card=smi)
+    del g_prod, parts
 
     wr, br, qr = (x.clone().requires_grad_(True) for x in (w, b, q))
     fns = {"kernel": tf.TrainGridFuse.apply,
@@ -627,6 +695,43 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
             plain_ms=p_ms, kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
             card=smi)
     return times, bounds
+
+
+def train_profile(cfg: Config, params, store, smi: str) -> None:
+    """One pre-pool training step of full-width bf16 mhb_coAtt at batch
+    TRAIN_BATCH, after two warm-up steps, under torch.profiler: the
+    device's busy share of the step (the time of its kernels and copies
+    over the step's wall time, synchronised at both ends; the batches are
+    gathered on the host beforehand) and the five device kernels that took
+    longest, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = cfg.replace(num_epoch=1, batch_size=TRAIN_BATCH)
+    qa, _ = train_data(cfg, 3)
+    solver = Solver(cfg, qa, store, params=params)
+    batches = list(solver.batches["train"].epoch(0))
+    for batch in batches[:2]:
+        solver._train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = solver._train_step(batches[2])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    say("train_profile", model=cfg.model_name, dropout_site=cfg.dropout_site,
+        batch=TRAIN_BATCH, loss=float(loss), step_wall_ms=wall_ms,
+        device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+        top_kernels=[{"name": e.key[:120], "calls": e.count,
+                      "device_ms": e.self_device_time_total / 1e3}
+                     for e in top], card=smi)
+    if not np.isfinite(float(loss)) or busy_ms <= 0:
+        raise AssertionError("train_profile: the profiled step is not "
+                             "finite or recorded no device time")
+    del solver
 
 
 def k3_launches(img, w_bf16, b, q, g) -> dict:
@@ -1155,7 +1260,7 @@ def train_phase(phase: str, cfg: Config, params, store, smi: str,
             for name, counts in TRAIN_COUNTERS.items()}
     want[kernel].update(forward=steps, d_w=steps)
     if kernel == "K2":
-        want[kernel]["d_q"] = steps
+        want[kernel].update(g_prod=steps, d_q=steps)
     say(phase, model=cfg.model_name, dropout_site=cfg.dropout_site,
         keep_reference_quirks=cfg.keep_reference_quirks, steps=steps,
         batch=TRAIN_BATCH, kernel_losses=run["losses"],
@@ -1355,9 +1460,16 @@ def k8_check(n: int, dev) -> float:
     """K8's scan against its plain version, step by step and run free, with
     its controls; raises on a failure. Returns the free-running max |diff|."""
     x, w_ih, w_hh, b_ih, b_hh = k8_inputs(n, 80 + n, dev)
+    # the kernel's inputs as lstm_seq gives them: the projection without
+    # its bias, and the bias, which the kernel adds; the plain version
+    # takes the whole input projection
     xp = k8.input_projection(x, w_ih, b_ih, b_hh)
-    got = k8.lstm_scan_cuda(xp, w_hh)
-    again = k8.lstm_scan_cuda(xp, w_hh)
+    bias = (b_ih + b_hh).to(torch.bfloat16)
+    geo, counter = k8_geometry(n)
+    got = k8.lstm_scan_cuda(k8._project(x, w_ih), w_hh, bias, counter)
+    again = k8.lstm_scan_cuda(k8._project(x, w_ih), w_hh, bias)
+    torch.cuda.synchronize()
+    arrivals = int(counter.sum())
     want = k8.lstm_scan_reference(xp, w_hh)
     forced = k8.lstm_scan_reference(xp, w_hh, h_carry=got)
     torch.cuda.synchronize()
@@ -1376,7 +1488,11 @@ def k8_check(n: int, dev) -> float:
         "shifted_one_step_rejected_share": k8_steps_rejected(h_prev, xp,
                                                              w_hh)}
     del swapped, h_prev
-    say("k8_check", n=n, **K8_SHAPE, max_abs_diff=max_abs,
+    say("k8_check", n=n, **K8_SHAPE, blocks=geo.blocks,
+        smem_bytes_per_block=geo.smem_bytes, c_in_smem=geo.c_in_smem,
+        ring_stages=geo.stages,
+        barriers=geo.barriers, barrier_arrivals=arrivals,
+        max_abs_diff=max_abs,
         bit_equal_share=float((got == want).float().mean()),
         step_max_abs_diff=float((got.float() - forced.float()).abs().max()),
         step_bit_equal_share=float((got == forced).float().mean()),
@@ -1386,6 +1502,9 @@ def k8_check(n: int, dev) -> float:
     if not (ok and torch.equal(got, again)
             and torch.isfinite(got.float()).all()):
         raise AssertionError(f"K8 disagrees with its plain version at N={n}")
+    if arrivals != geo.barriers * geo.blocks:
+        raise AssertionError(f"K8's barriers took {arrivals} arrivals at "
+                             f"N={n}")
     if live < K8_LIVE_SHARE:
         raise AssertionError("the K8 inputs saturate the gates")
     if min(controls.values()) < 0.5:
@@ -1405,6 +1524,7 @@ def k8_path(dev) -> int:
         got = k8.lstm_seq(*args)
     torch.cuda.synchronize()
     launches = k8.launch_count
+    geo, _ = k8_geometry(BATCH)
     with torch.inference_mode():
         xp = k8.input_projection(args[0], args[1], args[3], args[4])
         want = k8.lstm_scan_reference(xp, args[2])
@@ -1413,7 +1533,10 @@ def k8_path(dev) -> int:
     max_abs = float((got.float() - want.float()).abs().max())
     ok = bool(k8_within(got, forced).all()) and max_abs <= K8_FREE_ATOL
     say("k8_path", entry="lstm_seq", n=BATCH, **K8_SHAPE, launches=launches,
-        within_tolerance=ok, max_abs_diff=max_abs,
+        blocks=geo.blocks, smem_bytes_per_block=geo.smem_bytes,
+        c_in_smem=geo.c_in_smem, ring_stages=geo.stages,
+        barriers=geo.barriers, within_tolerance=ok,
+        max_abs_diff=max_abs,
         composed_layers_lstm_max_abs_diff_info=float(
             (composed.float() - got.float()).abs().max()),
         composed_layers_lstm_differs_share_info=float(
@@ -1422,6 +1545,17 @@ def k8_path(dev) -> int:
         raise AssertionError(f"K8's path: {launches} launches, within "
                              f"tolerance {ok}")
     return launches
+
+
+def k8_geometry(n: int) -> tuple:
+    """K8's geometry at N = n on this card, and zeroed barrier counters
+    for a launch to count its arrivals in (every block at every barrier:
+    barriers x blocks)."""
+    geo = k8.geometry(n, K8_SHAPE["t"], K8_SHAPE["h"],
+                      torch.cuda.get_device_properties(0)
+                      .multi_processor_count)
+    groups = geo.blocks // (K8_SHAPE["h"] // geo.units_per_block)
+    return geo, torch.zeros(groups, dtype=torch.int32, device="cuda")
 
 
 def k6_time(cfg: Config, dev, smi: str) -> tuple:
@@ -1463,13 +1597,22 @@ def k8_time(dev, smi: str) -> tuple:
     at bf16 if cuDNN takes bf16, else at f16. Returns (scan times, scan
     bound, cuDNN ms): the bound counts the recurrent products (2 N T H 4H,
     bf16) and xp, W_hh and the output moved once; the 22 dependent steps
-    are a latency floor it does not count."""
+    are a latency floor it does not count.
+
+    The device times of ``lstm_seq`` and cuDNN's call are taken in
+    K8_ROUNDS rounds, the order of the two alternating, each time by both
+    of ``device_ms``'s formulas from one trace. ``lstm_seq`` is called as
+    a caller holding layers.LSTM's f32 weights calls it (its W_ih is cast
+    to bf16 inside the call), and, for information, with W_ih already in
+    bf16 as the library holds it."""
     x, w_ih, w_hh, b_ih, b_hh = k8_inputs(BATCH, 9, dev)
-    w_bf16 = w_hh.to(torch.bfloat16)
-    xp = k8.input_projection(x, w_ih, b_ih, b_hh)
+    w_bf16, w_ih_bf16 = w_hh.to(torch.bfloat16), w_ih.to(torch.bfloat16)
+    xp = k8._project(x, w_ih)
+    bias = (b_ih + b_hh).to(torch.bfloat16)
     n, t, h = BATCH, K8_SHAPE["t"], K8_SHAPE["h"]
-    scan = interleaved_ms(lambda: k8.lstm_scan_cuda(xp, w_bf16),
-                          lambda: k8.lstm_scan_reference(xp, w_bf16), 10)
+    scan = interleaved_ms(lambda: k8.lstm_scan_cuda(xp, w_bf16, bias),
+                          lambda: k8.lstm_scan_reference(xp + bias, w_bf16),
+                          10)
     seq = interleaved_ms(
         lambda: k8.lstm_seq(x, w_ih, w_bf16, b_ih, b_hh),
         lambda: k8.lstm_scan_reference(
@@ -1491,20 +1634,42 @@ def k8_time(dev, smi: str) -> tuple:
         lib_out = net(x_lib)[0]
         library_ms = time_ms(lambda: net(x_lib), 10)
         want = k8.lstm_seq(x, w_ih, w_bf16, b_ih, b_hh)
-        # for information: the device time alone of cuDNN's call and of
-        # K8's entry (the call's time above includes the host's, and at
-        # bf16 nn.LSTM compacts its weights on every call: its
-        # flatten_parameters() skips a dtype that
-        # torch.backends.cudnn.is_acceptable does not list); and f16, where
-        # the weights stay flattened
-        device = {"cudnn": device_ms(lambda: net(x_lib)),
-                  "lstm_seq": device_ms(
-                      lambda: k8.lstm_seq(x, w_ih, w_bf16, b_ih, b_hh))}
+        # the device time alone of cuDNN's call and of K8's entry (the
+        # call's time above includes the host's, and at bf16 nn.LSTM
+        # compacts its weights on every call: its flatten_parameters()
+        # skips a dtype that torch.backends.cudnn.is_acceptable does not
+        # list)
+        calls = {"cudnn": lambda: net(x_lib),
+                 "lstm_seq": lambda: k8.lstm_seq(x, w_ih, w_bf16, b_ih,
+                                                 b_hh),
+                 "lstm_seq_bf16_w_ih_info": lambda: k8.lstm_seq(
+                     x, w_ih_bf16, w_bf16, b_ih, b_hh)}
+        rounds = []
+        for r in range(K8_ROUNDS):
+            names = list(calls) if r % 2 == 0 else list(calls)[::-1]
+            rounds.append({name: device_ms(calls[name], 10)
+                           for name in names})
+        # for information: the scan alone, the input projection as
+        # lstm_seq's plain path runs it (E padded to a multiple of 8) and
+        # unpadded, and cuDNN at f16, where the weights stay flattened
+        device = {"scan": device_ms(lambda: k8.lstm_scan_cuda(xp, w_bf16,
+                                                              bias), 10),
+                  "projection": device_ms(
+                      lambda: k8.input_projection(x, w_ih, b_ih, b_hh), 10),
+                  "projection_unpadded": device_ms(
+                      lambda: torch.matmul(x, w_ih.to(x.dtype).t())
+                      + (b_ih + b_hh).to(x.dtype), 10)}
         net16, x16 = net.half(), x.half()
         net16.flatten_parameters()
         net16(x16)
         f16_ms = time_ms(lambda: net16(x16), 10)
         device["cudnn_f16"] = device_ms(lambda: net16(x16))
+
+    def ratios(formula, name="lstm_seq"):
+        got = [r[name][formula] / r["cudnn"][formula] for r in rounds
+               if r[name][formula] and r["cudnn"][formula]]
+        return got if len(got) == len(rounds) else None
+
     say("k8_time", n=n, **K8_SHAPE, scan_kernel_ms=scan[0],
         scan_plain_ms=scan[1], scan_kernel_runs_ms=scan[2],
         scan_plain_runs_ms=scan[3], lstm_seq_kernel_ms=seq[0],
@@ -1514,7 +1679,13 @@ def k8_time(dev, smi: str) -> tuple:
         bound_note="the 22 dependent steps are a latency floor the bound "
                    "does not count",
         cudnn_lstm_ms=library_ms, cudnn_dtype=str(dtype),
-        cudnn_lstm_f16_ms_info=f16_ms, device_ms_profiler_info=device,
+        cudnn_lstm_f16_ms_info=f16_ms, device_ms_rounds=rounds,
+        device_ms_info=device,
+        lstm_seq_over_cudnn_device_by_round=ratios("ms"),
+        lstm_seq_over_cudnn_device_by_round_per_launch_formula=ratios(
+            "ms_per_launch"),
+        lstm_seq_bf16_w_ih_over_cudnn_device_by_round_info=ratios(
+            "ms", "lstm_seq_bf16_w_ih_info"),
         cudnn_includes_input_projection=True,
         cudnn_vs_kernel_max_abs_diff_info=float(
             (lib_out.float() - want.float()).abs().max()), card=smi)
@@ -1651,8 +1822,11 @@ def main() -> None:
                             TRAIN_STEPS, "K2")]
         torch.cuda.empty_cache()
 
-        # phase 8: K2 times at the training batch
+        # phase 8: K2 times at the training batch, then one pre-pool
+        # training step under the profiler
         k2_times, k2_bounds = k2_time(cfg, dev, smi)
+        torch.cuda.empty_cache()
+        train_profile(bf16_train, train_params, store, smi)
         torch.cuda.empty_cache()
 
         # phase 9: K3 against its plain version at production widths
@@ -1845,8 +2019,9 @@ def main() -> None:
         kernels.append(entry(
             f"train_fusion_{launch}", K2_SOURCE, replaces,
             train_launches["K2"][launch],
-            max(k2_err["d_w"], k2_err["d_b"]) if launch == "d_w"
-            else k2_err[launch], k2_times[launch], k2_bounds[launch]))
+            max(k2_err["d_w"], k2_err["d_b"], k2_err["d_b_partials"])
+            if launch == "d_w" else k2_err[launch], k2_times[launch],
+            k2_bounds[launch]))
     for launch, replaces in K3_REPLACES.items():
         kernels.append(entry(
             f"pooled_fusion_{launch}", K3_SOURCE, replaces,
@@ -1864,7 +2039,7 @@ def main() -> None:
               k7_err, k7_times["co_attention"], k7_bounds["co_attention"]),
         entry("wq_grid_fusion", K6_SOURCE, K6_REPLACES, launches["K6"],
               k6_err, k6_times, k6_bound),
-        # one call of the scan: T launches of the step kernel
+        # one call of the scan: one persistent launch
         entry("lstm_scan", K8_SOURCE, K8_REPLACES, launches["K8"], k8_err,
               k8_times, k8_bound, library_ms=k8_library_ms),
     ]

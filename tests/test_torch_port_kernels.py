@@ -19,7 +19,9 @@ plain version and differs in the order of its f32 sums only; each launch
 is held per tensor at ``K2_RTOL`` of the plain result's largest |value|
 (the forward as pooled = out * |out|; d_img, bf16, at 2^-7: one bf16 ulp
 of the largest value, plus slack), the backward launches on the kernel's
-own forward output.
+own forward output. d_W/d_b's first launch, the g_prod build, is
+elementwise with no sum but the d_b partials: its bf16 operand is held
+bit for bit.
 """
 
 import numpy as np
@@ -150,16 +152,21 @@ def test_k2_launches_match_plain_versions(n, d, o, rate):
     def launches():
         out = tf.forward_cuda(img, w_bf16, b, q, seed, K, rate)
         args = (g, out, img, w_bf16, b, q, seed, K, rate)
-        d_w, d_b = tf.d_w_cuda(*args)
+        g_prod, partials = tf.g_prod_cuda(*args)
+        d_w, d_b = tf.d_w_from_operand_cuda(img, g_prod, partials)
         return {"forward": out, "d_img": tf.d_img_cuda(*args), "d_w": d_w,
-                "d_b": d_b, "d_q": tf.d_q_cuda(*args)}
+                "d_b": d_b, "d_q": tf.d_q_cuda(*args), "g_prod": g_prod}
 
     before = dict(tf.launch_count)
     got = launches()
     torch.cuda.synchronize()
     assert {k: tf.launch_count[k] - before[k] for k in before} == \
-        {"forward": 1, "d_img": 1, "d_w": 1, "d_q": 1}
+        {"forward": 1, "d_img": 1, "g_prod": 1, "d_w": 1, "d_q": 1}
     out = got["forward"]
+    # the bf16 operand, bit for bit (as int16: a -0 is not a +0)
+    g_prod = tf.g_prod_reference(g, out, q, K, keep)[0]
+    assert torch.equal(got["g_prod"].view(torch.int16),
+                       g_prod.view(torch.int16))
     d_w, d_b = tf.d_w_reference(g, out, img, q, K, keep)
     want = {"forward": tf.forward_reference(img, w_bf16, b, q, K, keep),
             "d_img": tf.d_img_reference(g, out, w_bf16, q, K, keep),
@@ -172,6 +179,7 @@ def test_k2_launches_match_plain_versions(n, d, o, rate):
         assert (a - b_).abs().max() <= tol * b_.abs().max(), name
         # no atomics: a rerun gives the same bits
         assert torch.equal(got[name], again[name]), name
+    assert torch.equal(got["g_prod"], again["g_prod"])
     # the mask replays: pooled is 0 exactly where all k factors dropped
     # (elsewhere an f32 sum may cancel to exactly 0 on one side only)
     if mask is not None:
@@ -191,7 +199,7 @@ def test_k2_autograd_launches_the_kernels():
     torch.cuda.synchronize()
     # img needs no gradient: d_img is not launched
     assert {k: tf.launch_count[k] - before[k] for k in before} == \
-        {"forward": 1, "d_img": 0, "d_w": 1, "d_q": 1}
+        {"forward": 1, "d_img": 0, "g_prod": 1, "d_w": 1, "d_q": 1}
     assert w.grad.dtype == torch.float32 and qq.grad.dtype == torch.bfloat16
     assert all(torch.isfinite(x.grad.float()).all() for x in (w, bb, qq))
 
@@ -595,35 +603,48 @@ def test_k6_wrapper_raises_on_inputs_it_does_not_take():
 
 
 def _k8_inputs(n, t, h, seed=0):
+    """xp without its bias, W_hh and the bf16 bias."""
     rng = np.random.default_rng(seed)
     xp = torch.from_numpy(rng.standard_normal((n, t, 4 * h)).astype(
         np.float32)).cuda().to(torch.bfloat16)
     w_hh = torch.from_numpy((rng.standard_normal((4 * h, h))
                              / np.sqrt(h)).astype(np.float32)).cuda()
-    return xp, w_hh
+    bias = torch.from_numpy(0.1 * rng.standard_normal(4 * h).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    return xp, w_hh, bias
 
 
-@pytest.mark.parametrize("n,t,h", [(5, 3, 96), (70, 22, 1024)],
-                         ids=["ragged", "production"])
+@pytest.mark.parametrize("n,t,h", [(5, 3, 128), (70, 22, 1024),
+                                   (1024, 22, 1024), (2048, 22, 1024),
+                                   (40, 6, 1280)],
+                         ids=["ragged", "production", "four_row_tiles",
+                              "eight_row_tiles", "widest"])
 def test_k8_matches_plain_version(n, t, h):
     from vqa_attention_networks_tpu_torch.ops import lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    xp, w_hh = _k8_inputs(n, t, h)
+    xp, w_hh, bias = _k8_inputs(n, t, h)
+    geo = lstm.geometry(n, t, h, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    counter = torch.zeros(geo.blocks // (h // geo.units_per_block),
+                          dtype=torch.int32, device="cuda")
     before = lstm.launch_count
-    got = lstm.lstm_scan_cuda(xp, w_hh)
+    got = lstm.lstm_scan_cuda(xp, w_hh, bias, counter=counter)
     torch.cuda.synchronize()
     assert lstm.launch_count == before + 1
-    want = lstm.lstm_scan_reference(xp, w_hh)
-    forced = lstm.lstm_scan_reference(xp, w_hh, h_carry=got)
+    # one persistent launch: T - 1 barriers, every block at each
+    assert int(counter.sum()) == (t - 1) * geo.blocks
+    xpb = xp + bias  # the bias added in bf16, as the kernel adds it
+    want = lstm.lstm_scan_reference(xpb, w_hh)
+    forced = lstm.lstm_scan_reference(xpb, w_hh, h_carry=got)
     assert got.dtype == torch.bfloat16 and got.shape == (n, t, h)
     assert torch.isfinite(got.float()).all()
     assert _k8_steps_within(got, forced).all()
     assert (got.float() - want.float()).abs().max() <= K8_FREE_ATOL
-    assert torch.equal(got, lstm.lstm_scan_cuda(xp, w_hh))
+    assert torch.equal(got, lstm.lstm_scan_cuda(xp, w_hh, bias))
     # control: a carry off by one step is rejected on most elements
     shifted = torch.cat([torch.zeros_like(want[:, :1]), want[:, :-1]], 1)
-    forced = lstm.lstm_scan_reference(xp, w_hh, h_carry=shifted)
+    forced = lstm.lstm_scan_reference(xpb, w_hh, h_carry=shifted)
     assert (~_k8_steps_within(shifted, forced)).float().mean() > 0.5
 
 
@@ -652,14 +673,33 @@ def test_k8_entry_launches_the_kernel():
 def test_k8_wrapper_raises_on_inputs_it_does_not_take():
     from vqa_attention_networks_tpu_torch.ops import lstm
 
-    xp, w_hh = _k8_inputs(2, 3, 96)
+    xp, w_hh, bias = _k8_inputs(2, 3, 96)
     with pytest.raises(TypeError):
-        lstm.lstm_scan_cuda(xp.float(), w_hh)
+        lstm.lstm_scan_cuda(xp.float(), w_hh, bias)
     with pytest.raises(ValueError, match="CUDA"):
-        lstm.lstm_scan_cuda(xp.cpu(), w_hh.cpu())
+        lstm.lstm_scan_cuda(xp.cpu(), w_hh.cpu(), bias.cpu())
     with pytest.raises(ValueError, match="on"):
-        lstm.lstm_scan_cuda(xp, w_hh.cpu())
-    with pytest.raises(ValueError, match="H % 32"):
+        lstm.lstm_scan_cuda(xp, w_hh.cpu(), bias)
+    with pytest.raises(ValueError, match="H % 128"):
         lstm.lstm_scan_cuda(*_k8_inputs(2, 3, 100))
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm.lstm_scan_cuda(*_k8_inputs(8, 2, 1408))
     with pytest.raises(ValueError, match="agree"):
-        lstm.lstm_scan_cuda(xp, w_hh[:, :64])
+        lstm.lstm_scan_cuda(xp, w_hh[:, :64], bias)
+    with pytest.raises(ValueError, match="bias"):
+        lstm.lstm_scan_cuda(xp, w_hh, bias.float())
+    with pytest.raises(ValueError, match="counter"):  # one group at N=2
+        lstm.lstm_scan_cuda(*_k8_inputs(2, 3, 128),
+                            counter=torch.zeros(3, dtype=torch.int32,
+                                                device="cuda"))
+
+
+@pytest.mark.parametrize("h", [1408, 2048])
+def test_k8_gate_refuses_shapes_the_kernel_does_not_take(h):
+    # JAX's gate (bf16, H % 128 == 0) holds, but W_hh's slice does not fit
+    # in a block's shared memory: lstm_seq's callers take the composed scan
+    from vqa_attention_networks_tpu_torch.ops import lstm
+
+    x = torch.zeros(8, 4, 300, dtype=torch.bfloat16, device="cuda")
+    assert lstm.supported(x, 1280)
+    assert not lstm.supported(x, h)

@@ -149,7 +149,8 @@ def test_kernel_gate_and_cuda_wrapper_refuse_the_cpu():
     x = torch.zeros(2, 3, 512, dtype=torch.bfloat16)
     assert not lstm.supported(x, 128)  # a CPU tensor never takes the kernel
     with pytest.raises(ValueError, match="CUDA"):
-        lstm.lstm_scan_cuda(x, torch.zeros(512, 128))
+        lstm.lstm_scan_cuda(x, torch.zeros(512, 128),
+                            torch.zeros(512, dtype=torch.bfloat16))
 
 
 def test_plain_scan_fed_a_carry():
@@ -169,3 +170,72 @@ def test_plain_scan_fed_a_carry():
         fed = lstm.lstm_scan_reference(xp, m.weight_hh, h_carry=shifted)
     assert torch.equal(fed[:, 0], free[:, 0])
     assert (fed[:, 1:] != free[:, 1:]).float().mean() > 0.9
+
+
+# The persistent kernel's geometry (ops/lstm.py ``geometry``): at
+# mhb_coAtt's H = 1024 every N fits one block per SM on an H100 (132 SMs,
+# 232,448 bytes of shared memory a block), so the cooperative launch can
+# hold all blocks at once; a block walks its rows in tiles of 128.
+@pytest.mark.parametrize("n", [8, 256, 1024, 2048, 4096])
+def test_k8_geometry_fits_one_block_per_sm(n):
+    t, h = 22, 1024
+    geo = lstm.geometry(n, t, h)
+    assert geo.blocks <= lstm.H100_SMS
+    assert geo.smem_bytes <= lstm.SM90_SMEM_PER_BLOCK == 227 * 1024
+    assert geo.units_per_block == lstm.UNITS
+    unit_tiles = h // geo.units_per_block
+    groups = geo.blocks // unit_tiles
+    assert geo.blocks == unit_tiles * groups
+    # every row in exactly one group, no group empty
+    assert (groups - 1) * geo.rows_per_block < n <= groups * geo.rows_per_block
+    assert geo.barriers == t - 1
+    # W_hh's 4 x 16 gate rows (bf16, padded by 8) sit in shared memory
+    assert geo.smem_bytes >= 4 * geo.units_per_block * h * 2
+    # as many row groups as the SMs allow once there are rows for them
+    assert groups == (1 if n <= 32 else 2)
+    # c in shared memory up to N = 1,408 at H = 1024, then in device memory
+    assert geo.c_in_smem == (n <= 1024)
+
+
+@pytest.mark.parametrize("h", [96, 1000])
+def test_k8_geometry_refuses_h_not_a_multiple_of_128(h):
+    with pytest.raises(ValueError, match="H % 128"):
+        lstm.geometry(8, 22, h)
+
+
+def test_k8_geometry_refuses_more_shared_memory_than_a_block_has():
+    # W_hh's slice and 3 stages of the ring fit up to H = 1280
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm.geometry(8, 22, 1408)
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm.geometry(8, 22, 2048)
+    with pytest.raises(ValueError, match="SMs"):
+        lstm.geometry(8, 22, 4096)
+
+
+@pytest.mark.parametrize("h", range(128, 1281, 128))
+def test_k8_geometry_takes_every_h_up_to_1280(h):
+    # past what shared memory holds, c moves to device memory: any N runs
+    geo = lstm.geometry(65536, 22, h)
+    assert geo.smem_bytes <= lstm.SM90_SMEM_PER_BLOCK
+    assert geo.blocks <= lstm.H100_SMS and geo.stages >= 3
+    assert not geo.c_in_smem
+    assert lstm.geometry(8, 22, h).c_in_smem
+
+
+@pytest.mark.parametrize("shape,pad", [((3, 5, 300), 4), ((16, 300), 4),
+                                       ((2, 30), 2), ((4, 7, 12), 4)])
+def test_projection_padding_is_zeros(shape, pad):
+    # on the card the projection pads E of x and W_ih to a multiple of 8:
+    # the same values, then zeros
+    rng = np.random.default_rng(11)
+    x, w = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16) for s in (shape, (8, shape[-1])))
+    got_x, got_w = lstm._aligned(x, w)
+    assert pad == -shape[-1] % 8
+    assert got_x.dtype == x.dtype and got_x.shape == (*shape[:-1],
+                                                      shape[-1] + pad)
+    assert got_w.shape == (8, shape[-1] + pad)
+    for got, raw in ((got_x, x), (got_w, w)):
+        assert torch.equal(got[..., :shape[-1]], raw)
+        assert not got[..., shape[-1]:].any()

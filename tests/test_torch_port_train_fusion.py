@@ -263,3 +263,67 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for fn in (tf.d_img_cuda, tf.d_w_cuda, tf.d_q_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             fn(torch.from_numpy(g), out, ti, w_bf16, bf, qf, 0, K, 0.1)
+
+
+# d_W/d_b in two launches on the card: the g_prod build, then the product
+# over its bf16 operand. Their plain versions composed are d_w_reference,
+# whose d_W is the same product on the same bf16 operand as before the
+# split (bit-equal), and whose d_b is summed in chunks of DB_CHUNK rows: a
+# reordering of an f32 sum over M rows, within (M - 1) * 2^-24 * sum |x| of
+# any other order.
+def _d_w_before_the_split(g, out, img, q, keep):
+    n, l, d = img.shape
+    g_prod = tf._g_prod(g, out, q, K, keep)
+    x = img.to(torch.bfloat16).float().reshape(n * l, d)
+    d_w = torch.matmul(x.t(), g_prod.to(torch.bfloat16).float()
+                       .reshape(n * l, -1))
+    return d_w, g_prod.sum(dim=(0, 1)), g_prod
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_d_w_reference_is_the_g_prod_build_then_the_product(rate):
+    img, w, b, q, g = _inputs(n=3, l=50, seed=6)  # M = 150: 3 chunks, ragged
+    w_bf16, bf, qf = tf.operands(torch.from_numpy(w), torch.from_numpy(b),
+                                 torch.from_numpy(q))
+    ti = torch.from_numpy(img).to(torch.bfloat16)
+    n, l, _ = img.shape
+    mask = tf.dropout_mask(11, n, l, w.shape[1], rate) if rate > 0 else None
+    keep = tf.keep_scale(mask, rate)
+    out = tf.forward_reference(ti, w_bf16, bf, qf, K, keep)
+    tg = torch.from_numpy(g)
+    g_prod, partials = tf.g_prod_reference(tg, out, qf, K, keep)
+    m, f = n * l, w.shape[1]
+    assert g_prod.dtype == torch.bfloat16 and g_prod.shape == (m, f)
+    assert partials.dtype == torch.float32
+    assert partials.shape == (-(-m // tf.DB_CHUNK), f)
+    want_w, want_b, g32 = _d_w_before_the_split(tg, out, ti, qf, keep)
+    g32 = g32.reshape(m, f)
+    assert torch.equal(g_prod, g32.to(torch.bfloat16))
+    for i in range(partials.shape[0]):
+        rows = g32[i * tf.DB_CHUNK:(i + 1) * tf.DB_CHUNK]
+        bound = rows.shape[0] * 2.0 ** -24 * rows.abs().sum(0)
+        assert ((partials[i] - rows.sum(0)).abs() <= bound).all()
+    assert torch.equal(tf.d_w_from_operand_reference(ti, g_prod), want_w)
+    d_w, d_b = tf.d_w_reference(tg, out, ti, qf, K, keep)
+    assert torch.equal(d_w, want_w)
+    bound = m * 2.0 ** -24 * g32.abs().sum(0)
+    assert ((d_b - want_b).abs() <= bound).all()
+    # the zero rule and the mask reach the operand: rows that pool to 0 and
+    # dropped elements are 0 in g_prod
+    if mask is not None:
+        assert (g_prod.reshape(n, l, f)[~mask] == 0).all()
+
+
+def test_d_w_launch_wrappers_refuse_cpu_tensors():
+    img, w, b, q, g = _inputs(seed=7)
+    w_bf16, bf, qf = tf.operands(torch.from_numpy(w), torch.from_numpy(b),
+                                 torch.from_numpy(q))
+    ti = torch.from_numpy(img).to(torch.bfloat16)
+    out = tf.forward_reference(ti, w_bf16, bf, qf, K, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.g_prod_cuda(torch.from_numpy(g), out, ti, w_bf16, bf, qf, 0, K,
+                       0.1)
+    g_prod, partials = tf.g_prod_reference(torch.from_numpy(g), out, qf, K,
+                                           None)
+    with pytest.raises(ValueError, match="on the card"):
+        tf.d_w_from_operand_cuda(ti, g_prod, partials)

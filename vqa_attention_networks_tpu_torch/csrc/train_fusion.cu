@@ -14,7 +14,7 @@
 //   g_prod    = (g_pooled[m,o] * (mask * inv_keep)) * q[n,c]    f32
 //   d_img     = bf16(g_prod) @ bf16(W)^T        -> bf16 [N*L, D]
 //   d_W       = bf16(img)^T @ bf16(g_prod)      -> f32 [D, F]
-//   d_b       = sum_m g_prod                    -> f32 [F]
+//   d_b       = sum_m g_prod (the f32 g_prod)   -> f32 [F]
 //   d_q[n,c]  = sum_l (g_pooled * (mask * inv_keep)) * z0   -> f32 [N, F]
 //
 // The mask is Philox4x32-10, key (seed, 0), counter (i, i >> 32, 0, 0) for
@@ -27,9 +27,11 @@
 // What bounds it on this card. Each of the forward, d_img, d_W and d_q is
 // a product of 2*N*L*D*F operations, 257 GFLOP at N = 64, L = 196,
 // D = 2048, F = 5000; the operands are a few tens of MB. So the tensor
-// cores bound it, and these first kernels use them through WMMA (bf16
+// cores bound it. The forward, d_img and d_q use them through WMMA (bf16
 // 16x16x16, f32 accumulators) with a 32-deep shared-memory stage and no
-// load in flight during the MMAs: correct and simple, not yet fast.
+// load in flight during the MMAs: correct and simple, not yet fast. d_W
+// is a g_prod build (bound by its ~230 MB of bytes, ~0.07 ms) and a
+// pipelined product (bound by its operations, 0.26 ms).
 //
 // What the design does about the TPU's structure. The TPU kernels carried
 // d_img and d_W/d_b across sequential grid steps in VMEM scratch. Blocks
@@ -37,8 +39,22 @@
 // tile and loops over the whole contraction inside the block: no atomics,
 // and reruns give the same bits. W is read in its natural [D, F] layout
 // (no per-step refactor to [k, D, O_pad]: W changes every step). The
-// operand g_prod of d_img and d_W is built on the fly in shared memory
-// from g, out, q and the replayed mask.
+// operand g_prod of d_img is built on the fly in shared memory from g,
+// out, q and the replayed mask.
+//
+// d_W/d_b is this card's choice, not the TPU kernel's: the TPU never wrote
+// g_prod to HBM, and built it in VMEM inside its one d_W pass. Here a
+// d_W block owns 128 d x 128 channels and walks all M rows, so building
+// g_prod inside the product would redo it in each of the D / 128 = 16 D
+// tiles: ~1.0 G Philox draws where 62.7 M suffice (N = 64), ~19 ms of a
+// first design's 21.5. Instead one launch builds it once, elementwise, and
+// writes it as bf16 (125 MB at N = 64, ~0.04 ms of bandwidth at 3.35 TB/s),
+// with f32 d_b partials of 64 rows each summed in row order; then a
+// pipelined product reads it: a 4-stage cp.async ring (three 16 KB stages
+// in flight) of 32-row stages of img and g_prod, on mma.sync m16n8k16 with
+// ldmatrix.trans for both operands (each has M, the contraction axis, as
+// its strided axis), 8 warps of 64 d x 32 channels. The blocks of the
+// first D tile also sum the d_b partials in chunk order.
 //
 // Launches:
 //   train_fusion_forward  grid (ceil(O/32), ceil(M/128)): a [128, 32k]
@@ -49,9 +65,12 @@
 //       _grid_fuse_pallas), which computes exactly the forward at rate 0.
 //   train_fusion_d_img    grid (ceil(D/128), ceil(M/128)): a [128, 128]
 //       d_img tile, looping over all of F in 32-channel chunks of g_prod.
+//   train_fusion_g_prod   grid (ceil(F/256), ceil(M/64)): one channel per
+//       thread over 64 rows -> bf16 g_prod [M, F] and the f32 d_b partial
+//       of those rows [ceil(M/64), F].
 //   train_fusion_d_w      grid (ceil(F/128), ceil(D/128)): a [128, 128]
-//       d_W tile, looping over all M rows in chunks of 32; the blocks of
-//       the first D tile also sum d_b, in a fixed order.
+//       d_W tile = bf16(img)^T @ g_prod over all M rows; the blocks of the
+//       first D tile sum d_b from the partials.
 //   train_fusion_d_q      grid (ceil(F/128), N): recomputes z0 for the
 //       sample's L rows and one 128-channel tile, and reduces over L.
 // Each entry returns cudaGetLastError() after its launch (0 on success).
@@ -71,7 +90,7 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = 8;
 constexpr int kChunk = 32;      // contraction depth per shared-memory stage
 constexpr int kTileM = 128;     // rows of img (or D) per block
-constexpr int kTileN = 128;     // columns per block (d_img, d_W, d_q)
+constexpr int kTileN = 128;     // columns per block (d_img, d_q)
 constexpr int kFwdOut = 32;     // pooled outputs per forward block
 constexpr int kLdChunk = kChunk + 8;   // padded against bank conflicts
 constexpr int kLdTile = kTileN + 8;
@@ -82,8 +101,6 @@ constexpr int kMaxK = 8;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
     ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-    ACol;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
     BRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
@@ -334,81 +351,197 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// d_W = bf16(img)^T @ bf16(g_prod), d_b = sum_m g_prod
+// g_prod, built once: bf16 g_prod [M, F] and f32 d_b partials [chunks, F]
 // ---------------------------------------------------------------------------
+constexpr int kBuildRows = 64;  // rows per d_b partial (ops/train_fusion.py)
+
+// a thread owns one channel c and walks the block's 64 rows in order; the
+// zero rule is written as the plain version computes it, g * (out == 0 ? 0
+// : 0.5 / max(|out|, 1e-20)), so even the sign of a zero agrees
 __global__ void __launch_bounds__(kThreads)
-    d_w_kernel(const float* __restrict__ g,    // [M, O]
-               const float* __restrict__ out,  // [M, O]
-               const bf16* __restrict__ img,   // [M, D]
-               const float* __restrict__ q,    // [N, F]
-               float* __restrict__ d_w,        // [D, F]
-               float* __restrict__ d_b,        // [F]
-               int mrows, int l, int d, int f, int k, uint32_t seed,
-               uint32_t thr, float inv_keep) {
-  __shared__ __align__(128) bf16 a_s[kChunk * kLdTile];  // img [m][d]
-  __shared__ __align__(128) bf16 b_s[kChunk * kLdTile];  // g_prod [m][c]
-  __shared__ __align__(128) float gp_s[kChunk * kTileN];  // f32 g_prod
-  __shared__ __align__(128) float stage_s[kWarps][256];
+    g_prod_kernel(const float* __restrict__ g,    // [M, O]
+                  const float* __restrict__ out,  // [M, O]
+                  const float* __restrict__ q,    // [N, F]
+                  bf16* __restrict__ gp,          // [M, F]
+                  float* __restrict__ db_part,    // [ceil(M / 64), F]
+                  int mrows, int l, int f, int k, uint32_t seed, uint32_t thr,
+                  float inv_keep) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= f) return;
+  const int o_dim = f / k, o = c / k;
+  const int m0 = blockIdx.y * kBuildRows;
+  const int m_end = min(mrows, m0 + kBuildRows);
+  float part = 0.0f;
+  for (int m = m0; m < m_end; ++m) {
+    const size_t po = (size_t)m * o_dim + o;
+    const float y = out[po];
+    float v = __fmul_rn(
+        g[po], y == 0.0f ? 0.0f : __fdiv_rn(0.5f, fmaxf(fabsf(y), 1e-20f)));
+    if (thr != 0u)
+      v = __fmul_rn(v, keep_scale(seed, thr, inv_keep,
+                                  (unsigned long long)m * f + c));
+    v = __fmul_rn(v, q[(size_t)(m / l) * f + c]);
+    gp[(size_t)m * f + c] = __float2bfloat16(v);
+    part = __fadd_rn(part, v);
+  }
+  db_part[(size_t)blockIdx.y * f + c] = part;
+}
 
-  const int o_dim = f / k;
-  const int c0 = blockIdx.x * kTileN;
-  const int dt0 = blockIdx.y * kTileM;
-  const bool with_bias = blockIdx.y == 0;  // uniform over the block
+// ---------------------------------------------------------------------------
+// d_W = bf16(img)^T @ g_prod, pipelined; d_b = sum of the partials
+// ---------------------------------------------------------------------------
+constexpr int kGemmTile = 128;      // d rows and channels per block
+constexpr int kGemmDepth = 32;      // rows of M per ring stage
+constexpr int kGemmStages = 4;      // ring stages, three in flight
+constexpr int kLdG = kGemmTile + 8;  // 272-byte rows: ldmatrix conflict-free
+constexpr int kGemmStageElems = kGemmDepth * kLdG;  // one operand's stage
+constexpr int kGemmSmem = kGemmStages * 2 * kGemmStageElems * 2;
+
+// 16 bytes global -> shared, cached in L2 only; zero-filled (nothing read)
+// when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most kPending of the newest commit groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// four 8x8 bf16 matrices, transposed: lane i gives the row address of
+// matrix i / 8, row i % 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d += a (16x16, row-major) @ b (16x8, column-major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    d_w_gemm_kernel(const bf16* __restrict__ img,      // [M, D]
+                    const bf16* __restrict__ gp,       // [M, F]
+                    const float* __restrict__ db_part,  // [chunks, F]
+                    float* __restrict__ d_w,           // [D, F]
+                    float* __restrict__ d_b,           // [F]
+                    int mrows, int d, int f, int chunks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* a_s = reinterpret_cast<bf16*>(smem);        // img [stage][m][d]
+  bf16* b_s = a_s + kGemmStages * kGemmStageElems;  // g_prod [stage][m][c]
+  const int c0 = blockIdx.x * kGemmTile, d0 = blockIdx.y * kGemmTile;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wr = warp / 2, wc = warp % 2;  // 32 d-rows x 64 channels per warp
+  const int wm = warp / 4, wn = warp % 4;  // 64 d x 32 channels per warp
 
-  AccFrag acc[2][4];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < 4; ++ct) wmma::fill_fragment(acc[rt][ct], 0.0f);
-  float db_acc = 0.0f;
-
-  for (int mc = 0; mc < mrows; mc += kChunk) {
-    for (int i = tid; i < kChunk * (kTileM / 8); i += kThreads) {
-      const int r = i / (kTileM / 8), v = i % (kTileM / 8);
-      const int m = mc + r, col = dt0 + v * 8;
-      *reinterpret_cast<uint4*>(a_s + r * kLdTile + v * 8) =
-          load16(img + (size_t)m * d + col, m < mrows && col < d);
-    }
-    for (int i = tid; i < kChunk * kTileN; i += kThreads) {
-      const int r = i / kTileN, cc = i % kTileN;
-      const float v = g_prod_at(g, out, q, mc + r, c0 + cc, mrows, l, f, k,
-                                o_dim, seed, thr, inv_keep);
-      b_s[r * kLdTile + cc] = __float2bfloat16(v);
-      if (with_bias) gp_s[r * kTileN + cc] = v;
-    }
-    __syncthreads();
-    if (with_bias && tid < kTileN)
-      for (int r = 0; r < kChunk; ++r)
-        db_acc = __fadd_rn(db_acc, gp_s[r * kTileN + tid]);
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      ACol a0, a1;  // element (d, m) at a_s[m * ld + d]
-      wmma::load_matrix_sync(a0, a_s + kk * 16 * kLdTile + wr * 32, kLdTile);
-      wmma::load_matrix_sync(a1, a_s + kk * 16 * kLdTile + wr * 32 + 16,
-                             kLdTile);
-#pragma unroll
-      for (int ct = 0; ct < 4; ++ct) {
-        BRow bfr;
-        wmma::load_matrix_sync(bfr, b_s + kk * 16 * kLdTile + wc * 64 + ct * 16,
-                               kLdTile);
-        wmma::mma_sync(acc[0][ct], a0, bfr, acc[0][ct]);
-        wmma::mma_sync(acc[1][ct], a1, bfr, acc[1][ct]);
-      }
-    }
-    __syncthreads();
+  // d_b: the first D tile's blocks sum the partials in chunk order
+  if (blockIdx.y == 0 && tid < kGemmTile && c0 + tid < f) {
+    float s = 0.0f;
+    for (int i = 0; i < chunks; ++i)
+      s = __fadd_rn(s, db_part[(size_t)i * f + c0 + tid]);
+    d_b[c0 + tid] = s;
   }
 
-  if (with_bias && tid < kTileN && c0 + tid < f) d_b[c0 + tid] = db_acc;
+  float acc[4][4][4];  // [16-row d tile][8-wide channel tile][fragment]
 #pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int ct = 0; ct < 4; ++ct) {
-      const int db = dt0 + wr * 32 + rt * 16, cb = c0 + wc * 64 + ct * 16;
-      drain(acc[rt][ct], stage_s[warp], lane, [&](int r, int cc, float v) {
-        if (db + r < d && cb + cc < f) d_w[(size_t)(db + r) * f + cb + cc] = v;
-      });
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // rows [32 s, 32 s + 32) of img (d0..d0+127) and of g_prod (c0..c0+127)
+  // into stage s % 4; one commit group per call (empty past the end)
+  const int stages = (mrows + kGemmDepth - 1) / kGemmDepth;
+  auto prefetch = [&](int s) {
+    if (s < stages) {
+      bf16* a = a_s + (s % kGemmStages) * kGemmStageElems;
+      bf16* b = b_s + (s % kGemmStages) * kGemmStageElems;
+      for (int i = tid; i < kGemmDepth * (kGemmTile / 8); i += kThreads) {
+        const int r = i / (kGemmTile / 8), v = i % (kGemmTile / 8);
+        const int m = s * kGemmDepth + r;
+        const int dd = d0 + v * 8, cc = c0 + v * 8;
+        const bool ok_a = m < mrows && dd < d, ok_b = m < mrows && cc < f;
+        cp_async16(a + r * kLdG + v * 8, ok_a ? img + (size_t)m * d + dd : img,
+                   ok_a);
+        cp_async16(b + r * kLdG + v * 8, ok_b ? gp + (size_t)m * f + cc : gp,
+                   ok_b);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // ldmatrix lanes: matrix mat = lane / 8, row r8 = lane % 8. A (img^T,
+  // d x m) tiles: matrices (m +0, d +0), (m +0, d +8), (m +8, d +0),
+  // (m +8, d +8) give a0..a3; B (g_prod, m x c) tiles: (m +0, c +0),
+  // (m +8, c +0), (m +0, c +8), (m +8, c +8) give b0, b1 of two 8-wide
+  // channel tiles
+  const int mat = lane / 8, r8 = lane % 8;
+  const int a_off = (r8 + (mat / 2) * 8) * kLdG + wm * 64 + (mat % 2) * 8;
+  const int b_off = (r8 + (mat % 2) * 8) * kLdG + wn * 32 + (mat / 2) * 8;
+
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) prefetch(s);
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<kGemmStages - 2>();  // stage s has landed
+    __syncthreads();  // ... for every thread; stage s - 1 is consumed
+    prefetch(s + kGemmStages - 1);
+    const bf16* a = a_s + (s % kGemmStages) * kGemmStageElems + a_off;
+    const bf16* b = b_s + (s % kGemmStages) * kGemmStageElems + b_off;
+#pragma unroll
+    for (int kk = 0; kk < kGemmDepth; kk += 16) {
+      uint32_t af[4][4], bfr[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4_trans(af[i], a + kk * kLdG + i * 16);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldmatrix_x4_trans(bfr[j], b + kk * kLdG + j * 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_16816(acc[i][j], af[i], bfr[j / 2][(j % 2) * 2],
+                    bfr[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // fragment: rows lane / 4 and + 8, channels 2 (lane % 4) and + 1
+  const int gid = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int dr = d0 + wm * 64 + i * 16 + gid;
+      const int cc = c0 + wn * 32 + j * 8 + tig * 2;
+      if (cc < f) {  // F % 8 == 0: cc + 1 < F too
+        if (dr < d)
+          *reinterpret_cast<float2*>(d_w + (size_t)dr * f + cc) =
+              make_float2(acc[i][j][0], acc[i][j][1]);
+        if (dr + 8 < d)
+          *reinterpret_cast<float2*>(d_w + (size_t)(dr + 8) * f + cc) =
+              make_float2(acc[i][j][2], acc[i][j][3]);
+      }
     }
 }
 
@@ -583,17 +716,38 @@ int train_fusion_d_img(const void* g, const void* out, const void* w,
   return (int)cudaGetLastError();
 }
 
-int train_fusion_d_w(const void* g, const void* out, const void* img,
-                     const void* q, void* d_w, void* d_b, int n, int l, int d,
-                     int f, int k, uint32_t seed, uint32_t thr,
-                     float inv_keep, void* stream) {
+int train_fusion_g_prod(const void* g, const void* out, const void* q,
+                        void* gp, void* db_part, int n, int l, int d, int f,
+                        int k, uint32_t seed, uint32_t thr, float inv_keep,
+                        void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((f + kTileN - 1) / kTileN, (d + kTileM - 1) / kTileM);
-  d_w_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  const int m = n * l;
+  const dim3 grid((f + kThreads - 1) / kThreads,
+                  (m + kBuildRows - 1) / kBuildRows);
+  g_prod_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(out),
-      static_cast<const bf16*>(img), static_cast<const float*>(q),
-      static_cast<float*>(d_w), static_cast<float*>(d_b), n * l, l, d, f, k,
-      seed, thr, inv_keep);
+      static_cast<const float*>(q), static_cast<bf16*>(gp),
+      static_cast<float*>(db_part), m, l, f, k, seed, thr, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+// d_W and d_b from train_fusion_g_prod's bf16 g_prod and d_b partials
+int train_fusion_d_w(const void* img, const void* gp, const void* db_part,
+                     void* d_w, void* d_b, int n, int l, int d, int f,
+                     void* stream) {
+  if (!dims_ok(n, l, d, f, 1)) return (int)cudaErrorInvalidValue;
+  const int m = n * l;
+  cudaError_t err = cudaFuncSetAttribute(
+      d_w_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGemmSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((f + kGemmTile - 1) / kGemmTile,
+                  (d + kGemmTile - 1) / kGemmTile);
+  d_w_gemm_kernel<<<grid, kThreads, kGemmSmem,
+                    reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(img), static_cast<const bf16*>(gp),
+      static_cast<const float*>(db_part), static_cast<float*>(d_w),
+      static_cast<float*>(d_b), m, d, f, (m + kBuildRows - 1) / kBuildRows);
   return (int)cudaGetLastError();
 }
 

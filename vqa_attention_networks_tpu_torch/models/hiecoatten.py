@@ -18,9 +18,10 @@ Dispatch of the eval forward (``hiecoatten.py:93-104``):
   ``ops/coattention.coattention_core``, which is K4 on the card. The JAX
   gate also asks ``n % 8 == 0``: that is the TPU kernel's block of 8
   samples; the port's K4 runs one sample per block and takes any N.
-- f32 / f64: the composed chain of ``hiecoatten.py:105-136``, each product
-  rounded to the compute dtype as its ``preferred_element_type=dtype``
-  asks (full f32 with TF32 off).
+- f32 / f64, and bf16 under ``VQA_DISABLE_PALLAS`` (read at each call, as
+  ``pallas_coattention.py:92`` reads it): the composed chain of
+  ``hiecoatten.py:105-136``, each product rounded to the compute dtype as
+  its ``preferred_element_type=dtype`` asks (full f32 with TF32 off).
 
 The training forward is not ported yet (``NotImplementedError``).
 """
@@ -35,6 +36,7 @@ from torch import nn
 from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch.models import TRAINING_PENDING
 from vqa_attention_networks_tpu_torch.models import layers as L
+from vqa_attention_networks_tpu_torch.ops import kernels_disabled
 from vqa_attention_networks_tpu_torch.ops.coattention import coattention_core
 
 
@@ -92,7 +94,7 @@ class HieCoAtten(nn.Module):
         cq = self.fc_Wbq(que)  # Wbq on the question branch (a reference fix)
         img_w = self.fc_Wv(img)
         que_w = self.fc_Wq(que)
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and not kernels_disabled():
             v, q, av, aq = coattention_core(
                 img, que, cv, cq, img_w, que_w, self.fc_Whv.weight,
                 self.fc_Whq.weight, reference_kernel=reference_kernels)

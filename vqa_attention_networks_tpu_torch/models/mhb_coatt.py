@@ -7,8 +7,9 @@ the JAX layout from a ``torch.Generator`` (xavier-uniform weights, zero
 biases, as the JAX ``init``).
 
 Dispatch rule (``mhb_coatt.py:155-160``): at bf16 with
-``cfg.fast_path != "composed"`` the stage-1 fusion and co-attention run as
-one call of K1 (``ops/wq_fusion.stage1_coattention``) — "auto", "pallas" and
+``cfg.fast_path != "composed"``, unless ``VQA_DISABLE_PALLAS`` is set (read
+at each call, as ``pallas_wq_fusion.py:747`` reads it), the stage-1 fusion
+and co-attention run as one call of K1 (``ops/wq_fusion.stage1_coattention``) — "auto", "pallas" and
 "pallas_pair" all take the one kernel; otherwise the composed chain runs
 (the weight-contracted fusion at bf16, or K5 under ``VQA_FORCE_PALLAS``;
 the exact f32 chain at f32). The two glimpse blocks of the eval forward,
@@ -35,6 +36,7 @@ from vqa_attention_networks_tpu_torch.ops.fusion import (
     two_glimpse_pool,
 )
 from vqa_attention_networks_tpu_torch.ops.grid_fusion import grid_fuse
+from vqa_attention_networks_tpu_torch.ops import kernels_disabled
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 
 _STAGE1_FIELDS = ("w3", "b3", "c1w", "c1b", "c2w", "c2b")
@@ -188,7 +190,8 @@ class MHBCoAtt(nn.Module):
         )
         q_proj = self.ques_proj1(q_att)
 
-        if dtype == torch.bfloat16 and cfg.fast_path != "composed":
+        if dtype == torch.bfloat16 and cfg.fast_path != "composed" \
+                and not kernels_disabled():
             sw = self.stage1_weights()
             if reference_kernels:
                 v_att = wqf.stage1_coattention_reference(img, q_proj, sw)

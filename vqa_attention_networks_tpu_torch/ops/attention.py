@@ -6,7 +6,8 @@
     out = concat_g(sum_p w_g[p] * v[p])    [N, G*D]
 
 Dispatch (``pallas_attention.py:162-177``): at bf16 with ``VQA_PALLAS_GLIMPSE``
-set (read at each call) the block runs as K7: on a CUDA tensor the
+set and ``VQA_DISABLE_PALLAS`` not set (both read at each call) the block
+runs as K7: on a CUDA tensor the
 hand-written kernel (``csrc/glimpse_attention.cu``), on a CPU tensor its
 plain version. Otherwise the plain version runs, the math of the composed
 twin ``_glimpse_reference`` (``pallas_attention.py:109-128``). The TPU
@@ -33,6 +34,7 @@ import os
 import torch
 
 from vqa_attention_networks_tpu_torch.models.layers import matmul_f32
+from vqa_attention_networks_tpu_torch.ops import kernels_disabled
 from vqa_attention_networks_tpu_torch.ops.fusion import two_glimpse_pool
 
 _TILE_A = 128  # hidden units per MLP block (glimpse_attention.cu kTileA)
@@ -157,6 +159,7 @@ def glimpse_attention(
     the comparisons of the tests and ``chip_smoke.py`` only."""
     use_kernel = (x.dtype == torch.bfloat16
                   and os.environ.get("VQA_PALLAS_GLIMPSE")
+                  and not kernels_disabled()
                   and not reference_kernel and x.device.type != "cpu")
     if use_kernel:
         return glimpse_attention_cuda(x, w1, b1, w2, b2, v,

@@ -18,7 +18,7 @@ from vqa_attention_networks_tpu_torch.models.layers import (
     matmul_f32,
     signed_sqrt,
 )
-from vqa_attention_networks_tpu_torch.ops import pooled_fusion
+from vqa_attention_networks_tpu_torch.ops import kernels_disabled, pooled_fusion
 
 
 def refactor_output_major(x: torch.Tensor, o: int, k: int,
@@ -88,16 +88,22 @@ def grid_fuse_pooled(
     - bf16: K3 (``ops/pooled_fusion.pooled_grid_fuse``, the kernels on a
       CUDA tensor, the plain version on a CPU tensor or with
       ``reference_kernel=True``), whatever the rate; its f32 map is cast to
-      bf16 before the dropout.
+      bf16 before the dropout. Under ``VQA_DISABLE_PALLAS`` (read at each
+      call, as the JAX gate ``pallas_pooled_fusion.py:527`` reads it) the
+      composed chain runs instead: ``grid_fuse_weight_contracted``, then
+      the dropout (``fusion.py:181-200``).
     - f32 and f64: the weight-contracted chain in img's dtype, with bq, the
       pooled map and its signed sqrt in f32, as the JAX function's
       ``preferred_element_type=f32`` gives them (at f64 too: the products
       run in f64 and round to f32); the output is cast back to img's dtype.
     """
     if img.dtype == torch.bfloat16:
-        fuse = (pooled_fusion.pooled_grid_fuse_reference if reference_kernel
-                else pooled_fusion.pooled_grid_fuse)
-        fused = fuse(img, w, b, q_proj, k).to(img.dtype)
+        if kernels_disabled():
+            fused = grid_fuse_weight_contracted(img, w, b, q_proj, k)
+        else:
+            fuse = (pooled_fusion.pooled_grid_fuse_reference
+                    if reference_kernel else pooled_fusion.pooled_grid_fuse)
+            fused = fuse(img, w, b, q_proj, k).to(img.dtype)
         return dropout(fused, rate, True, generator)
     n, _, d = img.shape
     o = w.shape[1] // k

@@ -1,6 +1,12 @@
 """``grid_fuse`` (port of ``vqa_attention_networks_tpu/ops/pallas_fusion.py``),
 with the inference fusion kernel K5.
 
+Every kernel branch below reads ``VQA_DISABLE_PALLAS`` at each call
+(``ops.kernels_disabled``), as the JAX gates ``pallas_fusion.py:190`` and
+``pallas_train_fusion.py:354`` do: with it set, the composed chain runs in
+place of K5 and K2. K2's branch also reads ``VQA_COMPOSED_TRAIN_FUSION``
+(``pallas_train_fusion.py:356``), which forces the composed chain too.
+
 Inference:
 
 - f32: ``grid_fuse_reference`` — (img @ W + b) * q, k-pool, signed sqrt,
@@ -24,7 +30,8 @@ dropout mask on the pre-pool product:
   kernels on a CUDA tensor and their plain version on a CPU tensor. (The
   JAX dispatch takes the composed chain on the CPU; both compute the same
   function.)
-- otherwise: the composed chain with its dropout.
+- otherwise, or under either switch: the composed chain with its dropout
+  from ``generator``.
 
 Training at ``site="pooled"`` (``pallas_fusion.py:230-236``), with the
 dropout mask on the pooled output, drawn from ``generator``:
@@ -43,7 +50,7 @@ from vqa_attention_networks_tpu_torch.models.layers import (
     dropout,
     signed_sqrt,
 )
-from vqa_attention_networks_tpu_torch.ops import train_fusion
+from vqa_attention_networks_tpu_torch.ops import kernels_disabled, train_fusion
 from vqa_attention_networks_tpu_torch.ops.fusion import (
     grid_fuse_pooled,
     grid_fuse_weight_contracted,
@@ -110,7 +117,8 @@ def grid_fuse(
     formulation without it, the composed chain else. Training at
     ``site="prepool"``: K2 at bf16 with ``rate > 0`` (its mask from
     ``seed``), the composed chain with dropout from ``generator`` else; at
-    ``site="pooled"``: ``grid_fuse_pooled`` (K3 at bf16).
+    ``site="pooled"``: ``grid_fuse_pooled`` (K3 at bf16). Under
+    ``VQA_DISABLE_PALLAS`` no kernel runs (see the module's docstring).
     ``reference_kernel=True`` runs K5's, K2's or K3's plain version in place
     of the kernels on any device, for the comparisons of the tests and
     ``chip_smoke.py`` only."""
@@ -119,14 +127,16 @@ def grid_fuse(
             return grid_fuse_reference(img, w, b, q_proj, k)
         if not os.environ.get("VQA_FORCE_PALLAS"):
             return grid_fuse_weight_contracted(img, w, b, q_proj, k)
-        if reference_kernel or img.device.type == "cpu":
+        if kernels_disabled() or reference_kernel or \
+                img.device.type == "cpu":
             return grid_fuse_reference(img, w, b, q_proj, k)
         return inference_fusion_cuda(img, w, b, q_proj, k)
     if site == "pooled":
         return grid_fuse_pooled(img, w, b, q_proj, k, rate=rate,
                                 generator=generator,
                                 reference_kernel=reference_kernel)
-    if img.dtype == torch.bfloat16 and rate > 0:
+    if img.dtype == torch.bfloat16 and rate > 0 and not kernels_disabled() \
+            and not os.environ.get("VQA_COMPOSED_TRAIN_FUSION"):
         if seed is None:
             raise ValueError("the K2 training fusion needs a mask seed")
         if reference_kernel:

@@ -14,7 +14,7 @@ The backward takes g = d out:
     g_prod    = (g_pooled[n,l,o] * (m * inv_keep)) * q[n,c]        f32
     d_img     = bf16(g_prod) @ bf16(W)^T                 f32 sum, to img's dtype
     d_W       = bf16(img)^T @ bf16(g_prod)               f32
-    d_b       = sum_{n,l} g_prod                         f32
+    d_b       = sum_{n,l} g_prod                         f32, of the f32 g_prod
     d_q       = sum_l (g_pooled * (m * inv_keep)) * z0   z0 recomputed, to q's dtype
 
 The zero branch of g_pooled is the composed chain's gradient at pooled == 0
@@ -37,9 +37,18 @@ the plain version replay the same bits whatever their tiling. (The TPU
 kernel seeded its on-core generator per tile; those bits cannot be
 reproduced here.) At rate 0 no bits are drawn.
 
+d_W/d_b takes two launches on the card: ``g_prod_cuda`` builds g_prod
+once as bf16 [N*L, F], with the f32 d_b partial of each chunk of
+``DB_CHUNK`` rows, and ``d_w_from_operand_cuda`` is the product over that
+operand (its first D tile also sums the partials in chunk order). Their
+plain versions are ``g_prod_reference`` and ``d_w_from_operand_reference``;
+``d_w_reference`` composes them.
+
 - ``train_grid_fuse`` dispatches: a CPU tensor goes to the plain version,
   a CUDA tensor to the kernels (``csrc/train_fusion.cu``), which raise on
-  an input they do not take. Nothing catches an error to fall back.
+  an input they do not take. Nothing catches an error to fall back. (The
+  training dispatch in ``ops/grid_fusion.py`` takes neither under
+  ``VQA_DISABLE_PALLAS`` or ``VQA_COMPOSED_TRAIN_FUSION``.)
 - ``train_grid_fuse_reference`` is the plain version: PyTorch ops with the
   backward above, as an ``autograd.Function``.
 - ``launch_count`` counts the kernel launches, by kernel.
@@ -61,9 +70,11 @@ _MASK32 = 0xFFFFFFFF
 _MAX_K = 8  # the forward kernel is instantiated for k = 1..8
 _MAX_ROWS = 208  # d_q holds one sample's L rows in 13 row tiles of 16
 _MASK_CHUNK = 1 << 24  # elements per step of the plain mask (memory)
+DB_CHUNK = 64  # rows per d_b partial of the g_prod build (kBuildRows)
 
 # kernel launches made by TrainGridFuse, by kernel
-launch_count: Dict[str, int] = {"forward": 0, "d_img": 0, "d_w": 0, "d_q": 0}
+launch_count: Dict[str, int] = {"forward": 0, "d_img": 0, "g_prod": 0,
+                                "d_w": 0, "d_q": 0}
 
 
 def thr_keep(rate: float) -> int:
@@ -172,13 +183,28 @@ def d_img_reference(g, out, w_bf16, q, k: int, keep) -> torch.Tensor:
     return torch.matmul(g_prod, w_bf16.float().t()).to(torch.bfloat16)
 
 
-def d_w_reference(g, out, img, q, k: int, keep):
-    n, l, d = img.shape
+def g_prod_reference(g, out, q, k: int, keep):
+    """-> (bf16 g_prod [N*L, F], f32 d_b partials [ceil(N*L / DB_CHUNK), F]):
+    the g_prod build's plain version, each partial the sum of its chunk's
+    rows of the f32 g_prod."""
     g_prod = _g_prod(g, out, q, k, keep)
-    x = img.to(torch.bfloat16).float().reshape(n * l, d)
-    d_w = torch.matmul(x.t(), g_prod.to(torch.bfloat16).float()
-                       .reshape(n * l, -1))
-    return d_w, g_prod.sum(dim=(0, 1))
+    f = g_prod.shape[-1]
+    g_prod = g_prod.reshape(-1, f)
+    pad = -g_prod.shape[0] % DB_CHUNK
+    partials = torch.cat([g_prod, g_prod.new_zeros(pad, f)]).reshape(
+        -1, DB_CHUNK, f).sum(1)
+    return g_prod.to(torch.bfloat16), partials
+
+
+def d_w_from_operand_reference(img, g_prod_bf16) -> torch.Tensor:
+    """d_W = bf16(img)^T @ g_prod [N*L, F] (bf16), f32 [D, F]."""
+    x = img.to(torch.bfloat16).float().reshape(-1, img.shape[-1])
+    return torch.matmul(x.t(), g_prod_bf16.float())
+
+
+def d_w_reference(g, out, img, q, k: int, keep):
+    g_prod, partials = g_prod_reference(g, out, q, k, keep)
+    return d_w_from_operand_reference(img, g_prod), partials.sum(0)
 
 
 def d_q_reference(g, out, img, w_bf16, b, k: int, keep) -> torch.Tensor:
@@ -233,11 +259,14 @@ def library() -> ctypes.CDLL:
     tail = [i] * 5 + [u, u, f, p]
     lib.train_fusion_forward.argtypes = [p] * 5 + tail  # img w b q out
     lib.train_fusion_d_img.argtypes = [p] * 5 + tail  # g out w q d_img
-    lib.train_fusion_d_w.argtypes = [p] * 6 + tail  # g out img q d_w d_b
+    lib.train_fusion_g_prod.argtypes = [p] * 5 + tail  # g out q gp partials
+    # img gp partials d_w d_b, n, l, d, f, stream
+    lib.train_fusion_d_w.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.train_fusion_d_q.argtypes = [p] * 6 + tail  # g out img w b d_q
     # K5 (ops/grid_fusion.py): img w b q out, n, l, d, f, k, stream
     lib.train_fusion_inference_forward.argtypes = [p] * 5 + [i] * 5 + [p]
-    for name in ("forward", "d_img", "d_w", "d_q", "inference_forward"):
+    for name in ("forward", "d_img", "g_prod", "d_w", "d_q",
+                 "inference_forward"):
         getattr(lib, f"train_fusion_{name}").restype = ctypes.c_int
     lib.train_fusion_error_string.argtypes = [ctypes.c_int]
     lib.train_fusion_error_string.restype = ctypes.c_char_p
@@ -290,20 +319,25 @@ def check_inputs(img, w_bf16, b, q, k: int, rate: float) -> None:
         raise ValueError(f"the K2 kernels take 0 <= rate < 1, got {rate}")
 
 
-def _launch(name: str, pointers, img, w_bf16, seed: int, k: int,
-            rate: float) -> None:
-    n, l, d = img.shape
-    thr = thr_keep(rate) if rate > 0 else 0  # 0: rate 0, no bits drawn
-    stream = torch.cuda.current_stream(img.device).cuda_stream
+def _call(name: str, *args) -> None:
+    """Launch ``train_fusion_<name>`` and count it; raises on a refused
+    launch."""
     lib = library()
-    rc = getattr(lib, f"train_fusion_{name}")(
-        *pointers, n, l, d, w_bf16.shape[1], k, int(seed) & _MASK32, thr,
-        1.0 / (1.0 - rate), stream)
+    rc = getattr(lib, f"train_fusion_{name}")(*args)
     if rc != 0:
         raise RuntimeError(
             f"train_fusion {name} launch failed: CUDA error {rc} "
             f"({lib.train_fusion_error_string(rc).decode()})")
     launch_count[name] += 1
+
+
+def _launch(name: str, pointers, img, w_bf16, seed: int, k: int,
+            rate: float) -> None:
+    n, l, d = img.shape
+    thr = thr_keep(rate) if rate > 0 else 0  # 0: rate 0, no bits drawn
+    _call(name, *pointers, n, l, d, w_bf16.shape[1], k, int(seed) & _MASK32,
+          thr, 1.0 / (1.0 - rate),
+          torch.cuda.current_stream(img.device).cuda_stream)
 
 
 def _check_grad(g, out, img, w_bf16, k: int) -> None:
@@ -341,16 +375,48 @@ def d_img_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
     return d_img
 
 
-def d_w_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
+def g_prod_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
+    """Launch the g_prod build -> (bf16 g_prod [N*L, F], f32 d_b partials
+    [ceil(N*L / DB_CHUNK), F]), in scratch allocated here."""
     check_inputs(img, w_bf16, b, q, k, rate)
     _check_grad(g, out, img, w_bf16, k)
-    d, f = w_bf16.shape
+    n, l, _ = img.shape
+    f = w_bf16.shape[1]
+    g_prod = torch.empty(n * l, f, dtype=torch.bfloat16, device=img.device)
+    partials = torch.empty(-(-n * l // DB_CHUNK), f, dtype=torch.float32,
+                           device=img.device)
+    _launch("g_prod", (g.data_ptr(), out.data_ptr(), q.data_ptr(),
+                       g_prod.data_ptr(), partials.data_ptr()), img, w_bf16,
+            seed, k, rate)
+    return g_prod, partials
+
+
+def d_w_from_operand_cuda(img, g_prod, partials):
+    """Launch the d_W product over ``g_prod_cuda``'s output -> (f32 d_W
+    [D, F], f32 d_b [F], the partials summed in chunk order)."""
+    n, l, d = img.shape
+    f = g_prod.shape[1]
+    if img.device.type != "cuda" or img.dtype != torch.bfloat16 or \
+            not img.is_contiguous():
+        raise ValueError("d_W takes a contiguous bf16 img on the card")
+    if g_prod.dtype != torch.bfloat16 or tuple(g_prod.shape) != (n * l, f) \
+            or tuple(partials.shape) != (-(-n * l // DB_CHUNK), f) or \
+            partials.dtype != torch.float32 or g_prod.device != img.device:
+        raise ValueError(f"g_prod must be bf16 [{n * l}, F] and partials f32 "
+                         f"[{-(-n * l // DB_CHUNK)}, F] on {img.device}, as "
+                         "g_prod_cuda makes them")
     d_w = torch.empty(d, f, dtype=torch.float32, device=img.device)
     d_b = torch.empty(f, dtype=torch.float32, device=img.device)
-    _launch("d_w", (g.data_ptr(), out.data_ptr(), img.data_ptr(),
-                    q.data_ptr(), d_w.data_ptr(), d_b.data_ptr()), img,
-            w_bf16, seed, k, rate)
+    _call("d_w", img.data_ptr(), g_prod.data_ptr(), partials.data_ptr(),
+          d_w.data_ptr(), d_b.data_ptr(), n, l, d, f,
+          torch.cuda.current_stream(img.device).cuda_stream)
     return d_w, d_b
+
+
+def d_w_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
+    """d_W and d_b: the g_prod build, then the product over it."""
+    return d_w_from_operand_cuda(
+        img, *g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate))
 
 
 def d_q_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,

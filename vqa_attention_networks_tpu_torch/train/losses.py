@@ -53,8 +53,12 @@ def correct_count(logits: torch.Tensor, labels: torch.Tensor,
 
 def topk_correct_count(logits: torch.Tensor, labels: torch.Tensor, k: int = 3,
                        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Top-k hit count, as f32."""
-    topk = torch.topk(logits, k, dim=-1).indices
+    """Top-k hit count, as f32. Ties go to the lower answer id, as
+    ``lax.top_k`` breaks them (``train/losses.py:101-113`` in the JAX
+    package): a stable descending sort, where ``torch.topk`` leaves the
+    order of ties open."""
+    topk = torch.sort(logits, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
     hit = (topk == labels[:, None]).any(dim=-1).float()
     if valid is not None:
         hit = hit * valid.float()
