@@ -23,7 +23,8 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
    that the gate counts the answers of a uniform attention as flips; and,
    for information only, flips against ``fast_path="composed"``;
 5. times: K1 and its plain version at N = 256 and 1024 (CUDA events after
-   warm-up), and the end-to-end qa-pairs/s of step 4;
+   warm-up), at N = 256 each of K1's three launches apart (device time,
+   ``torch.profiler``), and the end-to-end qa-pairs/s of step 4;
 6. K2 (the training fusion with pre-pool dropout, forward and backward)
    against its plain PyTorch version at production widths (L=196, D=2048,
    F=5000, k=5), N = 8 and 64, rate 0.1 and 0: each launch (forward, d_img,
@@ -97,7 +98,9 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 18. full-width bf16 mhb_coAtt served with ``VQA_PALLAS_GLIMPSE`` (K1 and K7)
     and with ``fast_path="composed"`` plus both switches (K5 and K7): the
     launch counts and flips against the plain versions;
-19. times: K4, K5 and K7 against their plain versions at N = 256;
+19. times: K4, K5 and K7 against their plain versions at N = 256, and
+    beside K5, for information, ``torch.matmul`` on the bare product
+    img @ bf16(W) (``matmul_ms``), which no path of the port calls;
 20. K6 (the standalone wq fusion + grid-flat L2) against its plain version
     at production widths (L=196, D=2048, F=5000, k=5), N = 8, 256 and 1024,
     held as pooled = out * |out|, bit-equal reruns, and two controls that
@@ -593,6 +596,23 @@ def device_ms(fn, iters: int = 5) -> dict:
     return {"ms": total_us / iters / 1e3 if total_us > 0 else None,
             "ms_per_launch": scaled_us / 1e3 if scaled_us > 0 else None,
             "unrecorded": [e.key[:60] for e in events if e.count % iters]}
+
+
+def device_ms_by_kernel(fn, iters: int = 5) -> dict:
+    """Each kernel's device time per call of ``fn`` (ms) from one
+    torch.profiler trace of ``iters`` calls after a warm-up, by kernel
+    name: the time of each launch of a multi-launch kernel, apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0}
 
 
 def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
@@ -1800,9 +1820,12 @@ def main() -> None:
                     {"bf16": 2 * n * l * (d * sw.o + sw.o * c + c * g
                                           + g * d),
                      "f32": 2 * n * sw.k * d * sw.o})  # the wq build
+            # at N=256, each of K1's launches apart (device time)
+            by_launch = device_ms_by_kernel(kernel) if n == BATCH else None
             say("k1_time", n=n, kernel_ms=times[n][0], plain_ms=times[n][1],
                 kernel_runs_ms=[kernel_a, kernel_b],
-                plain_runs_ms=[plain_a, plain_b], card=smi)
+                plain_runs_ms=[plain_a, plain_b],
+                device_ms_by_launch=by_launch, card=smi)
             del img, q, sw
         say("e2e", model="mhb_coAtt", qa_pairs_per_s=e2e["mhb_coAtt"],
             batch=BATCH, requests=BATCH * N_BATCHES, card=smi)
@@ -1961,7 +1984,12 @@ def main() -> None:
                      {"bf16": 2 * n * l * d * f})
     k5_time = interleaved_ms(lambda: gf.inference_fusion_cuda(*a5, k),
                              lambda: gf.grid_fuse_reference(*a5, k))
-    del a5, w_bf16, b5, q5
+    # for information: torch.matmul on the bare product img @ bf16(W),
+    # which no path of the port calls
+    flat = a5[0].reshape(-1, d)
+    torch.matmul(flat, w_bf16)  # warm-up
+    matmul_ms = time_ms(lambda: torch.matmul(flat, w_bf16), 10)
+    del a5, w_bf16, b5, q5, flat
     torch.cuda.empty_cache()
     k7_times, k7_bounds = {}, {}
     for shape_name, (n, p, c, a, d) in K7_SHAPES.items():
@@ -1979,9 +2007,10 @@ def main() -> None:
                              "K5": (k5_time, k5_bound),
                              **{f"K7_{s}": (k7_times[s], k7_bounds[s])
                                 for s in K7_SHAPES}}.items():
+        extra = {"matmul_ms": matmul_ms} if name == "K5" else {}
         say("time", kernel=name, n=BATCH, kernel_ms=run[0], plain_ms=run[1],
             kernel_runs_ms=run[2], plain_runs_ms=run[3], bound_ms=bnd[0],
-            bound_by=bnd[1], card=smi)
+            bound_by=bnd[1], **extra, card=smi)
     say("e2e_served", qa_pairs_per_s=e2e, batch=BATCH,
         requests=BATCH * N_BATCHES, card=smi)
     torch.cuda.empty_cache()

@@ -24,6 +24,8 @@ elementwise with no sum but the d_b partials: its bf16 operand is held
 bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -42,7 +44,7 @@ H1_ATOL, H1_RTOL = 5e-4, 2.0 ** -7
 K, C, G, L = 5, 512, 2, 196
 
 
-def _inputs(n, d, o, seed=0, device="cuda"):
+def _inputs(n, d, o, seed=0, device="cuda", l=L, k=K, g=G, c=C):
     rng = np.random.default_rng(seed)
 
     def t(shape, scale):
@@ -50,13 +52,13 @@ def _inputs(n, d, o, seed=0, device="cuda"):
             rng.standard_normal(shape).astype(np.float32) * scale
         ).to(device)
 
-    img = t((n, L, d), 0.5).to(torch.bfloat16)
-    q = t((n, o * K), 0.5)
+    img = t((n, l, d), 0.5).to(torch.bfloat16)
+    q = t((n, o * k), 0.5)
     # zb is a few 1e-3 per element after the grid-flat norm: c1w ~ N(0, 1)
     # with no bias and c2w ~ 3 N(0, 1) make the logits span several units
     sw = wqf.prepare_stage1_weights(
-        t((d, o * K), 0.05), t((o * K,), 0.05), t((o, C), 1.0), t((C,), 0.0),
-        t((C, G), 3.0), t((G,), 0.05), K,
+        t((d, o * k), 0.05), t((o * k,), 0.05), t((o, c), 1.0), t((c,), 0.0),
+        t((c, g), 3.0), t((g,), 0.05), k,
     )
     return img, q, sw
 
@@ -93,6 +95,32 @@ def test_kernel_matches_plain_version(n, d, o):
     assert torch.equal(got, wqf.stage1_coattention(img, q, sw))
 
 
+# K1 at the edges of what it takes: N not a multiple of the two samples a
+# block owns (1, 3, 257), L short of and at the 208-row limit, D not a
+# multiple of the 32-deep ring stage, k at 1 and 16 (one ring stage), and C
+# neither a multiple of the 128-column tile nor of 8 (prepare_stage1_weights
+# pads c1w's columns to 8 for TMA)
+@pytest.mark.parametrize("n,l,d,o,k,c", [
+    (1, 196, 256, 100, 5, C), (3, 196, 256, 100, 5, C),
+    (257, 196, 128, 64, 5, C), (2, 100, 256, 100, 5, C),
+    (2, 208, 264, 100, 5, C), (3, 196, 256, 100, 1, C),
+    (2, 196, 128, 64, 16, C), (3, 196, 256, 100, 5, 150)],
+    ids=["n1", "n3", "n257", "l100", "l208", "k1", "k16", "c150"])
+def test_k1_edges_match_plain_version(n, l, d, o, k, c):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, q, sw = _inputs(n, d, o, seed=n + l + k, l=l, k=k, c=c)
+    got, z, h1 = wqf.stage1_coattention_cuda(img, q, sw, intermediates=True)
+    want, want_z, want_h1 = wqf.stage1_coattention_reference(
+        img, q, sw, intermediates=True)
+    assert got.shape == (n, G * d) and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(z * z.abs(), want_z * want_z.abs(),
+                               atol=POOLED_TOL, rtol=POOLED_TOL)
+    torch.testing.assert_close(h1.float(), want_h1.float(), atol=H1_ATOL,
+                               rtol=H1_RTOL)
+    assert _within(got, want, d).all()
+    assert torch.equal(got, wqf.stage1_coattention_cuda(img, q, sw))
+
+
 def test_wrapper_raises_on_inputs_it_does_not_take():
     img, q, sw = _inputs(2, 128, 100)
     with pytest.raises(TypeError):
@@ -113,13 +141,23 @@ def test_wrapper_raises_on_inputs_it_does_not_take():
     assert shifted.is_contiguous()
     with pytest.raises(ValueError, match="aligned"):
         wqf.stage1_coattention_cuda(shifted, q, sw)
+    # c1w as prepare_stage1_weights does not lay it out (511 columns)
+    unpadded = dataclasses.replace(sw, c1w=sw.c1w[:, :-1].contiguous(),
+                                   c1b=sw.c1b[:-1].contiguous())
+    with pytest.raises(ValueError, match="prepare_stage1_weights"):
+        wqf.stage1_coattention_cuda(img, q, unpadded)
+    # and it takes the smallest and largest shapes it took before: N = 1,
+    # L = 1, D = 8, k = 16, G = 8; L = 208, D = 2056
+    for n, l, d, k, g in ((1, 1, 8, 16, 8), (2, 208, 2056, 1, 1)):
+        img, q, sw = _inputs(n, d, 10, l=l, k=k, g=g)
+        assert wqf.stage1_coattention_cuda(img, q, sw).shape == (n, g * d)
 
 
 K2_RTOL = {"forward": 1e-4, "d_img": 2.0 ** -7, "d_w": 1e-4, "d_b": 1e-4,
            "d_q": 1e-4}
 
 
-def _k2_inputs(n, d, o, seed=0, device="cuda"):
+def _k2_inputs(n, d, o, seed=0, device="cuda", l=L, k=K):
     rng = np.random.default_rng(seed)
 
     def t(shape, scale):
@@ -127,10 +165,10 @@ def _k2_inputs(n, d, o, seed=0, device="cuda"):
             rng.standard_normal(shape).astype(np.float32) * scale
         ).to(device)
 
-    img = t((n, L, d), 0.5).to(torch.bfloat16)
-    w_bf16, b, q = tf.operands(t((d, o * K), 0.02), t((o * K,), 0.05),
-                               t((n, o * K), 0.5).to(torch.bfloat16))
-    return img, w_bf16, b, q, t((n, L, o), 1.0)
+    img = t((n, l, d), 0.5).to(torch.bfloat16)
+    w_bf16, b, q = tf.operands(t((d, o * k), 0.02), t((o * k,), 0.05),
+                               t((n, o * k), 0.5).to(torch.bfloat16))
+    return img, w_bf16, b, q, t((n, l, o), 1.0)
 
 
 def _k2_view(name, x):
@@ -188,6 +226,37 @@ def test_k2_launches_match_plain_versions(n, d, o, rate):
         assert bool((want["forward"][dropped] == 0).all())
 
 
+# the forward kernel (K2's, and with the mask compiled out K5's) at the
+# edges of its tiles: M = N*L short of one row tile and not a multiple of
+# it, D not a multiple of the 64-deep ring stage, O not a multiple of the
+# 32-output tile (1000; 17 at K = 8, as F % 8 == 0 asks), K = 1 and 8
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("n,l,d,o,k", [
+    (3, 37, 136, 1000, 5), (2, 196, 2048, 17, 8), (5, 50, 64, 40, 1),
+    (7, 196, 200, 24, 5)], ids=["short_m", "o17_k8", "k1", "ragged"])
+def test_forward_kernel_edges_match_plain_version(n, l, d, o, k, rate):
+    from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, w_bf16, b, q, _ = _k2_inputs(n, d, o, seed=n + k, l=l, k=k)
+    seed = 99
+    keep = tf.keep_scale(tf.dropout_mask(seed, n, l, o * k, rate, img.device),
+                         rate) if rate > 0 else None
+    got = tf.forward_cuda(img, w_bf16, b, q, seed, k, rate)
+    want = tf.forward_reference(img, w_bf16, b, q, k, keep)
+    if rate == 0:  # K5: the same kernel with its mask compiled out
+        k5 = gf.inference_fusion_cuda(img, w_bf16.float(), b, q, k)
+        assert torch.equal(k5, got)
+    assert got.shape == (n, l, o) and torch.isfinite(got).all()
+    a, b_ = _k2_view("forward", got), _k2_view("forward", want)
+    assert (a - b_).abs().max() <= K2_RTOL["forward"] * b_.abs().max()
+    assert torch.equal(got, tf.forward_cuda(img, w_bf16, b, q, seed, k, rate))
+    if rate > 0:  # the mask replays: all k factors dropped gives 0
+        dropped = ~tf.dropout_mask(seed, n, l, o * k, rate,
+                                   img.device).reshape(n, l, o, k).any(-1)
+        assert bool((got[dropped] == 0).all())
+
+
 def test_k2_autograd_launches_the_kernels():
     img, w_bf16, b, q, g = _k2_inputs(4, 128, 128, seed=1)
     w = w_bf16.float().requires_grad_(True)
@@ -222,6 +291,12 @@ def test_k2_wrappers_raise_on_inputs_they_do_not_take():
     out = tf.forward_cuda(img, w_bf16, b, q, 0, K, 0.1)
     with pytest.raises(ValueError, match="contiguous f32"):
         tf.d_w_cuda(g.double(), out, img, w_bf16, b, q, 0, K, 0.1)
+    # and it takes the smallest and largest shapes it took before: N = 1,
+    # L = 1, D = 8, F = 8 at K = 8 (one output); L = 208 at K = 1
+    for n, l, d, o, k in ((1, 1, 8, 1, 8), (2, 208, 72, 8, 1)):
+        img, w_bf16, b, q, _ = _k2_inputs(n, d, o, l=l, k=k)
+        assert tf.forward_cuda(img, w_bf16, b, q, 0, k, 0.1).shape == \
+            (n, l, o)
 
 
 # --------------------------------------------------------------------------

@@ -23,7 +23,7 @@ from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 N, L, D, K, O, C, G = 4, 196, 128, 5, 100, 512, 2
 
 
-def _data(seed, n=N):
+def _data(seed, n=N, c=C):
     rng = np.random.default_rng(seed)
     img = (rng.standard_normal((n, L, D)) * 0.5).astype(np.float32)
     img = np.array(jnp.asarray(img, jnp.bfloat16).astype(jnp.float32))
@@ -33,9 +33,9 @@ def _data(seed, n=N):
     # after the grid-flat L2 norm zb is ~7e-3 per element: these scales
     # give logits that span several units over the L regions, so the
     # attention is peaked and the output depends on every stage
-    c1w = rng.standard_normal((O, C)).astype(np.float32)
-    c1b = np.zeros(C, np.float32)
-    c2w = (rng.standard_normal((C, G)) * 3.0).astype(np.float32)
+    c1w = rng.standard_normal((O, c)).astype(np.float32)
+    c1b = np.zeros(c, np.float32)
+    c2w = (rng.standard_normal((c, G)) * 3.0).astype(np.float32)
     c2b = (rng.standard_normal(G) * 0.1).astype(np.float32)
     return img, w, b, q, c1w, c1b, c2w, c2b
 
@@ -84,6 +84,23 @@ def test_plain_k1_equals_pallas_kernel_interpret(seed):
     assert got.shape == want.shape == (N, G * D)
     assert np.isfinite(got).all()
     _assert_bf16_equal_or_one_ulp(got, want)
+
+
+def test_plain_k1_on_padded_c1w_equals_pallas_kernel_interpret():
+    # C = 150 is not a multiple of 8: prepare_stage1_weights pads c1w's
+    # columns with zeros, as the kernel's TMA loads read it, and the plain
+    # version reads only the first C of them
+    data = _data(8, n=2, c=150)
+    t = torch.from_numpy
+    sw = wqf.prepare_stage1_weights(*(t(x) for x in data[1:3] + data[4:]),
+                                    K)
+    assert sw.c == 150 and sw.c1w.shape == (128, 152)
+    assert float(sw.c1w[:, 150:].abs().sum()) == 0.0
+    np.testing.assert_array_equal(
+        sw.c1w[:O, :150].float().numpy(),
+        t(data[4]).to(torch.bfloat16).float().numpy())
+    want = _jax_kernel(fused_stage1_coattention_pallas, *data)
+    _assert_bf16_equal_or_one_ulp(_port_reference(*data), want)
 
 
 def test_plain_k1_equals_pair_kernel_interpret():

@@ -27,11 +27,17 @@
 // What bounds it on this card. Each of the forward, d_img, d_W and d_q is
 // a product of 2*N*L*D*F operations, 257 GFLOP at N = 64, L = 196,
 // D = 2048, F = 5000; the operands are a few tens of MB. So the tensor
-// cores bound it. The forward, d_img and d_q use them through WMMA (bf16
-// 16x16x16, f32 accumulators) with a 32-deep shared-memory stage and no
-// load in flight during the MMAs: correct and simple, not yet fast. d_W
-// is a g_prod build (bound by its ~230 MB of bytes, ~0.07 ms) and a
-// pipelined product (bound by its operations, 0.26 ms).
+// cores bound it. The forward (also K5, 1.03 TFLOP at N = 256) is a
+// pipelined Hopper GEMM: a tile of 256 rows x 32 outputs (160 channels at
+// k = 5), a 4-stage TMA ring that thread 0 keeps three stages ahead, and
+// two warpgroups on wgmma, with the bias, q, mask, k-pool and signed sqrt
+// in the epilogue; its L2 traffic, (256 + 160) x 2 B per depth step of a
+// 256 x 160 tile, ~10 GB at N = 256, is what holds it above its bound.
+// d_img and d_q use WMMA (bf16 16x16x16, f32 accumulators) with a 32-deep
+// shared-memory stage and no load in flight during the MMAs: correct and
+// simple, not yet fast. d_W is a g_prod build (bound by its ~230 MB of
+// bytes, ~0.07 ms) and a pipelined product (bound by its operations,
+// 0.26 ms).
 //
 // What the design does about the TPU's structure. The TPU kernels carried
 // d_img and d_W/d_b across sequential grid steps in VMEM scratch. Blocks
@@ -57,9 +63,11 @@
 // first D tile also sum the d_b partials in chunk order.
 //
 // Launches:
-//   train_fusion_forward  grid (ceil(O/32), ceil(M/128)): a [128, 32k]
-//       tile of z0 = img @ W on the tensor cores, then bias, *q, mask,
-//       k-pool and signed sqrt in the epilogue -> out [128, 32].
+//   train_fusion_forward  grid (ceil(O/32), ceil(M/rows)): a [rows, 32k]
+//       tile of z0 = img @ W by wgmma (rows = 256 for k <= 5, 128 above,
+//       where the accumulators of 32k channels fill the registers), then
+//       bias, *q, mask, k-pool and signed sqrt in the epilogue -> out
+//       [rows, 32].
 //   train_fusion_inference_forward  the same kernel with the mask compiled
 //       out: kernel K5, the inference fusion (pallas_fusion.py
 //       _grid_fuse_pallas), which computes exactly the forward at rate 0.
@@ -80,6 +88,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -91,7 +101,6 @@ constexpr int kWarps = 8;
 constexpr int kChunk = 32;      // contraction depth per shared-memory stage
 constexpr int kTileM = 128;     // rows of img (or D) per block
 constexpr int kTileN = 128;     // columns per block (d_img, d_q)
-constexpr int kFwdOut = 32;     // pooled outputs per forward block
 constexpr int kLdChunk = kChunk + 8;   // padded against bank conflicts
 constexpr int kLdTile = kTileN + 8;
 constexpr int kRowTilesQ = 13;  // d_q: 13 x 16 = 208 rows >= L
@@ -167,101 +176,169 @@ __device__ __forceinline__ float g_prod_at(
 // ---------------------------------------------------------------------------
 // forward: out = signed_sqrt(k-pool(((img @ W + b) * q) * mask * inv_keep))
 // ---------------------------------------------------------------------------
+// A tile is kRows rows of img x 32 outputs (32 K channels, so the k-pool
+// stays inside it), computed by two warpgroups of kMT m64 row tiles each.
+// Thread 0 keeps a ring of kStages stages full with TMA (img [kRows, 64]
+// with 128-byte swizzle, W [64, 32 K] as K boxes of 32 channels with
+// 64-byte swizzle), three stages ahead: each stage's "full" barrier counts
+// its bytes, its "empty" barrier the 8 warps' releases. The warpgroups run
+// wgmma m64n(32K)k16 (A = img K-major, B = W MN-major), one stage's group
+// in flight while the next stage is awaited.
+constexpr int kFwdOut = 32;        // pooled outputs per tile
+constexpr int kFwdDepth = 64;      // D per ring stage: a 128-byte img row
+constexpr int kFwdConsumers = 2;   // warpgroups
+constexpr int kFwdThreads = kFwdConsumers * 128;
+constexpr int kFwdAtom = 32 * kFwdDepth * 2;  // one 32-channel W box
+
+template <int K>
+struct FwdShape {
+  static constexpr int kMT = K <= 5 ? 2 : 1;  // m64 tiles per warpgroup
+  static constexpr int kRows = kFwdConsumers * 64 * kMT;
+  static constexpr int kCols = kFwdOut * K;
+  static constexpr int kABytes = kRows * kFwdDepth * 2;
+  static constexpr int kStageBytes = kABytes + K * kFwdAtom;
+  static constexpr int kStages = 4;
+  static constexpr int kLd = kCols + 4;  // f32 row of the epilogue's tile
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kTile = kRows * kLd * 4;
+  // 1 KB of alignment slack, 1 KB of barriers, then the ring (reused as
+  // the epilogue's f32 tile)
+  static constexpr int kSmem = 2048 + (kRing > kTile ? kRing : kTile);
+};
+
 // kMask false compiles the mask out: the inference fusion (K5)
 template <int K, bool kMask>
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const bf16* __restrict__ img,  // [M, D]
-               const bf16* __restrict__ w,    // [D, F]
-               const float* __restrict__ b,   // [F]
-               const float* __restrict__ q,   // [N, F]
-               float* __restrict__ out,       // [M, O]
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap img_map,  // [M, D] bf16
+               const __grid_constant__ CUtensorMap w_map,    // [D, F] bf16
+               const float* __restrict__ b,  // [F]
+               const float* __restrict__ q,  // [N, F]
+               float* __restrict__ out,      // [M, O]
                int mrows, int l, int d, int f, uint32_t seed, uint32_t thr,
                float inv_keep) {
-  constexpr int kCols = kFwdOut * K;  // channels per block
-  constexpr int kLdB = kCols + 8;
-  constexpr int kWarpCols = 16 * K;   // channels per warp: 16 outputs
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);                   // [128][40]
-  bf16* b_s = a_s + kTileM * kLdChunk;                         // [32][kLdB]
-  float* stage = reinterpret_cast<float*>(smem);  // reused after the loop
+  using S = FwdShape<K>;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S::kStages;
+  unsigned char* ring = smem + 1024;
 
   const int o_dim = f / K;
-  const int o0 = blockIdx.x * kFwdOut;
-  const int c0 = o0 * K;
-  const int m0 = blockIdx.y * kTileM;
+  const int o0 = blockIdx.x * kFwdOut, c0 = o0 * K;
+  const int m0 = blockIdx.y * S::kRows;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wr = warp / 2, wc = warp % 2;  // 4 x 2 warps: 32 rows x 16K cols
+  const int steps = (d + kFwdDepth - 1) / kFwdDepth;
+  // W boxes wholly past F are not loaded: their channels belong to outputs
+  // past O, which the epilogue drops
+  const int atoms = min(K, (f - c0 + 31) / 32);
 
-  AccFrag acc[2][K];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < K; ++ct) wmma::fill_fragment(acc[rt][ct], 0.0f);
-
-  for (int d0 = 0; d0 < d; d0 += kChunk) {
-    for (int i = tid; i < kTileM * (kChunk / 8); i += kThreads) {
-      const int r = i / (kChunk / 8), v = i % (kChunk / 8);
-      const int m = m0 + r, col = d0 + v * 8;
-      *reinterpret_cast<uint4*>(a_s + r * kLdChunk + v * 8) =
-          load16(img + (size_t)m * d + col, m < mrows && col < d);
+  if (tid == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kFwdConsumers * 4);
     }
-    for (int i = tid; i < kChunk * (kCols / 8); i += kThreads) {
-      const int r = i / (kCols / 8), v = i % (kCols / 8);
-      const int dd = d0 + r, c = c0 + v * 8;
-      *reinterpret_cast<uint4*>(b_s + r * kLdB + v * 8) =
-          load16(w + (size_t)dd * f + c, dd < d && c < f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      ARow a0, a1;
-      wmma::load_matrix_sync(a0, a_s + (wr * 32) * kLdChunk + kk * 16,
-                             kLdChunk);
-      wmma::load_matrix_sync(a1, a_s + (wr * 32 + 16) * kLdChunk + kk * 16,
-                             kLdChunk);
-#pragma unroll
-      for (int ct = 0; ct < K; ++ct) {
-        BRow bfr;
-        wmma::load_matrix_sync(
-            bfr, b_s + kk * 16 * kLdB + wc * kWarpCols + ct * 16, kLdB);
-        wmma::mma_sync(acc[0][ct], a0, bfr, acc[0][ct]);
-        wmma::mma_sync(acc[1][ct], a1, bfr, acc[1][ct]);
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // epilogue, one 16-row tile at a time per warp: the warp's 16K channels
-  // are exactly its 16 outputs, so the k-pool stays inside the warp
-  float* st = stage + warp * 16 * kWarpCols;
+  // step kt into stage kt % kStages, requested by thread 0 (every thread
+  // walks the same path: see mbar_expect_tx)
+  const bool leader = tid == 0;
+  auto load = [&](int kt) {
+    const int s = kt % S::kStages;
+    unsigned char* a = ring + s * S::kStageBytes;
+    mbar_expect_tx(&full[s], S::kABytes + atoms * kFwdAtom, leader);
+    tma_load_2d(a, &img_map, &full[s], kt * kFwdDepth, m0, leader);
+    for (int at = 0; at < atoms; ++at)
+      tma_load_2d(a + S::kABytes + at * kFwdAtom, &w_map, &full[s],
+                  c0 + 32 * at, kt * kFwdDepth, leader);
+  };
+  for (int kt = 0; kt < S::kStages - 1 && kt < steps; ++kt) load(kt);
+
+  const int wg = warp / 4;
+  float acc[S::kMT][S::kCols / 2];
 #pragma unroll
-  for (int rt = 0; rt < 2; ++rt) {
+  for (int mt = 0; mt < S::kMT; ++mt)
 #pragma unroll
-    for (int ct = 0; ct < K; ++ct)
-      wmma::store_matrix_sync(st + ct * 16, acc[rt][ct], kWarpCols,
-                              wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e / 16, oo = e % 16;
-      const int m = m0 + wr * 32 + rt * 16 + r;
-      const int o = o0 + wc * 16 + oo;
-      if (m < mrows && o < o_dim) {
-        const int n = m / l;
-        float pooled = 0.0f;
+    for (int i = 0; i < S::kCols / 2; ++i) acc[mt][i] = 0.0f;
+
+  for (int kt = 0; kt < steps; ++kt) {
+    const int s = kt % S::kStages;
+    mbar_wait(&full[s], (kt / S::kStages) & 1);
+    const unsigned char* a = ring + s * S::kStageBytes;
+    wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const int c = o * K + j;
-          const float z0 = __fadd_rn(st[r * kWarpCols + oo * K + j], b[c]);
-          float zd = __fmul_rn(z0, q[(size_t)n * f + c]);
-          if (kMask && thr != 0u)
-            zd = __fmul_rn(zd, keep_scale(seed, thr, inv_keep,
-                                          (unsigned long long)m * f + c));
-          pooled = j == 0 ? zd : __fadd_rn(pooled, zd);
-        }
-        out[(size_t)m * o_dim + o] = signed_sqrt(pooled);
+    for (int ks = 0; ks < kFwdDepth / 16; ++ks) {
+      // B: 16 rows of d (two 8-row groups, 512 B apart), the K atoms of 32
+      // channels 4 KB apart
+      const uint64_t db = smem_desc(a + S::kABytes + ks * 16 * 64, kFwdAtom,
+                                    512, kSwizzle64);
+#pragma unroll
+      for (int mt = 0; mt < S::kMT; ++mt) {
+        // A: 64 rows of 128 B from row 64 (wg kMT + mt), k at 32 B a step
+        const uint64_t da = smem_desc(
+            a + (wg * S::kMT + mt) * 64 * 128 + ks * 32, 16, 1024,
+            kSwizzle128);
+        Wgmma<S::kCols>::template ss<1>(acc[mt], da, db);
       }
     }
-    __syncwarp();
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of step kt - 1 is done: release its stage
+    if (kt > 0 && lane == 0)
+      mbar_arrive(&empty[(kt - 1) % S::kStages]);
+    // that stage is refilled with step kt + kStages - 1 once all 8 warps
+    // have released it
+    const int next = kt + S::kStages - 1;
+    if (next < steps) {
+      if (kt > 0)
+        mbar_wait(&empty[next % S::kStages], ((kt - 1) / S::kStages) & 1);
+      load(next);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < S::kMT; ++mt) fence_operands(acc[mt]);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();  // both groups past their products
+
+  // the accumulators to an f32 [kRows, kCols] tile over the ring
+  float* tile = reinterpret_cast<float*>(ring);
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < S::kMT; ++mt) {
+    const int r = (wg * S::kMT + mt) * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+    for (int i = 0; i < S::kCols / 8; ++i) {
+      const int c = 8 * i + 2 * t;
+      *reinterpret_cast<float2*>(tile + r * S::kLd + c) =
+          make_float2(acc[mt][4 * i], acc[mt][4 * i + 1]);
+      *reinterpret_cast<float2*>(tile + (r + 8) * S::kLd + c) =
+          make_float2(acc[mt][4 * i + 2], acc[mt][4 * i + 3]);
+    }
+  }
+  __syncthreads();
+
+  // epilogue: thread (oo, r0) walks rows r0, r0 + 8, ... of output oo
+  const int oo = tid % kFwdOut, o = o0 + oo;
+  if (o >= o_dim) return;
+  for (int r = tid / kFwdOut; r < S::kRows;
+       r += kFwdConsumers * 128 / kFwdOut) {
+    const int m = m0 + r;
+    if (m >= mrows) break;
+    const int n = m / l;
+    float pooled = 0.0f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int c = o * K + j;
+      const float z0 = __fadd_rn(tile[r * S::kLd + oo * K + j], b[c]);
+      float zd = __fmul_rn(z0, q[(size_t)n * f + c]);
+      if (kMask && thr != 0u)
+        zd = __fmul_rn(zd, keep_scale(seed, thr, inv_keep,
+                                      (unsigned long long)m * f + c));
+      pooled = j == 0 ? zd : __fadd_rn(pooled, zd);
+    }
+    out[(size_t)m * o_dim + o] = signed_sqrt(pooled);
   }
 }
 
@@ -643,19 +720,31 @@ template <int K, bool kMask>
 int launch_fwd(const void* img, const void* w, const void* b, const void* q,
                void* out, int mrows, int l, int d, int f, uint32_t seed,
                uint32_t thr, float inv_keep, cudaStream_t s) {
-  const int smem_ab = kTileM * kLdChunk * 2 + kChunk * (kFwdOut * K + 8) * 2;
-  const int smem_stage = kWarps * 16 * 16 * K * 4;
-  const int smem = smem_ab > smem_stage ? smem_ab : smem_stage;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<K, kMask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  using S = FwdShape<K>;
+  CUtensorMap img_map, w_map;
+  const uint64_t img_dims[2] = {(uint64_t)d, (uint64_t)mrows};
+  const uint64_t img_strides[1] = {(uint64_t)d * 2};
+  const uint32_t img_box[2] = {kFwdDepth, S::kRows};
+  cudaError_t err = hopper::make_map(
+      &img_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, img, img_dims,
+      img_strides, img_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t w_dims[2] = {(uint64_t)f, (uint64_t)d};
+  const uint64_t w_strides[1] = {(uint64_t)f * 2};
+  const uint32_t w_box[2] = {32, kFwdDepth};
+  err = hopper::make_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
+                         w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fwd_kernel<K, kMask>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((f / K + kFwdOut - 1) / kFwdOut,
-                  (mrows + kTileM - 1) / kTileM);
-  fwd_kernel<K, kMask><<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(img), static_cast<const bf16*>(w),
-      static_cast<const float*>(b), static_cast<const float*>(q),
-      static_cast<float*>(out), mrows, l, d, f, seed, thr, inv_keep);
+                  (mrows + S::kRows - 1) / S::kRows);
+  fwd_kernel<K, kMask><<<grid, kFwdThreads, S::kSmem, s>>>(
+      img_map, w_map, static_cast<const float*>(b),
+      static_cast<const float*>(q), static_cast<float*>(out), mrows, l, d, f,
+      seed, thr, inv_keep);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` by hand into a shared library, loaded with ``ctypes`` (no PyTorch
 headers: a file that includes them takes minutes to compile). The build
 runs at first use, on the machine with the card, into ``build/kernels/`` at
-the root of the checkout, keyed on a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads at once.
+the root of the checkout, keyed on a hash of the source, the shared headers
+``csrc/*.cuh`` and the flags, so a changed source rebuilds and an unchanged
+one loads at once.
 """
 
 from __future__ import annotations
@@ -46,9 +47,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives: keyed on the
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
+                         ).hexdigest()
     return BUILD_DIR / f"lib{name}_{key[:16]}.so"
 
 

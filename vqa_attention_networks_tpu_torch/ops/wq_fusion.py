@@ -41,7 +41,7 @@ from vqa_attention_networks_tpu_torch.models.layers import signed_sqrt
 from vqa_attention_networks_tpu_torch.ops.fusion import refactor_output_major
 
 _LANE = 128
-_MAX_ROWS = 208  # the kernel's 13 row tiles of 16
+_MAX_ROWS = 208  # the kernel's wgmma N: the L rows, padded to 8
 _MAX_K = 16
 _MAX_G = 8
 _REFERENCE_CHUNK = 64  # samples per step of the plain version (memory)
@@ -56,7 +56,10 @@ class Stage1Weights:
 
     w3: torch.Tensor  # [k, D, O_pad] f32
     b3: torch.Tensor  # [k, O_pad] f32
-    c1w: torch.Tensor  # [O_pad, C] bf16, padded rows zero
+    # [O_pad, C_pad] bf16, C_pad = C rounded up to 8 so that each row is a
+    # multiple of 16 bytes, as the kernel's TMA loads read it; the padded
+    # rows and columns are zero
+    c1w: torch.Tensor
     c1b: torch.Tensor  # [C] f32
     c2w: torch.Tensor  # [C, G] bf16
     c2b: torch.Tensor  # [G] f32
@@ -66,6 +69,10 @@ class Stage1Weights:
     @property
     def o_pad(self) -> int:
         return self.w3.shape[2]
+
+    @property
+    def c(self) -> int:
+        return self.c1b.shape[0]
 
 
 def prepare_stage1_weights(
@@ -87,7 +94,8 @@ def prepare_stage1_weights(
     return Stage1Weights(
         w3=w3.transpose(0, 1).contiguous(),
         b3=b3.contiguous(),
-        c1w=F.pad(c1w, (0, 0, 0, o_pad - o)).to(torch.bfloat16).contiguous(),
+        c1w=F.pad(c1w, (0, -c1w.shape[1] % 8, 0, o_pad - o)).to(
+            torch.bfloat16).contiguous(),
         c1b=c1b.float().contiguous(),
         c2w=c2w.to(torch.bfloat16).contiguous(),
         c2b=c2b.float().contiguous(),
@@ -117,7 +125,7 @@ def stage1_coattention_reference(
     n, _, d = img.shape
     g = sw.c2w.shape[1]
     q3 = _refactor_q(q_proj, sw).float()
-    c1w = sw.c1w.float()
+    c1w = sw.c1w[:, :sw.c].float()
     c2w = sw.c2w.float()
     outs, zs, h1s = [], [], []
     for s in range(0, n, _REFERENCE_CHUNK):
@@ -159,9 +167,11 @@ def _library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.stage1_coattention_launch.argtypes = (
-        [p] * 12 + [i] * 7 + [ctypes.c_float, p]
+        [p] * 12 + [i] * 8 + [ctypes.c_float, p]
     )
     lib.stage1_coattention_launch.restype = ctypes.c_int
+    lib.stage1_o_tile.argtypes = []
+    lib.stage1_o_tile.restype = ctypes.c_int
     lib.stage1_error_string.argtypes = [ctypes.c_int]
     lib.stage1_error_string.restype = ctypes.c_char_p
     return lib
@@ -198,6 +208,15 @@ def _check_inputs(img: torch.Tensor, q_proj: torch.Tensor,
             f"the K1 kernel takes k <= {_MAX_K} and G <= {_MAX_G}, got "
             f"k={sw.k}, G={sw.c2w.shape[1]}"
         )
+    c_pad = sw.c1w.shape[1]
+    if sw.c1w.shape[0] != sw.o_pad or c_pad % 8 or c_pad < sw.c:
+        raise ValueError(
+            f"c1w must be [O_pad, C rounded up to 8] as prepare_stage1_weights "
+            f"lays it out, got {tuple(sw.c1w.shape)} for C={sw.c}"
+        )
+    if sw.w3.data_ptr() % 16 or sw.c1w.data_ptr() % 16:
+        # the kernel reads w3 and c1w by TMA
+        raise ValueError("the K1 kernel needs w3 and c1w 16-byte aligned")
     expect = {
         "w3": torch.float32, "b3": torch.float32, "c1w": torch.bfloat16,
         "c1b": torch.float32, "c2w": torch.bfloat16, "c2b": torch.float32,
@@ -225,21 +244,23 @@ def stage1_coattention_cuda(img: torch.Tensor, q_proj: torch.Tensor,
     global launch_count
     _check_inputs(img, q_proj, sw)
     n, l, d = img.shape
-    c = sw.c1w.shape[1]
+    c = sw.c
     g = sw.c2w.shape[1]
     q3 = _refactor_q(q_proj, sw).contiguous()
+    lib = _library()
     z = torch.empty(n, l, sw.o_pad, dtype=torch.float32, device=img.device)
-    ssq = torch.empty(n, sw.o_pad // _LANE, dtype=torch.float32,
-                      device=img.device)
+    # one sum-of-squares partial per sample and O tile of the kernel
+    ssq = torch.empty(n, sw.o_pad // lib.stage1_o_tile(),
+                      dtype=torch.float32, device=img.device)
     h1 = torch.empty(n, l, c, dtype=torch.bfloat16, device=img.device)
     out = torch.empty(n, g, d, dtype=torch.bfloat16, device=img.device)
-    lib = _library()
     stream = torch.cuda.current_stream(img.device).cuda_stream
     rc = lib.stage1_coattention_launch(
         img.data_ptr(), sw.w3.data_ptr(), sw.b3.data_ptr(), q3.data_ptr(),
         sw.c1w.data_ptr(), sw.c1b.data_ptr(), sw.c2w.data_ptr(),
         sw.c2b.data_ptr(), z.data_ptr(), ssq.data_ptr(), h1.data_ptr(),
-        out.data_ptr(), n, l, d, sw.k, sw.o_pad, c, g, eps, stream,
+        out.data_ptr(), n, l, d, sw.k, sw.o_pad, c, sw.c1w.shape[1], g, eps,
+        stream,
     )
     if rc != 0:
         raise RuntimeError(

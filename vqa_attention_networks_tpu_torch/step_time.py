@@ -1,26 +1,40 @@
-"""Time the pre-pool training step of full-width bf16 mhb_coAtt on the card.
+"""Time the pre-pool training step, or three kernels, of a checkout on the card.
 
-    python3 vqa_attention_networks_tpu_torch/step_time.py [--root DIR]
+    python3 vqa_attention_networks_tpu_torch/step_time.py [--root DIR] [--kernels]
 
 imports the port from DIR (by default the checkout that holds this file),
 so that two checkouts of the port, one of them unpacked with
 ``git archive``, can be timed by turns on the same card: run it for each,
-in the order A, B, B, A, and compare within the one machine. It trains
-``Solver.train`` from random weights (seed 0) on synthetic data, batch 64,
-and prints one JSON line: ms per step over steps 5 to the last
-(synchronised at both ends), training qa-pairs/s, the per-step losses and
-the card's name and power limit as nvidia-smi gives them.
+in the order A, B, B, A, and compare within the one machine.
+
+- By default it trains full-width bf16 mhb_coAtt with ``Solver.train`` from
+  random weights (seed 0) on synthetic data, batch 64, and prints one JSON
+  line: ms per step over steps 5 to the last (synchronised at both ends),
+  training qa-pairs/s and the per-step losses.
+- With ``--kernels`` it times, with ``chip_smoke.py``'s inputs, timers and
+  tolerances (the ``chip_smoke.py`` beside this package, run on DIR's
+  port), one JSON line each: K1 at N = 256, by CUDA events and each of its
+  launches' device time; K5 at N = 256, with ``torch.matmul`` on the bare
+  product img @ bf16(W) beside it for information; K2's forward at N = 64,
+  rate 0.1. Each line says whether the kernel agreed with its plain version
+  on the same inputs and whether a rerun gave the same bits.
+
+Every line carries the card's name and power limit as nvidia-smi gives
+them.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+
+KERNEL_ITERS = 10  # timed calls of each kernel, after one warm-up
 
 
 def main() -> None:
@@ -31,13 +45,84 @@ def main() -> None:
                         help="the checkout whose port is timed")
     parser.add_argument("--steps", type=int, default=30)
     parser.add_argument("--batch", type=int, default=64)
+    parser.add_argument("--kernels", action="store_true",
+                        help="time K1, K5 and K2's forward, not the step")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     # the port from ``root``, and none of this file's neighbours as
     # top-level modules
     sys.path[:] = [root] + [p for p in sys.path
                             if os.path.abspath(p or ".") != package]
+    if args.kernels:
+        time_kernels(os.path.join(here, "chip_smoke.py"), root)
+    else:
+        time_step(root, args.steps, args.batch)
 
+
+def time_kernels(harness: str, root: str) -> None:
+    """K1, K5 and K2's forward, timed and checked by ``harness`` (a
+    ``chip_smoke.py``) on the port that ``sys.path`` reaches first."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", harness)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+
+    from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
+    from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
+    from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
+
+    _, smi = smoke.card()  # exits when no card is visible
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, dev = smoke.Config(), torch.device("cuda", 0)
+
+    def say(kernel, fn, got, agrees, **fields):
+        fn()  # warm-up
+        print(json.dumps(dict(
+            kernel=kernel, root=root, agrees=agrees,
+            rerun_bit_equal=bool(torch.equal(got, fn())),
+            events_ms=smoke.time_ms(fn, KERNEL_ITERS),
+            device_ms_by_launch=smoke.device_ms_by_kernel(fn, KERNEL_ITERS),
+            **fields, card=smi)), flush=True)
+
+    # K1 as chip_smoke's k1_time phase draws it
+    n = smoke.BATCH
+    img, q, sw = smoke.k1_inputs(n, seed=n, cfg=cfg, device=dev)
+    got = wqf.stage1_coattention(img, q, sw)
+    want = wqf.stage1_coattention_reference(img, q, sw)
+    say("K1", lambda: wqf.stage1_coattention(img, q, sw), got,
+        bool(smoke.within(got, want, img.shape[2]).all()), n=n)
+    del img, q, sw, got, want
+    torch.cuda.empty_cache()
+
+    # K5 as chip_smoke's time phase draws it
+    img, w, b, q = smoke.k5_inputs(n, 5, cfg, dev)
+    k = cfg.mfb_factor
+    got = gf.inference_fusion_cuda(img, w, b, q, k)
+    want = gf.grid_fuse_reference(img, w, b, q, k)
+    flat, w_bf16 = img.reshape(-1, img.shape[2]), w.to(torch.bfloat16)
+    torch.matmul(flat, w_bf16)  # warm-up
+    say("K5", lambda: gf.inference_fusion_cuda(img, w, b, q, k), got,
+        bool(smoke.k2_within("forward", got, want).all()), n=n,
+        matmul_ms=smoke.time_ms(lambda: torch.matmul(flat, w_bf16),
+                                KERNEL_ITERS))
+    del img, w, b, q, got, want, flat, w_bf16
+    torch.cuda.empty_cache()
+
+    # K2's forward as chip_smoke's k2_time phase draws it
+    n, seed, rate = smoke.TRAIN_BATCH, 7, 0.1
+    img, w, b, q, _ = smoke.k2_inputs(n, 3, cfg, dev)
+    w_bf16, bf, qf = tf.operands(w, b, q)
+    keep = tf.keep_scale(tf.dropout_mask(seed, n, img.shape[1], w.shape[1],
+                                         rate, dev), rate)
+    got = tf.forward_cuda(img, w_bf16, bf, qf, seed, k, rate)
+    want = tf.forward_reference(img, w_bf16, bf, qf, k, keep)
+    say("K2_forward",
+        lambda: tf.forward_cuda(img, w_bf16, bf, qf, seed, k, rate), got,
+        bool(smoke.k2_within("forward", got, want).all()), n=n, rate=rate)
+
+
+def time_step(root: str, steps: int, batch: int) -> None:
+    """The pre-pool step of full-width bf16 mhb_coAtt, one JSON line."""
     import numpy as np
     import torch
 
@@ -52,16 +137,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("step_time.py times the card: no CUDA device")
     cfg = Config(compute_dtype="bfloat16", num_epoch=1,
-                 batch_size=args.batch)
+                 batch_size=batch)
     params = init_params(cfg, torch.Generator().manual_seed(0))
     images = 256
     qa = make_synthetic_qa_data(
-        np.random.default_rng(0), n_train=args.steps * args.batch,
-        n_val=args.batch, q_vocab_words=cfg.q_vocab_size - 2,
+        np.random.default_rng(0), n_train=steps * batch,
+        n_val=batch, q_vocab_words=cfg.q_vocab_size - 2,
         num_answers=cfg.a_vocab_size, max_len=cfg.max_question_length,
         num_images=images)
     marks, losses = {}, []
-    first, last = 5, args.steps - 1
+    first, last = 5, steps - 1
 
     def on_step(step, loss):
         losses.append(float(loss))
@@ -79,9 +164,9 @@ def main() -> None:
         check=False).stdout.strip().splitlines()
     print(json.dumps({
         "root": root, "model": cfg.model_name, "dropout_site":
-        cfg.dropout_site, "batch": args.batch, "steps_timed":
+        cfg.dropout_site, "batch": batch, "steps_timed":
         f"{first}..{last}", "ms_per_step": ms,
-        "qa_pairs_per_s": args.batch * 1e3 / ms, "losses": losses,
+        "qa_pairs_per_s": batch * 1e3 / ms, "losses": losses,
         "card": card[0] if card else None}), flush=True)
     if not np.isfinite(losses).all():
         sys.exit("a training loss is not finite")
