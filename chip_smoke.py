@@ -68,9 +68,10 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     same runs and gates; then one quirk-on mfb step, in which no gradient
     reaches ``img_conv1d`` or ``ques_proj1`` and K3's backward never
     launches;
-12. times: each K3 launch and its plain version at N = 64 (each training
-    run of phases 7, 10 and 11 prints its ms per step and training
-    qa-pairs/s, kernel and plain, as it ends);
+12. times: each K3 launch and its plain version at N = 64, and the device
+    time of each of d_W/d_b/d_q's four launches (``torch.profiler``; each
+    training run of phases 7, 10 and 11 prints its ms per step and
+    training qa-pairs/s, kernel and plain, as it ends);
 13. K4 (hieCoAtten's co-attention core) against its plain version at
     N = 8 and 256, L = 196, T = 22, E = 512, on v, q, av and aq, with inputs
     that peak both softmaxes (the largest av well above 1/196) and a
@@ -862,7 +863,8 @@ def k3_check(n: int, cfg: Config, device) -> dict:
 
 def k3_time(cfg: Config, device, smi: str) -> tuple:
     """Each K3 launch against its plain version at N=64 (CUDA events after
-    warm-up, kernel/plain/plain/kernel). Returns (times, bounds) by launch:
+    warm-up, kernel/plain/plain/kernel), and d_W/d_b/d_q's four launches
+    apart (device time). Returns (times, bounds) by launch:
     a bound counts the launch's product (2 N L D O operations in bf16), its
     f32 elementwise work (the wq build, 2 N k D O, in the forward and d_img;
     d_W's and d_q's contractions with q and W, 4 N D F, in d_W) and its
@@ -893,10 +895,13 @@ def k3_time(cfg: Config, device, smi: str) -> tuple:
     times = {}
     for name, (kernel, plain) in pairs.items():
         times[name] = interleaved_ms(kernel, plain)
+        # d_W/d_b/d_q is four launches: each one's device time apart
+        by_launch = device_ms_by_kernel(kernel) if name == "d_w" else None
         say("k3_time", launch=name, n=n, kernel_ms=times[name][0],
             plain_ms=times[name][1], kernel_runs_ms=times[name][2],
             plain_runs_ms=times[name][3], bound_ms=bounds[name][0],
-            bound_by=bounds[name][1], card=smi)
+            bound_by=bounds[name][1], device_ms_by_launch=by_launch,
+            card=smi)
     return times, bounds
 
 
@@ -1729,7 +1734,8 @@ def main() -> None:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds, log) in zip(names, built):
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if any(key in ln for key in ("registers", "spill", "arning",
+                                              "(C75"))]
         say("build", kernel=name,
             library=str(path.relative_to(_build.BUILD_DIR.parents[1])),
             seconds=round(seconds, 2), arch="sm_90a", ptxas=ptxas)

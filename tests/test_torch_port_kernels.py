@@ -176,20 +176,25 @@ def _k2_view(name, x):
     return x * x.abs() if name == "forward" else x
 
 
+# besides the small and production shapes, d_q's edges: N = 1, 3, 65; L =
+# 1, 100 and 208 (past 200 the kernel takes its 208-row form); k = 1 and 8
 @pytest.mark.parametrize("rate", [0.1, 0.0])
-@pytest.mark.parametrize("n,d,o", [(4, 128, 128), (8, 2048, 1000)],
-                         ids=["small", "production"])
-def test_k2_launches_match_plain_versions(n, d, o, rate):
+@pytest.mark.parametrize("n,l,d,o,k", [
+    (4, L, 128, 128, K), (8, L, 2048, 1000, K), (1, 1, 128, 16, 8),
+    (3, 100, 136, 40, 1), (65, 208, 256, 104, K), (3, 208, 72, 17, 8)],
+    ids=["small", "production", "n1_l1_k8", "n3_l100_k1", "n65_l208",
+         "l208_k8"])
+def test_k2_launches_match_plain_versions(n, l, d, o, k, rate):
     torch.backends.cuda.matmul.allow_tf32 = False
-    img, w_bf16, b, q, g = _k2_inputs(n, d, o)
+    img, w_bf16, b, q, g = _k2_inputs(n, d, o, l=l, k=k)
     seed = 77
-    mask = tf.dropout_mask(seed, n, L, o * K, rate, img.device) \
+    mask = tf.dropout_mask(seed, n, l, o * k, rate, img.device) \
         if rate > 0 else None
     keep = tf.keep_scale(mask, rate)
 
     def launches():
-        out = tf.forward_cuda(img, w_bf16, b, q, seed, K, rate)
-        args = (g, out, img, w_bf16, b, q, seed, K, rate)
+        out = tf.forward_cuda(img, w_bf16, b, q, seed, k, rate)
+        args = (g, out, img, w_bf16, b, q, seed, k, rate)
         g_prod, partials = tf.g_prod_cuda(*args)
         d_w, d_b = tf.d_w_from_operand_cuda(img, g_prod, partials)
         return {"forward": out, "d_img": tf.d_img_cuda(*args), "d_w": d_w,
@@ -202,14 +207,14 @@ def test_k2_launches_match_plain_versions(n, d, o, rate):
         {"forward": 1, "d_img": 1, "g_prod": 1, "d_w": 1, "d_q": 1}
     out = got["forward"]
     # the bf16 operand, bit for bit (as int16: a -0 is not a +0)
-    g_prod = tf.g_prod_reference(g, out, q, K, keep)[0]
+    g_prod = tf.g_prod_reference(g, out, q, k, keep)[0]
     assert torch.equal(got["g_prod"].view(torch.int16),
                        g_prod.view(torch.int16))
-    d_w, d_b = tf.d_w_reference(g, out, img, q, K, keep)
-    want = {"forward": tf.forward_reference(img, w_bf16, b, q, K, keep),
-            "d_img": tf.d_img_reference(g, out, w_bf16, q, K, keep),
+    d_w, d_b = tf.d_w_reference(g, out, img, q, k, keep)
+    want = {"forward": tf.forward_reference(img, w_bf16, b, q, k, keep),
+            "d_img": tf.d_img_reference(g, out, w_bf16, q, k, keep),
             "d_w": d_w, "d_b": d_b,
-            "d_q": tf.d_q_reference(g, out, img, w_bf16, b, K, keep)}
+            "d_q": tf.d_q_reference(g, out, img, w_bf16, b, k, keep)}
     again = launches()
     for name, tol in K2_RTOL.items():
         a, b_ = _k2_view(name, got[name]), _k2_view(name, want[name])
@@ -221,7 +226,7 @@ def test_k2_launches_match_plain_versions(n, d, o, rate):
     # the mask replays: pooled is 0 exactly where all k factors dropped
     # (elsewhere an f32 sum may cancel to exactly 0 on one side only)
     if mask is not None:
-        dropped = ~mask.reshape(n, L, o, K).any(-1)
+        dropped = ~mask.reshape(n, l, o, k).any(-1)
         assert bool((out[dropped] == 0).all())
         assert bool((want["forward"][dropped] == 0).all())
 
@@ -292,11 +297,20 @@ def test_k2_wrappers_raise_on_inputs_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous f32"):
         tf.d_w_cuda(g.double(), out, img, w_bf16, b, q, 0, K, 0.1)
     # and it takes the smallest and largest shapes it took before: N = 1,
-    # L = 1, D = 8, F = 8 at K = 8 (one output); L = 208 at K = 1
-    for n, l, d, o, k in ((1, 1, 8, 1, 8), (2, 208, 72, 8, 1)):
-        img, w_bf16, b, q, _ = _k2_inputs(n, d, o, l=l, k=k)
-        assert tf.forward_cuda(img, w_bf16, b, q, 0, k, 0.1).shape == \
-            (n, l, o)
+    # L = 1, D = 8, F = 8 at K = 8 (one output); L = 208 at K = 1; and
+    # d_q takes them too, and L = 201 (its 208-row form)
+    for n, l, d, o, k in ((1, 1, 8, 1, 8), (2, 208, 72, 8, 1),
+                          (3, 201, 64, 8, 1)):
+        img, w_bf16, b, q, g = _k2_inputs(n, d, o, l=l, k=k)
+        out = tf.forward_cuda(img, w_bf16, b, q, 0, k, 0.1)
+        assert out.shape == (n, l, o)
+        d_q = tf.d_q_cuda(g, out, img, w_bf16, b, q, 0, k, 0.1)
+        keep = tf.keep_scale(tf.dropout_mask(0, n, l, o * k, 0.1,
+                                             img.device), 0.1)
+        want = tf.d_q_reference(g, out, img, w_bf16, b, k, keep)
+        assert d_q.shape == (n, o * k) and torch.isfinite(d_q).all()
+        assert (d_q - want).abs().max() <= \
+            K2_RTOL["d_q"] * want.abs().max()
 
 
 # --------------------------------------------------------------------------
@@ -487,11 +501,14 @@ def _k3_inputs(n, l, d, o, seed=0, k=K):
     return img, w_bf16, b, q, t((n, l, o), 1.0)
 
 
-# the largest k the d_W kernel's shared memory holds (7), with ragged L, D
-# and O, at the first k-pool width
-@pytest.mark.parametrize("n,l,d,o,k", [(3, 37, 64, 24, K), (2, 50, 72, 40, 7),
-                                       (8, 196, 2048, 1000, K)],
-                         ids=["ragged", "k7", "production"])
+# the largest k the d_W kernel's registers hold (7), with ragged L, D and
+# O, at the first k-pool width; d_W's edges: N = 1 and 65, L = 1 and 208,
+# k = 1 and 7, O = 1000 and 18 (O % 8 != 0 with F % 8 == 0 needs an even
+# k), D = 72 (its last D tile one 8-row group deep)
+@pytest.mark.parametrize("n,l,d,o,k", [
+    (3, 37, 64, 24, K), (2, 50, 72, 40, 7), (8, 196, 2048, 1000, K),
+    (1, 1, 136, 1000, 1), (65, 208, 72, 40, 7), (3, 50, 200, 18, 4)],
+    ids=["ragged", "k7", "production", "n1_l1_k1", "n65_l208_k7", "o18"])
 def test_k3_launches_match_plain_versions(n, l, d, o, k):
     from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 
@@ -524,8 +541,10 @@ def test_k3_launches_match_plain_versions(n, l, d, o, k):
         assert (a - b_).abs().max() <= K3_RTOL * b_.abs().max(), name
         # no atomics: a rerun gives the same bits
         assert torch.equal(got[name], again[name]), name
-    # control: q permuted across samples is rejected
-    perm = pf.forward_reference(img, w_bf16, b, q.flip(0), k)
+    # control: q permuted across samples (across channels at N = 1) is
+    # rejected
+    perm = pf.forward_reference(img, w_bf16, b,
+                                q.flip(0) if n > 1 else q.roll(1, 1), k)
     pooled = out * out.abs()
     assert (perm * perm.abs() - pooled).abs().max() > \
         100 * K3_RTOL * pooled.abs().max()
@@ -571,6 +590,17 @@ def test_k3_wrappers_raise_on_inputs_they_do_not_take():
     out = pf.forward_cuda(img, w_bf16, b, q, K)
     with pytest.raises(ValueError, match="contiguous f32"):
         pf.d_w_cuda(g.double(), out, img, w_bf16, b, q, K)
+    # and d_W/d_b/d_q takes the shapes it took before: N = 1, L = 1, D = 8,
+    # F = 8 at k = 1; L = 208 at k = 7; O = 1000 at k = 7 (F = 7000)
+    for n, l, d, o, k in ((1, 1, 8, 8, 1), (2, 208, 72, 8, 7),
+                          (1, 3, 8, 1000, 7)):
+        img, w_bf16, b, q, g = _k3_inputs(n, l, d, o, k=k)
+        out = pf.forward_cuda(img, w_bf16, b, q, k)
+        got = pf.d_w_cuda(g, out, img, w_bf16, b, q, k)
+        want = pf.d_w_reference(g, out, img, w_bf16, b, q, k)
+        for a, b_ in zip(got, want):
+            assert a.shape == b_.shape and torch.isfinite(a).all()
+            assert (a - b_).abs().max() <= K3_RTOL * b_.abs().max()
 
 
 # --------------------------------------------------------------------------

@@ -39,7 +39,7 @@ RTOL = {"out": 1e-5, "d_img": 2.0 ** -7, "d_w": 1e-5, "d_b": 1e-5,
 NAMES = ("out", "d_img", "d_w", "d_b", "d_q")
 
 
-def _inputs(seed=0, n=N, l=L, d=D, o=O):
+def _inputs(seed=0, n=N, l=L, d=D, o=O, k=K):
     """img and q bf16-valued, W and b f32 (W rounds to bf16 inside both),
     an f32 cotangent g."""
     rng = np.random.default_rng(seed)
@@ -49,19 +49,19 @@ def _inputs(seed=0, n=N, l=L, d=D, o=O):
             torch.bfloat16).float().numpy()
 
     img = bf16(rng.standard_normal((n, l, d)) * 0.5)
-    w = (rng.standard_normal((d, o * K)) * 0.2).astype(np.float32)
-    b = (rng.standard_normal(o * K) * 0.05).astype(np.float32)
-    q = bf16(rng.standard_normal((n, o * K)) * 0.5)
+    w = (rng.standard_normal((d, o * k)) * 0.2).astype(np.float32)
+    b = (rng.standard_normal(o * k) * 0.05).astype(np.float32)
+    q = bf16(rng.standard_normal((n, o * k)) * 0.5)
     g = rng.standard_normal((n, l, o)).astype(np.float32)
     return img, w, b, q, g
 
 
-def _port_value_and_grads(img, w, b, q, g):
+def _port_value_and_grads(img, w, b, q, g, k=K):
     ti = torch.from_numpy(img).to(torch.bfloat16).requires_grad_(True)
     tw, tb = (torch.from_numpy(x).requires_grad_(True) for x in (w, b))
     tq = torch.from_numpy(q).to(torch.bfloat16).requires_grad_(True)
     before = dict(pf.launch_count)
-    out = pf.pooled_grid_fuse(ti, tw, tb, tq, K)
+    out = pf.pooled_grid_fuse(ti, tw, tb, tq, k)
     assert pf.launch_count == before  # a CPU tensor: the plain version
     out.backward(torch.from_numpy(g))
     assert (ti.grad.dtype, tw.grad.dtype, tb.grad.dtype, tq.grad.dtype) == (
@@ -71,10 +71,10 @@ def _port_value_and_grads(img, w, b, q, g):
             "d_q": tq.grad.float().numpy()}
 
 
-def _jax_value_and_grads(img, w, b, q, g):
+def _jax_value_and_grads(img, w, b, q, g, k=K):
     args = (jnp.asarray(img, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b),
             jnp.asarray(q, jnp.bfloat16))
-    out, vjp = jax.vjp(lambda *a: ppf.pooled_grid_fuse(*a, K), *args)
+    out, vjp = jax.vjp(lambda *a: ppf.pooled_grid_fuse(*a, k), *args)
     grads = vjp(jnp.asarray(g))
     return dict(zip(NAMES, [np.asarray(x, np.float32)
                             for x in (out, *grads)]))
@@ -111,6 +111,30 @@ def test_plain_version_takes_a_ragged_batch_and_width(monkeypatch):
     img, w, b, q, g = _inputs(2, n=2, l=13, d=24, o=7)
     _assert_close(_port_value_and_grads(img, w, b, q, g),
                   _jax_value_and_grads(img, w, b, q, g))
+
+
+@pytest.mark.parametrize("l", [1, 208])
+def test_plain_version_matches_interpreted_tpu_kernel_at_edge_shapes(
+        monkeypatch, l):
+    """L = 1 and 208 (the fewest and the most rows the K3 kernels take) at
+    k = 7 (the largest). The backward's plain version is held on JAX's own
+    forward output: over 208 rows some |out| comes near 0.01, where
+    g_pooled's 0.5 / |out| turns the two forwards' last-ulp difference
+    (summation order) into ~2e-5 of d_b's largest value; on the same out
+    the two backwards agree to ~1e-7."""
+    monkeypatch.setenv("VQA_PALLAS_INTERPRET", "1")
+    k = 7
+    img, w, b, q, g = _inputs(6 + l, n=2, l=l, d=24, o=9, k=k)
+    want = _jax_value_and_grads(img, w, b, q, g, k=k)
+    got = _port_value_and_grads(img, w, b, q, g, k=k)
+    w_bf16, bf, qb = pf.operands(torch.from_numpy(w), torch.from_numpy(b),
+                                 torch.from_numpy(q))
+    tg, out = torch.from_numpy(g), torch.from_numpy(want["out"])
+    d_w, d_b, d_q = pf.d_w_reference(
+        tg, out, torch.from_numpy(img).to(torch.bfloat16), w_bf16, bf, qb, k)
+    got.update(d_w=d_w.numpy(), d_b=d_b.numpy(), d_q=d_q.numpy(),
+               d_img=pf.d_img_reference(tg, out, w_bf16, qb, k).numpy())
+    _assert_close(got, want)
 
 
 def test_wq_rounds_once_after_an_f32_sum_in_j_order():

@@ -104,7 +104,7 @@ def test_mask_is_a_function_of_seed_and_element_only(monkeypatch):
     assert float((base != other).float().mean()) > 0.2
 
 
-def _inputs(n=3, l=12, d=48, o=8, seed=0):
+def _inputs(n=3, l=12, d=48, o=8, seed=0, k=K):
     """bf16-valued numpy inputs: img, W, q on the bf16 grid, b f32."""
     rng = np.random.default_rng(seed)
 
@@ -113,19 +113,19 @@ def _inputs(n=3, l=12, d=48, o=8, seed=0):
             torch.bfloat16).float().numpy()
 
     img = bf16(rng.standard_normal((n, l, d)) * 0.5)
-    w = bf16(rng.standard_normal((d, o * K)) * 0.2)
-    b = (rng.standard_normal(o * K) * 0.05).astype(np.float32)
-    q = bf16(rng.standard_normal((n, o * K)) * 0.5)
+    w = bf16(rng.standard_normal((d, o * k)) * 0.2)
+    b = (rng.standard_normal(o * k) * 0.05).astype(np.float32)
+    q = bf16(rng.standard_normal((n, o * k)) * 0.5)
     g = rng.standard_normal((n, l, o)).astype(np.float32)
     return img, w, b, q, g
 
 
-def _port_value_and_grads(img, w, b, q, g, seed, rate):
+def _port_value_and_grads(img, w, b, q, g, seed, rate, k=K):
     ti = torch.from_numpy(img).to(torch.bfloat16).requires_grad_(True)
     tw, tb = (torch.from_numpy(x).requires_grad_(True) for x in (w, b))
     tq = torch.from_numpy(q).to(torch.bfloat16).requires_grad_(True)
     before = dict(tf.launch_count)
-    out = tf.train_grid_fuse(ti, tw, tb, tq, seed, K, rate)
+    out = tf.train_grid_fuse(ti, tw, tb, tq, seed, k, rate)
     assert tf.launch_count == before  # a CPU tensor: the plain version
     out.backward(torch.from_numpy(g))
     return {"out": out.detach().numpy(), "d_img": ti.grad.float().numpy(),
@@ -158,7 +158,7 @@ def test_plain_version_matches_jax_composed_chain_at_rate_0():
     _assert_close(got, want)
 
 
-def _jax_masked_chain(mask, rate):
+def _jax_masked_chain(mask, rate, k=K):
     """The composed chain with the dropout mask injected; the scale as
     the port applies it, z * (m * inv_keep)."""
     scale = jnp.asarray(mask.astype(np.float32) * (1.0 / (1.0 - rate)))
@@ -166,7 +166,7 @@ def _jax_masked_chain(mask, rate):
     def fn(img, w, b, q):
         z = jnp.dot(img, w, precision=jax.lax.Precision.HIGHEST)
         z = (z + b) * q[:, None, :]
-        return j_ssqrt(j_sumpool(z * scale, K))
+        return j_ssqrt(j_sumpool(z * scale, k))
 
     return fn
 
@@ -183,6 +183,23 @@ def test_plain_version_matches_mask_injected_jax_chain_at_rate_0_3():
     # the mask is live: with another seed the output moves
     other = _port_value_and_grads(img, w, b, q, g, seed + 1, rate)["out"]
     assert np.abs(other - got["out"]).max() > 0.1 * np.abs(got["out"]).max()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("l", [1, 208])
+def test_plain_version_matches_jax_at_the_kernels_edge_shapes(l, rate):
+    """L = 1 and 208 (the fewest and the most rows the K2 kernels take) at
+    k = 8 (the largest): the composed chain at rate 0, the mask-injected
+    chain at rate 0.3."""
+    k, seed = 8, 13
+    img, w, b, q, g = _inputs(n=2, l=l, d=40, o=3, seed=l, k=k)
+    got = _port_value_and_grads(img, w, b, q, g, seed, rate, k=k)
+    if rate == 0:
+        fn = lambda i, ww, bb, qq: j_grid_ref(i, ww, bb, qq, k)  # noqa: E731
+    else:
+        mask = tf.dropout_mask(seed, 2, l, w.shape[1], rate).numpy()
+        fn = _jax_masked_chain(mask, rate, k=k)
+    _assert_close(got, _jax_value_and_grads(fn, img, w, b, q, g))
 
 
 def test_zero_cotangent_rule_at_pooled_zero():

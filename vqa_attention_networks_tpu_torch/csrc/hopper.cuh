@@ -15,7 +15,9 @@
 //   16 w + g + 8, the same columns. An A operand in registers takes the
 //   m16n8k16 A fragment of the warp's 16 rows: a0 (row g, k = 2t, 2t+1),
 //   a1 (row g + 8, same k), a2 (row g, k + 8), a3 (row g + 8, k + 8), two
-//   bf16 a register, the lower k in the low half.
+//   bf16 a register, the lower k in the low half. With both operands in
+//   shared memory, either may be MN-major (transposed: M or N contiguous,
+//   bf16 only): Wgmma<N>::ss<kTransB, kTransA>.
 // - Descriptors (PTX ISA, "matrix descriptor"): start address, leading and
 //   stride byte offsets in 16-byte units, swizzle mode in bits 62-63. In a
 //   K-major swizzled tile, SBO is the stride between groups of 8 rows and
@@ -164,11 +166,11 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 
 // The wgmma wrappers name each accumulator register in the instruction.
-// One line below makes the specialisation for a width N: its C chunks of
-// 8 accumulator registers (C = N / 16), then the numbers of the operands
-// that follow the accumulators in the asm statement (8 C, 8 C + 1, ...).
-// HOPPER_ACC_NAMES_c lists the first 8 c registers' names, HOPPER_ACC_c
-// their operands.
+// One line below makes the specialisation for a width N: its R = N / 2
+// accumulator registers in C chunks of 8 (C = N / 16; 12H is 12 and a
+// half, for N = 200), then the numbers of the operands that follow the
+// accumulators in the asm statement (R, R + 1, ...). HOPPER_ACC_NAMES_c
+// lists the first 8 c registers' names, HOPPER_ACC_c their operands.
 #define HOPPER_ACC8(i)                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -195,6 +197,7 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   HOPPER_ACC_NAMES_10 ", %80, %81, %82, %83, %84, %85, %86, %87"
 #define HOPPER_ACC_NAMES_12 \
   HOPPER_ACC_NAMES_11 ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define HOPPER_ACC_NAMES_12H HOPPER_ACC_NAMES_12 ", %96, %97, %98, %99"
 #define HOPPER_ACC_NAMES_13 \
   HOPPER_ACC_NAMES_12 ", %96, %97, %98, %99, %100, %101, %102, %103"
 #define HOPPER_ACC_NAMES_14 \
@@ -215,6 +218,8 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 #define HOPPER_ACC_10 HOPPER_ACC_9, HOPPER_ACC8(72)
 #define HOPPER_ACC_11 HOPPER_ACC_10, HOPPER_ACC8(80)
 #define HOPPER_ACC_12 HOPPER_ACC_11, HOPPER_ACC8(88)
+#define HOPPER_ACC_12H \
+  HOPPER_ACC_12, "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
 #define HOPPER_ACC_13 HOPPER_ACC_12, HOPPER_ACC8(96)
 #define HOPPER_ACC_14 HOPPER_ACC_13, HOPPER_ACC8(104)
 #define HOPPER_ACC_15 HOPPER_ACC_14, HOPPER_ACC8(112)
@@ -226,19 +231,20 @@ template <int kN>
 struct WgmmaRS;
 
 // A and B from shared memory (descriptors a, b); operands after the
-// accumulators: a, b, the scale-d flag, B's transpose
-#define HOPPER_WGMMA_SS(N, C, A, B, P, T)                                  \
+// accumulators: a, b, the scale-d flag, A's and B's transpose (1: MN-major,
+// bf16 only)
+#define HOPPER_WGMMA_SS(N, R, C, A, B, P, TA, TB)                          \
   template <>                                                              \
   struct Wgmma<N> {                                                        \
-    template <int kTransB>                                                 \
-    __device__ static void ss(float (&d)[8 * C], uint64_t a, uint64_t b) { \
+    template <int kTransB, int kTransA = 0>                                \
+    __device__ static void ss(float (&d)[R], uint64_t a, uint64_t b) {     \
       asm volatile(                                                        \
           "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                 \
           "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"     \
-          HOPPER_ACC_NAMES_##C " }, %" #A ", %" #B                         \
-          ", p, 1, 1, 0, %" #T ";\n}\n"                                    \
+          HOPPER_ACC_NAMES_##C " }, %" #A ", %" #B ", p, 1, 1, %" #TA      \
+          ", %" #TB ";\n}\n"                                               \
           : HOPPER_ACC_##C                                                 \
-          : "l"(a), "l"(b), "r"(1), "n"(kTransB));                         \
+          : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));           \
     }                                                                      \
   };
 
@@ -262,14 +268,16 @@ struct WgmmaRS;
     }                                                                      \
   };
 
-HOPPER_WGMMA_SS(32, 2, 16, 17, 18, 19)
-HOPPER_WGMMA_SS(64, 4, 32, 33, 34, 35)
-HOPPER_WGMMA_SS(96, 6, 48, 49, 50, 51)
-HOPPER_WGMMA_SS(128, 8, 64, 65, 66, 67)
-HOPPER_WGMMA_SS(160, 10, 80, 81, 82, 83)
-HOPPER_WGMMA_SS(192, 12, 96, 97, 98, 99)
-HOPPER_WGMMA_SS(224, 14, 112, 113, 114, 115)
-HOPPER_WGMMA_SS(256, 16, 128, 129, 130, 131)
+HOPPER_WGMMA_SS(32, 16, 2, 16, 17, 18, 19, 20)
+HOPPER_WGMMA_SS(64, 32, 4, 32, 33, 34, 35, 36)
+HOPPER_WGMMA_SS(96, 48, 6, 48, 49, 50, 51, 52)
+HOPPER_WGMMA_SS(128, 64, 8, 64, 65, 66, 67, 68)
+HOPPER_WGMMA_SS(160, 80, 10, 80, 81, 82, 83, 84)
+HOPPER_WGMMA_SS(192, 96, 12, 96, 97, 98, 99, 100)
+HOPPER_WGMMA_SS(200, 100, 12H, 100, 101, 102, 103, 104)
+HOPPER_WGMMA_SS(208, 104, 13, 104, 105, 106, 107, 108)
+HOPPER_WGMMA_SS(224, 112, 14, 112, 113, 114, 115, 116)
+HOPPER_WGMMA_SS(256, 128, 16, 128, 129, 130, 131, 132)
 HOPPER_WGMMA_RS(128, 8, 64, 65, 66, 67, 68, 69, 70)
 HOPPER_WGMMA_RS(208, 13, 104, 105, 106, 107, 108, 109, 110)
 

@@ -49,10 +49,14 @@
 // ~121 MB (img, W, out), d_img ~224 MB (g, out, d_img in f32), d_W ~213 MB
 // (g, out, img, W, d_W in f32); 0.036-0.067 ms at 3.35 TB/s. So the
 // operations bound it (0.07-0.09 ms, the f32 work at 67 TFLOP/s added to
-// the product's), and these first kernels use the tensor cores through
-// WMMA (bf16 16x16x16, f32 accumulators). The forward and d_img have one
-// shared-memory stage and no load in flight during the MMAs, and rebuild
-// wq from W in L2 element by element: correct and simple, not yet fast.
+// the product's). The forward and d_img use the tensor cores through WMMA
+// (bf16 16x16x16, f32 accumulators) with one shared-memory stage and no
+// load in flight during the MMAs, and rebuild wq from W in L2 element by
+// element: correct and simple, not yet fast. d_W's product kernel is a TMA
+// ring with wgmma; what holds it is the f32 work per sample (d_W's k sums
+// and d_q's partial, unfused as the plain version rounds them), which one
+// block of 8 warps an SM does in turn with the sample's products while the
+// ring's loads run beside them.
 //
 // What the design does about the TPU's structure. The TPU kernel keeps the
 // whole k-major W [k, D, O_pad] (20 MB bf16) resident in VMEM and rebuilds
@@ -63,9 +67,10 @@
 // over consecutive sample revisits of a sequential grid; blocks here run in
 // parallel, so a d_W block owns a (D tile, O tile) of d_W for all k and
 // loops over the samples inside the block, with its k*64*64 f32 sums in
-// dynamic shared memory (k <= 7 fits). d_q sums over D, across blocks: each
-// block writes its D tile's partial sums, and a later launch of the same
-// entry adds them in D-tile order. No atomics: reruns give the same bits.
+// registers (16 accumulators a thread, and k sums for each: k <= 7 fits).
+// d_q sums over D, across blocks: each block writes its D tile's partial
+// sums, and a later launch of the same entry adds them in D-tile order. No
+// atomics: reruns give the same bits.
 // g_pooled is formed once per entry (bf16 for the products, its f32 sum
 // over L for d_bq), not in each of the 32 D tiles that read it.
 //
@@ -79,12 +84,11 @@
 //       and bf16(g_pooled) [L, 32], then the MMAs.
 //   pooled_fusion_d_w      four launches: g_pooled (bf16 [N, L, O8]) and
 //       d_bq; d_b; d_W and d_q's partials, grid (ceil(O/64), ceil(D/64)),
-//       each block streaming 64-row stages of img and g_pooled with
-//       cp.async (the next stage in flight during this one's MMAs and
-//       d_W's update): per sample, d_wq [64, 64] by MMA over L, added into
-//       d_W's sums with q and contracted with the block's W tile (kept in
-//       shared memory) into d_q's partial; then d_q's reduction over
-//       ceil(N*F/256) blocks.
+//       each block walking the samples through a TMA ring (one sample's
+//       g_pooled and img rows a stage): per sample, d_wq^T [64 o, 64 d] by
+//       wgmma over L, added into d_W's k sums with q in registers and
+//       contracted with the block's W tile (kept in shared memory) into
+//       d_q's partial; then d_q's reduction over ceil(N*F/256) blocks.
 //   pooled_fusion_wq_grid  (K6) three launches: the forward into an f32 z
 //       scratch; grid_ssq_kernel, grid (ceil(L*O/2048), N): each block's
 //       sum of squares of 2048 elements of one sample's z in a fixed order;
@@ -97,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -113,19 +119,12 @@ constexpr int kRows = kRowTiles * 16;
 constexpr int kFwdO = 128;      // forward: outputs per block, 16 per warp
 constexpr int kLdFwdO = kFwdO + 8;
 constexpr int kImgD = 128;      // d_img: D columns per block, 16 per warp
-constexpr int kTileD = 64;      // d_W block: D rows
-constexpr int kTileO = 64;      // d_W block: outputs
-constexpr int kRowsW = 64;      // d_W: rows of img and g_pooled per stage
-constexpr int kLdTile = kTileO + 8;   // img and g_pooled stages of d_W
-constexpr int kLdWq = kTileO + 4;     // d_wq stage (f32)
-constexpr int kMaxK = 7;        // d_W's k sums per (d, o) in shared memory
-constexpr size_t kMaxSmem = 232448;   // dynamic shared memory of a block
+constexpr int kMaxK = 7;        // d_W's k sums per (d, o) in registers
+constexpr int kMaxSmem = 232448;  // dynamic shared memory of a block
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
     ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-    ACol;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
     BRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
@@ -139,10 +138,6 @@ __device__ __forceinline__ float signed_sqrt(float p) {
 __device__ __forceinline__ float pooled_grad(float g, float out) {
   if (out == 0.0f) return 0.0f;
   return __fmul_rn(g, __fdiv_rn(0.5f, fmaxf(fabsf(out), 1e-20f)));
-}
-
-__device__ __forceinline__ uint4 load16(const bf16* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
 }
 
 // wq[d, o] = sum_j f32(W[d, o*k + j]) * qo[j] in f32, j in order, where qo
@@ -411,15 +406,31 @@ __global__ void __launch_bounds__(kThreads)
   const int o = blockIdx.x * kThreads + threadIdx.x;
   const int n = blockIdx.y;
   if (o >= o8) return;
+  const size_t m0 = (size_t)n * l;
   float s = 0.0f;
-  for (int r = 0; r < l; ++r) {
-    float v = 0.0f;
-    if (o < o_dim) {
-      const size_t p = ((size_t)n * l + r) * o_dim + o;
-      v = pooled_grad(g[p], out[p]);
-      s = __fadd_rn(s, v);
+  // 8 rows' loads in flight at a time; the sum still runs in l order
+  for (int r0 = 0; r0 < l; r0 += 8) {
+    float gv[8], yv[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      gv[u] = yv[u] = 0.0f;
+      if (o < o_dim && r0 + u < l) {
+        const size_t p = (m0 + r0 + u) * o_dim + o;
+        gv[u] = g[p];
+        yv[u] = out[p];
+      }
     }
-    gp[((size_t)n * l + r) * o8 + o] = __float2bfloat16(v);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (r0 + u < l) {
+        float v = 0.0f;
+        if (o < o_dim) {
+          v = pooled_grad(gv[u], yv[u]);
+          s = __fadd_rn(s, v);
+        }
+        gp[(m0 + r0 + u) * o8 + o] = __float2bfloat16(v);
+      }
+    }
   }
   if (o < o_dim) d_bq[(size_t)n * o_dim + o] = s;
 }
@@ -440,141 +451,273 @@ __global__ void __launch_bounds__(kThreads)
   d_b[c] = s;
 }
 
-// dynamic shared memory of d_w_kernel, in bytes
-size_t d_w_smem(int k) {
-  return (size_t)k * kTileD * kTileO * 4          // d_W sums
-         + (size_t)kTileD * kLdWq * 4             // d_wq stage
-         + (size_t)kTileD * (kTileO * k + 8) * 2  // W tile
-         + 2 * 2 * (size_t)kRowsW * kLdTile * 2   // img, g_pooled: 2 stages
-         + (size_t)kTileO * k * 4;                // q
+// A block owns a tile of 64 outputs x 64 D rows (32 per warpgroup) of
+// d_wq^T = g_pooled_n^T x img_n for every sample n, and walks the samples
+// in order, one ring stage each. Thread 0 keeps a ring of `stages` (3 or
+// 4) stages full with TMA: the sample's g_pooled [208 l, 64 o] (bf16,
+// 128-byte swizzle) and img's two [208 l, 32 d] boxes (64-byte swizzle),
+// each a 3D box over [N, L, *] whose rows past L come in as zeros (boxes
+// wholly past D are not loaded). Each warpgroup runs wgmma m64n32k16 over
+// the 13 row steps, A = g_pooled MN-major and B = its img box MN-major
+// (both transposed); the step count is fixed at compile time, since a loop
+// of run-time length leaves ptxas to move the accumulators between its
+// products and serialise them (C7515). Then, in registers: d_W[d, o k +
+// j] += d_wq[d, o] * q[n, o k + j] (k sums per accumulator element, in
+// sample order), and d_q's partial sum_d d_wq[d, o] * W[d, o k + j] over
+// the thread's D rows, then the quad's lanes by shuffles, then the two
+// warpgroups through shared memory, in a fixed order, to parts[D tile, n,
+// c]. W's tile stays in shared memory as bf16 pairs of neighbouring D rows
+// (a padded row of 64 outputs per pair: no bank conflicts). A sample's
+// products and its f32 work run in turn; the ring keeps the next samples'
+// loads in flight meanwhile.
+constexpr int kDwO = 64;          // outputs per block: wgmma's M
+constexpr int kDwD = 64;          // D rows per block (the D tile)
+constexpr int kDwHalf = 32;       // D rows per warpgroup: wgmma's N
+constexpr int kDwThreads = 256;   // two warpgroups
+constexpr int kDwMaxStages = 4;
+constexpr int kDwPairLd = kDwO + 8;  // 32-bit words per D pair of W's tile
+
+constexpr int kDwGpBytes = kRows * kDwO * 2;     // g_pooled's box
+constexpr int kDwImgBytes = kRows * kDwHalf * 2;  // each of img's two boxes
+constexpr int kDwStageBytes = kDwGpBytes + 2 * kDwImgBytes;  // one sample
+
+// 1 KB of alignment slack and 1 KB of barriers, W's tile, the two
+// warpgroups' d_q partials: the shared memory besides the ring
+constexpr int dw_fixed_bytes(int k) {
+  return 2048 + k * (kDwD / 2) * kDwPairLd * 4 + 2 * kDwO * k * 4;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    d_w_kernel(const bf16* __restrict__ gp,   // [N, L, O8]
-               const bf16* __restrict__ img,  // [N, L, D]
+__device__ __forceinline__ uint32_t pack_bf16x2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kDwThreads, 1)
+    d_w_kernel(const __grid_constant__ CUtensorMap gp_map,   // [N, L, O8]
+               const __grid_constant__ CUtensorMap img_map,  // [N, L, D]
                const bf16* __restrict__ w,    // [D, F]
                const bf16* __restrict__ q,    // [N, F]
                float* __restrict__ d_w,       // [D, F]
                float* __restrict__ parts,     // [D tiles, N, F]
-               int nn, int l, int d, int f, int k, int o8) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld_w = kTileO * k + 8;
-  const int stage = kRowsW * kLdTile;  // elements of one img or g stage
-  float* sums_s = reinterpret_cast<float*>(smem);       // [k][64 d][64 o]
-  float* wq_s = sums_s + k * kTileD * kTileO;            // [64 d][kLdWq]
-  bf16* w_s = reinterpret_cast<bf16*>(wq_s + kTileD * kLdWq);  // [64][ld_w]
-  bf16* a_s = w_s + kTileD * ld_w;   // img [2 stages][64 l][64 d]
-  bf16* g_s = a_s + 2 * stage;       // g_pooled [2 stages][64 l][64 o]
-  float* q_s = reinterpret_cast<float*>(g_s + 2 * stage);  // [64 k]
+               int nn, int d, int f, int stages) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kDwMaxStages;
+  unsigned char* ring = smem + 1024;
+  // W's tile: word (j * 32 + p) * kDwPairLd + o holds W[d0 + 2 p + e,
+  // (o0 + o) K + j] in its half e (0 past D or O)
+  uint32_t* wt_s = reinterpret_cast<uint32_t*>(ring + stages * kDwStageBytes);
+  float* red_s = reinterpret_cast<float*>(wt_s + K * (kDwD / 2) * kDwPairLd);
 
-  const int o0 = blockIdx.x * kTileO, c0 = o0 * k;
-  const int dt0 = blockIdx.y * kTileD;
-  const int cw = kTileO * k;  // channels of the block's outputs
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = warp % 4;        // the warp's 16 d rows of d_wq
-  const int wc = (warp / 4) * 2;  // and its two 16-output column tiles
-  const int chunks = (l + kRowsW - 1) / kRowsW;
-  const int total = nn * chunks;  // stages: (sample, 64-row chunk)
+  const int o_dim = f / K;
+  const int o0 = blockIdx.x * kDwO, c0 = o0 * K;
+  const int d0 = blockIdx.y * kDwD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, t = lane % 4;
+  const int boxes = min(2, (d - d0 + kDwHalf - 1) / kDwHalf);
 
-  // copy stage t into buffer t & 1; one commit group per call (empty past
-  // the end, so that "all but the newest group" is always stage t)
-  auto prefetch = [&](int t) {
-    if (t < total) {
-      const int n = t / chunks, l0 = (t % chunks) * kRowsW;
-      bf16* a = a_s + (t & 1) * stage;
-      bf16* gg = g_s + (t & 1) * stage;
-      for (int i = tid; i < kRowsW * 8; i += kThreads) {
-        const int r = i / 8, v = i % 8, row = l0 + r;
-        const int col = dt0 + v * 8, oc = o0 + v * 8;
-        const bool ok_a = row < l && col < d, ok_g = row < l && oc < o8;
-        cp_async16(a + r * kLdTile + v * 8,
-                   ok_a ? img + ((size_t)n * l + row) * d + col : img, ok_a);
-        cp_async16(gg + r * kLdTile + v * 8,
-                   ok_g ? gp + ((size_t)n * l + row) * o8 + oc : gp, ok_g);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kDwThreads / 32);
     }
-    cp_async_commit();
+    mbar_fence_init();
+  }
+  const bf16 zero = __float2bfloat16(0.0f);
+  for (int i = tid; i < K * (kDwD / 2) * kDwO; i += kDwThreads) {
+    const int o = i % kDwO, p = (i / kDwO) % (kDwD / 2);
+    const int j = i / (kDwO * (kDwD / 2));
+    const int dd = d0 + 2 * p;
+    bf16 lo = zero, hi = zero;
+    if (o0 + o < o_dim) {
+      const size_t c = (size_t)(o0 + o) * K + j;
+      if (dd < d) lo = w[(size_t)dd * f + c];
+      if (dd + 1 < d) hi = w[(size_t)(dd + 1) * f + c];
+    }
+    wt_s[(j * (kDwD / 2) + p) * kDwPairLd + o] = pack_bf16x2(lo, hi);
+  }
+  __syncthreads();
+
+  // sample n into stage n % stages, requested by thread 0 (every thread
+  // walks the same path: see mbar_expect_tx)
+  const bool leader = tid == 0;
+  auto load = [&](int n) {
+    const int s = n % stages;
+    unsigned char* st = ring + s * kDwStageBytes;
+    mbar_expect_tx(&full[s], kDwGpBytes + boxes * kDwImgBytes, leader);
+    tma_load_3d(st, &gp_map, &full[s], o0, 0, n, leader);
+    for (int i = 0; i < boxes; ++i)
+      tma_load_3d(st + kDwGpBytes + i * kDwImgBytes, &img_map, &full[s],
+                  d0 + i * kDwHalf, 0, n, leader);
   };
+  for (int n = 0; n < stages && n < nn; ++n) load(n);
 
-  prefetch(0);
-  // the W tile [64 d][cw channels], read once; c0 and F are multiples of 8
-  for (int i = tid; i < kTileD * (cw / 8); i += kThreads) {
-    const int r = i / (cw / 8), v = i % (cw / 8);
-    const int dd = dt0 + r, c = c0 + v * 8;
-    *reinterpret_cast<uint4*>(w_s + r * ld_w + v * 8) =
-        load16(w + (size_t)dd * f + c, dd < d && c < f);
-  }
-  for (int i = tid; i < k * kTileD * kTileO; i += kThreads) sums_s[i] = 0.0f;
+  // the thread's outputs ol + 8 h (rows g, g + 8 of its warp's 16) and D
+  // rows 32 wg + 8 i + 2 t + e of the tile, in acc[4 i + 2 h + e]
+  const int ol = (warp % 4) * 16 + lane / 4;
+  bool ov[2], dv[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) ov[h] = o0 + ol + 8 * h < o_dim;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dv[i] = d0 + kDwHalf * wg + 8 * i < d;
+  float sums[16][K];
+#pragma unroll
+  for (int a = 0; a < 16; ++a)
+#pragma unroll
+    for (int j = 0; j < K; ++j) sums[a][j] = 0.0f;
 
-  AccFrag acc[2];
-  for (int t = 0; t < total; ++t) {
-    const int n = t / chunks, chunk = t % chunks;
-    if (chunk == 0) {
-      // q of sample n; its last readers passed the previous sample's sync
-      for (int i = tid; i < cw; i += kThreads) {
-        const int c = c0 + i;
-        q_s[i] = c < f ? __bfloat162float(q[(size_t)n * f + c]) : 0.0f;
-      }
-      wmma::fill_fragment(acc[0], 0.0f);
-      wmma::fill_fragment(acc[1], 0.0f);
+  float acc[16];
+
+  for (int n = 0; n < nn; ++n) {
+    const int s = n % stages;
+    float qv[2][K];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        qv[h][j] = ov[h] ? __bfloat162float(
+                               q[(size_t)n * f + (size_t)(o0 + ol + 8 * h) *
+                                                     K + j])
+                         : 0.0f;
+#pragma unroll
+    for (int a = 0; a < 16; ++a) acc[a] = 0.0f;
+    mbar_wait(&full[s], (n / stages) & 1);
+    const unsigned char* st = ring + s * kDwStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kRows / 16; ++ks) {
+      // A: g_pooled MN-major, 16 rows (2 KB) a step, 8-row groups 1 KB
+      // apart, one 64-output swizzle atom along M
+      const uint64_t da = smem_desc(st + ks * 16 * 128, kDwGpBytes, 1024,
+                                    kSwizzle128);
+      // B: the warpgroup's img box MN-major, 16 rows (1 KB) a step, 8-row
+      // groups 512 B apart, one 32-row swizzle atom along N
+      const uint64_t db = smem_desc(st + kDwGpBytes + wg * kDwImgBytes +
+                                        ks * 16 * 64,
+                                    kDwImgBytes, 512, kSwizzle64);
+      Wgmma<kDwHalf>::template ss<1, 1>(acc, da, db);
     }
-    prefetch(t + 1);  // in flight during this stage's MMAs and d_W's update
-    cp_async_wait_prior();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    // release the stage; it is refilled with sample n + stages once all 8
+    // warps have released it
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (n + stages < nn) {
+      mbar_wait(&empty[s], (n / stages) & 1);
+      load(n + stages);
+    }
+
+    // d_W's sums, in sample order
+#pragma unroll
+    for (int a = 0; a < 16; ++a)
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        sums[a][j] = __fadd_rn(sums[a][j],
+                               __fmul_rn(acc[a], qv[(a >> 1) & 1][j]));
+    // d_q's partial over the thread's D rows, in (i, e) order
+    float part[2][K];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        float p = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (dv[i]) {
+            const uint32_t word =
+                wt_s[(j * (kDwD / 2) + wg * (kDwHalf / 2) + 4 * i + t) *
+                         kDwPairLd + ol + 8 * h];
+            const float2 wv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&word));
+            p = __fadd_rn(p, __fmul_rn(acc[4 * i + 2 * h], wv.x));
+            p = __fadd_rn(p, __fmul_rn(acc[4 * i + 2 * h + 1], wv.y));
+          }
+        }
+        part[h][j] = p;
+      }
+    // ... over the quad's lanes (the warpgroup's 32 D rows), then the two
+    // warpgroups, in that order
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        float p = part[h][j];
+        p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 1));
+        p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 2));
+        if (t == 0) red_s[(wg * kDwO + ol + 8 * h) * K + j] = p;
+      }
     __syncthreads();
-    const bf16* a = a_s + (t & 1) * stage;
-    const bf16* gg = g_s + (t & 1) * stage;
-#pragma unroll
-    for (int kk = 0; kk < kRowsW / 16; ++kk) {
-      ACol af;  // element (d, l) at a[l * ld + d]
-      wmma::load_matrix_sync(af, a + kk * 16 * kLdTile + wr * 16, kLdTile);
-#pragma unroll
-      for (int tt = 0; tt < 2; ++tt) {
-        BRow bfr;
-        wmma::load_matrix_sync(bfr, gg + kk * 16 * kLdTile + (wc + tt) * 16,
-                               kLdTile);
-        wmma::mma_sync(acc[tt], af, bfr, acc[tt]);
-      }
-    }
-    __syncthreads();  // buffer t & 1 is free for stage t + 2
-    if (chunk < chunks - 1) continue;
-
-    // d_wq [64 d][64 o] of sample n, in shared memory
-#pragma unroll
-    for (int tt = 0; tt < 2; ++tt)
-      wmma::store_matrix_sync(wq_s + wr * 16 * kLdWq + (wc + tt) * 16,
-                              acc[tt], kLdWq, wmma::mem_row_major);
-    __syncthreads();
-    // d_W sums: + d_wq * q, in sample order
-    for (int e = tid; e < kTileD * kTileO; e += kThreads) {
-      const int dd = e / kTileO, oo = e % kTileO;
-      const float v = wq_s[dd * kLdWq + oo];
-      for (int j = 0; j < k; ++j) {
-        float* s = sums_s + (j * kTileD + dd) * kTileO + oo;
-        *s = __fadd_rn(*s, __fmul_rn(v, q_s[oo * k + j]));
-      }
-    }
-    // d_q's partial over this D tile: sum_d d_wq[d, o] * W[d, c], in d order
-    for (int cc = tid; cc < cw; cc += kThreads) {
-      const int c = c0 + cc;
-      if (c < f) {
-        const int oo = cc / k;
-        float s = 0.0f;
-        for (int dd = 0; dd < kTileD; ++dd)
-          s = __fadd_rn(s, __fmul_rn(wq_s[dd * kLdWq + oo],
-                                     __bfloat162float(w_s[dd * ld_w + cc])));
-        parts[((size_t)blockIdx.y * nn + n) * f + c] = s;
-      }
-    }
-    __syncthreads();  // q_s and wq_s are rewritten for the next sample
+    for (int cc = tid; cc < kDwO * K; cc += kDwThreads)
+      if (c0 + cc < f)
+        parts[((size_t)blockIdx.y * nn + n) * f + c0 + cc] =
+            __fadd_rn(red_s[cc], red_s[kDwO * K + cc]);
+    __syncthreads();  // red_s is rewritten for the next sample
   }
 
-  for (int i = tid; i < kTileD * cw; i += kThreads) {
-    const int dd = i / cw, cc = i % cw;
-    const int row = dt0 + dd, c = c0 + cc;
-    if (row < d && c < f)
-      d_w[(size_t)row * f + c] =
-          sums_s[((cc % k) * kTileD + dd) * kTileO + cc / k];
+#pragma unroll
+  for (int a = 0; a < 16; ++a) {
+    const int i = a >> 2, h = (a >> 1) & 1, e = a & 1;
+    if (ov[h] && dv[i]) {
+      const int row = d0 + kDwHalf * wg + 8 * i + 2 * t + e;
+      float* dst = d_w + (size_t)row * f + (size_t)(o0 + ol + 8 * h) * K;
+#pragma unroll
+      for (int j = 0; j < K; ++j) dst[j] = sums[a][j];
+    }
   }
+}
+
+template <int K>
+int launch_d_w(const void* gp, const void* img, const void* w,
+               const void* q, void* d_w, void* parts, int n, int l, int d,
+               int f, int o8, cudaStream_t s) {
+  CUtensorMap gp_map, img_map;
+  const uint64_t gp_dims[3] = {(uint64_t)o8, (uint64_t)l, (uint64_t)n};
+  const uint64_t gp_strides[2] = {(uint64_t)o8 * 2, (uint64_t)l * o8 * 2};
+  const uint32_t gp_box[3] = {kDwO, kRows, 1};
+  cudaError_t err = hopper::make_map(
+      &gp_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, gp, gp_dims, gp_strides,
+      gp_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t img_dims[3] = {(uint64_t)d, (uint64_t)l, (uint64_t)n};
+  const uint64_t img_strides[2] = {(uint64_t)d * 2, (uint64_t)l * d * 2};
+  const uint32_t img_box[3] = {kDwHalf, kRows, 1};
+  err = hopper::make_map(&img_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, img,
+                         img_dims, img_strides, img_box,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return (int)err;
+  // as many stages as fit, at most 4 (4 at k = 1, 3 above)
+  int stages = (kMaxSmem - dw_fixed_bytes(K)) / kDwStageBytes;
+  stages = stages < kDwMaxStages ? stages : kDwMaxStages;
+  const int smem = dw_fixed_bytes(K) + stages * kDwStageBytes;
+  err = cudaFuncSetAttribute(d_w_kernel<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((f / K + kDwO - 1) / kDwO, (d + kDwD - 1) / kDwD);
+  d_w_kernel<K><<<grid, kDwThreads, smem, s>>>(
+      gp_map, img_map, static_cast<const bf16*>(w),
+      static_cast<const bf16*>(q), static_cast<float*>(d_w),
+      static_cast<float*>(parts), n, d, f, stages);
+  return (int)cudaGetLastError();
+}
+
+int launch_d_w_k(const void* gp, const void* img, const void* w,
+                 const void* q, void* d_w, void* parts, int n, int l, int d,
+                 int f, int k, int o8, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_d_w<1>(gp, img, w, q, d_w, parts, n, l, d, f, o8, s);
+    case 2: return launch_d_w<2>(gp, img, w, q, d_w, parts, n, l, d, f, o8, s);
+    case 3: return launch_d_w<3>(gp, img, w, q, d_w, parts, n, l, d, f, o8, s);
+    case 4: return launch_d_w<4>(gp, img, w, q, d_w, parts, n, l, d, f, o8, s);
+    case 5: return launch_d_w<5>(gp, img, w, q, d_w, parts, n, l, d, f, o8, s);
+    case 6: return launch_d_w<6>(gp, img, w, q, d_w, parts, n, l, d, f, o8, s);
+    case 7: return launch_d_w<7>(gp, img, w, q, d_w, parts, n, l, d, f, o8, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // d_q[n, c] = (sum of the D tiles' partials, in tile order) + d_bq * b
@@ -722,9 +865,7 @@ int pooled_fusion_d_w(const void* g, const void* out, const void* img,
                       const void* w, const void* b, const void* q, void* d_w,
                       void* d_b, void* d_q, void* gp, void* d_bq, void* parts,
                       int n, int l, int d, int f, int k, void* stream) {
-  const size_t smem = d_w_smem(k);
-  if (!dims_ok(n, l, d, f, k) || smem > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
+  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int o_dim = f / k, o8 = (o_dim + 7) / 8 * 8;
   g_pooled_kernel<<<dim3((o8 + kThreads - 1) / kThreads, n), kThreads, 0,
@@ -739,18 +880,10 @@ int pooled_fusion_d_w(const void* g, const void* out, const void* img,
       static_cast<float*>(d_b), n, f, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      d_w_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (d + kTileD - 1) / kTileD;
-  const dim3 grid((o_dim + kTileO - 1) / kTileO, tiles);
-  d_w_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(gp), static_cast<const bf16*>(img),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(q),
-      static_cast<float*>(d_w), static_cast<float*>(parts), n, l, d, f, k,
-      o8);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int code = launch_d_w_k(gp, img, w, q, d_w, parts, n, l, d, f, k,
+                                o8, s);
+  if (code != 0) return code;
+  const int tiles = (d + kDwD - 1) / kDwD;
   const size_t total = (size_t)n * f;
   d_q_reduce_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads,
                       0, s>>>(

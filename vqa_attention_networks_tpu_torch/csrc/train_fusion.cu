@@ -33,11 +33,19 @@
 // two warpgroups on wgmma, with the bias, q, mask, k-pool and signed sqrt
 // in the epilogue; its L2 traffic, (256 + 160) x 2 B per depth step of a
 // 256 x 160 tile, ~10 GB at N = 256, is what holds it above its bound.
-// d_img and d_q use WMMA (bf16 16x16x16, f32 accumulators) with a 32-deep
-// shared-memory stage and no load in flight during the MMAs: correct and
-// simple, not yet fast. d_W is a g_prod build (bound by its ~230 MB of
-// bytes, ~0.07 ms) and a pipelined product (bound by its operations,
-// 0.26 ms).
+// d_q recomputes z0, as the TPU kernel does (z0 is never stored), with the
+// forward's product turned around: a block owns one sample and 128
+// channels, and the sample's L rows are wgmma's N, so that no row of
+// another sample enters the tile and L = 196 pads to 200, not 256. Its L2
+// traffic is ~3.4 GB at N = 64 (each block reads its sample's img, 0.80
+// MB, and a 2048 x 128 slab of W, 0.52 MB), which a 5-stage TMA ring
+// streams at several TB/s; what is left of its time is the epilogue's
+// Philox draws (62.7 M at N = 64), which run while the SM's second block
+// loads and multiplies. d_img (which no path launches) keeps WMMA (bf16
+// 16x16x16, f32 accumulators) with a 32-deep shared-memory stage and no
+// load in flight during the MMAs: correct and simple, not fast. d_W is a
+// g_prod build (bound by its ~230 MB of bytes, ~0.07 ms) and a pipelined
+// product (bound by its operations, 0.26 ms).
 //
 // What the design does about the TPU's structure. The TPU kernels carried
 // d_img and d_W/d_b across sequential grid steps in VMEM scratch. Blocks
@@ -79,8 +87,10 @@
 //   train_fusion_d_w      grid (ceil(F/128), ceil(D/128)): a [128, 128]
 //       d_W tile = bf16(img)^T @ g_prod over all M rows; the blocks of the
 //       first D tile sum d_b from the partials.
-//   train_fusion_d_q      grid (ceil(F/128), N): recomputes z0 for the
-//       sample's L rows and one 128-channel tile, and reduces over L.
+//   train_fusion_d_q      grid (ceil(F/128), N): recomputes z0^T for one
+//       128-channel tile and the sample's L rows by wgmma (W MN-major as A,
+//       img as B), stages it in shared memory, and reduces over L with the
+//       mask replayed, one channel per thread and half of the rows each.
 // Each entry returns cudaGetLastError() after its launch (0 on success).
 
 #include <cuda_bf16.h>
@@ -100,18 +110,14 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = 8;
 constexpr int kChunk = 32;      // contraction depth per shared-memory stage
 constexpr int kTileM = 128;     // rows of img (or D) per block
-constexpr int kTileN = 128;     // columns per block (d_img, d_q)
+constexpr int kTileN = 128;     // columns per block (d_img)
 constexpr int kLdChunk = kChunk + 8;   // padded against bank conflicts
-constexpr int kLdTile = kTileN + 8;
-constexpr int kRowTilesQ = 13;  // d_q: 13 x 16 = 208 rows >= L
-constexpr int kRowsQ = kRowTilesQ * 16;
+constexpr int kMaxRows = 208;   // L rows: d_q's wgmma N (200, or 208 past 200)
 constexpr int kMaxK = 8;
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
     ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    BRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
     BCol;
 
@@ -625,93 +631,201 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---------------------------------------------------------------------------
 // d_q[n, c] = sum_l (g_pooled * mask * inv_keep) * z0, z0 recomputed
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    d_q_kernel(const float* __restrict__ g,    // [M, O]
+// A block owns one sample and 128 channels, 64 per warpgroup, and computes
+// z0^T [64 c, kRowsN l] = W^T x img_n^T with the sample's L rows as wgmma's
+// N (kRowsN = 200, or 208 past L = 200). Thread 0 keeps a ring of kQStages
+// stages full with TMA, four ahead: W's two [32 d, 64 c] boxes (128-byte
+// swizzle; boxes wholly past F are not loaded) and the sample's img
+// [kRowsN l, 32 d] (a 3D box over [N, L, D], 64-byte swizzle; the rows past
+// L come in as zeros, so no row of the next sample). Each warpgroup runs
+// wgmma m64n{kRowsN}k16 with A = its W box MN-major (transposed) and B =
+// the img box K-major, one stage's group in flight while the next stage is
+// awaited. The stages are 32 deep so that two blocks fit an SM at kRowsN
+// = 200 (108 KB of shared memory and 128 registers a thread each): one
+// block's epilogue runs while the other's loads and products do.
+//
+// The epilogue draws one Philox word per element (25,600 a block), which
+// is what costs: with the 100 accumulators in registers, a thread has no
+// room to keep several draws in flight. So the accumulators go to shared
+// memory first, z0 [kRowsN l, 128 c] over the ring, and a thread then owns
+// one channel and half of the rows: its sum over them runs in row order
+// with the registers free for the draws, and the two halves are added in
+// order. No atomics: reruns give the same bits.
+constexpr int kQDepth = 32;       // D per ring stage: a 64-byte img row
+constexpr int kQChannels = 64;    // channels per warpgroup: wgmma's M
+constexpr int kQConsumers = 2;    // warpgroups
+constexpr int kQThreads = kQConsumers * 128;
+constexpr int kQTile = kQConsumers * kQChannels;  // channels per block
+constexpr int kQWBox = kQDepth * kQChannels * 2;  // one [32 d, 64 c] W box
+constexpr int kQStages = 5;
+constexpr int kQZLd = kQTile + 4;  // f32 row of the staged z0: no conflicts
+
+template <int kRowsN>
+struct DqShape {
+  static constexpr int kImgBytes = kRowsN * kQDepth * 2;
+  // W's boxes first (1 KB aligned for their swizzle), then img, the stage
+  // rounded up to 1 KB
+  static constexpr int kStageBytes =
+      (kQConsumers * kQWBox + kImgBytes + 1023) / 1024 * 1024;
+  static constexpr int kRing = kQStages * kStageBytes;
+  static constexpr int kZ0 = kRowsN * kQZLd * 4;
+  // 1 KB of alignment slack, 1 KB of barriers, then the ring (reused for
+  // the staged z0)
+  static constexpr int kSmem = 2048 + (kRing > kZ0 ? kRing : kZ0);
+  // two blocks an SM where their registers allow it
+  static constexpr int kBlocksPerSm = kRowsN <= 200 ? 2 : 1;
+};
+
+// sum over rows [r0, r1) of (g_pooled * mask * inv_keep) * (z0 + b) for
+// channel c, in row order; z0_c[r * kQZLd] is z0 of row r
+template <bool kMask>
+__device__ __forceinline__ float d_q_rows(
+    const float* z0_c, const float* __restrict__ g,
+    const float* __restrict__ out, float bc, size_t m0, int r0, int r1,
+    int o_dim, int c, int k, int f, uint32_t seed, uint32_t thr,
+    float inv_keep) {
+  const int o = c / k;
+  float part = 0.0f;
+#pragma unroll 4
+  for (int r = r0; r < r1; ++r) {
+    const size_t po = (m0 + r) * o_dim + o;
+    float gz = pooled_grad(g[po], out[po]);
+    if (kMask)
+      gz = __fmul_rn(gz, keep_scale(seed, thr, inv_keep, (m0 + r) * f + c));
+    const float z0 = __fadd_rn(z0_c[r * kQZLd], bc);
+    part = __fadd_rn(part, __fmul_rn(gz, z0));
+  }
+  return part;
+}
+
+template <int kRowsN>
+__global__ void __launch_bounds__(kQThreads, DqShape<kRowsN>::kBlocksPerSm)
+    d_q_kernel(const __grid_constant__ CUtensorMap img_map,  // [N, L, D] bf16
+               const __grid_constant__ CUtensorMap w_map,    // [D, F] bf16
+               const float* __restrict__ g,    // [M, O]
                const float* __restrict__ out,  // [M, O]
-               const bf16* __restrict__ img,   // [M, D]
-               const bf16* __restrict__ w,     // [D, F]
                const float* __restrict__ b,    // [F]
                float* __restrict__ d_q,        // [N, F]
                int l, int d, int f, int k, uint32_t seed, uint32_t thr,
                float inv_keep) {
-  __shared__ __align__(128) bf16 a_s[kRowsQ * kLdChunk];  // img[n] [l][d]
-  __shared__ __align__(128) bf16 b_s[kChunk * kLdTile];   // W [d][c]
-  __shared__ __align__(128) float stage_s[kWarps][256];
+  using S = DqShape<kRowsN>;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kQStages;
+  unsigned char* ring = smem + 1024;
 
-  const int o_dim = f / k;
-  const int c0 = blockIdx.x * kTileN;
+  const int c0 = blockIdx.x * kQTile;
   const int n = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bf16* img_n = img + (size_t)n * l * d;
+  const int steps = (d + kQDepth - 1) / kQDepth;
+  const int boxes = min(kQConsumers, (f - c0 + kQChannels - 1) / kQChannels);
 
-  // rows [l, kRowsQ) of the A stage are zero for the whole kernel
-  for (int i = l * kLdChunk + tid; i < kRowsQ * kLdChunk; i += kThreads)
-    a_s[i] = __float2bfloat16(0.0f);
-
-  AccFrag acc[kRowTilesQ];
-#pragma unroll
-  for (int mt = 0; mt < kRowTilesQ; ++mt) wmma::fill_fragment(acc[mt], 0.0f);
-
-  for (int d0 = 0; d0 < d; d0 += kChunk) {
-    for (int i = tid; i < l * (kChunk / 8); i += kThreads) {
-      const int r = i / (kChunk / 8), v = i % (kChunk / 8);
-      const int col = d0 + v * 8;
-      *reinterpret_cast<uint4*>(a_s + r * kLdChunk + v * 8) =
-          load16(img_n + (size_t)r * d + col, col < d);
+  if (tid == 0) {
+    for (int s = 0; s < kQStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kQConsumers * 4);
     }
-    for (int i = tid; i < kChunk * (kTileN / 8); i += kThreads) {
-      const int r = i / (kTileN / 8), v = i % (kTileN / 8);
-      const int dd = d0 + r, c = c0 + v * 8;
-      *reinterpret_cast<uint4*>(b_s + r * kLdTile + v * 8) =
-          load16(w + (size_t)dd * f + c, dd < d && c < f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      BRow bfr;
-      wmma::load_matrix_sync(bfr, b_s + kk * 16 * kLdTile + warp * 16,
-                             kLdTile);
-#pragma unroll
-      for (int mt = 0; mt < kRowTilesQ; ++mt) {
-        ARow af;
-        wmma::load_matrix_sync(af, a_s + mt * 16 * kLdChunk + kk * 16,
-                               kLdChunk);
-        wmma::mma_sync(acc[mt], af, bfr, acc[mt]);
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // lane: channel lane % 16, rows of parity lane / 16, in row order
-  const int c = c0 + warp * 16 + lane % 16;
+  // step kt into stage kt % kQStages, requested by thread 0 (every thread
+  // walks the same path: see mbar_expect_tx)
+  const bool leader = tid == 0;
+  auto load = [&](int kt) {
+    const int s = kt % kQStages;
+    unsigned char* st = ring + s * S::kStageBytes;
+    mbar_expect_tx(&full[s], boxes * kQWBox + S::kImgBytes, leader);
+    for (int i = 0; i < boxes; ++i)
+      tma_load_2d(st + i * kQWBox, &w_map, &full[s], c0 + i * kQChannels,
+                  kt * kQDepth, leader);
+    tma_load_3d(st + kQConsumers * kQWBox, &img_map, &full[s], kt * kQDepth,
+                0, n, leader);
+  };
+  for (int kt = 0; kt < kQStages - 1 && kt < steps; ++kt) load(kt);
+
+  const int wg = warp / 4;
+  float acc[kRowsN / 2];
+#pragma unroll
+  for (int i = 0; i < kRowsN / 2; ++i) acc[i] = 0.0f;
+
+  for (int kt = 0; kt < steps; ++kt) {
+    const int s = kt % kQStages;
+    mbar_wait(&full[s], (kt / kQStages) & 1);
+    const unsigned char* st = ring + s * S::kStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kQDepth / 16; ++ks) {
+      // A: the warpgroup's W box, MN-major: 16 rows of d (2 KB) a step,
+      // 8-row groups 1 KB apart, one 64-channel swizzle atom along M
+      const uint64_t da = smem_desc(st + wg * kQWBox + ks * 16 * 128, kQWBox,
+                                    1024, kSwizzle128);
+      // B: kRowsN img rows of 64 B, k at 32 B a step, 8-row groups 512 B
+      // apart
+      const uint64_t db = smem_desc(st + kQConsumers * kQWBox + ks * 32, 16,
+                                    512, kSwizzle64);
+      Wgmma<kRowsN>::template ss<0, 1>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of step kt - 1 is done: release its stage
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kQStages]);
+    // that stage is refilled with step kt + kQStages - 1 once all 8 warps
+    // have released it
+    const int next = kt + kQStages - 1;
+    if (next < steps) {
+      if (kt > 0)
+        mbar_wait(&empty[next % kQStages], ((kt - 1) / kQStages) & 1);
+      load(next);
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // every warp is past its products: the ring takes z0 [kRowsN l, 128 c]
+  // (channel row g + 8 h of the warp's 16, rows 8 i + 2 t + e in
+  // acc[4 i + 2 h + e])
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  float* z0_s = reinterpret_cast<float*>(ring);
+  {
+    const int cc = wg * kQChannels + (warp % 4) * 16 + lane / 4;
+    const int t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < kRowsN / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          z0_s[(8 * i + 2 * t + e) * kQZLd + cc + 8 * h] =
+              acc[4 * i + 2 * h + e];
+  }
+  __syncthreads();
+
+  // thread (half, cc): channel c0 + cc over rows [half * lh, lh + half * lh)
+  __shared__ float half_s[kQTile];
+  const int cc = tid % kQTile, half = tid / kQTile;
+  const int c = c0 + cc, lh = (l + 1) / 2;
+  const int r0 = half * lh, r1 = min(l, r0 + lh);
   float part = 0.0f;
-#pragma unroll
-  for (int mt = 0; mt < kRowTilesQ; ++mt) {
-    wmma::store_matrix_sync(stage_s[warp], acc[mt], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (c < f) {
-      for (int rr = lane / 16; rr < 16; rr += 2) {
-        const int row = mt * 16 + rr;
-        if (row < l) {
-          const int m = n * l + row;
-          const size_t po = (size_t)m * o_dim + c / k;
-          float gz = pooled_grad(g[po], out[po]);
-          if (thr != 0u)
-            gz = __fmul_rn(gz, keep_scale(seed, thr, inv_keep,
-                                          (unsigned long long)m * f + c));
-          const float z0 = __fadd_rn(stage_s[warp][rr * 16 + lane % 16], b[c]);
-          part = __fadd_rn(part, __fmul_rn(gz, z0));
-        }
-      }
-    }
-    __syncwarp();
+  if (c < f) {
+    const float* z0_c = z0_s + cc;
+    const size_t m0 = (size_t)n * l;
+    part = thr != 0u
+               ? d_q_rows<true>(z0_c, g, out, b[c], m0, r0, r1, f / k, c, k,
+                                f, seed, thr, inv_keep)
+               : d_q_rows<false>(z0_c, g, out, b[c], m0, r0, r1, f / k, c,
+                                 k, f, seed, thr, inv_keep);
   }
-  part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 16));
-  if (lane < 16 && c < f) d_q[(size_t)n * f + c] = part;
+  if (half == 1) half_s[cc] = part;
+  __syncthreads();
+  if (half == 0 && c < f)
+    d_q[(size_t)n * f + c] = __fadd_rn(part, half_s[cc]);
 }
 
 bool dims_ok(int n, int l, int d, int f, int k) {
-  return n >= 1 && n <= 65535 && l >= 1 && l <= kRowsQ && d >= 8 &&
+  return n >= 1 && n <= 65535 && l >= 1 && l <= kMaxRows && d >= 8 &&
          d % 8 == 0 && k >= 1 && k <= kMaxK && f >= k && f % k == 0 &&
          f % 8 == 0 && (long long)n * l <= 65535LL * kTileM;
 }
@@ -764,6 +878,39 @@ int launch_fwd_k(const void* img, const void* w, const void* b,
     case 8: return launch_fwd<8, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <int kRowsN>
+int launch_d_q(const void* g, const void* out, const void* img,
+               const void* w, const void* b, void* d_q, int n, int l, int d,
+               int f, int k, uint32_t seed, uint32_t thr, float inv_keep,
+               void* stream) {
+  using S = DqShape<kRowsN>;
+  CUtensorMap img_map, w_map;
+  const uint64_t img_dims[3] = {(uint64_t)d, (uint64_t)l, (uint64_t)n};
+  const uint64_t img_strides[2] = {(uint64_t)d * 2, (uint64_t)l * d * 2};
+  const uint32_t img_box[3] = {kQDepth, kRowsN, 1};
+  cudaError_t err = hopper::make_map(
+      &img_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, img, img_dims,
+      img_strides, img_box, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t w_dims[2] = {(uint64_t)f, (uint64_t)d};
+  const uint64_t w_strides[1] = {(uint64_t)f * 2};
+  const uint32_t w_box[2] = {kQChannels, kQDepth};
+  err = hopper::make_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
+                         w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(d_q_kernel<kRowsN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((f + kQTile - 1) / kQTile, n);
+  d_q_kernel<kRowsN><<<grid, kQThreads, S::kSmem,
+                       reinterpret_cast<cudaStream_t>(stream)>>>(
+      img_map, w_map, static_cast<const float*>(g),
+      static_cast<const float*>(out), static_cast<const float*>(b),
+      static_cast<float*>(d_q), l, d, f, k, seed, thr, inv_keep);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -845,13 +992,10 @@ int train_fusion_d_q(const void* g, const void* out, const void* img,
                      int d, int f, int k, uint32_t seed, uint32_t thr,
                      float inv_keep, void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((f + kTileN - 1) / kTileN, n);
-  d_q_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(out),
-      static_cast<const bf16*>(img), static_cast<const bf16*>(w),
-      static_cast<const float*>(b), static_cast<float*>(d_q), l, d, f, k,
-      seed, thr, inv_keep);
-  return (int)cudaGetLastError();
+  return l <= 200 ? launch_d_q<200>(g, out, img, w, b, d_q, n, l, d, f, k,
+                                    seed, thr, inv_keep, stream)
+                  : launch_d_q<kMaxRows>(g, out, img, w, b, d_q, n, l, d, f, k,
+                                       seed, thr, inv_keep, stream);
 }
 
 const char* train_fusion_error_string(int code) {

@@ -1,4 +1,4 @@
-"""Time the pre-pool training step, or three kernels, of a checkout on the card.
+"""Time the pre-pool training step, or five kernels, of a checkout on the card.
 
     python3 vqa_attention_networks_tpu_torch/step_time.py [--root DIR] [--kernels]
 
@@ -15,9 +15,10 @@ in the order A, B, B, A, and compare within the one machine.
   tolerances (the ``chip_smoke.py`` beside this package, run on DIR's
   port), one JSON line each: K1 at N = 256, by CUDA events and each of its
   launches' device time; K5 at N = 256, with ``torch.matmul`` on the bare
-  product img @ bf16(W) beside it for information; K2's forward at N = 64,
-  rate 0.1. Each line says whether the kernel agreed with its plain version
-  on the same inputs and whether a rerun gave the same bits.
+  product img @ bf16(W) beside it for information; K2's forward and d_q at
+  N = 64, rate 0.1; K3's d_W/d_b/d_q (four launches) at N = 64. Each line
+  says whether the kernel agreed with its plain version on the same inputs
+  and whether a rerun gave the same bits.
 
 Every line carries the card's name and power limit as nvidia-smi gives
 them.
@@ -46,7 +47,8 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=30)
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--kernels", action="store_true",
-                        help="time K1, K5 and K2's forward, not the step")
+                        help="time K1, K5, K2's forward and d_q and K3's "
+                        "d_W/d_b/d_q, not the step")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     # the port from ``root``, and none of this file's neighbours as
@@ -60,14 +62,16 @@ def main() -> None:
 
 
 def time_kernels(harness: str, root: str) -> None:
-    """K1, K5 and K2's forward, timed and checked by ``harness`` (a
-    ``chip_smoke.py``) on the port that ``sys.path`` reaches first."""
+    """K1, K5, K2's forward and d_q and K3's d_W/d_b/d_q, timed and checked
+    by ``harness`` (a ``chip_smoke.py``) on the port that ``sys.path``
+    reaches first."""
     spec = importlib.util.spec_from_file_location("chip_smoke", harness)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     import torch
 
     from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
     from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
     from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 
@@ -77,9 +81,13 @@ def time_kernels(harness: str, root: str) -> None:
 
     def say(kernel, fn, got, agrees, **fields):
         fn()  # warm-up
+        again = fn()
+        if isinstance(got, torch.Tensor):
+            got, again = (got,), (again,)
         print(json.dumps(dict(
             kernel=kernel, root=root, agrees=agrees,
-            rerun_bit_equal=bool(torch.equal(got, fn())),
+            rerun_bit_equal=all(torch.equal(a, b)
+                                for a, b in zip(got, again)),
             events_ms=smoke.time_ms(fn, KERNEL_ITERS),
             device_ms_by_launch=smoke.device_ms_by_kernel(fn, KERNEL_ITERS),
             **fields, card=smi)), flush=True)
@@ -119,6 +127,28 @@ def time_kernels(harness: str, root: str) -> None:
     say("K2_forward",
         lambda: tf.forward_cuda(img, w_bf16, bf, qf, seed, k, rate), got,
         bool(smoke.k2_within("forward", got, want).all()), n=n, rate=rate)
+
+    # K2's d_q on the kernel's own forward output, as k2_time draws it
+    g = smoke.k2_inputs(n, 3, cfg, dev)[4]
+    args = (g, got, img, w_bf16, bf, qf, seed, k, rate)
+    d_q = tf.d_q_cuda(*args)
+    want = tf.d_q_reference(g, got, img, w_bf16, bf, k, keep)
+    say("K2_d_q", lambda: tf.d_q_cuda(*args), d_q,
+        bool(smoke.k2_within("d_q", d_q, want).all()), n=n, rate=rate)
+    del img, w, b, q, g, w_bf16, bf, qf, keep, got, want, d_q, args
+    torch.cuda.empty_cache()
+
+    # K3's d_W/d_b/d_q on the kernel's own forward output, as k3_time
+    # draws it
+    img, w, b, q, g = smoke.k2_inputs(n, 3, cfg, dev)
+    w_bf16, bf, qb = pf.operands(w, b, q)
+    out = pf.forward_cuda(img, w_bf16, bf, qb, k)
+    args = (g, out, img, w_bf16, bf, qb, k)
+    got = pf.d_w_cuda(*args)
+    want = pf.d_w_reference(g, out, img, w_bf16, bf, qb, k)
+    say("K3_d_w", lambda: pf.d_w_cuda(*args), got,
+        all(bool(smoke.k3_within(name, a, b_).all()) for name, a, b_ in
+            zip(("d_w", "d_b", "d_q"), got, want)), n=n)
 
 
 def time_step(root: str, steps: int, batch: int) -> None:
