@@ -40,7 +40,7 @@ K7_RTOL_ROW = 2.0 ** -7
 N, P, C, A, G, D = 8, 22, 48, 64, 2, 40
 
 
-def glimpse_inputs(seed=0):
+def glimpse_inputs(seed=0, p=P, a=A, g=G):
     """bf16-exact x, v; W1, b1, W2, b2 in PyTorch's layout, scaled so the
     softmax over P is peaked."""
     rng = np.random.default_rng(seed)
@@ -52,35 +52,46 @@ def glimpse_inputs(seed=0):
                          .astype(jnp.float32))
         return x
 
-    return (f((N, P, C), 1.0, True), f((A, C), 0.3), f((A,), 0.1),
-            f((G, A), 1.0), f((G,), 0.1), f((N, P, D), 0.5, True))
+    return (f((N, p, C), 1.0, True), f((a, C), 0.3), f((a,), 0.1),
+            f((g, a), 1.0), f((g,), 0.1), f((N, p, D), 0.5, True))
 
 
-def _within(got, want):
-    got = np.asarray(got, np.float64).reshape(N, G, D)
-    want = np.asarray(want, np.float64).reshape(N, G, D)
+def _within(got, want, g=G):
+    got = np.asarray(got, np.float64).reshape(N, g, D)
+    want = np.asarray(want, np.float64).reshape(N, g, D)
     return np.abs(got - want) <= K7_RTOL_ROW * np.abs(want).max(
         -1, keepdims=True)
 
 
-@pytest.mark.parametrize("quirk", [False, True], ids=["softmax", "quirk"])
-def test_k7_plain_version_matches_pallas_interpreted(monkeypatch, quirk):
+# (quirk, P, A, G): the default shape, then the edges the CUDA kernel
+# tiles: one region (its softmax weight is exactly 1), a hidden width that
+# ends inside a tile of the MLP launch, one glimpse
+_EDGES = [(q, *shape) for shape in ((P, A, G), (1, A, G), (P, 100, G),
+                                    (P, A, 1)) for q in (False, True)]
+_EDGE_IDS = [f"{'quirk' if q else 'softmax'}{tag}" for tag in
+             ("", "-p1", "-a100", "-g1") for q in (False, True)]
+
+
+@pytest.mark.parametrize("quirk,p,a,g", _EDGES, ids=_EDGE_IDS)
+def test_k7_plain_version_matches_pallas_interpreted(monkeypatch, quirk, p,
+                                                     a, g):
     monkeypatch.setenv("VQA_PALLAS_INTERPRET", "1")
-    x, w1, b1, w2, b2, v = glimpse_inputs()
+    x, w1, b1, w2, b2, v = glimpse_inputs(p=p, a=a, g=g)
     want = np.asarray(_glimpse_pallas(
         jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(w1.T),
         jnp.asarray(b1), jnp.asarray(w2.T), jnp.asarray(b2),
         jnp.asarray(v).astype(jnp.bfloat16), quirk))
-    t = [torch.from_numpy(a) for a in (x, w1, b1, w2, b2, v)]
+    t = [torch.from_numpy(arr) for arr in (x, w1, b1, w2, b2, v)]
     t[0], t[5] = t[0].to(torch.bfloat16), t[5].to(torch.bfloat16)
     got = att.glimpse_attention_reference(*t, uniform_quirk=quirk)
-    assert got.dtype == torch.bfloat16 and got.shape == (N, G * D)
-    assert _within(got.float(), want).all()
-    if not quirk:
+    assert got.dtype == torch.bfloat16 and got.shape == (N, g * D)
+    assert _within(got.float(), want, g).all()
+    if not quirk and p > 1:
         # control: the uniform mean pool (what a dead MLP gives) is
-        # rejected on most elements; the inputs peak the softmax
-        uniform = np.repeat(v.mean(1, keepdims=True), G, axis=1)
-        assert (~_within(uniform, want)).mean() > 0.5
+        # rejected on most elements; the inputs peak the softmax (over one
+        # region the softmax is the uniform pool)
+        uniform = np.repeat(v.mean(1, keepdims=True), g, axis=1)
+        assert (~_within(uniform, want, g)).mean() > 0.5
 
 
 def test_dispatch_under_the_switch_on_the_cpu(monkeypatch):

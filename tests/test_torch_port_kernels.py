@@ -430,29 +430,49 @@ def _k7_inputs(n, p, c, a, g, d, seed=2):
             _bf16(rng, (n, p, d), 0.5))
 
 
-@pytest.mark.parametrize("quirk", [False, True], ids=["softmax", "quirk"])
-@pytest.mark.parametrize("n,p,c,a,d", [(3, 22, 48, 100, 40),
-                                       (8, 196, 1000, 512, 2048)],
-                         ids=["ragged", "co_attention"])
-def test_k7_matches_plain_version(n, p, c, a, d, quirk):
+def _check_k7(n, p, c, a, g, d, quirk):
+    """K7 against its plain version, a bit-equal rerun, one launch counted,
+    and (softmax over more than one region) the uniform-pool control."""
     from vqa_attention_networks_tpu_torch.ops import attention as att
 
-    args = _k7_inputs(n, p, c, a, 2, d)
+    args = _k7_inputs(n, p, c, a, g, d)
     before = att.launch_count
     got = att.glimpse_attention_cuda(*args, uniform_quirk=quirk)
     torch.cuda.synchronize()
     assert att.launch_count == before + 1
     want = att.glimpse_attention_reference(*args, uniform_quirk=quirk)
-    assert got.dtype == torch.bfloat16 and got.shape == (n, 2 * d)
-    rows_g = got.float().reshape(n, 2, d)
-    rows_w = want.float().reshape(n, 2, d)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, g * d)
+    rows_g = got.float().reshape(n, g, d)
+    rows_w = want.float().reshape(n, g, d)
     tol = K7_RTOL_ROW * rows_w.abs().amax(-1, keepdim=True)
     assert ((rows_g - rows_w).abs() <= tol).all()
     assert torch.equal(got, att.glimpse_attention_cuda(
         *args, uniform_quirk=quirk))
-    if not quirk:  # control: a uniform pool is rejected on most elements
-        uniform = args[5].float().mean(1, keepdim=True).expand(n, 2, d)
+    if not quirk and p > 1:  # a uniform pool is rejected on most elements
+        uniform = args[5].float().mean(1, keepdim=True).expand(n, g, d)
         assert ((uniform - rows_w).abs() > tol).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("quirk", [False, True], ids=["softmax", "quirk"])
+@pytest.mark.parametrize("n,p,c,a,d", [(3, 22, 48, 100, 40),
+                                       (8, 196, 1000, 512, 2048)],
+                         ids=["ragged", "co_attention"])
+def test_k7_matches_plain_version(n, p, c, a, d, quirk):
+    _check_k7(n, p, c, a, 2, d, quirk)
+
+
+# the kernel's geometry: one region and the most (P = 1024, the pool's
+# shared weights), one glimpse and the most (G = 4, with D = 42 not a
+# multiple of 4: v read in bf16 pairs), a hidden width that ends inside an
+# MLP tile (A = 100, 260) with C less than one 64-deep stage (C = 48)
+@pytest.mark.parametrize("quirk", [False, True], ids=["softmax", "quirk"])
+@pytest.mark.parametrize("n,p,c,a,g,d", [
+    (4, 1, 64, 96, 2, 48), (2, 1024, 64, 300, 2, 136),
+    (3, 22, 1024, 512, 1, 1024), (3, 22, 104, 260, 4, 42),
+    (5, 30, 48, 100, 2, 64)],
+    ids=["p1", "p1024", "g1", "g4_d42", "a100_c48"])
+def test_k7_edges_match_plain_version(n, p, c, a, g, d, quirk):
+    _check_k7(n, p, c, a, g, d, quirk)
 
 
 def test_k7_wrapper_raises_on_inputs_it_does_not_take():
@@ -548,6 +568,35 @@ def test_k3_launches_match_plain_versions(n, l, d, o, k):
     pooled = out * out.abs()
     assert (perm * perm.abs() - pooled).abs().max() > \
         100 * K3_RTOL * pooled.abs().max()
+
+
+# the forward's geometry: every K (1 to 7, one template each), an O tile
+# that ends past O (O = 18, 100, 1000), an odd N (the last block's second
+# warpgroup holds no sample), D not a multiple of the 32-deep stage (40,
+# 72, 136, 200), L = 1 and 208
+@pytest.mark.parametrize("n,l,d,o,k", [
+    (3, 50, 200, 18, 4), (5, 196, 136, 1000, 7), (7, 208, 72, 64, 1),
+    (1, 1, 40, 100, 2), (2, 13, 96, 40, 3), (3, 100, 64, 24, 6),
+    (4, 196, 2048, 1000, K)],
+    ids=["o18_k4", "o1000_k7", "k1_odd_n_l208", "k2_n1_l1", "k3", "k6",
+         "production"])
+def test_k3_forward_edges_match_plain_version(n, l, d, o, k):
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, w_bf16, b, q, _ = _k3_inputs(n, l, d, o, k=k)
+    out = pf.forward_cuda(img, w_bf16, b, q, k)
+    want = pf.forward_reference(img, w_bf16, b, q, k)
+    assert out.shape == want.shape and torch.isfinite(out).all()
+    pooled, want_pooled = out * out.abs(), want * want.abs()
+    assert (pooled - want_pooled).abs().max() <= \
+        K3_RTOL * want_pooled.abs().max()
+    assert torch.equal(out, pf.forward_cuda(img, w_bf16, b, q, k))
+    # control: q permuted across samples (across channels at N = 1)
+    perm = pf.forward_reference(img, w_bf16, b,
+                                q.flip(0) if n > 1 else q.roll(1, 1), k)
+    assert (perm * perm.abs() - want_pooled).abs().max() > \
+        100 * K3_RTOL * want_pooled.abs().max()
 
 
 def test_k3_autograd_launches_the_kernels():

@@ -3,33 +3,43 @@
 //
 // Replaces _glimpse_pallas (vqa_attention_networks_tpu/ops/
 // pallas_attention.py). With x [N, P, C], W1 [A, C], W2 [G, A], v [N, P, D]
-// (bf16) and the biases b1 [A], b2 [G] (f32), m = n*P + p the flat row:
+// (bf16; W2 comes in f32 and is rounded to bf16 in the kernel) and the
+// biases b1 [A], b2 [G] (f32), m = n*P + p the flat row:
 //
 //   h[m,a]     = bf16(relu(sum_c x[m,c] W1[a,c] + b1[a]))     f32 sum
 //   logit[m,g] = sum_a h[m,a] W2[g,a] + b2[g]                 f32
 //   w[n,p,g]   = bf16(softmax over p of logit[n*P+p, g])      (1 under the
 //                                                              quirk)
-//   out[n,g,d] = sum_p w[n,p,g] v[n,p,d]                      f32
+//   out[n,g,d] = bf16(sum_p w[n,p,g] v[n,p,d])                f32 sum
 //
 // What bounds it on this card. At the question glimpse of mhb_coAtt
 // (N=256, P=22, C=1024, A=512, D=1024) the MLP is 5.9 GFLOP against 25 MB
 // of inputs; at the co-attention (P=196, C=1000, D=2048) 51 GFLOP against
-// 305 MB: about 50 us of tensor-core work against 91 us of reads. The
+// 305 MB: about 52 us of tensor-core work against 93 us of reads. The
 // second is bound by reading x and v once.
 //
 // What the design does about it. The TPU kernel keeps 8 samples' x, v and
 // the weights in VMEM and runs the whole block per grid step. Here two
-// launches from one entry:
-//   1  glimpse_mlp_kernel   grid (ceil(A/128), ceil(N*P/128)): a [128, 128]
-//      tile of x @ W1^T on the tensor cores (WMMA bf16, f32 accumulators,
-//      a 32-deep shared-memory stage), then in the epilogue + b1, relu, the
-//      bf16 rounding and the product with W2's [G, 128] slice, so h never
-//      reaches device memory: each block writes its partial logits
-//      [N*P, G] for its 128 hidden units.
+// launches from one entry, every sum in a fixed order (no atomics: reruns
+// give the same bits):
+//   1  glimpse_mlp_kernel   one block per (128 rows, 256 hidden units), the
+//      hidden tile running fastest so that both tiles of a row block read
+//      its x while it is in L2. Thread 0 keeps a ring of TMA stages full,
+//      x's [128 m, 64 c] and W1's [256 a, 64 c] tiles (bf16, 128-byte
+//      swizzle; C past its end comes in as zeros), while two warpgroups run
+//      wgmma m64n256k16 on them (A = x, B = W1, both K-major). The epilogue,
+//      in registers: + b1, relu, the bf16 rounding and the dot with W2's
+//      [G, 256] slice, each thread over its 64 hidden units in order, then
+//      the quad's lanes by shuffles, so h never reaches device memory: each
+//      block writes the partial logits [N*P, G] of its 256 hidden units.
+//      L2 traffic: x twice and W1's half per row block, ~0.6 GB at the
+//      co-attention.
 //   2  glimpse_pool_kernel  grid (ceil(D/512), N): sums the partial logits
-//      of the A tiles in a fixed order (no atomics: reruns give the same
-//      bits), + b2, the softmax over P per glimpse, and the pool of v, each
-//      thread a pair of columns, v read once.
+//      of the hidden tiles in order, + b2, the softmax over P per glimpse
+//      (redone by each of a sample's blocks, a few microseconds), and the
+//      pool of v, each thread 4 columns with 8-byte loads, 8 rows' loads in
+//      flight with no branch between them (bf16 pairs where D % 4 != 0); v
+//      read once, out written in bf16.
 //
 // The C interface takes raw device pointers and the stream; each launch is
 // followed by cudaGetLastError(), whose code is returned (0 on success).
@@ -37,158 +47,227 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf16x2;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = 8;
-constexpr int kTileM = 128;    // rows of x per MLP block
-constexpr int kTileA = 128;    // hidden units per MLP block
-constexpr int kChunk = 32;     // contraction depth per shared-memory stage
-constexpr int kLd = kChunk + 8;  // padded against bank conflicts
 constexpr int kMaxG = 4;
 constexpr int kMaxP = 1024;
-constexpr int kPoolCols = 2 * kThreads;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    BCol;
-
-__device__ __forceinline__ uint4 load16(const bf16* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
-}
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
 // ---------------------------------------------------------------------------
-// 1: partial logits of 128 hidden units for 128 rows
+// 1: partial logits of 256 hidden units for 128 rows
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    glimpse_mlp_kernel(const bf16* __restrict__ x,    // [M, C]
-                       const bf16* __restrict__ w1,   // [A, C]
+constexpr int kMlpRows = 128;       // rows of x per block: 2 x wgmma's M
+constexpr int kMlpHidden = 256;     // hidden units per block: wgmma's N
+constexpr int kMlpDepth = 64;       // C per ring stage: a 128-byte row
+constexpr int kMlpStages = 4;
+constexpr int kMlpThreads = 256;    // two warpgroups
+constexpr int kMlpXBytes = kMlpRows * kMlpDepth * 2;
+constexpr int kMlpWBytes = kMlpHidden * kMlpDepth * 2;
+constexpr int kMlpStage = kMlpXBytes + kMlpWBytes;
+// 1 KB of alignment slack and 1 KB of barriers, then the ring
+constexpr int kMlpSmem = 2048 + kMlpStages * kMlpStage;
+
+__global__ void __launch_bounds__(kMlpThreads, 1)
+    glimpse_mlp_kernel(const __grid_constant__ CUtensorMap x_map,   // [M, C]
+                       const __grid_constant__ CUtensorMap w1_map,  // [A, C]
                        const float* __restrict__ b1,  // [A]
-                       const bf16* __restrict__ w2,   // [G, A]
+                       const float* __restrict__ w2,  // [G, A]
                        float* __restrict__ part,      // [A tiles, M, G]
-                       int mrows, int c_dim, int a_dim, int g) {
-  __shared__ __align__(128) bf16 a_s[kTileM * kLd];   // x [m][c]
-  __shared__ __align__(128) bf16 b_s[kTileA * kLd];   // W1 [a][c]
-  __shared__ __align__(128) float stage_s[kWarps][256];
-  __shared__ float plog_s[2][kTileM][kMaxG];
+                       int mrows, int c_dim, int a_dim, int g,
+                       int a_tiles) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMlpStages;
+  unsigned char* ring = smem + 1024;
+  // b1 and bf16(W2) of the block's hidden units, 0 past A
+  __shared__ float b1_s[kMlpHidden];
+  __shared__ float w2_s[kMaxG][kMlpHidden];
 
-  const int a0 = blockIdx.x * kTileA;
-  const int m0 = blockIdx.y * kTileM;
+  const int a_tile = blockIdx.x % a_tiles;
+  const int a0 = a_tile * kMlpHidden;
+  const int m0 = (blockIdx.x / a_tiles) * kMlpRows;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wr = warp / 2, wc = warp % 2;  // 32 rows x 64 hidden units
+  const int steps = (c_dim + kMlpDepth - 1) / kMlpDepth;
 
-  AccFrag acc[2][4];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < 4; ++ct) wmma::fill_fragment(acc[rt][ct], 0.0f);
-
-  for (int c0 = 0; c0 < c_dim; c0 += kChunk) {
-    for (int i = tid; i < kTileM * (kChunk / 8); i += kThreads) {
-      const int r = i / (kChunk / 8), vv = i % (kChunk / 8);
-      const int m = m0 + r, col = c0 + vv * 8;
-      *reinterpret_cast<uint4*>(a_s + r * kLd + vv * 8) =
-          load16(x + (size_t)m * c_dim + col, m < mrows && col < c_dim);
+  if (tid == 0) {
+    for (int s = 0; s < kMlpStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kMlpThreads / 32);
     }
-    for (int i = tid; i < kTileA * (kChunk / 8); i += kThreads) {
-      const int r = i / (kChunk / 8), vv = i % (kChunk / 8);
-      const int a = a0 + r, col = c0 + vv * 8;
-      *reinterpret_cast<uint4*>(b_s + r * kLd + vv * 8) =
-          load16(w1 + (size_t)a * c_dim + col, a < a_dim && col < c_dim);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      ARow f0, f1;
-      wmma::load_matrix_sync(f0, a_s + (wr * 32) * kLd + kk * 16, kLd);
-      wmma::load_matrix_sync(f1, a_s + (wr * 32 + 16) * kLd + kk * 16, kLd);
-#pragma unroll
-      for (int ct = 0; ct < 4; ++ct) {
-        BCol bfr;  // element (c, a) at b_s[a * kLd + c]
-        wmma::load_matrix_sync(bfr, b_s + (wc * 64 + ct * 16) * kLd + kk * 16,
-                               kLd);
-        wmma::mma_sync(acc[0][ct], f0, bfr, acc[0][ct]);
-        wmma::mma_sync(acc[1][ct], f1, bfr, acc[1][ct]);
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
-
-  // epilogue: lane (r = lane % 16, half = lane / 16) takes row r and the 8
-  // hidden units [8 half, 8 half + 8) of each 16x16 fragment
-  const int r = lane % 16, half = lane / 16;
-  float* st = stage_s[warp];
-  float plog[2][kMaxG];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt) {
-#pragma unroll
-    for (int gg = 0; gg < kMaxG; ++gg) plog[rt][gg] = 0.0f;
-#pragma unroll
-    for (int ct = 0; ct < 4; ++ct) {
-      wmma::store_matrix_sync(st, acc[rt][ct], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int j = 0; j < 8; ++j) {
-        const int col = half * 8 + j;
-        const int a = a0 + wc * 64 + ct * 16 + col;
-        if (a < a_dim) {
-          const float h = round_bf16(fmaxf(st[r * 16 + col] + b1[a], 0.0f));
-#pragma unroll
-          for (int gg = 0; gg < kMaxG; ++gg)
-            if (gg < g)
-              plog[rt][gg] += h * __bfloat162float(w2[(size_t)gg * a_dim + a]);
-        }
-      }
-      __syncwarp();
-    }
+  for (int i = tid; i < kMlpHidden; i += kMlpThreads) {
+    const int a = a0 + i;
+    b1_s[i] = a < a_dim ? b1[a] : 0.0f;
 #pragma unroll
     for (int gg = 0; gg < kMaxG; ++gg)
-      plog[rt][gg] += __shfl_xor_sync(0xffffffffu, plog[rt][gg], 16);
-    if (half == 0)
-#pragma unroll
-      for (int gg = 0; gg < kMaxG; ++gg)
-        plog_s[wc][wr * 32 + rt * 16 + r][gg] = plog[rt][gg];
+      w2_s[gg][i] = gg < g && a < a_dim
+                        ? round_bf16(w2[(size_t)gg * a_dim + a])
+                        : 0.0f;
   }
   __syncthreads();
-  for (int i = tid; i < kTileM * g; i += kThreads) {
-    const int rr = i / g, gg = i % g, m = m0 + rr;
-    if (m < mrows)
-      part[((size_t)blockIdx.x * mrows + m) * g + gg] =
-          plog_s[0][rr][gg] + plog_s[1][rr][gg];
+
+  // step kt into stage kt % kMlpStages, requested by thread 0 (every
+  // thread walks the same path: see mbar_expect_tx)
+  const bool leader = tid == 0;
+  auto load = [&](int kt) {
+    const int s = kt % kMlpStages;
+    unsigned char* st = ring + s * kMlpStage;
+    mbar_expect_tx(&full[s], kMlpStage, leader);
+    tma_load_2d(st, &x_map, &full[s], kt * kMlpDepth, m0, leader);
+    tma_load_2d(st + kMlpXBytes, &w1_map, &full[s], kt * kMlpDepth, a0,
+                leader);
+  };
+  for (int kt = 0; kt < kMlpStages - 1 && kt < steps; ++kt) load(kt);
+
+  const int wg = warp / 4;
+  float acc[kMlpHidden / 2];
+#pragma unroll
+  for (int i = 0; i < kMlpHidden / 2; ++i) acc[i] = 0.0f;
+
+  for (int kt = 0; kt < steps; ++kt) {
+    const int s = kt % kMlpStages;
+    mbar_wait(&full[s], (kt / kMlpStages) & 1);
+    const unsigned char* st = ring + s * kMlpStage;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kMlpDepth / 16; ++ks) {
+      // A: the warpgroup's 64 rows of 128 B, k at 32 B a step; B: W1's 256
+      // rows of 128 B, likewise (8-row groups 1 KB apart in both)
+      const uint64_t da = smem_desc(st + wg * 64 * 128 + ks * 32, 16, 1024,
+                                    kSwizzle128);
+      const uint64_t db = smem_desc(st + kMlpXBytes + ks * 32, 16, 1024,
+                                    kSwizzle128);
+      Wgmma<kMlpHidden>::ss<0>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of step kt - 1 is done: release its stage
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kMlpStages]);
+    // that stage is refilled with step kt + kMlpStages - 1 once all 8 warps
+    // have released it
+    const int next = kt + kMlpStages - 1;
+    if (next < steps) {
+      if (kt > 0)
+        mbar_wait(&empty[next % kMlpStages], ((kt - 1) / kMlpStages) & 1);
+      load(next);
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // epilogue: the thread holds rows r and r + 8 (h = 0, 1) and hidden units
+  // 8 i + 2 t + e of the tile, in acc[4 i + 2 h + e]; its partial logits
+  // over them in (i, e) order, then the quad's 4 lanes by shuffles
+  const int g4 = lane / 4, t = lane % 4;
+  const int r = m0 + wg * 64 + (warp % 4) * 16 + g4;
+  float plog[2][kMaxG];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int gg = 0; gg < kMaxG; ++gg) plog[h][gg] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMlpHidden / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * i + 2 * t + (e & 1);
+      const float hv = round_bf16(fmaxf(acc[4 * i + e] + b1_s[col], 0.0f));
+#pragma unroll
+      for (int gg = 0; gg < kMaxG; ++gg)
+        if (gg < g) plog[e >> 1][gg] += hv * w2_s[gg][col];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int gg = 0; gg < kMaxG; ++gg) {
+      float v = plog[h][gg];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      plog[h][gg] = v;
+    }
+    const int m = r + 8 * h;
+    if (t == 0 && m < mrows) {
+      float* dst = part + ((size_t)a_tile * mrows + m) * g;
+#pragma unroll
+      for (int gg = 0; gg < kMaxG; ++gg)
+        if (gg < g) dst[gg] = plog[h][gg];
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // 2: logits, softmax over P per glimpse, pool of v
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+constexpr int kPoolThreads = 128;  // 4 warps: one per glimpse's softmax
+constexpr int kPoolUnroll = 8;     // rows of v in flight a thread
+
+// kVec columns of a row of v, as raw bf16: 4 by one 8-byte load, or 2 by
+// a bf16 pair
+template <int kVec>
+struct Cols;
+template <>
+struct Cols<4> {
+  typedef uint2 Raw;
+  __device__ static void unpack(const Raw& r, float (&x)[4]) {
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const bf16x2*>(&r.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const bf16x2*>(&r.y));
+    x[0] = lo.x;
+    x[1] = lo.y;
+    x[2] = hi.x;
+    x[3] = hi.y;
+  }
+  __device__ static void store(bf16* o, const float (&a)[4]) {
+    const bf16x2 lo = __floats2bfloat162_rn(a[0], a[1]);
+    const bf16x2 hi = __floats2bfloat162_rn(a[2], a[3]);
+    *reinterpret_cast<uint2*>(o) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+  }
+};
+template <>
+struct Cols<2> {
+  typedef uint32_t Raw;
+  __device__ static void unpack(const Raw& r, float (&x)[2]) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const bf16x2*>(&r));
+    x[0] = f.x;
+    x[1] = f.y;
+  }
+  __device__ static void store(bf16* o, const float (&a)[2]) {
+    *reinterpret_cast<bf16x2*>(o) = __floats2bfloat162_rn(a[0], a[1]);
+  }
+};
+
+template <int kVec>
+__global__ void __launch_bounds__(kPoolThreads)
     glimpse_pool_kernel(const float* __restrict__ part,  // [A tiles, M, G]
                         const float* __restrict__ b2,    // [G]
                         const bf16* __restrict__ v,      // [N, P, D]
-                        float* __restrict__ out,         // [N, G, D]
+                        bf16* __restrict__ out,          // [N, G, D]
                         int p_dim, int d_dim, int g, int a_tiles, int mrows,
                         int uniform) {
+  typedef typename Cols<kVec>::Raw Raw;
   __shared__ float w_s[kMaxG * kMaxP];  // [G][P]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t n = blockIdx.y;
 
   if (uniform) {
-    for (int i = tid; i < g * p_dim; i += kThreads) w_s[i] = 1.0f;
+    for (int i = tid; i < g * p_dim; i += kPoolThreads) w_s[i] = 1.0f;
   } else {
-    for (int i = tid; i < g * p_dim; i += kThreads) {
+    for (int i = tid; i < g * p_dim; i += kPoolThreads) {
       const int p = i / g, gg = i % g;
       const size_t m = n * p_dim + p;
       float s = 0.0f;
@@ -219,30 +298,58 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const int c = blockIdx.x * kPoolCols + 2 * tid;
+  const int c = (blockIdx.x * kPoolThreads + tid) * kVec;
   if (c >= d_dim) return;
-  float acc[kMaxG][2];
-#pragma unroll
-  for (int gg = 0; gg < kMaxG; ++gg) acc[gg][0] = acc[gg][1] = 0.0f;
-  const bf16* vn = v + n * p_dim * d_dim;
-  for (int p = 0; p < p_dim; ++p) {
-    const float2 x = __bfloat1622float2(
-        *reinterpret_cast<const bf16x2*>(vn + (size_t)p * d_dim + c));
-#pragma unroll
-    for (int gg = 0; gg < kMaxG; ++gg)
-      if (gg < g) {
-        const float w = w_s[gg * p_dim + p];
-        acc[gg][0] += w * x.x;
-        acc[gg][1] += w * x.y;
-      }
-  }
+  float acc[kMaxG][kVec];
 #pragma unroll
   for (int gg = 0; gg < kMaxG; ++gg)
-    if (gg < g) {
-      float* o = out + (n * g + gg) * d_dim + c;
-      o[0] = acc[gg][0];
-      o[1] = acc[gg][1];
+#pragma unroll
+    for (int u = 0; u < kVec; ++u) acc[gg][u] = 0.0f;
+  const bf16* vn = v + n * p_dim * d_dim + c;
+  // row p of v into acc, weighted by each glimpse's w[p]
+  auto add_row = [&](const Raw& raw, int p) {
+    float x[kVec];
+    Cols<kVec>::unpack(raw, x);
+#pragma unroll
+    for (int gg = 0; gg < kMaxG; ++gg) {
+      if (gg < g) {
+        const float w = w_s[gg * p_dim + p];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[gg][i] += w * x[i];
+      }
     }
+  };
+  // whole batches of kPoolUnroll rows: the batch's loads first, with no
+  // branch among them or their sums (a branch per row let the compiler
+  // sink each load into it, one load in flight), then the sums in row
+  // order; the last P % kPoolUnroll rows one by one, in order
+  int p0 = 0;
+  for (; p0 + kPoolUnroll <= p_dim; p0 += kPoolUnroll) {
+    Raw raw[kPoolUnroll];
+#pragma unroll
+    for (int u = 0; u < kPoolUnroll; ++u)
+      raw[u] = *reinterpret_cast<const Raw*>(vn + (size_t)(p0 + u) * d_dim);
+#pragma unroll
+    for (int u = 0; u < kPoolUnroll; ++u) add_row(raw[u], p0 + u);
+  }
+  for (; p0 < p_dim; ++p0)
+    add_row(*reinterpret_cast<const Raw*>(vn + (size_t)p0 * d_dim), p0);
+#pragma unroll
+  for (int gg = 0; gg < kMaxG; ++gg)
+    if (gg < g) Cols<kVec>::store(out + (n * g + gg) * d_dim + c, acc[gg]);
+}
+
+template <int kVec>
+cudaError_t launch_pool(const void* part, const void* b2, const void* v,
+                        void* out, int n, int p, int d, int g, int a_tiles,
+                        int mrows, int uniform, cudaStream_t s) {
+  constexpr int cols = kPoolThreads * kVec;
+  glimpse_pool_kernel<kVec><<<dim3((d + cols - 1) / cols, n), kPoolThreads,
+                              0, s>>>(
+      static_cast<const float*>(part), static_cast<const float*>(b2),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), p, d, g,
+      a_tiles, mrows, uniform);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -259,22 +366,41 @@ int glimpse_attention_launch(const void* x, const void* w1, const void* b1,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int mrows = n * p;
-  const int a_tiles = (a + kTileA - 1) / kTileA;
+  const int a_tiles = (a + kMlpHidden - 1) / kMlpHidden;
   if (!uniform) {  // under the quirk the logits are value-dead
-    const dim3 grid1(a_tiles, (mrows + kTileM - 1) / kTileM);
-    glimpse_mlp_kernel<<<grid1, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-        static_cast<float*>(part), mrows, c, a, g);
-    const cudaError_t err = cudaGetLastError();
+    CUtensorMap x_map, w1_map;
+    const uint64_t x_dims[2] = {(uint64_t)c, (uint64_t)mrows};
+    const uint64_t row_stride[1] = {(uint64_t)c * 2};
+    const uint32_t x_box[2] = {kMlpDepth, kMlpRows};
+    cudaError_t err = hopper::make_map(
+        &x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, row_stride,
+        x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return (int)err;
+    const uint64_t w1_dims[2] = {(uint64_t)c, (uint64_t)a};
+    const uint32_t w1_box[2] = {kMlpDepth, kMlpHidden};
+    err = hopper::make_map(&w1_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w1,
+                           w1_dims, row_stride, w1_box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(glimpse_mlp_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMlpSmem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks =
+        (unsigned)a_tiles * (unsigned)((mrows + kMlpRows - 1) / kMlpRows);
+    glimpse_mlp_kernel<<<blocks, kMlpThreads, kMlpSmem, s>>>(
+        x_map, w1_map, static_cast<const float*>(b1),
+        static_cast<const float*>(w2), static_cast<float*>(part), mrows, c, a,
+        g, a_tiles);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid2((d + kPoolCols - 1) / kPoolCols, n);
-  glimpse_pool_kernel<<<grid2, kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<const float*>(b2),
-      static_cast<const bf16*>(v), static_cast<float*>(out), p, d, g,
-      a_tiles, mrows, uniform);
-  return (int)cudaGetLastError();
+  // 8-byte loads of v where D and v's address allow them
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 8 == 0;
+  return (int)(vec ? launch_pool<4>(part, b2, v, out, n, p, d, g, a_tiles,
+                                    mrows, uniform, s)
+                   : launch_pool<2>(part, b2, v, out, n, p, d, g, a_tiles,
+                                    mrows, uniform, s));
 }
 
 const char* glimpse_error_string(int code) {

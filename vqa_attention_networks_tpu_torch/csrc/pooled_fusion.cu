@@ -49,12 +49,15 @@
 // ~121 MB (img, W, out), d_img ~224 MB (g, out, d_img in f32), d_W ~213 MB
 // (g, out, img, W, d_W in f32); 0.036-0.067 ms at 3.35 TB/s. So the
 // operations bound it (0.07-0.09 ms, the f32 work at 67 TFLOP/s added to
-// the product's). The forward and d_img use the tensor cores through WMMA
-// (bf16 16x16x16, f32 accumulators) with one shared-memory stage and no
-// load in flight during the MMAs, and rebuild wq from W in L2 element by
-// element: correct and simple, not yet fast. d_W's product kernel is a TMA
-// ring with wgmma; what holds it is the f32 work per sample (d_W's k sums
-// and d_q's partial, unfused as the plain version rounds them), which one
+// the product's). The forward is a TMA ring with wgmma: what holds it is
+// its L2 traffic, each block reading its O tile's W slab (1.3 MB) and two
+// samples' img (1.6 MB), ~1.5 GB at N = 64 (a 2-block cluster multicasting
+// img, tried, was slower). d_img uses the tensor cores through WMMA (bf16
+// 16x16x16, f32 accumulators) with one shared-memory stage and no load in
+// flight during the MMAs, and rebuilds wq from W in L2 element by element:
+// correct and simple, not yet fast. d_W's product kernel is a TMA ring
+// with wgmma; what holds it is the f32 work per sample (d_W's k sums and
+// d_q's partial, unfused as the plain version rounds them), which one
 // block of 8 warps an SM does in turn with the sample's products while the
 // ring's loads run beside them.
 //
@@ -62,12 +65,13 @@
 // whole k-major W [k, D, O_pad] (20 MB bf16) resident in VMEM and rebuilds
 // each sample's wq there; 227 KB of shared memory cannot hold it, so W is
 // read in its natural [D, F] layout from L2 (20 MB fits the 50 MB L2) and
-// each block builds the wq tile it needs in shared memory, once per
-// (sample, D chunk, O tile). The TPU's d_W kernel accumulated d_W and d_b
-// over consecutive sample revisits of a sequential grid; blocks here run in
-// parallel, so a d_W block owns a (D tile, O tile) of d_W for all k and
-// loops over the samples inside the block, with its k*64*64 f32 sums in
-// registers (16 accumulators a thread, and k sums for each: k <= 7 fits).
+// each block builds the wq tile it needs, once per (sample, D chunk, O
+// tile): the forward in registers, as wgmma's A operand. The TPU's d_W
+// kernel accumulated d_W and d_b over consecutive sample revisits of a
+// sequential grid; blocks here run in parallel, so a d_W block owns a (D
+// tile, O tile) of d_W for all k and loops over the samples inside the
+// block, with its k*64*64 f32 sums in registers (16 accumulators a thread,
+// and k sums for each: k <= 7 fits).
 // d_q sums over D, across blocks: each block writes its D tile's partial
 // sums, and a later launch of the same entry adds them in D-tile order. No
 // atomics: reruns give the same bits.
@@ -75,10 +79,11 @@
 // over L for d_bq), not in each of the 32 D tiles that read it.
 //
 // Launches:
-//   pooled_fusion_forward  grid (ceil(O/128), N): one sample's L <= 208
-//       rows (13 row tiles of 16) and 128 outputs; per 32-deep D chunk it
-//       builds the [32, 128] wq tile, then the MMAs; epilogue + bq, signed
-//       sqrt -> out.
+//   pooled_fusion_forward  fwd_kernel<k>, grid (ceil(O/64), ceil(N/2)):
+//       64 outputs of two samples, one warpgroup each, over a 4-stage TMA
+//       ring of W's slab and the samples' img (32 deep); out^T [64 o,
+//       208 l] by wgmma m64n208k16 with wq^T built in registers; epilogue
+//       + bq, signed sqrt -> out.
 //   pooled_fusion_d_img    grid (ceil(D/128), N): one sample's rows and 128
 //       columns of D; per 32-output chunk it rebuilds the [128, 32] wq tile
 //       and bf16(g_pooled) [L, 32], then the MMAs.
@@ -116,8 +121,6 @@ constexpr int kChunk = 32;      // contraction depth per shared-memory stage
 constexpr int kLdChunk = kChunk + 8;  // padded against bank conflicts
 constexpr int kRowTiles = 13;   // 13 x 16 = 208 rows >= L
 constexpr int kRows = kRowTiles * 16;
-constexpr int kFwdO = 128;      // forward: outputs per block, 16 per warp
-constexpr int kLdFwdO = kFwdO + 8;
 constexpr int kImgD = 128;      // d_img: D columns per block, 16 per warp
 constexpr int kMaxK = 7;        // d_W's k sums per (d, o) in registers
 constexpr int kMaxSmem = 232448;  // dynamic shared memory of a block
@@ -167,156 +170,247 @@ __device__ __forceinline__ void drain_rows(AccFrag (&acc)[kRowTiles],
   }
 }
 
-// 16 bytes global -> shared without a register round trip; zero-filled
-// (nothing read) when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until all but the newest commit group have landed
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 // ---------------------------------------------------------------------------
 // forward: out = signed_sqrt(img @ bf16(wq) + bq)
 // ---------------------------------------------------------------------------
+// A block owns one 64-wide O tile for kFwdSamples samples, one warpgroup
+// each (the grid's x, the O tile, runs fastest, so the blocks resident at
+// once share a few sample pairs' img in L2 beside all of W). Thread 0
+// keeps a ring of kFwdStages TMA stages full: W's [32 d, 64 K channels]
+// slab (bf16, read in place from [D, F] as K boxes of 64 channels with
+// 128-byte swizzle; boxes wholly past F are not loaded, since their
+// channels belong to outputs past O, which the epilogue drops), read from
+// L2 once for both samples, and each sample's img [208 l, 32 d] (bf16,
+// 64-byte swizzle, a 3D box over [N, L, D] whose rows past L come in as
+// zeros; samples past N are not loaded). Each warpgroup builds its
+// sample's wq^T fragments in registers, wq[d, o] = sum_j f32(W[d, o K + j])
+// * f32(q[n, o K + j]) (unfused, j in order), rounded to bf16 once, and
+// runs out^T [64 o, 208 l] += wq^T [64 o, 16 d] x img^T [16 d, 208 l] with
+// wgmma (A from registers, B = img K-major from shared memory), building
+// the next fragment while the product before it runs.
+constexpr int kFwdSamples = 2;   // warpgroups, one sample each
+constexpr int kFwdOTile = 64;    // o per block: wgmma's M
+constexpr int kFwdDepth = 32;    // D per ring stage
+constexpr int kFwdThreads = kFwdSamples * 128;
+constexpr int kFwdStages = 4;    // 4 fit at every K <= 7 (223 KB at K = 7)
+constexpr int kFwdWBox = kFwdDepth * 64 * 2;    // one 64-channel W box
+constexpr int kFwdImg = kRows * kFwdDepth * 2;  // one sample's img stage
 
-// dynamic shared memory of fwd_kernel, in bytes
-size_t fwd_smem(int k) {
-  return (size_t)kWarps * 256 * 4                            // drain buffers
-         + (size_t)kChunk * kLdFwdO * 2                      // wq tile
-         + 2 * (size_t)kRows * kLdChunk * 2                  // img: 2 stages
-         + 2 * (size_t)kChunk * (kFwdO * k + 8) * 2          // W: 2 stages
-         + (size_t)kFwdO * k * 4 + kFwdO * 4;                // q, bq
+// bytes of one ring stage: W's K boxes, then the img tiles; every part a
+// multiple of 1 KB (the swizzle atoms' alignment)
+__host__ __device__ constexpr int fwd_stage_bytes(int k) {
+  return k * kFwdWBox + kFwdSamples * kFwdImg;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const bf16* __restrict__ img,  // [N, L, D]
-               const bf16* __restrict__ w,    // [D, F]
+// f32(W[d0 + row, c0 + c]) from the stage's W boxes: box c / 64, rows of
+// 128 B whose 16-byte chunks are swizzled by row % 8
+__device__ __forceinline__ float w_at(const unsigned char* w_s, int c,
+                                      int row) {
+  const int cc = c & 63;
+  const int off = (c >> 6) * kFwdWBox + row * 128 +
+                  ((((cc >> 3) ^ (row & 7)) << 4) | ((cc & 7) << 1));
+  return __bfloat162float(__ushort_as_bfloat16(
+      *reinterpret_cast<const unsigned short*>(w_s + off)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap w_map,    // [D, F] bf16
+               const __grid_constant__ CUtensorMap img_map,  // [N, L, D]
                const float* __restrict__ b,   // [F]
                const bf16* __restrict__ q,    // [N, F]
                float* __restrict__ out,       // [N, L, O]
-               int l, int d, int f, int k) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld_w = kFwdO * k + 8;
-  const int a_stage = kRows * kLdChunk, w_stage = kChunk * ld_w;
-  float* stage_s = reinterpret_cast<float*>(smem);    // [8 warps][256]
-  bf16* b_s = reinterpret_cast<bf16*>(stage_s + kWarps * 256);  // wq [d][o]
-  bf16* a_s = b_s + kChunk * kLdFwdO;    // img[n] [2 stages][l][32 d]
-  bf16* w_s = a_s + 2 * a_stage;         // W [2 stages][32 d][128k channels]
-  float* q_s = reinterpret_cast<float*>(w_s + 2 * w_stage);  // [128 k]
-  float* bq_s = q_s + kFwdO * k;                             // [128]
+               int n_total, int l, int d, int f) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kFwdStages;
+  unsigned char* ring = smem + 1024;
 
-  const int o_dim = f / k;
-  const int o0 = blockIdx.x * kFwdO, c0 = o0 * k;
-  const int n = blockIdx.y;
+  const int o_dim = f / K;
+  const int o0 = blockIdx.x * kFwdOTile, c0 = o0 * K;
+  const int s0 = blockIdx.y * kFwdSamples;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bf16* img_n = img + (size_t)n * l * d;
-  const int chunks = (d + kChunk - 1) / kChunk;
+  const int steps = (d + kFwdDepth - 1) / kFwdDepth;
+  constexpr int kStage = fwd_stage_bytes(K);
+  const int boxes = min(K, (f - c0 + 63) / 64);
+  const int present = min(kFwdSamples, n_total - s0);
 
-  // copy the img and W rows of D chunk t into stage t & 1; one commit group
-  // per call (empty past the end, so that "all but the newest group" is
-  // always chunk t). c0 and F are multiples of 8.
-  auto prefetch = [&](int t) {
-    if (t < chunks) {
-      const int d0 = t * kChunk;
-      bf16* a = a_s + (t & 1) * a_stage;
-      for (int i = tid; i < l * (kChunk / 8); i += kThreads) {
-        const int r = i / (kChunk / 8), col = d0 + (i % (kChunk / 8)) * 8;
-        cp_async16(a + r * kLdChunk + col - d0,
-                   col < d ? img_n + (size_t)r * d + col : img_n, col < d);
-      }
-      bf16* ws = w_s + (t & 1) * w_stage;
-      const int per_row = kFwdO * k / 8;
-      for (int i = tid; i < kChunk * per_row; i += kThreads) {
-        const int r = i / per_row, v = i % per_row;
-        const int dd = d0 + r, c = c0 + v * 8;
-        const bool ok = dd < d && c < f;
-        cp_async16(ws + r * ld_w + v * 8, ok ? w + (size_t)dd * f + c : w,
-                   ok);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kFwdSamples * 4);
     }
-    cp_async_commit();
-  };
-
-  prefetch(0);
-  for (int i = tid; i < kFwdO * k; i += kThreads) {
-    const int c = c0 + i;
-    q_s[i] = c < f ? __bfloat162float(q[(size_t)n * f + c]) : 0.0f;
-  }
-  // rows [l, kRows) of both img stages are zero for the whole kernel
-  for (int i = l * kLdChunk + tid; i < kRows * kLdChunk; i += kThreads) {
-    a_s[i] = __float2bfloat16(0.0f);
-    a_s[a_stage + i] = __float2bfloat16(0.0f);
+    mbar_fence_init();
   }
   __syncthreads();
-  if (tid < kFwdO) {
-    const int o = o0 + tid;
-    float s = 0.0f;
-    if (o < o_dim) {
-      s = __fmul_rn(b[o * k], q_s[tid * k]);
-      for (int j = 1; j < k; ++j)
-        s = __fadd_rn(s, __fmul_rn(b[o * k + j], q_s[tid * k + j]));
-    }
-    bq_s[tid] = s;
+
+  // step kt into stage kt % kFwdStages, requested by thread 0 (every thread
+  // walks the same path: see mbar_expect_tx)
+  const bool leader = tid == 0;
+  auto load = [&](int kt) {
+    const int s = kt % kFwdStages;
+    unsigned char* st = ring + s * kStage;
+    mbar_expect_tx(&full[s], boxes * kFwdWBox + present * kFwdImg, leader);
+    for (int bx = 0; bx < boxes; ++bx)
+      tma_load_2d(st + bx * kFwdWBox, &w_map, &full[s], c0 + 64 * bx,
+                  kt * kFwdDepth, leader);
+    for (int i = 0; i < present; ++i)
+      tma_load_3d(st + K * kFwdWBox + i * kFwdImg, &img_map, &full[s],
+                  kt * kFwdDepth, 0, s0 + i, leader);
+  };
+  for (int kt = 0; kt < kFwdStages - 1 && kt < steps; ++kt) load(kt);
+
+  // warpgroup wg owns sample n; its thread holds outputs o_lo and o_hi =
+  // o_lo + 8 of the m64 tile in the A fragment
+  const int wg = warp / 4, w4 = warp % 4, g = lane / 4, t = lane % 4;
+  const int n = s0 + wg;
+  const bool live = wg < present;
+  const int o_lo = w4 * 16 + g, o_hi = o_lo + 8;
+  const bool ok_lo = live && o0 + o_lo < o_dim;
+  const bool ok_hi = live && o0 + o_hi < o_dim;
+  float q_lo[K], q_hi[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const bf16* qp = q + (size_t)n * f + c0 + j;
+    q_lo[j] = ok_lo ? __bfloat162float(qp[o_lo * K]) : 0.0f;
+    q_hi[j] = ok_hi ? __bfloat162float(qp[o_hi * K]) : 0.0f;
   }
 
-  AccFrag acc[kRowTiles];
+  float acc[kRows / 2];
 #pragma unroll
-  for (int mt = 0; mt < kRowTiles; ++mt) wmma::fill_fragment(acc[mt], 0.0f);
+  for (int i = 0; i < kRows / 2; ++i) acc[i] = 0.0f;
 
-  for (int t = 0; t < chunks; ++t) {
-    prefetch(t + 1);  // in flight during this chunk's wq build and MMAs
-    cp_async_wait_prior();
-    __syncthreads();
-    // the [32, 128] wq tile from the W stage: the f32 chain over j, then
-    // one bf16 rounding (0 past O, and past D where W's rows are 0)
-    const bf16* ws = w_s + (t & 1) * w_stage;
-    for (int i = tid; i < kChunk * kFwdO; i += kThreads) {
-      const int r = i / kFwdO, oo = i % kFwdO;
-      float s = 0.0f;
-      if (o0 + oo < o_dim) {
-        const bf16* wr = ws + r * ld_w + oo * k;
-        const float* qo = q_s + oo * k;
-        s = __fmul_rn(__bfloat162float(wr[0]), qo[0]);
-        for (int j = 1; j < k; ++j)
-          s = __fadd_rn(s, __fmul_rn(__bfloat162float(wr[j]), qo[j]));
-      }
-      b_s[r * kLdFwdO + oo] = __float2bfloat16(s);
-    }
-    __syncthreads();
-    const bf16* a = a_s + (t & 1) * a_stage;
+  for (int kt = 0; kt < steps; ++kt) {
+    const int s = kt % kFwdStages;
+    mbar_wait(&full[s], (kt / kFwdStages) & 1);
+    const unsigned char* st = ring + s * kStage;
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      BRow bfr;
-      wmma::load_matrix_sync(bfr, b_s + kk * 16 * kLdFwdO + warp * 16,
-                             kLdFwdO);
+    for (int ks = 0; ks < kFwdDepth / 16; ++ks) {
+      // wq at outputs o_lo, o_hi and depths dd, dd + 1, dd + 8, dd + 9
+      const int dd = ks * 16 + 2 * t;
+      float wq[2][4];
 #pragma unroll
-      for (int mt = 0; mt < kRowTiles; ++mt) {
-        ARow af;
-        wmma::load_matrix_sync(af, a + mt * 16 * kLdChunk + kk * 16,
-                               kLdChunk);
-        wmma::mma_sync(acc[mt], af, bfr, acc[mt]);
+      for (int e = 0; e < 4; ++e) {
+        const int de = dd + (e & 1) + (e >> 1) * 8;
+        wq[0][e] = __fmul_rn(w_at(st, o_lo * K, de), q_lo[0]);
+        wq[1][e] = __fmul_rn(w_at(st, o_hi * K, de), q_hi[0]);
+#pragma unroll
+        for (int j = 1; j < K; ++j) {
+          wq[0][e] = __fadd_rn(
+              wq[0][e], __fmul_rn(w_at(st, o_lo * K + j, de), q_lo[j]));
+          wq[1][e] = __fadd_rn(
+              wq[1][e], __fmul_rn(w_at(st, o_hi * K + j, de), q_hi[j]));
+        }
       }
+      const uint32_t a[4] = {pack_bf16(wq[0][0], wq[0][1]),
+                             pack_bf16(wq[1][0], wq[1][1]),
+                             pack_bf16(wq[0][2], wq[0][3]),
+                             pack_bf16(wq[1][2], wq[1][3])};
+      const uint64_t db = smem_desc(st + K * kFwdWBox + wg * kFwdImg + ks * 32,
+                                    16, 512, kSwizzle64);
+      wgmma_fence();
+      WgmmaRS<kRows>::rs<0>(acc, a, db);
+      wgmma_commit();
+      // the product before this one is done (the next fragment is built
+      // while this one runs); at ks == 0 that was the previous stage's last
+      wgmma_wait<1>();
+      if (ks == 0 && kt > 0 && lane == 0)
+        mbar_arrive(&empty[(kt - 1) % kFwdStages]);
     }
-    __syncthreads();  // b_s and stage t & 1 are free for chunk t + 2
+    // the stage of step kt - 1 is refilled with step kt + kFwdStages - 1
+    // once all 8 warps have released it
+    const int next = kt + kFwdStages - 1;
+    if (next < steps) {
+      if (kt > 0)
+        mbar_wait(&empty[next % kFwdStages], ((kt - 1) / kFwdStages) & 1);
+      load(next);
+    }
   }
+  wgmma_wait<0>();
+  fence_operands(acc);
 
-  const int ob = warp * 16;
-  drain_rows(acc, stage_s + warp * 256, lane, [&](int row, int cc, float v) {
-    const int o = o0 + ob + cc;
-    if (row < l && o < o_dim)
-      out[((size_t)n * l + row) * o_dim + o] =
-          signed_sqrt(__fadd_rn(v, bq_s[ob + cc]));
-  });
+  // epilogue: bq in f32 (j in order), the signed sqrt, out masked past L
+  // and O
+  float bq_lo = 0.0f, bq_hi = 0.0f;
+  if (ok_lo) {
+    const float* bp = b + c0 + o_lo * K;
+    bq_lo = __fmul_rn(bp[0], q_lo[0]);
+#pragma unroll
+    for (int j = 1; j < K; ++j)
+      bq_lo = __fadd_rn(bq_lo, __fmul_rn(bp[j], q_lo[j]));
+  }
+  if (ok_hi) {
+    const float* bp = b + c0 + o_hi * K;
+    bq_hi = __fmul_rn(bp[0], q_hi[0]);
+#pragma unroll
+    for (int j = 1; j < K; ++j)
+      bq_hi = __fadd_rn(bq_hi, __fmul_rn(bp[j], q_hi[j]));
+  }
+  float* out_n = out + (size_t)n * l * o_dim + o0;
+#pragma unroll
+  for (int i = 0; i < kRows / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 8 * i + 2 * t + (e & 1);
+      const bool hi = e >= 2;
+      if (row < l && (hi ? ok_hi : ok_lo))
+        out_n[(size_t)row * o_dim + (hi ? o_hi : o_lo)] =
+            signed_sqrt(__fadd_rn(acc[4 * i + e], hi ? bq_hi : bq_lo));
+    }
+  }
+}
+
+template <int K>
+int launch_fwd(const void* img, const void* w, const void* b, const void* q,
+               void* out, int n, int l, int d, int f, cudaStream_t s) {
+  CUtensorMap w_map, img_map;
+  const uint64_t w_dims[2] = {(uint64_t)f, (uint64_t)d};
+  const uint64_t w_strides[1] = {(uint64_t)f * 2};
+  const uint32_t w_box[2] = {64, kFwdDepth};
+  cudaError_t err = hopper::make_map(
+      &w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, w_dims, w_strides,
+      w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t img_dims[3] = {(uint64_t)d, (uint64_t)l, (uint64_t)n};
+  const uint64_t img_strides[2] = {(uint64_t)d * 2, (uint64_t)l * d * 2};
+  const uint32_t img_box[3] = {kFwdDepth, kRows, 1};
+  err = hopper::make_map(&img_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, img,
+                         img_dims, img_strides, img_box,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = 2048 + kFwdStages * fwd_stage_bytes(K);
+  err = cudaFuncSetAttribute(fwd_kernel<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((f / K + kFwdOTile - 1) / kFwdOTile,
+                  (n + kFwdSamples - 1) / kFwdSamples);
+  fwd_kernel<K><<<grid, kFwdThreads, smem, s>>>(
+      w_map, img_map, static_cast<const float*>(b),
+      static_cast<const bf16*>(q), static_cast<float*>(out), n, l, d, f);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_k(const void* img, const void* w, const void* b,
+                 const void* q, void* out, int n, int l, int d, int f, int k,
+                 cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_fwd<1>(img, w, b, q, out, n, l, d, f, s);
+    case 2: return launch_fwd<2>(img, w, b, q, out, n, l, d, f, s);
+    case 3: return launch_fwd<3>(img, w, b, q, out, n, l, d, f, s);
+    case 4: return launch_fwd<4>(img, w, b, q, out, n, l, d, f, s);
+    case 5: return launch_fwd<5>(img, w, b, q, out, n, l, d, f, s);
+    case 6: return launch_fwd<6>(img, w, b, q, out, n, l, d, f, s);
+    case 7: return launch_fwd<7>(img, w, b, q, out, n, l, d, f, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -812,17 +906,8 @@ int pooled_fusion_forward(const void* img, const void* w, const void* b,
                           const void* q, void* out, int n, int l, int d,
                           int f, int k, void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(k);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((f / k + kFwdO - 1) / kFwdO, n);
-  fwd_kernel<<<grid, kThreads, smem,
-               reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(img), static_cast<const bf16*>(w),
-      static_cast<const float*>(b), static_cast<const bf16*>(q),
-      static_cast<float*>(out), l, d, f, k);
-  return (int)cudaGetLastError();
+  return launch_fwd_k(img, w, b, q, out, n, l, d, f, k,
+                      reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K6: the forward into z (f32 scratch [N, L, O]), then the grid-flat L2

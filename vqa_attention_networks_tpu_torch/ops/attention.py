@@ -37,7 +37,7 @@ from vqa_attention_networks_tpu_torch.models.layers import matmul_f32
 from vqa_attention_networks_tpu_torch.ops import kernels_disabled
 from vqa_attention_networks_tpu_torch.ops.fusion import two_glimpse_pool
 
-_TILE_A = 128  # hidden units per MLP block (glimpse_attention.cu kTileA)
+_TILE_A = 256  # hidden units per MLP block (glimpse_attention.cu kMlpHidden)
 _MAX_G = 4
 _MAX_P = 1024
 
@@ -114,23 +114,24 @@ def _check_inputs(x, w1, b1, w2, b2, v) -> None:
 
 def glimpse_attention_cuda(x, w1, b1, w2, b2, v, *,
                            uniform_quirk: bool) -> torch.Tensor:
-    """Launch K7 -> [N, G*D] in x's dtype (the kernel writes f32, rounded
-    here as the JAX dispatcher rounds the TPU kernel's output). Raises on
-    an input it does not take and on a refused launch."""
+    """Launch K7 -> [N, G*D] in x's dtype, bf16 (the kernel rounds its f32
+    sums once, as the JAX dispatcher rounds the TPU kernel's output; and
+    W2, taken in f32, as the plain version rounds it). Raises on an input
+    it does not take and on a refused launch."""
     global launch_count
     _check_inputs(x, w1, b1, w2, b2, v)
     n, p, c = x.shape
     a, g, d = w1.shape[0], w2.shape[0], v.shape[2]
     w1b = w1.detach().to(torch.bfloat16).contiguous()
-    w2b = w2.detach().to(torch.bfloat16).contiguous()
+    w2f = w2.detach().float().contiguous()
     b1f = b1.detach().float().contiguous()
     b2f = b2.detach().float().contiguous()
     part = torch.empty(-(-a // _TILE_A), n * p, g, dtype=torch.float32,
                        device=x.device)
-    out = torch.empty(n, g * d, dtype=torch.float32, device=x.device)
+    out = torch.empty(n, g * d, dtype=torch.bfloat16, device=x.device)
     lib = _library()
     rc = lib.glimpse_attention_launch(
-        x.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), w2b.data_ptr(),
+        x.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), w2f.data_ptr(),
         b2f.data_ptr(), v.data_ptr(), part.data_ptr(), out.data_ptr(),
         n, p, c, a, g, d, int(uniform_quirk),
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -141,7 +142,7 @@ def glimpse_attention_cuda(x, w1, b1, w2, b2, v, *,
             f"({lib.glimpse_error_string(rc).decode()})"
         )
     launch_count += 1
-    return out.to(x.dtype)
+    return out
 
 
 def glimpse_attention(

@@ -52,7 +52,7 @@ import torch
 from vqa_attention_networks_tpu_torch.models.layers import signed_sqrt
 
 _MAX_K = 7  # the d_W kernel keeps k accumulators per (d, o) in shared memory
-_MAX_ROWS = 208  # the forward holds one sample's L rows in 13 tiles of 16
+_MAX_ROWS = 208  # L rows a kernel holds (wgmma N; d_img's 13 tiles)
 _D_TILE = 64  # D rows per d_W block: d_q's partial sums per D tile
 
 # kernel launches made by PooledGridFuse, by kernel

@@ -1,4 +1,4 @@
-"""Time the pre-pool training step, or five kernels, of a checkout on the card.
+"""Time a checkout's pre-pool training step, or its kernels, on the card.
 
     python3 vqa_attention_networks_tpu_torch/step_time.py [--root DIR] [--kernels]
 
@@ -16,9 +16,11 @@ in the order A, B, B, A, and compare within the one machine.
   port), one JSON line each: K1 at N = 256, by CUDA events and each of its
   launches' device time; K5 at N = 256, with ``torch.matmul`` on the bare
   product img @ bf16(W) beside it for information; K2's forward and d_q at
-  N = 64, rate 0.1; K3's d_W/d_b/d_q (four launches) at N = 64. Each line
-  says whether the kernel agreed with its plain version on the same inputs
-  and whether a rerun gave the same bits.
+  N = 64, rate 0.1; K3's d_W/d_b/d_q (four launches) at N = 64; K3's
+  forward at N = 64 and 256; K6 at N = 256; K7 at its two call shapes (the
+  question glimpse and the co-attention), its two launches and the
+  wrapper's cast apart. Each line says whether the kernel agreed with its
+  plain version on the same inputs and whether a rerun gave the same bits.
 
 Every line carries the card's name and power limit as nvidia-smi gives
 them.
@@ -47,8 +49,7 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=30)
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--kernels", action="store_true",
-                        help="time K1, K5, K2's forward and d_q and K3's "
-                        "d_W/d_b/d_q, not the step")
+                        help="time the kernels, not the step")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     # the port from ``root``, and none of this file's neighbours as
@@ -62,18 +63,20 @@ def main() -> None:
 
 
 def time_kernels(harness: str, root: str) -> None:
-    """K1, K5, K2's forward and d_q and K3's d_W/d_b/d_q, timed and checked
-    by ``harness`` (a ``chip_smoke.py``) on the port that ``sys.path``
-    reaches first."""
+    """K1, K5, K2's forward and d_q, K3's d_W/d_b/d_q and forward, K6 and
+    K7, timed and checked by ``harness`` (a ``chip_smoke.py``) on the port
+    that ``sys.path`` reaches first."""
     spec = importlib.util.spec_from_file_location("chip_smoke", harness)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     import torch
 
+    from vqa_attention_networks_tpu_torch.ops import attention as att
     from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
     from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
     from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
     from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
+    from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
 
     _, smi = smoke.card()  # exits when no card is visible
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -139,16 +142,46 @@ def time_kernels(harness: str, root: str) -> None:
     torch.cuda.empty_cache()
 
     # K3's d_W/d_b/d_q on the kernel's own forward output, as k3_time
-    # draws it
-    img, w, b, q, g = smoke.k2_inputs(n, 3, cfg, dev)
-    w_bf16, bf, qb = pf.operands(w, b, q)
-    out = pf.forward_cuda(img, w_bf16, bf, qb, k)
-    args = (g, out, img, w_bf16, bf, qb, k)
-    got = pf.d_w_cuda(*args)
-    want = pf.d_w_reference(g, out, img, w_bf16, bf, qb, k)
-    say("K3_d_w", lambda: pf.d_w_cuda(*args), got,
-        all(bool(smoke.k3_within(name, a, b_).all()) for name, a, b_ in
-            zip(("d_w", "d_b", "d_q"), got, want)), n=n)
+    # draws it, and K3's forward at N = 64 (k3_time's) and 256
+    for n3 in (n, smoke.BATCH):
+        img, w, b, q, g = smoke.k2_inputs(n3, 3, cfg, dev)
+        w_bf16, bf, qb = pf.operands(w, b, q)
+        out = pf.forward_cuda(img, w_bf16, bf, qb, k)
+        if n3 == n:
+            args = (g, out, img, w_bf16, bf, qb, k)
+            got = pf.d_w_cuda(*args)
+            want = pf.d_w_reference(g, out, img, w_bf16, bf, qb, k)
+            say("K3_d_w", lambda: pf.d_w_cuda(*args), got,
+                all(bool(smoke.k3_within(name, a, b_).all()) for name, a, b_
+                    in zip(("d_w", "d_b", "d_q"), got, want)), n=n3)
+            del args, got
+        want = pf.forward_reference(img, w_bf16, bf, qb, k)
+        say("K3_forward", lambda: pf.forward_cuda(img, w_bf16, bf, qb, k),
+            out, bool(smoke.k3_within("forward", out, want).all()), n=n3)
+        del img, w, b, q, g, w_bf16, bf, qb, out, want
+        torch.cuda.empty_cache()
+
+    # K6 as chip_smoke's k6_time phase draws it, at N = 256
+    n = smoke.BATCH
+    img, w, b, q = smoke.k6_inputs(n, 6, cfg, dev)
+    got = wqg.wq_grid_fuse_cuda(img, w, b, q, k)
+    want = wqg.wq_grid_fuse_reference(img, w, b, q, k)
+    say("K6", lambda: wqg.wq_grid_fuse_cuda(img, w, b, q, k), got,
+        bool(smoke.k6_within(got, want).all()), n=n)
+    del img, w, b, q, got, want
+    torch.cuda.empty_cache()
+
+    # K7 at both call shapes as chip_smoke's time phase draws them
+    for shape_name, shape in smoke.K7_SHAPES.items():
+        a7 = smoke.k7_inputs(shape, 7, dev)
+        got = att.glimpse_attention_cuda(*a7, uniform_quirk=False)
+        want = att.glimpse_attention_reference(*a7, uniform_quirk=False)
+        say(f"K7_{shape_name}",
+            lambda: att.glimpse_attention_cuda(*a7, uniform_quirk=False),
+            got, bool(smoke.k7_within(got, want).all()), n=shape[0],
+            shape=dict(zip("npcad", shape)))
+        del a7, got, want
+        torch.cuda.empty_cache()
 
 
 def time_step(root: str, steps: int, batch: int) -> None:
