@@ -99,8 +99,9 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 18. full-width bf16 mhb_coAtt served with ``VQA_PALLAS_GLIMPSE`` (K1 and K7)
     and with ``fast_path="composed"`` plus both switches (K5 and K7): the
     launch counts and flips against the plain versions;
-19. times: K4, K5 and K7 against their plain versions at N = 256 (K7's
-    two launches and its wrapper's cast apart, by device time), and
+19. times: K4, K5 and K7 against their plain versions at N = 256 (K4's
+    device time, by events queued behind a spin; K7's two launches and
+    its wrapper's cast apart, by the profiler), and
     beside K5, for information, ``torch.matmul`` on the bare product
     img @ bf16(W) (``matmul_ms``), which no path of the port calls;
 20. K6 (the standalone wq fusion + grid-flat L2) against its plain version
@@ -127,7 +128,9 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     port's composed ``layers.lstm`` on the same weights beside it for
     information;
 23. times: K6 and its plain version at N = 256 and 1024, with the torch
-    composed weight-contracted chain + L2 for information; K8's scan and
+    composed weight-contracted chain + L2 for information, and at N = 256
+    the device time of each of K6's two launches (the forward with its
+    sums of squares, and the scale launch); K8's scan and
     the whole ``lstm_seq`` against their plain versions at N = 256, and
     ``torch.nn.LSTM`` (cuDNN, input projection included) on the same
     weights and input: K8's library time, and the device times of both
@@ -604,7 +607,12 @@ def device_ms_by_kernel(fn, iters: int = 5) -> dict:
     """Each kernel's device time per call of ``fn`` (ms) from one
     torch.profiler trace of ``iters`` calls after a warm-up, by kernel
     name (its first 60 characters; kernels whose names agree that far are
-    summed): the time of each launch of a multi-launch kernel, apart."""
+    summed): the time of each launch of a multi-launch kernel, apart.
+    Late in a long run the profiler can drop records, so each kernel's
+    time is its mean per recorded launch times its launches per call
+    (round(count / iters)), as ``device_ms``'s ``ms_per_launch``; it can
+    also drop every record of a kernel, which then is missing. A call's
+    whole device time comes from ``launch_ms``, which needs no profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -617,9 +625,30 @@ def device_ms_by_kernel(fn, iters: int = 5) -> dict:
     for e in prof.key_averages():
         if getattr(e, "self_device_time_total", 0) > 0:
             key = e.key[:60]
-            times[key] = times.get(key, 0.0) + \
-                e.self_device_time_total / iters / 1e3
+            times[key] = times.get(key, 0.0) + (
+                e.self_device_time_total / e.count
+                * max(1, round(e.count / iters)) / 1e3)
     return times
+
+
+def launch_ms(fn, iters: int = 10) -> float:
+    """The device ms of one call of ``fn`` (all its launches): CUDA events
+    around each call, both queued behind a spin on the card so that the
+    host's enqueue falls outside the interval, averaged over ``iters``
+    calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / iters
 
 
 def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
@@ -1616,13 +1645,18 @@ def k6_time(cfg: Config, dev, smi: str) -> tuple:
         run = interleaved_ms(lambda: wqg.wq_grid_fuse_cuda(img, w, b, q, k),
                              lambda: wqg.wq_grid_fuse_reference(img, w, b, q,
                                                                 k))
+        # the forward and the scale launch apart, at N = BATCH
+        by_launch = device_ms_by_kernel(
+            lambda: wqg.wq_grid_fuse_cuda(img, w, b, q, k)) \
+            if n == BATCH else None
         composed()
         composed_ms = time_ms(composed, 3)
         bnd = bound(nbytes(img, *pf.operands(w, b, q)) + 2 * n * l * o,
                     {"bf16": 2 * n * l * d * o, "f32": 2 * n * k * d * o})
         say("k6_time", n=n, kernel_ms=run[0], plain_ms=run[1],
             kernel_runs_ms=run[2], plain_runs_ms=run[3], bound_ms=bnd[0],
-            bound_by=bnd[1], composed_chain_ms_info=composed_ms, card=smi)
+            bound_by=bnd[1], composed_chain_ms_info=composed_ms,
+            device_ms_by_launch=by_launch, card=smi)
         if n == BATCH:
             times, k6_bound = run, bnd
         del img, w, b, q
@@ -1994,6 +2028,7 @@ def main() -> None:
                      {"bf16": 2 * n * (3 * t * l * e + 2 * (l + t) * e)})
     k4_time = interleaved_ms(lambda: co.coattention_core_cuda(*a4),
                              lambda: co.coattention_core_reference(*a4), 10)
+    k4_device = launch_ms(lambda: co.coattention_core_cuda(*a4))
     del a4
     a5 = k5_inputs(BATCH, 5, cfg, dev)
     k = cfg.mfb_factor
@@ -2033,6 +2068,8 @@ def main() -> None:
                              **{f"K7_{s}": (k7_times[s], k7_bounds[s])
                                 for s in K7_SHAPES}}.items():
         extra = {"matmul_ms": matmul_ms} if name == "K5" else {}
+        if name == "K4":
+            extra["device_ms"] = k4_device
         if name.startswith("K7_"):
             extra["device_ms_by_launch"] = k7_launches[name[3:]]
         say("time", kernel=name, n=BATCH, kernel_ms=run[0], plain_ms=run[1],

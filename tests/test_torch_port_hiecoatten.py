@@ -205,3 +205,52 @@ def test_init_params_loads_into_both_packages():
     load_jax_params(HieCoAtten(port_config(cfg)), tree)
     jax.jit(lambda p: jhie.apply(p, cfg, *inputs_for(cfg, n=2))[0])(
         jax.tree_util.tree_map(np.asarray, tree))
+
+
+# K4's shape gate (``coattention.check_shape``, the gate the wrapper and
+# ``coattention_launch`` share) against the range of the kernel it
+# replaced, whose gate was 1 <= L <= 1024, 1 <= T <= 32, an even E and
+# 4 (T L + 9 L + 9 T + 8) + 2 T E bytes of shared memory within 232448.
+# The new kernel streams E in slices, so its shared memory does not grow
+# with E: it takes every shape the old one took.
+def _old_gate_takes(l, t, e):
+    return (1 <= l <= 1024 and 1 <= t <= 32 and e >= 2 and e % 2 == 0
+            and 4 * (t * l + 9 * l + 9 * t + 8) + 2 * t * e <= 232448)
+
+
+def _old_gate_max_e(l, t):
+    e = (232448 - 4 * (t * l + 9 * l + 9 * t + 8)) // (2 * t)
+    return e - e % 2
+
+
+@pytest.mark.parametrize("n,l,t,e", [
+    (256, 196, 22, 512), (3, 1024, 32, 512), (1, 1, 1, 2), (5, 196, 22, 2),
+    (7, 1024, 1, 2), (1, 1, 32, 3610), (1, 1, 1, 116170),
+    (1, 1024, 32, 970), (2 ** 31 - 1, 196, 22, 512)],
+    ids=["production", "l1024_t32_e512", "l1_t1_e2", "e2", "l1024_t1_e2",
+         "l1_t32_widest", "l1_t1_widest", "l1024_t32_widest", "n_max"])
+def test_k4_gate_takes_the_old_range(n, l, t, e):
+    assert _old_gate_takes(l, t, e)
+    co.check_shape(n, l, t, e)
+
+
+@pytest.mark.parametrize("l", [1, 2, 17, 31, 32, 33, 196, 511, 1000, 1024])
+def test_k4_gate_takes_every_old_shape_at(l):
+    # at each T, E = 2 and the widest even E the old gate took
+    for t in range(1, 33):
+        for e in (2, _old_gate_max_e(l, t)):
+            assert _old_gate_takes(l, t, e), (t, e)
+            co.check_shape(1, l, t, e)
+    assert co.smem_bytes(l) <= co._MAX_SMEM
+
+
+@pytest.mark.parametrize("n,l,t,e,match", [
+    (8, 196, 33, 512, "T <="), (8, 1025, 22, 512, "L <="),
+    (8, 196, 22, 511, "E % 2"), (8, 196, 22, 1, "E % 2"),
+    (8, 196, 22, 0, "E % 2"), (8, 196, 0, 512, "T <="),
+    (8, 0, 22, 512, "L <="), (0, 196, 22, 512, "N <"),
+    (2 ** 31, 196, 22, 512, "N <")],
+    ids=["t33", "l1025", "odd_e", "e1", "e0", "t0", "l0", "n0", "n_2_31"])
+def test_k4_gate_refuses(n, l, t, e, match):
+    with pytest.raises(ValueError, match=match):
+        co.check_shape(n, l, t, e)

@@ -343,20 +343,44 @@ def _bf16(rng, shape, scale, device="cuda"):
             * scale).to(device).to(torch.bfloat16)
 
 
-def _k4_inputs(n, l, t, e, seed=0):
+def _k4_inputs(n, l, t, e, seed=0, misalign=False):
+    """K4's inputs; ``misalign`` places each activation 4 bytes past a
+    16-byte boundary (contiguous all the same), so the kernel copies rows
+    4 bytes at a time."""
     rng = np.random.default_rng(seed)
-    return (_bf16(rng, (n, l, e), 0.5), _bf16(rng, (n, t, e), 0.5),
-            _bf16(rng, (n, l, e), 0.3), _bf16(rng, (n, t, e), 0.3),
-            _bf16(rng, (n, l, e), 0.5), _bf16(rng, (n, t, e), 0.5),
+
+    def act(shape, scale):
+        x = _bf16(rng, shape, scale)
+        if not misalign:
+            return x
+        buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+        y = buf[2:].view(shape)
+        y.copy_(x)
+        return y
+
+    return (act((n, l, e), 0.5), act((n, t, e), 0.5),
+            act((n, l, e), 0.3), act((n, t, e), 0.3),
+            act((n, l, e), 0.5), act((n, t, e), 0.5),
             _bf16(rng, (e, 1), 0.4), _bf16(rng, (e, 1), 0.4))
 
 
-@pytest.mark.parametrize("n,l,t,e", [(3, 20, 5, 62), (8, 196, 22, 512)],
-                         ids=["ragged", "production"])
-def test_k4_matches_plain_version(n, l, t, e):
+# the padding edges of the kernel: T padded to 32 (T = 1, 8, 22, 32), L to
+# 32-row chunks (L = 1, 17, 196, 1024), E to 128-column slices (E = 2, 62:
+# 4-byte copies; 512; 600: a partial last slice), odd N, and inputs that
+# are 4-byte but not 16-byte aligned
+@pytest.mark.parametrize("n,l,t,e,misalign", [
+    (3, 20, 5, 62, False), (8, 196, 22, 512, False),
+    (5, 1, 1, 2, False), (7, 17, 8, 62, False), (3, 1024, 32, 512, False),
+    (9, 17, 22, 2, False), (5, 196, 1, 512, False), (1, 196, 32, 62, False),
+    (3, 1024, 8, 2, False), (5, 1, 32, 512, False), (3, 50, 22, 600, False),
+    (3, 196, 22, 512, True)],
+    ids=["ragged", "production", "t1_l1_e2", "t8_l17_e62",
+         "t32_l1024_e512", "t22_l17_e2", "t1_l196_e512", "n1_t32_l196_e62",
+         "t8_l1024_e2", "t32_l1_e512", "t22_l50_e600", "misaligned"])
+def test_k4_matches_plain_version(n, l, t, e, misalign):
     from vqa_attention_networks_tpu_torch.ops import coattention as co
 
-    args = _k4_inputs(n, l, t, e)
+    args = _k4_inputs(n, l, t, e, misalign=misalign)
     before = co.launch_count
     got = co.coattention_core(*args)
     torch.cuda.synchronize()
@@ -364,15 +388,32 @@ def test_k4_matches_plain_version(n, l, t, e):
     want = co.coattention_core_reference(*args)
     flat = co.coattention_core_reference(*args[:6], torch.zeros_like(args[6]),
                                          torch.zeros_like(args[7]))
+    # a softmax over one position is 1 whatever its logits: the controls of
+    # av and v need L > 1, those of aq and q T > 1
+    controlled = (l > 1, t > 1, l > 1, t > 1)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == torch.float32 and g.shape == w.shape, i
         assert torch.isfinite(g).all(), i
         assert _k4_within(i, g, w).all(), i
-        # control: uniform maps are rejected on most elements
-        assert (~_k4_within(i, flat[i], w)).float().mean() > 0.5, i
-    assert float(want[2].max()) > 4.0 / l  # the inputs peak the maps
+        if controlled[i]:
+            # control: uniform maps are rejected on most elements
+            assert (~_k4_within(i, flat[i], w)).float().mean() > 0.5, i
+    if l > 1 and e > 2:
+        # the inputs peak the region map. Not at E = 2, where a logit sums
+        # two products of |Hv| <= 1 with whv: there the uniform control
+        # above is the check that the map is held
+        assert float(want[2].max()) > 4.0 / l
     again = co.coattention_core(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_k4_gate_reckons_the_kernels_shared_memory():
+    # the gate's reckoning (ops/coattention.py) against the kernel's own
+    from vqa_attention_networks_tpu_torch.ops import coattention as co
+
+    lib = co._library()
+    for l in range(1, 1025):
+        assert co.smem_bytes(l) == lib.coattention_smem_bytes(l), l
 
 
 def test_k4_wrapper_raises_on_inputs_it_does_not_take():
@@ -599,6 +640,27 @@ def test_k3_forward_edges_match_plain_version(n, l, d, o, k):
         100 * K3_RTOL * want_pooled.abs().max()
 
 
+# K3's own forward (``pooled_fusion_forward``) at N = 64 and production
+# widths: the sha256 of its f32 output's bytes, as the kernel of the
+# commit before K6's epilogue moved into the forward gave them on an
+# "NVIDIA H100 80GB HBM3". The signed sqrt of its epilogue has since
+# changed form (one square root instead of two, as in K6's instantiation);
+# its output keeps these bits.
+K3_FORWARD_DIGEST = (
+    "bd71fbc77629e355c76c41e1b5798468d43e53c3345498b2149c8c332b9393c7")
+
+
+def test_k3_forward_keeps_its_bits():
+    import hashlib
+
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+
+    img, w_bf16, b, q, _ = _k3_inputs(64, 196, 2048, 1000, seed=2)
+    out = pf.forward_cuda(img, w_bf16, b, q, K)
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    assert digest == K3_FORWARD_DIGEST
+
+
 def test_k3_autograd_launches_the_kernels():
     from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 
@@ -682,15 +744,15 @@ def _k8_steps_within(got, forced):
     return (got - forced).abs() <= ulp + K8_STEP_ATOL
 
 
-def _k6_inputs(n, l, d, o, seed=0):
+def _k6_inputs(n, l, d, o, seed=0, k=K):
     rng = np.random.default_rng(seed)
 
     def t(shape, scale):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32) * scale).cuda()
 
-    return (t((n, l, d), 0.5).to(torch.bfloat16), t((d, o * K), 0.02),
-            t((o * K,), 0.05), t((n, o * K), 0.5))
+    return (t((n, l, d), 0.5).to(torch.bfloat16), t((d, o * k), 0.02),
+            t((o * k,), 0.05), t((n, o * k), 0.5))
 
 
 def _k6_within(got, want):
@@ -700,27 +762,34 @@ def _k6_within(got, want):
         K6_ATOL * want.abs().max()
 
 
-@pytest.mark.parametrize("n,l,d,o", [(3, 37, 64, 104), (4, 196, 2048, 1000)],
-                         ids=["ragged", "production"])
-def test_k6_matches_plain_version(n, l, d, o):
+# O tiles of 64 (O = 104, 200, 1000: a partial last tile), odd L, N = 1,
+# and k = 4 with L * O not a multiple of 4 (the scale launch's scalar path)
+@pytest.mark.parametrize("n,l,d,o,k", [
+    (3, 37, 64, 104, K), (4, 196, 2048, 1000, K), (1, 37, 64, 104, K),
+    (5, 195, 128, 200, K), (1, 196, 2048, 1000, K), (3, 37, 64, 102, 4)],
+    ids=["ragged", "production", "n1_l37_o104", "l195_o200",
+         "n1_production", "k4_scalar_scale"])
+def test_k6_matches_plain_version(n, l, d, o, k):
     from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    img, w, b, q = _k6_inputs(n, l, d, o)
+    img, w, b, q = _k6_inputs(n, l, d, o, k=k)
     before = wqg.launch_count
-    got = wqg.wq_grid_fuse_cuda(img, w, b, q, K)
+    got = wqg.wq_grid_fuse_cuda(img, w, b, q, k)
     torch.cuda.synchronize()
     assert wqg.launch_count == before + 1
-    want = wqg.wq_grid_fuse_reference(img, w, b, q, K)
+    want = wqg.wq_grid_fuse_reference(img, w, b, q, k)
     assert got.dtype == torch.bfloat16 and got.shape == (n, l, o)
     assert torch.isfinite(got.float()).all()
     assert _k6_within(got, want).all()
     # no atomics: a rerun gives the same bits
-    assert torch.equal(got, wqg.wq_grid_fuse_cuda(img, w, b, q, K))
-    # controls: q permuted across samples, a per-row norm
-    perm = wqg.wq_grid_fuse_reference(img, w, b, q.roll(1, 0), K)
-    row = want.float() / want.float().norm(dim=-1, keepdim=True)
-    for control in (perm, row):
+    assert torch.equal(got, wqg.wq_grid_fuse_cuda(img, w, b, q, k))
+    # controls: a per-row norm, and q permuted across samples (N > 1)
+    controls = [want.float() / want.float().norm(dim=-1, keepdim=True)]
+    if n > 1:
+        controls.append(wqg.wq_grid_fuse_reference(img, w, b, q.roll(1, 0),
+                                                   k))
+    for control in controls:
         assert (~_k6_within(control, want)).float().mean() > 0.5
 
 

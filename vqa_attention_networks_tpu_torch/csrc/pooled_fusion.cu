@@ -36,10 +36,12 @@
 // (the TPU kernel pads O to a multiple of 128 with columns that are exactly
 // 0 and sliced off, so the grid here is [L, O]). The TPU instance sees a
 // sample's whole grid and finishes the norm in-kernel; a block here sees
-// 128 outputs of it, so the norm takes two more launches. At N = 256 K6's
+// 64 outputs of it, so the forward's epilogue (an instantiation that only
+// K6 compiles) writes each sample's sum of squares over its tile, and one
+// more launch adds a sample's tile sums and scales z. At N = 256 K6's
 // bound is ~0.29 ms of operations (the 205 GFLOP product and the 5.2 GFLOP
-// f32 wq build); the norm's extra bytes (z written and read twice, f32, and
-// the bf16 out) are ~0.15 ms at 3.35 TB/s, small beside the forward's time.
+// f32 wq build); the norm's extra bytes (z written and read once, f32, and
+// the bf16 out) are ~0.09 ms at 3.35 TB/s.
 //
 // What bounds it on this card, at N = 64, L = 196, D = 2048, O = 1000,
 // k = 5. Each launch is one product of 2*N*L*D*O = 51.4 GFLOP (0.052 ms at
@@ -79,7 +81,7 @@
 // over L for d_bq), not in each of the 32 D tiles that read it.
 //
 // Launches:
-//   pooled_fusion_forward  fwd_kernel<k>, grid (ceil(O/64), ceil(N/2)):
+//   pooled_fusion_forward  fwd_kernel<k, false>, grid (ceil(O/64), ceil(N/2)):
 //       64 outputs of two samples, one warpgroup each, over a 4-stage TMA
 //       ring of W's slab and the samples' img (32 deep); out^T [64 o,
 //       208 l] by wgmma m64n208k16 with wq^T built in registers; epilogue
@@ -94,12 +96,13 @@
 //       wgmma over L, added into d_W's k sums with q in registers and
 //       contracted with the block's W tile (kept in shared memory) into
 //       d_q's partial; then d_q's reduction over ceil(N*F/256) blocks.
-//   pooled_fusion_wq_grid  (K6) three launches: the forward into an f32 z
-//       scratch; grid_ssq_kernel, grid (ceil(L*O/2048), N): each block's
-//       sum of squares of 2048 elements of one sample's z in a fixed order;
-//       grid_scale_kernel, the same grid: the sample's norm from those
-//       sums in chunk order (no atomics: reruns give the same bits), and
-//       bf16(z * (1 / max(norm, eps))).
+//   pooled_fusion_wq_grid  (K6) two launches: fwd_kernel<k, true>, the
+//       forward into an f32 z scratch whose epilogue writes each sample's
+//       sum of squares over the block's 64 outputs and L rows (the
+//       thread's elements, the warp's lanes, the 4 warps, in order);
+//       grid_scale_kernel, grid (ceil(L*O/2048), N): the sample's norm
+//       from its ceil(O/64) tile sums in tile order (no atomics: reruns
+//       give the same bits), and bf16(z * (1 / max(norm, eps))).
 // Each entry returns cudaGetLastError() after its launches (0 on success).
 
 #include <cuda_bf16.h>
@@ -133,8 +136,14 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
     BCol;
 
+// sqrt(max(p, 0)) - sqrt(max(-p, 0)) with one square root in the code
+// (the same bits, 0 and NaN giving +0; only a -0 from the two-root form
+// could differ): each sqrtf inlines a slow path behind a branch, and two
+// of them took the forward from 1.97-2.00 to 2.18-2.28 ms at N = 256 on
+// an H100
 __device__ __forceinline__ float signed_sqrt(float p) {
-  return __fsub_rn(sqrtf(fmaxf(p, 0.0f)), sqrtf(fmaxf(-p, 0.0f)));
+  const float r = sqrtf(fabsf(p));
+  return p > 0.0f ? r : p < 0.0f ? -r : 0.0f;
 }
 
 // g * d out / d pooled, with the zero-cotangent rule at out == 0
@@ -218,13 +227,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int K>
+// kSsq (K6 only): each sample's sum of squares of its outputs in the
+// block's tile goes to ssq [N, ceil(O/64)], in a fixed order: the
+// thread's elements, the warp's lanes, the warpgroup's 4 warps
+template <int K, bool kSsq>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap w_map,    // [D, F] bf16
                const __grid_constant__ CUtensorMap img_map,  // [N, L, D]
                const float* __restrict__ b,   // [F]
                const bf16* __restrict__ q,    // [N, F]
                float* __restrict__ out,       // [N, L, O]
+               float* __restrict__ ssq,       // [N, ceil(O/64)] if kSsq
                int n_total, int l, int d, int f) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -354,22 +367,41 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       bq_hi = __fadd_rn(bq_hi, __fmul_rn(bp[j], q_hi[j]));
   }
   float* out_n = out + (size_t)n * l * o_dim + o0;
+  float ss = 0.0f;
 #pragma unroll
   for (int i = 0; i < kRows / 8; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = 8 * i + 2 * t + (e & 1);
       const bool hi = e >= 2;
-      if (row < l && (hi ? ok_hi : ok_lo))
-        out_n[(size_t)row * o_dim + (hi ? o_hi : o_lo)] =
-            signed_sqrt(__fadd_rn(acc[4 * i + e], hi ? bq_hi : bq_lo));
+      if (row < l && (hi ? ok_hi : ok_lo)) {
+        const float p = __fadd_rn(acc[4 * i + e], hi ? bq_hi : bq_lo);
+        const float z = signed_sqrt(p);
+        out_n[(size_t)row * o_dim + (hi ? o_hi : o_lo)] = z;
+        if constexpr (kSsq) ss = __fadd_rn(ss, __fmul_rn(z, z));
+      }
+    }
+  }
+  if constexpr (kSsq) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, off));
+    // the ring's first KB holds only the barriers: 8 floats at 512
+    float* red_s = reinterpret_cast<float*>(smem + 512);
+    if (lane == 0) red_s[warp] = ss;
+    __syncthreads();
+    if (live && w4 == 0 && lane == 0) {
+      float tsum = red_s[4 * wg];
+      for (int w = 1; w < 4; ++w) tsum = __fadd_rn(tsum, red_s[4 * wg + w]);
+      ssq[(size_t)n * gridDim.x + blockIdx.x] = tsum;
     }
   }
 }
 
-template <int K>
+template <int K, bool kSsq>
 int launch_fwd(const void* img, const void* w, const void* b, const void* q,
-               void* out, int n, int l, int d, int f, cudaStream_t s) {
+               void* out, void* ssq, int n, int l, int d, int f,
+               cudaStream_t s) {
   CUtensorMap w_map, img_map;
   const uint64_t w_dims[2] = {(uint64_t)f, (uint64_t)d};
   const uint64_t w_strides[1] = {(uint64_t)f * 2};
@@ -386,29 +418,31 @@ int launch_fwd(const void* img, const void* w, const void* b, const void* q,
                          CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != cudaSuccess) return (int)err;
   const int smem = 2048 + kFwdStages * fwd_stage_bytes(K);
-  err = cudaFuncSetAttribute(fwd_kernel<K>,
+  err = cudaFuncSetAttribute(fwd_kernel<K, kSsq>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((f / K + kFwdOTile - 1) / kFwdOTile,
                   (n + kFwdSamples - 1) / kFwdSamples);
-  fwd_kernel<K><<<grid, kFwdThreads, smem, s>>>(
+  fwd_kernel<K, kSsq><<<grid, kFwdThreads, smem, s>>>(
       w_map, img_map, static_cast<const float*>(b),
-      static_cast<const bf16*>(q), static_cast<float*>(out), n, l, d, f);
+      static_cast<const bf16*>(q), static_cast<float*>(out),
+      static_cast<float*>(ssq), n, l, d, f);
   return (int)cudaGetLastError();
 }
 
+template <bool kSsq>
 int launch_fwd_k(const void* img, const void* w, const void* b,
-                 const void* q, void* out, int n, int l, int d, int f, int k,
-                 cudaStream_t s) {
+                 const void* q, void* out, void* ssq, int n, int l, int d,
+                 int f, int k, cudaStream_t s) {
   switch (k) {
-    case 1: return launch_fwd<1>(img, w, b, q, out, n, l, d, f, s);
-    case 2: return launch_fwd<2>(img, w, b, q, out, n, l, d, f, s);
-    case 3: return launch_fwd<3>(img, w, b, q, out, n, l, d, f, s);
-    case 4: return launch_fwd<4>(img, w, b, q, out, n, l, d, f, s);
-    case 5: return launch_fwd<5>(img, w, b, q, out, n, l, d, f, s);
-    case 6: return launch_fwd<6>(img, w, b, q, out, n, l, d, f, s);
-    case 7: return launch_fwd<7>(img, w, b, q, out, n, l, d, f, s);
+    case 1: return launch_fwd<1, kSsq>(img, w, b, q, out, ssq, n, l, d, f, s);
+    case 2: return launch_fwd<2, kSsq>(img, w, b, q, out, ssq, n, l, d, f, s);
+    case 3: return launch_fwd<3, kSsq>(img, w, b, q, out, ssq, n, l, d, f, s);
+    case 4: return launch_fwd<4, kSsq>(img, w, b, q, out, ssq, n, l, d, f, s);
+    case 5: return launch_fwd<5, kSsq>(img, w, b, q, out, ssq, n, l, d, f, s);
+    case 6: return launch_fwd<6, kSsq>(img, w, b, q, out, ssq, n, l, d, f, s);
+    case 7: return launch_fwd<7, kSsq>(img, w, b, q, out, ssq, n, l, d, f, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -831,59 +865,57 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K6's grid-flat L2 over the forward's output z [N, L, O]:
-// out = bf16(z * (1 / max(||z[n]||, eps)))
+// K6's grid-flat L2 over the forward's output z [N, L, O], from the sums of
+// squares its epilogue wrote: out = bf16(z * (1 / max(||z[n]||, eps)))
 // ---------------------------------------------------------------------------
 constexpr int kNormItems = 8;                      // elements per thread
 constexpr int kNormChunk = kThreads * kNormItems;  // elements per block
 
-// the sum of squares of one kNormChunk-element chunk of a sample's z, in a
-// fixed order: each thread's items, the warp's lanes, the block's warps
-__global__ void __launch_bounds__(kThreads)
-    grid_ssq_kernel(const float* __restrict__ z,  // [N, L*O]
-                    float* __restrict__ ssq,      // [N, chunks]
-                    int grid_size) {
-  __shared__ float red_s[kWarps];
-  const int n = blockIdx.y, tid = threadIdx.x;
-  const float* zn = z + (size_t)n * grid_size;
-  const int base = blockIdx.x * kNormChunk + tid;
-  float s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kNormItems; ++i) {
-    const int e = base + i * kThreads;
-    if (e < grid_size) s = __fadd_rn(s, __fmul_rn(zn[e], zn[e]));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-  if (tid % 32 == 0) red_s[tid / 32] = s;
-  __syncthreads();
-  if (tid == 0) {
-    float t = red_s[0];
-    for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, red_s[w]);
-    ssq[(size_t)n * gridDim.x + blockIdx.x] = t;
-  }
-}
-
-// the sample's norm from its chunks' sums, in chunk order (no atomics:
-// reruns give the same bits), then the scaled bf16 output
+// the sample's norm from its O tiles' sums, in tile order (no atomics:
+// reruns give the same bits), then the scaled bf16 output; 16-byte loads
+// where a sample's grid is a whole number of them
 __global__ void __launch_bounds__(kThreads)
     grid_scale_kernel(const float* __restrict__ z,    // [N, L*O]
-                      const float* __restrict__ ssq,  // [N, chunks]
+                      const float* __restrict__ ssq,  // [N, tiles]
                       bf16* __restrict__ out,         // [N, L*O]
-                      int grid_size, float eps) {
+                      int grid_size, int tiles, float eps) {
   __shared__ float inv_s;
   const int n = blockIdx.y;
   if (threadIdx.x == 0) {
-    const float* part = ssq + (size_t)n * gridDim.x;
+    const float* part = ssq + (size_t)n * tiles;
     float t = part[0];
-    for (int i = 1; i < (int)gridDim.x; ++i) t = __fadd_rn(t, part[i]);
+    for (int i = 1; i < tiles; ++i) t = __fadd_rn(t, part[i]);
     inv_s = __fdiv_rn(1.0f, fmaxf(sqrtf(t), eps));
   }
   __syncthreads();
   const float inv = inv_s;
   const float* zn = z + (size_t)n * grid_size;
   bf16* on = out + (size_t)n * grid_size;
+  if (grid_size % 4 == 0) {
+    constexpr int kVecs = kNormItems / 4;
+    const int base = blockIdx.x * kNormChunk + 4 * threadIdx.x;
+    float4 x[kVecs];
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int e = base + i * 4 * kThreads;
+      if (e < grid_size) x[i] = *reinterpret_cast<const float4*>(zn + e);
+    }
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int e = base + i * 4 * kThreads;
+      if (e < grid_size) {
+        __nv_bfloat162 lo = __floats2bfloat162_rn(__fmul_rn(x[i].x, inv),
+                                                  __fmul_rn(x[i].y, inv));
+        __nv_bfloat162 hi = __floats2bfloat162_rn(__fmul_rn(x[i].z, inv),
+                                                  __fmul_rn(x[i].w, inv));
+        uint2 v;
+        v.x = *reinterpret_cast<uint32_t*>(&lo);
+        v.y = *reinterpret_cast<uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(on + e) = v;
+      }
+    }
+    return;
+  }
   const int base = blockIdx.x * kNormChunk + threadIdx.x;
 #pragma unroll
   for (int i = 0; i < kNormItems; ++i) {
@@ -906,31 +938,33 @@ int pooled_fusion_forward(const void* img, const void* w, const void* b,
                           const void* q, void* out, int n, int l, int d,
                           int f, int k, void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
-  return launch_fwd_k(img, w, b, q, out, n, l, d, f, k,
-                      reinterpret_cast<cudaStream_t>(stream));
+  return launch_fwd_k<false>(img, w, b, q, out, nullptr, n, l, d, f, k,
+                             reinterpret_cast<cudaStream_t>(stream));
 }
 
-// K6: the forward into z (f32 scratch [N, L, O]), then the grid-flat L2
-// into out (bf16 [N, L, O]); ssq is scratch [N, ceil(L*O / 2048)]
+// the O tile of K6's forward: ssq holds ceil(O / pooled_fusion_o_tile())
+// sums a sample
+int pooled_fusion_o_tile(void) { return kFwdOTile; }
+
+// K6: the forward into z (f32 scratch [N, L, O]) with each O tile's sums
+// of squares into ssq (scratch [N, ceil(O / pooled_fusion_o_tile())]),
+// then the grid-flat L2 into out (bf16 [N, L, O])
 int pooled_fusion_wq_grid(const void* img, const void* w, const void* b,
                           const void* q, void* z, void* ssq, void* out, int n,
                           int l, int d, int f, int k, float eps,
                           void* stream) {
   if (!dims_ok(n, l, d, f, k) || (size_t)l * (f / k) >= (1u << 31))
     return (int)cudaErrorInvalidValue;
-  const int err = pooled_fusion_forward(img, w, b, q, z, n, l, d, f, k,
-                                        stream);
-  if (err != 0) return err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int err =
+      launch_fwd_k<true>(img, w, b, q, z, ssq, n, l, d, f, k, s);
+  if (err != 0) return err;
   const int grid_size = l * (f / k);
   const dim3 grid((grid_size + kNormChunk - 1) / kNormChunk, n);
-  grid_ssq_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(z), static_cast<float*>(ssq), grid_size);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   grid_scale_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(z), static_cast<const float*>(ssq),
-      static_cast<bf16*>(out), grid_size, eps);
+      static_cast<bf16*>(out), grid_size,
+      (f / k + kFwdOTile - 1) / kFwdOTile, eps);
   return (int)cudaGetLastError();
 }
 

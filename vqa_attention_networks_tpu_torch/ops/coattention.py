@@ -35,9 +35,12 @@ from typing import Tuple
 
 import torch
 
-_MAX_T = 32  # the kernel keeps a column's T accumulators in registers
-_MAX_L = 1024  # the kernel keeps C [T, L] and the logits in shared memory
+_MAX_T = 32  # the kernel pads T to 32 rows, two m16 tiles of its products
+_MAX_L = 1024  # the kernel keeps C [32, L] and the logits in shared memory
 _MAX_SMEM = 232448  # bytes of shared memory a block can opt in to
+# the kernel's ring (coattention.cu): 4 stages of two [32, 128] bf16 tiles,
+# rows padded by 8 elements; 8 warps; phase 4's 4 row groups
+_STAGES, _ROWS, _COLS, _LD, _WARPS, _GROUPS = 4, 32, 128, 136, 8, 4
 _REFERENCE_CHUNK = 64  # samples per step of the plain version (memory)
 
 # kernel launches made by coattention_core (one per call on a CUDA tensor)
@@ -80,6 +83,8 @@ def _library() -> ctypes.CDLL:
     # img que cv cq img_w que_w whv whq v q av aq, n l t e, stream
     lib.coattention_launch.argtypes = [p] * 12 + [i] * 4 + [p]
     lib.coattention_launch.restype = ctypes.c_int
+    lib.coattention_smem_bytes.argtypes = [i]  # l
+    lib.coattention_smem_bytes.restype = ctypes.c_int
     lib.coattention_error_string.argtypes = [ctypes.c_int]
     lib.coattention_error_string.restype = ctypes.c_char_p
     return lib
@@ -109,27 +114,44 @@ def _check_inputs(img, que, cv, cq, img_w, que_w, whv, whq) -> None:
         if not x.is_contiguous():
             raise ValueError(f"the K4 kernel needs a contiguous {name}")
         if x.data_ptr() % 4:
-            # columns are read in bf16 pairs
+            # rows are copied 4 or 16 bytes at a time
             raise ValueError(f"the K4 kernel needs {name} 4-byte aligned")
     for name, w in (("whv", whv), ("whq", whq)):
         if w.numel() != e or w.device != img.device:
             raise ValueError(f"{name} must hold E={e} values on "
                              f"{img.device}, got {tuple(w.shape)} on "
                              f"{w.device}")
-    if e % 2:
+    check_shape(n, l, t, e)
+
+
+def smem_bytes(l: int) -> int:
+    """Bytes of shared memory a block of the kernel takes at L = l
+    (``coattention.cu`` ``smem_bytes``): the ring, C [32, Lp + 8] bf16 and,
+    in f32, the logits' partials [Lp, 8] (later the pool's [2, 4, 128] in
+    the same place) and [32, 8], av [Lp], aq [32] and the softmax's 8,
+    with Lp = L padded to 32. E streams through the ring in slices and
+    takes none."""
+    lp = -(-l // _ROWS) * _ROWS
+    parts = max(lp * _WARPS, 2 * _GROUPS * _COLS)
+    return (_STAGES * 2 * _ROWS * _LD * 2 + _MAX_T * (lp + 8) * 2
+            + 4 * (parts + _MAX_T * _WARPS + lp + _MAX_T + _WARPS))
+
+
+def check_shape(n: int, l: int, t: int, e: int) -> None:
+    """Raise ValueError on a shape the kernel does not take (the gate of
+    ``coattention_launch``): 1 <= N < 2^31, 1 <= L <= 1024, 1 <= T <= 32,
+    an even E >= 2, and the block's shared memory within the card's."""
+    if e < 2 or e % 2:
         raise ValueError(f"the K4 kernel needs E % 2 == 0, got E={e}")
     if not 1 <= t <= _MAX_T or not 1 <= l <= _MAX_L:
         raise ValueError(f"the K4 kernel takes 1 <= T <= {_MAX_T} and "
                          f"1 <= L <= {_MAX_L}, got T={t}, L={l}")
     if not 1 <= n <= 2 ** 31 - 1:
         raise ValueError(f"the K4 kernel takes 1 <= N < 2^31, got N={n}")
-    # C [T, L] f32, the logits and cq [T, E] bf16 in one block's shared
-    # memory (coattention.cu smem_bytes)
-    smem = 4 * (t * l + 9 * l + 9 * t + 8) + 2 * t * e
+    smem = smem_bytes(l)
     if smem > _MAX_SMEM:
         raise ValueError(f"the K4 kernel needs {smem} bytes of shared "
-                         f"memory at L={l}, T={t}, E={e}; a block has "
-                         f"{_MAX_SMEM}")
+                         f"memory at L={l}; a block has {_MAX_SMEM}")
 
 
 def coattention_core_cuda(img, que, cv, cq, img_w, que_w, whv,

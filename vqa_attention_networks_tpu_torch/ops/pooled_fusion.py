@@ -172,7 +172,8 @@ def library() -> ctypes.CDLL:
     # K6 (ops/wq_grid_fusion.py): img w b q, z ssq out, n l d f k, eps, stream
     lib.pooled_fusion_wq_grid.argtypes = (
         [p] * 7 + [i] * 5 + [ctypes.c_float, p])
-    for name in ("forward", "d_img", "d_w", "wq_grid"):
+    lib.pooled_fusion_o_tile.argtypes = []  # K6's ssq: sums per sample
+    for name in ("forward", "d_img", "d_w", "wq_grid", "o_tile"):
         getattr(lib, f"pooled_fusion_{name}").restype = ctypes.c_int
     lib.pooled_fusion_error_string.argtypes = [ctypes.c_int]
     lib.pooled_fusion_error_string.restype = ctypes.c_char_p

@@ -13,11 +13,12 @@ Per sample, with F = O*k and channel c = o*k + j:
 z is K3's forward (``ops/pooled_fusion.py``): the same operands (W and q
 rounded to bf16 for wq and bq alike, b f32; K1 keeps W in f32) and the
 same rounding points (``pallas_wq_fusion.py:56-85,107-111``). So K6 runs
-K3's forward kernel and adds the norm in two launches
-(``pooled_fusion_wq_grid`` in ``csrc/pooled_fusion.cu``), and its plain
-version is K3's plain forward and the norm. The TPU kernel pads O to a
-multiple of 128; the padded columns are exactly 0, add 0 to the norm and
-are sliced off, so neither version here pads.
+K3's forward kernel in an instantiation whose epilogue also writes each
+sample's sum of squares per 64-output tile, then one launch that adds
+them and scales (``pooled_fusion_wq_grid`` in ``csrc/pooled_fusion.cu``),
+and its plain version is K3's plain forward and the norm. The TPU kernel
+pads O to a multiple of 128; the padded columns are exactly 0, add 0 to
+the norm and are sliced off, so neither version here pads.
 
 - ``wq_grid_fuse`` is the entry, an ``autograd.Function``: its forward is
   the kernel on a CUDA tensor, the plain version on a CPU tensor; its
@@ -45,7 +46,6 @@ from vqa_attention_networks_tpu_torch.models.layers import (
 from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops.fusion import mfb_sumpool
 
-_NORM_CHUNK = 2048  # z elements per block of the norm launches
 _REFERENCE_CHUNK = 64  # samples per step of the plain version (memory)
 
 # kernel calls made by wq_grid_fuse (one per call on a CUDA tensor)
@@ -95,11 +95,12 @@ def wq_grid_fuse_cuda(img: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     f = w_bf16.shape[1]
     o = f // k
     dev = img.device
-    z = torch.empty(n, l, o, dtype=torch.float32, device=dev)  # scratch
-    ssq = torch.empty(n, -(-(l * o) // _NORM_CHUNK), dtype=torch.float32,
-                      device=dev)
-    out = torch.empty(n, l, o, dtype=torch.bfloat16, device=dev)
     lib = pf.library()
+    # scratch: z, and each sample's sums of squares, one per O tile
+    z = torch.empty(n, l, o, dtype=torch.float32, device=dev)
+    ssq = torch.empty(n, -(-o // lib.pooled_fusion_o_tile()),
+                      dtype=torch.float32, device=dev)
+    out = torch.empty(n, l, o, dtype=torch.bfloat16, device=dev)
     rc = lib.pooled_fusion_wq_grid(
         img.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), qb.data_ptr(),
         z.data_ptr(), ssq.data_ptr(), out.data_ptr(), n, l, d, f, k, eps,
