@@ -99,21 +99,40 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 18. full-width bf16 mhb_coAtt served with ``VQA_PALLAS_GLIMPSE`` (K1 and K7)
     and with ``fast_path="composed"`` plus both switches (K5 and K7): the
     launch counts and flips against the plain versions;
-19. times: K4, K5 and K7 against their plain versions at N = 256 (K4's
+19. full-width mhb, visLstm, iBOWIMG and attentionNet (random weights,
+    no kernel on their paths, as in JAX) served through ``predict_stream``
+    at batch 256 (2048 requests, each with its question length): qa-pairs/s,
+    the device forward's ms per batch and its share of the wall time, and
+    the gate that every served answer is the top of the same forward (one
+    bf16 ulp, ``flips``); for MHB the lengths used, and a control: with
+    every length set to T the answers must change (the lengths reach it);
+20. training of hieCoAtten (the composed chain with its five dropouts),
+    mhb, visLstm, iBOWIMG and attentionNet through ``Solver.train``:
+    full width, bf16, batch 64, 10 steps, then 10 on one repeated batch:
+    ms per step and qa-pairs/s, finite losses, the repeated batch's loss
+    falling, ``val()`` equal to a fresh load's, the batch norms' running
+    statistics moved (iBOWIMG, attentionNet), no training kernel launched;
+21. ``families_agree``: the f32 forward of each of those four families
+    (eval, and training with dropout 0 and pad rows in ``valid``) and
+    hieCoAtten's training forward, full width, N = 8, on the card and on
+    the CPU (TF32 off), each against the same forward at f64 on the CPU:
+    the card within 1e-5 of the largest |logit| (the bound of the CPU
+    tests against JAX) or within 4x the CPU's own f32 error;
+22. times: K4, K5 and K7 against their plain versions at N = 256 (K4's
     device time, by events queued behind a spin; K7's two launches and
     its wrapper's cast apart, by the profiler), and
     beside K5, for information, ``torch.matmul`` on the bare product
     img @ bf16(W) (``matmul_ms``), which no path of the port calls;
-20. K6 (the standalone wq fusion + grid-flat L2) against its plain version
+23. K6 (the standalone wq fusion + grid-flat L2) against its plain version
     at production widths (L=196, D=2048, F=5000, k=5), N = 8, 256 and 1024,
     held as pooled = out * |out|, bit-equal reruns, and two controls that
     must be rejected on most elements: the plain output with q permuted
     across samples, and with a per-row L2 norm in place of the grid-flat
     one;
-21. K6's path, its entry ``wq_grid_fuse`` forward and backward at N = 64
+24. K6's path, its entry ``wq_grid_fuse`` forward and backward at N = 64
     (the launch count set to 0 just before): finite gradients of img, W, b
     and q, equal to ``composed_reference``'s on the card;
-22. K8 (the LSTM scan, one persistent launch a call) against its plain
+25. K8 (the LSTM scan, one persistent launch a call) against its plain
     version at mhb_coAtt's serving shape (T=22, E=300, H=1024), N = 8, 256,
     1024 and 2048 (past 1,408 rows c leaves shared memory for device
     memory), fed as ``lstm_seq`` feeds it (the projection without its
@@ -127,7 +146,7 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     N = 256 (the launch count set to 0 just before: one launch), with the
     port's composed ``layers.lstm`` on the same weights beside it for
     information;
-23. times: K6 and its plain version at N = 256 and 1024, with the torch
+26. times: K6 and its plain version at N = 256 and 1024, with the torch
     composed weight-contracted chain + L2 for information, and at N = 256
     the device time of each of K6's two launches (the forward with its
     sums of squares, and the scale launch); K8's scan and
@@ -168,7 +187,6 @@ from vqa_attention_networks_tpu_torch.data.prepare import (
 from vqa_attention_networks_tpu_torch.models import get_model
 from vqa_attention_networks_tpu_torch.models import hiecoatten, mfb
 from vqa_attention_networks_tpu_torch.models import layers
-from vqa_attention_networks_tpu_torch.models.mhb_coatt import init_params
 from vqa_attention_networks_tpu_torch.ops import _build
 from vqa_attention_networks_tpu_torch.ops import attention as att
 from vqa_attention_networks_tpu_torch.ops import coattention as co
@@ -180,7 +198,7 @@ from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
-from vqa_attention_networks_tpu_torch.train.solver import Solver
+from vqa_attention_networks_tpu_torch.train.solver import Solver, init_params
 from vqa_attention_networks_tpu_torch.weights import (
     load_jax_params,
     to_jax_params,
@@ -288,6 +306,20 @@ MFB_TRAIN_RUNS = (("mfb", "prepool", "K2"), ("mfb", "pooled", "K3"),
                   ("mfb-multilayer", "pooled", "K3"))
 # launch counters of the training fusions, by kernel
 TRAIN_COUNTERS = {"K2": tf.launch_count, "K3": pf.launch_count}
+# the families no kernel of the port serves or trains: MHB, visLstm,
+# iBOWIMG and attentionNet served and trained, hieCoAtten's training
+# forward (the composed chain, as in JAX)
+FAMILIES_SERVED = ("mhb", "visLstm", "iBOWIMG", "attentionNet")
+FAMILIES_TRAINED = ("hieCoAtten",) + FAMILIES_SERVED
+FAMILY_TRAIN_STEPS = 10
+# MHB served with every length set to T instead of the question's: at
+# least this share of the answers must change (the length reaches it)
+MHB_QLEN_CONTROL_SHARE = 0.01
+# the card's and the CPU's f32 forwards (TF32 off) against an f64 run on
+# the CPU, at batch AGREE_N: the card's error within the CPU tests' bound
+# against JAX, 1e-5 of the largest |logit|, or AGREE_MARGIN times the
+# CPU's own (``families_agree``)
+AGREE_N, AGREE_RTOL, AGREE_MARGIN = 8, 1e-5, 4.0
 K6_SOURCE = K3_SOURCE  # pooled_fusion_wq_grid: K3's forward, then the norm
 K6_REPLACES = "vqa_attention_networks_tpu/ops/pallas_wq_fusion.py:88"
 K8_SOURCE = "vqa_attention_networks_tpu_torch/csrc/lstm_scan.cu"
@@ -1395,6 +1427,186 @@ def dead_gradient_check(cfg: Config, params, store) -> None:
     del solver
 
 
+def serve_family(name: str, store, dev, smi: str) -> dict:
+    """A family with no kernel on its path, served at full width through
+    ``predict_stream`` (batch BATCH, BATCH * N_BATCHES requests, after a
+    warm-up pass), each request with its question length. Gates: well
+    formed; each served answer is the top of the same model's forward on
+    the batch with those lengths (within one bf16 ulp, ``flips``); for MHB,
+    the lengths reach the model: all set to T, the answers change."""
+    cfg = Config(model_name=name)
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5)
+    image_ids, ques = traffic(cfg)
+    qlen = (ques != 0).sum(1).astype(np.int32)
+    n_req = len(ques)
+
+    def batches(lengths):
+        for s in range(0, n_req, BATCH):
+            feats = store.gather(image_ids[s:s + BATCH], np.float16)
+            yield feats, ques[s:s + BATCH], lengths[s:s + BATCH]
+
+    list(engine.predict_stream(batches(qlen)))  # warm-up pass
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = [p for b in engine.predict_stream(batches(qlen)) for p in b]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    answers = np.array([p.answer_id for p in preds])
+    probs = np.stack([p.top_probs for p in preds])
+    if len(preds) != n_req or not np.isfinite(probs).all() or (
+            probs.sum(-1) > 1.0 + 1e-3).any():
+        raise AssertionError(f"serve_{name}: served predictions are "
+                             "malformed")
+    n_flips = 0
+    for s, (feats, qs, ls) in zip(range(0, n_req, BATCH), batches(qlen)):
+        args = [torch.from_numpy(a).to(dev) for a in (feats, qs, ls)]
+        served = torch.from_numpy(answers[s:s + BATCH]).to(dev)
+        with torch.inference_mode():
+            n_flips += flips(engine.model(*args), served)
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: engine.model(*args), 3)
+    fields = dict(model=name, requests=n_req, batch=BATCH,
+                  kernels_on_path="none", flips_vs_direct_forward=n_flips,
+                  distinct_answers=int(len(np.unique(answers))),
+                  qa_pairs_per_s=n_req / seconds, seconds=seconds,
+                  wall_ms_per_batch=seconds * 1e3 / N_BATCHES,
+                  device_forward_ms_per_batch=forward_ms,
+                  device_share=forward_ms * N_BATCHES / (seconds * 1e3))
+    if name == "mhb":
+        full = np.full_like(qlen, cfg.max_question_length)
+        changed = np.array([p.answer_id for b in engine.predict_stream(
+            batches(full)) for p in b]) != answers
+        fields.update(qlen_used={"min": int(qlen.min()),
+                                 "max": int(qlen.max()),
+                                 "mean": float(qlen.mean())},
+                      answers_changed_with_qlen_T_share=float(
+                          changed.mean()))
+    say(f"serve_{name}", **fields, card=smi)
+    if n_flips:
+        raise AssertionError(f"serve_{name}: {n_flips} served answers are "
+                             "not the forward's")
+    if name == "mhb" and fields["answers_changed_with_qlen_T_share"] < \
+            MHB_QLEN_CONTROL_SHARE:
+        raise AssertionError("serve_mhb: the answers do not depend on the "
+                             "question lengths")
+    del engine
+    torch.cuda.empty_cache()
+    return {"qa_pairs_per_s": n_req / seconds,
+            "device_forward_ms": forward_ms}
+
+
+def train_family(name: str, store, smi: str) -> dict:
+    """``Solver.train`` of a family with no kernel on its path: full width,
+    bf16, batch TRAIN_BATCH, FAMILY_TRAIN_STEPS steps, then as many on one
+    repeated batch. Gates: finite losses; the repeated batch's loss falls;
+    ``val()`` equals a fresh load's of the trained weights (running
+    statistics included); a batch norm's running statistics moved; no
+    training kernel launched."""
+    steps = FAMILY_TRAIN_STEPS
+    cfg = Config(model_name=name, compute_dtype="bfloat16", num_epoch=1,
+                 batch_size=TRAIN_BATCH)
+    qa, one = train_data(cfg, steps)
+    params = init_params(cfg, torch.Generator().manual_seed(6))
+    run = train_run(cfg, qa, store, params)
+    trained = run.pop("solver")
+    val = trained.val()
+    tree = to_jax_params(trained.model)
+    val_fresh = Solver(cfg, qa, store, params=tree).val()
+    del trained
+    stats = {f"{layer}/{key}": float(np.abs(
+        tree[layer][key] - params[layer][key].numpy()).max())
+        for layer in ("img_bn", "batchnorm") if layer in tree
+        for key in ("mean", "var")}
+    repeated = train_run(cfg.replace(num_epoch=steps), one, store, params)
+    del repeated["solver"]
+    torch.cuda.empty_cache()
+    losses, r_loss = np.array(run["losses"]), repeated["losses"]
+    no_launch = {k: {key: 0 for key in counts}
+                 for k, counts in TRAIN_COUNTERS.items()}
+    say(f"train_{name}_time", model=name, steps=steps, batch=TRAIN_BATCH,
+        compute_dtype="bfloat16", ms_per_step=run["ms_per_step"],
+        qa_pairs_per_s=run["qa_pairs_per_s"], steps_timed=f"4..{steps - 1}",
+        losses=run["losses"], repeated_batch_losses=r_loss,
+        val_after_training=val, val_fresh_load=val_fresh,
+        running_stats_moved_max=stats, launches=run["launches"],
+        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20, card=smi)
+    if not (np.isfinite(losses).all() and np.isfinite(r_loss).all()):
+        raise AssertionError(f"train_{name}: a training loss is not finite")
+    if not r_loss[-1] < r_loss[0]:
+        raise AssertionError(f"train_{name}: the loss on a repeated batch "
+                             "does not fall")
+    if val != val_fresh:
+        raise AssertionError(f"train_{name}: val() after training differs "
+                             "from a fresh load's")
+    if not all(v > 0 for v in stats.values()) or (
+            name in ("iBOWIMG", "attentionNet")) != bool(stats):
+        raise AssertionError(f"train_{name}: the running statistics did "
+                             f"not move: {stats}")
+    if run["launches"] != no_launch:
+        raise AssertionError(f"train_{name}: training kernels launched: "
+                             f"{run['launches']}")
+    return run
+
+
+def families_agree(dev) -> None:
+    """Each family of FAMILIES_SERVED (eval and training forward, dropout
+    0, pad rows in ``valid``) and hieCoAtten's training forward at f32,
+    full width, batch AGREE_N, on the card and on the CPU, each held
+    against the same forward at f64 on the CPU: the card's largest |error|
+    within AGREE_RTOL of the largest |logit|, or within AGREE_MARGIN times
+    the CPU's own f32 error. At full width f32 summation order alone can
+    pass AGREE_RTOL where the forward amplifies it: MHB's signed sqrt turns
+    an error e of a pooled value near 0 into sqrt(e), and attentionNet's
+    training batch norm divides by the spread of each logit over 6 rows;
+    the two f32 runs share those amplifications."""
+    rng = np.random.default_rng(8)
+    rows = [(name, train) for name in FAMILIES_SERVED
+            for train in (False, True)] + [("hieCoAtten", True)]
+    results = {}
+    for name, train in rows:
+        cfg = Config(model_name=name, dropout_default=0.0, dropout_lstm=0.0,
+                     dropout_fusion=0.0)
+        params = init_params(cfg, torch.Generator().manual_seed(9))
+        img = torch.from_numpy(rng.standard_normal(
+            (AGREE_N, cfg.img_feature_dim, cfg.img_feature_channel),
+            dtype=np.float32) * 0.5)
+        ques = torch.from_numpy(rng.integers(
+            1, cfg.q_vocab_size, (AGREE_N, cfg.max_question_length)))
+        ques[0, 4:] = 0
+        qlen = (ques != 0).sum(1)
+        valid = torch.arange(AGREE_N) < AGREE_N - 2
+        logits = {}
+        for label, where, dtype in (("f64", "cpu", "float64"),
+                                    ("cpu", "cpu", "float32"),
+                                    ("card", dev, "float32")):
+            c = cfg.replace(compute_dtype=dtype)
+            model = get_model(name)(c).to(where)
+            if dtype == "float64":
+                model = model.double()
+            model = load_jax_params(model, params)
+            x = img.to(where).to(layers.DTYPES[dtype])
+            with torch.no_grad():
+                logits[label] = model(
+                    x, ques.to(where), qlen.to(where), train=train,
+                    valid=valid.to(where),
+                    generator=torch.Generator(device=where)).double().cpu()
+        ref = logits["f64"]
+        row = {label: float((logits[label] - ref).abs().max()
+                            / ref.abs().max()) for label in ("cpu", "card")}
+        row["card_vs_cpu"] = float((logits["card"] - logits["cpu"]).abs().max()
+                                   / ref.abs().max())
+        results[f"{name}{'_train' if train else ''}"] = row
+        if not (torch.isfinite(logits["card"]).all() and row["card"] <= max(
+                AGREE_RTOL, AGREE_MARGIN * row["cpu"])):
+            say("families_agree", rel_err_vs_f64=results, failed=name,
+                train=train)
+            raise AssertionError(f"families_agree: {name} (train={train}) "
+                                 f"on the card: {row}")
+    say("families_agree", n=AGREE_N, compute_dtype="float32",
+        rel_err_vs_f64=results, bound=AGREE_RTOL, margin=AGREE_MARGIN)
+
+
 def k6_inputs(n: int, seed: int, cfg: Config, dev) -> tuple:
     """Production-width K6 inputs, drawn on the card from a seeded
     generator (N=1024's img is 411M values, seconds of a host draw): bf16
@@ -2020,7 +2232,21 @@ def main() -> None:
         e2e["mhb_coAtt_composed"] = served["qa_pairs_per_s"]
         torch.cuda.empty_cache()
 
-    # phase 19: K4, K5 and K7 against their plain versions at N=256
+        # phase 19: mhb, visLstm, iBOWIMG and attentionNet served (no
+        # kernel on their paths)
+        for name in FAMILIES_SERVED:
+            e2e[name] = serve_family(name, store, dev, smi)["qa_pairs_per_s"]
+
+        # phase 20: hieCoAtten and those four trained
+        for name in FAMILIES_TRAINED:
+            train_family(name, store, smi)
+            torch.cuda.empty_cache()
+
+    # phase 21: their f32 forwards on the card against the CPU's
+    families_agree(dev)
+    torch.cuda.empty_cache()
+
+    # phase 22: K4, K5 and K7 against their plain versions at N=256
     a4 = k4_inputs(BATCH, 4, dev)
     n, l, e = a4[0].shape
     t = a4[1].shape[1]
@@ -2079,20 +2305,20 @@ def main() -> None:
         requests=BATCH * N_BATCHES, card=smi)
     torch.cuda.empty_cache()
 
-    # phase 20: K6 against its plain version at production widths
+    # phase 23: K6 against its plain version at production widths
     k6_err = max(k6_check(n, cfg, dev) for n in K6_NS)
     torch.cuda.empty_cache()
 
-    # phase 21: K6's path, its entry forward and backward
+    # phase 24: K6's path, its entry forward and backward
     launches["K6"] = k6_path(cfg, dev)
     torch.cuda.empty_cache()
 
-    # phase 22: K8 against its plain version, then its path
+    # phase 25: K8 against its plain version, then its path
     k8_err = max(k8_check(n, dev) for n in K8_NS)
     launches["K8"] = k8_path(dev)
     torch.cuda.empty_cache()
 
-    # phase 23: K6 and K8 times, and cuDNN's LSTM beside K8
+    # phase 26: K6 and K8 times, and cuDNN's LSTM beside K8
     k6_times, k6_bound = k6_time(cfg, dev, smi)
     k8_times, k8_bound, k8_library_ms = k8_time(dev, smi)
 

@@ -188,12 +188,26 @@ def test_bf16_forward_matches_jax_interpreted_k4(monkeypatch):
         assert err <= 2 * K4_RTOL * want_aux[name].max(), (name, err)
 
 
-def test_training_forward_is_not_ported():
-    cfg = small_cfg()
+def test_training_forward_is_not_ported(monkeypatch):
+    """The training forward is ported now, as the composed chain at any
+    dtype (JAX's ``supported`` refuses ``train``): at bf16 it never calls
+    K4's dispatch, and with the dropout rate at 0 it gives the composed
+    eval forward's logits (``VQA_DISABLE_PALLAS``)."""
+    from vqa_attention_networks_tpu_torch.models import hiecoatten as thie
+
+    cfg = small_cfg(compute_dtype="bfloat16", dropout_default=0.0)
     model = port_model(cfg, params_for(cfg))
     img, ques = inputs_for(cfg, n=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        model(torch.from_numpy(img), torch.from_numpy(ques), train=True)
+    args = (torch.from_numpy(img), torch.from_numpy(ques))
+    with torch.no_grad():
+        with monkeypatch.context() as m:
+            m.setattr(thie, "coattention_core", None)  # a call would raise
+            trained = model(*args, train=True,
+                            generator=torch.Generator())
+        with monkeypatch.context() as m:
+            m.setenv("VQA_DISABLE_PALLAS", "1")
+            composed = model(*args)
+    torch.testing.assert_close(trained, composed, rtol=0, atol=0)
 
 
 def test_init_params_loads_into_both_packages():

@@ -431,6 +431,70 @@ def test_k4_wrapper_raises_on_inputs_it_does_not_take():
         co.coattention_core_cuda(*odd)
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` of this checkout, for its K4 inputs and
+    tolerance (the script runs nothing at import)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_k4", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+K4_NAMES = ("v", "q", "av", "aq")
+# K4's mean |error| against the f64 version as a ratio to the plain f32
+# version's (k4_precision.py's formula), over the 8 (seed, output) pairs of
+# seeds 4 and 5: their geometric mean at most K4_F64_GEO_MARGIN, each at
+# most K4_F64_PAIR_MARGIN. Measured on an H100: this kernel 1.61 (1.07 to
+# 2.85); with the products chained on one accumulator inside the tensor
+# cores instead, 2.83 (0.93 to 6.32)
+K4_F64_GEO_MARGIN, K4_F64_PAIR_MARGIN = 2.0, 4.0
+
+
+def test_k4_matches_plain_version_at_chip_smoke_inputs():
+    """At ``chip_smoke.k4_inputs(256, seed=4)``, where K4 with its
+    mma.sync products summed inside the tensor cores put 2 aq elements
+    past the tolerance, every output within ``k4_check``'s tolerance."""
+    from vqa_attention_networks_tpu_torch.ops import coattention as co
+
+    smoke = _chip_smoke()
+    args = smoke.k4_inputs(256, 4, torch.device("cuda"))
+    got = co.coattention_core_cuda(*args)
+    want = co.coattention_core_reference(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(K4_NAMES, got, want):
+        outside = int((~smoke.k4_within(name, g, w)).sum())
+        assert outside == 0, (name, outside)
+
+
+def test_k4_error_against_f64_is_no_more_than_the_plain_versions():
+    """``k4_precision.py``'s comparison at seeds 4 and 5: per output (v,
+    q, av, aq), the mean |error| against the f64 version with K4's bf16
+    rounding points, of the kernel as a ratio to the plain version's."""
+    from vqa_attention_networks_tpu_torch.k4_precision import f64_version
+    from vqa_attention_networks_tpu_torch.ops import coattention as co
+
+    smoke = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ratios = {}
+    for seed in (4, 5):
+        args = smoke.k4_inputs(256, seed, torch.device("cuda"))
+        ref = f64_version(*args)
+        kernel = co.coattention_core_cuda(*args)
+        plain = co.coattention_core_reference(*args)
+        for name, k, p, r in zip(K4_NAMES, kernel, plain, ref):
+            k_err = float((k.double() - r).abs().mean())
+            p_err = float((p.double() - r).abs().mean())
+            ratios[(seed, name)] = k_err / p_err
+    geo = float(np.exp(np.mean(np.log(list(ratios.values())))))
+    assert geo <= K4_F64_GEO_MARGIN, (geo, ratios)
+    assert max(ratios.values()) <= K4_F64_PAIR_MARGIN, ratios
+
+
 @pytest.mark.parametrize("n,d,o", [(3, 64, 24), (4, 2048, 1000)],
                          ids=["ragged", "production"])
 def test_k5_matches_plain_version(n, d, o):

@@ -167,6 +167,15 @@ def test_init_params_loads_into_both_packages():
 
 
 def test_unported_families_name_their_roadmap_item():
-    for name in ("mhb", "visLstm", "iBOWIMG", "attentionNet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name)
+    # every family is ported now: each resolves to its module, and only a
+    # name outside the eight raises
+    from vqa_attention_networks_tpu_torch.config import MODEL_NAMES
+
+    classes = {name: get_model(name).__name__ for name in MODEL_NAMES}
+    assert classes == {
+        "mfb": "MFB", "mfb-multilayer": "MFB", "mhb": "MHB",
+        "mhb_coAtt": "MHBCoAtt", "hieCoAtten": "HieCoAtten",
+        "visLstm": "VisLstm", "iBOWIMG": "IBOWIMG",
+        "attentionNet": "AttentionNet"}
+    with pytest.raises(ValueError, match="not supported"):
+        get_model("vqa")

@@ -8,13 +8,17 @@ probability by about 1e-4. hieCoAtten and mfb serve through the same
 engine: their logits agree to 1e-2 (test_torch_port_hiecoatten.py,
 test_torch_port_mfb.py), and a logit difference e moves a probability p
 by about p * e: up to 4e-3 at their top probabilities (up to ~0.4 over 20
-answers), ``OTHER_PROB_ATOL``.
+answers), ``OTHER_PROB_ATOL``. So do mhb, visLstm, iBOWIMG and
+attentionNet, with both feeds (test_torch_port_families.py holds their
+bf16 logits); MHB's answers follow the ``qlen`` each request carries, in
+both engines.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import test_torch_port_families as fam
 import test_torch_port_hiecoatten as hie
 import test_torch_port_mfb as mfb
 from test_torch_port_mhb_coatt import params_for, port_config, small_cfg
@@ -190,3 +194,58 @@ def test_engine_serves_other_families_like_the_jax_engine(monkeypatch,
         np.testing.assert_array_equal(a.top_probs, b.top_probs)
     for a, b in zip(streamed[0], got[:5]):
         np.testing.assert_array_equal(a.top_ids, b.top_ids)
+
+
+@pytest.mark.parametrize("input_dtype", ["float16", "int8"])
+@pytest.mark.parametrize("family", fam.NEW)
+def test_engine_serves_the_last_families_like_the_jax_engine(family,
+                                                             input_dtype):
+    """mhb, visLstm, iBOWIMG (batch norm at its running statistics) and
+    attentionNet: no kernel on their path, the same answers as the JAX
+    engine with each feed."""
+    cfg = fam.small_cfg(family)
+    params = fam.params_for(cfg, seed=15)
+    port = InferenceEngine(port_config(cfg), params, batch_size=B, topk=TOPK,
+                           input_dtype=input_dtype, device="cpu")
+    ref = JaxEngine(cfg, params, batch_size=B, topk=TOPK,
+                    input_dtype=input_dtype)
+    img, ques = _requests(cfg, B, seed=16)
+    feats, kw = img, {}
+    if input_dtype == "int8":
+        feats, scale, _ = quantize_features(img)
+        kw = dict(feature_scale=scale)
+    got = port.predict_batch(feats, ques, **kw)
+    _assert_same(got, ref.predict_batch(feats, ques, **kw),
+                 atol=OTHER_PROB_ATOL)
+    item = (feats[:5], ques[:5], None) + ((kw["feature_scale"][:5],)
+                                          if kw else ())
+    for a, b in zip(next(port.predict_stream(iter([item]))), got[:5]):
+        np.testing.assert_array_equal(a.top_ids, b.top_ids)
+
+
+def test_mhb_answers_follow_the_question_length():
+    """The length each request carries reaches MHB through the engine (and
+    ``aot.serving_forward``): the same as JAX's with the same lengths, and
+    different answers when the lengths change."""
+    cfg = fam.small_cfg("mhb")
+    params = fam.params_for(cfg, seed=17)
+    port = InferenceEngine(port_config(cfg), params, batch_size=B, topk=TOPK,
+                           device="cpu")
+    ref = JaxEngine(cfg, params, batch_size=B, topk=TOPK)
+    img, ques = _requests(cfg, B, seed=18)
+    counted = (ques != 0).sum(1).astype(np.int32)
+    shifted = np.maximum(counted - 2, 0).astype(np.int32)
+    for qlen in (None, counted, shifted):
+        _assert_same(port.predict_batch(img, ques, ques_length=qlen),
+                     ref.predict_batch(img, ques, ques_length=qlen),
+                     atol=OTHER_PROB_ATOL)
+    full = port.predict_batch(img, ques)
+    short = port.predict_batch(img, ques, ques_length=shifted)
+    assert all(np.array_equal(a.top_probs, b.top_probs) for a, b in
+               zip(full, port.predict_batch(img, ques, ques_length=counted)))
+    differ = sum(not np.array_equal(a.top_probs, b.top_probs)
+                 for a, b in zip(full, short))
+    assert differ == B
+    streamed = next(port.predict_stream(iter([(img, ques, shifted)])))
+    for a, b in zip(streamed, short):
+        np.testing.assert_array_equal(a.top_probs, b.top_probs)

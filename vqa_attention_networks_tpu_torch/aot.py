@@ -21,11 +21,11 @@ from vqa_attention_networks_tpu_torch.models.layers import DTYPES
 def serving_forward(cfg: Config, topk: int,
                     input_dtype: str = "float16") -> Callable[
                         ..., Tuple[torch.Tensor, torch.Tensor]]:
-    """THE serving forward of every ported family. Returns ``fwd(model,
-    img, ques, qlen)`` for the f16 feed, ``fwd(model, img_q, scale, ques,
+    """THE serving forward of every family. Returns ``fwd(model, img,
+    ques, qlen)`` for the f16 feed, ``fwd(model, img_q, scale, ques,
     qlen)`` for the int8 feed; each gives (top ids [N, k] int64, top
-    probabilities [N, k] f32). ``qlen`` is taken for the JAX signature: the
-    ported families read no lengths. The top-k is clamped to the answer
+    probabilities [N, k] f32). ``qlen`` goes to the model as
+    ``ques_length`` (MHB reads it). The top-k is clamped to the answer
     vocab, as in the JAX function."""
     topk = min(topk, cfg.a_vocab_size)
 
@@ -39,17 +39,15 @@ def serving_forward(cfg: Config, topk: int,
     if input_dtype == "int8":
         # quantized feed: dequantise on the device, one multiply
         def fwd_int8(model, img_q, scale, ques, qlen):
-            del qlen  # the ported families read no lengths
             dt = DTYPES[cfg.compute_dtype]
             img = img_q.to(dt) * scale[:, None, :].to(dt)
-            return _head(model(img, ques))
+            return _head(model(img, ques, qlen))
 
         return fwd_int8
     if input_dtype != "float16":
         raise ValueError(f"input_dtype {input_dtype!r}: float16 or int8")
 
     def fwd(model, img, ques, qlen):
-        del qlen  # the ported families read no lengths
-        return _head(model(img, ques))
+        return _head(model(img, ques, qlen))
 
     return fwd

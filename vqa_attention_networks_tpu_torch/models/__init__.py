@@ -1,21 +1,17 @@
 """Model registry (port of ``vqa_attention_networks_tpu/models/__init__.py``).
 
-``mhb_coAtt``, ``hieCoAtten``, ``mfb`` and ``mfb-multilayer`` are ported;
-every other family raises ``NotImplementedError`` naming its ROADMAP item.
+All eight families are ported, and the Solver trains each of them. Every
+family's ``forward(img, ques, ques_length=None, *, train, valid,
+generator, fusion_seed, reference_kernels, aux)`` takes the same arguments,
+the counterpart of the JAX ``apply`` signature: only MHB reads
+``ques_length``, only iBOWIMG and attentionNet read ``valid``, and with
+``aux=True`` each returns (logits, aux) as ``apply`` does.
 """
 
 from vqa_attention_networks_tpu_torch.config import MODEL_NAMES
 
-# the training forward of the family served but not yet trained
-TRAINING_PENDING = "ROADMAP Queue 1 item 7 (training of hieCoAtten)"
-
 # the families the Solver trains
-TRAINABLE = ("mhb_coAtt", "mfb", "mfb-multilayer")
-
-_PENDING = {
-    name: "ROADMAP Queue 1 item 7 (other families)"
-    for name in ("mhb", "visLstm", "iBOWIMG", "attentionNet")
-}
+TRAINABLE = MODEL_NAMES
 
 
 def get_model(name: str):
@@ -24,6 +20,10 @@ def get_model(name: str):
         from vqa_attention_networks_tpu_torch.models.mhb_coatt import MHBCoAtt
 
         return MHBCoAtt
+    if name == "mhb":
+        from vqa_attention_networks_tpu_torch.models.mhb_coatt import MHB
+
+        return MHB
     if name == "hieCoAtten":
         from vqa_attention_networks_tpu_torch.models.hiecoatten import (
             HieCoAtten,
@@ -34,8 +34,19 @@ def get_model(name: str):
         from vqa_attention_networks_tpu_torch.models.mfb import MFB
 
         return MFB
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet: {_PENDING[name]}"
+    if name == "visLstm":
+        from vqa_attention_networks_tpu_torch.models.vis_lstm import VisLstm
+
+        return VisLstm
+    if name == "iBOWIMG":
+        from vqa_attention_networks_tpu_torch.models.ibowimg import IBOWIMG
+
+        return IBOWIMG
+    if name == "attentionNet":
+        from vqa_attention_networks_tpu_torch.models.ibowimg import (
+            AttentionNet,
         )
+
+        return AttentionNet
     raise ValueError(f"model {name!r} not supported; have {list(MODEL_NAMES)}")
+

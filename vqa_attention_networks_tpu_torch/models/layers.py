@@ -18,7 +18,10 @@ Rounding points follow the JAX functions exactly:
   ``torch.backends.cuda.matmul.allow_tf32`` False, its default.
 
 ``dropout`` draws its mask from an explicit ``torch.Generator`` on x's
-device; ``batchnorm`` waits for the families that use it.
+device. ``BatchNorm`` (``layers.py:201-254``) computes its train-mode
+statistics in f32 over the ``valid`` rows and returns them raw: the
+momentum EMA into its running-stat buffers belongs to the train step
+(``train/solver.py`` ``merge_batch_stats``), never to the layer.
 """
 
 from __future__ import annotations
@@ -65,6 +68,11 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
 def embedding_init(generator: torch.Generator, vocab: int, dim: int) -> Params:
     # PyTorch fans for an [V, E] embedding matrix: fan_in=E, fan_out=V
     return {"table": xavier_uniform(generator, (vocab, dim), dim, vocab)}
+
+
+def batchnorm_init(dim: int) -> Params:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim),
+            "mean": torch.zeros(dim), "var": torch.ones(dim)}
 
 
 def lstm_init(generator: torch.Generator, d_in: int, hidden: int) -> Params:
@@ -118,6 +126,51 @@ class LSTM(nn.Module):
                     self.bias_hh)
 
 
+class BatchNorm(nn.Module):
+    """BatchNorm1d over axis 0: ``scale`` and ``bias`` are parameters,
+    ``mean`` and ``var`` f32 buffers of running statistics, leaves of the
+    JAX tree like the other two (``batchnorm_init``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, train: bool,
+                valid: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Params]:
+        """-> (y in x's dtype, this batch's statistics). In train mode the
+        statistics are the raw batch mean and unbiased variance over the
+        rows where ``valid`` is set (all rows without it), computed in at
+        least f32, detached; the output normalises by the biased variance.
+        In eval mode the running buffers normalise and come back as the
+        statistics. The buffers are never written here."""
+        if train:
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
+            if valid is not None:
+                w = valid.to(xs.dtype)
+                n = torch.clamp_min(w.sum(), 1.0)
+                wn = (w / n)[:, None]
+                mean = torch.sum(xs * wn, dim=0)
+                var = torch.sum(torch.square(xs - mean) * wn, dim=0)
+                unbiased = var * (n / torch.clamp_min(n - 1.0, 1.0))
+            else:
+                mean = torch.mean(xs, dim=0)
+                var = torch.var(xs, dim=0, correction=0)
+                n = xs.shape[0]
+                unbiased = var * (n / max(n - 1, 1))
+            stats = {"mean": mean.detach(), "var": unbiased.detach()}
+        else:
+            mean, var = self.mean, self.var
+            stats = {"mean": mean, "var": var}
+        y = (x.to(mean.dtype) - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.scale + self.bias
+        return y.to(x.dtype), stats
+
+
 # --------------------------------------------------------------------------
 # functions
 # --------------------------------------------------------------------------
@@ -143,6 +196,32 @@ def embed(table: torch.Tensor, ids: torch.Tensor,
     return table.to(dtype)[ids.long()]
 
 
+def lstm_input_projection(x: torch.Tensor, w_ih: torch.Tensor,
+                          b_ih: torch.Tensor,
+                          b_hh: torch.Tensor) -> torch.Tensor:
+    """``x @ W_ih + (b_ih + b_hh)`` in x's dtype, the two biases summed in
+    f32 first (``lstm_bias``): the input projection an LSTM hoists out of
+    its recurrence, or computes per step for a stacked layer."""
+    dtype = x.dtype
+    return torch.matmul(x, w_ih.to(dtype).t()) + (b_ih + b_hh).to(dtype)
+
+
+def lstm_cell(x_proj: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              w_hh_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step (``layers.py:105-125``) given the input projection
+    [N, 4H]: the gates ``x_proj + h @ W_hh`` and both carries in h's dtype.
+    ``w_hh_t`` is W_hh cast to h's dtype and transposed, [H, 4H], so a
+    recurrence casts it once, not at every step."""
+    gates = x_proj + torch.matmul(h, w_hh_t)
+    i, f, g, o = gates.chunk(4, dim=-1)
+    i = torch.sigmoid(i)
+    f = torch.sigmoid(f)
+    g = torch.tanh(g)
+    o = torch.sigmoid(o)
+    c = f * c + i * g
+    return o * torch.tanh(c), c
+
+
 def lstm(
     x: torch.Tensor,  # [N, T, d_in]
     w_ih: torch.Tensor,  # [4H, d_in]
@@ -154,21 +233,13 @@ def lstm(
     n, t, _ = x.shape
     hidden = w_hh.shape[1]
     dtype = x.dtype
-    # hoisted input projection; the two biases sum in f32 first (lstm_bias)
-    x_proj = torch.matmul(x, w_ih.to(dtype).t()) + (b_ih + b_hh).to(dtype)
+    x_proj = lstm_input_projection(x, w_ih, b_ih, b_hh)  # hoisted
     w_hh_t = w_hh.to(dtype).t()
     h = torch.zeros(n, hidden, dtype=dtype, device=x.device)
     c = torch.zeros(n, hidden, dtype=dtype, device=x.device)
     hs = []
     for step in range(t):
-        gates = x_proj[:, step] + torch.matmul(h, w_hh_t)
-        i, f, g, o = gates.chunk(4, dim=-1)
-        i = torch.sigmoid(i)
-        f = torch.sigmoid(f)
-        g = torch.tanh(g)
-        o = torch.sigmoid(o)
-        c = f * c + i * g
-        h = o * torch.tanh(c)
+        h, c = lstm_cell(x_proj[:, step], h, c, w_hh_t)
         hs.append(h)
     return torch.stack(hs, dim=1)
 

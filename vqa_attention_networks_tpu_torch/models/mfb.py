@@ -104,12 +104,17 @@ class MFB(nn.Module):
             a = torch.relu(getattr(self, f"{name}_multiconv")(a))
         return getattr(self, f"{name}_conv2")(a)
 
-    def forward(self, img: torch.Tensor, ques: torch.Tensor, *,
+    def forward(self, img: torch.Tensor, ques: torch.Tensor,
+                ques_length: Optional[torch.Tensor] = None, *,
                 train: bool = False,
+                valid: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 fusion_seed: Optional[int] = None,
-                reference_kernels: bool = False) -> torch.Tensor:
-        """-> f32 logits [N, a_vocab] (``mfb.py:81-140``).
+                reference_kernels: bool = False, aux: bool = False):
+        """-> f32 logits [N, a_vocab] (``mfb.py:81-140``); with
+        ``aux=True``, (logits, {}). ``ques_length`` and ``valid`` are
+        taken for the common signature: mfb reads no lengths and has no
+        batch norm.
 
         ``train=True`` runs the training forward: the dropout masks come
         from ``generator`` (on img's device) in the JAX order (LSTM output,
@@ -147,4 +152,5 @@ class MFB(nn.Module):
         final = L.l2_normalize(mfb_fuse_pool(
             self.ques_proj2(q_att), self.img_proj2(v_att), cfg.mfb_factor,
             rate=cfg.dropout_fusion, train=train, generator=generator))
-        return self.linear_pred(final).float()
+        logits = self.linear_pred(final).float()
+        return (logits, {}) if aux else logits

@@ -18,7 +18,12 @@ under ``VQA_PALLAS_GLIMPSE`` (``ops/attention.py``).
 
 The training forward (``train=True``) runs the stage-1 fusion through
 ``grid_fuse`` at ``cfg.dropout_site``: K2 at the pre-pool site, K3 at the
-pooled site (bf16). The plain MHB model comes with a later slice.
+pooled site (bf16).
+
+``MHB`` (``mhb_coatt.py:209-279``) is the plain model with no attention:
+the mean-pooled grid, the LSTM's state at the last question token (it
+reads ``ques_length``), and two cascaded MFB fusions. It runs no kernel of
+the port, as the JAX function runs no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from vqa_attention_networks_tpu_torch.models import layers as L
 from vqa_attention_networks_tpu_torch.ops.attention import glimpse_attention
 from vqa_attention_networks_tpu_torch.ops.fusion import (
     mfb_fuse_pool,
+    mfb_sumpool,
     two_glimpse_pool,
 )
 from vqa_attention_networks_tpu_torch.ops.grid_fusion import grid_fuse
@@ -154,13 +160,16 @@ class MHBCoAtt(nn.Module):
         self,
         img: torch.Tensor,  # [N, L, D]
         ques: torch.Tensor,  # [N, T]
+        ques_length: Optional[torch.Tensor] = None,  # unused
         *,
         train: bool = False,
+        valid: Optional[torch.Tensor] = None,  # unused: no batch norm
         generator: Optional[torch.Generator] = None,
         fusion_seed: Optional[int] = None,
         reference_kernels: bool = False,
-    ) -> torch.Tensor:
-        """-> f32 logits [N, a_vocab].
+        aux: bool = False,
+    ):
+        """-> f32 logits [N, a_vocab]; with ``aux=True``, (logits, {}).
 
         ``train=True`` runs the training forward: the dropout masks come
         from ``generator`` (on img's device) in the JAX order (LSTM output,
@@ -181,8 +190,9 @@ class MHBCoAtt(nn.Module):
             emb = torch.cat([emb, L.embed(self.glove_table, ques, dtype)], -1)
         h_seq = self.lstm(emb)  # [N, T, H]
         if train:
-            return self._train_forward(img, h_seq, generator, fusion_seed,
-                                       reference_kernels)
+            logits = self._train_forward(img, h_seq, generator, fusion_seed,
+                                         reference_kernels)
+            return (logits, {}) if aux else logits
         q_att = glimpse_attention(
             h_seq, self.ques_att_conv1.weight, self.ques_att_conv1.bias,
             self.ques_att_conv2.weight, self.ques_att_conv2.bias, h_seq,
@@ -211,7 +221,8 @@ class MHBCoAtt(nn.Module):
 
         out2 = self._output_fusion("2", q_att, v_att)
         out3 = self._output_fusion("3", q_att, v_att)
-        return self.linear_pred(torch.cat([out2, out3], dim=-1)).float()
+        logits = self.linear_pred(torch.cat([out2, out3], dim=-1)).float()
+        return (logits, {}) if aux else logits
 
     def _train_forward(self, img: torch.Tensor, h_seq: torch.Tensor,
                        generator: Optional[torch.Generator],
@@ -242,3 +253,84 @@ class MHBCoAtt(nn.Module):
         out2 = self._output_fusion("2", q_att, v_att, True, generator)
         out3 = self._output_fusion("3", q_att, v_att, True, generator)
         return self.linear_pred(torch.cat([out2, out3], dim=-1)).float()
+
+
+# ---------------------------------------------------------------------------
+# MHB (no attention)
+# ---------------------------------------------------------------------------
+
+def mhb_init_params(cfg: Config, generator: torch.Generator) -> Dict:
+    """A random parameter tree in the JAX layout (``_mhb_init``)."""
+    h, d_img, fusion, g = (cfg.hidden_dim, cfg.img_feature_channel,
+                           cfg.fusion_dim, generator)
+    return {
+        "embedding": L.embedding_init(g, cfg.q_vocab_size, cfg.emb_dim),
+        "lstm": L.lstm_init(g, cfg.emb_dim, h),
+        "linear_q_1": L.dense_init(g, h, fusion),
+        "linear_q_2": L.dense_init(g, h, fusion),
+        "linear_i_1": L.dense_init(g, d_img, fusion),
+        "linear_i_2": L.dense_init(g, d_img, fusion),
+        "linear_out": L.dense_init(g, 2 * cfg.mfb_out, cfg.a_vocab_size),
+    }
+
+
+class MHB(nn.Module):
+    """MHB: (img [N, L, D], ques [N, T], ques_length [N]) -> f32 logits
+    [N, a_vocab]. Parameters are allocated empty; load them with
+    ``weights.load_jax_params``."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        h, d_img, fusion = cfg.hidden_dim, cfg.img_feature_channel, cfg.fusion_dim
+        self.embedding = L.Embedding(cfg.q_vocab_size, cfg.emb_dim)
+        self.lstm = L.LSTM(cfg.emb_dim, h)
+        self.linear_q_1 = L.Dense(h, fusion)
+        self.linear_q_2 = L.Dense(h, fusion)
+        self.linear_i_1 = L.Dense(d_img, fusion)
+        self.linear_i_2 = L.Dense(d_img, fusion)
+        self.linear_out = L.Dense(2 * cfg.mfb_out, cfg.a_vocab_size)
+
+    def forward(
+        self,
+        img: torch.Tensor,  # [N, L, D]
+        ques: torch.Tensor,  # [N, T]
+        ques_length: Optional[torch.Tensor] = None,  # [N], required
+        *,
+        train: bool = False,
+        valid: Optional[torch.Tensor] = None,  # unused: no batch norm
+        generator: Optional[torch.Generator] = None,
+        fusion_seed: Optional[int] = None,  # unused: no K2
+        reference_kernels: bool = False,  # unused: no kernel
+        aux: bool = False,
+    ):
+        """-> f32 logits [N, a_vocab]; with ``aux=True``, (logits, {}).
+        ``train=True`` draws the three dropout masks from ``generator`` in
+        the JAX order: the LSTM state, then stage 1's product, then stage
+        2's."""
+        if ques_length is None:
+            raise ValueError("MHB gathers the last valid LSTM step: it "
+                             "needs ques_length")
+        cfg = self.cfg
+        dtype = L.DTYPES[cfg.compute_dtype]
+        n, t = ques.shape
+        k = cfg.mfb_factor
+        # the grid cast first, then mean-pooled (mhb_coatt.py:246)
+        img_pooled = torch.mean(img.to(dtype), dim=1)  # [N, D]
+        # no tanh on the embedding in MHB
+        h_seq = self.lstm(self.embedding(ques, dtype))  # [N, T, H]
+        # the last valid step; a zero-length question reads step 0, and a
+        # length past T the last step, as JAX's clamping gather does
+        last = torch.clamp(ques_length.long(), 1, t) - 1
+        h_last = h_seq[torch.arange(n, device=h_seq.device), last]
+        h_last = L.dropout(h_last, cfg.dropout_lstm, train, generator)
+
+        z1 = self.linear_q_1(h_last) * self.linear_i_1(img_pooled)
+        z1_dropped = L.dropout(z1, cfg.dropout_fusion, train, generator)
+        m1 = L.l2_normalize(L.signed_sqrt(mfb_sumpool(z1_dropped, k)))
+        # stage 2 re-multiplies stage 1's dropped pre-pool product
+        z2 = self.linear_q_2(h_last) * self.linear_i_2(img_pooled)
+        z2 = L.dropout(z2 * z1_dropped, cfg.dropout_fusion, train, generator)
+        m2 = L.l2_normalize(L.signed_sqrt(mfb_sumpool(z2, k)))
+        logits = self.linear_out(torch.cat([m1, m2], dim=-1)).float()
+        return (logits, {}) if aux else logits

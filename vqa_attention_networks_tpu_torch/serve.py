@@ -1,14 +1,17 @@
 """Batched inference engine on one device (port of ``InferenceEngine`` in
 ``vqa_attention_networks_tpu/serve.py``).
 
-- Any ported family (``models.get_model``: mhb_coAtt, hieCoAtten, mfb,
-  mfb-multilayer), chosen by ``cfg.model_name``.
+- Any of the eight families (``models.get_model``), chosen by
+  ``cfg.model_name``; each request's question length reaches the model as
+  ``ques_length`` (MHB reads it), counted from the non-pad tokens when the
+  caller gives none, and clamped at 1.
 - One fixed batch size: smaller requests are padded, and the padding is
   dropped from the results.
 - bf16 activations and f32 logits; on a CUDA device the family's eval
   forward launches its hand-written kernels (K1 for mhb_coAtt, K4 for
   hieCoAtten; K5 and K7 under their switches, ``ops/grid_fusion.py`` and
-  ``ops/attention.py``).
+  ``ops/attention.py``; mhb, visLstm, iBOWIMG and attentionNet have none,
+  as in JAX).
 - ``predict_stream`` keeps one batch in flight: PyTorch's launches return
   before the device finishes, so the host assembles batch t+1 while the
   device runs batch t; ``_collect`` is where the results are copied to the

@@ -1,7 +1,6 @@
 """Single-device ``Solver`` (port of ``vqa_attention_networks_tpu/train/
 solver.py``): the train step, ``train()`` over epochs and ``val()`` on one
-batch, for ``mhb_coAtt``, ``mfb`` and ``mfb-multilayer`` (``TRAINABLE``),
-at either ``dropout_site``.
+batch, for all eight families (``TRAINABLE``), at either ``dropout_site``.
 
 - **Parameters**: the family's ``init_params`` drawn from a
   ``torch.Generator`` seeded by ``cfg.seed``, or a JAX-layout tree (``params=``) through
@@ -14,15 +13,21 @@ at either ``dropout_site``.
 - **Batches**: ``VqaBatches`` and ``prefetch`` of the port's
   ``data/dataset.py``, as the JAX Solver feeds them.
 - **The train step** (``solver.py:269-347`` with ``grad_accum_steps=1``
-  and no remat): the training forward, the loss with its ``valid`` mask,
-  backward, Adam. Its randomness is a pure function of
+  and no remat): the training forward (given the batch's ``ques_length``,
+  which MHB reads, and its ``valid`` mask, which masks the pad rows out of
+  a batch norm's statistics), the loss with its ``valid`` mask, backward,
+  Adam, then ``merge_batch_stats``: the momentum-0.1 EMA of the step's
+  batch-norm statistics into the layers' running buffers
+  (``_merge_batch_stats``, ``solver.py:70-107``; a no-op for the families
+  without batch norm). Its randomness is a pure function of
   ``(cfg.seed + 1, step)`` (``step_randomness``): the dropout generator's
   seed and K2's mask seed (the pooled site's mask comes from the
   generator). So a run resumed at step s replays step s's
   masks, as ``fold_in(base, step)`` does in JAX.
 - **val()** scores one batch through the eval forward (K1 at bf16 on the
-  card for mhb_coAtt), after the model has laid out K1's weights again if a
-  step changed them.
+  card for mhb_coAtt, K4 for hieCoAtten), after the model has laid out K1's
+  weights again if a step changed them; a batch norm normalises by its
+  running buffers, which ``weights.to_jax_params`` carries to a fresh load.
 - TF32 stays off: f32 products are full f32, the counterpart of the JAX
   package's ``Precision.HIGHEST``.
 
@@ -30,7 +35,8 @@ Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 checkpoints and resume, early stopping, gradient accumulation, remat, the
 device feature bank, the int8 feature feed, ``loss_override``, the
 profiler and NaN-trap switches, and ``val(full=True)``'s artifacts (item
-6); ``data_parallel``/``model_parallel`` > 1 (item 10). Metrics go to
+6; with gradient accumulation comes the EMA once per micro-batch);
+``data_parallel``/``model_parallel`` > 1 (item 10). Metrics go to
 stdout only: the JAX package's metric writer is item 6 too.
 """
 
@@ -54,10 +60,12 @@ from vqa_attention_networks_tpu_torch.data.prepare import QAData
 from vqa_attention_networks_tpu_torch.device import cuda_device
 from vqa_attention_networks_tpu_torch.models import (
     TRAINABLE,
-    TRAINING_PENDING,
     get_model,
+    hiecoatten,
+    ibowimg,
     mfb,
     mhb_coatt,
+    vis_lstm,
 )
 from vqa_attention_networks_tpu_torch.train.losses import (
     correct_count,
@@ -68,9 +76,25 @@ from vqa_attention_networks_tpu_torch.weights import load_jax_params
 
 _SOLVER_ITEM = "ROADMAP Queue 1 item 6 (Solver and CLIs)"
 _MULTI_GPU_ITEM = "ROADMAP Queue 1 item 10 (multi-GPU)"
-# each trainable family's random parameter tree (its ``init_params``)
-_INIT_PARAMS = {"mhb_coAtt": mhb_coatt.init_params,
-                "mfb": mfb.init_params, "mfb-multilayer": mfb.init_params}
+# each family's random parameter tree (its ``init_params``)
+_INIT_PARAMS = {
+    "mhb_coAtt": mhb_coatt.init_params,
+    "mhb": mhb_coatt.mhb_init_params,
+    "hieCoAtten": hiecoatten.init_params,
+    "mfb": mfb.init_params,
+    "mfb-multilayer": mfb.init_params,
+    "visLstm": vis_lstm.init_params,
+    "iBOWIMG": ibowimg.ibowimg_init_params,
+    "attentionNet": ibowimg.attention_net_init_params,
+}
+BN_MOMENTUM = 0.1  # torch nn.BatchNorm1d's default
+
+
+def init_params(cfg: Config, generator: torch.Generator) -> Dict:
+    """A random parameter tree of ``cfg.model_name`` in the JAX layout,
+    drawn from ``generator`` (xavier-uniform weights, zero biases, a batch
+    norm's running statistics at 0 and 1)."""
+    return _INIT_PARAMS[cfg.model_name](cfg, generator)
 
 
 def _unported(what: str, item: str = _SOLVER_ITEM) -> NotImplementedError:
@@ -99,30 +123,48 @@ def make_optimizer(model: torch.nn.Module, cfg: Config) -> torch.optim.Adam:
                             betas=(0.9, 0.999), eps=1e-8)
 
 
+def merge_batch_stats(model: torch.nn.Module,
+                      batch_stats: Optional[Mapping[str, Mapping[
+                          str, torch.Tensor]]]) -> None:
+    """EMA one step's batch-norm statistics (a forward's
+    ``aux["batch_stats"]``: layer name -> {"mean", "var"}) into the
+    layers' running buffers: ``(1 - BN_MOMENTUM) * running + BN_MOMENTUM
+    * batch``, as ``_merge_batch_stats`` does for one micro-batch."""
+    with torch.no_grad():
+        for layer, stats in (batch_stats or {}).items():
+            module = model.get_submodule(layer)
+            for key, batch in stats.items():
+                running = getattr(module, key)
+                running.copy_((1 - BN_MOMENTUM) * running
+                              + BN_MOMENTUM * batch)
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               loss_fn, img: torch.Tensor, ques: torch.Tensor, *, lr: float,
+               loss_fn, img: torch.Tensor, ques: torch.Tensor,
+               ques_length: Optional[torch.Tensor] = None, *, lr: float,
                generator: torch.Generator, fusion_seed: int,
+               valid: Optional[torch.Tensor] = None,
                reference_kernels: bool = False,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step: training forward, ``loss_fn(logits)``, backward, Adam at
-    ``lr``. Returns (loss, logits), both detached."""
+    ``lr``, then the batch-norm statistics merged into the running
+    buffers. Returns (loss, logits), both detached."""
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.zero_grad(set_to_none=True)
-    logits = model(img, ques, train=True, generator=generator,
-                   fusion_seed=fusion_seed,
-                   reference_kernels=reference_kernels)
+    logits, aux = model(img, ques, ques_length, train=True, valid=valid,
+                        generator=generator, fusion_seed=fusion_seed,
+                        reference_kernels=reference_kernels, aux=True)
     loss = loss_fn(logits)
     loss.backward()
     optimizer.step()
+    merge_batch_stats(model, aux.get("batch_stats"))
     return loss.detach(), logits.detach()
 
 
 def _check_ported(cfg: Config, store: FeatureStore) -> None:
     if cfg.model_name not in TRAINABLE:
-        raise _unported(f"training {cfg.model_name!r}",
-                        TRAINING_PENDING if cfg.model_name == "hieCoAtten"
-                        else "ROADMAP Queue 1 item 7 (other families)")
+        raise ValueError(f"the Solver does not train {cfg.model_name!r}")
     if cfg.data_parallel > 1 or cfg.model_parallel > 1:
         raise _unported("data_parallel / model_parallel > 1", _MULTI_GPU_ITEM)
     switches = {
@@ -165,8 +207,7 @@ class Solver:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if params is None:
-            params = _INIT_PARAMS[cfg.model_name](
-                cfg, torch.Generator().manual_seed(cfg.seed))
+            params = init_params(cfg, torch.Generator().manual_seed(cfg.seed))
         model = get_model(cfg.model_name)(cfg).to(self.device)
         self.model = load_jax_params(model, params)
         self.optimizer = make_optimizer(self.model, cfg)
@@ -207,20 +248,21 @@ class Solver:
         soft = (put(batch.soft_answers) if batch.soft_answers is not None
                 else None)
         return (put(batch.image_features), put(batch.questions),
-                put(batch.answers).long(), put(batch.valid), soft)
+                put(batch.ques_length), put(batch.answers).long(),
+                put(batch.valid), soft)
 
     def _train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One step at ``self.step`` -> (loss, correct count), on the
         device."""
-        img, ques, answers, valid, soft = self._device_batch(batch)
+        img, ques, qlen, answers, valid, soft = self._device_batch(batch)
         gen_seed, fusion_seed = step_randomness(self._rng_base, self.step)
         generator = torch.Generator(device=self.device).manual_seed(gen_seed)
         self.model.train()
         loss, logits = train_step(
             self.model, self.optimizer,
             lambda out: self._loss(out, answers, soft, valid),
-            img, ques, lr=learning_rate(self.cfg, self.step),
-            generator=generator, fusion_seed=fusion_seed,
+            img, ques, qlen, lr=learning_rate(self.cfg, self.step),
+            generator=generator, fusion_seed=fusion_seed, valid=valid,
             reference_kernels=self.reference_kernels,
         )
         correct = correct_count(logits, self._labels(answers, soft), valid)
@@ -297,10 +339,10 @@ class Solver:
         if full:
             raise _unported("val(full=True) and its results artifacts")
         batch = next(iter(self.batches["val"].epoch()))
-        img, ques, answers, valid, soft = self._device_batch(batch)
+        img, ques, qlen, answers, valid, soft = self._device_batch(batch)
         self.model.eval()
         with torch.no_grad():
-            logits = self.model(img, ques)
+            logits = self.model(img, ques, qlen)
             loss = self._loss(logits, answers, soft, valid)
             correct = correct_count(logits, self._labels(answers, soft),
                                     valid)

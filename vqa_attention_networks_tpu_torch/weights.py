@@ -7,7 +7,11 @@ unexpected key or a wrong shape raises. It is how the tests hand one set of
 weights to both packages, and how ``chip_smoke.py`` loads random weights.
 ``to_jax_params`` is its inverse: the module's parameters as a tree of
 numpy arrays in the JAX layout, so a test can hold the parameters after a
-training step against the JAX package's.
+training step against the JAX package's. A batch norm's running
+statistics (``mean``, ``var``) are buffers here and leaves of the tree
+there, so both directions carry them. A child module that is not a layer
+(attentionNet's attention layers) is a level of the tree: its children map
+under its name.
 Reference ``.pth`` checkpoints reach the same tree through the JAX package's
 framework-free ``utils/torch_import.import_state_dict``.
 """
@@ -32,26 +36,37 @@ _LEAVES = {
         "b_ih": ("bias_ih", False),
         "b_hh": ("bias_hh", False),
     },
+    L.BatchNorm: {
+        "scale": ("scale", False),
+        "bias": ("bias", False),
+        "mean": ("mean", False),
+        "var": ("var", False),
+    },
 }
 
 
-def _module_leaves(module: nn.Module) -> Dict[str, Tuple[torch.Tensor, bool]]:
+def _module_leaves(module: nn.Module, prefix: str = "",
+                   ) -> Dict[str, Tuple[torch.Tensor, bool]]:
     """JAX key path ("layer/leaf") -> (target tensor, transpose)."""
     out: Dict[str, Tuple[torch.Tensor, bool]] = {}
+    own = [name for name, _ in module.named_parameters(recurse=False)]
+    if own:
+        raise TypeError(
+            f"no JAX mapping for parameters {own} held by "
+            f"{type(module).__name__} itself"
+        )
     for name, child in module.named_children():
         fields = _LEAVES.get(type(child))
         if fields is None:
-            raise TypeError(
-                f"no JAX mapping for child {name!r} of type "
-                f"{type(child).__name__}"
-            )
+            out.update(_module_leaves(child, f"{prefix}{name}/"))
+            continue
         for leaf, (attr, transpose) in fields.items():
             tensor = getattr(child, attr)
             if tensor is not None:
-                out[f"{name}/{leaf}"] = (tensor, transpose)
+                out[f"{prefix}{name}/{leaf}"] = (tensor, transpose)
     for name, buf in module.named_buffers(recurse=False):
         if name not in module._non_persistent_buffers_set:
-            out[name] = (buf, False)
+            out[f"{prefix}{name}"] = (buf, False)
     return out
 
 
