@@ -27,10 +27,10 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
    ``torch.profiler``), and the end-to-end qa-pairs/s of step 4;
 6. K2 (the training fusion with pre-pool dropout, forward and backward)
    against its plain PyTorch version at production widths (L=196, D=2048,
-   F=5000, k=5), N = 8 and 64, rate 0.1 and 0: each launch (forward, d_img,
-   the g_prod build and the d_W/d_b product over it, d_q) on the same
-   inputs as its plain version, the backward launches on the kernel's own
-   forward output, the bf16 g_prod bit for bit; bit-equal reruns, finite
+   F=5000, k=5), N = 8 and 64, rate 0.1 and 0: each launch (forward, the
+   g_prod build and the d_img and d_W/d_b products over it, d_q) on the
+   same inputs as its plain version, the backward launches on the kernel's
+   own forward output, the bf16 g_prod bit for bit; bit-equal reruns, finite
    values, the count of out == 0 (all k factors dropped); and controls:
    the plain output with another mask seed, and d_W with the zero rule of
    g_pooled removed or with the mask off, must be rejected;
@@ -41,17 +41,19 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
    steps, the repeated batch's falling), K2's launch counts in the kernel
    run, and ``val()`` against a model freshly loaded with the trained
    weights;
-8. times: each K2 launch and its plain version at N = 64 (d_W/d_b as the
-   sum of its two launches, the g_prod build and the product, with each
-   one's share), the forward, backward and forward + backward through the
+8. times: each K2 launch and its plain version at N = 64 (d_img and
+   d_W/d_b as the product alone and with the g_prod build, d_W/d_b's two
+   launches' shares, and beside d_img ``torch.matmul`` on the bare
+   product), the forward, backward and forward + backward through the
    autograd functions, and ms per training step and training qa-pairs/s of
    the kernel and plain runs; then one pre-pool training step under
    ``torch.profiler``: the device's busy share of the step and its five
    longest kernels;
-9. K3 (the pooled-site training fusion: forward, d_img, d_W/d_b/d_q)
-   against its plain PyTorch version at production widths (L=196, D=2048,
-   O=1000, k=5), N = 8 and 64: each launch on the same inputs as its plain
-   version, the backward launches on the kernel's own forward output;
+9. K3 (the pooled-site training fusion: forward, the g_pooled build, and
+   the d_img and d_W/d_b/d_q products over it) against its plain PyTorch
+   version at production widths (L=196, D=2048, O=1000, k=5), N = 8 and
+   64: each launch on the same inputs as its plain version, the backward
+   launches on the kernel's own forward output, the bf16 g_pooled equal;
    bit-equal reruns, finite values, the forced zeros of pooled (a zero
    image row with zero bias, and outputs with zero weights and bias) zero
    in both; and controls that must be rejected: the plain forward with q
@@ -61,15 +63,18 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     ``Config(compute_dtype="bfloat16", dropout_site="pooled")`` at full
     width, batch 64, 20 steps with K3, the same 20 steps with its plain
     version and 20 on one repeated batch, with the gates of phase 7 and
-    K3's launch counts (forward and d_W once a step, d_img never);
+    K3's launch counts (forward, g_pooled and d_W once a step, d_img
+    never);
 11. mfb training, ``keep_reference_quirks=False`` (with the quirk the
     stage-1 fusion is gradient-dead): mfb at the pre-pool site (K2), mfb
     and mfb-multilayer at the pooled site (K3), 10 steps each with the
     same runs and gates; then one quirk-on mfb step, in which no gradient
     reaches ``img_conv1d`` or ``ques_proj1`` and K3's backward never
     launches;
-12. times: each K3 launch and its plain version at N = 64, and the device
-    time of each of d_W/d_b/d_q's four launches (``torch.profiler``; each
+12. times: each K3 launch and its plain version at N = 64 (d_img as the
+    product alone and with the build, and ``torch.bmm`` on the bare
+    product beside it), and the device time of each of d_W/d_b/d_q's four
+    launches, the build included (``torch.profiler``; each
     training run of phases 7, 10 and 11 prints its ms per step and
     training qa-pairs/s, kernel and plain, as it ends);
 13. K4 (hieCoAtten's co-attention core) against its plain version at
@@ -157,7 +162,8 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
-card's peak rate for their type, from this run's shapes), nvidia-smi's
+card's peak rate for their type, from this run's shapes; K2's and K3's
+d_img with the bare product's library time), nvidia-smi's
 line, and as the last line ``{"ok": true, "device": {...}}``. A switch
 (``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``) is set only inside the
 phase that needs it. With no card it exits non-zero before phase 2.
@@ -284,6 +290,9 @@ K3_SOURCE = "vqa_attention_networks_tpu_torch/csrc/pooled_fusion.cu"
 # the pallas_call each K3 launch replaces (pallas_pooled_fusion.py)
 K3_REPLACES = {
     "forward": "vqa_attention_networks_tpu/ops/pallas_pooled_fusion.py:218",
+    # g_pooled, formed once for d_img and d_W/d_b/d_q (both TPU kernels
+    # form it in VMEM; it feeds the d_W product of every training step)
+    "g_pooled": "vqa_attention_networks_tpu/ops/pallas_pooled_fusion.py:295",
     "d_img": "vqa_attention_networks_tpu/ops/pallas_pooled_fusion.py:257",
     "d_w": "vqa_attention_networks_tpu/ops/pallas_pooled_fusion.py:295",
 }
@@ -489,11 +498,13 @@ def k2_within(name: str, got: torch.Tensor,
 
 def k2_launches(img, w_bf16, b, q, g, seed, rate) -> dict:
     """Every K2 launch once; the backward ones on the kernel's own forward
-    output."""
+    output, d_img and d_W/d_b over one g_prod build, as the backward runs
+    them."""
     got = {"forward": tf.forward_cuda(img, w_bf16, b, q, seed, K2_K, rate)}
     args = (g, got["forward"], img, w_bf16, b, q, seed, K2_K, rate)
-    got["d_img"] = tf.d_img_cuda(*args)
     got["g_prod"], got["d_b_partials"] = tf.g_prod_cuda(*args)
+    got["d_img"] = tf.d_img_from_operand_cuda(got["g_prod"], w_bf16,
+                                              *img.shape[:2])
     got["d_w"], got["d_b"] = tf.d_w_from_operand_cuda(
         img, got["g_prod"], got["d_b_partials"])
     got["d_q"] = tf.d_q_cuda(*args)
@@ -697,13 +708,16 @@ def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
 
 def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
     """Each K2 launch against its plain version at N=64 (the plain
-    backward is handed the mask, as the kernel replays it), d_W/d_b as the
-    sum of its two launches (the g_prod build and the product) with each
-    one's share, then forward, backward (d_W + d_b + d_q) and both through
-    the autograd functions, where the plain forward draws its mask. Returns
-    (times, bounds) by launch; a bound counts the launch's product (2 N L D
-    F operations in bf16; the g_prod build's 4 f32 operations an element)
-    and its operands and results, not the mask's integer work."""
+    backward is handed the mask, as the kernel replays it), d_img and
+    d_W/d_b each as the product over the g_prod operand and with the build
+    (``d_img_total``, ``d_w_total``), d_W/d_b's two launches' shares, then
+    forward, backward (d_W + d_b + d_q) and both through the autograd
+    functions, where the plain forward draws its mask. Beside d_img, for
+    information, ``torch.matmul(g_prod, bf16(W)^T)`` with bf16 out, the
+    bare product, which the port never calls. Returns (times, bounds,
+    library ms) by launch; a bound counts the launch's product (2 N L D F
+    operations in bf16; the g_prod build's 4 f32 operations an element) and
+    its operands and results, not the mask's integer work."""
     n, seed = TRAIN_BATCH, 7
     img, w, b, q, g = k2_inputs(n, 3, cfg, device)
     w_bf16, bf, qf = tf.operands(w, b, q)
@@ -717,8 +731,13 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
                                             rate),
                     lambda: tf.forward_reference(img, w_bf16, bf, qf, K2_K,
                                                  keep)),
-        "d_img": (lambda: tf.d_img_cuda(*args),
-                  lambda: tf.d_img_reference(g, out, w_bf16, qf, K2_K, keep)),
+        "d_img": (lambda: tf.d_img_from_operand_cuda(g_prod, w_bf16, n,
+                                                     img.shape[1]),
+                  lambda: tf.d_img_from_operand_reference(g_prod, w_bf16, n,
+                                                          img.shape[1])),
+        "d_img_total": (lambda: tf.d_img_cuda(*args),
+                        lambda: tf.d_img_reference(g, out, w_bf16, qf, K2_K,
+                                                   keep)),
         "g_prod": (lambda: tf.g_prod_cuda(*args),
                    lambda: tf.g_prod_reference(g, out, qf, K2_K, keep)),
         "d_w": (lambda: tf.d_w_from_operand_cuda(img, g_prod, parts),
@@ -735,7 +754,8 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
     ops = {"bf16": 2 * n * l * d * f}
     bounds = {
         "forward": bound(nbytes(img, w_bf16, bf, qf, out), ops),
-        "d_img": bound(nbytes(g, out, w_bf16, qf, img), ops),  # d_img ~ img
+        "d_img": bound(nbytes(g_prod, w_bf16, img), ops),  # d_img ~ img
+        "d_img_total": bound(nbytes(g, out, w_bf16, qf, img), ops),
         "g_prod": bound(nbytes(g, out, qf, g_prod, parts),
                         {"f32": 4 * n * l * f}),
         "d_w": bound(nbytes(img, g_prod, parts) + 4 * (d * f + f), ops),
@@ -758,7 +778,12 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
                          for key, v in parts_ms.items()},
         plain_ms=times["d_w_total"][1], bound_ms=bounds["d_w_total"][0],
         target_ms=K2_DW_TARGET_MS, card=smi)
-    del g_prod, parts
+    w_t = w_bf16.t()
+    torch.matmul(g_prod, w_t)  # warm-up
+    library = {"d_img": time_ms(lambda: torch.matmul(g_prod, w_t), 10)}
+    say("k2_time", launch="d_img", library="torch.matmul(g_prod, bf16(W)^T)",
+        library_ms=library["d_img"], kernel_ms=times["d_img"][0], card=smi)
+    del g_prod, parts, w_t
 
     wr, br, qr = (x.clone().requires_grad_(True) for x in (w, b, q))
     fns = {"kernel": tf.TrainGridFuse.apply,
@@ -782,7 +807,7 @@ def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
         say("k2_time", autograd=name, n=n, rate=rate, kernel_ms=k_ms,
             plain_ms=p_ms, kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
             card=smi)
-    return times, bounds
+    return times, bounds, library
 
 
 def train_profile(cfg: Config, params, store, smi: str) -> None:
@@ -824,11 +849,15 @@ def train_profile(cfg: Config, params, store, smi: str) -> None:
 
 def k3_launches(img, w_bf16, b, q, g) -> dict:
     """Every K3 launch once; the backward ones on the kernel's own forward
-    output."""
+    output, d_img and d_W/d_b/d_q over one g_pooled build, as the backward
+    runs them."""
     got = {"forward": pf.forward_cuda(img, w_bf16, b, q, K2_K)}
     args = (g, got["forward"], img, w_bf16, b, q, K2_K)
-    got["d_img"] = pf.d_img_cuda(*args)
-    got["d_w"], got["d_b"], got["d_q"] = pf.d_w_cuda(*args)
+    got["g_pooled"], got["d_bq"] = pf.g_pooled_cuda(*args)
+    got["d_img"] = pf.d_img_from_gp_cuda(got["g_pooled"], img, w_bf16, b, q,
+                                         K2_K)
+    got["d_w"], got["d_b"], got["d_q"] = pf.d_w_from_gp_cuda(
+        got["g_pooled"], got["d_bq"], img, w_bf16, b, q, K2_K)
     return got
 
 
@@ -836,6 +865,7 @@ def k3_plain(img, w_bf16, b, q, g, out) -> dict:
     """The plain version of every K3 launch; the backward ones on ``out``."""
     want = {"forward": pf.forward_reference(img, w_bf16, b, q, K2_K),
             "d_img": pf.d_img_reference(g, out, w_bf16, q, K2_K)}
+    want["g_pooled"], want["d_bq"] = pf.g_pooled_reference(g, out)
     want["d_w"], want["d_b"], want["d_q"] = pf.d_w_reference(
         g, out, img, w_bf16, b, q, K2_K)
     return want
@@ -868,6 +898,23 @@ def k3_check(n: int, cfg: Config, device) -> dict:
     want = k3_plain(img, w_bf16, bf, qb, g, out)
     torch.cuda.synchronize()
     fields, max_abs, failed = {}, {}, []
+    # the bf16 operand, bit for bit (as int16; its zeros are +0 in both
+    # but where g is -0 or the plain version's g * 0 gives -0: compared as
+    # values there), and its rerun
+    gp, gp_again = got.pop("g_pooled"), again.pop("g_pooled")
+    gp_plain = want.pop("g_pooled")
+    fields["g_pooled"] = {
+        "equal": bool(torch.equal(gp, gp_plain)),
+        "bit_equal_share": float((gp.view(torch.int16) == gp_plain.view(
+            torch.int16)).float().mean()),
+        "rerun_bit_equal": bool(torch.equal(gp.view(torch.int16),
+                                            gp_again.view(torch.int16))),
+        "bytes": gp.numel() * gp.element_size()}
+    max_abs["g_pooled"] = float((gp.float() - gp_plain.float()).abs().max())
+    if not (fields["g_pooled"]["equal"]
+            and fields["g_pooled"]["rerun_bit_equal"]):
+        failed.append("g_pooled")
+    del gp, gp_again, gp_plain
     for name in got:
         diff = k2_view(name, got[name]) - k2_view(name, want[name])
         max_abs[name] = float((got[name] - want[name]).abs().max())
@@ -930,22 +977,36 @@ def k3_check(n: int, cfg: Config, device) -> dict:
 
 def k3_time(cfg: Config, device, smi: str) -> tuple:
     """Each K3 launch against its plain version at N=64 (CUDA events after
-    warm-up, kernel/plain/plain/kernel), and d_W/d_b/d_q's four launches
-    apart (device time). Returns (times, bounds) by launch:
-    a bound counts the launch's product (2 N L D O operations in bf16), its
-    f32 elementwise work (the wq build, 2 N k D O, in the forward and d_img;
-    d_W's and d_q's contractions with q and W, 4 N D F, in d_W) and its
-    operands and results moved once."""
+    warm-up, kernel/plain/plain/kernel): the forward, the g_pooled build,
+    d_img as the product over its operand and with the build
+    (``d_img_total``), and d_W/d_b/d_q with the build (the four launches it
+    took before the build was its own entry) with each launch's device
+    time. Beside d_img, for information, ``torch.bmm`` of bf16 g_pooled
+    [N, L, O] against a materialised bf16 wq^T [N, O, D] with bf16 out,
+    the bare product without the wq build, which the port never calls.
+    Returns (times, bounds, library ms) by launch: a bound counts the
+    launch's product (2 N L D O operations in bf16), its f32 elementwise
+    work (the wq build, 2 N k D O, in the forward and d_img; d_W's and
+    d_q's contractions with q and W, 4 N D F, in d_W; the zero rule's 3
+    operations an element in g_pooled) and its operands and results moved
+    once."""
     n = TRAIN_BATCH
     img, w, b, q, g = k2_inputs(n, 3, cfg, device)
     w_bf16, bf, qb = pf.operands(w, b, q)
     out = pf.forward_cuda(img, w_bf16, bf, qb, K2_K)
     args = (g, out, img, w_bf16, bf, qb, K2_K)
+    gp, d_bq = pf.g_pooled_cuda(*args)
     pairs = {
         "forward": (lambda: pf.forward_cuda(img, w_bf16, bf, qb, K2_K),
                     lambda: pf.forward_reference(img, w_bf16, bf, qb, K2_K)),
-        "d_img": (lambda: pf.d_img_cuda(*args),
-                  lambda: pf.d_img_reference(g, out, w_bf16, qb, K2_K)),
+        "g_pooled": (lambda: pf.g_pooled_cuda(*args),
+                     lambda: pf.g_pooled_reference(g, out)),
+        "d_img": (lambda: pf.d_img_from_gp_cuda(gp, img, w_bf16, bf, qb,
+                                                K2_K),
+                  lambda: pf.d_img_from_gp_reference(gp, w_bf16, qb, K2_K)),
+        "d_img_total": (lambda: pf.d_img_cuda(*args),
+                        lambda: pf.d_img_reference(g, out, w_bf16, qb,
+                                                   K2_K)),
         "d_w": (lambda: pf.d_w_cuda(*args),
                 lambda: pf.d_w_reference(g, out, img, w_bf16, bf, qb, K2_K)),
     }
@@ -955,7 +1016,10 @@ def k3_time(cfg: Config, device, smi: str) -> tuple:
     build = dict(prod, f32=2 * n * d * f)  # 2 N k D O = 2 N D F
     bounds = {
         "forward": bound(nbytes(img, w_bf16, bf, qb, out), build),
-        "d_img": bound(nbytes(g, out, w_bf16, qb) + 4 * img.numel(), build),
+        "g_pooled": bound(nbytes(g, out, gp, d_bq), {"f32": 3 * g.numel()}),
+        "d_img": bound(nbytes(gp, w_bf16, qb) + 4 * img.numel(), build),
+        "d_img_total": bound(nbytes(g, out, w_bf16, qb) + 4 * img.numel(),
+                             build),
         "d_w": bound(nbytes(g, out, img, w_bf16, bf, qb)
                      + 4 * (d * f + f + n * f), dict(prod, f32=4 * n * d * f)),
     }
@@ -969,7 +1033,16 @@ def k3_time(cfg: Config, device, smi: str) -> tuple:
             plain_runs_ms=times[name][3], bound_ms=bounds[name][0],
             bound_by=bounds[name][1], device_ms_by_launch=by_launch,
             card=smi)
-    return times, bounds
+    gp_o = gp[..., :f // K2_K].contiguous()
+    wq_t = pf.contracted_weights(w_bf16, qb, K2_K).to(
+        torch.bfloat16).transpose(1, 2).contiguous()
+    torch.bmm(gp_o, wq_t)  # warm-up
+    library = {"d_img": time_ms(lambda: torch.bmm(gp_o, wq_t), 10)}
+    say("k3_time", launch="d_img",
+        library="torch.bmm(bf16 g_pooled, bf16 wq^T), not the kernel's "
+                "function (no wq build, bf16 out)",
+        library_ms=library["d_img"], kernel_ms=times["d_img"][0], card=smi)
+    return times, bounds, library
 
 
 def nbytes(*tensors) -> int:
@@ -1361,6 +1434,8 @@ def train_phase(phase: str, cfg: Config, params, store, smi: str,
     want[kernel].update(forward=steps, d_w=steps)
     if kernel == "K2":
         want[kernel].update(g_prod=steps, d_q=steps)
+    else:
+        want[kernel].update(g_pooled=steps)
     say(phase, model=cfg.model_name, dropout_site=cfg.dropout_site,
         keep_reference_quirks=cfg.keep_reference_quirks, steps=steps,
         batch=TRAIN_BATCH, kernel_losses=run["losses"],
@@ -1421,7 +1496,8 @@ def dead_gradient_check(cfg: Config, params, store) -> None:
     if not (dead["img_conv1d"] and dead["ques_proj1"]) or dead["ques_proj2"]:
         raise AssertionError("with the quirk on, the stage-1 fusion gets a "
                              "gradient, or the rest of the model none")
-    if pf.launch_count != {"forward": 1, "d_img": 0, "d_w": 0}:
+    if pf.launch_count != {"forward": 1, "g_pooled": 0, "d_img": 0,
+                           "d_w": 0}:
         raise AssertionError(f"K3 launches {pf.launch_count} in a quirk-on "
                              "step")
     del solver
@@ -2113,7 +2189,7 @@ def main() -> None:
 
         # phase 8: K2 times at the training batch, then one pre-pool
         # training step under the profiler
-        k2_times, k2_bounds = k2_time(cfg, dev, smi)
+        k2_times, k2_bounds, k2_library = k2_time(cfg, dev, smi)
         torch.cuda.empty_cache()
         train_profile(bf16_train, train_params, store, smi)
         torch.cuda.empty_cache()
@@ -2152,7 +2228,7 @@ def main() -> None:
             for kernel, counts in TRAIN_COUNTERS.items()}
 
         # phase 12: K3 times at the training batch
-        k3_times, k3_bounds = k3_time(cfg, dev, smi)
+        k3_times, k3_bounds, k3_library = k3_time(cfg, dev, smi)
         torch.cuda.empty_cache()
 
         # phase 13: K4 against its plain version
@@ -2324,8 +2400,9 @@ def main() -> None:
 
     def entry(name, source, replaces, n_launches, err, run, bnd,
               library_ms=None) -> dict:
-        # library_ms: one PyTorch call that computes the same function;
-        # only K8's has one (torch.nn.LSTM), none of the fused chains does
+        # library_ms: one PyTorch call beside the kernel: K8's computes its
+        # function (torch.nn.LSTM); K2's and K3's d_img the bare product
+        # over the operand, for information (K3's without the wq build)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": err, "ms": run[0], "plain_ms": run[1],
@@ -2340,14 +2417,15 @@ def main() -> None:
             train_launches["K2"][launch],
             max(k2_err["d_w"], k2_err["d_b"], k2_err["d_b_partials"])
             if launch == "d_w" else k2_err[launch], k2_times[launch],
-            k2_bounds[launch]))
+            k2_bounds[launch], k2_library.get(launch)))
     for launch, replaces in K3_REPLACES.items():
         kernels.append(entry(
             f"pooled_fusion_{launch}", K3_SOURCE, replaces,
             train_launches["K3"][launch],
             max(k3_err["d_w"], k3_err["d_b"], k3_err["d_q"])
-            if launch == "d_w" else k3_err[launch], k3_times[launch],
-            k3_bounds[launch]))
+            if launch == "d_w" else max(k3_err["g_pooled"], k3_err["d_bq"])
+            if launch == "g_pooled" else k3_err[launch], k3_times[launch],
+            k3_bounds[launch], k3_library.get(launch)))
     kernels += [
         entry("coattention", K4_SOURCE, K4_REPLACES, launches["K4"], k4_err,
               k4_time, k4_bound),

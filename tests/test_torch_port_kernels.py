@@ -203,8 +203,9 @@ def test_k2_launches_match_plain_versions(n, l, d, o, k, rate):
     before = dict(tf.launch_count)
     got = launches()
     torch.cuda.synchronize()
+    # d_img_cuda builds its own g_prod, then the product over it
     assert {k: tf.launch_count[k] - before[k] for k in before} == \
-        {"forward": 1, "d_img": 1, "g_prod": 1, "d_w": 1, "d_q": 1}
+        {"forward": 1, "d_img": 1, "g_prod": 2, "d_w": 1, "d_q": 1}
     out = got["forward"]
     # the bf16 operand, bit for bit (as int16: a -0 is not a +0)
     g_prod = tf.g_prod_reference(g, out, q, k, keep)[0]
@@ -276,6 +277,62 @@ def test_k2_autograd_launches_the_kernels():
         {"forward": 1, "d_img": 0, "g_prod": 1, "d_w": 1, "d_q": 1}
     assert w.grad.dtype == torch.float32 and qq.grad.dtype == torch.bfloat16
     assert all(torch.isfinite(x.grad.float()).all() for x in (w, bb, qq))
+
+
+def test_k2_backward_with_img_grad_builds_g_prod_once():
+    """With img needing a gradient, the backward builds g_prod once and
+    both d_img and d_W read it; d_img agrees with the plain version."""
+    img, w_bf16, b, q, g = _k2_inputs(4, 128, 128, seed=2)
+    img = img.requires_grad_(True)
+    w = w_bf16.float().requires_grad_(True)
+    bb = b.clone().requires_grad_(True)
+    qq = q.to(torch.bfloat16).requires_grad_(True)
+    before = dict(tf.launch_count)
+    out = tf.train_grid_fuse(img, w, bb, qq, 5, K, 0.1)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert {k: tf.launch_count[k] - before[k] for k in before} == \
+        {"forward": 1, "d_img": 1, "g_prod": 1, "d_w": 1, "d_q": 1}
+    keep = tf.keep_scale(tf.dropout_mask(5, *img.shape[:2], w.shape[1], 0.1,
+                                         img.device), 0.1)
+    want = tf.d_img_reference(g, out.detach(), w_bf16, q, K, keep)
+    assert img.grad.dtype == torch.bfloat16
+    assert (img.grad.float() - want.float()).abs().max() <= \
+        K2_RTOL["d_img"] * want.float().abs().max()
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+def test_k2_d_img_matches_plain_version_at_chip_smoke_inputs(rate):
+    """K2's d_img product over the g_prod operand at ``chip_smoke``'s
+    N = 64 inputs (``k2_time``'s): within ``k2_check``'s tolerance of the
+    plain version, the same as the build-and-product call, and a rerun
+    gives the same sha256."""
+    import hashlib
+
+    smoke = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, dev, n, seed = smoke.Config(), torch.device("cuda"), 64, 7
+    img, w, b, q, g = smoke.k2_inputs(n, 3, cfg, dev)
+    w_bf16, bf, qf = tf.operands(w, b, q)
+    l, f = img.shape[1], w.shape[1]
+    keep = tf.keep_scale(tf.dropout_mask(seed, n, l, f, rate, dev), rate) \
+        if rate > 0 else None
+    out = tf.forward_cuda(img, w_bf16, bf, qf, seed, K, rate)
+    args = (g, out, img, w_bf16, bf, qf, seed, K, rate)
+    g_prod, _ = tf.g_prod_cuda(*args)
+    got = tf.d_img_from_operand_cuda(g_prod, w_bf16, n, l)
+    want = tf.d_img_reference(g, out, w_bf16, qf, K, keep)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert bool(smoke.k2_within("d_img", got, want).all())
+    assert torch.equal(got, tf.d_img_cuda(*args))
+
+    def digest(x):
+        return hashlib.sha256(x.view(torch.int16).cpu().numpy().tobytes()
+                              ).hexdigest()
+
+    again = tf.d_img_from_operand_cuda(g_prod, w_bf16, n, l)
+    assert digest(got) == digest(again)
 
 
 def test_k2_wrappers_raise_on_inputs_they_do_not_take():
@@ -650,8 +707,9 @@ def test_k3_launches_match_plain_versions(n, l, d, o, k):
     before = dict(pf.launch_count)
     got = launches()
     torch.cuda.synchronize()
+    # d_w_cuda and d_img_cuda each form their own g_pooled, then the product
     assert {key: pf.launch_count[key] - before[key] for key in before} == \
-        {"forward": 1, "d_img": 1, "d_w": 1}
+        {"forward": 1, "g_pooled": 2, "d_img": 1, "d_w": 1}
     out = got["forward"]
     d_w, d_b, d_q = pf.d_w_reference(g, out, img, w_bf16, b, q, k)
     want = {"forward": pf.forward_reference(img, w_bf16, b, q, k),
@@ -738,9 +796,64 @@ def test_k3_autograd_launches_the_kernels():
     torch.cuda.synchronize()
     # img needs no gradient: d_img is not launched
     assert {k: pf.launch_count[k] - before[k] for k in before} == \
-        {"forward": 1, "d_img": 0, "d_w": 1}
+        {"forward": 1, "g_pooled": 1, "d_img": 0, "d_w": 1}
     assert w.grad.dtype == torch.float32 and qq.grad.dtype == torch.bfloat16
     assert all(torch.isfinite(x.grad.float()).all() for x in (w, bb, qq))
+
+
+def test_k3_backward_with_img_grad_forms_g_pooled_once():
+    """With img needing a gradient, the backward forms g_pooled once and
+    both d_img and d_W read it; d_img agrees with the plain version."""
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+
+    img, w_bf16, b, q, g = _k3_inputs(4, 196, 128, 128, seed=3)
+    img = img.requires_grad_(True)
+    w = w_bf16.float().requires_grad_(True)
+    bb = b.clone().requires_grad_(True)
+    qq = q.clone().requires_grad_(True)
+    before = dict(pf.launch_count)
+    out = pf.pooled_grid_fuse(img, w, bb, qq, K)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert {k: pf.launch_count[k] - before[k] for k in before} == \
+        {"forward": 1, "g_pooled": 1, "d_img": 1, "d_w": 1}
+    want = pf.d_img_reference(g, out.detach(), w_bf16, q, K)
+    assert img.grad.dtype == torch.bfloat16
+    # the gradient leaves in img's dtype: one bf16 rounding of each value
+    assert (img.grad.float() - want).abs().max() <= \
+        2.0 ** -7 * want.abs().max()
+
+
+def test_k3_d_img_matches_plain_version_at_chip_smoke_inputs():
+    """K3's d_img product over the g_pooled operand at ``chip_smoke``'s
+    N = 64 inputs (``k3_time``'s): within ``k3_check``'s tolerance of the
+    plain version, the same as the build-and-product call, and a rerun
+    gives the same sha256."""
+    import hashlib
+
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+
+    smoke = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, dev = smoke.Config(), torch.device("cuda")
+    img, w, b, q, g = smoke.k2_inputs(64, 3, cfg, dev)
+    w_bf16, bf, qb = pf.operands(w, b, q)
+    out = pf.forward_cuda(img, w_bf16, bf, qb, K)
+    args = (g, out, img, w_bf16, bf, qb, K)
+    gp, _ = pf.g_pooled_cuda(*args)
+    assert torch.equal(gp, pf.g_pooled_reference(g, out)[0])
+    got = pf.d_img_from_gp_cuda(gp, img, w_bf16, bf, qb, K)
+    want = pf.d_img_reference(g, out, w_bf16, qb, K)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert bool(smoke.k3_within("d_img", got, want).all())
+    assert torch.equal(got, pf.d_img_cuda(*args))
+
+    def digest(x):
+        return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+
+    assert digest(got) == digest(pf.d_img_from_gp_cuda(gp, img, w_bf16, bf,
+                                                       qb, K))
 
 
 def test_k3_wrappers_raise_on_inputs_they_do_not_take():

@@ -320,10 +320,11 @@ def test_dispatch_sends_a_device_tensor_to_the_kernels(monkeypatch, rate):
     function at any rate: here a tensor on the meta device (shapes, no
     data), with the CUDA checks and the library call stubbed out, so that
     the wrappers' allocations and launch counts run as on the card. img
-    needs no gradient: d_img is not launched."""
+    needs no gradient: g_pooled is formed once and d_img is not launched;
+    with img needing one, the same g_pooled feeds both d_img and d_W."""
     launched = []
 
-    def fake_launch(name, pointers, img, w_bf16, k):
+    def fake_launch(name, pointers, dims, device):
         launched.append(name)
         pf.launch_count[name] += 1
 
@@ -341,14 +342,56 @@ def test_dispatch_sends_a_device_tensor_to_the_kernels(monkeypatch, rate):
                     generator=torch.Generator())
     assert out.shape == (N, L, O) and out.dtype == torch.bfloat16
     out.float().sum().backward()
-    assert launched == ["forward", "d_w"]
+    assert launched == ["forward", "g_pooled", "d_w"]
     assert {k: pf.launch_count[k] - before[k] for k in before} == \
-        {"forward": 1, "d_img": 0, "d_w": 1}
+        {"forward": 1, "g_pooled": 1, "d_img": 0, "d_w": 1}
     assert (w.grad.dtype, b.grad.dtype, q.grad.dtype) == (
         torch.float32, torch.float32, torch.bfloat16)
     # with img needing a gradient, d_img is launched too
     img.requires_grad_(True)
     grid_fuse(img, w, b, q, K, train=True, rate=rate, site="pooled",
               generator=torch.Generator()).float().sum().backward()
-    assert launched[2:] == ["forward", "d_img", "d_w"]
+    assert launched[3:] == ["forward", "g_pooled", "d_img", "d_w"]
     assert img.grad.dtype == torch.bfloat16
+
+
+# d_img on the card is two launches, the g_pooled build (shared with d_W)
+# and the product over its bf16 operand gp [N, L, O8]; their plain versions
+# composed are d_img_reference, bit for bit: the same bf16 g_pooled, the
+# same bf16 wq and the same f32 product
+@pytest.mark.parametrize("n,l,o,k", [(N, L, O, K), (2, 9, 18, 4)],
+                         ids=["o20_k5", "o18_k4"])
+def test_d_img_reference_is_the_g_pooled_build_then_the_product(n, l, o, k):
+    img, w, b, q, g = _inputs(10, n=n, l=l, o=o, k=k)
+    w_bf16, bf, qb = pf.operands(torch.from_numpy(w), torch.from_numpy(b),
+                                 torch.from_numpy(q))
+    ti = torch.from_numpy(img).to(torch.bfloat16)
+    out = pf.forward_reference(ti, w_bf16, bf, qb, k)
+    out[0, 0, :3] = 0.0  # the zero rule reaches the operand
+    tg = torch.from_numpy(g)
+    gp, d_bq = pf.g_pooled_reference(tg, out)
+    o8 = -(-o // 8) * 8
+    assert gp.dtype == torch.bfloat16 and gp.shape == (n, l, o8)
+    assert (gp[..., o:] == 0).all() and (gp[0, 0, :3] == 0).all()
+    assert torch.equal(gp[..., :o], pf.g_pooled(tg, out).to(torch.bfloat16))
+    assert d_bq.dtype == torch.float32 and d_bq.shape == (n, o)
+    assert torch.equal(d_bq, pf.g_pooled(tg, out).sum(dim=1))
+    got = pf.d_img_from_gp_reference(gp, w_bf16, qb, k)
+    assert got.dtype == torch.float32 and got.shape == (n, l, img.shape[2])
+    assert torch.equal(got, pf.d_img_reference(tg, out, w_bf16, qb, k))
+
+
+def test_g_pooled_launch_wrappers_refuse_cpu_tensors():
+    img, w, b, q, g = _inputs(11)
+    w_bf16, bf, qb = pf.operands(torch.from_numpy(w), torch.from_numpy(b),
+                                 torch.from_numpy(q))
+    ti = torch.from_numpy(img).to(torch.bfloat16)
+    tg = torch.from_numpy(g)
+    out = pf.forward_reference(ti, w_bf16, bf, qb, K)
+    with pytest.raises(ValueError, match="CUDA"):
+        pf.g_pooled_cuda(tg, out, ti, w_bf16, bf, qb, K)
+    gp, d_bq = pf.g_pooled_reference(tg, out)
+    with pytest.raises(ValueError, match="CUDA"):
+        pf.d_img_from_gp_cuda(gp, ti, w_bf16, bf, qb, K)
+    with pytest.raises(ValueError, match="CUDA"):
+        pf.d_w_from_gp_cuda(gp, d_bq, ti, w_bf16, bf, qb, K)

@@ -344,3 +344,82 @@ def test_d_w_launch_wrappers_refuse_cpu_tensors():
                                            None)
     with pytest.raises(ValueError, match="on the card"):
         tf.d_w_from_operand_cuda(ti, g_prod, partials)
+
+
+# d_img on the card is two launches, the g_prod build (shared with d_W) and
+# the product over its bf16 operand; their plain versions composed are
+# d_img_reference, bit for bit: the same bf16 g_prod and the same product
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+def test_d_img_reference_is_the_g_prod_build_then_the_product(rate):
+    img, w, b, q, g = _inputs(n=3, l=50, seed=8)
+    w_bf16, bf, qf = tf.operands(torch.from_numpy(w), torch.from_numpy(b),
+                                 torch.from_numpy(q))
+    ti = torch.from_numpy(img).to(torch.bfloat16)
+    n, l, d = img.shape
+    mask = tf.dropout_mask(12, n, l, w.shape[1], rate) if rate > 0 else None
+    keep = tf.keep_scale(mask, rate)
+    out = tf.forward_reference(ti, w_bf16, bf, qf, K, keep)
+    tg = torch.from_numpy(g)
+    g_prod, _ = tf.g_prod_reference(tg, out, qf, K, keep)
+    got = tf.d_img_from_operand_reference(g_prod, w_bf16, n, l)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, l, d)
+    assert torch.equal(got.view(torch.int16),
+                       tf.d_img_reference(tg, out, w_bf16, qf, K, keep)
+                       .view(torch.int16))
+
+
+def test_d_img_launch_wrapper_refuses_cpu_tensors():
+    img, w, b, q, g = _inputs(seed=9)
+    w_bf16, bf, qf = tf.operands(torch.from_numpy(w), torch.from_numpy(b),
+                                 torch.from_numpy(q))
+    ti = torch.from_numpy(img).to(torch.bfloat16)
+    out = tf.forward_reference(ti, w_bf16, bf, qf, K, None)
+    g_prod, _ = tf.g_prod_reference(torch.from_numpy(g), out, qf, K, None)
+    n, l, _ = img.shape
+    with pytest.raises(ValueError, match="on the card"):
+        tf.d_img_from_operand_cuda(g_prod, w_bf16, n, l)
+
+
+@pytest.mark.parametrize("img_grad", [False, True],
+                         ids=["img_is_data", "img_needs_a_gradient"])
+def test_backward_builds_g_prod_once(monkeypatch, img_grad):
+    """TrainGridFuse with each launch wrapper replaced by a recorder that
+    returns zeros of its output's shape (there is no card here): the
+    backward builds g_prod once, and d_img, when img needs a gradient,
+    reads the very tensor that d_W reads."""
+    n, l, d, o = 3, 12, 48, 8
+    f = o * K
+    calls = []
+
+    def record(name, result):
+        def wrapper(*args):
+            calls.append((name, args, result(*args)))
+            return calls[-1][2]
+        monkeypatch.setattr(tf, name, wrapper)
+
+    record("forward_cuda", lambda *a: torch.zeros(n, l, o))
+    record("g_prod_cuda", lambda *a: (
+        torch.zeros(n * l, f, dtype=torch.bfloat16),
+        torch.zeros(-(-n * l // tf.DB_CHUNK), f)))
+    record("d_img_from_operand_cuda",
+           lambda *a: torch.zeros(n, l, d, dtype=torch.bfloat16))
+    record("d_w_from_operand_cuda",
+           lambda *a: (torch.zeros(d, f), torch.zeros(f)))
+    record("d_q_cuda", lambda *a: torch.zeros(n, f))
+    img = torch.zeros(n, l, d, dtype=torch.bfloat16, requires_grad=img_grad)
+    w = torch.zeros(d, f, requires_grad=True)
+    b = torch.zeros(f, requires_grad=True)
+    q = torch.zeros(n, f, dtype=torch.bfloat16, requires_grad=True)
+    tf.TrainGridFuse.apply(img, w, b, q, 3, K, 0.1).sum().backward()
+    names = [name for name, _, _ in calls]
+    assert names == ["forward_cuda", "g_prod_cuda"] + [
+        "d_img_from_operand_cuda"] * img_grad + ["d_w_from_operand_cuda",
+                                                 "d_q_cuda"]
+    g_prod, partials = calls[1][2]
+    d_w_args = calls[-2][1]
+    assert d_w_args[1] is g_prod and d_w_args[2] is partials
+    if img_grad:
+        assert calls[2][1][0] is g_prod and calls[2][1][2:] == (n, l)
+        assert img.grad.dtype == torch.bfloat16 and img.grad.shape == (n, l, d)
+    else:
+        assert img.grad is None

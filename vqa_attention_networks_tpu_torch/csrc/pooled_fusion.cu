@@ -48,20 +48,25 @@
 // 989 TFLOP/s bf16) plus f32 elementwise work: the wq build, 2*N*k*D*O =
 // 1.3 GFLOP (forward, d_img), and d_W's and d_q's contractions with q and
 // W, 4*N*D*F = 2.6 GFLOP (d_W). The bytes each must move once: forward
-// ~121 MB (img, W, out), d_img ~224 MB (g, out, d_img in f32), d_W ~213 MB
-// (g, out, img, W, d_W in f32); 0.036-0.067 ms at 3.35 TB/s. So the
-// operations bound it (0.07-0.09 ms, the f32 work at 67 TFLOP/s added to
-// the product's). The forward is a TMA ring with wgmma: what holds it is
-// its L2 traffic, each block reading its O tile's W slab (1.3 MB) and two
-// samples' img (1.6 MB), ~1.5 GB at N = 64 (a 2-block cluster multicasting
-// img, tried, was slower). d_img uses the tensor cores through WMMA (bf16
-// 16x16x16, f32 accumulators) with one shared-memory stage and no load in
-// flight during the MMAs, and rebuilds wq from W in L2 element by element:
-// correct and simple, not yet fast. d_W's product kernel is a TMA ring
-// with wgmma; what holds it is the f32 work per sample (d_W's k sums and
-// d_q's partial, unfused as the plain version rounds them), which one
-// block of 8 warps an SM does in turn with the sample's products while the
-// ring's loads run beside them.
+// ~121 MB (img, W, out), d_img ~148 MB (g_pooled, W, d_img in f32), d_W
+// ~213 MB (g, out, img, W, d_W in f32); 0.036-0.067 ms at 3.35 TB/s. So
+// the operations bound it (0.07-0.09 ms, the f32 work at 67 TFLOP/s added
+// to the product's). The forward is a TMA ring with wgmma: what holds it
+// is its L2 traffic, each block reading its O tile's W slab (1.3 MB) and
+// two samples' img (1.6 MB), ~1.5 GB at N = 64 (a 2-block cluster
+// multicasting img, tried, was slower). d_img is the forward turned
+// around, d_img[n]^T [64 d, 208 l] = wq[n] [64 d, O] x g_pooled[n]^T, with
+// the same ring, the same wq build in registers (from W's [64 d, 32 k
+// channels] slab and the sample's q) and the same wgmma m64n208k16; its L2
+// traffic is ~1.7 GB at N = 64 (each block reads a 64-row slab of W, 0.79
+// MB with its 64-channel boxes' overlap, and two samples' g_pooled, 0.85
+// MB). One sample a block, two blocks an SM, ran 12% slower on an H100.
+// What holds it is the wq build's shared-memory reads, W and q taken as
+// 4-byte words (K of each for two neighbouring outputs).
+// d_W's product kernel is a TMA ring with wgmma; what holds it is the f32
+// work per sample (d_W's k sums and d_q's partial, unfused as the plain
+// version rounds them), which one block of 8 warps an SM does in turn with
+// the sample's products while the ring's loads run beside them.
 //
 // What the design does about the TPU's structure. The TPU kernel keeps the
 // whole k-major W [k, D, O_pad] (20 MB bf16) resident in VMEM and rebuilds
@@ -77,8 +82,9 @@
 // d_q sums over D, across blocks: each block writes its D tile's partial
 // sums, and a later launch of the same entry adds them in D-tile order. No
 // atomics: reruns give the same bits.
-// g_pooled is formed once per entry (bf16 for the products, its f32 sum
-// over L for d_bq), not in each of the 32 D tiles that read it.
+// g_pooled is formed once by its own launch (bf16 for the products, its
+// f32 sum over L for d_bq), not in each of the 32 D tiles that read it;
+// the backward hands it to both d_img and d_W.
 //
 // Launches:
 //   pooled_fusion_forward  fwd_kernel<k, false>, grid (ceil(O/64), ceil(N/2)):
@@ -86,11 +92,15 @@
 //       ring of W's slab and the samples' img (32 deep); out^T [64 o,
 //       208 l] by wgmma m64n208k16 with wq^T built in registers; epilogue
 //       + bq, signed sqrt -> out.
-//   pooled_fusion_d_img    grid (ceil(D/128), N): one sample's rows and 128
-//       columns of D; per 32-output chunk it rebuilds the [128, 32] wq tile
-//       and bf16(g_pooled) [L, 32], then the MMAs.
-//   pooled_fusion_d_w      four launches: g_pooled (bf16 [N, L, O8]) and
-//       d_bq; d_b; d_W and d_q's partials, grid (ceil(O/64), ceil(D/64)),
+//   pooled_fusion_g_pooled g_pooled once: bf16 gp [N, L, O8] (0 past O) and
+//       the f32 d_bq [N, O], grid (ceil(O8/256), N).
+//   pooled_fusion_d_img    d_img_kernel<k>, grid (ceil(D/64), ceil(N/2)):
+//       64 rows of D for two samples, one warpgroup each, over a TMA ring
+//       of W's slab and the samples' gp and q (32 outputs deep);
+//       d_img^T [64 d, 208 l] by wgmma m64n208k16 with wq built in
+//       registers; f32 out through a staged tile.
+//   pooled_fusion_d_w      three launches over gp and d_bq: d_b; d_W and
+//       d_q's partials, grid (ceil(O/64), ceil(D/64)),
 //       each block walking the samples through a TMA ring (one sample's
 //       g_pooled and img rows a stage): per sample, d_wq^T [64 o, 64 d] by
 //       wgmma over L, added into d_W's k sums with q in registers and
@@ -107,34 +117,18 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = 8;
-constexpr int kChunk = 32;      // contraction depth per shared-memory stage
-constexpr int kLdChunk = kChunk + 8;  // padded against bank conflicts
-constexpr int kRowTiles = 13;   // 13 x 16 = 208 rows >= L
-constexpr int kRows = kRowTiles * 16;
-constexpr int kImgD = 128;      // d_img: D columns per block, 16 per warp
+constexpr int kRows = 208;      // L rows a kernel holds: wgmma's N
 constexpr int kMaxK = 7;        // d_W's k sums per (d, o) in registers
 constexpr int kMaxSmem = 232448;  // dynamic shared memory of a block
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    BCol;
 
 // sqrt(max(p, 0)) - sqrt(max(-p, 0)) with one square root in the code
 // (the same bits, 0 and NaN giving +0; only a -0 from the two-root form
@@ -150,33 +144,6 @@ __device__ __forceinline__ float signed_sqrt(float p) {
 __device__ __forceinline__ float pooled_grad(float g, float out) {
   if (out == 0.0f) return 0.0f;
   return __fmul_rn(g, __fdiv_rn(0.5f, fmaxf(fabsf(out), 1e-20f)));
-}
-
-// wq[d, o] = sum_j f32(W[d, o*k + j]) * qo[j] in f32, j in order, where qo
-// holds f32(q[n, o*k + j]); 0 outside [0, D) x [0, O)
-__device__ __forceinline__ float wq_at(const bf16* __restrict__ w,
-                                       const float* qo, int dd, int o, int d,
-                                       int o_dim, int f, int k) {
-  if (dd >= d || o >= o_dim) return 0.0f;
-  const bf16* wr = w + (size_t)dd * f + (size_t)o * k;
-  float s = __fmul_rn(__bfloat162float(wr[0]), qo[0]);
-  for (int j = 1; j < k; ++j)
-    s = __fadd_rn(s, __fmul_rn(__bfloat162float(wr[j]), qo[j]));
-  return s;
-}
-
-// stage the 13 row tiles of a warp's [208, 16] accumulator column in its
-// buffer and hand each element to fn(row, col, value), 8 per lane a tile
-template <typename Fn>
-__device__ __forceinline__ void drain_rows(AccFrag (&acc)[kRowTiles],
-                                           float* st, int lane, Fn fn) {
-#pragma unroll
-  for (int mt = 0; mt < kRowTiles; ++mt) {
-    wmma::store_matrix_sync(st, acc[mt], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) fn(mt * 16 + e / 16, e % 16, st[e]);
-    __syncwarp();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -448,75 +415,288 @@ int launch_fwd_k(const void* img, const void* w, const void* b,
 }
 
 // ---------------------------------------------------------------------------
-// d_img = bf16(g_pooled) @ bf16(wq)^T
+// d_img = bf16(g_pooled) @ bf16(wq)^T: the forward turned around
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    d_img_kernel(const float* __restrict__ g,    // [N, L, O]
-                 const float* __restrict__ out,  // [N, L, O]
-                 const bf16* __restrict__ w,     // [D, F]
-                 const bf16* __restrict__ q,     // [N, F]
-                 float* __restrict__ d_img,      // [N, L, D]
-                 int l, int d, int f, int k) {
-  __shared__ __align__(128) bf16 a_s[kRows * kLdChunk];   // g_pooled [l][o]
-  __shared__ __align__(128) bf16 b_s[kImgD * kLdChunk];   // wq [d][o]
-  __shared__ __align__(128) float stage_s[kWarps][256];
-  __shared__ float q_s[kChunk * kMaxK];
+// A block owns 64 rows of D for kImgSamples samples, one warpgroup each,
+// and computes d_img[n]^T [64 d, 208 l] = wq[n] [64 d, O] x g_pooled[n]^T
+// by wgmma m64n208k16, 16 outputs a step. Thread 0 keeps a ring of
+// ImgShape<K>::kStages stages full with TMA, each 32 outputs deep: W's
+// [64 d, 32 K channels] slab (bf16, read in place from [D, F] as boxes of
+// 64 channels with 128-byte swizzle, as the forward reads W; boxes wholly
+// past F are not loaded), and for each sample its g_pooled [208 l, 32 o]
+// from the g_pooled launch (bf16, 64-byte swizzle, a 3D box over
+// [N, L, O8] whose rows past L and outputs past O8 come in as zeros) and
+// its q [32 K channels] (zeros past F; samples past N are not loaded). A
+// warpgroup builds its sample's wq fragments in registers, wq[d, o] =
+// sum_j f32(W[d, o K + j]) * f32(q[n, o K + j]) (unfused, j in order),
+// rounded to bf16 once, as wgmma's A; B is g_pooled, K-major. The next
+// fragment is built while the product before it runs. The epilogue stages
+// each sample's f32 tile [208 l, 64 d] over the ring and stores its rows
+// in 16-byte pieces, 256 contiguous bytes a row. Two samples a block, as
+// the forward: one sample a block (grid (D / 64, N), two blocks an SM) ran
+// at 0.563 ms against 0.503 at N = 64 on the card (PERF.md).
+constexpr int kImgSamples = 2;  // warpgroups, a sample each
+constexpr int kImgDTile = 64;   // d per block: wgmma's M
+constexpr int kImgDepth = 32;   // outputs per ring stage
+constexpr int kImgThreads = kImgSamples * 128;
+constexpr int kImgWBox = kImgDTile * 128;       // one [64 d, 64 c] W box
+constexpr int kImgGp = kRows * kImgDepth * 2;   // a sample's g_pooled stage
+constexpr int kImgQ = 512;       // a sample's q slot: 32 K bf16 (<= 448 B)
+constexpr int kImgLd = kImgDTile + 4;  // f32 row of the staged tile
 
-  const int o_dim = f / k;
-  const int dt0 = blockIdx.x * kImgD;
-  const int n = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+template <int K>
+struct ImgShape {
+  static constexpr int kBoxes = (kImgDepth * K + 63) / 64;  // W boxes
+  static constexpr int kWBytes = kBoxes * kImgWBox;
+  // W's boxes, the samples' g_pooled, their q: each part 1 KB aligned
+  static constexpr int kStageBytes = kWBytes + kImgSamples * kImgGp +
+                                     (kImgSamples * kImgQ + 1023) / 1024 * 1024;
+  // the SM's 228 KB, less 1 KB the system's and this block's 2 KB
+  static constexpr int kFit = (233472 - 1024 - 2048) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kRing = kStages * kStageBytes;
+  // 1 KB of alignment slack, 1 KB of barriers, then the ring (reused as
+  // the epilogue's f32 tiles)
+  static constexpr int kSmem = 2048 + kRing;
+  static_assert(kStages >= 2, "two ring stages fit");
+  static_assert(kImgSamples * kRows * kImgLd * 4 <= kRing,
+                "the staged tiles fit over the ring");
+};
 
-  for (int i = l * kLdChunk + tid; i < kRows * kLdChunk; i += kThreads)
-    a_s[i] = __float2bfloat16(0.0f);
-
-  AccFrag acc[kRowTiles];
+// f32 of the 2 K channels c0 .. c0 + 2 K - 1 (c0 even) of D row `row` of
+// the stage's W boxes (128-byte rows, 16-byte chunks swizzled by row % 8),
+// K 4-byte words: one word never straddles a chunk
+template <int K>
+__device__ __forceinline__ void w_run(const unsigned char* w_s, int c0,
+                                      int row, float (&v)[2 * K]) {
 #pragma unroll
-  for (int mt = 0; mt < kRowTiles; ++mt) wmma::fill_fragment(acc[mt], 0.0f);
-
-  for (int o0 = 0; o0 < o_dim; o0 += kChunk) {
-    for (int i = tid; i < kChunk * k; i += kThreads) {
-      const int c = o0 * k + i;
-      q_s[i] = c < f ? __bfloat162float(q[(size_t)n * f + c]) : 0.0f;
-    }
-    // bf16(g_pooled) [l, 32]; a warp reads 32 neighbouring outputs of a row
-    for (int i = tid; i < l * kChunk; i += kThreads) {
-      const int r = i / kChunk, oo = i % kChunk, o = o0 + oo;
-      float v = 0.0f;
-      if (o < o_dim) {
-        const size_t p = ((size_t)n * l + r) * o_dim + o;
-        v = pooled_grad(g[p], out[p]);
-      }
-      a_s[r * kLdChunk + oo] = __float2bfloat16(v);
-    }
-    __syncthreads();  // q_s
-    for (int i = tid; i < kImgD * kChunk; i += kThreads) {
-      const int r = i / kChunk, oo = i % kChunk;
-      b_s[r * kLdChunk + oo] = __float2bfloat16(
-          wq_at(w, q_s + oo * k, dt0 + r, o0 + oo, d, o_dim, f, k));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      BCol bfr;  // element (o, d) at b_s[d * ld + o]
-      wmma::load_matrix_sync(bfr, b_s + warp * 16 * kLdChunk + kk * 16,
-                             kLdChunk);
-#pragma unroll
-      for (int mt = 0; mt < kRowTiles; ++mt) {
-        ARow af;
-        wmma::load_matrix_sync(af, a_s + mt * 16 * kLdChunk + kk * 16,
-                               kLdChunk);
-        wmma::mma_sync(acc[mt], af, bfr, acc[mt]);
-      }
-    }
-    __syncthreads();
+  for (int m = 0; m < K; ++m) {
+    const int c = c0 + 2 * m, cc = c & 63;
+    const int off = (c >> 6) * kImgWBox + row * 128 +
+                    ((((cc >> 3) ^ (row & 7)) << 4) | ((cc & 7) << 1));
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(w_s + off));
+    v[2 * m] = x.x;
+    v[2 * m + 1] = x.y;
   }
+}
 
-  const int db = dt0 + warp * 16;
-  drain_rows(acc, stage_s[warp], lane, [&](int row, int cc, float v) {
-    if (row < l && db + cc < d)
-      d_img[((size_t)n * l + row) * d + db + cc] = v;
-  });
+template <int K>
+__global__ void __launch_bounds__(kImgThreads, 1)
+    d_img_kernel(const __grid_constant__ CUtensorMap w_map,   // [D, F] bf16
+                 const __grid_constant__ CUtensorMap gp_map,  // [N, L, O8]
+                 const __grid_constant__ CUtensorMap q_map,   // [N, F] bf16
+                 float* __restrict__ d_img,                   // [N, L, D]
+                 int n_total, int l, int d, int f) {
+  using S = ImgShape<K>;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S::kStages;
+  unsigned char* ring = smem + 1024;
+
+  const int o_dim = f / K;
+  const int d0 = blockIdx.x * kImgDTile;
+  const int s0 = blockIdx.y * kImgSamples;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int steps = (o_dim + kImgDepth - 1) / kImgDepth;
+  const int present = min(kImgSamples, n_total - s0);
+
+  // A W box that is never loaded must read as finite: zero them all once
+  // (its q is 0, so a finite stale value adds 0)
+  for (int s = 0; s < S::kStages; ++s)
+    for (int i = tid; i < S::kWBytes / 16; i += kImgThreads)
+      reinterpret_cast<uint4*>(ring + s * S::kStageBytes)[i] =
+          make_uint4(0u, 0u, 0u, 0u);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (tid == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kImgSamples * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // step kt into stage kt % kStages, requested by thread 0 (every thread
+  // walks the same path: see mbar_expect_tx)
+  const bool leader = tid == 0;
+  auto load = [&](int kt) {
+    const int s = kt % S::kStages;
+    unsigned char* st = ring + s * S::kStageBytes;
+    const int c0 = kt * kImgDepth * K;
+    const int boxes = min(S::kBoxes, (f - c0 + 63) / 64);
+    mbar_expect_tx(&full[s],
+                   boxes * kImgWBox + present * (kImgGp + kImgDepth * K * 2),
+                   leader);
+    for (int bx = 0; bx < boxes; ++bx)
+      tma_load_2d(st + bx * kImgWBox, &w_map, &full[s], c0 + 64 * bx, d0,
+                  leader);
+    for (int i = 0; i < present; ++i) {
+      tma_load_3d(st + S::kWBytes + i * kImgGp, &gp_map, &full[s],
+                  kt * kImgDepth, 0, s0 + i, leader);
+      tma_load_2d(st + S::kWBytes + kImgSamples * kImgGp + i * kImgQ, &q_map,
+                  &full[s], c0, s0 + i, leader);
+    }
+  };
+  for (int kt = 0; kt < S::kStages - 1 && kt < steps; ++kt) load(kt);
+
+  // warpgroup wg owns sample s0 + wg; its thread holds D rows d_lo and
+  // d_lo + 8 of the m64 tile in the A fragment
+  const int wg = warp / 4, w4 = warp % 4, g = lane / 4, t = lane % 4;
+  const int d_lo = w4 * 16 + g;
+  float acc[kRows / 2];
+#pragma unroll
+  for (int i = 0; i < kRows / 2; ++i) acc[i] = 0.0f;
+
+  for (int kt = 0; kt < steps; ++kt) {
+    const int s = kt % S::kStages;
+    mbar_wait(&full[s], (kt / S::kStages) & 1);
+    const unsigned char* st = ring + s * S::kStageBytes;
+    const bf16* q_s = reinterpret_cast<const bf16*>(
+        st + S::kWBytes + kImgSamples * kImgGp + wg * kImgQ);
+#pragma unroll
+    for (int ks = 0; ks < kImgDepth / 16; ++ks) {
+      // wq at D rows d_lo, d_lo + 8 (h) and outputs oo, oo + 1, oo + 8,
+      // oo + 9 (e) of the stage, oo = 16 ks + 2 t: the 2 K channels of each
+      // pair of neighbouring outputs read as K words of W and of q
+      float wq[2][4];
+#pragma unroll
+      for (int pair = 0; pair < 2; ++pair) {
+        const int c0 = (ks * 16 + 2 * t + 8 * pair) * K;
+        float w[2][2 * K], qv[2 * K];
+        w_run<K>(st, c0, d_lo, w[0]);
+        w_run<K>(st, c0, d_lo + 8, w[1]);
+#pragma unroll
+        for (int m = 0; m < K; ++m) {
+          const float2 x = __bfloat1622float2(
+              reinterpret_cast<const __nv_bfloat162*>(q_s + c0)[m]);
+          qv[2 * m] = x.x;
+          qv[2 * m + 1] = x.y;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float* wj = w[h] + half * K;
+            const float* qj = qv + half * K;
+            float sum = __fmul_rn(wj[0], qj[0]);
+#pragma unroll
+            for (int j = 1; j < K; ++j)
+              sum = __fadd_rn(sum, __fmul_rn(wj[j], qj[j]));
+            wq[h][2 * pair + half] = sum;
+          }
+      }
+      const uint32_t a[4] = {pack_bf16(wq[0][0], wq[0][1]),
+                             pack_bf16(wq[1][0], wq[1][1]),
+                             pack_bf16(wq[0][2], wq[0][3]),
+                             pack_bf16(wq[1][2], wq[1][3])};
+      // B: the sample's g_pooled rows of 64 B, k at 32 B a step, 8-row
+      // groups 512 B apart
+      const uint64_t db = smem_desc(st + S::kWBytes + wg * kImgGp + ks * 32,
+                                    16, 512, kSwizzle64);
+      wgmma_fence();
+      WgmmaRS<kRows>::rs<0>(acc, a, db);
+      wgmma_commit();
+      // the product before this one is done (the next fragment is built
+      // while this one runs); at ks == 0 that was the previous stage's last
+      wgmma_wait<1>();
+      if (ks == 0 && kt > 0 && lane == 0)
+        mbar_arrive(&empty[(kt - 1) % S::kStages]);
+    }
+    // the stage of step kt - 1 is refilled with step kt + kStages - 1 once
+    // all 8 warps have released it
+    const int next = kt + S::kStages - 1;
+    if (next < steps) {
+      if (kt > 0)
+        mbar_wait(&empty[next % S::kStages], ((kt - 1) / S::kStages) & 1);
+      load(next);
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();  // both groups past their products
+
+  // each sample's tile [208 l, 64 d] over the ring (D row d_lo + 8 h, L
+  // rows 8 i + 2 t + e in acc[4 i + 2 h + e]; rows 68 floats apart: a
+  // warp's 32 stores fall in 32 banks). The thread's base address is taken
+  // once: with the whole index computed at each store, ptxas placed that
+  // work among the products and serialised them (C7515).
+  float* tile = reinterpret_cast<float*>(ring) + wg * kRows * kImgLd;
+  float* tile_t = tile + 2 * t * kImgLd + d_lo;
+#pragma unroll
+  for (int i = 0; i < kRows / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        tile_t[(8 * i + e) * kImgLd + 8 * h] = acc[4 * i + 2 * h + e];
+  __syncthreads();
+
+  // 16-byte pieces, 16 a row; D % 8 == 0, so a piece lies wholly inside or
+  // wholly past D
+  if (wg >= present) return;
+  constexpr int kPieces = kImgDTile / 4;
+  float* out_n = d_img + (size_t)(s0 + wg) * l * d + d0;
+  for (int i = tid % 128; i < l * kPieces; i += 128) {
+    const int r = i / kPieces, c = (i % kPieces) * 4;
+    if (d0 + c < d)
+      *reinterpret_cast<float4*>(out_n + (size_t)r * d + c) =
+          *reinterpret_cast<const float4*>(tile + r * kImgLd + c);
+  }
+}
+
+template <int K>
+int launch_d_img(const void* gp, const void* w, const void* q, void* d_img,
+                 int n, int l, int d, int f, int o8, cudaStream_t s) {
+  using S = ImgShape<K>;
+  CUtensorMap w_map, gp_map, q_map;
+  const uint64_t w_dims[2] = {(uint64_t)f, (uint64_t)d};
+  const uint64_t w_strides[1] = {(uint64_t)f * 2};
+  const uint32_t w_box[2] = {64, kImgDTile};
+  cudaError_t err = hopper::make_map(
+      &w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, w_dims, w_strides,
+      w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t gp_dims[3] = {(uint64_t)o8, (uint64_t)l, (uint64_t)n};
+  const uint64_t gp_strides[2] = {(uint64_t)o8 * 2, (uint64_t)l * o8 * 2};
+  const uint32_t gp_box[3] = {kImgDepth, kRows, 1};
+  err = hopper::make_map(&gp_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, gp,
+                         gp_dims, gp_strides, gp_box,
+                         CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t q_dims[2] = {(uint64_t)f, (uint64_t)n};
+  const uint32_t q_box[2] = {(uint32_t)(kImgDepth * K), 1};
+  err = hopper::make_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q,
+                         q_dims, w_strides, q_box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(d_img_kernel<K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d + kImgDTile - 1) / kImgDTile,
+                  (n + kImgSamples - 1) / kImgSamples);
+  d_img_kernel<K><<<grid, kImgThreads, S::kSmem, s>>>(
+      w_map, gp_map, q_map, static_cast<float*>(d_img), n, l, d, f);
+  return (int)cudaGetLastError();
+}
+
+int launch_d_img_k(const void* gp, const void* w, const void* q,
+                   void* d_img, int n, int l, int d, int f, int k, int o8,
+                   cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_d_img<1>(gp, w, q, d_img, n, l, d, f, o8, s);
+    case 2: return launch_d_img<2>(gp, w, q, d_img, n, l, d, f, o8, s);
+    case 3: return launch_d_img<3>(gp, w, q, d_img, n, l, d, f, o8, s);
+    case 4: return launch_d_img<4>(gp, w, q, d_img, n, l, d, f, o8, s);
+    case 5: return launch_d_img<5>(gp, w, q, d_img, n, l, d, f, o8, s);
+    case 6: return launch_d_img<6>(gp, w, q, d_img, n, l, d, f, o8, s);
+    case 7: return launch_d_img<7>(gp, w, q, d_img, n, l, d, f, o8, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -968,36 +1148,43 @@ int pooled_fusion_wq_grid(const void* img, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-int pooled_fusion_d_img(const void* g, const void* out, const void* w,
-                        const void* q, void* d_img, int n, int l, int d,
-                        int f, int k, void* stream) {
+// g_pooled once, for both d_img and d_W: bf16 gp [N, L, O8] (0 past O)
+// and d_bq [N, O]
+int pooled_fusion_g_pooled(const void* g, const void* out, void* gp,
+                           void* d_bq, int n, int l, int d, int f, int k,
+                           void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((d + kImgD - 1) / kImgD, n);
-  d_img_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  const int o_dim = f / k, o8 = (o_dim + 7) / 8 * 8;
+  g_pooled_kernel<<<dim3((o8 + kThreads - 1) / kThreads, n), kThreads, 0,
+                    reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(out),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(q),
-      static_cast<float*>(d_img), l, d, f, k);
+      static_cast<bf16*>(gp), static_cast<float*>(d_bq), l, o_dim, o8);
   return (int)cudaGetLastError();
 }
 
-int pooled_fusion_d_w(const void* g, const void* out, const void* img,
+// d_img (f32 [N, L, D]) from pooled_fusion_g_pooled's gp
+int pooled_fusion_d_img(const void* gp, const void* w, const void* q,
+                        void* d_img, int n, int l, int d, int f, int k,
+                        void* stream) {
+  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+  return launch_d_img_k(gp, w, q, d_img, n, l, d, f, k,
+                        (f / k + 7) / 8 * 8,
+                        reinterpret_cast<cudaStream_t>(stream));
+}
+
+// d_W, d_b and d_q from pooled_fusion_g_pooled's gp and d_bq: three
+// launches (d_b; d_W and d_q's partials; d_q's reduction)
+int pooled_fusion_d_w(const void* gp, const void* d_bq, const void* img,
                       const void* w, const void* b, const void* q, void* d_w,
-                      void* d_b, void* d_q, void* gp, void* d_bq, void* parts,
-                      int n, int l, int d, int f, int k, void* stream) {
+                      void* d_b, void* d_q, void* parts, int n, int l, int d,
+                      int f, int k, void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int o_dim = f / k, o8 = (o_dim + 7) / 8 * 8;
-  g_pooled_kernel<<<dim3((o8 + kThreads - 1) / kThreads, n), kThreads, 0,
-                    s>>>(static_cast<const float*>(g),
-                         static_cast<const float*>(out),
-                         static_cast<bf16*>(gp), static_cast<float*>(d_bq),
-                         l, o_dim, o8);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int o8 = (f / k + 7) / 8 * 8;
   d_b_kernel<<<(f + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       static_cast<const float*>(d_bq), static_cast<const bf16*>(q),
       static_cast<float*>(d_b), n, f, k);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int code = launch_d_w_k(gp, img, w, q, d_w, parts, n, l, d, f, k,
                                 o8, s);

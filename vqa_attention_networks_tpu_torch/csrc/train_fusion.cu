@@ -19,7 +19,7 @@
 //
 // The mask is Philox4x32-10, key (seed, 0), counter (i, i >> 32, 0, 0) for
 // the flat element index i = m*F + c, kept iff word 0 < thr. It depends on
-// the element and the seed only, so the four launches (and the plain
+// the element and the seed only, so the launches (and the plain
 // PyTorch version in ops/train_fusion.py) replay the same bits whatever
 // their tiling; thr == 0 means rate 0, and then no bits are drawn. z0 and
 // the mask never reach device memory: the only residual is out.
@@ -41,34 +41,38 @@
 // MB, and a 2048 x 128 slab of W, 0.52 MB), which a 5-stage TMA ring
 // streams at several TB/s; what is left of its time is the epilogue's
 // Philox draws (62.7 M at N = 64), which run while the SM's second block
-// loads and multiplies. d_img (which no path launches) keeps WMMA (bf16
-// 16x16x16, f32 accumulators) with a 32-deep shared-memory stage and no
-// load in flight during the MMAs: correct and simple, not fast. d_W is a
-// g_prod build (bound by its ~230 MB of bytes, ~0.07 ms) and a pipelined
-// product (bound by its operations, 0.26 ms).
+// loads and multiplies. d_W and d_img share one g_prod build (bound by its
+// ~230 MB of bytes, ~0.07 ms); each is then a pipelined product over it,
+// bound by its operations (0.26 ms). d_img's (launched only when img needs
+// a gradient) is the forward's GEMM with no epilogue work: both of its
+// operands, g_prod [M, F] and W [D, F], have F contiguous, the K-major
+// layout wgmma reads as it is, so a 4-stage TMA ring of 64-deep stages
+// feeds two warpgroups on wgmma m64n256k16 (128 x 256 tiles, 784 of them
+// at N = 64: 5.9 waves over 132 SMs; 256 x 128 tiles ran as fast on an
+// H100), and past F both operands come in as zeros.
 //
 // What the design does about the TPU's structure. The TPU kernels carried
 // d_img and d_W/d_b across sequential grid steps in VMEM scratch. Blocks
 // here run in parallel and in no order, so each block owns its output
 // tile and loops over the whole contraction inside the block: no atomics,
 // and reruns give the same bits. W is read in its natural [D, F] layout
-// (no per-step refactor to [k, D, O_pad]: W changes every step). The
-// operand g_prod of d_img is built on the fly in shared memory from g,
-// out, q and the replayed mask.
+// (no per-step refactor to [k, D, O_pad]: W changes every step).
 //
-// d_W/d_b is this card's choice, not the TPU kernel's: the TPU never wrote
-// g_prod to HBM, and built it in VMEM inside its one d_W pass. Here a
-// d_W block owns 128 d x 128 channels and walks all M rows, so building
-// g_prod inside the product would redo it in each of the D / 128 = 16 D
+// The g_prod build is this card's choice, not the TPU kernel's: the TPU
+// never wrote g_prod to HBM, and built it in VMEM inside its d_img and
+// d_W passes. Here a d_W block owns 128 d x 128 channels and walks all M
+// rows, and a d_img block 128 rows x 256 d and all of F, so building g_prod
+// inside a product would redo it in each of 16 (d_W) or 8 (d_img) D
 // tiles: ~1.0 G Philox draws where 62.7 M suffice (N = 64), ~19 ms of a
-// first design's 21.5. Instead one launch builds it once, elementwise, and
-// writes it as bf16 (125 MB at N = 64, ~0.04 ms of bandwidth at 3.35 TB/s),
-// with f32 d_b partials of 64 rows each summed in row order; then a
-// pipelined product reads it: a 4-stage cp.async ring (three 16 KB stages
-// in flight) of 32-row stages of img and g_prod, on mma.sync m16n8k16 with
-// ldmatrix.trans for both operands (each has M, the contraction axis, as
-// its strided axis), 8 warps of 64 d x 32 channels. The blocks of the
-// first D tile also sum the d_b partials in chunk order.
+// first d_W design's 21.5 on an H100. Instead one launch builds it once,
+// elementwise, and writes it as bf16 (125 MB at N = 64, ~0.04 ms of
+// bandwidth at 3.35 TB/s), with f32 d_b partials of 64 rows each summed in
+// row order. The d_W product reads it
+// through a 4-stage cp.async ring (three 16 KB stages in flight) of 32-row
+// stages of img and g_prod, on mma.sync m16n8k16 with ldmatrix.trans for
+// both operands (each has M, the contraction axis, as its strided axis), 8
+// warps of 64 d x 32 channels; the blocks of the first D tile also sum the
+// d_b partials in chunk order.
 //
 // Launches:
 //   train_fusion_forward  grid (ceil(O/32), ceil(M/rows)): a [rows, 32k]
@@ -79,8 +83,9 @@
 //   train_fusion_inference_forward  the same kernel with the mask compiled
 //       out: kernel K5, the inference fusion (pallas_fusion.py
 //       _grid_fuse_pallas), which computes exactly the forward at rate 0.
-//   train_fusion_d_img    grid (ceil(D/128), ceil(M/128)): a [128, 128]
-//       d_img tile, looping over all of F in 32-channel chunks of g_prod.
+//   train_fusion_d_img    grid (ceil(D/256), ceil(M/128)): a [128, 256]
+//       d_img tile = g_prod @ W^T by wgmma over all of F, from the g_prod
+//       build's operand; bf16 out through a staged tile.
 //   train_fusion_g_prod   grid (ceil(F/256), ceil(M/64)): one channel per
 //       thread over 64 rows -> bf16 g_prod [M, F] and the f32 d_b partial
 //       of those rows [ceil(M/64), F].
@@ -95,31 +100,17 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = 8;
-constexpr int kChunk = 32;      // contraction depth per shared-memory stage
-constexpr int kTileM = 128;     // rows of img (or D) per block
-constexpr int kTileN = 128;     // columns per block (d_img)
-constexpr int kLdChunk = kChunk + 8;   // padded against bank conflicts
 constexpr int kMaxRows = 208;   // L rows: d_q's wgmma N (200, or 208 past 200)
 constexpr int kMaxK = 8;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    BCol;
 
 // Word 0 of Philox4x32-10 at key (seed, 0), counter (idx, idx >> 32, 0, 0).
 __device__ __forceinline__ uint32_t philox_word0(uint32_t seed,
@@ -158,25 +149,6 @@ __device__ __forceinline__ float signed_sqrt(float p) {
 __device__ __forceinline__ float pooled_grad(float g, float out) {
   if (out == 0.0f) return 0.0f;
   return __fmul_rn(g, __fdiv_rn(0.5f, fmaxf(fabsf(out), 1e-20f)));
-}
-
-__device__ __forceinline__ uint4 load16(const bf16* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
-}
-
-// g_prod[m, c] in f32 (0 outside [0, M) x [0, F))
-__device__ __forceinline__ float g_prod_at(
-    const float* __restrict__ g, const float* __restrict__ out,
-    const float* __restrict__ q, int m, int c, int mrows, int l, int f, int k,
-    int o_dim, uint32_t seed, uint32_t thr, float inv_keep) {
-  if (m >= mrows || c >= f) return 0.0f;
-  const int n = m / l;
-  const size_t po = (size_t)m * o_dim + c / k;
-  float v = pooled_grad(g[po], out[po]);
-  if (thr != 0u)
-    v = __fmul_rn(v, keep_scale(seed, thr, inv_keep,
-                                (unsigned long long)m * f + c));
-  return __fmul_rn(v, q[(size_t)n * f + c]);
 }
 
 // ---------------------------------------------------------------------------
@@ -348,91 +320,6 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// stage a 16x16 f32 fragment in the warp's buffer and hand each element to
-// fn(row, col, value), 8 per lane
-template <typename Fn>
-__device__ __forceinline__ void drain(const AccFrag& acc, float* st,
-                                      int lane, Fn fn) {
-  wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) fn(e / 16, e % 16, st[e]);
-  __syncwarp();
-}
-
-// ---------------------------------------------------------------------------
-// d_img = bf16(g_prod) @ bf16(W)^T
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    d_img_kernel(const float* __restrict__ g,    // [M, O]
-                 const float* __restrict__ out,  // [M, O]
-                 const bf16* __restrict__ w,     // [D, F]
-                 const float* __restrict__ q,    // [N, F]
-                 bf16* __restrict__ d_img,       // [M, D]
-                 int mrows, int l, int d, int f, int k, uint32_t seed,
-                 uint32_t thr, float inv_keep) {
-  __shared__ __align__(128) bf16 a_s[kTileM * kLdChunk];  // g_prod [m][c]
-  __shared__ __align__(128) bf16 b_s[kTileN * kLdChunk];  // W [d][c]
-  __shared__ __align__(128) float stage_s[kWarps][256];
-
-  const int o_dim = f / k;
-  const int dt0 = blockIdx.x * kTileN;
-  const int m0 = blockIdx.y * kTileM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wr = warp / 2, wc = warp % 2;  // 32 rows x 64 columns per warp
-
-  AccFrag acc[2][4];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < 4; ++ct) wmma::fill_fragment(acc[rt][ct], 0.0f);
-
-  for (int c0 = 0; c0 < f; c0 += kChunk) {
-    // g_prod[m0:m0+128, c0:c0+32]; a thread keeps its channel, so a warp
-    // reads 32 consecutive q values
-    for (int i = tid; i < kTileM * kChunk; i += kThreads) {
-      const int r = i / kChunk, cc = i % kChunk;
-      a_s[r * kLdChunk + cc] = __float2bfloat16(
-          g_prod_at(g, out, q, m0 + r, c0 + cc, mrows, l, f, k, o_dim, seed,
-                    thr, inv_keep));
-    }
-    for (int i = tid; i < kTileN * (kChunk / 8); i += kThreads) {
-      const int r = i / (kChunk / 8), v = i % (kChunk / 8);
-      const int dd = dt0 + r, c = c0 + v * 8;
-      *reinterpret_cast<uint4*>(b_s + r * kLdChunk + v * 8) =
-          load16(w + (size_t)dd * f + c, dd < d && c < f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      ARow a0, a1;
-      wmma::load_matrix_sync(a0, a_s + (wr * 32) * kLdChunk + kk * 16,
-                             kLdChunk);
-      wmma::load_matrix_sync(a1, a_s + (wr * 32 + 16) * kLdChunk + kk * 16,
-                             kLdChunk);
-#pragma unroll
-      for (int ct = 0; ct < 4; ++ct) {
-        BCol bfr;  // element (c, d) at b_s[d * ld + c]
-        wmma::load_matrix_sync(
-            bfr, b_s + (wc * 64 + ct * 16) * kLdChunk + kk * 16, kLdChunk);
-        wmma::mma_sync(acc[0][ct], a0, bfr, acc[0][ct]);
-        wmma::mma_sync(acc[1][ct], a1, bfr, acc[1][ct]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < 4; ++ct) {
-      const int mb = m0 + wr * 32 + rt * 16, db = dt0 + wc * 64 + ct * 16;
-      drain(acc[rt][ct], stage_s[warp], lane, [&](int r, int cc, float v) {
-        if (mb + r < mrows && db + cc < d)
-          d_img[(size_t)(mb + r) * d + db + cc] = __float2bfloat16(v);
-      });
-    }
-}
-
 // ---------------------------------------------------------------------------
 // g_prod, built once: bf16 g_prod [M, F] and f32 d_b partials [chunks, F]
 // ---------------------------------------------------------------------------
@@ -468,6 +355,140 @@ __global__ void __launch_bounds__(kThreads)
     part = __fadd_rn(part, v);
   }
   db_part[(size_t)blockIdx.y * f + c] = part;
+}
+
+// ---------------------------------------------------------------------------
+// d_img = g_prod @ W^T over the build's bf16 operand, pipelined
+// ---------------------------------------------------------------------------
+// A block owns 128 rows of M (64 per warpgroup) x 256 columns of D and walks
+// all of F, so reruns give the same bits. Both operands have F, the
+// contraction axis, contiguous: the K-major layout wgmma reads with no
+// transposition. Thread 0 keeps a ring of kImgStages stages full with TMA,
+// three ahead: g_prod [128 m, 64 f] and W [256 d, 64 f], 128-byte rows with
+// 128-byte swizzle; past F both come in as zeros, so the last stage adds 0.
+// Each warpgroup runs wgmma m64n256k16 (A = its g_prod rows, B = W), one
+// stage's group in flight while the next stage is awaited. The epilogue
+// rounds to bf16 into a padded tile over the ring and stores whole 16-byte
+// pieces of rows. A 256 x 128 tile (two m64 row tiles a warpgroup,
+// wgmma m64n128k16) ran as fast on the card, 0.527 ms against 0.523 at
+// N = 64 (PERF.md), so there is one form.
+constexpr int kImgConsumers = 2;  // warpgroups
+constexpr int kImgRows = kImgConsumers * 64;  // M rows per block
+constexpr int kImgCols = 256;  // D columns per block: wgmma's N
+constexpr int kImgDepth = 64;     // F per ring stage: a 128-byte row
+constexpr int kImgThreads = kImgConsumers * 128;
+constexpr int kImgABytes = kImgRows * kImgDepth * 2;
+constexpr int kImgStageBytes = kImgABytes + kImgCols * kImgDepth * 2;
+constexpr int kImgStages = 4;
+constexpr int kImgLd = kImgCols + 8;  // bf16 row of the staged tile
+// 1 KB of alignment slack, 1 KB of barriers, then the ring (reused as the
+// epilogue's bf16 tile)
+constexpr int kImgSmem = 2048 + kImgStages * kImgStageBytes;
+static_assert(kImgRows * kImgLd * 2 <= kImgStages * kImgStageBytes,
+              "the staged tile fits over the ring");
+
+__global__ void __launch_bounds__(kImgThreads, 1)
+    d_img_kernel(const __grid_constant__ CUtensorMap gp_map,  // [M, F] bf16
+                 const __grid_constant__ CUtensorMap w_map,   // [D, F] bf16
+                 bf16* __restrict__ d_img,                    // [M, D]
+                 int mrows, int d, int f) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kImgStages;
+  unsigned char* ring = smem + 1024;
+
+  const int d0 = blockIdx.x * kImgCols;
+  const int m0 = blockIdx.y * kImgRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int steps = (f + kImgDepth - 1) / kImgDepth;
+
+  if (tid == 0) {
+    for (int s = 0; s < kImgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kImgConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // step kt into stage kt % kImgStages, requested by thread 0 (every thread
+  // walks the same path: see mbar_expect_tx)
+  const bool leader = tid == 0;
+  auto load = [&](int kt) {
+    const int s = kt % kImgStages;
+    unsigned char* st = ring + s * kImgStageBytes;
+    mbar_expect_tx(&full[s], kImgStageBytes, leader);
+    tma_load_2d(st, &gp_map, &full[s], kt * kImgDepth, m0, leader);
+    tma_load_2d(st + kImgABytes, &w_map, &full[s], kt * kImgDepth, d0,
+                leader);
+  };
+  for (int kt = 0; kt < kImgStages - 1 && kt < steps; ++kt) load(kt);
+
+  const int wg = warp / 4;
+  float acc[kImgCols / 2];
+#pragma unroll
+  for (int i = 0; i < kImgCols / 2; ++i) acc[i] = 0.0f;
+
+  for (int kt = 0; kt < steps; ++kt) {
+    const int s = kt % kImgStages;
+    mbar_wait(&full[s], (kt / kImgStages) & 1);
+    const unsigned char* st = ring + s * kImgStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kImgDepth / 16; ++ks) {
+      // A: 64 rows of 128 B from row 64 wg, k at 32 B a step; B: the
+      // kImgCols rows of W the same way (both K-major, 8-row groups 1 KB
+      // apart)
+      const uint64_t da =
+          smem_desc(st + wg * 64 * 128 + ks * 32, 16, 1024, kSwizzle128);
+      const uint64_t db =
+          smem_desc(st + kImgABytes + ks * 32, 16, 1024, kSwizzle128);
+      Wgmma<kImgCols>::ss<0>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of step kt - 1 is done: release its stage
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kImgStages]);
+    // that stage is refilled with step kt + kImgStages - 1 once all 8 warps
+    // have released it
+    const int next = kt + kImgStages - 1;
+    if (next < steps) {
+      if (kt > 0)
+        mbar_wait(&empty[next % kImgStages], ((kt - 1) / kImgStages) & 1);
+      load(next);
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();  // both groups past their products
+
+  // the accumulators, rounded to bf16, to a [kImgRows, kImgCols] tile over
+  // the ring (rows kImgCols + 8 apart: the quad's four columns and the 8
+  // rows of a warp's stores fall in distinct banks)
+  bf16* tile = reinterpret_cast<bf16*>(ring);
+  const int r = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < kImgCols / 8; ++i) {
+    const int c = 8 * i + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(tile + r * kImgLd + c) =
+        __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(tile + (r + 8) * kImgLd + c) =
+        __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  __syncthreads();
+
+  // 16-byte pieces, a warp on contiguous bytes of a row; D % 8 == 0, so a
+  // piece lies wholly inside or wholly past D
+  constexpr int kPieces = kImgCols / 8;
+  for (int i = tid; i < kImgRows * kPieces; i += kImgThreads) {
+    const int r = i / kPieces, c = (i % kPieces) * 8;
+    if (m0 + r < mrows && d0 + c < d)
+      *reinterpret_cast<uint4*>(d_img + (size_t)(m0 + r) * d + d0 + c) =
+          *reinterpret_cast<const uint4*>(tile + r * kImgLd + c);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -827,7 +848,7 @@ __global__ void __launch_bounds__(kQThreads, DqShape<kRowsN>::kBlocksPerSm)
 bool dims_ok(int n, int l, int d, int f, int k) {
   return n >= 1 && n <= 65535 && l >= 1 && l <= kMaxRows && d >= 8 &&
          d % 8 == 0 && k >= 1 && k <= kMaxK && f >= k && f % k == 0 &&
-         f % 8 == 0 && (long long)n * l <= 65535LL * kTileM;
+         f % 8 == 0 && (long long)n * l <= 65535LL * 128;  // row tiles
 }
 
 template <int K, bool kMask>
@@ -938,17 +959,34 @@ int train_fusion_inference_forward(const void* img, const void* w,
                              1.0f, reinterpret_cast<cudaStream_t>(stream));
 }
 
-int train_fusion_d_img(const void* g, const void* out, const void* w,
-                       const void* q, void* d_img, int n, int l, int d, int f,
-                       int k, uint32_t seed, uint32_t thr, float inv_keep,
-                       void* stream) {
-  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+// d_img from train_fusion_g_prod's bf16 g_prod [N*L, F] and bf16 W [D, F]
+int train_fusion_d_img(const void* gp, const void* w, void* d_img, int n,
+                       int l, int d, int f, void* stream) {
+  if (!dims_ok(n, l, d, f, 1)) return (int)cudaErrorInvalidValue;
   const int m = n * l;
-  const dim3 grid((d + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
-  d_img_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(out),
-      static_cast<const bf16*>(w), static_cast<const float*>(q),
-      static_cast<bf16*>(d_img), m, l, d, f, k, seed, thr, inv_keep);
+  CUtensorMap gp_map, w_map;
+  const uint64_t gp_dims[2] = {(uint64_t)f, (uint64_t)m};
+  const uint64_t gp_strides[1] = {(uint64_t)f * 2};
+  const uint32_t gp_box[2] = {kImgDepth, kImgRows};
+  cudaError_t err = hopper::make_map(
+      &gp_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, gp, gp_dims, gp_strides,
+      gp_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t w_dims[2] = {(uint64_t)f, (uint64_t)d};
+  const uint32_t w_box[2] = {kImgDepth, kImgCols};
+  err = hopper::make_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
+                         w_dims, gp_strides, w_box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(d_img_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kImgSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d + kImgCols - 1) / kImgCols,
+                  (m + kImgRows - 1) / kImgRows);
+  d_img_kernel<<<grid, kImgThreads, kImgSmem,
+                 reinterpret_cast<cudaStream_t>(stream)>>>(
+      gp_map, w_map, static_cast<bf16*>(d_img), m, d, f);
   return (int)cudaGetLastError();
 }
 

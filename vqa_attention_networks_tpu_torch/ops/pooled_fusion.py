@@ -27,6 +27,14 @@ branch of g_pooled is the composed chain's gradient at pooled == 0
 (``_pooled_bwd`` :493-499): d_img in img's, d_W and d_b in the parameters',
 d_q in q's.
 
+On the card the backward forms g_pooled once, as the bf16 operand gp
+[N, L, O8] (O padded to a multiple of 8 with zeros) and the f32 d_bq
+[N, O], in ``g_pooled_cuda``; ``d_img_from_gp_cuda`` and
+``d_w_from_gp_cuda`` read them. ``d_img_cuda`` and ``d_w_cuda`` are the
+build followed by the product. The plain versions are
+``g_pooled_reference`` and ``d_img_from_gp_reference``; ``d_img_reference``
+and ``d_w_reference`` take g and out.
+
 - ``pooled_grid_fuse`` dispatches: a CPU tensor goes to the plain version,
   a CUDA tensor to the kernels (``csrc/pooled_fusion.cu``), which raise on
   an input they do not take. Nothing catches an error to fall back.
@@ -56,7 +64,8 @@ _MAX_ROWS = 208  # L rows a kernel holds (wgmma N; d_img's 13 tiles)
 _D_TILE = 64  # D rows per d_W block: d_q's partial sums per D tile
 
 # kernel launches made by PooledGridFuse, by kernel
-launch_count: Dict[str, int] = {"forward": 0, "d_img": 0, "d_w": 0}
+launch_count: Dict[str, int] = {"forward": 0, "g_pooled": 0, "d_img": 0,
+                                "d_w": 0}
 
 
 def operands(w: torch.Tensor, b: torch.Tensor, q: torch.Tensor):
@@ -110,6 +119,22 @@ def d_img_reference(g, out, w_bf16, q, k: int) -> torch.Tensor:
     wq = contracted_weights(w_bf16, q, k).to(torch.bfloat16).float()
     gp = g_pooled(g, out).to(torch.bfloat16).float()
     return torch.matmul(gp, wq.transpose(1, 2))
+
+
+def g_pooled_reference(g, out):
+    """-> (bf16 gp [N, L, O8], 0 past O; f32 d_bq [N, O] = sum_l g_pooled):
+    the g_pooled launch's plain version."""
+    gp = g_pooled(g, out)
+    o = gp.shape[-1]
+    padded = torch.nn.functional.pad(gp, (0, -o % 8)).to(torch.bfloat16)
+    return padded, gp.sum(dim=1)
+
+
+def d_img_from_gp_reference(gp, w_bf16, q, k: int) -> torch.Tensor:
+    """d_img from the bf16 operand gp [N, L, >= O] -> f32 [N, L, D]."""
+    wq = contracted_weights(w_bf16, q, k).to(torch.bfloat16).float()
+    o = w_bf16.shape[1] // k
+    return torch.matmul(gp[..., :o].float().contiguous(), wq.transpose(1, 2))
 
 
 def d_w_reference(g, out, img, w_bf16, b, q, k: int):
@@ -166,14 +191,15 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     tail = [i] * 5 + [p]  # n, l, d, f, k, stream
     lib.pooled_fusion_forward.argtypes = [p] * 5 + tail  # img w b q out
-    lib.pooled_fusion_d_img.argtypes = [p] * 5 + tail  # g out w q d_img
-    # g out img w b q, d_w d_b d_q, scratch: g_pooled, d_bq, d_q partials
-    lib.pooled_fusion_d_w.argtypes = [p] * 12 + tail
+    lib.pooled_fusion_g_pooled.argtypes = [p] * 4 + tail  # g out gp d_bq
+    lib.pooled_fusion_d_img.argtypes = [p] * 4 + tail  # gp w q d_img
+    # gp d_bq img w b q, d_w d_b d_q, scratch: d_q's partials
+    lib.pooled_fusion_d_w.argtypes = [p] * 10 + tail
     # K6 (ops/wq_grid_fusion.py): img w b q, z ssq out, n l d f k, eps, stream
     lib.pooled_fusion_wq_grid.argtypes = (
         [p] * 7 + [i] * 5 + [ctypes.c_float, p])
     lib.pooled_fusion_o_tile.argtypes = []  # K6's ssq: sums per sample
-    for name in ("forward", "d_img", "d_w", "wq_grid", "o_tile"):
+    for name in ("forward", "g_pooled", "d_img", "d_w", "wq_grid", "o_tile"):
         getattr(lib, f"pooled_fusion_{name}").restype = ctypes.c_int
     lib.pooled_fusion_error_string.argtypes = [ctypes.c_int]
     lib.pooled_fusion_error_string.restype = ctypes.c_char_p
@@ -233,17 +259,21 @@ def _check_grad(g, out, img, w_bf16, k: int) -> None:
                              f"{img.device}")
 
 
-def _launch(name: str, pointers, img, w_bf16, k: int) -> None:
-    n, l, d = img.shape
+def _launch(name: str, pointers, dims, device) -> None:
+    """Launch ``pooled_fusion_<name>`` on (n, l, d, f, k) = ``dims`` and
+    count it; raises on a refused launch."""
     lib = library()
     rc = getattr(lib, f"pooled_fusion_{name}")(
-        *pointers, n, l, d, w_bf16.shape[1], k,
-        torch.cuda.current_stream(img.device).cuda_stream)
+        *pointers, *dims, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"pooled_fusion {name} launch failed: CUDA error {rc} "
             f"({lib.pooled_fusion_error_string(rc).decode()})")
     launch_count[name] += 1
+
+
+def _dims(img, w_bf16, k: int) -> tuple:
+    return (*img.shape, w_bf16.shape[1], k)
 
 
 # the kernel of each launch: operands as ``operands`` makes them
@@ -254,51 +284,92 @@ def forward_cuda(img, w_bf16, b, q, k: int) -> torch.Tensor:
     out = torch.empty(n, l, w_bf16.shape[1] // k, dtype=torch.float32,
                       device=img.device)
     _launch("forward", (img.data_ptr(), w_bf16.data_ptr(), b.data_ptr(),
-                        q.data_ptr(), out.data_ptr()), img, w_bf16, k)
+                        q.data_ptr(), out.data_ptr()), _dims(img, w_bf16, k),
+            img.device)
     return out
 
 
-def d_img_cuda(g, out, img, w_bf16, b, q, k: int) -> torch.Tensor:
-    """-> f32 [N, L, D]."""
+def g_pooled_cuda(g, out, img, w_bf16, b, q, k: int):
+    """Launch the g_pooled build -> (bf16 gp [N, L, O8], 0 past O; f32 d_bq
+    [N, O]), in scratch allocated here."""
     check_inputs(img, w_bf16, b, q, k)
     _check_grad(g, out, img, w_bf16, k)
+    n, l, _ = img.shape
+    o = w_bf16.shape[1] // k
+    gp = torch.empty(n, l, -(-o // 8) * 8, dtype=torch.bfloat16,
+                     device=img.device)
+    d_bq = torch.empty(n, o, dtype=torch.float32, device=img.device)
+    _launch("g_pooled", (g.data_ptr(), out.data_ptr(), gp.data_ptr(),
+                         d_bq.data_ptr()), _dims(img, w_bf16, k), img.device)
+    return gp, d_bq
+
+
+def _check_gp(gp, img, w_bf16, k: int) -> None:
+    n, l, _ = img.shape
+    want = (n, l, -(-(w_bf16.shape[1] // k) // 8) * 8)
+    if gp.dtype != torch.bfloat16 or tuple(gp.shape) != want or \
+            not gp.is_contiguous() or gp.device != img.device:
+        raise ValueError(f"gp must be contiguous bf16 {want} on {img.device}, "
+                         "as g_pooled_cuda makes it")
+
+
+def d_img_from_gp_cuda(gp, img, w_bf16, b, q, k: int) -> torch.Tensor:
+    """Launch the d_img product over ``g_pooled_cuda``'s gp -> f32
+    [N, L, D]."""
+    check_inputs(img, w_bf16, b, q, k)
+    _check_gp(gp, img, w_bf16, k)
+    if q.data_ptr() % 16:
+        raise ValueError("d_img reads q by TMA: it must be 16-byte aligned")
     d_img = torch.empty(img.shape, dtype=torch.float32, device=img.device)
-    _launch("d_img", (g.data_ptr(), out.data_ptr(), w_bf16.data_ptr(),
-                      q.data_ptr(), d_img.data_ptr()), img, w_bf16, k)
+    _launch("d_img", (gp.data_ptr(), w_bf16.data_ptr(), q.data_ptr(),
+                      d_img.data_ptr()), _dims(img, w_bf16, k), img.device)
     return d_img
 
 
-def d_w_cuda(g, out, img, w_bf16, b, q, k: int):
-    """-> (d_W f32 [D, F], d_b f32 [F], d_q f32 [N, F])."""
+def d_w_from_gp_cuda(gp, d_bq, img, w_bf16, b, q, k: int):
+    """Launch d_W/d_b/d_q over ``g_pooled_cuda``'s gp and d_bq -> (d_W f32
+    [D, F], d_b f32 [F], d_q f32 [N, F])."""
     check_inputs(img, w_bf16, b, q, k)
-    _check_grad(g, out, img, w_bf16, k)
+    _check_gp(gp, img, w_bf16, k)
     n, _, d = img.shape
     f = w_bf16.shape[1]
     dev = img.device
+    if d_bq.dtype != torch.float32 or tuple(d_bq.shape) != (n, f // k) or \
+            not d_bq.is_contiguous() or d_bq.device != dev:
+        raise ValueError(f"d_bq must be contiguous f32 [{n}, {f // k}] on "
+                         f"{dev}, as g_pooled_cuda makes it")
     d_w = torch.empty(d, f, dtype=torch.float32, device=dev)
     d_b = torch.empty(f, dtype=torch.float32, device=dev)
     d_q = torch.empty(n, f, dtype=torch.float32, device=dev)
-    # scratch: bf16 g_pooled with O padded to a multiple of 8 (its rows
-    # are read as 16-byte vectors), d_bq [N, O], and d_q's partial sums per
-    # D tile, reduced in order by a later launch inside the entry
-    o = f // k
-    gp = torch.empty(n, img.shape[1], -(-o // 8) * 8, dtype=torch.bfloat16,
-                     device=dev)
-    d_bq = torch.empty(n, o, dtype=torch.float32, device=dev)
+    # scratch: d_q's partial sums per D tile, reduced in order by a later
+    # launch inside the entry
     parts = torch.empty(-(-d // _D_TILE), n, f, dtype=torch.float32,
                         device=dev)
-    _launch("d_w", (g.data_ptr(), out.data_ptr(), img.data_ptr(),
+    _launch("d_w", (gp.data_ptr(), d_bq.data_ptr(), img.data_ptr(),
                     w_bf16.data_ptr(), b.data_ptr(), q.data_ptr(),
                     d_w.data_ptr(), d_b.data_ptr(), d_q.data_ptr(),
-                    gp.data_ptr(), d_bq.data_ptr(), parts.data_ptr()),
-            img, w_bf16, k)
+                    parts.data_ptr()), _dims(img, w_bf16, k), dev)
     return d_w, d_b, d_q
+
+
+def d_img_cuda(g, out, img, w_bf16, b, q, k: int) -> torch.Tensor:
+    """d_img, f32 [N, L, D]: the g_pooled build, then the product."""
+    gp, _ = g_pooled_cuda(g, out, img, w_bf16, b, q, k)
+    return d_img_from_gp_cuda(gp, img, w_bf16, b, q, k)
+
+
+def d_w_cuda(g, out, img, w_bf16, b, q, k: int):
+    """-> (d_W f32 [D, F], d_b f32 [F], d_q f32 [N, F]): the g_pooled
+    build, then the d_W launch over it."""
+    return d_w_from_gp_cuda(*g_pooled_cuda(g, out, img, w_bf16, b, q, k),
+                            img, w_bf16, b, q, k)
 
 
 class PooledGridFuse(torch.autograd.Function):
     """K3 on the card: the forward and each backward product are launches
-    of the hand-written kernels. d_img is launched only when img needs a
-    gradient (in the training step img is data and does not)."""
+    of the hand-written kernels. The backward forms g_pooled once, for d_W
+    and, only when img needs a gradient (in the training step img is data
+    and does not), for d_img."""
 
     @staticmethod
     def forward(ctx, img, w, b, q, k):
@@ -312,10 +383,12 @@ class PooledGridFuse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         img, w_bf16, bf, qb, out = ctx.saved_tensors
-        args = (g.float().contiguous(), out, img, w_bf16, bf, qb, ctx.k)
-        d_img = d_img_cuda(*args).to(img.dtype) \
+        k = ctx.k
+        gp, d_bq = g_pooled_cuda(g.float().contiguous(), out, img, w_bf16,
+                                 bf, qb, k)
+        d_img = d_img_from_gp_cuda(gp, img, w_bf16, bf, qb, k).to(img.dtype) \
             if ctx.needs_input_grad[0] else None
-        d_w, d_b, d_q = d_w_cuda(*args)
+        d_w, d_b, d_q = d_w_from_gp_cuda(gp, d_bq, img, w_bf16, bf, qb, k)
         w_dtype, b_dtype, q_dtype = ctx.dtypes
         return d_img, d_w.to(w_dtype), d_b.to(b_dtype), d_q.to(q_dtype), None
 

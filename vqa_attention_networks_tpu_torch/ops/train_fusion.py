@@ -37,12 +37,15 @@ the plain version replay the same bits whatever their tiling. (The TPU
 kernel seeded its on-core generator per tile; those bits cannot be
 reproduced here.) At rate 0 no bits are drawn.
 
-d_W/d_b takes two launches on the card: ``g_prod_cuda`` builds g_prod
-once as bf16 [N*L, F], with the f32 d_b partial of each chunk of
-``DB_CHUNK`` rows, and ``d_w_from_operand_cuda`` is the product over that
-operand (its first D tile also sums the partials in chunk order). Their
-plain versions are ``g_prod_reference`` and ``d_w_from_operand_reference``;
-``d_w_reference`` composes them.
+d_W/d_b and d_img share one operand on the card: ``g_prod_cuda`` builds
+g_prod once as bf16 [N*L, F], with the f32 d_b partial of each chunk of
+``DB_CHUNK`` rows; ``d_w_from_operand_cuda`` is the d_W product over it
+(its first D tile also sums the partials in chunk order), and
+``d_img_from_operand_cuda`` the d_img product. Their plain versions are
+``g_prod_reference``, ``d_w_from_operand_reference`` and
+``d_img_from_operand_reference``; ``d_w_reference`` composes the first two,
+and ``d_img_reference`` computes what the first and the third compose to.
+``d_w_cuda`` and ``d_img_cuda`` are the build followed by the product.
 
 - ``train_grid_fuse`` dispatches: a CPU tensor goes to the plain version,
   a CUDA tensor to the kernels (``csrc/train_fusion.cu``), which raise on
@@ -183,6 +186,13 @@ def d_img_reference(g, out, w_bf16, q, k: int, keep) -> torch.Tensor:
     return torch.matmul(g_prod, w_bf16.float().t()).to(torch.bfloat16)
 
 
+def d_img_from_operand_reference(g_prod_bf16, w_bf16, n: int,
+                                 l: int) -> torch.Tensor:
+    """d_img = g_prod [N*L, F] (bf16) @ bf16(W)^T, bf16 [N, L, D]."""
+    g_prod = g_prod_bf16.float().reshape(n, l, -1)
+    return torch.matmul(g_prod, w_bf16.float().t()).to(torch.bfloat16)
+
+
 def g_prod_reference(g, out, q, k: int, keep):
     """-> (bf16 g_prod [N*L, F], f32 d_b partials [ceil(N*L / DB_CHUNK), F]):
     the g_prod build's plain version, each partial the sum of its chunk's
@@ -258,7 +268,8 @@ def library() -> ctypes.CDLL:
     # pointers, then n, l, d, f, k, seed, thr, inv_keep, stream
     tail = [i] * 5 + [u, u, f, p]
     lib.train_fusion_forward.argtypes = [p] * 5 + tail  # img w b q out
-    lib.train_fusion_d_img.argtypes = [p] * 5 + tail  # g out w q d_img
+    # g_prod w d_img, n, l, d, f, stream
+    lib.train_fusion_d_img.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.train_fusion_g_prod.argtypes = [p] * 5 + tail  # g out q gp partials
     # img gp partials d_w d_b, n, l, d, f, stream
     lib.train_fusion_d_w.argtypes = [p] * 5 + [i] * 4 + [p]
@@ -364,17 +375,6 @@ def forward_cuda(img, w_bf16, b, q, seed: int, k: int,
     return out
 
 
-def d_img_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
-               rate: float) -> torch.Tensor:
-    check_inputs(img, w_bf16, b, q, k, rate)
-    _check_grad(g, out, img, w_bf16, k)
-    d_img = torch.empty_like(img)
-    _launch("d_img", (g.data_ptr(), out.data_ptr(), w_bf16.data_ptr(),
-                      q.data_ptr(), d_img.data_ptr()), img, w_bf16, seed, k,
-            rate)
-    return d_img
-
-
 def g_prod_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
     """Launch the g_prod build -> (bf16 g_prod [N*L, F], f32 d_b partials
     [ceil(N*L / DB_CHUNK), F]), in scratch allocated here."""
@@ -389,6 +389,33 @@ def g_prod_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
                        g_prod.data_ptr(), partials.data_ptr()), img, w_bf16,
             seed, k, rate)
     return g_prod, partials
+
+
+def d_img_from_operand_cuda(g_prod, w_bf16, n: int, l: int) -> torch.Tensor:
+    """Launch the d_img product over ``g_prod_cuda``'s g_prod -> bf16
+    [N, L, D]."""
+    d, f = w_bf16.shape
+    if g_prod.device.type != "cuda" or w_bf16.device != g_prod.device:
+        raise ValueError("d_img takes g_prod and W on the card")
+    if g_prod.dtype != torch.bfloat16 or tuple(g_prod.shape) != (n * l, f) \
+            or not g_prod.is_contiguous():
+        raise ValueError(f"g_prod must be contiguous bf16 [{n * l}, {f}], as "
+                         "g_prod_cuda makes it")
+    if w_bf16.dtype != torch.bfloat16 or not w_bf16.is_contiguous() or \
+            w_bf16.data_ptr() % 16 or g_prod.data_ptr() % 16:
+        raise ValueError("d_img takes a contiguous bf16 W, and W and g_prod "
+                         "16-byte aligned")
+    d_img = torch.empty(n, l, d, dtype=torch.bfloat16, device=g_prod.device)
+    _call("d_img", g_prod.data_ptr(), w_bf16.data_ptr(), d_img.data_ptr(),
+          n, l, d, f, torch.cuda.current_stream(g_prod.device).cuda_stream)
+    return d_img
+
+
+def d_img_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
+               rate: float) -> torch.Tensor:
+    """d_img: the g_prod build, then the product over it."""
+    g_prod, _ = g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate)
+    return d_img_from_operand_cuda(g_prod, w_bf16, *img.shape[:2])
 
 
 def d_w_from_operand_cuda(img, g_prod, partials):
@@ -433,8 +460,9 @@ def d_q_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
 
 class TrainGridFuse(torch.autograd.Function):
     """K2 on the card: the forward and each backward product are launches
-    of the hand-written kernels. d_img is launched only when img needs a
-    gradient (in the training step img is data and does not)."""
+    of the hand-written kernels. The backward builds g_prod once, for d_W
+    and, only when img needs a gradient (in the training step img is data
+    and does not), for d_img."""
 
     @staticmethod
     def forward(ctx, img, w, b, q, seed, k, rate):
@@ -450,8 +478,10 @@ class TrainGridFuse(torch.autograd.Function):
         img, w_bf16, bf, qf, out = ctx.saved_tensors
         args = (g.float().contiguous(), out, img, w_bf16, bf, qf, ctx.seed,
                 ctx.k, ctx.rate)
-        d_img = d_img_cuda(*args) if ctx.needs_input_grad[0] else None
-        d_w, d_b = d_w_cuda(*args)
+        g_prod, partials = g_prod_cuda(*args)
+        d_img = d_img_from_operand_cuda(g_prod, w_bf16, *img.shape[:2]) \
+            if ctx.needs_input_grad[0] else None
+        d_w, d_b = d_w_from_operand_cuda(img, g_prod, partials)
         d_q = d_q_cuda(*args)
         w_dtype, b_dtype, q_dtype = ctx.dtypes
         return (d_img, d_w.to(w_dtype), d_b.to(b_dtype), d_q.to(q_dtype),

@@ -1,6 +1,6 @@
-"""Time a checkout's pre-pool training step, or its kernels, on the card.
+"""Time a checkout's training step, or its kernels, on the card.
 
-    python3 vqa_attention_networks_tpu_torch/step_time.py [--root DIR] [--kernels [NAME ...]]
+    python3 vqa_attention_networks_tpu_torch/step_time.py [--root DIR] [--site prepool|pooled] [--kernels [NAME ...]]
 
 imports the port from DIR (by default the checkout that holds this file),
 so that two checkouts of the port, one of them unpacked with
@@ -8,20 +8,28 @@ so that two checkouts of the port, one of them unpacked with
 in the order A, B, B, A, and compare within the one machine.
 
 - By default it trains full-width bf16 mhb_coAtt with ``Solver.train`` from
-  random weights (seed 0) on synthetic data, batch 64, and prints one JSON
-  line: ms per step over steps 5 to the last (synchronised at both ends),
-  training qa-pairs/s and the per-step losses.
+  random weights (seed 0) on synthetic data, batch 64, with dropout and
+  the fusion at the pre-pool site (K2) or, under ``--site pooled``, at the
+  pooled site (K3), and prints one JSON line: ms per step over steps 5 to
+  the last (synchronised at both ends), training qa-pairs/s and the
+  per-step losses.
 - With ``--kernels`` it times, with ``chip_smoke.py``'s inputs, timers and
   tolerances (the ``chip_smoke.py`` beside this package, run on DIR's
   port), one JSON line each: K1 at N = 256, by CUDA events and each of its
   launches' device time; K5 at N = 256, with ``torch.matmul`` on the bare
-  product img @ bf16(W) beside it for information; K2's forward and d_q at
-  N = 64, rate 0.1; K3's d_W/d_b/d_q (four launches) at N = 64; K3's
-  forward at N = 64 and 256; K4 at N = 256; K6 at N = 256 (its forward
-  and its scale launch apart); K7 at its two call shapes (the question
+  product img @ bf16(W) beside it for information; K2's forward, d_q and
+  d_img at N = 64, rate 0.1; K3's d_W/d_b/d_q (four launches) and d_img at
+  N = 64; K3's forward at N = 64 and 256; K4 at N = 256; K6 at N = 256 (its
+  forward and its scale launch apart); K7 at its two call shapes (the question
   glimpse and the co-attention), its two launches and the wrapper's cast
-  apart. Names after ``--kernels`` (K1, K5, K2, K3, K4, K6, K7) time only
-  those. Each line says whether the kernel agreed with its plain version
+  apart. Each d_img line times the call that computes d_img from g and
+  out (the operand's build and the product: ``d_img_cuda``, which both
+  versions of the port have), with the bare product over the operand
+  beside it for information: ``torch.matmul(g_prod, bf16(W)^T)`` for K2,
+  ``torch.bmm`` of bf16 g_pooled [N, L, O] against a materialised bf16
+  wq^T [N, O, D] for K3 (without the wq build). Names after
+  ``--kernels`` (K1, K5, K2, K3, K4, K6, K7) time only those. Each line
+  says whether the kernel agreed with its plain version
   on the same inputs and whether a rerun gave the same bits, and gives
   the call's time three ways: ``events_ms``, calls enqueued back to
   back; ``device_ms``, each call's events queued behind a spin on the
@@ -55,6 +63,9 @@ def main() -> None:
                         help="the checkout whose port is timed")
     parser.add_argument("--steps", type=int, default=30)
     parser.add_argument("--batch", type=int, default=64)
+    parser.add_argument("--site", default="prepool",
+                        choices=("prepool", "pooled"),
+                        help="the training fusion's dropout site")
     parser.add_argument("--kernels", nargs="*", default=None,
                         metavar="NAME",
                         help="time the kernels (all, or the ones named: "
@@ -69,13 +80,14 @@ def main() -> None:
         time_kernels(os.path.join(here, "chip_smoke.py"), root,
                      set(args.kernels) or KERNELS)
     else:
-        time_step(root, args.steps, args.batch)
+        time_step(root, args.steps, args.batch, args.site)
 
 
 def time_kernels(harness: str, root: str, names: set) -> None:
-    """K1, K5, K2's forward and d_q, K3's d_W/d_b/d_q and forward, K4, K6
-    and K7 (those in ``names``), timed and checked by ``harness`` (a
-    ``chip_smoke.py``) on the port that ``sys.path`` reaches first."""
+    """K1, K5, K2's forward, d_q and d_img, K3's d_W/d_b/d_q, d_img and
+    forward, K4, K6 and K7 (those in ``names``), timed and checked by
+    ``harness`` (a ``chip_smoke.py``) on the port that ``sys.path`` reaches
+    first."""
     unknown = names - KERNELS
     if unknown:
         raise SystemExit(f"unknown kernels {sorted(unknown)}; the names "
@@ -157,7 +169,18 @@ def time_kernels(harness: str, root: str, names: set) -> None:
         want = tf.d_q_reference(g, got, img, w_bf16, bf, k, keep)
         say("K2_d_q", lambda: tf.d_q_cuda(*args), d_q,
             bool(smoke.k2_within("d_q", d_q, want).all()), n=n, rate=rate)
+
+        # K2's d_img on the same inputs: the g_prod build and the product
+        d_img = tf.d_img_cuda(*args)
+        want = tf.d_img_reference(g, got, w_bf16, qf, k, keep)
+        g_prod, w_t = tf.g_prod_cuda(*args)[0], w_bf16.t()
+        torch.matmul(g_prod, w_t)  # warm-up
+        say("K2_d_img", lambda: tf.d_img_cuda(*args), d_img,
+            bool(smoke.k2_within("d_img", d_img, want).all()), n=n,
+            rate=rate, matmul_ms=smoke.time_ms(
+                lambda: torch.matmul(g_prod, w_t), KERNEL_ITERS))
         del img, w, b, q, g, w_bf16, bf, qf, keep, got, want, d_q, args
+        del d_img, g_prod, w_t
         torch.cuda.empty_cache()
 
     # K3's d_W/d_b/d_q on the kernel's own forward output, as k3_time
@@ -173,7 +196,20 @@ def time_kernels(harness: str, root: str, names: set) -> None:
             say("K3_d_w", lambda: pf.d_w_cuda(*args), got,
                 all(bool(smoke.k3_within(name, a, b_).all()) for name, a, b_
                     in zip(("d_w", "d_b", "d_q"), got, want)), n=n3)
-            del args, got
+            # K3's d_img on the same inputs: the g_pooled build and the
+            # product
+            got = pf.d_img_cuda(*args)
+            want = pf.d_img_reference(g, out, w_bf16, qb, k)
+            o = w.shape[1] // k
+            gp = pf.g_pooled(g, out)[..., :o].to(torch.bfloat16).contiguous()
+            wq_t = pf.contracted_weights(w_bf16, qb, k).to(
+                torch.bfloat16).transpose(1, 2).contiguous()
+            torch.bmm(gp, wq_t)  # warm-up
+            say("K3_d_img", lambda: pf.d_img_cuda(*args), got,
+                bool(smoke.k3_within("d_img", got, want).all()), n=n3,
+                bmm_ms=smoke.time_ms(lambda: torch.bmm(gp, wq_t),
+                                     KERNEL_ITERS))
+            del args, got, gp, wq_t
         want = pf.forward_reference(img, w_bf16, bf, qb, k)
         say("K3_forward", lambda: pf.forward_cuda(img, w_bf16, bf, qb, k),
             out, bool(smoke.k3_within("forward", out, want).all()), n=n3)
@@ -222,8 +258,8 @@ def time_kernels(harness: str, root: str, names: set) -> None:
         torch.cuda.empty_cache()
 
 
-def time_step(root: str, steps: int, batch: int) -> None:
-    """The pre-pool step of full-width bf16 mhb_coAtt, one JSON line."""
+def time_step(root: str, steps: int, batch: int, site: str) -> None:
+    """The training step of full-width bf16 mhb_coAtt, one JSON line."""
     import numpy as np
     import torch
 
@@ -238,7 +274,7 @@ def time_step(root: str, steps: int, batch: int) -> None:
     if not torch.cuda.is_available():
         sys.exit("step_time.py times the card: no CUDA device")
     cfg = Config(compute_dtype="bfloat16", num_epoch=1,
-                 batch_size=batch)
+                 batch_size=batch, dropout_site=site)
     params = init_params(cfg, torch.Generator().manual_seed(0))
     images = 256
     qa = make_synthetic_qa_data(
