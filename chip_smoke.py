@@ -159,6 +159,28 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     ``torch.nn.LSTM`` (cuDNN, input projection included) on the same
     weights and input: K8's library time, and the device times of both
     calls (``torch.profiler``) in K8_ROUNDS interleaved rounds;
+27. ``cli``: the command line from corpus to results files, in process, in
+    a temporary workspace: ``tools/gen_corpus.py`` (640 train and 192 val
+    questions, a subprocess), the port's ``cli.prepare_data`` with
+    ``--num_answer 1000`` (the corpus has fewer answers: the vocabulary
+    size is printed, and prepare drops the questions whose answer the UNK
+    slot displaces), synthetic f16 stores at 196 x 2048 as
+    ``resnet152_train`` and ``resnet152_val`` (``CombinedFeatureStore``),
+    then ``cli.train`` of bf16 mhb_coAtt at ``Config()`` widths, batch 64,
+    2 epochs (20 steps), a checkpoint every 4 steps: finite losses, K2 once
+    a step (forward, g_prod, d_W and d_q; d_img never), ``step_12``,
+    ``step_16`` and ``step_20`` kept and the ``weights`` export; a
+    ``cli.train --resume`` in a second workspace from ``step_12`` (inside
+    epoch 2) to step 20: every parameter and Adam moment and the final
+    loss bit-equal to the straight run's; ``cli.evaluate``: K1 once per
+    val batch, ``results/mhb_coAtt.txt``, ``.json`` (num_examples the
+    prepared val split, accuracies in [0, 1], the per-type counts summing
+    to it) and ``_predictions.json`` (one row per val question id); for
+    information the same evaluation under ``VQA_DISABLE_PALLAS=1`` (the
+    share of predictions that differ, both accuracies); and the seconds of
+    ``prepare_data``, ms per training step and training qa-pairs/s through
+    the CLI (its last epoch), evaluation qa-pairs/s and the device share of
+    an evaluated batch;
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -174,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -183,12 +206,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from vqa_attention_networks_tpu_torch.cli import evaluate as cli_evaluate
+from vqa_attention_networks_tpu_torch.cli import prepare_data
+from vqa_attention_networks_tpu_torch.cli import train as cli_train
 from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch.data.feature_store import (
     make_synthetic_feature_store,
 )
 from vqa_attention_networks_tpu_torch.data.prepare import (
+    load_qa_data,
     make_synthetic_qa_data,
+    qa_artifact_path,
 )
 from vqa_attention_networks_tpu_torch.models import get_model
 from vqa_attention_networks_tpu_torch.models import hiecoatten, mfb
@@ -205,6 +233,7 @@ from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
 from vqa_attention_networks_tpu_torch.train.solver import Solver, init_params
+from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
 from vqa_attention_networks_tpu_torch.weights import (
     load_jax_params,
     to_jax_params,
@@ -362,6 +391,12 @@ K8_STEP_ATOL, K8_FREE_ATOL = 1e-6, 2.0 ** -6
 K8_LIVE, K8_LIVE_SHARE = 3.0, 0.5
 K8_SHAPE = dict(t=22, e=300, h=1024)  # mhb_coAtt: T, emb_dim, hidden_dim
 K8_ROUNDS = 5  # of the device times of lstm_seq and cuDNN's nn.LSTM
+# the cli phase: tools/gen_corpus.py's questions (train, val), prepare's
+# --num_answer (more than the corpus's answers), 2 epochs of batch
+# TRAIN_BATCH with a checkpoint every CLI_EVERY steps, and the mid-epoch
+# checkpoint a second workspace resumes from
+CLI_CORPUS, CLI_NUM_ANSWER = (640, 192), 1000
+CLI_EPOCHS, CLI_EVERY, CLI_RESUME_STEP = 2, 4, 12
 # the card's rates for the bounds (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -2053,6 +2088,221 @@ def k8_time(dev, smi: str) -> tuple:
     return scan, scan_bound, library_ms
 
 
+def cli_counts() -> dict:
+    """Every launch counter of the CLI phase's kernels, as a dict."""
+    return {"K1": wqf.launch_count, "K2": dict(tf.launch_count),
+            "K3": dict(pf.launch_count)}
+
+
+def cli_run(fn, argv) -> tuple:
+    """Call a CLI's ``main(argv)`` with every counter of ``cli_counts`` set
+    to 0 just before -> (its counts just after, seconds)."""
+    wqf.launch_count = 0
+    for counts in TRAIN_COUNTERS.values():
+        for name in counts:
+            counts[name] = 0
+    t0 = time.perf_counter()
+    fn(argv)
+    torch.cuda.synchronize()
+    return cli_counts(), time.perf_counter() - t0
+
+
+def events(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_results(model: str) -> tuple:
+    with open(f"results/{model}.txt") as f:
+        txt = f.read()
+    with open(f"results/{model}.json") as f:
+        record = json.load(f)
+    with open(f"results/{model}_predictions.json") as f:
+        preds = json.load(f)
+    return txt, record, preds
+
+
+def cli_phase(smi: str) -> dict:
+    """The command line from corpus to results files, on the card, in a
+    temporary workspace: ``tools/gen_corpus.py`` (a subprocess), the port's
+    ``prepare_data``, synthetic f16 stores at the production grid
+    (``resnet152_train`` + ``resnet152_val``, read through
+    ``CombinedFeatureStore``), ``cli.train`` of bf16 mhb_coAtt at
+    ``Config()`` widths (K2), a ``--resume`` from the mid-epoch
+    ``step_<CLI_RESUME_STEP>`` in a second workspace, and ``cli.evaluate``
+    (K1). Raises on a failed gate; returns the launches of the phase's
+    runs."""
+    model = "mhb_coAtt"
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as ws, contextlib.chdir(ws):
+        data = os.path.join(ws, "data")
+        subprocess.run([sys.executable,
+                        os.path.join(root, "tools", "gen_corpus.py"), data,
+                        "--n_train", str(CLI_CORPUS[0]), "--n_val",
+                        str(CLI_CORPUS[1])],
+                       check=True, capture_output=True, timeout=300)
+        t0 = time.perf_counter()
+        prepare_data.main(["--data_dir", data, "--num_answer",
+                           str(CLI_NUM_ANSWER)])
+        prepare_s = time.perf_counter() - t0
+        qa = load_qa_data(qa_artifact_path(data, 2, CLI_NUM_ANSWER))
+        train_ids = sorted(set(qa.train.image_ids.tolist()))
+        val_ids = sorted(set(qa.val.image_ids.tolist()) - set(train_ids))
+        t0 = time.perf_counter()
+        for split, ids in (("train", train_ids), ("val", val_ids)):
+            make_synthetic_feature_store(
+                os.path.join(data, f"resnet152_{split}"), ids,
+                seed=len(split))
+        store_s = time.perf_counter() - t0
+        if not qa.a_vocab_size < CLI_NUM_ANSWER:
+            raise AssertionError("cli: the corpus has no fewer answers than "
+                                 "--num_answer")
+        flags = ["--model_name", model, "--data_dir", data, "--num_answer",
+                 str(CLI_NUM_ANSWER), "--compute_dtype", "bfloat16",
+                 "--batch_size", str(TRAIN_BATCH)]
+        train_flags = flags + ["--num_epoch", str(CLI_EPOCHS),
+                               "--checkpoint_every_steps", str(CLI_EVERY)]
+        iters = -(-len(qa.train) // TRAIN_BATCH)
+        steps = CLI_EPOCHS * iters
+        val_batches = -(-len(qa.val) // TRAIN_BATCH)
+
+        # the straight run
+        trained, train_s = cli_run(cli_train.main, train_flags)
+        run_events = events(f"runs/{model}/events.jsonl")
+        losses = {e["step"]: (e["train loss"], e["val loss"])
+                  for e in run_events if e["tag"] == f"{model}/loss"}
+        qps = [e["value"] for e in run_events
+               if e["tag"] == f"{model}/qa_pairs_per_sec"]
+        kept = ckpt.all_steps(f"models/{model}")
+
+        # the mid-epoch resume, in a second workspace holding only the
+        # straight run's step_<CLI_RESUME_STEP>
+        resume_ws = os.path.join(ws, "resume")
+        shutil.copytree(f"models/{model}/step_{CLI_RESUME_STEP}",
+                        os.path.join(resume_ws, "models", model,
+                                     f"step_{CLI_RESUME_STEP}"))
+        with contextlib.chdir(resume_ws):
+            resumed, resume_s = cli_run(cli_train.main,
+                                        train_flags + ["--resume"])
+            resume_events = events(f"runs/{model}/events.jsonl")
+            got = ckpt.restore_checkpoint(f"models/{model}", steps)
+        want = ckpt.restore_checkpoint(f"models/{model}", steps)
+        shutil.rmtree(resume_ws)
+        resume_loss = [e["train loss"] for e in resume_events
+                       if e["tag"] == f"{model}/loss"][-1]
+        differ = [k for k, v in want["model"].items()
+                  if not torch.equal(v, got["model"][k])]
+        adam_differ = [
+            f"{i}/{k}" for i, s in want["optimizer"]["state"].items()
+            for k, v in s.items()
+            if not torch.equal(v, got["optimizer"]["state"][i][k])]
+        del got, want
+
+        # the evaluation, then for information without the kernels
+        evaluated, evaluate_s = cli_run(cli_evaluate.main, flags)
+        txt, record, preds = cli_results(model)
+        with switches(VQA_DISABLE_PALLAS="1"):
+            plain_counts, _ = cli_run(cli_evaluate.main, flags)
+        _, plain_record, plain_preds = cli_results(model)
+
+        # the evaluation's rate: the CLI's own Solver, restored, one full
+        # sweep timed; the device share: one val batch's forward, on the
+        # device, against the wall time per batch
+        solver = cli_train.build_solver(cli_train.parse_args(
+            flags + ["--mode", "testing"]))
+        solver.restore()
+        t0 = time.perf_counter()
+        solver.val(full=True)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        # one checkpoint write of the restored state, as train() makes it
+        t0 = time.perf_counter()
+        path = solver.save_checkpoint()
+        checkpoint_s = time.perf_counter() - t0
+        checkpoint_mb = os.path.getsize(
+            os.path.join(path, ckpt.STATE_FILE)) / 2 ** 20
+        batch = next(iter(solver.batches["val"].epoch()))
+        img, ques, qlen = solver._device_batch(batch)[:3]
+        with torch.inference_mode():
+            solver.model(img, ques, qlen)
+            forward_ms = time_ms(lambda: solver.model(img, ques, qlen), 3)
+        solver.close()
+        del solver, img, ques, qlen
+        torch.cuda.empty_cache()
+
+    n_val = len(qa.val)
+    k2_want = {"forward": 1, "g_prod": 1, "d_w": 1, "d_q": 1, "d_img": 0}
+    k3_zero = {name: 0 for name in pf.launch_count}
+    qids = qa.val.question_ids.tolist()
+    differ_share = float(np.mean([p["answer"] != q["answer"]
+                                  for p, q in zip(preds, plain_preds)]))
+    train_ms = 1e3 * len(qa.train) / qps[-1] / iters
+    say("cli", model=model, corpus=list(CLI_CORPUS),
+        prepared_questions=[len(qa.train), len(qa.val)],
+        prepared_note="prepare drops the questions whose answer the UNK "
+                      "slot displaces (the corpus's least frequent answer)",
+        answer_vocab=qa.a_vocab_size, num_answer_flag=CLI_NUM_ANSWER,
+        images=[len(train_ids), len(val_ids)], prepare_s=prepare_s,
+        store_s=store_s, steps=steps, iters_per_epoch=iters,
+        train_launches=trained, resume_launches=resumed,
+        evaluate_launches=evaluated, plain_evaluate_launches=plain_counts,
+        epoch_losses=losses, checkpoints_kept=kept,
+        resume_from=CLI_RESUME_STEP, resume_final_loss=resume_loss,
+        straight_final_loss=losses[steps][0], params_differ=differ,
+        adam_differ=adam_differ, results_txt=txt,
+        num_examples=record["num_examples"],
+        accuracy=record["accuracy"],
+        vqa_consensus_accuracy=record["vqa_consensus_accuracy"],
+        plain_accuracy_info=plain_record["accuracy"],
+        plain_vqa_consensus_accuracy_info=plain_record[
+            "vqa_consensus_accuracy"],
+        predictions_differ_share_info=differ_share, card=smi)
+    say("cli_time", train_wall_s=train_s, resume_wall_s=resume_s,
+        evaluate_wall_s=evaluate_s,
+        train_ms_per_step=train_ms,
+        train_qa_pairs_per_s=qps[-1], epoch_qa_pairs_per_s=qps,
+        timed="the last epoch's steps, checkpoints included, through "
+              "cli.train",
+        checkpoint_write_s=checkpoint_s, checkpoint_mib=checkpoint_mb,
+        checkpoints_in_last_epoch=len([s for s in range(iters + 1, steps + 1)
+                                       if s % CLI_EVERY == 0]),
+        evaluate_qa_pairs_per_s=n_val / sweep_s,
+        evaluate_wall_ms_per_batch=sweep_s * 1e3 / val_batches,
+        device_forward_ms_per_batch=forward_ms,
+        device_share=forward_ms / (sweep_s * 1e3 / val_batches),
+        batch=TRAIN_BATCH, card=smi)
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError("cli: a training loss is not finite")
+    if (trained["K2"] != {k: steps * v for k, v in k2_want.items()}
+            or resumed["K2"] != {k: (steps - CLI_RESUME_STEP) * v
+                                 for k, v in k2_want.items()}
+            or trained["K3"] != k3_zero):
+        raise AssertionError(f"cli: K2 launches {trained['K2']} in the "
+                             f"straight run, {resumed['K2']} resumed")
+    if kept != list(range(steps, 0, -CLI_EVERY))[:3][::-1]:
+        raise AssertionError(f"cli: checkpoints {kept} kept")
+    if differ or adam_differ or resume_loss != losses[steps][0]:
+        raise AssertionError(f"cli: the resumed run differs from the "
+                             f"straight one in {differ + adam_differ}")
+    if evaluated["K1"] != val_batches or plain_counts["K1"] != 0:
+        raise AssertionError(f"cli: K1 launches {evaluated['K1']} in the "
+                             f"evaluation of {val_batches} batches")
+    shares = [record[k] for k in ("accuracy", "top3_accuracy",
+                                  "vqa_consensus_accuracy",
+                                  "accuracy_reference_denominator")]
+    if (not txt.startswith("Evaluation accuracy: ")
+            or record["num_examples"] != n_val
+            or not all(0.0 <= s <= 1.0 for s in shares)
+            or any(sum(v["num_examples"] for v in record[b].values())
+                   != n_val for b in ("per_answer_type",
+                                      "per_question_type"))
+            or [p["question_id"] for p in preds] != qids):
+        raise AssertionError("cli: the results files are malformed")
+    return {"K1": trained["K1"] + resumed["K1"] + evaluated["K1"],
+            "K2": {k: trained["K2"][k] + resumed["K2"][k]
+                   for k in k2_want}}
+
+
 def main() -> None:
     # phase 1: the device
     card_name, smi = card()
@@ -2397,6 +2647,13 @@ def main() -> None:
     # phase 26: K6 and K8 times, and cuDNN's LSTM beside K8
     k6_times, k6_bound = k6_time(cfg, dev, smi)
     k8_times, k8_bound, k8_library_ms = k8_time(dev, smi)
+    torch.cuda.empty_cache()
+
+    # phase 27: the command line, corpus to results files (K2 and K1)
+    cli_launches = cli_phase(smi)
+    launches["K1"] += cli_launches["K1"]
+    for key, n in cli_launches["K2"].items():
+        train_launches["K2"][key] += n
 
     def entry(name, source, replaces, n_launches, err, run, bnd,
               library_ms=None) -> dict:

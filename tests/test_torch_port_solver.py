@@ -19,10 +19,14 @@ fields, seeds and sizes.
   epoch equal to the JAX Solver's, and two bf16 steps of ``train()`` with
   dropout on and finite losses; ``val()`` equals a fresh load's, running
   statistics included.
+- ``loss_override="soft_bce"``: the same losses as the JAX Solver; the
+  checkpoints and val(full=True) run (tests/test_torch_port_checkpoint.py
+  holds them in full).
 - What is not ported raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -306,8 +310,10 @@ def test_non_finite_loss_aborts_the_run(data):
     (dict(grad_accum_steps=2), "item 6"),
     (dict(remat=True), "item 6"),
     (dict(device_feature_bank=True), "item 6"),
-    (dict(early_stopping=True), "item 6"),
-    (dict(loss_override="soft_bce"), "item 6"),
+    # early stopping and loss_override run now (item 6's done part); the
+    # profiler and NaN-trap switches stay refused
+    (dict(profile_steps=1), "item 6"),
+    (dict(debug_nans=True), "item 6"),
     (dict(data_parallel=2, batch_size=16), "item 10"),
 ])
 def test_unported_switches_name_their_roadmap_item(data, switch, item):
@@ -316,24 +322,42 @@ def test_unported_switches_name_their_roadmap_item(data, switch, item):
         Solver(small_cfg(qa, **switch), qa, store, device="cpu")
 
 
-def test_unported_persistence_and_full_val_raise(data):
+def test_unported_persistence_and_full_val_raise(data, tmp_path):
+    """Checkpoints, resume and val(full=True) were refused until the
+    command line's slice; they run now. A checkpoint that falls due inside
+    the epoch is written, ``restore()`` brings back its step, ``save()``
+    adds the final one and the weights export, and ``val(full=True)``
+    writes the three results files. What the Solver still refuses names
+    its ROADMAP item (``test_unported_switches_name_their_roadmap_item``)."""
+    from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
+
     qa, store = data
-    solver = Solver(small_cfg(qa, checkpoint_every_steps=2), qa, store,
-                    device="cpu")
-    for call in (lambda: solver.val(full=True), solver.save_checkpoint,
-                 solver.restore, solver.save):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 6"):
-            call()
-    # a checkpoint would fall due at step 2 of the epoch: refused up front
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        solver.train()
-    assert solver.step == 0
-    # a run that ends before its first checkpoint trains
-    solver = Solver(small_cfg(qa, checkpoint_every_steps=4), qa, store,
-                    device="cpu")
+    cfg = small_cfg(qa, checkpoint_every_steps=2,
+                    out_dir=str(tmp_path / "models"),
+                    results_dir=str(tmp_path / "results"))
+    solver = Solver(cfg, qa, store, device="cpu")
     solver.train()
     assert solver.step == 3
+    assert ckpt.all_steps(solver.checkpoint_dir) == [2]
+    solver.save()
+    assert ckpt.all_steps(solver.checkpoint_dir) == [2, 3]
+    fresh = Solver(cfg, qa, store, device="cpu")
+    fresh.restore(step=2)
+    assert fresh.step == 2
+    fresh.restore()
+    assert fresh.step == 3
+    loss, acc = fresh.val(full=True)
+    assert np.isfinite(loss) and 0.0 <= acc <= 1.0
+    assert sorted(os.listdir(tmp_path / "results")) == [
+        "mhb_coAtt.json", "mhb_coAtt.txt", "mhb_coAtt_predictions.json"]
+
+
+def test_soft_bce_losses_match_the_jax_solver(data, jax_data, tmp_path):
+    """``loss_override="soft_bce"`` (the legacy trainer's loss) trains a
+    hard-label family on soft targets, with the JAX Solver's losses."""
+    _losses_match_the_jax_solver(data, jax_data, tmp_path,
+                                 model_name="iBOWIMG", dropout_default=0.0,
+                                 loss_override="soft_bce", **WIDTHS)
 
 
 def test_default_device_is_the_card(data):

@@ -6,7 +6,7 @@ module here names the JAX function it ports, and ``tests/test_torch_port_*``
 hold each against it on the same weights and inputs. This package imports
 ``torch`` and nothing of JAX or of the JAX package: where it needs a module
 that the JAX package has too (``config``, the ``data`` modules, the native
-data plane), it keeps its own copy.
+data plane, ``utils/torch_import``), it keeps its own copy.
 
 Slices ported so far, on one device:
 
@@ -20,7 +20,14 @@ Slices ported so far, on one device:
 - bf16 ``hieCoAtten`` serving, with the co-attention core K4
   (``csrc/coattention.cu``);
 - bf16 ``mfb`` and ``mfb-multilayer`` serving, with K5 under
-  ``VQA_FORCE_PALLAS``.
+  ``VQA_FORCE_PALLAS``;
+- every family served (``serve.InferenceEngine``) and trained
+  (``train.solver.Solver``), with checkpoints, resume, early stopping and
+  the full evaluation's results files;
+- the command line from corpus to results file: ``cli.prepare_data``,
+  ``cli.build_glove``, ``cli.train`` and ``cli.evaluate``, over the data
+  preparation of ``data/`` and the checkpoints, metric writer and ``.pth``
+  importer of ``utils/``.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,10 @@
 """Batch pipeline: packed QA arrays + feature store -> host batches (the
-port's copy of ``vqa_attention_networks_tpu/data/dataset.py``, trimmed to
-what the port's ``Solver`` uses).
+port's copy of ``vqa_attention_networks_tpu/data/dataset.py``, without the
+device-feature-bank and int8 feeds, which the port's ``Solver`` refuses).
 
 - Batch assembly is fancy indexing: no per-item Python or file I/O.
 - Every batch has the same shape: the final partial batch is padded to
-  ``batch_size`` with a ``valid`` mask.
+  ``batch_size`` by repeating its last row, with a ``valid`` mask.
 - ``prefetch`` and ``parallel_epoch`` assemble batches on host threads
   while the device runs the step; the gather and the soft-answer scatter
   run in C with the interpreter lock released (``data/native.py``).
@@ -39,6 +39,18 @@ class Batch:
     ques_length: np.ndarray  # [B] int32
     valid: np.ndarray  # [B] bool — False on pad rows of the final batch
     soft_answers: Optional[np.ndarray] = None  # [B, A] float32
+    # host-only fields of the full evaluation (``Solver.val(full=True)``),
+    # None where the artifact lacks them: the sparse annotator data of the
+    # VQA consensus metric (raw counts = soft_val * soft_n, attached for
+    # every family), the answer-type codes (prepare.ANSWER_TYPE_CODES, -1
+    # unknown), the VQA question ids of the leaderboard file, and the
+    # question-type codes (QAData.question_type_names)
+    soft_idx: Optional[np.ndarray] = None  # [B, W] int32, -1 padded
+    soft_val: Optional[np.ndarray] = None  # [B, W] float32
+    soft_n: Optional[np.ndarray] = None  # [B] int32
+    answer_types: Optional[np.ndarray] = None  # [B] int32
+    question_ids: Optional[np.ndarray] = None  # [B] int64
+    question_types: Optional[np.ndarray] = None  # [B] int32
 
     def __len__(self) -> int:
         return int(self.questions.shape[0])
@@ -88,14 +100,26 @@ class VqaBatches:
         if b < bs:  # pad the final batch to the same shape
             valid[b:] = False
             idx = np.concatenate([idx, np.broadcast_to(idx[-1:], (bs - b,))])
+        split = self.split
+
+        def field(values, dtype):
+            return None if values is None else values[idx].astype(dtype)
+
+        has_n = split.soft_n is not None
         return Batch(
             image_features=self.store.gather_rows(self._rows[idx],
                                                   dtype=self.feature_dtype),
-            questions=self.split.questions[idx].astype(np.int32),
-            answers=self.split.answers[idx].astype(np.int32),
-            ques_length=self.split.ques_length[idx].astype(np.int32),
+            questions=split.questions[idx].astype(np.int32),
+            answers=split.answers[idx].astype(np.int32),
+            ques_length=split.ques_length[idx].astype(np.int32),
             valid=valid,
             soft_answers=self._densify_soft(idx) if self.soft_answer else None,
+            soft_idx=split.soft_idx[idx] if has_n else None,
+            soft_val=split.soft_val[idx] if has_n else None,
+            soft_n=field(split.soft_n, np.int32),
+            answer_types=field(split.answer_types, np.int32),
+            question_ids=field(split.question_ids, np.int64),
+            question_types=field(split.question_types, np.int32),
         )
 
     def epoch(self, epoch_index: Optional[int] = None,

@@ -1,7 +1,8 @@
 """Packed, memory-mappable image feature store (the port's copy of
-``vqa_attention_networks_tpu/data/feature_store.py``, trimmed to what the
-port uses: the store reader, its writer, int8 quantisation and the
-synthetic store of the tests and ``chip_smoke.py``).
+``vqa_attention_networks_tpu/data/feature_store.py``): the reader, its
+writer, int8 quantisation and ``quantize_store``, the reader over the
+per-split stores (``CombinedFeatureStore``, ``open_feature_store``), and
+the synthetic store of the tests and ``chip_smoke.py``.
 
 One packed binary per store, written by either package and read by both:
 
@@ -111,6 +112,20 @@ class FeatureStoreWriter:
         self._file.write(features.tobytes())
         self._image_ids.append(int(image_id))
 
+    def append_batch(self, image_ids: Sequence[int],
+                     features: np.ndarray) -> None:
+        """Append a [B, num_regions, channels] batch of grids."""
+        features = self._narrow(features)
+        if features.shape[1:] != (self.num_regions, self.channels):
+            raise ValueError(f"grids of shape {features.shape[1:]}, store "
+                             f"takes {(self.num_regions, self.channels)}")
+        if len(image_ids) != features.shape[0]:
+            # a mismatch would shift every later row of the store
+            raise ValueError(f"{len(image_ids)} ids for {features.shape[0]} "
+                             "feature rows")
+        self._file.write(features.tobytes())
+        self._image_ids.extend(int(i) for i in image_ids)
+
     def close(self) -> None:
         self._file.close()
         if self._scales_file is not None:
@@ -173,6 +188,14 @@ class FeatureStore:
         """A batch of feature grids: [B, num_regions, channels]."""
         return self.gather_rows(self.rows_for(image_ids), dtype)
 
+    def all_rows(self) -> np.ndarray:
+        """Every row handle in dense order (as ``CombinedFeatureStore``)."""
+        return np.arange(len(self), dtype=np.int64)
+
+    def dense_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Row handles are already dense [0, n) positions here."""
+        return np.asarray(rows)
+
     @property
     def quantized(self) -> bool:
         return self.features.dtype == np.int8
@@ -211,6 +234,107 @@ class FeatureStore:
         return np.asarray(self.features[rows], dtype=dtype)
 
 
+class CombinedFeatureStore:
+    """Reader over several stores (the per-split stores the extraction CLI
+    writes: ``resnet152_train`` + ``resnet152_val``), routing each image_id
+    to the store that holds it. COCO train and val image ids are disjoint,
+    so the union index is unambiguous; a duplicate id raises. A row handle
+    is ``(store << 40) | row``."""
+
+    def __init__(self, stores: Sequence[FeatureStore]):
+        if not stores:
+            raise ValueError("need at least one store")
+        self.stores = list(stores)
+        self.num_regions = stores[0].num_regions
+        self.channels = stores[0].channels
+        for store in self.stores[1:]:
+            if (store.num_regions, store.channels) != (self.num_regions,
+                                                       self.channels):
+                raise ValueError(
+                    "cannot combine stores with different geometry: "
+                    f"{(self.num_regions, self.channels)} vs "
+                    f"{(store.num_regions, store.channels)}")
+        self._owner: Dict[int, int] = {}
+        for si, store in enumerate(self.stores):
+            for img_id, row in store.row_of.items():
+                if img_id in self._owner:
+                    raise ValueError(
+                        f"image_id {img_id} appears in more than one member "
+                        "store — combined stores need disjoint id spaces")
+                self._owner[img_id] = (si << 40) | row
+
+    def __len__(self) -> int:
+        return sum(len(s) for s in self.stores)
+
+    def rows_for(self, image_ids: Iterable[int]) -> np.ndarray:
+        return np.asarray([self._owner[int(i)] for i in image_ids],
+                          dtype=np.int64)
+
+    def _split(self, rows: np.ndarray) -> tuple:
+        rows = np.asarray(rows)
+        return rows >> 40, rows & ((1 << 40) - 1)
+
+    def gather_rows(self, rows: np.ndarray, dtype=np.float32) -> np.ndarray:
+        store_idx, local = self._split(rows)
+        out = np.empty((len(local), self.num_regions, self.channels),
+                       dtype=dtype)
+        for si in np.unique(store_idx):
+            sel = store_idx == si
+            out[sel] = self.stores[int(si)].gather_rows(local[sel], dtype)
+        return out
+
+    def gather(self, image_ids: Sequence[int], dtype=np.float32) -> np.ndarray:
+        return self.gather_rows(self.rows_for(image_ids), dtype)
+
+    @property
+    def quantized(self) -> bool:
+        return all(s.quantized for s in self.stores)
+
+    def all_rows(self) -> np.ndarray:
+        """Every row handle, in store-concatenation order."""
+        return np.concatenate([
+            (np.int64(si) << 40) | np.arange(len(s), dtype=np.int64)
+            for si, s in enumerate(self.stores)
+        ])
+
+    def dense_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Row handles -> dense positions in [0, len(self))."""
+        store_idx, local = self._split(rows)
+        offsets = np.cumsum([0] + [len(s) for s in self.stores[:-1]])
+        return offsets[store_idx] + local
+
+    def gather_rows_quantized(self, rows: np.ndarray):
+        if not self.quantized:
+            raise ValueError("gather_rows_quantized needs int8 stores")
+        store_idx, local = self._split(rows)
+        q = np.empty((len(local), self.num_regions, self.channels), np.int8)
+        s = np.empty((len(local), self.channels), np.float16)
+        for si in np.unique(store_idx):
+            sel = store_idx == si
+            q[sel], s[sel] = self.stores[int(si)].gather_rows_quantized(
+                local[sel])
+        return q, s
+
+    def gather_quantized(self, image_ids: Sequence[int]):
+        return self.gather_rows_quantized(self.rows_for(image_ids))
+
+
+def open_feature_store(data_dir: str, feature_type: str = "resnet152"):
+    """Open whatever store layout exists: a combined ``<ft>_all``
+    directory, or the per-split ``<ft>_train`` + ``<ft>_val`` pair."""
+    all_dir = join(data_dir, f"{feature_type}_all")
+    if os.path.exists(join(all_dir, INDEX_FILE)):
+        return FeatureStore(all_dir)
+    stores = [FeatureStore(d) for d in (
+        join(data_dir, f"{feature_type}_{split}") for split in ("train", "val"))
+        if os.path.exists(join(d, INDEX_FILE))]
+    if not stores:
+        raise FileNotFoundError(
+            f"no feature store under {data_dir} for {feature_type!r} "
+            f"(looked for _all, _train, _val)")
+    return stores[0] if len(stores) == 1 else CombinedFeatureStore(stores)
+
+
 def make_synthetic_feature_store(
     directory: str,
     image_ids: Sequence[int],
@@ -227,3 +351,22 @@ def make_synthetic_feature_store(
             w.append(img_id,
                      rng.standard_normal((num_regions, channels)) * 0.5)
     return FeatureStore(directory)
+
+
+def quantize_store(src_dir: str, dst_dir: str,
+                   batch: int = 256) -> FeatureStore:
+    """Convert an f16 or f32 store to int8 with per-channel scales,
+    streaming ``batch`` rows at a time."""
+    src = FeatureStore(src_dir)
+    if src.quantized:
+        raise ValueError(f"{src_dir} is already int8")
+    ids = [None] * len(src)
+    for img_id, row in src.row_of.items():
+        ids[row] = img_id
+    with FeatureStoreWriter(dst_dir, src.num_regions, src.channels,
+                            "int8") as w:
+        for start in range(0, len(src), batch):
+            rows = np.arange(start, min(start + batch, len(src)))
+            w.append_batch([ids[r] for r in rows],
+                           np.asarray(src.features[rows], np.float32))
+    return FeatureStore(dst_dir)

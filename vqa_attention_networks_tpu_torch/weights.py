@@ -12,8 +12,8 @@ statistics (``mean``, ``var``) are buffers here and leaves of the tree
 there, so both directions carry them. A child module that is not a layer
 (attentionNet's attention layers) is a level of the tree: its children map
 under its name.
-Reference ``.pth`` checkpoints reach the same tree through the JAX package's
-framework-free ``utils/torch_import.import_state_dict``.
+Reference ``.pth`` checkpoints reach the same tree through the port's
+``utils/torch_import.import_state_dict``.
 """
 
 from __future__ import annotations
