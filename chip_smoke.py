@@ -181,6 +181,44 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     ``prepare_data``, ms per training step and training qa-pairs/s through
     the CLI (its last epoch), evaluation qa-pairs/s and the device share of
     an evaluated batch;
+28. ``serve_bank``: full-width bf16 mhb_coAtt (phase 4's weights) served
+    by id from the device feature cache (``predict_stream_by_id``) over
+    8 batches of 256 from an int8 store of 1,024 synthetic images
+    (``quantize_store`` of an f16 store), each image asked ~3 questions:
+    at capacity 512 (the eviction regime) and at 1,024 (after a warm-up
+    pass and ``reset_stats``, every request a hit). Gates: the top-k ids
+    and probabilities bit-equal to ``predict_stream`` with the
+    per-request int8 feed; K1 once a batch; hits + misses = requests,
+    and the counts and slots equal those of the same id sequence through
+    a second ``DeviceFeatureCache`` on the CPU; a control: the first
+    batch's slots swapped in pairs on the card must flip its answers
+    (``flips``) and swapping back restores them bit for bit; hieCoAtten
+    by id, K4 once a batch, bit-equal to its int8 feed. Times:
+    qa-pairs/s and the device share of a batch for the f16 feed, the
+    int8 feed and both by-id runs; the cost of a miss upload from pinned
+    host memory, fitted as a + bytes / BW over 1 to 256 misses;
+29. ``serve_http``: the port's ``cli.serve`` in process
+    (``build_service`` + ``ThreadingHTTPServer`` on 127.0.0.1, a free
+    port): the same weights saved by ``checkpoint.save_weights`` and
+    loaded back, a vocab of ``Config()``'s sizes, the int8 store with
+    ``device_cache_images``, batch 256, ``max_wait_ms`` 5; 2,048
+    questions from 64 concurrent clients, half as single /predict
+    requests and half as bulk calls of 16. Gates: every answer within
+    ``flips`` of the int8 forward (the share bit-equal to
+    ``predict_batch_by_id`` of a second engine printed), /healthz and
+    /metrics counting the requests and the bank's hits and misses, an
+    unknown image id 400, K1 launches equal to the engine calls. Times:
+    HTTP qa-pairs/s, p50/p99 request latency (``LatencyStats``), batch
+    occupancy;
+30. ``backbone``: ResNet-152 at full depth at 448 and VGG-19's pool4 tap
+    at 224, random weights from a seed, f32 on the card (TF32 off)
+    against f32 on the CPU at N = 2 (relative error < 1e-4), and each
+    extractor at bf16 on a batch of 32 (images/s); if PIL imports, one
+    PNG through /predict_image and through ``cli.predict`` (bf16, K1
+    once), each answer the top of the forward on that image's grid, and
+    8 PNGs through ``cli.extract_features``, whose store rows equal
+    ``GridExtractor.from_bytes`` of each image to one f16 rounding
+    (without PIL: ``"pil": false``, and the trunks take uint8 arrays);
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -193,6 +231,7 @@ phase that needs it. With no card it exits non-zero before phase 2.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -207,11 +246,18 @@ import numpy as np
 import torch
 
 from vqa_attention_networks_tpu_torch.cli import evaluate as cli_evaluate
+from vqa_attention_networks_tpu_torch.cli import extract_features as cli_extract
+from vqa_attention_networks_tpu_torch.cli import predict as cli_predict
 from vqa_attention_networks_tpu_torch.cli import prepare_data
+from vqa_attention_networks_tpu_torch.cli import serve as serve_cli
 from vqa_attention_networks_tpu_torch.cli import train as cli_train
 from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch.data.feature_store import (
+    FeatureStore,
+    FeatureStoreWriter,
     make_synthetic_feature_store,
+    quantize_features,
+    quantize_store,
 )
 from vqa_attention_networks_tpu_torch.data.prepare import (
     load_qa_data,
@@ -220,7 +266,8 @@ from vqa_attention_networks_tpu_torch.data.prepare import (
 )
 from vqa_attention_networks_tpu_torch.models import get_model
 from vqa_attention_networks_tpu_torch.models import hiecoatten, mfb
-from vqa_attention_networks_tpu_torch.models import layers
+from vqa_attention_networks_tpu_torch.models import layers, resnet, vgg
+from vqa_attention_networks_tpu_torch.models.extractor import GridExtractor
 from vqa_attention_networks_tpu_torch.ops import _build
 from vqa_attention_networks_tpu_torch.ops import attention as att
 from vqa_attention_networks_tpu_torch.ops import coattention as co
@@ -231,7 +278,10 @@ from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
-from vqa_attention_networks_tpu_torch.serve import InferenceEngine
+from vqa_attention_networks_tpu_torch.serve import (
+    DeviceFeatureCache,
+    InferenceEngine,
+)
 from vqa_attention_networks_tpu_torch.train.solver import Solver, init_params
 from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
 from vqa_attention_networks_tpu_torch.weights import (
@@ -397,6 +447,73 @@ K8_ROUNDS = 5  # of the device times of lstm_seq and cuDNN's nn.LSTM
 # checkpoint a second workspace resumes from
 CLI_CORPUS, CLI_NUM_ANSWER = (640, 192), 1000
 CLI_EPOCHS, CLI_EVERY, CLI_RESUME_STEP = 2, 4, 12
+# serving by id (phase 28) and over HTTP (29): BANK_IMAGES synthetic images
+# at 196 x 2048 in an int8 store, each asked ~BANK_REUSE questions; the
+# eviction regime's capacity; the miss counts the upload cost is fitted
+# over, each the median of MISS_REPS; HTTP_CLIENTS concurrent clients, bulk
+# calls of HTTP_BULK items, the batching window
+BANK_IMAGES, BANK_REUSE, BANK_SMALL = 1024, 3, 512
+MISS_COUNTS, MISS_REPS = tuple(2 ** i for i in range(9)), 5
+HTTP_CLIENTS, HTTP_BULK, HTTP_WAIT_MS = 64, 16, 5.0
+# the backbones (30): images on the card at f32 against the CPU, the bound
+# of tests/test_torch_parity.py, the extractor's batch, the PNGs through the
+# CLIs, and one f16 rounding of an f32 grid (the extracted store)
+BACKBONE_N, BACKBONE_REL_ERR, EXTRACT_BATCH, N_PNG = 2, 1e-4, 32, 8
+STORE_RTOL = 2.0 ** -10
+# the HTTP load of phase 29, a stdlib script run in a process of its own:
+# argv[1] names a JSON spec (url, items, the singles' count, the bulk calls'
+# item positions, the clients); it writes <spec>.out with every result in
+# the items' order, the seconds of the load, the client-side latency
+# percentiles and the failed requests
+HTTP_LOAD = r"""
+import json, sys, time, urllib.error, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+with open(sys.argv[1]) as f:
+    spec = json.load(f)
+url, items, clients = spec["url"], spec["items"], spec["clients"]
+out, latency, errors = [None] * len(items), [], []
+
+
+def post(payload):
+    req = urllib.request.Request(url + "/predict", json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            body = json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        errors.append([e.code, e.read().decode(errors="replace")[:200]])
+        return None
+    except OSError as e:  # a refused or reset connection
+        errors.append([type(e).__name__, str(e)])
+        return None
+    latency.append(time.perf_counter() - t0)
+    return body
+
+
+def client(c):
+    for pos in range(c, spec["n_single"], clients):
+        out[pos] = post(items[pos])
+    for chunk in spec["bulks"][c::clients]:
+        body = post({"requests": [items[p] for p in chunk]})
+        for pos, result in zip(chunk, body["results"] if body else []):
+            out[pos] = result
+
+
+t0 = time.perf_counter()
+with ThreadPoolExecutor(clients) as pool:
+    list(pool.map(client, range(clients)))
+seconds = time.perf_counter() - t0
+ms = sorted(x * 1e3 for x in latency)
+pct = {f"p{q}_ms": ms[min(len(ms) - 1, int(q / 100 * len(ms)))]
+       for q in (50, 99)} if ms else {}
+if any(r is None for r in out):
+    errors.append("missing results")
+with open(sys.argv[1] + ".out", "w") as f:
+    json.dump({"out": out, "seconds": seconds, "latency_ms": pct,
+               "errors": errors}, f)
+"""
 # the card's rates for the bounds (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -2303,6 +2420,683 @@ def cli_phase(smi: str) -> dict:
                    for k in k2_want}}
 
 
+# ---------------------------------------------------------------------------
+# phases 28-30: serving by id, the HTTP server, the image backbones
+# ---------------------------------------------------------------------------
+
+def bank_traffic(cfg: Config) -> tuple:
+    """BATCH * N_BATCHES requests over BANK_IMAGES images, each image asked
+    BANK_REUSE questions (VQA asks ~3 of each image), in random order:
+    (image ids, questions)."""
+    rng = np.random.default_rng(28)
+    n_req = BATCH * N_BATCHES
+    pool = rng.choice(BANK_IMAGES, -(-n_req // BANK_REUSE), replace=False)
+    image_ids = rng.permutation(np.repeat(pool, BANK_REUSE))[:n_req]
+    return image_ids, traffic(cfg)[1]
+
+
+def bank_stores(data_dir: str, cfg: Config) -> tuple:
+    """A synthetic f16 store of BANK_IMAGES images at the config's grid
+    (``resnet152_f16``; N(0, 0.5^2) features drawn in bulk from a seed) and
+    its int8 twin by ``quantize_store`` (``resnet152_all``, what
+    ``cli.serve --device_cache_images`` reads)."""
+    rng = np.random.default_rng(29)
+    shape = (cfg.img_feature_dim, cfg.img_feature_channel)
+    f16_dir = os.path.join(data_dir, "resnet152_f16")
+    with FeatureStoreWriter(f16_dir, *shape) as writer:
+        for s in range(0, BANK_IMAGES, BATCH):
+            ids = list(range(s, min(s + BATCH, BANK_IMAGES)))
+            writer.append_batch(ids, rng.standard_normal(
+                (len(ids), *shape), dtype=np.float32) * 0.5)
+    int8 = quantize_store(f16_dir, os.path.join(data_dir, "resnet152_all"))
+    return FeatureStore(f16_dir), int8
+
+
+def int8_logits(engine, store, image_ids, ques) -> torch.Tensor:
+    """The engine's model on the int8 feed of ``image_ids`` (dequantised on
+    the card as ``aot.serving_forward`` does), with the lengths the engine
+    counts: the logits the served answers are held against."""
+    rows, scale = store.gather_quantized(image_ids)
+    qs, qlen = engine._question_args(ques, None)
+    n = len(image_ids)
+    rows, scale, qs, qlen = engine._to_device([rows, scale, qs[:n], qlen[:n]])
+    with torch.inference_mode():
+        img = rows.to(torch.bfloat16) * scale[:, None, :].to(torch.bfloat16)
+        return engine.model(img, qs, qlen)
+
+
+def stream(engine, batches, counters: dict, after_warm_up=None) -> tuple:
+    """One measured pass of ``batches`` (a function returning the stream)
+    after a warm-up pass and ``after_warm_up()``: (predictions, seconds,
+    launches). Each counter module is set to 0 just before the measured
+    pass and read just after."""
+    list(batches())
+    torch.cuda.synchronize()
+    if after_warm_up is not None:
+        after_warm_up()
+    for module in counters.values():
+        module.launch_count = 0
+    t0 = time.perf_counter()
+    preds = [p for batch in batches() for p in batch]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return preds, seconds, {k: m.launch_count for k, m in counters.items()}
+
+
+def bit_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x.top_ids, y.top_ids)
+        and np.array_equal(x.top_probs, y.top_probs) for x, y in zip(a, b))
+
+
+def cache_state(cache) -> dict:
+    return {"hits": cache.hits, "misses": cache.misses,
+            "evictions": cache.evictions, "uploads": cache.uploads,
+            "slots": dict(cache._slot)}
+
+
+def replayed_state(cfg: Config, capacity: int, id_batches) -> dict:
+    """The warm-up pass, ``reset_stats`` and the measured pass of the same
+    ids through a second ``DeviceFeatureCache`` on the CPU (rows of one
+    byte: the bookkeeping does not read them)."""
+    cache = DeviceFeatureCache(cfg, capacity, num_regions=1, channels=1,
+                               device="cpu")
+
+    def fetch(ids):
+        return np.zeros((len(ids), 1, 1), np.int8), np.zeros((len(ids), 1))
+
+    for ids in id_batches:
+        cache.ensure(ids, fetch)
+    cache.reset_stats()
+    for ids in id_batches:
+        cache.ensure(ids, fetch)
+    return cache_state(cache)
+
+
+def miss_upload_fit(cfg: Config, dev) -> dict:
+    """The device side of a batch of k misses, for k in MISS_COUNTS: one
+    ``non_blocking`` copy of k int8 rows and f16 scales from pre-staged
+    pinned host memory, then ``index_copy_`` into a bank (what
+    ``DeviceFeatureCache._upload`` enqueues), timed by CUDA events, the
+    median of MISS_REPS; fitted by least squares as ms = a + bytes / BW."""
+    l, d = cfg.img_feature_dim, cfg.img_feature_channel
+    kmax = max(MISS_COUNTS)
+    bank = DeviceFeatureCache(cfg, kmax, device=dev)
+    gen = torch.Generator().manual_seed(31)
+    rows = torch.randint(-127, 128, (kmax, l, d), generator=gen,
+                         dtype=torch.int8).pin_memory()
+    scale = torch.rand((kmax, d), generator=gen).half().pin_memory()
+    ms, moved = [], []
+    for k in MISS_COUNTS:
+        idx = torch.randperm(kmax, generator=gen)[:k].to(dev)
+
+        def upload():
+            bank.rows.index_copy_(0, idx, rows[:k].to(dev, non_blocking=True))
+            bank.scale.index_copy_(0, idx,
+                                   scale[:k].to(dev, non_blocking=True))
+
+        upload()
+        ms.append(float(np.median([time_ms(upload, 1)
+                                   for _ in range(MISS_REPS)])))
+        moved.append(k * (l * d + 2 * d))
+    slope, a = np.polyfit(np.array(moved, np.float64), np.array(ms), 1)
+    fit = {"a_ms": float(a), "bandwidth_gb_per_s": float(1e-6 / slope),
+           "bytes_per_miss": l * d + 2 * d,
+           "ms_by_misses": dict(zip(map(str, MISS_COUNTS), ms))}
+    del bank, rows, scale
+    return fit
+
+
+def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
+                     smi: str) -> dict:
+    """Phase 28: full-width bf16 mhb_coAtt served by id from the device
+    feature cache (``predict_stream_by_id``) over N_BATCHES batches of
+    BATCH, each image asked ~BANK_REUSE questions, at capacity BANK_SMALL
+    (the eviction regime) and at BANK_IMAGES (after a warm-up pass and
+    ``reset_stats``, every request a hit), beside the per-request f16 and
+    int8 feeds (``predict_stream``) on the same requests. Gates: by id
+    bit-equal to the int8 feed; K1 once a batch; hits + misses = requests,
+    with the counts and slots of the same id sequence through a second
+    cache on the CPU; a control: the first batch's slots swapped in pairs
+    on the device must flip its answers. Then hieCoAtten by id (K4 once a
+    batch, bit-equal to its int8 feed), and the fitted cost of a miss."""
+    f16_store, store = stores
+    image_ids, ques = bank_traffic(cfg)
+    n_req = len(ques)
+    spans = [slice(s, s + BATCH) for s in range(0, n_req, BATCH)]
+    id_batches = [image_ids[s] for s in spans]
+    fields, runs = {}, {}
+
+    def f16_batches():
+        return engine16.predict_stream(
+            (f16_store.gather(image_ids[s], np.float16), ques[s], None)
+            for s in spans)
+
+    def int8_batches():
+        def items():
+            for s in spans:
+                rows, scale = store.gather_quantized(image_ids[s])
+                yield rows, ques[s], None, scale
+
+        return engine.predict_stream(items())
+
+    def by_id():
+        return engine.predict_stream_by_id(
+            (image_ids[s], ques[s], None) for s in spans)
+
+    def rate(name, seconds, forward_ms, launches, **extra):
+        fields[name] = dict(qa_pairs_per_s=n_req / seconds,
+                            wall_ms_per_batch=seconds * 1e3 / N_BATCHES,
+                            device_forward_ms_per_batch=forward_ms,
+                            device_share=forward_ms * N_BATCHES
+                            / (seconds * 1e3), launches=launches, **extra)
+
+    engine16 = InferenceEngine(cfg, params, batch_size=BATCH, topk=5)
+    preds16, seconds, launches = stream(engine16, f16_batches, {"K1": wqf})
+    img, qs, qlen = engine16._to_device(
+        [engine16._to_f16(f16_store.gather(id_batches[0], np.float16)),
+         *engine16._question_args(ques[spans[0]], None)])
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: engine16._fwd(engine16.model, img, qs,
+                                                   qlen), 3)
+    rate("f16_feed", seconds, forward_ms, launches)
+    del engine16, img
+    torch.cuda.empty_cache()
+
+    engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5,
+                             input_dtype="int8")
+    preds8, seconds, launches = stream(engine, int8_batches, {"K1": wqf})
+    rows, scale = engine._to_device(list(store.gather_quantized(
+        id_batches[0])))
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: engine._fwd(engine.model, rows, scale,
+                                                 qs, qlen), 3)
+    rate("int8_feed", seconds, forward_ms, launches)
+    del rows, scale
+
+    k1_launches, caches = 0, {}
+    for name, capacity in (("by_id_capacity_512", BANK_SMALL),
+                           ("by_id_hit_rate_1", BANK_IMAGES)):
+        cache = engine.attach_feature_cache(capacity, store.gather_quantized)
+        preds, seconds, launches = stream(engine, by_id, {"K1": wqf},
+                                          after_warm_up=cache.reset_stats)
+        state = cache_state(cache)
+        k1_launches += launches["K1"]
+        same_as_cpu = state == replayed_state(cfg, capacity, id_batches)
+        idx = engine._to_device([cache.ensure(id_batches[0],
+                                              store.gather_quantized)
+                                 .astype(np.int64)])[0]
+        with torch.inference_mode():
+            forward_ms = time_ms(lambda: engine._fwd_bank(
+                engine.model, cache.rows, cache.scale, idx, qs, qlen), 3)
+        state.pop("slots")
+        rate(name, seconds, forward_ms, launches, capacity=capacity,
+             hit_rate=state["hits"] / n_req, **state,
+             counts_and_slots_equal_cpu_cache=same_as_cpu,
+             bit_equal_to_int8_feed=bit_equal(preds, preds8))
+        if not bit_equal(preds, preds8):
+            raise AssertionError(f"serve_bank: {name}'s answers are not "
+                                 "bit-equal to the int8 feed's")
+        if launches["K1"] != N_BATCHES:
+            raise AssertionError(f"serve_bank: K1 launched "
+                                 f"{launches['K1']} times in {N_BATCHES} "
+                                 "batches")
+        if state["hits"] + state["misses"] != n_req or not same_as_cpu:
+            raise AssertionError(f"serve_bank: {name}: hits + misses != "
+                                 "requests, or the counts or slots differ "
+                                 "from the CPU cache's")
+        caches[name] = cache
+    if fields["by_id_hit_rate_1"]["misses"] != 0 or \
+            fields["by_id_capacity_512"]["evictions"] == 0:
+        raise AssertionError("serve_bank: a warm full-capacity bank missed, "
+                             "or the small one never evicted")
+
+    # control: the first batch's distinct slots swapped in pairs on the
+    # card; the answers of its requests must flip against the logits of
+    # their own features (one bf16 ulp, ``flips``), and swapping back must
+    # restore them bit for bit
+    cache = caches["by_id_hit_rate_1"]
+    first = engine.predict_batch_by_id(id_batches[0], ques[spans[0]])
+    slots = np.array(sorted({cache._slot[int(i)] for i in id_batches[0]}))
+    slots = slots[: len(slots) // 2 * 2]
+    a = torch.as_tensor(slots[0::2], device=dev)
+    b = torch.as_tensor(slots[1::2], device=dev)
+
+    def swap():
+        for bank in (cache.rows, cache.scale):
+            ra, rb = bank.index_select(0, a), bank.index_select(0, b)
+            bank.index_copy_(0, a, rb)
+            bank.index_copy_(0, b, ra)
+
+    swap()
+    swapped = engine.predict_batch_by_id(id_batches[0], ques[spans[0]])
+    swap()
+    again = engine.predict_batch_by_id(id_batches[0], ques[spans[0]])
+    logits = int8_logits(engine, store, id_batches[0], ques[spans[0]])
+    control = flips(logits, torch.as_tensor(
+        [p.answer_id for p in swapped], device=dev)) / BATCH
+    served_flips = flips(logits, torch.as_tensor(
+        [p.answer_id for p in first], device=dev))
+    fields["slot_swap_control_flip_share"] = control
+    fields["flips_vs_int8_forward_first_batch"] = served_flips
+    if control < 10 * MAX_FLIP_RATE or served_flips or \
+            not bit_equal(again, first):
+        raise AssertionError("serve_bank: the slot-swap control is not "
+                             "seen, or the served answers are not the "
+                             "forward's")
+    del engine, cache, caches
+    torch.cuda.empty_cache()
+
+    # hieCoAtten by id: K4 once a batch, bit-equal to its int8 feed
+    hie_cfg = Config(model_name="hieCoAtten")
+    hie_params = hie_served_params(hie_cfg)
+    engine = InferenceEngine(hie_cfg, hie_params, batch_size=BATCH, topk=5,
+                             input_dtype="int8")
+    preds8, _, _ = stream(engine, int8_batches, {"K4": co})
+    engine.attach_feature_cache(BANK_IMAGES, store.gather_quantized)
+    preds, seconds, launches = stream(engine, by_id, {"K4": co})
+    fields["hiecoatten_by_id"] = dict(
+        launches=launches, qa_pairs_per_s=n_req / seconds,
+        bit_equal_to_int8_feed=bit_equal(preds, preds8))
+    if launches["K4"] != N_BATCHES or not bit_equal(preds, preds8):
+        raise AssertionError("serve_bank: hieCoAtten by id did not launch "
+                             "K4 once a batch, or is not its int8 feed's")
+    del engine
+    torch.cuda.empty_cache()
+
+    fields["miss_upload"] = miss_upload_fit(cfg, dev)
+    say("serve_bank", model="mhb_coAtt", requests=n_req, batch=BATCH,
+        images=BANK_IMAGES, questions_per_image=BANK_REUSE,
+        distinct_images=int(len(np.unique(image_ids))), **fields, card=smi)
+    return {"K1": k1_launches, "K4": launches["K4"]}
+
+
+def hie_served_params(hie_cfg: Config) -> dict:
+    """hieCoAtten's weights of the serving phases: whv, whq and the
+    question embedding at 8x xavier, so both attention maps are peaked."""
+    params = hiecoatten.init_params(hie_cfg, torch.Generator().manual_seed(1))
+    for key, leaf in (("fc_Whv", "w"), ("fc_Whq", "w"),
+                      ("que_emb", "table")):
+        params[key][leaf] = params[key][leaf] * 8.0
+    return params
+
+
+def http_vocab(cfg: Config) -> tuple:
+    """A vocab of ``Config()``'s sizes (words ``w<i>`` for token i,
+    answers ``a<i>``), and the text of a question's token ids."""
+    words = [f"w{i}" for i in range(1, cfg.q_vocab_size - 1)]
+    q_vocab = {w: i for i, w in enumerate(words, 1)}
+    q_vocab["UNK"] = cfg.q_vocab_size - 1
+    vocab = {"question_vocab": q_vocab,
+             "answer_vocab": {f"a{i}": i for i in range(cfg.a_vocab_size)},
+             "max_question_length": cfg.max_question_length}
+    return vocab, lambda row: " ".join(f"w{t}" for t in row if t)
+
+
+def http_args(ws: str, **kw) -> argparse.Namespace:
+    base = dict(model_name="mhb_coAtt", model_dir=os.path.join(ws, "models"),
+                data_dir=os.path.join(ws, "data"), vocab=None,
+                feature_type="resnet152", version=2,
+                num_answer=1000, batch_size=BATCH, topk=5,
+                max_wait_ms=HTTP_WAIT_MS, device_cache_images=BANK_IMAGES,
+                device="cuda")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def post(url: str, payload, path: str = "/predict") -> tuple:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+@contextlib.contextmanager
+def http_server(service):
+    """``service`` behind ``ThreadingHTTPServer`` on 127.0.0.1, a free
+    port; shut down and closed on exit."""
+    import threading
+
+    httpd = serve_cli.VqaHTTPServer(
+        ("127.0.0.1", 0), serve_cli.make_handler(service, "mhb_coAtt"))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+
+
+def serve_http_phase(cfg: Config, params, store, ws: str, dev,
+                     smi: str) -> int:
+    """Phase 29: the port's ``cli.serve`` in process: ``build_service``
+    (the model saved by ``checkpoint.save_weights`` into ``<ws>/models``
+    and loaded back, a vocab of ``Config()``'s sizes, the int8 store with
+    ``device_cache_images``, batch BATCH, ``max_wait_ms`` HTTP_WAIT_MS)
+    behind ``ThreadingHTTPServer``; 2048 questions from HTTP_CLIENTS
+    concurrent clients, half as single /predict requests and half as bulk
+    calls of HTTP_BULK. Gates: every answer within ``flips`` of the int8
+    forward's logits (the bit-equal share with ``predict_batch_by_id`` of a
+    second engine on the same weights printed), bulk order kept (each item
+    held against its own request), /healthz and /metrics counting the
+    requests and the bank's hits and misses, an unknown id 400, K1 launches
+    equal to the engine calls. Returns K1's launches."""
+    image_ids, ques = bank_traffic(cfg)
+    n_req = len(ques)
+    vocab, text = http_vocab(cfg)
+    with open(os.path.join(ws, "data", "qa_v2_1000answers_all.vocab.json"),
+              "w") as f:
+        json.dump(vocab, f)
+    model = load_jax_params(get_model(cfg.model_name)(cfg), params)
+    ckpt.save_weights(os.path.join(ws, "models", cfg.model_name),
+                      model.state_dict())
+    del model
+    service = serve_cli.build_service(http_args(ws))
+    items = [{"image_id": int(i), "question": text(q)}
+             for i, q in zip(image_ids, ques)]
+    n_single = n_req // 2
+    bulks = [list(range(s, min(s + HTTP_BULK, n_req)))
+             for s in range(n_single, n_req, HTTP_BULK)]
+    spec_path = os.path.join(ws, "http_load.json")
+    script = os.path.join(ws, "http_load.py")
+    with open(script, "w") as f:
+        f.write(HTTP_LOAD)
+    with http_server(service) as url:
+        post(url, items[0])  # warm-up: one single and one bulk call
+        post(url, {"requests": items[:HTTP_BULK]})
+        torch.cuda.synchronize()
+        service.bank.reset_stats()
+        before = service.stats.snapshot()
+        wqf.launch_count = 0
+        with open(spec_path, "w") as f:
+            json.dump({"url": url, "items": items, "n_single": n_single,
+                       "bulks": bulks, "clients": HTTP_CLIENTS}, f)
+        # the clients run in a process of their own, as users' would: in
+        # this one they would share the server's interpreter lock
+        subprocess.run([sys.executable, script, spec_path],
+                       check=True, timeout=900)
+        with open(spec_path + ".out") as f:
+            load = json.load(f)
+        out, seconds = load["out"], load["seconds"]
+        k1 = wqf.launch_count
+        snap = service.stats.snapshot()
+        bank = {"hits": service.bank.hits, "misses": service.bank.misses,
+                "evictions": service.bank.evictions}
+        health = json.loads(urlread(url + "/healthz"))
+        metrics = urlread(url + "/metrics")
+        unknown, _ = post(url, {"image_id": 10 ** 9, "question": "w1"})
+    del service
+    torch.cuda.empty_cache()
+    if load["errors"]:
+        raise AssertionError(f"serve_http: {len(load['errors'])} requests "
+                             f"failed, e.g. {load['errors'][:3]}")
+
+    answers = {f"a{i}": i for i in range(cfg.a_vocab_size)}
+    served = np.array([answers[r["answer"]] for r in out])
+    ref = InferenceEngine(cfg, params, batch_size=BATCH, topk=5,
+                          input_dtype="int8")
+    ref.attach_feature_cache(BANK_IMAGES, store.gather_quantized)
+    n_flips = n_equal = 0
+    for s in range(0, n_req, BATCH):
+        preds = ref.predict_batch_by_id(image_ids[s:s + BATCH],
+                                        ques[s:s + BATCH])
+        for r, p in zip(out[s:s + BATCH], preds):
+            n_equal += ([answers[t["answer"]] for t in r["top"]]
+                        == p.top_ids.tolist()
+                        and [t["prob"] for t in r["top"]]
+                        == p.top_probs.tolist())
+        logits = int8_logits(ref, store, image_ids[s:s + BATCH],
+                             ques[s:s + BATCH])
+        n_flips += flips(logits, torch.as_tensor(served[s:s + BATCH],
+                                                 device=dev))
+    del ref
+    torch.cuda.empty_cache()
+    label = '{model="mhb_coAtt"}'
+    metric = {ln.split(" ")[0]: float(ln.split(" ")[1])
+              for ln in metrics.splitlines() if not ln.startswith("#")}
+    batches = snap["batches"] - before["batches"]
+    fields = dict(
+        requests=n_req, clients=HTTP_CLIENTS, singles=n_single,
+        bulk_calls=len(bulks), bulk_items=HTTP_BULK, batch=BATCH,
+        max_wait_ms=HTTP_WAIT_MS, qa_pairs_per_s=n_req / seconds,
+        seconds=seconds, client_latency=load["latency_ms"],
+        request_latency=snap["request"],
+        queue_wait=snap["queue_wait"], dispatch=snap["dispatch"],
+        batch_occupancy=snap["batch_occupancy"], engine_calls=batches,
+        launches={"K1": k1}, bank=bank, flips_vs_int8_forward=n_flips,
+        flip_rate=n_flips / n_req, bit_equal_share=n_equal / n_req,
+        healthz_requests=health["latency"]["requests"],
+        metrics_bank_hits=metric.get(f"vqa_device_bank_hits_total{label}"),
+        unknown_image_status=unknown, card=smi)
+    say("serve_http", **fields)
+    if n_flips / n_req > MAX_FLIP_RATE:
+        raise AssertionError(f"serve_http: {n_flips} answers flip against "
+                             "the engine's forward")
+    if k1 != batches or batches < n_req // BATCH:
+        raise AssertionError(f"serve_http: K1 launched {k1} times in "
+                             f"{batches} engine calls")
+    if bank["hits"] + bank["misses"] != n_req or \
+            metric.get(f"vqa_device_bank_hits_total{label}") != bank["hits"]:
+        raise AssertionError("serve_http: the bank's counters disagree")
+    if health["latency"]["requests"] < n_req or unknown != 400 or \
+            metric.get(f"vqa_requests_total{label}", 0) < n_req:
+        raise AssertionError("serve_http: /healthz, /metrics or the "
+                             "unknown-id status is wrong")
+    return k1
+
+
+def urlread(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=600) as resp:
+        return resp.read().decode()
+
+
+def torchvision_npz(trunk, path: str) -> None:
+    """Write a random ``resnet.ResNetTrunk`` as torchvision's state dict
+    (``.npz``, what ``--backbone_weights`` and ``--weights`` read): each
+    folded scale as gamma with mean 0 and var 1 - eps."""
+    sd = {}
+    for mod_path, conv, bn in resnet._conv_bn_entries(trunk.stages):
+        m = trunk.get_submodule(mod_path)
+        sd[conv] = m.weight.detach().numpy()
+        sd[bn + ".weight"] = m.scale.detach().numpy()
+        sd[bn + ".bias"] = m.bias.detach().numpy()
+        sd[bn + ".running_mean"] = np.zeros_like(sd[bn + ".bias"])
+        sd[bn + ".running_var"] = np.full_like(sd[bn + ".bias"],
+                                               1.0 - resnet.BN_EPS)
+    np.savez(path, **sd)
+
+
+def card_vs_cpu(fn, x: np.ndarray, dev) -> float:
+    """max |card - CPU| / max |CPU| of ``fn(tensor)`` at f32 (TF32 off)."""
+    with torch.inference_mode():
+        want = fn(torch.from_numpy(x), "cpu").double()
+        got = fn(torch.from_numpy(x).to(dev), dev).double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def backbone_phase(cfg: Config, params, ws: str, dev, smi: str) -> int:
+    """Phase 30: ResNet-152 at full depth at 448 and VGG-19's pool4 tap at
+    224, random weights from a seed, f32 on the card (TF32 off) against
+    f32 on the CPU at N = BACKBONE_N (relative error < BACKBONE_REL_ERR,
+    the bound of ``tests/test_torch_parity.py``); the extractor's serving
+    dtype (bf16) on a batch of EXTRACT_BATCH: images/s. If PIL imports:
+    one PNG through /predict_image (a server with ``--backbone_weights``)
+    and through ``cli.predict`` (bf16, K1 once), each answer the top of
+    the forward on that image's grid, and N_PNG PNGs through
+    ``cli.extract_features`` (f32), whose store rows equal
+    ``GridExtractor.from_bytes`` of each image to one f16 rounding.
+    Without PIL it prints ``"pil": false`` and feeds the trunks uint8
+    arrays. Returns K1's launches."""
+    fields = {}
+    rng = np.random.default_rng(30)
+    trunk = resnet.random_params(torch.Generator().manual_seed(30))
+    trunk.eval()
+    x = rng.standard_normal((BACKBONE_N, 448, 448, 3)).astype(np.float32)
+
+    def resnet_on(t, where):
+        return trunk.to(where)(t, torch.float32)
+
+    fields["resnet152_rel_err"] = card_vs_cpu(resnet_on, x, dev)
+    vtrunk = vgg.random_params(torch.Generator().manual_seed(30)).eval()
+    xv = rng.standard_normal((BACKBONE_N, 224, 224, 3)).astype(np.float32)
+
+    def vgg_on(t, where):
+        return vgg.grid_features(vtrunk.to(where), t, dtype=torch.float32)
+
+    fields["vgg19_rel_err"] = card_vs_cpu(vgg_on, xv, dev)
+    npz = os.path.join(ws, "resnet152.npz")
+    torchvision_npz(trunk.cpu(), npz)
+    del trunk, vtrunk
+
+    # the serving dtype's rate: uint8 images through each extractor
+    for name, size in (("resnet152", 448), ("vgg19", 224)):
+        ex = GridExtractor(name, npz if name == "resnet152" else None,
+                           device=dev)
+        u8 = rng.integers(0, 256, (EXTRACT_BATCH, size, size, 3),
+                          dtype=np.uint8)
+        ex.batch(u8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = ex.batch(u8)
+        torch.cuda.synchronize()
+        seconds = (time.perf_counter() - t0) / 3
+        fields[f"{name}_bf16_images_per_s"] = EXTRACT_BATCH / seconds
+        fields[f"{name}_grid"] = list(out.shape[1:])
+        del ex, out
+    torch.cuda.empty_cache()
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    fields["pil"] = Image is not None
+    k1 = 0
+    if Image is not None:
+        k1 = backbone_cli_checks(cfg, params, ws, npz, Image, dev, fields)
+    say("backbone", batch=EXTRACT_BATCH, n=BACKBONE_N, **fields, card=smi)
+    if max(fields["resnet152_rel_err"], fields["vgg19_rel_err"]) >= \
+            BACKBONE_REL_ERR:
+        raise AssertionError("backbone: the card's f32 trunks disagree with "
+                             "the CPU's")
+    if Image is not None:
+        if fields["predict_image_flips"] or fields["predict_cli"]["flips"] \
+                or k1 != 1:
+            raise AssertionError("backbone: /predict_image or cli.predict "
+                                 "is not the forward's answer, or K1 did "
+                                 "not launch once")
+        extracted = fields["extract_cli"]
+        if extracted["rel_err"] > STORE_RTOL or \
+                extracted["other_image_rel_err_control"] < 100 * STORE_RTOL:
+            raise AssertionError("backbone: the extracted store's rows are "
+                                 "not the extractor's")
+    return k1
+
+
+def backbone_cli_checks(cfg, params, ws, npz, Image, dev, fields) -> int:
+    """The PIL half of phase 30; returns K1's launches in ``cli.predict``."""
+    import io
+
+    rng = np.random.default_rng(32)
+    png_dir = os.path.join(ws, "png")
+    os.makedirs(png_dir)
+    pngs = []
+    for i in range(N_PNG):
+        arr = rng.integers(0, 256, (200 + 8 * i, 300, 3), dtype=np.uint8)
+        path = os.path.join(png_dir, f"COCO_val2014_{i + 1:012d}.png")
+        Image.fromarray(arr).save(path)
+        with open(path, "rb") as f:
+            pngs.append(f.read())
+    vocab, text = http_vocab(cfg)
+    question = text(traffic(cfg)[1][0])
+    ex = GridExtractor("resnet152", npz, device=dev)
+
+    engine = InferenceEngine(cfg, params, batch_size=1, topk=5, device=dev)
+
+    def top_of(grid: np.ndarray, answer: int, int8: bool) -> int:
+        """flips of ``answer`` against the forward on ``grid``, fed as the
+        int8 feed (the server's int8 store) or as the f32 grid."""
+        ids, qlen = engine._to_device(engine._question_args(
+            np.asarray([tokens], np.int32), None))
+        if int8:
+            q, s, _ = quantize_features(grid)
+            img = torch.from_numpy(q).to(dev).to(torch.bfloat16) * \
+                torch.from_numpy(s).to(dev)[:, None, :].to(torch.bfloat16)
+        else:
+            img = torch.from_numpy(grid[None]).to(dev)
+        with torch.inference_mode():
+            logits = engine.model(img, ids, qlen)
+        return flips(logits, torch.as_tensor([answer], device=dev))
+
+    from vqa_attention_networks_tpu_torch.data.text import encode_question
+
+    tokens = encode_question(question, vocab["question_vocab"],
+                             cfg.max_question_length)
+    grid = ex.from_bytes(pngs[0])
+    answers = {f"a{i}": i for i in range(cfg.a_vocab_size)}
+    service = serve_cli.build_service(http_args(
+        ws, backbone_weights=npz, device_cache_images=0))
+    import base64
+
+    with http_server(service) as url:
+        status, body = post(url, {"question": question, "image_b64":
+                                  base64.b64encode(pngs[0]).decode()},
+                            "/predict_image")
+    del service
+    if status != 200:
+        raise AssertionError(f"backbone: /predict_image {status} {body}")
+    fields["predict_image_flips"] = top_of(grid, answers[body["answer"]],
+                                           int8=True)
+
+    buf = io.StringIO()
+    wqf.launch_count = 0
+    with contextlib.redirect_stdout(buf):
+        cli_predict.main([
+            "--image_path", os.path.join(png_dir, "COCO_val2014_"
+                                         f"{1:012d}.png"),
+            "--model_name", cfg.model_name,
+            "--model_dir", os.path.join(ws, "models"),
+            "--vocab", os.path.join(ws, "data",
+                                    "qa_v2_1000answers_all.vocab.json"),
+            "--question", question, "--backbone", "resnet152",
+            "--weights", npz, "--compute_dtype", "bfloat16",
+            "--device", "cuda"])
+    torch.cuda.synchronize()
+    k1 = wqf.launch_count
+    printed = [ln for ln in buf.getvalue().splitlines()
+               if ln.startswith("Ans: ")][0][len("Ans: "):]
+    fields["predict_cli"] = {"answer": printed, "launches": {"K1": k1},
+                             "flips": top_of(grid, answers[printed],
+                                             int8=False)}
+
+    out_dir = os.path.join(ws, "extracted")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_extract.main(["--split", "val", "--image_dir", png_dir,
+                          "--output_dir", out_dir, "--batch_size",
+                          str(N_PNG), "--weights", npz, "--dtype",
+                          "float32", "--device", "cuda"])
+    rows = FeatureStore(os.path.join(out_dir, "resnet152_val")).gather(
+        list(range(1, N_PNG + 1)), np.float32)
+    ex32 = GridExtractor("resnet152", npz, device=dev, dtype=torch.float32)
+    want = np.stack([ex32.from_bytes(b) for b in pngs])
+    err = np.abs(rows - want) / np.abs(want).max(axis=(1, 2), keepdims=True)
+    other = np.abs(rows[1:] - want[:-1]).max() / np.abs(want).max()
+    fields["extract_cli"] = {"images": N_PNG, "rel_err": float(err.max()),
+                             "other_image_rel_err_control": float(other)}
+    del engine, ex, ex32
+    torch.cuda.empty_cache()
+    return k1
+
+
 def main() -> None:
     # phase 1: the device
     card_name, smi = card()
@@ -2654,6 +3448,35 @@ def main() -> None:
     launches["K1"] += cli_launches["K1"]
     for key, n in cli_launches["K2"].items():
         train_launches["K2"][key] += n
+    torch.cuda.empty_cache()
+
+    # phases 28-30 share one workspace: the stores, the vocab, the weights
+    with tempfile.TemporaryDirectory() as ws:
+        os.makedirs(os.path.join(ws, "data"))
+        t0 = time.perf_counter()
+        stores = bank_stores(os.path.join(ws, "data"), cfg)
+        say("bank_store", images=BANK_IMAGES,
+            seconds=time.perf_counter() - t0)
+
+        # phase 28: mhb_coAtt (K1) and hieCoAtten (K4) served by id
+        t0 = time.perf_counter()
+        by_id = serve_bank_phase(cfg, params, stores, dev, smi)
+        launches["K1"] += by_id["K1"]
+        launches["K4"] += by_id["K4"]
+        say("serve_bank_time", seconds=time.perf_counter() - t0)
+
+        # phase 29: the HTTP server in process (K1)
+        t0 = time.perf_counter()
+        launches["K1"] += serve_http_phase(cfg, params, stores[1], ws, dev,
+                                           smi)
+        say("serve_http_time", seconds=time.perf_counter() - t0)
+
+        # phase 30: the backbones, /predict_image, cli.predict (K1) and
+        # cli.extract_features
+        t0 = time.perf_counter()
+        launches["K1"] += backbone_phase(cfg, params, ws, dev, smi)
+        say("backbone_time", seconds=time.perf_counter() - t0)
+        del stores
 
     def entry(name, source, replaces, n_launches, err, run, bnd,
               library_ms=None) -> dict:

@@ -247,3 +247,28 @@ def test_init_params_loads_into_both_packages(name):
     shapes = jax.tree_util.tree_map(lambda x: tuple(x.shape), tree)
     assert shapes == jax.tree_util.tree_map(lambda x: tuple(x.shape), ref)
     load_jax_params(MFB(port_config(cfg)), tree)
+
+
+@pytest.mark.parametrize("name", ["mfb", "mfb-multilayer"])
+def test_aux_attention_logits_match_jax(name):
+    """``aux=True`` gives the two glimpses' attention logits, as JAX's
+    ``apply`` does (``cli.predict --dump_attention`` writes them): the
+    question's [N, T, 2] and the co-attention's [N, 196, 2], f32 at
+    ``F32_RTOL`` of each map's largest |value|. (The port returned an empty
+    dict here, so a dump of mfb wrote nothing.)"""
+    cfg = small_cfg(model_name=name, keep_reference_quirks=False)
+    params = params_for(cfg, seed=6)
+    img, ques = inputs_for(cfg, seed=7)
+    _, want = jmfb.apply(params, cfg, img, ques, train=False)
+    model = load_jax_params(MFB(port_config(cfg)), params).eval()
+    with torch.inference_mode():
+        logits, got = model(torch.from_numpy(img), torch.from_numpy(ques),
+                            aux=True)
+    assert logits.shape == (N, cfg.a_vocab_size)
+    assert sorted(got) == sorted(want) == ["co_att_logits", "q_att_logits"]
+    assert got["q_att_logits"].shape == (N, T, 2)
+    assert got["co_att_logits"].shape == (N, 196, 2)
+    for key, w in want.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[key].float().numpy(), w, rtol=0,
+                                   atol=F32_RTOL * np.abs(w).max())

@@ -138,15 +138,16 @@ def test_int8_feed_matches_jax_engine(monkeypatch):
 
 
 def test_unported_options_raise(monkeypatch):
+    """The exported artifact and data-parallel serving still raise, each
+    naming its ROADMAP item; the device feature cache is ported
+    (``test_torch_port_device_cache.py``)."""
     cfg = port_config(small_cfg())
     params = params_for(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
         InferenceEngine(cfg, params, artifact_dir="x", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         InferenceEngine(cfg, params, data_parallel=2, device="cpu")
     engine = InferenceEngine(cfg, params, batch_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.attach_feature_cache(16, fetch=None)
     with pytest.raises(ValueError, match="larger than"):
         engine.predict_batch(*_requests(cfg, 3, seed=11))
     if not torch.cuda.is_available():

@@ -1,11 +1,12 @@
 """The serving forward (port of ``serving_forward`` in
 ``vqa_attention_networks_tpu/aot.py``): model -> softmax -> top-k over one
-fixed batch, for the f16 and the int8 feed.
+fixed batch, for the f16 and the int8 feed, and the banked forward of the
+device feature cache (``serving_forward_banked``).
 
 Export and load of a serving artifact (``export_serving``,
-``save_serving_artifact``, ``load_serving_artifact``) and the banked
-forwards of the device feature cache wait for the next serving slice
-(ROADMAP Queue 1 item 5).
+``save_serving_artifact``, ``load_serving_artifact``) are not ported: the
+artifact is ROADMAP Queue 1 item 14, and the sharded bank's forward item 10
+(multi-GPU).
 """
 
 from __future__ import annotations
@@ -49,5 +50,23 @@ def serving_forward(cfg: Config, topk: int,
 
     def fwd(model, img, ques, qlen):
         return _head(model(img, ques, qlen))
+
+    return fwd
+
+
+def serving_forward_banked(cfg: Config, topk: int) -> Callable[
+        ..., Tuple[torch.Tensor, torch.Tensor]]:
+    """The device feature cache's serving forward: ``fwd(model, bank_rows,
+    bank_scale, idx, ques, qlen)`` gathers the int8 rows [C, L, D] and the
+    f16 scales [C, D] of the slots ``idx`` [N] on the device, then runs the
+    int8 ``serving_forward`` unchanged, so the banked path cannot drift
+    from the per-request feed: the same bytes give the same answers. JAX
+    gathers in-graph outside any Pallas kernel (``aot.py:101-119``); here
+    it is ``index_select``."""
+    base = serving_forward(cfg, topk, "int8")
+
+    def fwd(model, bank_rows, bank_scale, idx, ques, qlen):
+        return base(model, bank_rows.index_select(0, idx),
+                    bank_scale.index_select(0, idx), ques, qlen)
 
     return fwd

@@ -112,7 +112,9 @@ class MFB(nn.Module):
                 fusion_seed: Optional[int] = None,
                 reference_kernels: bool = False, aux: bool = False):
         """-> f32 logits [N, a_vocab] (``mfb.py:81-140``); with
-        ``aux=True``, (logits, {}). ``ques_length`` and ``valid`` are
+        ``aux=True``, (logits, {"q_att_logits" [N, T, 2], "co_att_logits"
+        [N, L, 2]}), the two glimpses' attention logits, as JAX's ``apply``
+        returns them in eval and training. ``ques_length`` and ``valid`` are
         taken for the common signature: mfb reads no lengths and has no
         batch norm.
 
@@ -133,8 +135,8 @@ class MFB(nn.Module):
 
         h_seq = self.lstm(torch.tanh(self.word_embedding(ques, dtype)))
         h_seq = L.dropout(h_seq, cfg.dropout_lstm, train, generator)
-        q_att = two_glimpse_pool(self._att_logits("ques_att", h_seq), h_seq,
-                                 uniform_quirk=quirk)
+        q_att_logits = self._att_logits("ques_att", h_seq)  # [N, T, 2]
+        q_att = two_glimpse_pool(q_att_logits, h_seq, uniform_quirk=quirk)
         fused = grid_fuse(img, self.img_conv1d.weight.t(),
                           self.img_conv1d.bias, self.ques_proj1(q_att),
                           cfg.mfb_factor, train=train,
@@ -146,11 +148,14 @@ class MFB(nn.Module):
         # bf16 out of the weight-contracted fusion and the pooled site),
         # the pool over the raw image grid
         fused = L.l2_normalize(fused.reshape(n, -1)).reshape(fused.shape)
-        v_att = two_glimpse_pool(self._att_logits("co_att", fused), img,
-                                 uniform_quirk=quirk)
+        co_att_logits = self._att_logits("co_att", fused)  # [N, L, 2]
+        v_att = two_glimpse_pool(co_att_logits, img, uniform_quirk=quirk)
 
         final = L.l2_normalize(mfb_fuse_pool(
             self.ques_proj2(q_att), self.img_proj2(v_att), cfg.mfb_factor,
             rate=cfg.dropout_fusion, train=train, generator=generator))
         logits = self.linear_pred(final).float()
-        return (logits, {}) if aux else logits
+        if aux:
+            return logits, {"q_att_logits": q_att_logits,
+                            "co_att_logits": co_att_logits}
+        return logits
