@@ -219,6 +219,23 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     8 PNGs through ``cli.extract_features``, whose store rows equal
     ``GridExtractor.from_bytes`` of each image to one f16 rounding
     (without PIL: ``"pil": false``, and the trunks take uint8 arrays);
+31. ``train_switches`` (run after phase 20, on phase 4's store): the
+    Solver's switches on full-width bf16 mhb_coAtt at the pre-pool site
+    (K2), 10 steps an arm beside the plain run: gradient accumulation
+    (a=2: K2 twice a step, within the training tolerance of its plain-K2
+    arm; at f64 and dropout 0, one step's gradients against a=1's), remat
+    (bit-equal parameters, K2's forward twice a step, the peak memory of
+    both), the device feature bank on the f16 store and its int8 twin
+    (bit-equal to each host feed; ms a step and the device's share of a
+    step, both feeds), ``profile_steps=2`` (a trace that names K2's
+    kernels) and ``debug_nans`` (a sound step passes, a NaN weight
+    raises);
+32. ``artifact`` (after phase 30, on phase 28's stores and requests):
+    mhb_coAtt (phase 4's weights) and hieCoAtten exported at batch 256 for
+    both feeds (``aot.save_serving_artifact``), served by
+    ``InferenceEngine(artifact_dir=...)`` beside the eager engine: the
+    answers bit-equal, K1 or K4 once per call, ``fast_path_traced``; the
+    export's seconds and both forwards' device ms;
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -245,6 +262,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from vqa_attention_networks_tpu_torch.aot import save_serving_artifact
 from vqa_attention_networks_tpu_torch.cli import evaluate as cli_evaluate
 from vqa_attention_networks_tpu_torch.cli import extract_features as cli_extract
 from vqa_attention_networks_tpu_torch.cli import predict as cli_predict
@@ -455,6 +473,18 @@ CLI_EPOCHS, CLI_EVERY, CLI_RESUME_STEP = 2, 4, 12
 BANK_IMAGES, BANK_REUSE, BANK_SMALL = 1024, 3, 512
 MISS_COUNTS, MISS_REPS = tuple(2 ** i for i in range(9)), 5
 HTTP_CLIENTS, HTTP_BULK, HTTP_WAIT_MS = 64, 16, 5.0
+# the Solver's switches (31): steps an arm; the profiled steps of a
+# step's device share; a=2's f64 gradients against a=1's, each within
+# SWITCH_GRAD_RTOL of its largest value plus SWITCH_GRAD_ATOL of the
+# model's largest gradient (the same mean of the same products, summed
+# over 64 rows or over two halves of 32: f64 summation order, ~1e-13 of
+# the terms; the atol holds the gradients that are 0 up to rounding). At
+# f32, summation noise on those is a large share of their own largest
+# value (PERF.md); K2's kernels by name
+SWITCH_STEPS, SHARE_STEPS = 10, 3
+SWITCH_GRAD_RTOL, SWITCH_GRAD_ATOL = 1e-9, 1e-9
+K2_KERNELS = ("fwd_kernel", "g_prod_kernel", "d_w_gemm_kernel",
+              "d_q_kernel")
 # the backbones (30): images on the card at f32 against the CPU, the bound
 # of tests/test_torch_parity.py, the extractor's batch, the PNGs through the
 # CLIs, and one f16 rounding of an f32 grid (the extracted store)
@@ -596,6 +626,18 @@ def scratch_diff(got, want, atol, rtol) -> tuple:
     diff = (got - want).abs()
     ok = bool(torch.all(diff <= atol + rtol * want.abs()))
     return ok, float(diff.max()), float((diff == 0).float().mean())
+
+
+def host_ms(fn, iters: int) -> float:
+    """The host's ms to issue one call of ``fn``: the wall clock around
+    ``iters`` calls, read before the device is waited for."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issued = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return issued
 
 
 def time_ms(fn, iters: int) -> float:
@@ -3097,6 +3139,288 @@ def backbone_cli_checks(cfg, params, ws, npz, Image, dev, fields) -> int:
     return k1
 
 
+def solver_params(solver) -> dict:
+    return {k: v.detach().clone() for k, v in
+            solver.model.named_parameters()}
+
+
+def same_params(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def step_share(solver, batches) -> dict:
+    """The device's busy share of a training step: SHARE_STEPS steps of
+    ``solver`` on host batches assembled beforehand (so the wall time holds
+    each step's own H2D copies, as ``train_profile``'s), after two warm-up
+    steps, under torch.profiler: the device time of its kernels and copies
+    over the wall time, synchronised at both ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for batch in batches[:2]:
+        solver._train_step(batch)
+    torch.cuda.synchronize()
+    timed = batches[2:2 + SHARE_STEPS]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in timed:
+            solver._train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(timed)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.self_device_time_total > 0) / 1e3 / len(timed)
+    return {"profiled_ms_per_step": wall_ms, "device_busy_ms": busy_ms,
+            "device_share": busy_ms / wall_ms}
+
+
+def train_switches_phase(params, store, store_dir: str, work_dir: str,
+                         smi: str) -> dict:
+    """Phase 31: the Solver's switches on full-width bf16 mhb_coAtt at the
+    pre-pool site (K2), dropout 0.1, batch TRAIN_BATCH, SWITCH_STEPS steps
+    an arm, each against the plain run (no switch, the host f16 feed):
+
+    - gradient accumulation, a=2: K2 forward, g_prod, d_W and d_q twice a
+      step; the kernel arm's losses within TRAIN_LOSS_RTOL of the
+      ``reference_kernels=True`` arm's over TRAIN_AGREE_STEPS steps; at f64
+      (parameters too) with dropout 0, one step's gradients within
+      SWITCH_GRAD_RTOL and SWITCH_GRAD_ATOL of a=1's (the same mean,
+      summed in another order);
+    - remat: the parameters after the run bit-equal to the plain run's, K2's
+      forward twice a step (the recomputation), its backward once; the
+      peak memory of both runs;
+    - the device feature bank, on the f16 store and on its int8 twin: the
+      parameters bit-equal to the host feed's of the same store; ms a step
+      (``train``, steps 4..last) and the device's share of a profiled
+      step (``step_share``) beside the host feed's, both feeds;
+    - ``profile_steps=2``: the trace is written and names K2's kernels;
+    - ``debug_nans``: a sound step passes the trap, a NaN put into a
+      weight raises at the backward.
+    Returns the K2 launches of the kernel arms, by launch."""
+    cfg = Config(compute_dtype="bfloat16", num_epoch=1,
+                 batch_size=TRAIN_BATCH)
+    qa, _ = train_data(cfg, SWITCH_STEPS)
+    steps = SWITCH_STEPS
+    fields, counted = {}, []
+    once = dict(forward=steps, g_prod=steps, d_w=steps, d_q=steps, d_img=0)
+    twice = {k: 2 * v for k, v in once.items()}
+
+    def run(name, data_store=store, want=once, solver_kw=None, **kw):
+        # the run's own peak: its model, Adam's state, gradients and
+        # activations, over what the earlier arms still hold
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = train_run(cfg.replace(**kw), qa, data_store, params,
+                           **(solver_kw or {}))
+        solver = result.pop("solver")
+        result["params"] = solver_params(solver)
+        peak_mib = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+        k2 = result["launches"]["K2"]
+        fields[name] = {"losses": result["losses"],
+                        "ms_per_step": result["ms_per_step"],
+                        "k2_launches": k2, "run_peak_mib": peak_mib}
+        if want is not None:
+            counted.append(k2)
+            if k2 != want or any(result["launches"]["K3"].values()):
+                raise AssertionError(f"train_switches: {name} launched K2 "
+                                     f"{k2} (want {want}) and K3 "
+                                     f"{result['launches']['K3']}")
+        if not np.isfinite(result["losses"]).all():
+            raise AssertionError(f"train_switches: {name}'s losses are not "
+                                 "finite")
+        return result, solver
+
+    plain, plain_solver = run("plain")
+    accum, _ = run("grad_accum_2", grad_accum_steps=2, want=twice)
+    accum_ref, _ = run("grad_accum_2_plain_k2", grad_accum_steps=2,
+                       want=None, solver_kw={"reference_kernels": True})
+    if any(accum_ref["launches"]["K2"].values()):
+        raise AssertionError("train_switches: the plain arm launched K2")
+    rel = np.abs(np.array(accum["losses"]) - accum_ref["losses"]) / \
+        np.abs(accum_ref["losses"])
+    fields["grad_accum_2"]["rel_diff_to_plain_k2"] = rel.tolist()
+    if (rel[:TRAIN_AGREE_STEPS] > TRAIN_LOSS_RTOL).any():
+        raise AssertionError("train_switches: gradient accumulation's kernel "
+                             "and plain-K2 runs disagree")
+
+    # a=2 against a=1 at f64, dropout 0: one step's gradients
+    f64 = cfg.replace(compute_dtype="float64", dropout_lstm=0.0,
+                      dropout_fusion=0.0)
+    batch = next(plain_solver.batches["train"].epoch(0))
+    grads = {}
+    for a in (1, 2):
+        solver = Solver(f64.replace(grad_accum_steps=a), qa, store,
+                        params=params)
+        solver.model.double()
+        solver._train_step(batch)
+        grads[a] = {k: p.grad.clone() for k, p in
+                    solver.model.named_parameters() if p.grad is not None}
+        del solver
+    # each gradient's difference over its largest value plus, for one that
+    # is 0 up to rounding (the biases just before a softmax over L or T),
+    # SWITCH_GRAD_ATOL of the model's largest gradient
+    top = max(float(g.abs().max()) for g in grads[1].values())
+    rel = sorted(((float((grads[2][k] - g).abs().max())
+                   / (float(g.abs().max())
+                      + SWITCH_GRAD_ATOL / SWITCH_GRAD_RTOL * top), k)
+                  for k, g in grads[1].items()), reverse=True)
+    worst = rel[0][0]
+    fields["grad_accum_f64_grad_diff"] = {
+        "worst_over_tolerance": worst / SWITCH_GRAD_RTOL,
+        "largest": {k: v for v, k in rel[:3]}}
+    if grads[1].keys() != grads[2].keys() or worst > SWITCH_GRAD_RTOL:
+        raise AssertionError(f"train_switches: a=2's f64 gradients differ "
+                             f"from a=1's: {rel[:3]}")
+    del grads
+    torch.cuda.empty_cache()
+
+    remat, _ = run("remat", remat=True, want=dict(once, forward=2 * steps))
+    fields["remat"]["bit_equal_to_plain"] = same_params(remat["params"],
+                                                        plain["params"])
+    if not fields["remat"]["bit_equal_to_plain"] or \
+            remat["losses"] != plain["losses"]:
+        raise AssertionError("train_switches: remat's run is not bit-equal "
+                             "to the plain run")
+
+    int8_store = quantize_store(store_dir, os.path.join(work_dir, "int8"))
+    feeds = {"f16": (store, plain, plain_solver)}
+    int8, int8_solver = run("int8_feed", data_store=int8_store)
+    feeds["int8"] = (int8_store, int8, int8_solver)
+    for feed, (data_store, host, host_solver) in feeds.items():
+        bank, bank_solver = run(f"bank_{feed}", data_store=data_store,
+                                device_feature_bank=True)
+        equal = same_params(bank["params"], host["params"])
+        fields[f"bank_{feed}"].update(
+            bit_equal_to_host_feed=equal, bank_mib=bank_solver.bank.nbytes
+            / 2 ** 20, host_feed_ms_per_step=host["ms_per_step"])
+        for name, solver in (("host", host_solver), ("bank", bank_solver)):
+            fields[f"bank_{feed}"][f"{name}_step_share"] = step_share(
+                solver, list(solver.batches["train"].epoch(1)))
+        if not equal or bank["losses"] != host["losses"]:
+            raise AssertionError(f"train_switches: the {feed} bank's run is "
+                                 "not bit-equal to the host feed's")
+        del bank_solver
+    del feeds, plain_solver, int8_solver
+    torch.cuda.empty_cache()
+
+    prof_dir = os.path.join(work_dir, "profile")
+    profiled, solver = run("profile_steps_2", profile_steps=2,
+                           profile_dir=prof_dir)
+    with open(solver.profile_trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = [k for k in K2_KERNELS if any(k in n for n in names)]
+    fields["profile_steps_2"].update(trace=os.path.relpath(
+        solver.profile_trace, work_dir), k2_kernels_named=found)
+    if found != list(K2_KERNELS):
+        raise AssertionError(f"train_switches: the trace names {found} of "
+                             f"K2's kernels {K2_KERNELS}")
+    del solver
+
+    solver = Solver(cfg.replace(debug_nans=True), qa, store, params=params)
+    sound = float(solver._train_step(batch)[0])
+    with torch.no_grad():
+        solver.model.ques_proj1.weight[0, 0] = float("nan")
+    try:
+        solver._train_step(batch)
+        trapped = None
+    except RuntimeError as e:
+        trapped = str(e).splitlines()[0][:120]
+    fields["debug_nans"] = {"sound_step_loss": sound, "nan_trapped": trapped}
+    if not np.isfinite(sound) or trapped is None or "nan" not in trapped:
+        raise AssertionError("train_switches: debug_nans did not pass a "
+                             "sound step or did not trap a NaN weight")
+    del solver
+    torch.cuda.empty_cache()
+    for result in fields.values():
+        if isinstance(result, dict):
+            result.pop("losses", None)
+    say("train_switches", model=cfg.model_name, batch=TRAIN_BATCH,
+        steps=steps, dropout_fusion=cfg.dropout_fusion, **fields, card=smi)
+    return {key: sum(k2[key] for k2 in counted) for key in once}
+
+
+def artifact_phase(cfg: Config, params, stores: tuple, ws: str, dev,
+                   smi: str) -> dict:
+    """Phase 32: the exported serving artifact. bf16 mhb_coAtt at
+    ``Config()`` widths (phase 4's weights) and hieCoAtten (phase 28's),
+    each exported at batch BATCH for the f16 and the int8 feed
+    (``aot.save_serving_artifact``), loaded by ``InferenceEngine(
+    artifact_dir=...)`` and served phase 28's requests
+    (``predict_stream``, 2,048 requests) beside the eager engine. Gates:
+    the answers bit-equal to the eager engine's; ``fast_path_traced``; K1
+    (mhb_coAtt) or K4 (hieCoAtten) once per artifact call. Times: the
+    export's seconds, qa-pairs/s of both engines, and on one resident
+    batch the program's forward beside the eager one: ``forward_ms``, CUDA
+    events around 5 calls back to back (the host's launches included),
+    ``host_ms``, the host's time to issue one call (``host_ms``), and
+    ``device_ms``, the device time of its kernels (``device_ms``)."""
+    f16_store, store = stores
+    image_ids, ques = bank_traffic(cfg)
+    spans = [slice(s, s + BATCH) for s in range(0, len(ques), BATCH)]
+    hie_cfg = Config(model_name="hieCoAtten")
+    fields, launches = {}, {"K1": 0, "K4": 0}
+    for name, fcfg, fparams, key, module in (
+            ("mhb_coAtt", cfg, params, "K1", wqf),
+            ("hieCoAtten", hie_cfg, hie_served_params(hie_cfg), "K4", co)):
+        for feed in ("float16", "int8"):
+            out = os.path.join(ws, f"aot_{name}_{feed}")
+            t0 = time.perf_counter()
+            save_serving_artifact(out, fcfg.replace(compute_dtype="bfloat16"),
+                                  fparams, BATCH, 5, feed, dev)
+            export_s = time.perf_counter() - t0
+            with open(os.path.join(out, "serving.json")) as f:
+                meta = json.load(f)
+
+            def items(s):
+                if feed == "int8":
+                    rows, scale = store.gather_quantized(image_ids[s])
+                    return rows, ques[s], None, scale
+                return f16_store.gather(image_ids[s], np.float16), ques[s], \
+                    None
+
+            rec = {"export_s": export_s,
+                   "fast_path_traced": meta["fast_path_traced"],
+                   "kernel_ops": meta["kernel_ops"]}
+            preds = {}
+            for kind in ("eager", "artifact"):
+                engine = InferenceEngine(
+                    fcfg, fparams, batch_size=BATCH, topk=5,
+                    input_dtype=feed,
+                    artifact_dir=out if kind == "artifact" else None)
+                preds[kind], seconds, counts = stream(
+                    engine, lambda: engine.predict_stream(
+                        items(s) for s in spans), {key: module})
+                first = items(spans[0])
+                args = engine._to_device(
+                    [*first[:1], *first[3:],
+                     *engine._question_args(first[1], None)])
+                with torch.inference_mode():
+                    def forward():
+                        engine._fwd(engine.model, *args)
+
+                    forward_ms = time_ms(forward, 5)
+                    issue_ms = host_ms(forward, 5)
+                    device = device_ms(forward)
+                rec[kind] = {"qa_pairs_per_s": len(ques) / seconds,
+                             "forward_ms": forward_ms,
+                             "host_ms": issue_ms,
+                             "device_ms": device["ms_per_launch"],
+                             "launches": counts}
+                del engine, args
+            launches[key] += counts[key]  # the artifact engine's
+            rec["bit_equal_to_eager"] = bit_equal(preds["artifact"],
+                                                  preds["eager"])
+            fields[f"{name}_{feed}"] = rec
+            if not (rec["bit_equal_to_eager"] and meta["fast_path_traced"]
+                    and counts[key] == len(spans)):
+                raise AssertionError(
+                    f"artifact: {name} ({feed}) is not bit-equal to the "
+                    f"eager engine, was exported without its kernel, or "
+                    f"launched {key} {counts[key]} times in {len(spans)} "
+                    "calls")
+            torch.cuda.empty_cache()
+    say("artifact", requests=len(ques), batch=BATCH, **fields, card=smi)
+    return launches
+
+
 def main() -> None:
     # phase 1: the device
     card_name, smi = card()
@@ -3362,6 +3686,18 @@ def main() -> None:
             train_family(name, store, smi)
             torch.cuda.empty_cache()
 
+        # phase 31: the Solver's switches (K2), on phase 7's weights
+        t0 = time.perf_counter()
+        switch_params = init_params(bf16_train,
+                                    torch.Generator().manual_seed(0))
+        with tempfile.TemporaryDirectory() as work:
+            for key, n in train_switches_phase(switch_params, store, tmp,
+                                               work, smi).items():
+                train_launches["K2"][key] += n
+        del switch_params
+        torch.cuda.empty_cache()
+        say("train_switches_time", seconds=time.perf_counter() - t0)
+
     # phase 21: their f32 forwards on the card against the CPU's
     families_agree(dev)
     torch.cuda.empty_cache()
@@ -3476,6 +3812,13 @@ def main() -> None:
         t0 = time.perf_counter()
         launches["K1"] += backbone_phase(cfg, params, ws, dev, smi)
         say("backbone_time", seconds=time.perf_counter() - t0)
+
+        # phase 32: the exported serving artifact (K1, K4)
+        t0 = time.perf_counter()
+        for key, n in artifact_phase(cfg, params, stores, ws, dev,
+                                     smi).items():
+            launches[key] += n
+        say("artifact_time", seconds=time.perf_counter() - t0)
         del stores
 
     def entry(name, source, replaces, n_launches, err, run, bnd,

@@ -14,8 +14,10 @@ feature extractor):
 - ``mhb_coAtt --glove 1`` takes ``<data_dir>/glove_table.npy`` into the
   model;
 - ``evaluate`` detects ``--mode`` by token;
-- the default device is the card (an error without one), and the switches
-  the port does not run reach the Solver's refusal.
+- the default device is the card (an error without one); the Solver's
+  switches (``--grad_accum_steps``, ``--remat``, ``--device_feature_bank``)
+  train, and ``--model_parallel`` > 1 reaches its refusal (ROADMAP Queue 1
+  item 10).
 """
 
 import json
@@ -206,11 +208,24 @@ def test_evaluate_mode_detection_is_token_wise(monkeypatch):
     assert captured["argv"] == ["--mode=testing"]
 
 
+@pytest.mark.parametrize("flags", [
+    ["--grad_accum_steps", "2"],
+    ["--remat", "1"],
+    ["--device_feature_bank", "1"],
+])
+def test_cli_solver_switches_train(workspace, flags, capsys):
+    """The flags that reached a refusal until the Solver ran them: one
+    epoch trains and exports."""
+    data_dir, _ = workspace
+    train.main(["--model_name", "iBOWIMG", "--data_dir", data_dir,
+                "--num_answer", str(NUM_ANSWER), "--batch_size", "8",
+                "--device", "cpu", "--num_epoch", "1"] + flags)
+    assert "Training done" in capsys.readouterr().out
+    assert os.path.exists("models/iBOWIMG/weights")
+
+
 @pytest.mark.parametrize("flags,error", [
     ([], RuntimeError),  # the default device: the card
-    (["--grad_accum_steps", "2"], NotImplementedError),
-    (["--remat", "1"], NotImplementedError),
-    (["--device_feature_bank", "1"], NotImplementedError),
     (["--model_parallel", "2"], NotImplementedError),
 ])
 def test_cli_refusals(workspace, flags, error):

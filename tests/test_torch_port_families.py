@@ -247,7 +247,7 @@ def test_adam_steps_match_the_jax_solver_step(name, dtype):
                         torch.from_numpy(soft[s].astype(np_dt)),
                         torch.from_numpy(v))
 
-        def loss_fn(out, ans=ans, sft=sft, vt=vt):
+        def loss_fn(out, rows, ans=ans, sft=sft, vt=vt):
             if cfg.soft_answer:
                 return t_losses.soft_cross_entropy(out, sft, vt)
             return t_losses.cross_entropy(out, ans, vt)
@@ -255,7 +255,7 @@ def test_adam_steps_match_the_jax_solver_step(name, dtype):
         loss, _ = train_step(
             model, opt, loss_fn, torch.from_numpy(i.astype(np_dt)),
             torch.from_numpy(q), torch.from_numpy(l), lr=LR,
-            generator=torch.Generator(), fusion_seed=0,
+            randomness=lambda i: (torch.Generator, 0),
             valid=torch.from_numpy(v))
         port_losses.append(float(loss))
         if s == 0:

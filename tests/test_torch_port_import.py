@@ -17,7 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEEDED = [f"vqa_attention_networks_tpu_torch.{m}" for m in (
     "aot", "serve", "cli.serve", "cli.predict", "cli.extract_features",
     "models.resnet", "models.vgg", "models.extractor", "utils.checkpoint",
-    "cli.train", "cli.evaluate")]
+    "cli.train", "cli.evaluate", "cli.export_serving", "train.feature_bank")]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys

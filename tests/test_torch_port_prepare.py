@@ -19,7 +19,9 @@ numpy and string functions with the same arithmetic on both sides.
 - ``FeatureStoreWriter.append_batch`` (f16 and int8), ``quantize_store``:
   files byte-equal; ``open_feature_store`` on both layouts and
   ``CombinedFeatureStore``: row handles and gathers equal.
-- ``VqaBatches`` on the prepared artifact: every field of every batch
+- ``VqaBatches`` on the prepared artifact, in each of its three feeds
+  (float rows, the int8 rows with their scales, the device bank's rows):
+  every field of every batch
   equal, the pad rows of the last batch included.
 """
 
@@ -350,6 +352,50 @@ def test_batches_of_a_prepared_corpus_match_jax(corpus, tmp_path):
                 assert a is not None, field
                 assert a.dtype == b.dtype, field
                 np.testing.assert_array_equal(a, b, err_msg=field)
+            n_pad += int((~g.valid).sum())
+    assert n_pad > 0
+
+
+@pytest.mark.parametrize("mode", ["int8", "device_bank"])
+def test_batch_modes_of_a_prepared_corpus_match_jax(corpus, tmp_path, mode):
+    """The two other feeds of ``VqaBatches`` over both splits of the
+    prepared corpus, through per-split int8 stores (a combined store): the
+    int8 feed's rows and f16 scales (``feature_scale``), and the device
+    bank's dense rows (``image_rows``, no features), equal to JAX's, the
+    last batch's pad rows included."""
+    data = _prepared(corpus, tmp_path, "all")
+    train_ids, val_ids = _store_ids(data["port"][0])
+    for split, ids in (("train", train_ids), ("val", val_ids)):
+        jax_store.make_synthetic_feature_store(
+            str(tmp_path / f"f16_{split}"), ids, 6, 8)
+        jax_store.quantize_store(str(tmp_path / f"f16_{split}"),
+                                 str(tmp_path / f"resnet152_{split}"))
+    stores = {"jax": jax_store.open_feature_store(str(tmp_path)),
+              "port": port_store.open_feature_store(str(tmp_path))}
+    assert stores["port"].quantized
+    if mode == "int8":
+        fields = ("image_features", "feature_scale")
+        kw = dict(feature_dtype=np.int8)
+    else:
+        fields = ("image_rows",)
+        kw = dict(feature_dtype=np.int8, device_bank=True)
+    n_pad = 0
+    for split in ("train", "val"):
+        kw.update(batch_size=16, num_answers=12, soft_answer=True, seed=4)
+        got = port_dataset.VqaBatches(getattr(data["port"][0], split),
+                                      stores["port"], **kw)
+        want = jax_dataset.VqaBatches(getattr(data["jax"][0], split),
+                                      stores["jax"], **kw)
+        for g, w in zip(got.epoch(1), want.epoch(1)):
+            for field in fields + ("questions", "valid", "soft_answers"):
+                a, b = getattr(g, field), getattr(w, field)
+                assert a is not None, field
+                assert a.dtype == b.dtype, field
+                np.testing.assert_array_equal(a, b, err_msg=field)
+            if mode == "device_bank":
+                assert g.image_features is None and g.feature_scale is None
+            else:
+                assert g.image_rows is None
             n_pad += int((~g.valid).sum())
     assert n_pad > 0
 

@@ -137,14 +137,30 @@ def test_int8_feed_matches_jax_engine(monkeypatch):
         port.predict_batch(q8, ques)
 
 
-def test_unported_options_raise(monkeypatch):
-    """The exported artifact and data-parallel serving still raise, each
-    naming its ROADMAP item; the device feature cache is ported
+def test_unported_options_raise(monkeypatch, tmp_path):
+    """Data-parallel serving still raises, naming its ROADMAP item; the
+    exported artifact is ported: the engine serves one
+    (``test_torch_port_aot.py`` holds it in full), and refuses a directory
+    without one. The device feature cache is ported too
     (``test_torch_port_device_cache.py``)."""
+    from vqa_attention_networks_tpu_torch.aot import save_serving_artifact
+
     cfg = port_config(small_cfg())
     params = params_for(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        InferenceEngine(cfg, params, artifact_dir="x", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        InferenceEngine(cfg, params, artifact_dir=str(tmp_path / "x"),
+                        device="cpu")
+    save_serving_artifact(str(tmp_path / "aot"),
+                          cfg.replace(compute_dtype="bfloat16"), params, 2,
+                          TOPK, device="cpu")
+    img, ques = _requests(cfg, 2, seed=12)
+    served = InferenceEngine(cfg, params, batch_size=2, topk=TOPK,
+                             artifact_dir=str(tmp_path / "aot"),
+                             device="cpu").predict_batch(img, ques)
+    eager = InferenceEngine(cfg, params, batch_size=2, topk=TOPK,
+                            device="cpu").predict_batch(img, ques)
+    for a, b in zip(served, eager):
+        np.testing.assert_array_equal(a.top_probs, b.top_probs)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         InferenceEngine(cfg, params, data_parallel=2, device="cpu")
     engine = InferenceEngine(cfg, params, batch_size=2, device="cpu")

@@ -3,8 +3,9 @@ serve.py``) against the JAX package's, on the CPU.
 
 Mirrors every test of ``tests/test_serve_http.py``: the real
 ``ThreadingHTTPServer`` of the port's CLI on port 0, ``--device cpu``,
-driven with urllib. The JAX CLI's artifact and data-parallel tests become
-checks of the port's refusals (ROADMAP Queue 1 items 14 and 10). The
+driven with urllib. The JAX CLI's data-parallel test becomes a check of the port's
+refusal (ROADMAP Queue 1 item 10); its artifact test serves through the
+port's artifact. The
 served answers are held against JAX's ``VqaService`` built on the same
 parameters and store: the same answer wherever the top probability is
 clearly above the next, and every probability within ``PROB_ATOL`` (bf16
@@ -389,13 +390,26 @@ def test_oversized_requests_rejected(server):
 
 
 def test_aot_artifact_is_refused(tmp_path):
-    """JAX's test serves an exported artifact; the port refuses one,
-    naming its ROADMAP item."""
-    _workspace(tmp_path, n_answers=3)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """JAX's ``test_service_with_aot_artifact_matches_jit``: the service
+    serves an exported artifact with the answers of the eager one (the
+    port refused the flag until the artifact was ported; the name stays).
+    A directory without an artifact is refused."""
+    from vqa_attention_networks_tpu_torch.aot import save_serving_artifact
+
+    _, cfg, params = _workspace(tmp_path, n_answers=3, regions=196)
+    with pytest.raises(FileNotFoundError):
         serve_cli.build_service(_args(tmp_path, n_answers=3,
                                       aot_artifact=str(tmp_path / "aot")))
-    with pytest.raises(SystemExit):  # the flag parses; main() then refuses
+    save_serving_artifact(str(tmp_path / "aot"), port_config(cfg), params,
+                          4, topk=3, device="cpu")
+    served = serve_cli.build_service(_args(
+        tmp_path, n_answers=3, aot_artifact=str(tmp_path / "aot")))
+    eager = serve_cli.build_service(_args(tmp_path, n_answers=3))
+    items = [{"question": "what color is the sky", "image_id": i}
+             for i in IMAGE_IDS]
+    for a, b in zip(served.predict_many(items), eager.predict_many(items)):
+        assert a == b
+    with pytest.raises(SystemExit):  # the flag takes a directory
         serve_cli.parse_args(["--aot_artifact"])
     assert serve_cli.parse_args(["--aot_artifact", "x"]).aot_artifact == "x"
 

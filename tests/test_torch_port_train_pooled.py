@@ -158,9 +158,9 @@ def test_mhb_coatt_pooled_site_f64_trajectory_matches_jax():
     for s in range(8):
         soft = torch.from_numpy(softs[s])
         loss, _ = train_step(
-            model, opt, lambda out: soft_cross_entropy(out, soft),
+            model, opt, lambda out, rows: soft_cross_entropy(out, soft),
             torch.from_numpy(imgs[s]), torch.from_numpy(quess[s]), lr=LR,
-            generator=torch.Generator(), fusion_seed=0)
+            randomness=lambda i: (torch.Generator, 0))
         port_losses.append(float(loss))
         if s + 1 in UPDATE_RTOL:
             port_params[s + 1] = to_jax_params(model)

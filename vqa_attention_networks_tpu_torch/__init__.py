@@ -27,7 +27,18 @@ Slices ported so far, on one device:
 - the command line from corpus to results file: ``cli.prepare_data``,
   ``cli.build_glove``, ``cli.train`` and ``cli.evaluate``, over the data
   preparation of ``data/`` and the checkpoints, metric writer and ``.pth``
-  importer of ``utils/``.
+  importer of ``utils/``;
+- serving as users reach it: ``cli.serve`` over HTTP, by image id from the
+  device feature cache, and from image bytes through the backbones
+  (``cli.predict``, ``cli.extract_features``);
+- the Solver's switches: gradient accumulation, remat, the training
+  feature bank (``train/feature_bank.py``), the int8 feed, the profiler
+  and the NaN trap;
+- the exported serving artifact (``aot.save_serving_artifact``,
+  ``cli.export_serving``, ``cli.serve --aot_artifact``), whose graph calls
+  K1, K4, K5 and K7 as ``torch.library`` custom ops (``torch.ops.vqa``).
+
+Not ported: more than one device (ROADMAP Queue 1 item 10).
 """
 
 __version__ = "0.1.0"

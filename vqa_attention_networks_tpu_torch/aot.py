@@ -1,22 +1,68 @@
-"""The serving forward (port of ``serving_forward`` in
-``vqa_attention_networks_tpu/aot.py``): model -> softmax -> top-k over one
-fixed batch, for the f16 and the int8 feed, and the banked forward of the
-device feature cache (``serving_forward_banked``).
+"""The serving forward and its exported artifact (port of
+``vqa_attention_networks_tpu/aot.py``).
 
-Export and load of a serving artifact (``export_serving``,
-``save_serving_artifact``, ``load_serving_artifact``) are not ported: the
-artifact is ROADMAP Queue 1 item 14, and the sharded bank's forward item 10
-(multi-GPU).
+- ``serving_forward``: model -> softmax -> top-k over one fixed batch, for
+  the f16 and the int8 feed, and ``serving_forward_banked``, the device
+  feature cache's.
+- ``export_serving`` / ``save_serving_artifact`` / ``load_serving_artifact``
+  (JAX ``aot.py:184-287``): ``torch.export.export`` of ``serving_forward``
+  at one fixed batch, written as ``serving.pt2`` beside ``serving.json``,
+  JAX's metadata sidecar, which the engine checks at load
+  (``serve.InferenceEngine(artifact_dir=...)``).
+
+**Weights stay out of the artifact, as in JAX.** The exported program
+takes the model's state, every parameter and buffer by name
+(``model_state``), as its first input (``torch.func.functional_call``);
+the weights come from the weights file ``cli.train`` exported, at load.
+That state includes K1's laid-out ``stage1_*`` buffers: the eager model
+checks its parameters for changes before each K1 call and lays them out
+again (``MHBCoAtt.stage1_weights``), which a traced graph cannot do
+without copying the 42 MB layout on every call, so the program takes
+the buffers as inputs and the engine lays them out once, after it loads
+the weights.
+
+**The kernels.** K1, K4, K5 and K7 are ``torch.library`` custom ops
+(``torch.ops.vqa.*``, ``ops/``), each with a CPU implementation (its plain
+version), a CUDA one (the hand-written kernel) and a fake one (its output
+shapes). The exported graph calls the ops; which implementation runs is
+decided when the program runs, by the device of its inputs. The switches
+that choose whether an op is called at all (``VQA_DISABLE_PALLAS``,
+``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``, ``Config.fast_path``) are
+read when the graph is traced, as JAX reads them at trace time.
+``fast_path_traced`` in the metadata says whether the graph calls K1 or K4
+(``FAST_PATH_OPS``).
+
+JAX's ``platforms`` argument and its ``tpu_lowering`` context are not
+ported: they let a build box without a TPU trace the TPU's graph. Here
+the graph is the same on every device, but for the device its tensors
+were created on, which the metadata records as ``device`` and the engine
+checks.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import dataclasses
+import json
+import os
+from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
 from vqa_attention_networks_tpu_torch.config import Config
+from vqa_attention_networks_tpu_torch.device import cuda_device
 from vqa_attention_networks_tpu_torch.models.layers import DTYPES
+from vqa_attention_networks_tpu_torch.train.feature_bank import dequantize
+
+_PROGRAM = "serving.pt2"
+_META = "serving.json"
+
+# families whose bf16 serving forward calls a kernel: mhb_coAtt K1
+# (models/mhb_coatt.py), hieCoAtten K4 (models/hiecoatten.py); the others
+# serve the composed graph by design, so fast_path_traced=False is
+# expected for them
+FAST_PATH_MODELS = frozenset({"mhb_coAtt", "hieCoAtten"})
+# the ops whose presence in the graph sets fast_path_traced
+FAST_PATH_OPS = ("vqa.stage1_coattention", "vqa.coattention_core")
 
 
 def serving_forward(cfg: Config, topk: int,
@@ -25,9 +71,9 @@ def serving_forward(cfg: Config, topk: int,
     """THE serving forward of every family. Returns ``fwd(model, img,
     ques, qlen)`` for the f16 feed, ``fwd(model, img_q, scale, ques,
     qlen)`` for the int8 feed; each gives (top ids [N, k] int64, top
-    probabilities [N, k] f32). ``qlen`` goes to the model as
-    ``ques_length`` (MHB reads it). The top-k is clamped to the answer
-    vocab, as in the JAX function."""
+    probabilities [N, k] f32). ``model`` is any callable of ``(img, ques,
+    qlen)``; ``qlen`` reaches it as ``ques_length`` (MHB reads it). The
+    top-k is clamped to the answer vocab, as in the JAX function."""
     topk = min(topk, cfg.a_vocab_size)
 
     def _head(logits: torch.Tensor):
@@ -40,8 +86,7 @@ def serving_forward(cfg: Config, topk: int,
     if input_dtype == "int8":
         # quantized feed: dequantise on the device, one multiply
         def fwd_int8(model, img_q, scale, ques, qlen):
-            dt = DTYPES[cfg.compute_dtype]
-            img = img_q.to(dt) * scale[:, None, :].to(dt)
+            img = dequantize(img_q, scale, DTYPES[cfg.compute_dtype])
             return _head(model(img, ques, qlen))
 
         return fwd_int8
@@ -62,7 +107,8 @@ def serving_forward_banked(cfg: Config, topk: int) -> Callable[
     int8 ``serving_forward`` unchanged, so the banked path cannot drift
     from the per-request feed: the same bytes give the same answers. JAX
     gathers in-graph outside any Pallas kernel (``aot.py:101-119``); here
-    it is ``index_select``."""
+    it is ``index_select``. The sharded bank's forward is ROADMAP Queue 1
+    item 10 (multi-GPU)."""
     base = serving_forward(cfg, topk, "int8")
 
     def fwd(model, bank_rows, bank_scale, idx, ques, qlen):
@@ -70,3 +116,133 @@ def serving_forward_banked(cfg: Config, topk: int) -> Callable[
                     bank_scale.index_select(0, idx), ques, qlen)
 
     return fwd
+
+
+def model_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The exported program's first input: every parameter and buffer of
+    ``model`` by name, K1's laid-out ``stage1_*`` buffers included."""
+    return {**dict(model.named_parameters()), **dict(model.named_buffers())}
+
+
+class _Program(torch.nn.Module):
+    """``serving_forward`` over ``(state, *inputs)``. The model is held
+    outside the module tree, so the exported program owns no tensor of it:
+    ``functional_call`` (strict) swaps every parameter and buffer for the
+    state's."""
+
+    def __init__(self, model: torch.nn.Module, fwd: Callable):
+        super().__init__()
+        self.__dict__["_model"] = model  # not a submodule: no weights
+        self._fwd = fwd
+
+    def forward(self, state: Dict[str, torch.Tensor], *inputs):
+        model = self.__dict__["_model"]
+
+        def call(*args):
+            return torch.func.functional_call(model, state, args,
+                                              strict=True)
+
+        return self._fwd(call, *inputs)
+
+
+def export_serving(cfg: Config, params, batch_size: int, topk: int = 5,
+                   input_dtype: str = "float16",
+                   device: Union[str, torch.device, None] = None,
+                   ) -> torch.export.ExportedProgram:
+    """``torch.export`` of the fixed-batch serving forward of ``cfg``'s
+    family with ``params`` (a JAX-layout tree; only its shapes and K1's
+    layout reach the graph), on ``device`` (default: the card)."""
+    from vqa_attention_networks_tpu_torch.models import get_model
+    from vqa_attention_networks_tpu_torch.weights import load_jax_params
+
+    device = torch.device(device) if device is not None else cuda_device()
+    model = load_jax_params(get_model(cfg.model_name)(cfg).to(device),
+                            params).eval()
+    shape = (batch_size, cfg.img_feature_dim, cfg.img_feature_channel)
+    if input_dtype == "int8":
+        feats = (torch.zeros(shape, dtype=torch.int8, device=device),
+                 torch.ones(batch_size, cfg.img_feature_channel,
+                            dtype=torch.float16, device=device))
+    else:
+        feats = (torch.zeros(shape, dtype=torch.float16, device=device),)
+    ques = torch.ones(batch_size, cfg.max_question_length, dtype=torch.int32,
+                      device=device)
+    qlen = torch.ones(batch_size, dtype=torch.int32, device=device)
+    program = _Program(model, serving_forward(cfg, topk, input_dtype))
+    with torch.no_grad():
+        exported = torch.export.export(
+            program, (model_state(model), *feats, ques, qlen), strict=False)
+    if exported.state_dict or exported.constants:
+        raise RuntimeError(
+            "the exported serving program holds tensors of its own "
+            f"({sorted(exported.state_dict)[:3]}, "
+            f"{sorted(exported.constants)[:3]}): weights must come from "
+            "the state input")
+    return exported
+
+
+def graph_ops(exported: torch.export.ExportedProgram) -> set:
+    """The ops the exported graph calls, by name (``vqa.stage1_coattention.
+    default``, ``aten.mm.default``, ...)."""
+    return {str(node.target) for node in exported.graph.nodes
+            if node.op == "call_function"}
+
+
+def save_serving_artifact(out_dir: str, cfg: Config, params,
+                          batch_size: int, topk: int = 5,
+                          input_dtype: str = "float16",
+                          device: Union[str, torch.device, None] = None,
+                          ) -> str:
+    """Export and write ``serving.pt2`` and its metadata sidecar
+    ``serving.json`` (JAX's keys, less ``platforms``, plus ``device``)."""
+    device = torch.device(device) if device is not None else cuda_device()
+    exported = export_serving(cfg, params, batch_size, topk, input_dtype,
+                              device)
+    ops = graph_ops(exported)
+    os.makedirs(out_dir, exist_ok=True)
+    # the example inputs hold the state: saved, they would put the
+    # weights into the artifact
+    exported.example_inputs = None
+    torch.export.save(exported, os.path.join(out_dir, _PROGRAM))
+    meta = {
+        "model_name": cfg.model_name,
+        "batch_size": batch_size,
+        # the clamped value, as the engine compares its own clamped top-k
+        "topk": min(topk, cfg.a_vocab_size),
+        "input_dtype": input_dtype,
+        "q_vocab_size": cfg.q_vocab_size,
+        "a_vocab_size": cfg.a_vocab_size,
+        "max_question_length": cfg.max_question_length,
+        "img_feature_dim": cfg.img_feature_dim,
+        "img_feature_channel": cfg.img_feature_channel,
+        "compute_dtype": cfg.compute_dtype,
+        # the device the graph's own tensors are made on
+        "device": device.type,
+        # whether the graph calls K1 or K4: the fast path was traced
+        "fast_path_traced": any(op.startswith(FAST_PATH_OPS) for op in ops),
+        "kernel_ops": sorted(op for op in ops if op.startswith("vqa.")),
+        "config": dataclasses.asdict(cfg),
+    }
+    with open(os.path.join(out_dir, _META), "w") as f:
+        json.dump(meta, f, indent=1)
+    return out_dir
+
+
+def load_serving_artifact(artifact_dir: str) -> Tuple[Callable,
+                                                      Dict[str, Any]]:
+    """-> (``program(state, *inputs)`` -> (top ids, top probabilities),
+    the metadata). The graph comes from the artifact, not from tracing the
+    model code again; ``state`` is ``model_state`` of a model holding the
+    weights to serve."""
+    # the ops the graph calls must be registered before it loads
+    from vqa_attention_networks_tpu_torch.ops import (  # noqa: F401
+        attention,
+        coattention,
+        grid_fusion,
+        wq_fusion,
+    )
+
+    with open(os.path.join(artifact_dir, _META)) as f:
+        meta = json.load(f)
+    exported = torch.export.load(os.path.join(artifact_dir, _PROGRAM))
+    return exported.module(), meta

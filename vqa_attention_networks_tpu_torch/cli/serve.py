@@ -15,12 +15,16 @@ endpoint over the port's ``InferenceEngine``.
 - the weights are the port's own export (``cli.train`` writes
   ``<model_dir>/<model_name>/weights``, read by ``serve.trained_params``).
 
+- ``--aot_artifact DIR`` serves the exported program that
+  ``cli.export_serving`` wrote (``aot.save_serving_artifact``) with the
+  weights of ``--model_dir``, after the engine checks its metadata; it
+  cannot be combined with ``--device_cache_images``.
+
 The same endpoints, JSON contract, status codes and flags as the JAX CLI,
 and one flag more: ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions, as the tests do; nothing falls back to the CPU by
-itself). ``--aot_artifact`` (ROADMAP Queue 1 item 14) and
-``--data_parallel`` > 1 (item 10) are not ported and raise
-``NotImplementedError``.
+itself). ``--data_parallel`` > 1 (ROADMAP Queue 1 item 10) is not ported
+and raises ``NotImplementedError``.
 
 Endpoints:
   GET  /healthz            -> {"status": "ok", ..., "latency": {...}}
@@ -820,8 +824,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "ported yet: N > 1 raises, ROADMAP Queue 1 "
                              "item 10)")
     parser.add_argument("--aot_artifact", type=str, default=None,
-                        help="an exported serving artifact (not ported "
-                             "yet: raises, ROADMAP Queue 1 item 14)")
+                        help="serve the exported program in this directory "
+                             "(cli.export_serving) with the weights of "
+                             "--model_dir; incompatible with "
+                             "--device_cache_images")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default: the card; an error without "
                              "one) | cpu (the plain PyTorch versions of "

@@ -9,9 +9,10 @@ and the weights export under ``models/<model>/``, the metric stream under
 ``runs/<model>/events.jsonl``, and, in testing mode, the results files
 under ``results/``.
 
-Switches the port does not run yet (``--grad_accum_steps`` > 1,
-``--remat``, ``--device_feature_bank``, an int8 store, ``--model_parallel``
-> 1) reach the Solver, which refuses each with its ROADMAP item.
+``--grad_accum_steps``, ``--remat``, ``--device_feature_bank`` (with its
+budget) and an int8 store reach the Solver, which runs them
+(``train/solver.py``); ``--model_parallel`` > 1 reaches it too and is
+refused, naming ROADMAP Queue 1 item 10 (multi-GPU).
 """
 
 import argparse
@@ -122,14 +123,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "the kernels, for tests)")
     parser.add_argument("--device_feature_bank", type=int, default=0,
                         help="keep the whole feature store in device "
-                             "memory (not ported yet: the Solver refuses "
-                             "it)")
+                             "memory and gather each batch's rows there (no "
+                             "feature bytes cross the host link); bit-equal "
+                             "to the host feed. The store must fit "
+                             "--device_feature_bank_budget")
     parser.add_argument("--device_feature_bank_budget", type=float,
                         default=8.0, metavar="GIB",
                         help="byte budget for --device_feature_bank, in "
                              "GiB per device")
     parser.add_argument("--device_feature_bank_shard", type=int, default=0,
-                        help="shard the bank's rows over the data axis")
+                        help="shard the bank's rows over the data axis "
+                             "(on one device, the replicated bank)")
     parser.add_argument("--dropout_site", type=str, default="prepool",
                         help="grid-fusion dropout site: 'prepool' keeps "
                              "the reference recipe (mask on the pre-pool "
@@ -155,11 +159,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "runs with the same seed are bit-identical")
     parser.add_argument("--grad_accum_steps", type=int, default=1,
                         help="split each optimizer step into N sequential "
-                             "microbatches (not ported yet: the Solver "
-                             "refuses N > 1)")
+                             "microbatches (activation memory of one "
+                             "microbatch; must divide batch_size)")
     parser.add_argument("--remat", type=int, default=0,
                         help="1 = recompute the forward during backward "
-                             "(not ported yet: the Solver refuses it)")
+                             "(torch.utils.checkpoint over the whole "
+                             "forward, as JAX's jax.checkpoint): "
+                             "bit-equal gradients; the backward holds the "
+                             "whole recomputed forward, so peak memory "
+                             "does not fall")
     parser.add_argument("--prefetch_workers", type=int, default=4,
                         help="host batch-assembly threads (the counterpart "
                              "of the reference's 4 DataLoader workers, "

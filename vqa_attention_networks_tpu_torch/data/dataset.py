@@ -1,6 +1,5 @@
 """Batch pipeline: packed QA arrays + feature store -> host batches (the
-port's copy of ``vqa_attention_networks_tpu/data/dataset.py``, without the
-device-feature-bank and int8 feeds, which the port's ``Solver`` refuses).
+port's copy of ``vqa_attention_networks_tpu/data/dataset.py``).
 
 - Batch assembly is fancy indexing: no per-item Python or file I/O.
 - Every batch has the same shape: the final partial batch is padded to
@@ -8,6 +7,12 @@ device-feature-bank and int8 feeds, which the port's ``Solver`` refuses).
 - ``prefetch`` and ``parallel_epoch`` assemble batches on host threads
   while the device runs the step; the gather and the soft-answer scatter
   run in C with the interpreter lock released (``data/native.py``).
+- Three feature feeds: float rows (``feature_dtype`` f16 or f32); the int8
+  feed (``feature_dtype=np.int8``: int8 rows in ``image_features`` and
+  their f16 scales in ``feature_scale``, ``gather_rows_quantized``); and
+  the device-bank feed (``device_bank=True``: no feature gather on the
+  host, ``image_rows`` holds each row's dense index into the Solver's
+  device-resident table, ``image_features`` is None).
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from vqa_attention_networks_tpu_torch.data.prepare import (
 class Batch:
     """One host batch."""
 
-    image_features: np.ndarray  # [B, 196, 2048]
+    # [B, 196, 2048] (int8 under the int8 feed); None under the device
+    # bank, whose rows the Solver gathers on the device from image_rows
+    image_features: Optional[np.ndarray]
     questions: np.ndarray  # [B, T] int32
     answers: np.ndarray  # [B] int32 hard labels
     ques_length: np.ndarray  # [B] int32
@@ -51,6 +58,10 @@ class Batch:
     answer_types: Optional[np.ndarray] = None  # [B] int32
     question_ids: Optional[np.ndarray] = None  # [B] int64
     question_types: Optional[np.ndarray] = None  # [B] int32
+    # the int8 feed: the per-(sample, channel) f16 scales of image_features
+    feature_scale: Optional[np.ndarray] = None  # [B, C] float16
+    # the device-bank feed: dense rows of the Solver's device table
+    image_rows: Optional[np.ndarray] = None  # [B] int32
 
     def __len__(self) -> int:
         return int(self.questions.shape[0])
@@ -69,6 +80,7 @@ class VqaBatches:
         shuffle: bool = True,
         seed: int = 0,
         feature_dtype=np.float32,
+        device_bank: bool = False,
     ):
         self.split = split
         self.store = store
@@ -81,6 +93,11 @@ class VqaBatches:
         self._epoch = 0
         # image_id -> store row once; a batch gather is then integer indexing
         self._rows = store.rows_for(split.image_ids)
+        # the device bank's rows are dense positions in [0, n): a combined
+        # store's handles ((store << 40) | row) fit no int32 and index no
+        # one table
+        self._bank_rows = (store.dense_rows(self._rows).astype(np.int32)
+                           if device_bank else None)
 
     def __len__(self) -> int:
         return -(-len(self.split) // self.batch_size)
@@ -106,9 +123,16 @@ class VqaBatches:
             return None if values is None else values[idx].astype(dtype)
 
         has_n = split.soft_n is not None
+        feats = scale = rows = None
+        if self._bank_rows is not None:
+            rows = self._bank_rows[idx]
+        elif np.dtype(self.feature_dtype) == np.int8:
+            feats, scale = self.store.gather_rows_quantized(self._rows[idx])
+        else:
+            feats = self.store.gather_rows(self._rows[idx],
+                                           dtype=self.feature_dtype)
         return Batch(
-            image_features=self.store.gather_rows(self._rows[idx],
-                                                  dtype=self.feature_dtype),
+            image_features=feats,
             questions=split.questions[idx].astype(np.int32),
             answers=split.answers[idx].astype(np.int32),
             ques_length=split.ques_length[idx].astype(np.int32),
@@ -120,6 +144,8 @@ class VqaBatches:
             answer_types=field(split.answer_types, np.int32),
             question_ids=field(split.question_ids, np.int64),
             question_types=field(split.question_types, np.int32),
+            feature_scale=scale,
+            image_rows=rows,
         )
 
     def epoch(self, epoch_index: Optional[int] = None,

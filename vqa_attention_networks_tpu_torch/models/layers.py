@@ -261,8 +261,33 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return torch.where(mask, x / keep_x, torch.zeros_like(x))
 
 
+class _SignedSqrt(torch.autograd.Function):
+    """``signed_sqrt`` with its gradient in one step: g / (2 sqrt|x|), and
+    exactly 0 where x == 0, the values autograd gives through the composed
+    expression (``grad / (2 * result)`` of each sqrt, masked by its relu),
+    bit for bit. Through the composition, each sqrt's backward divides by
+    a 0 result on every element (one of the two branches is 0 there), and
+    makes an inf or, where the incoming gradient is 0, a NaN that the relu
+    then masks; ``torch.autograd.set_detect_anomaly`` (``Config.
+    debug_nans``) would stop on that NaN in every training step."""
+
+    @staticmethod
+    def forward(ctx, x):
+        root = torch.sqrt(torch.abs(x))
+        ctx.save_for_backward(x, root)
+        return torch.sqrt(torch.relu(x)) - torch.sqrt(torch.relu(-x))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, root = ctx.saved_tensors
+        return torch.where(x == 0, torch.zeros_like(g), g / (2 * root))
+
+
 def signed_sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Power normalisation sqrt(relu(x)) - sqrt(relu(-x))."""
+    """Power normalisation sqrt(relu(x)) - sqrt(relu(-x)); its gradient
+    is 0 where x == 0 (``_SignedSqrt``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SignedSqrt.apply(x)
     return torch.sqrt(torch.relu(x)) - torch.sqrt(torch.relu(-x))
 
 

@@ -139,7 +139,12 @@ class MHBCoAtt(nn.Module):
                 "K1 weights are not laid out: load the weights with "
                 "weights.load_jax_params (or call prepare())"
             )
-        if self._stage1_state() != self._stage1_key:
+        # under torch.export (aot.export_serving) the parameters and the
+        # laid-out buffers are the program's inputs, traced tensors with no
+        # storage to compare: the program takes the buffers as they are,
+        # and the engine lays them out once, at load
+        if not torch.compiler.is_exporting() and \
+                self._stage1_state() != self._stage1_key:
             self.prepare()
         return wqf.Stage1Weights(
             **{f: getattr(self, f"stage1_{f}") for f in _STAGE1_FIELDS},

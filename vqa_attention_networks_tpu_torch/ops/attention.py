@@ -6,10 +6,12 @@
     out = concat_g(sum_p w_g[p] * v[p])    [N, G*D]
 
 Dispatch (``pallas_attention.py:162-177``): at bf16 with ``VQA_PALLAS_GLIMPSE``
-set and ``VQA_DISABLE_PALLAS`` not set (both read at each call) the block
-runs as K7: on a CUDA tensor the
-hand-written kernel (``csrc/glimpse_attention.cu``), on a CPU tensor its
-plain version. Otherwise the plain version runs, the math of the composed
+set and ``VQA_DISABLE_PALLAS`` not set (both read at each call, and at
+trace time under ``torch.export``) the block runs as K7, the custom op
+``torch.ops.vqa.glimpse_attention``, which dispatches by device: on a CUDA
+tensor the hand-written kernel (``csrc/glimpse_attention.cu``), on a CPU
+tensor its plain version; its fake implementation gives the output's
+shape, so ``torch.export`` keeps the call as one node. Otherwise the plain version runs, the math of the composed
 twin ``_glimpse_reference`` (``pallas_attention.py:109-128``). The TPU
 gate's ``n % 8`` is its block of 8 samples; the port's K7 takes any N.
 
@@ -145,6 +147,27 @@ def glimpse_attention_cuda(x, w1, b1, w2, b2, v, *,
     return out
 
 
+@torch.library.custom_op("vqa::glimpse_attention", mutates_args=(),
+                         device_types="cpu")
+def glimpse_attention_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor, v: torch.Tensor,
+                         uniform_quirk: bool) -> torch.Tensor:
+    """K7 as an op; on a CPU tensor, the plain version."""
+    return glimpse_attention_reference(x, w1, b1, w2, b2, v,
+                                       uniform_quirk=uniform_quirk)
+
+
+@glimpse_attention_op.register_kernel("cuda")
+def _glimpse_attention_on_the_card(x, w1, b1, w2, b2, v, uniform_quirk):
+    return glimpse_attention_cuda(x, w1, b1, w2, b2, v,
+                                  uniform_quirk=uniform_quirk)
+
+
+@glimpse_attention_op.register_fake
+def _glimpse_attention_shape(x, w1, b1, w2, b2, v, uniform_quirk):
+    return x.new_empty((x.shape[0], w2.shape[0] * v.shape[2]))
+
+
 def glimpse_attention(
     x: torch.Tensor,  # [N, P, C] features the MLP scores
     w1: torch.Tensor, b1: torch.Tensor,  # [A, C], [A] (PyTorch layout)
@@ -155,15 +178,13 @@ def glimpse_attention(
     reference_kernel: bool = False,
 ) -> torch.Tensor:
     """-> [N, G*D] in x's dtype: K7 at bf16 under ``VQA_PALLAS_GLIMPSE``
-    (its plain version on a CPU tensor), the plain version else.
+    (the op: its plain version on a CPU tensor), the plain version else.
     ``reference_kernel=True`` runs the plain version on any device, for
     the comparisons of the tests and ``chip_smoke.py`` only."""
     use_kernel = (x.dtype == torch.bfloat16
                   and os.environ.get("VQA_PALLAS_GLIMPSE")
-                  and not kernels_disabled()
-                  and not reference_kernel and x.device.type != "cpu")
+                  and not kernels_disabled() and not reference_kernel)
     if use_kernel:
-        return glimpse_attention_cuda(x, w1, b1, w2, b2, v,
-                                      uniform_quirk=uniform_quirk)
+        return glimpse_attention_op(x, w1, b1, w2, b2, v, uniform_quirk)
     return glimpse_attention_reference(x, w1, b1, w2, b2, v,
                                        uniform_quirk=uniform_quirk)

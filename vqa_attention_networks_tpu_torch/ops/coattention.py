@@ -15,10 +15,13 @@ The products take the input dtype's operands with f32 accumulation. The
 biases of ``fc_Whv`` and ``fc_Whq`` are dropped, exactly: each adds one
 constant to every position of its softmax, which is shift-invariant.
 
-- ``coattention_core`` dispatches: a CPU tensor goes to the plain PyTorch
-  version, a CUDA tensor to the hand-written kernel (``csrc/coattention.cu``),
-  which raises on an input it does not take. Nothing catches an error to
-  fall back.
+- ``coattention_core`` calls the custom op ``torch.ops.vqa.
+  coattention_core``, which dispatches by device: a CPU tensor goes to the
+  plain PyTorch version, a CUDA tensor to the hand-written kernel
+  (``csrc/coattention.cu``), which raises on an input it does not take.
+  Nothing catches an error to fall back. The op's fake implementation
+  gives its outputs' shapes, so ``torch.export`` keeps the call as one
+  node (``aot.export_serving``).
 - ``coattention_core_reference`` is the plain version, with the kernel's
   rounding points (``pallas_coattention.py:54-82``).
 - ``launch_count`` counts the kernel launches.
@@ -185,13 +188,42 @@ def coattention_core_cuda(img, que, cv, cq, img_w, que_w, whv,
     return v, q, av, aq
 
 
+@torch.library.custom_op("vqa::coattention_core", mutates_args=(),
+                         device_types="cpu")
+def coattention_core_op(img: torch.Tensor, que: torch.Tensor,
+                        cv: torch.Tensor, cq: torch.Tensor,
+                        img_w: torch.Tensor, que_w: torch.Tensor,
+                        whv: torch.Tensor, whq: torch.Tensor,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """K4 as an op; on a CPU tensor, the plain version."""
+    return coattention_core_reference(img, que, cv, cq, img_w, que_w, whv,
+                                      whq)
+
+
+@coattention_core_op.register_kernel("cuda")
+def _coattention_core_on_the_card(img, que, cv, cq, img_w, que_w, whv,
+                                  whq):
+    return coattention_core_cuda(img, que, cv, cq, img_w, que_w, whv, whq)
+
+
+@coattention_core_op.register_fake
+def _coattention_core_shapes(img, que, cv, cq, img_w, que_w, whv, whq):
+    n, l, e = img.shape
+    f32 = torch.float32
+    return (img.new_empty((n, e), dtype=f32), img.new_empty((n, e), dtype=f32),
+            img.new_empty((n, l), dtype=f32),
+            img.new_empty((n, que.shape[1]), dtype=f32))
+
+
 def coattention_core(img, que, cv, cq, img_w, que_w, whv, whq, *,
                      reference_kernel: bool = False) -> Outputs:
     """Dispatching entry -> (v [N, E], q [N, E], av [N, L], aq [N, T]), all
-    f32: the plain version for a CPU tensor, the kernel for a CUDA tensor.
-    ``reference_kernel=True`` runs the plain version on any device, for
-    the comparisons of the tests and ``chip_smoke.py`` only."""
-    if reference_kernel or img.device.type == "cpu":
+    f32: the op, which runs the plain version on a CPU tensor and the
+    kernel on a CUDA tensor. ``reference_kernel=True`` runs the plain
+    version on any device, for the comparisons of the tests and
+    ``chip_smoke.py`` only."""
+    if reference_kernel:
         return coattention_core_reference(img, que, cv, cq, img_w, que_w,
                                           whv, whq)
-    return coattention_core_cuda(img, que, cv, cq, img_w, que_w, whv, whq)
+    return coattention_core_op(img, que, cv, cq, img_w, que_w, whv, whq)

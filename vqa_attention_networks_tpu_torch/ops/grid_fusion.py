@@ -14,10 +14,13 @@ Inference:
 - bf16: the weight-contracted formulation (``ops/fusion.py``), unless
   ``VQA_FORCE_PALLAS`` is set (read at each call, as
   ``pallas_fusion.py:267`` reads it). With it set, K5 computes the full
-  fusion, f32 [N, L, O]: on a CUDA tensor the hand-written kernel (the K2
-  forward kernel with its mask compiled out, ``csrc/train_fusion.cu``
-  ``train_fusion_inference_forward``), on a CPU tensor its plain version
-  ``grid_fuse_reference``. The operands are those of
+  fusion, f32 [N, L, O], through the custom op ``torch.ops.vqa.
+  inference_fusion``, which dispatches by device: on a CUDA tensor the
+  hand-written kernel (the K2 forward kernel with its mask compiled out,
+  ``csrc/train_fusion.cu`` ``train_fusion_inference_forward``), on a CPU
+  tensor its plain version ``grid_fuse_reference``. The op's fake
+  implementation gives its output's shape, so ``torch.export`` keeps the
+  call as one node. The operands are those of
   ``_grid_fuse_pallas`` (``pallas_fusion.py:106-108``): W rounded to img's
   dtype, b and q exact in f32. The JAX gates ``n % 4`` and ``F % k`` of
   the TPU kernel's blocks do not apply: the port's K5 masks its edges.
@@ -99,6 +102,26 @@ def inference_fusion_cuda(img: torch.Tensor, w: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("vqa::inference_fusion", mutates_args=(),
+                         device_types="cpu")
+def inference_fusion_op(img: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        q_proj: torch.Tensor, k: int) -> torch.Tensor:
+    """K5 as an op; on a CPU tensor, the plain version."""
+    return grid_fuse_reference(img, w, b, q_proj, k)
+
+
+@inference_fusion_op.register_kernel("cuda")
+def _inference_fusion_on_the_card(img, w, b, q_proj, k):
+    return inference_fusion_cuda(img, w, b, q_proj, k)
+
+
+@inference_fusion_op.register_fake
+def _inference_fusion_shape(img, w, b, q_proj, k):
+    n, l, _ = img.shape
+    return img.new_empty((n, l, w.shape[1] // k),
+                         dtype=torch.promote_types(img.dtype, torch.float32))
+
+
 def grid_fuse(
     img: torch.Tensor,  # [N, L, D]
     w: torch.Tensor,  # [D, F] (JAX layout)
@@ -127,10 +150,9 @@ def grid_fuse(
             return grid_fuse_reference(img, w, b, q_proj, k)
         if not os.environ.get("VQA_FORCE_PALLAS"):
             return grid_fuse_weight_contracted(img, w, b, q_proj, k)
-        if kernels_disabled() or reference_kernel or \
-                img.device.type == "cpu":
+        if kernels_disabled() or reference_kernel:
             return grid_fuse_reference(img, w, b, q_proj, k)
-        return inference_fusion_cuda(img, w, b, q_proj, k)
+        return inference_fusion_op(img, w, b, q_proj, k)
     if site == "pooled":
         return grid_fuse_pooled(img, w, b, q_proj, k, rate=rate,
                                 generator=generator,

@@ -10,10 +10,14 @@ Per sample, with the fusion axis refactored output-major into k factors:
     att      = softmax_L(relu(zb @ c1w + c1b) @ c2w + c2b)
     out      = att^T @ img                       [G, D] -> [G*D]
 
-- ``stage1_coattention`` dispatches: a CPU tensor goes to the plain PyTorch
-  version, a CUDA tensor to the hand-written kernel
+- ``stage1_coattention`` calls the custom op ``torch.ops.vqa.
+  stage1_coattention``, which dispatches by device: a CPU tensor goes to
+  the plain PyTorch version, a CUDA tensor to the hand-written kernel
   (``csrc/stage1_coattention.cu``), which raises on an input it does not
-  take. Nothing catches an error to fall back.
+  take. Nothing catches an error to fall back. Being an op, with a fake
+  implementation that gives its output's shape, the call survives
+  ``torch.export`` (``aot.export_serving``) as one node, and the exported
+  program picks the device's implementation when it runs.
 - ``stage1_coattention_reference`` is the plain version. It keeps K1's own
   rounding points (``pallas_wq_fusion.py:165-202``): W and b f32, q rounded
   to bf16; wq built in f32 and rounded to bf16 once; pooled accumulated in
@@ -273,10 +277,37 @@ def stage1_coattention_cuda(img: torch.Tensor, q_proj: torch.Tensor,
     return out.reshape(n, g * d)
 
 
+@torch.library.custom_op("vqa::stage1_coattention", mutates_args=(),
+                         device_types="cpu")
+def stage1_coattention_op(img: torch.Tensor, q_proj: torch.Tensor,
+                          w3: torch.Tensor, b3: torch.Tensor,
+                          c1w: torch.Tensor, c1b: torch.Tensor,
+                          c2w: torch.Tensor, c2b: torch.Tensor, o: int,
+                          k: int) -> torch.Tensor:
+    """K1 as an op over ``Stage1Weights``' fields; on a CPU tensor, the
+    plain version."""
+    return stage1_coattention_reference(
+        img, q_proj, Stage1Weights(w3, b3, c1w, c1b, c2w, c2b, o, k))
+
+
+@stage1_coattention_op.register_kernel("cuda")
+def _stage1_coattention_on_the_card(img, q_proj, w3, b3, c1w, c1b, c2w,
+                                    c2b, o, k):
+    return stage1_coattention_cuda(
+        img, q_proj, Stage1Weights(w3, b3, c1w, c1b, c2w, c2b, o, k))
+
+
+@stage1_coattention_op.register_fake
+def _stage1_coattention_shape(img, q_proj, w3, b3, c1w, c1b, c2w, c2b, o,
+                              k):
+    return img.new_empty((img.shape[0], c2w.shape[1] * img.shape[2]),
+                         dtype=torch.bfloat16)
+
+
 def stage1_coattention(img: torch.Tensor, q_proj: torch.Tensor,
                        sw: Stage1Weights) -> torch.Tensor:
-    """Dispatching entry -> attended image feature [N, G*D] bf16: the plain
-    version for a CPU tensor, the kernel for a CUDA tensor."""
-    if img.device.type == "cpu":
-        return stage1_coattention_reference(img, q_proj, sw)
-    return stage1_coattention_cuda(img, q_proj, sw)
+    """Dispatching entry -> attended image feature [N, G*D] bf16: the op,
+    which runs the plain version on a CPU tensor and the kernel on a CUDA
+    tensor."""
+    return stage1_coattention_op(img, q_proj, sw.w3, sw.b3, sw.c1w, sw.c1b,
+                                 sw.c2w, sw.c2b, sw.o, sw.k)

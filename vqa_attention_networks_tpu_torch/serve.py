@@ -23,10 +23,17 @@
 - ``trained_params`` reads the weights ``cli.train`` exported
   (``utils/checkpoint.save_weights``) as the parameter tree the engine
   takes.
+- ``artifact_dir``: the engine serves an exported program
+  (``aot.save_serving_artifact``) in place of the eager forward, with its
+  own weights as the program's state input (``aot.model_state``, K1's
+  layout made once at load), after checking the artifact's metadata
+  against itself (JAX ``serve.py:286-332``). It refuses an artifact of a
+  family with a kernel whose graph calls none (``fast_path_traced``
+  false) where the engine's own forward would call it, and the device
+  feature cache, whose banked forward the artifact does not carry.
 
-Not ported yet (each raises ``NotImplementedError``): serving an exported
-artifact (ROADMAP Queue 1 item 14) and ``data_parallel > 1`` with its
-sharded bank (item 10).
+Not ported yet: ``data_parallel > 1`` with its sharded bank (ROADMAP Queue
+1 item 10) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,13 +49,13 @@ from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch import aot
 from vqa_attention_networks_tpu_torch.device import cuda_device
 from vqa_attention_networks_tpu_torch.models import get_model
+from vqa_attention_networks_tpu_torch.ops import kernels_disabled
 from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
 from vqa_attention_networks_tpu_torch.weights import (
     load_jax_params,
     to_jax_params,
 )
 
-_ARTIFACT_ITEM = "ROADMAP Queue 1 item 14 (the exported serving artifact)"
 _MULTI_GPU_ITEM = "ROADMAP Queue 1 item 10 (multi-GPU)"
 
 Fetch = Callable[[List[int]], Tuple[np.ndarray, np.ndarray]]
@@ -258,12 +265,8 @@ class InferenceEngine:
     ):
         """``params`` is a parameter tree in the JAX layout (numpy arrays),
         the same argument the JAX engine takes. ``device`` defaults to the
-        card; the CPU runs only when asked for by name."""
-        if artifact_dir is not None:
-            raise NotImplementedError(
-                f"serving an exported artifact is not ported yet: "
-                f"{_ARTIFACT_ITEM}"
-            )
+        card; the CPU runs only when asked for by name. ``artifact_dir``
+        serves the exported program there with these weights."""
         if int(data_parallel) != 1:
             raise NotImplementedError(
                 f"data_parallel serving is not ported yet: {_MULTI_GPU_ITEM}"
@@ -278,8 +281,53 @@ class InferenceEngine:
         self.topk = min(topk, cfg.a_vocab_size)
         model = get_model(self.cfg.model_name)(self.cfg).to(self.device)
         self.model = load_jax_params(model, params).eval()
-        self._fwd = aot.serving_forward(self.cfg, self.topk, input_dtype)
         self._cache: Optional[DeviceFeatureCache] = None
+        self._artifact = artifact_dir
+        if artifact_dir is None:
+            self._fwd = aot.serving_forward(self.cfg, self.topk, input_dtype)
+            return
+        program, meta = aot.load_serving_artifact(artifact_dir)
+        self._check_artifact(meta, batch_size, artifact_dir)
+        # the weights of this engine, K1's layout included (made by
+        # load_jax_params above, once)
+        state = aot.model_state(self.model)
+        self._fwd = lambda _model, *inputs: program(state, *inputs)
+
+    def _check_artifact(self, meta: dict, batch_size: int,
+                        artifact_dir: str) -> None:
+        cfg = self.cfg
+        for key, got in (
+            ("model_name", cfg.model_name),
+            ("batch_size", batch_size),
+            ("topk", self.topk),
+            ("q_vocab_size", cfg.q_vocab_size),
+            ("a_vocab_size", cfg.a_vocab_size),
+            ("max_question_length", cfg.max_question_length),
+            ("img_feature_dim", cfg.img_feature_dim),
+            ("img_feature_channel", cfg.img_feature_channel),
+            ("compute_dtype", cfg.compute_dtype),
+            ("input_dtype", self.input_dtype),
+            ("device", self.device.type),
+        ):
+            if meta[key] != got:
+                raise ValueError(
+                    f"serving artifact {key}={meta[key]!r} does not match "
+                    f"engine {key}={got!r} ({artifact_dir})")
+        # the engine's eager forward, always bf16 (an artifact of another
+        # compute dtype is refused above, for that), would call K1
+        # (mhb_coAtt unless composed) or K4 (hieCoAtten); a graph without
+        # it serves the composed chain: refuse it rather than serve it
+        # slower
+        kernel_path = (cfg.model_name in aot.FAST_PATH_MODELS
+                       and not kernels_disabled()
+                       and not (cfg.model_name == "mhb_coAtt"
+                                and cfg.fast_path == "composed"))
+        if kernel_path and not meta["fast_path_traced"]:
+            raise ValueError(
+                f"serving artifact {artifact_dir} was exported without "
+                f"{cfg.model_name}'s kernel (fast_path_traced=false, e.g. "
+                "under VQA_DISABLE_PALLAS): export it again, or serve with "
+                "fast_path='composed' / VQA_DISABLE_PALLAS set")
 
     def attach_feature_cache(self, capacity: int, fetch: Fetch,
                              num_regions: Optional[int] = None,
@@ -295,6 +343,10 @@ class InferenceEngine:
                 "the device feature cache stores the quantized layout — "
                 "construct InferenceEngine(input_dtype='int8')"
             )
+        if self._artifact is not None:
+            raise ValueError(
+                "the device feature cache needs the eager engine; the "
+                "exported artifact is a fixed per-request-feed program")
         self._cache = DeviceFeatureCache(
             self.cfg, capacity, num_regions=num_regions, channels=channels,
             device=self.device,

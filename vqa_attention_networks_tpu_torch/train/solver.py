@@ -16,19 +16,56 @@ results files, and the persistence of ``save_checkpoint`` / ``restore`` /
   count before incrementing it, so step 0 runs at ``lr``.
 - **Batches**: ``VqaBatches`` and ``prefetch`` of the port's
   ``data/dataset.py``, as the JAX Solver feeds them.
-- **The train step** (``solver.py:269-347`` with ``grad_accum_steps=1``
-  and no remat): the training forward (given the batch's ``ques_length``,
-  which MHB reads, and its ``valid`` mask, which masks the pad rows out of
-  a batch norm's statistics), the loss with its ``valid`` mask (soft cross
-  entropy, cross entropy, or ``soft_bce`` under ``loss_override``),
-  backward, Adam, then ``merge_batch_stats``: the momentum-0.1 EMA of the
-  step's batch-norm statistics into the layers' running buffers
-  (``_merge_batch_stats``, ``solver.py:70-107``; a no-op for the families
-  without batch norm). Its randomness is a pure function of
-  ``(cfg.seed + 1, step)`` (``step_randomness``): the dropout generator's
-  seed and K2's mask seed (the pooled site's mask comes from the
-  generator). So a run resumed at step s replays step s's
-  masks, as ``fold_in(base, step)`` does in JAX.
+- **Feeds** (``solver.py:188-216``): f16 rows at bf16 compute, f32 else;
+  an int8 store ships int8 rows and f16 scales, dequantised on the device
+  (``feature_bank.dequantize``, the expression of JAX's ``_dequant`` and
+  of ``aot.serving_forward``'s int8 path); under
+  ``cfg.device_feature_bank`` the whole store sits on the device
+  (``train/feature_bank.py``) and batches carry row indices, for
+  ``train()`` and ``val()`` alike, bit-equal to the host feed.
+- **The train step** (``solver.py:269-347``): the training forward (given
+  the batch's ``ques_length``, which MHB reads, and its ``valid`` mask,
+  which masks the pad rows out of a batch norm's statistics), the loss
+  with its ``valid`` mask (soft cross entropy, cross entropy, or
+  ``soft_bce`` under ``loss_override``), backward, Adam, then
+  ``merge_batch_stats``: the momentum-0.1 EMA of the step's batch-norm
+  statistics into the layers' running buffers (``_merge_batch_stats``,
+  ``solver.py:70-107``; a no-op for the families without batch norm). Its
+  randomness is a pure function of ``(cfg.seed + 1, step)``
+  (``step_randomness``): the dropout generator's seed and K2's mask seed
+  (the pooled site's mask comes from the generator). So a run resumed at
+  step s replays step s's masks, as ``fold_in(base, step)`` does in JAX.
+- **Gradient accumulation** (``grad_accum_steps = a > 1``,
+  ``solver.py:295-337``): the batch splits along dim 0 into ``a``
+  contiguous micro-batches, each differentiated on its own (backward per
+  micro-batch, so activation memory is one micro-batch's, the gradients
+  summing in ``.grad``); the sum is divided by ``a`` before Adam, the loss
+  is the micro-batches' mean and the correct count their sum. Micro-batch
+  i draws from ``step_randomness(base, step, i)``, so each has its own
+  dropout masks and its own K2 seed (K2's mask is a function of the seed
+  and the element's index within one launch: a shared seed would repeat
+  one mask). The batch-norm EMA runs once per micro-batch, in order,
+  skipping a micro-batch whose rows are all padding.
+- **Remat** (``cfg.remat``, ``solver.py:277-280``): the training forward
+  runs under ``torch.utils.checkpoint`` (non-reentrant) and is recomputed
+  in backward, K2's forward included (two launches a step). The dropout
+  generator is an explicit ``torch.Generator``, which the checkpoint does
+  not restore: it is made from its seed inside the checkpointed function,
+  so the recomputation draws the same masks and the gradients are
+  bit-equal to a run without remat. The batch-norm statistics are the
+  first forward's. Kept for parity with JAX's whole-apply
+  ``jax.checkpoint``: with one checkpoint over the whole forward the
+  backward holds all of the recomputed forward before it frees any, so
+  the peak memory does not fall (checkpoints per stage, not built, are
+  the way to lower it).
+- **Profiler and NaN trap** (``solver.py:122-124, 592-637``):
+  ``cfg.profile_steps`` runs ``torch.profiler`` (CPU, and CUDA on the card)
+  over the first steps of ``train()`` up to step ``profile_steps``, waits
+  for the last one and writes a Chrome trace under ``cfg.profile_dir``;
+  ``cfg.debug_nans`` runs each step under
+  ``torch.autograd.set_detect_anomaly``, which raises at the backward op
+  that made a NaN. A non-finite epoch loss raises ``FloatingPointError``
+  with JAX's recipe.
 - **Checkpoints** (``utils/checkpoint.py``, the port's own format) every
   ``checkpoint_every_steps`` steps and at ``save()``: the module's
   ``state_dict`` (running buffers included), Adam's (its step counters
@@ -56,15 +93,15 @@ results files, and the persistence of ``save_checkpoint`` / ``restore`` /
 - TF32 stays off: f32 products are full f32, the counterpart of the JAX
   package's ``Precision.HIGHEST``.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-gradient accumulation (and with it the batch-norm EMA per micro-batch),
-remat, the device feature bank, the int8 feature feed, and the profiler
-and NaN-trap switches (item 6); ``data_parallel``/``model_parallel`` > 1
-(item 10).
+Not ported yet: ``data_parallel``/``model_parallel`` > 1 and with them
+the sharded bank (ROADMAP Queue 1 item 10) raise ``NotImplementedError``.
+``device_feature_bank_shard`` on the one device is the replicated bank, as
+in JAX on a one-device mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -94,6 +131,10 @@ from vqa_attention_networks_tpu_torch.models import (
     mhb_coatt,
     vis_lstm,
 )
+from vqa_attention_networks_tpu_torch.train.feature_bank import (
+    FeatureBank,
+    dequantize,
+)
 from vqa_attention_networks_tpu_torch.train.losses import (
     correct_count,
     cross_entropy,
@@ -110,7 +151,6 @@ from vqa_attention_networks_tpu_torch.utils.logging import (
 from vqa_attention_networks_tpu_torch.utils.timer import Timer
 from vqa_attention_networks_tpu_torch.weights import load_jax_params
 
-_SOLVER_ITEM = "ROADMAP Queue 1 item 6 (Solver and CLIs)"
 _MULTI_GPU_ITEM = "ROADMAP Queue 1 item 10 (multi-GPU)"
 # each family's random parameter tree (its ``init_params``)
 _INIT_PARAMS = {
@@ -133,14 +173,14 @@ def init_params(cfg: Config, generator: torch.Generator) -> Dict:
     return _INIT_PARAMS[cfg.model_name](cfg, generator)
 
 
-def _unported(what: str, item: str = _SOLVER_ITEM) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet: {item}")
-
-
-def step_randomness(base: int, step: int) -> Tuple[int, int]:
-    """(dropout generator seed, K2 mask seed) of training step ``step``: a
-    pure function of ``(base, step)``, so a resumed run replays it."""
-    w = np.random.SeedSequence([base, step]).generate_state(3, np.uint32)
+def step_randomness(base: int, step: int,
+                    micro: Optional[int] = None) -> Tuple[int, int]:
+    """(dropout generator seed, K2 mask seed) of training step ``step``, or
+    of its micro-batch ``micro`` under gradient accumulation: a pure
+    function of ``(base, step[, micro])``, so a resumed run replays it (the
+    counterpart of ``fold_in(fold_in(base, step), micro)``)."""
+    key = [base, step] if micro is None else [base, step, micro]
+    w = np.random.SeedSequence(key).generate_state(3, np.uint32)
     return int(w[0]) | (int(w[1]) << 32), int(w[2]) & 0x7FFFFFFF
 
 
@@ -161,60 +201,98 @@ def make_optimizer(model: torch.nn.Module, cfg: Config) -> torch.optim.Adam:
 
 def merge_batch_stats(model: torch.nn.Module,
                       batch_stats: Optional[Mapping[str, Mapping[
-                          str, torch.Tensor]]]) -> None:
-    """EMA one step's batch-norm statistics (a forward's
-    ``aux["batch_stats"]``: layer name -> {"mean", "var"}) into the
-    layers' running buffers: ``(1 - BN_MOMENTUM) * running + BN_MOMENTUM
-    * batch``, as ``_merge_batch_stats`` does for one micro-batch."""
+                          str, torch.Tensor]]],
+                      live: Optional[torch.Tensor] = None) -> None:
+    """EMA one forward's batch-norm statistics (its ``aux["batch_stats"]``:
+    layer name -> {"mean", "var"}) into the layers' running buffers:
+    ``(1 - BN_MOMENTUM) * running + BN_MOMENTUM * batch``, as
+    ``_merge_batch_stats`` does for one micro-batch. Where the boolean
+    ``live`` is false (a micro-batch of padding only) the buffers keep
+    their values, as JAX's ``where(micro_valid[i] > 0, ...)``."""
     with torch.no_grad():
         for layer, stats in (batch_stats or {}).items():
             module = model.get_submodule(layer)
             for key, batch in stats.items():
                 running = getattr(module, key)
-                running.copy_((1 - BN_MOMENTUM) * running
-                              + BN_MOMENTUM * batch)
+                merged = (1 - BN_MOMENTUM) * running + BN_MOMENTUM * batch
+                if live is not None:
+                    merged = torch.where(live, merged, running)
+                running.copy_(merged)
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               loss_fn, img: torch.Tensor, ques: torch.Tensor,
+               loss_fn: Callable[[torch.Tensor, slice], torch.Tensor],
+               img: torch.Tensor, ques: torch.Tensor,
                ques_length: Optional[torch.Tensor] = None, *, lr: float,
-               generator: torch.Generator, fusion_seed: int,
+               randomness: Callable[[Optional[int]], Tuple[
+                   Callable[[], torch.Generator], int]],
                valid: Optional[torch.Tensor] = None,
-               reference_kernels: bool = False,
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One step: training forward, ``loss_fn(logits)``, backward, Adam at
-    ``lr``, then the batch-norm statistics merged into the running
-    buffers. Returns (loss, logits), both detached."""
+               reference_kernels: bool = False, grad_accum_steps: int = 1,
+               remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step, the Solver's: ``grad_accum_steps`` micro-batches (rows
+    ``rows = slice(i * m, (i + 1) * m)``, contiguous along dim 0), each a
+    training forward, ``loss_fn(logits, rows)`` and its backward into
+    ``.grad``; the summed gradients divided by ``a``, Adam at ``lr``, then
+    each micro-batch's batch-norm statistics merged in order, skipping a
+    micro-batch of padding only. ``randomness(i)`` gives micro-batch i's
+    (``None`` when ``a == 1``) dropout generator factory and K2 mask seed.
+    The generator is made inside the forward: under ``remat`` the forward
+    runs again in the backward (``torch.utils.checkpoint``), and a
+    generator made from its seed there draws the same masks again (the
+    checkpoint restores only the default generators, which no mask draws
+    from). Returns (loss, logits), detached: the micro-batches' mean loss
+    and their logits in batch order."""
+    a = grad_accum_steps
+    m = img.shape[0] // a
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.zero_grad(set_to_none=True)
-    logits, aux = model(img, ques, ques_length, train=True, valid=valid,
-                        generator=generator, fusion_seed=fusion_seed,
-                        reference_kernels=reference_kernels, aux=True)
-    loss = loss_fn(logits)
-    loss.backward()
+    live = (valid.reshape(a, m).any(1) if a > 1 and valid is not None
+            else None)
+    losses, logits_all, stats = [], [], []
+    for i in range(a):
+        rows = slice(i * m, (i + 1) * m)
+        make_generator, fusion_seed = randomness(i if a > 1 else None)
+
+        def forward(img, ques, ques_length, valid):
+            return model(img, ques, ques_length, train=True, valid=valid,
+                         generator=make_generator(), fusion_seed=fusion_seed,
+                         reference_kernels=reference_kernels, aux=True)
+
+        micro = [None if x is None else x[rows]
+                 for x in (img, ques, ques_length, valid)]
+        if remat:
+            logits, aux = torch.utils.checkpoint.checkpoint(
+                forward, *micro, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            logits, aux = forward(*micro)
+        loss = loss_fn(logits, rows)
+        loss.backward()
+        losses.append(loss.detach())
+        logits_all.append(logits.detach())
+        stats.append(aux.get("batch_stats"))
+    if a > 1:
+        # the mean gradient, as JAX's sum over the scan divided by a
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(a)
     optimizer.step()
-    merge_batch_stats(model, aux.get("batch_stats"))
-    return loss.detach(), logits.detach()
+    for i, batch_stats in enumerate(stats):
+        merge_batch_stats(model, batch_stats,
+                          None if live is None else live[i])
+    if a == 1:
+        return losses[0], logits_all[0]
+    return sum(losses) / a, torch.cat(logits_all)
 
 
-def _check_ported(cfg: Config, store: FeatureStore) -> None:
+def _check_ported(cfg: Config) -> None:
     if cfg.model_name not in TRAINABLE:
         raise ValueError(f"the Solver does not train {cfg.model_name!r}")
     if cfg.data_parallel > 1 or cfg.model_parallel > 1:
-        raise _unported("data_parallel / model_parallel > 1", _MULTI_GPU_ITEM)
-    switches = {
-        "gradient accumulation (grad_accum_steps > 1)":
-            cfg.grad_accum_steps != 1,
-        "remat": cfg.remat,
-        "the device feature bank": cfg.device_feature_bank,
-        "profile_steps": cfg.profile_steps > 0,
-        "debug_nans": cfg.debug_nans,
-        "the int8 feature feed": bool(getattr(store, "quantized", False)),
-    }
-    for what, asked in switches.items():
-        if asked:
-            raise _unported(what)
+        raise NotImplementedError(
+            "data_parallel / model_parallel > 1 is not ported to PyTorch "
+            f"yet: {_MULTI_GPU_ITEM}")
 
 
 class Solver:
@@ -238,7 +316,7 @@ class Solver:
         comparisons of ``chip_smoke.py``. ``log_dir`` turns on the metric
         writer (``<log_dir>/<model>/events.jsonl``)."""
         cfg.validate()
-        _check_ported(cfg, store)
+        _check_ported(cfg)
         self.cfg = cfg
         self.device = torch.device(device) if device is not None \
             else cuda_device()
@@ -257,9 +335,21 @@ class Solver:
                        if log_dir is not None else NullMetricWriter())
         self.step = 0
         self._rng_base = cfg.seed + 1
-        feature_dtype = (
-            np.float16 if cfg.compute_dtype == "bfloat16" else np.float32
-        )
+        # the feed (solver.py:188-216): f16 rows at bf16 compute (the model
+        # casts on the device), f32 else; an int8 store ships int8 rows and
+        # f16 scales, dequantised on the device in _dequant_dtype
+        bf16 = cfg.compute_dtype == "bfloat16"
+        quantized = bool(getattr(store, "quantized", False))
+        self._dequant_dtype = torch.bfloat16 if bf16 else torch.float32
+        feature_dtype = (np.int8 if quantized
+                         else np.float16 if bf16 else np.float32)
+        self.bank: Optional[FeatureBank] = None
+        if cfg.device_feature_bank:
+            self.bank = FeatureBank(
+                store, self._dequant_dtype if quantized
+                else torch.float16 if bf16 else torch.float32,
+                cfg.device_feature_bank_budget, self.device)
+        self.profile_trace: Optional[str] = None  # set by train()
         self.batches = {
             split: VqaBatches(
                 getattr(qa_data, split), store,
@@ -267,6 +357,7 @@ class Solver:
                 soft_answer=cfg.soft_answer,
                 shuffle=(cfg.shuffle and split == "train"), seed=cfg.seed,
                 feature_dtype=feature_dtype,
+                device_bank=self.bank is not None,
             )
             for split in ("train", "val")
         }
@@ -304,26 +395,44 @@ class Solver:
 
         soft = (put(batch.soft_answers) if batch.soft_answers is not None
                 else None)
-        return (put(batch.image_features), put(batch.questions),
-                put(batch.ques_length), put(batch.answers).long(),
-                put(batch.valid), soft)
+        if self.bank is not None:
+            img = self.bank.lookup(put(batch.image_rows).long())
+        elif batch.feature_scale is not None:
+            img = dequantize(put(batch.image_features),
+                             put(batch.feature_scale), self._dequant_dtype)
+        else:
+            img = put(batch.image_features)
+        return (img, put(batch.questions), put(batch.ques_length),
+                put(batch.answers).long(), put(batch.valid), soft)
+
+    def _dropout_generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _randomness(self, micro: Optional[int]):
+        gen_seed, fusion_seed = step_randomness(self._rng_base, self.step,
+                                                micro)
+        return (lambda: self._dropout_generator(gen_seed)), fusion_seed
 
     def _train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One step at ``self.step`` -> (loss, correct count), on the
+        """``train_step`` at ``self.step`` -> (loss, correct count), on the
         device."""
         img, ques, qlen, answers, valid, soft = self._device_batch(batch)
-        gen_seed, fusion_seed = step_randomness(self._rng_base, self.step)
-        generator = torch.Generator(device=self.device).manual_seed(gen_seed)
         self.model.train()
-        loss, logits = train_step(
-            self.model, self.optimizer,
-            lambda out: self._loss(out, answers, soft, valid),
-            img, ques, qlen, lr=learning_rate(self.cfg, self.step),
-            generator=generator, fusion_seed=fusion_seed, valid=valid,
-            reference_kernels=self.reference_kernels,
-        )
-        correct = correct_count(logits, self._labels(answers, soft), valid)
-        return loss, correct
+        trap = (torch.autograd.set_detect_anomaly(True)
+                if self.cfg.debug_nans else contextlib.nullcontext())
+        with trap:
+            loss, logits = train_step(
+                self.model, self.optimizer,
+                lambda out, rows: self._loss(
+                    out, answers[rows], None if soft is None else soft[rows],
+                    valid[rows]),
+                img, ques, qlen, lr=learning_rate(self.cfg, self.step),
+                randomness=self._randomness, valid=valid,
+                reference_kernels=self.reference_kernels,
+                grad_accum_steps=self.cfg.grad_accum_steps,
+                remat=self.cfg.remat)
+        return loss, correct_count(logits, self._labels(answers, soft),
+                                   valid)
 
     def _eval_step(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
         """The eval forward on one batch -> (loss, correct, top-3 correct,
@@ -363,58 +472,110 @@ class Solver:
         # a mid-epoch checkpoint resumes inside its epoch: the shuffle is a
         # function of (seed, epoch), so the trained prefix is skipped
         start_epoch, skip_batches = divmod(self.step, iters_per_epoch)
-        for epoch in range(start_epoch, cfg.num_epoch):
-            timer = Timer()
-            timer.tic()
-            seen = 0
-            start_b = skip_batches if epoch == start_epoch else 0
-            workers = min(cfg.prefetch_workers, os.cpu_count() or 1)
-            if workers > 1:
-                stream = self.batches["train"].parallel_epoch(
-                    epoch, start_batch=start_b, workers=workers)
-            else:
-                stream = prefetch(
-                    self.batches["train"].epoch(epoch, start_batch=start_b))
-            for batch in stream:
-                loss_d, correct_d = self._train_step(batch)
-                if on_step is not None:
-                    on_step(self.step, loss_d)
-                self.step += 1
-                seen += int(batch.valid.sum())
-                if (cfg.checkpoint_every_steps
-                        and self.step % cfg.checkpoint_every_steps == 0):
-                    self.save_checkpoint()
-            # one sync per epoch for the metrics
-            loss = float(loss_d)
-            acc = float(correct_d) / max(int(batch.valid.sum()), 1)
-            if not np.isfinite(loss):
-                raise FloatingPointError(
-                    f"non-finite train loss at epoch {epoch} step "
-                    f"{self.step}; drop to --compute_dtype float32 to rule "
-                    f"out bf16 overflow"
-                )
-            qps = seen / max(timer.toc(average=False), 1e-9)
-            val_loss, val_acc = self.val()
-            print(
-                f">>> epoch {epoch} step {self.step} | train loss {loss:.5f} "
-                f"acc {acc:.4f} | val loss {val_loss:.5f} acc {val_acc:.4f} "
-                f"| {qps:.0f} qa-pairs/s"
-            )
-            self.writer.add_scalars(
-                f"{cfg.model_name}/loss",
-                {"train loss": loss, "val loss": val_loss}, self.step)
-            self.writer.add_scalars(
-                f"{cfg.model_name}/acc",
-                {"train acc": acc, "val acc": val_acc}, self.step)
-            self.writer.add_scalar(f"{cfg.model_name}/qa_pairs_per_sec", qps,
-                                   self.step)
-            last = {"train_loss": loss, "train_acc": acc,
-                    "val_loss": val_loss, "val_acc": val_acc, "qps": qps}
-            if cfg.early_stopping and self._early_stop(val_loss, val_acc):
-                print(f"validation {cfg.early_stop_metric} has not improved "
-                      f"for {cfg.patience} epochs, stopping")
-                break
+        with self._profiler() as profiler:
+            for epoch in range(start_epoch, cfg.num_epoch):
+                last, stop = self._epoch(epoch, start_epoch, skip_batches,
+                                         on_step, profiler)
+                if stop:
+                    break
         return last
+
+    @contextlib.contextmanager
+    def _profiler(self):
+        """``torch.profiler`` over the first steps (``cfg.profile_steps``),
+        or nothing. Yields a callable that the epoch loop calls after each
+        step: it stops the profiler, once the last profiled step is done
+        on the device, and writes the trace."""
+        cfg = self.cfg
+        if cfg.profile_steps <= 0:
+            yield lambda: None
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        running = [True]
+
+        def after_step():
+            if running[0] and self.step >= cfg.profile_steps:
+                running[0] = False
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                prof.stop()
+                os.makedirs(cfg.profile_dir, exist_ok=True)
+                self.profile_trace = os.path.join(
+                    cfg.profile_dir, f"{cfg.model_name}_trace.json")
+                prof.export_chrome_trace(self.profile_trace)
+
+        try:
+            yield after_step
+        finally:
+            if running[0]:  # the run ended before step profile_steps
+                running[0] = False
+                prof.stop()
+
+    def _epoch(self, epoch: int, start_epoch: int, skip_batches: int,
+               on_step, after_step) -> Tuple[Dict[str, float], bool]:
+        """One epoch of ``train()`` -> (its metrics, whether early stopping
+        ends the run)."""
+        cfg = self.cfg
+        timer = Timer()
+        timer.tic()
+        seen = 0
+        start_b = skip_batches if epoch == start_epoch else 0
+        workers = min(cfg.prefetch_workers, os.cpu_count() or 1)
+        if workers > 1:
+            stream = self.batches["train"].parallel_epoch(
+                epoch, start_batch=start_b, workers=workers)
+        else:
+            stream = prefetch(
+                self.batches["train"].epoch(epoch, start_batch=start_b))
+        for batch in stream:
+            loss_d, correct_d = self._train_step(batch)
+            if on_step is not None:
+                on_step(self.step, loss_d)
+            self.step += 1
+            after_step()
+            seen += int(batch.valid.sum())
+            if (cfg.checkpoint_every_steps
+                    and self.step % cfg.checkpoint_every_steps == 0):
+                self.save_checkpoint()
+        # one sync per epoch for the metrics
+        loss = float(loss_d)
+        acc = float(correct_d) / max(int(batch.valid.sum()), 1)
+        if not np.isfinite(loss):
+            raise FloatingPointError(
+                f"non-finite train loss at epoch {epoch} step {self.step}. "
+                f"Recipe: rerun with Config.debug_nans=1 (traps the "
+                f"originating op), check the feature store for clamp "
+                f"warnings (data/feature_store.py), or drop to "
+                f"--compute_dtype float32 to rule out bf16 overflow."
+            )
+        qps = seen / max(timer.toc(average=False), 1e-9)
+        val_loss, val_acc = self.val()
+        print(
+            f">>> epoch {epoch} step {self.step} | train loss {loss:.5f} "
+            f"acc {acc:.4f} | val loss {val_loss:.5f} acc {val_acc:.4f} "
+            f"| {qps:.0f} qa-pairs/s"
+        )
+        self.writer.add_scalars(
+            f"{cfg.model_name}/loss",
+            {"train loss": loss, "val loss": val_loss}, self.step)
+        self.writer.add_scalars(
+            f"{cfg.model_name}/acc",
+            {"train acc": acc, "val acc": val_acc}, self.step)
+        self.writer.add_scalar(f"{cfg.model_name}/qa_pairs_per_sec", qps,
+                               self.step)
+        last = {"train_loss": loss, "train_acc": acc,
+                "val_loss": val_loss, "val_acc": val_acc, "qps": qps}
+        if cfg.early_stopping and self._early_stop(val_loss, val_acc):
+            print(f"validation {cfg.early_stop_metric} has not improved "
+                  f"for {cfg.patience} epochs, stopping")
+            return last, True
+        return last, False
 
     def _early_stop(self, val_loss: float, val_acc: float) -> bool:
         """Record one epoch's val metric (loss, solver.py:160-172, or acc,
