@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards N   # phases 33-34 alone over N cards
 
 Phases, one line each (a failing phase raises and the exit code is not 0):
 
@@ -236,6 +237,26 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     ``InferenceEngine(artifact_dir=...)`` beside the eager engine: the
     answers bit-equal, K1 or K4 once per call, ``fast_path_traced``; the
     export's seconds and both forwards' device ms;
+33. ``dp_train`` (after phase 31, on phase 4's store): the data-parallel
+    Solver, full-width bf16 mhb_coAtt at the pre-pool site, rate 0.1,
+    global batch 64, 3 steps, against one process without a process group:
+    (a) one NCCL rank; (b) two gloo ranks sharing the card (``chip_smoke.py
+    --dp-rank``, a process each; NCCL refuses two ranks on one device),
+    each launching K2 on its 32 rows. Each arm's gates (``dp_gates``): the
+    losses within the training tolerance, the first step's gradient within
+    ``DP_GRAD_RTOL`` of one process's, the masks gate (each rank's first K2
+    mask, drawn by the kernel at the row offset the rank passed, is its
+    rows of one process's), both ranks one model, K2's launches once a step
+    by kind. Two controls on (b)'s ranks: rank 1 drawing at row0 = 0, which
+    the masks gate must reject, and each rank's loss over its own valid
+    rows, which the gradient gate must reject. Losses, gradient and
+    parameter differences, K2's launches per rank and ms a step per arm
+    (two ranks on one card: correctness, not scaling); only (a)'s and (b)'s
+    launches reach the kernels line;
+34. ``dp_serve``: phase 4's weights and 2048 requests through
+    ``InferenceEngine(data_parallel=2)``, two replicas on ``cuda:0``,
+    against ``data_parallel=1``: answers bit-equal, K1 twice a batch,
+    qa-pairs/s of both;
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -296,6 +317,10 @@ from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
+from vqa_attention_networks_tpu_torch.parallel.dryrun import (
+    failures,
+    run_processes,
+)
 from vqa_attention_networks_tpu_torch.serve import (
     DeviceFeatureCache,
     InferenceEngine,
@@ -359,6 +384,16 @@ TRAIN_STEPS, TRAIN_BATCH = 20, 64
 # downstream and Adam's sign-like first steps amplify that, so their
 # losses are held over the first steps only
 TRAIN_AGREE_STEPS, TRAIN_LOSS_RTOL = 5, 1e-3
+# data parallelism (phases 33-34): dp_train's steps an arm, each arm's
+# ranks' deadline
+DP_STEPS, DP_RANK_TIMEOUT = 3, 240.0
+# a data-parallel arm's first-step gradient (after DDP's all-reduce) against
+# one process's: the relative L2 norm of the difference. On an H100 the
+# sound arms read 0 (one rank) and 2.6e-3 (two ranks: other summation
+# orders, bf16 roundings); the controls 0.20 (rank 1's mask at row0 = 0)
+# and 1.0 (each rank's loss over its own valid rows: twice the gradient,
+# which Adam's near sign-like first steps hide from the parameters)
+DP_GRAD_RTOL = 1e-2
 K4_SOURCE = "vqa_attention_networks_tpu_torch/csrc/coattention.cu"
 K4_REPLACES = "vqa_attention_networks_tpu/ops/pallas_coattention.py:106"
 K5_SOURCE = K2_SOURCE  # train_fusion_inference_forward
@@ -1284,6 +1319,17 @@ def traffic(cfg: Config) -> tuple:
                         (n_req, cfg.max_question_length)).astype(np.int32)
     ques[np.arange(cfg.max_question_length)[None, :] >= lengths[:, None]] = 0
     return image_ids, ques
+
+
+def served_params(cfg: Config, gen: torch.Generator) -> dict:
+    """Phase 4's mhb_coAtt weights, drawn from ``gen``: the co-attention's
+    at the scale that peaks the attention (xavier weights with zero biases
+    leave it near uniform)."""
+    params = init_params(cfg, gen)
+    params["co_att_conv1"]["w"] = torch.randn(cfg.mfb_out, 512,
+                                              generator=gen)
+    params["co_att_conv2"]["w"] = 3.0 * torch.randn(512, 2, generator=gen)
+    return params
 
 
 def serve_phase(phase: str, cfg: Config, params, store, counters: dict,
@@ -3421,6 +3467,369 @@ def artifact_phase(cfg: Config, params, stores: tuple, ws: str, dev,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 33-34: data parallelism (ROADMAP Queue 1 item 10a)
+# ---------------------------------------------------------------------------
+
+def dp_config(batch: int = TRAIN_BATCH) -> Config:
+    """dp_train's training: full-width bf16 mhb_coAtt at the pre-pool site
+    (K2), rate 0.1, global batch ``batch``, DP_STEPS steps."""
+    return Config(compute_dtype="bfloat16", batch_size=batch, num_epoch=1,
+                  checkpoint_every_steps=0, prefetch_workers=1)
+
+
+def dp_per_step() -> dict:
+    """K2's launches by kind in DP_STEPS pre-pool steps (img takes no
+    gradient)."""
+    return {"forward": DP_STEPS, "g_prod": DP_STEPS, "d_w": DP_STEPS,
+            "d_q": DP_STEPS, "d_img": 0}
+
+
+def l2(tree: dict) -> float:
+    """The L2 norm over every tensor of a tree, summed in f64."""
+    return sum(float(v.double().square().sum())
+               for v in tree.values()) ** 0.5
+
+
+def dp_train_arm(store_dir: str, out: str, fault: str = None,
+                 reference: str = None, batch: int = TRAIN_BATCH) -> dict:
+    """One arm's training in this process (a rank of a process group, or
+    one process without one): ``Solver.train`` from phase 7's seed over
+    DP_STEPS global batches of ``batch`` rows (a multiple of TRAIN_BATCH),
+    with K2's counters set to 0 just before it; K2's forward calls recorded
+    as (seed, row0, rows), and the first step's gradient (after DDP's
+    all-reduce) kept. ``fault`` makes a control: ``"row0"``, rank 1 draws
+    K2's mask at row0 = 0 (its rows' mask is then rank 0's); ``"count"``,
+    each rank's loss is over its own valid rows, not the global batch's.
+    ``reference``: one process's ``out``, whose final parameters and
+    first-step gradient this arm is held against; without it both are
+    saved beside ``out``. Writes the result to ``out`` as JSON."""
+    from vqa_attention_networks_tpu_torch.parallel import distributed
+
+    cfg = dp_config(batch)
+    qa, _ = train_data(cfg, DP_STEPS * batch // TRAIN_BATCH)
+    store = FeatureStore(store_dir)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    calls, real = [], tf.train_grid_fuse
+    force_zero = fault == "row0" and distributed.rank() == 1
+
+    def recorded(img, w, b, q, seed, k, rate, row0=0):
+        row0 = 0 if force_zero else row0
+        calls.append([int(seed), int(row0), int(img.shape[0])])
+        return real(img, w, b, q, seed, k, rate, row0)
+
+    tf.train_grid_fuse = recorded
+    try:
+        solver = Solver(cfg, qa, store, params=params)
+        if fault == "count":
+            own = solver._loss
+            solver._loss = (lambda logits, answers, soft, valid, count=None:
+                            own(logits, answers, soft, valid))
+        marks, grads = [], {}
+
+        def on_step(step, loss):
+            if not grads:  # outside the timed steps 2..DP_STEPS
+                grads.update({
+                    k: (torch.zeros_like(p) if p.grad is None
+                        else p.grad.detach().clone())
+                    for k, p in solver.model.named_parameters()})
+            torch.cuda.synchronize()
+            marks.append((float(loss), time.perf_counter()))
+
+        for name in tf.launch_count:
+            tf.launch_count[name] = 0
+        solver.train(on_step=on_step)
+        launches = dict(tf.launch_count)
+    finally:
+        tf.train_grid_fuse = real
+    state = {k: v.detach() for k, v in solver.model.named_parameters()}
+    result = {
+        "rank": distributed.rank(), "world": distributed.world_size(),
+        "losses": [m[0] for m in marks],
+        "ms_per_step": (marks[-1][1] - marks[0][1]) * 1e3 / (len(marks) - 1),
+        "k2_launches": launches, "k2_calls": calls,
+        "params_l1": float(sum(v.double().abs().sum()
+                               for v in state.values()))}
+    if reference is not None:
+        want = torch.load(reference + ".pt", map_location=solver.device)
+        result["max_param_diff"] = max(
+            float((state[k] - want[k]).abs().max()) for k in want)
+        want = torch.load(reference + ".grad.pt", map_location=solver.device)
+        result["grad_rel_diff"] = l2({k: grads[k] - want[k]
+                                      for k in want}) / l2(want)
+        result["grad_norm_ratio"] = l2(grads) / l2(want)
+    else:
+        torch.save(state, out + ".pt")
+        torch.save(grads, out + ".grad.pt")
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return result
+
+
+def dp_rank(spec_path: str, rank: int) -> None:
+    """``chip_smoke.py --dp-rank SPEC RANK``: one rank of a dp_train arm,
+    joined to its process group on its card."""
+    from vqa_attention_networks_tpu_torch.parallel import (
+        initialize_distributed,
+    )
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(init_method=spec["rendezvous"],
+                           world_size=spec["world"], rank=rank,
+                           device=spec["devices"][rank],
+                           backend=spec["backend"])
+    dp_train_arm(spec["store"], os.path.join(spec["work"],
+                                             f"{spec['arm']}_rank{rank}.json"),
+                 fault=spec["fault"], reference=spec["reference"],
+                 batch=spec["batch"])
+    torch.distributed.destroy_process_group()
+
+
+def dp_ranks(arm: str, world: int, backend: str, devices: list,
+             store_dir: str, work: str, reference: str, fault: str = None,
+             batch: int = TRAIN_BATCH) -> list:
+    """Run ``world`` ranks of an arm, each a process of its own on its card
+    (``devices[rank]``); a rank that fails or outlives DP_RANK_TIMEOUT
+    fails the phase (every rank is killed then)."""
+    spec = dict(arm=arm, world=world, backend=backend, store=store_dir,
+                work=work, reference=reference, fault=fault,
+                devices=devices, batch=batch,
+                rendezvous=f"file://{work}/{arm}_rendezvous")
+    path = os.path.join(work, f"{arm}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    logs = os.path.join(work, f"{arm}_logs")
+    os.makedirs(logs)
+    failed = failures(run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--dp-rank", path,
+          str(r)] for r in range(world)], env, DP_RANK_TIMEOUT, logs))
+    if failed:
+        raise AssertionError(f"dp_train {arm}: a rank failed or outlived "
+                             f"{DP_RANK_TIMEOUT} s:\n{failed}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(work, f"{arm}_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def k2_kernel_mask(seed: int, n: int, row0: int, rate: float,
+                   cfg: Config) -> torch.Tensor:
+    """The mask K2's forward kernel draws for ``n`` samples from ``row0``:
+    its output at k = 1 on zero features and weights, unit bias and q, is
+    sqrt(1 / keep) where it keeps an element and 0 where it drops one."""
+    l, d, f = cfg.img_feature_dim, cfg.img_feature_channel, cfg.fusion_dim
+    dev = torch.device("cuda", 0)
+    out = tf.forward_cuda(
+        torch.zeros(n, l, d, dtype=torch.bfloat16, device=dev),
+        torch.zeros(d, f, dtype=torch.bfloat16, device=dev),
+        torch.ones(f, device=dev), torch.ones(n, f, device=dev), seed, 1,
+        rate, row0)
+    return out != 0
+
+
+def dp_masks_agree(ranks: list, single: dict, cfg: Config) -> list:
+    """The masks gate: each rank's first K2 call draws, by the kernel, the
+    rows of the one process's first mask that the rank holds. -> per rank
+    whether it does."""
+    seed, row0, rows = single["k2_calls"][0]
+    whole = k2_kernel_mask(seed, rows, row0, cfg.dropout_fusion, cfg)
+    agree = []
+    for r in ranks:
+        r_seed, r_row0, n = r["k2_calls"][0]
+        lo = r["rank"] * n
+        part = k2_kernel_mask(r_seed, n, r_row0, cfg.dropout_fusion, cfg)
+        agree.append(r_seed == seed and torch.equal(part, whole[lo:lo + n]))
+    return agree
+
+
+def dp_loss_rel_diff(ranks: list, single: dict) -> list:
+    want = np.array(single["losses"])
+    return [float((np.abs(np.array(r["losses"]) - want)
+                   / np.abs(want)).max()) for r in ranks]
+
+
+def dp_gates(ranks: list, single: dict, masks: list) -> dict:
+    """A data-parallel arm's gates against one process at the same global
+    batch -> gate -> passed: the losses within TRAIN_LOSS_RTOL; the first
+    step's gradient within DP_GRAD_RTOL (relative L2); the masks gate;
+    every rank one model; K2 launched once a step by kind in each rank."""
+    return {
+        "losses": max(dp_loss_rel_diff(ranks, single)) <= TRAIN_LOSS_RTOL,
+        "gradient": max(r["grad_rel_diff"] for r in ranks) <= DP_GRAD_RTOL,
+        "masks": all(masks),
+        "one_model": len({r["params_l1"] for r in ranks}) == 1,
+        "k2_launches": all(r["k2_launches"] == dp_per_step()
+                           for r in ranks)}
+
+
+def dp_train_phase(store_dir: str, smi: str, cards: int = 1) -> dict:
+    """Phase 33, ``dp_train``: the data-parallel Solver at full width, bf16,
+    K2 at rate 0.1, DP_STEPS steps, global batch TRAIN_BATCH a card, each
+    arm against one process on ``cuda:0`` without a process group (the
+    plain Solver, K2 in it) at the same global batch. On one card: (a) one
+    NCCL rank; (b) two gloo ranks sharing the card (NCCL refuses two ranks
+    on one device), each launching K2 on its 32 rows. On ``cards`` > 1: N
+    NCCL ranks, a rank a card. Every such arm passes all of ``dp_gates``.
+    Two controls, on (b)'s ranks (the N cards' on more): ``control_row0``,
+    rank 1 drawing K2's mask at row0 = 0, which the masks gate must reject
+    on rank 1 alone; ``control_count``, each rank's loss over its own valid
+    rows, which the gradient gate must reject (its gradient is twice one
+    process's) while the masks gate passes. Ranks sharing one card measure
+    correctness, not scaling: their ms a step is for information. -> K2's
+    launches of the data-parallel arms' ranks (the controls' apart), by
+    kind."""
+    batch = TRAIN_BATCH * cards
+    cfg = dp_config(batch)
+    if cards == 1:
+        arms = {"nccl": (1, "nccl", ["cuda:0"]),
+                "gloo": (2, "gloo", ["cuda:0"] * 2)}
+    else:
+        arms = {"nccl": (cards, "nccl",
+                         [f"cuda:{i}" for i in range(cards)])}
+    faulty = arms["gloo" if cards == 1 else "nccl"]
+    controls = {"control_row0": "row0", "control_count": "count"}
+    with tempfile.TemporaryDirectory() as work:
+        reference = os.path.join(work, "single.json")
+        single = dp_train_arm(store_dir, reference, batch=batch)
+        torch.cuda.empty_cache()
+        runs = {name: dp_ranks(name, *spec, store_dir, work, reference,
+                               batch=batch)
+                for name, spec in arms.items()}
+        for name, fault in controls.items():
+            runs[name] = dp_ranks(name, *faulty, store_dir, work, reference,
+                                  fault=fault, batch=batch)
+        masks = {name: dp_masks_agree(ranks, single, cfg)
+                 for name, ranks in runs.items()}
+    gates = {name: dp_gates(ranks, single, masks[name])
+             for name, ranks in runs.items()}
+    fields = dict(
+        model="mhb_coAtt", cards=cards, batch=batch, steps=DP_STEPS,
+        rate=cfg.dropout_fusion, single_losses=single["losses"],
+        single_ms_per_step=single["ms_per_step"],
+        single_qa_pairs_per_s=batch * 1e3 / single["ms_per_step"],
+        single_k2_launches=single["k2_launches"],
+        grad_rtol=DP_GRAD_RTOL, loss_rtol=TRAIN_LOSS_RTOL)
+    for name, ranks in runs.items():
+        fields[name] = dict(
+            world=len(ranks), losses=[r["losses"] for r in ranks],
+            loss_rel_diff=dp_loss_rel_diff(ranks, single),
+            grad_rel_diff=[r["grad_rel_diff"] for r in ranks],
+            grad_norm_ratio=[r["grad_norm_ratio"] for r in ranks],
+            max_param_diff=[r["max_param_diff"] for r in ranks],
+            ms_per_step=[r["ms_per_step"] for r in ranks],
+            qa_pairs_per_s=batch * 1e3 / max(r["ms_per_step"]
+                                             for r in ranks),
+            k2_launches=[r["k2_launches"] for r in ranks],
+            k2_first_call=[r["k2_calls"][0] for r in ranks],
+            masks_agree=masks[name], gates=gates[name])
+    say("dp_train", **fields,
+        note=("two ranks share one card: correctness, not scaling"
+              if cards == 1 else f"a rank a card over {cards} cards"),
+        card=smi)
+    if single["k2_launches"] != dp_per_step():
+        raise AssertionError(
+            f"dp_train: one process launched K2 {single['k2_launches']}")
+    for name in arms:
+        if not all(gates[name].values()):
+            raise AssertionError(f"dp_train: the {name} arm failed a gate: "
+                                 f"{gates[name]}")
+    world = len(runs["control_row0"])
+    if masks["control_row0"] != [r != 1 for r in range(world)]:
+        raise AssertionError("dp_train: the masks gate does not reject the "
+                             "row-offset control's rank 1 alone")
+    if gates["control_count"]["gradient"] or \
+            not gates["control_count"]["masks"]:
+        raise AssertionError("dp_train: the gradient gate does not reject "
+                             "the control whose ranks count their own rows")
+    return {key: sum(r["k2_launches"][key] for name in arms
+                     for r in runs[name])
+            for key in dp_per_step()}
+
+
+def dp_serve_phase(cfg: Config, params, store, smi: str,
+                   cards: int = 1) -> int:
+    """Phase 34, ``dp_serve``: full-width bf16 mhb_coAtt (phase 4's
+    weights) served by the split-batch engine over phase 4's 2048
+    requests, against ``data_parallel=1``: on one card
+    ``InferenceEngine(data_parallel=2)`` with two replicas on ``cuda:0``;
+    on ``cards`` > 1 ``data_parallel=cards`` on its default devices,
+    ``cuda:0..N-1``. Gates: every answer bit-equal (each replica runs K1
+    on its rows, whose per-row arithmetic the batch does not change); K1
+    once a shard. -> K1's launches in the split engine's run."""
+    image_ids, ques = traffic(cfg)
+    n_req = len(ques)
+    replicas = 2 if cards == 1 else cards
+
+    def batches():
+        for s in range(0, n_req, BATCH):
+            yield store.gather(image_ids[s:s + BATCH], np.float16), \
+                ques[s:s + BATCH], None
+
+    engines = {n: InferenceEngine(
+        cfg, params, batch_size=BATCH, topk=5, data_parallel=n,
+        device=[torch.device("cuda", 0)] * n if cards == 1 else None)
+        for n in (1, replicas)}
+    runs = {n: stream(e, lambda e=e: e.predict_stream(batches()),
+                      {"K1": wqf})
+            for n, e in engines.items()}
+    preds = {n: r[0] for n, r in runs.items()}
+    equal = bit_equal(preds[replicas], preds[1])
+    flipped = sum(a.answer_id != b.answer_id
+                  for a, b in zip(preds[replicas], preds[1]))
+    launches = runs[replicas][2]["K1"]
+    say("dp_serve", model="mhb_coAtt", requests=n_req, batch=BATCH,
+        replicas=replicas,
+        devices="cuda:0 x2" if cards == 1 else f"cuda:0..{cards - 1}",
+        bit_equal=equal, answers_differ=flipped, k1_launches=launches,
+        k1_launches_one_replica=runs[1][2]["K1"],
+        qa_pairs_per_s={n: n_req / r[1] for n, r in runs.items()},
+        note=("two replicas share one card: correctness, not scaling"
+              if cards == 1 else f"a replica a card over {cards} cards"),
+        card=smi)
+    del engines
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError("dp_serve: the split engine's answers are not "
+                             "the one-replica engine's")
+    if launches != replicas * N_BATCHES:
+        raise AssertionError(f"dp_serve: K1 launched {launches} times for "
+                             f"{N_BATCHES} batches of {replicas} shards")
+    return launches
+
+
+def cards_main(cards: int) -> None:
+    """``chip_smoke.py --cards N``: phases 33 and 34 alone over N cards of
+    one host, a rank and a replica a card (``dp_train_phase`` and
+    ``dp_serve_phase`` with ``cards``): global batch 64 a card over NCCL
+    against one card at that batch, and the split engine on its default
+    devices. Builds K1 and K2 only; prints the phases' lines and
+    nvidia-smi's; a failed gate raises."""
+    _, smi = card()
+    if torch.cuda.device_count() < cards:
+        raise SystemExit(f"chip_smoke --cards {cards}: "
+                         f"{torch.cuda.device_count()} card(s) visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names = ("stage1_coattention", "train_fusion")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = make_synthetic_feature_store(tmp, list(range(N_IMAGES)))
+        dp_train_phase(tmp, smi, cards)
+        torch.cuda.empty_cache()
+        dp_serve_phase(cfg, served_params(cfg,
+                                          torch.Generator().manual_seed(0)),
+                       store, smi, cards)
+    print(smi)
+
+
 def main() -> None:
     # phase 1: the device
     card_name, smi = card()
@@ -3490,10 +3899,7 @@ def main() -> None:
         # co_att_conv2 zeroed gives a uniform attention, what a K1 with a
         # dead fusion or hidden stage gives
         gen = torch.Generator().manual_seed(0)
-        params = init_params(cfg, gen)
-        params["co_att_conv1"]["w"] = torch.randn(cfg.mfb_out, 512,
-                                                  generator=gen)
-        params["co_att_conv2"]["w"] = 3.0 * torch.randn(512, 2, generator=gen)
+        params = served_params(cfg, gen)
         blind = dict(params, co_att_conv2={"w": torch.zeros(512, 2),
                                            "b": torch.zeros(2)})
         bf16_cfg = cfg.replace(compute_dtype="bfloat16")
@@ -3698,6 +4104,18 @@ def main() -> None:
         torch.cuda.empty_cache()
         say("train_switches_time", seconds=time.perf_counter() - t0)
 
+        # phase 33: data-parallel training, K2 in every rank, on phase
+        # 4's store
+        t0 = time.perf_counter()
+        for key, n in dp_train_phase(tmp, smi).items():
+            train_launches["K2"][key] += n
+        say("dp_train_time", seconds=time.perf_counter() - t0)
+
+        # phase 34: the split-batch engine, two replicas on the card (K1)
+        t0 = time.perf_counter()
+        launches["K1"] += dp_serve_phase(cfg, params, store, smi)
+        say("dp_serve_time", seconds=time.perf_counter() - t0)
+
     # phase 21: their f32 forwards on the card against the CPU's
     families_agree(dev)
     torch.cuda.empty_cache()
@@ -3872,4 +4290,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 33, started there
+        dp_rank(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--cards"]:
+        cards_main(int(sys.argv[2]))
+    else:
+        main()

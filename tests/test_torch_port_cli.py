@@ -17,7 +17,10 @@ feature extractor):
 - the default device is the card (an error without one); the Solver's
   switches (``--grad_accum_steps``, ``--remat``, ``--device_feature_bank``)
   train, and ``--model_parallel`` > 1 reaches its refusal (ROADMAP Queue 1
-  item 10).
+  item 10b, tensor parallelism);
+- under ``torchrun --nproc_per_node 2`` (gloo CPU ranks) ``evaluate``
+  writes the one process's results files and ``train`` one checkpoint
+  directory a step and one metric stream.
 """
 
 import json
@@ -238,6 +241,54 @@ def test_cli_refusals(workspace, flags, error):
         match = "CUDA"
     else:
         common += ["--device", "cpu"]
-        match = "ROADMAP Queue 1 item"
+        match = "ROADMAP Queue 1 item 10b"
     with pytest.raises(error, match=match):
         train.main(common + flags)
+
+
+def _torchrun(module, argv, cwd):
+    """``torchrun --standalone --nproc_per_node 2 -m <module> argv`` (gloo
+    ranks on the CPU under ``--device cpu``), failing past 180 s."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    try:
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", "-m", module, *argv], cwd=cwd,
+            env=env, capture_output=True, text=True, timeout=180)
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"torchrun {module} outlived 180 s")
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    return run.stdout
+
+
+def test_cli_under_torchrun(workspace, tmp_path, capsys):
+    """``cli.train`` and ``cli.evaluate`` join torchrun's process group: the
+    evaluation of one set of weights on 2 ranks writes the one process's
+    results files, and the training writes one checkpoint directory a step
+    and one metric stream, as one process does."""
+    data_dir, _ = workspace
+    train.main(_common(data_dir) + ["--num_epoch", "1",
+                                    "--checkpoint_every_steps", "2"])
+    evaluate.main(_common(data_dir))
+    capsys.readouterr()
+    one = _results()
+    os.rename("results", "results_one")
+    _torchrun("vqa_attention_networks_tpu_torch.cli.evaluate",
+              _common(data_dir), str(tmp_path))
+    txt, record, preds = _results()
+    for rec in (record, one[1]):
+        rec.pop("time")
+    assert (txt, record, preds) == one
+    ranks = tmp_path / "ranks"
+    ranks.mkdir()
+    out = _torchrun("vqa_attention_networks_tpu_torch.cli.train",
+                    _common(data_dir) + ["--num_epoch", "1",
+                                         "--checkpoint_every_steps", "2"],
+                    str(ranks))
+    assert out.count("Training done") == 2  # each rank ends the run
+    assert sorted(os.listdir(ranks / "models" / "iBOWIMG")) == sorted(
+        os.listdir(tmp_path / "models" / "iBOWIMG"))
+    with open(ranks / "runs" / "iBOWIMG" / "events.jsonl") as f:
+        written = f.read().splitlines()
+    with open(tmp_path / "runs" / "iBOWIMG" / "events.jsonl") as f:
+        assert len(written) == len(f.read().splitlines())

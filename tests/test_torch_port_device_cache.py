@@ -195,7 +195,7 @@ def test_a_batch_over_the_capacity_is_refused():
     assert (cache.hits, cache.misses) == (0, 0)
     # repeats of two ids fit
     assert len(engine.predict_batch_by_id([0, 1, 0], ques)) == 3
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         DeviceFeatureCache(port_config(cfg), 4, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="capacity"):
         DeviceFeatureCache(port_config(cfg), 0, device="cpu")

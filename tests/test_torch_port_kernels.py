@@ -1103,3 +1103,91 @@ def test_k8_gate_refuses_shapes_the_kernel_does_not_take(h):
     x = torch.zeros(8, 4, 300, dtype=torch.bfloat16, device="cuda")
     assert lstm.supported(x, 1280)
     assert not lstm.supported(x, h)
+
+
+# K2's forward before its row offset existed, on _k2_bits_inputs (an H100,
+# CUDA 12.8): the output, and the mask it draws at k = 1 on zero features
+# and weights with unit bias and q (out = sqrt(1 / keep) where it keeps)
+K2_FORWARD_DIGEST = (
+    "df55a610ba80499c4a1416532b1db83581ad8f424fb49255947d3df6b4fd0f00")
+K2_MASK_DIGEST = (
+    "1a30573f6c4676d90674ba6d2752a0960a4eca679ea2046c47e3ebea7816f5c5")
+
+
+def _k2_bits_inputs(seed=11, n=8, l=196, d=2048, f=5000):
+    g = torch.Generator().manual_seed(seed)
+    img = (torch.randn(n, l, d, generator=g) * 0.5).to(torch.bfloat16).cuda()
+    w = (torch.randn(d, f, generator=g) * 0.02).to(torch.bfloat16).cuda()
+    b = (torch.randn(f, generator=g) * 0.1).cuda()
+    q = torch.randn(n, f, generator=g).cuda()
+    return img, w, b, q
+
+
+def _k2_kernel_mask(seed, n, row0, l=196, d=2048, f=5000, rate=0.1):
+    z = torch.zeros(n, l, d, dtype=torch.bfloat16, device="cuda")
+    wz = torch.zeros(d, f, dtype=torch.bfloat16, device="cuda")
+    return tf.forward_cuda(z, wz, torch.ones(f, device="cuda"),
+                           torch.ones(n, f, device="cuda"), seed, 1, rate,
+                           row0) != 0
+
+
+@pytest.mark.parametrize("row0", [None, 0])
+def test_k2_forward_keeps_its_bits(row0):
+    import hashlib
+
+    img, w, b, q = _k2_bits_inputs()
+    extra = () if row0 is None else (row0,)
+    out = tf.forward_cuda(img, w, b, q, 5, K, 0.1, *extra)
+    mask = _k2_kernel_mask(5, 8, 0)
+    torch.cuda.synchronize()
+    assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == \
+        K2_FORWARD_DIGEST
+    assert hashlib.sha256(mask.cpu().numpy().tobytes()).hexdigest() == \
+        K2_MASK_DIGEST
+
+
+def test_k2_row0_draws_the_global_rows():
+    """Samples [4, 8) launched on their own with row0 = 4 give rows 4..7 of
+    the whole batch's launch, forward bit for bit and the mask's g_prod;
+    with row0 = 0 they draw rows 0..3's mask."""
+    img, w, b, q = _k2_bits_inputs(seed=3)
+    full = tf.forward_cuda(img, w, b, q, 9, K, 0.1)
+    tail = (img[4:].contiguous(), w, b, q[4:].contiguous(), 9, K, 0.1)
+    half = tf.forward_cuda(*tail, 4)
+    wrong = tf.forward_cuda(*tail, 0)
+    whole_mask = _k2_kernel_mask(9, 8, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(full[4:], half)
+    assert not torch.equal(full[4:], wrong)
+    assert torch.equal(_k2_kernel_mask(9, 4, 4), whole_mask[4:])
+    g = torch.randn(4, 196, 1000, generator=torch.Generator().manual_seed(
+        5)).cuda()
+    keep = tf.keep_scale(tf.dropout_mask(9, 4, 196, 5000, 0.1, "cuda",
+                                         row0=4), 0.1)
+    gp, _ = tf.g_prod_cuda(g, half, tail[0], w, b, tail[3], 9, K, 0.1, 4)
+    want, _ = tf.g_prod_reference(g, half, tail[3], K, keep)
+    torch.cuda.synchronize()
+    assert torch.equal(gp, want)
+
+
+def test_kernels_launch_on_their_tensors_card():
+    """A launch on a card other than the current device (a replica of the
+    split engine) runs there: K1's and K2's forwards on ``cuda:1`` with
+    ``cuda:0`` current give what they give on ``cuda:0``, and leave
+    ``cuda:1`` usable by cuBLAS after them."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    torch.cuda.set_device(0)
+    img, w, b, q = _k2_bits_inputs(n=2)
+    want = (tf.forward_cuda(img, w, b, q, 5, K, 0.1),
+            wqf.stage1_coattention_cuda(*_inputs(2, 2048, 1000, seed=3)))
+    one = torch.device("cuda", 1)
+    got = (tf.forward_cuda(*(x.to(one) for x in (img, w, b, q)), 5, K, 0.1),
+           wqf.stage1_coattention_cuda(*_inputs(2, 2048, 1000, seed=3,
+                                                device=one)))
+    after = torch.randn(64, 64, device=one) @ torch.randn(64, 64, device=one)
+    torch.cuda.synchronize(one)
+    assert torch.cuda.current_device() == 0
+    for g, w_ in zip(got, want):
+        assert g.device == one and torch.equal(g.cpu(), w_.cpu())
+    assert torch.isfinite(after).all()

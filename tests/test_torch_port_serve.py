@@ -138,11 +138,13 @@ def test_int8_feed_matches_jax_engine(monkeypatch):
 
 
 def test_unported_options_raise(monkeypatch, tmp_path):
-    """Data-parallel serving still raises, naming its ROADMAP item; the
-    exported artifact is ported: the engine serves one
-    (``test_torch_port_aot.py`` holds it in full), and refuses a directory
-    without one. The device feature cache is ported too
-    (``test_torch_port_device_cache.py``)."""
+    """Every option is ported now. The exported artifact: the engine
+    serves one (``test_torch_port_aot.py`` holds it in full), and refuses a
+    directory without one. The device feature cache
+    (``test_torch_port_device_cache.py``). Data-parallel serving (item
+    10a): ``data_parallel=2`` splits the batch over two replicas and
+    answers as one (``test_torch_port_parallel_serve.py`` holds it in
+    full); with an artifact it raises JAX's error."""
     from vqa_attention_networks_tpu_torch.aot import save_serving_artifact
 
     cfg = port_config(small_cfg())
@@ -161,8 +163,15 @@ def test_unported_options_raise(monkeypatch, tmp_path):
                             device="cpu").predict_batch(img, ques)
     for a, b in zip(served, eager):
         np.testing.assert_array_equal(a.top_probs, b.top_probs)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        InferenceEngine(cfg, params, data_parallel=2, device="cpu")
+    split = InferenceEngine(cfg, params, batch_size=2, topk=TOPK,
+                            data_parallel=2, device="cpu").predict_batch(
+                                img, ques)
+    for a, b in zip(split, eager):
+        np.testing.assert_array_equal(a.top_probs, b.top_probs)
+        np.testing.assert_array_equal(a.top_ids, b.top_ids)
+    with pytest.raises(ValueError, match="artifact"):
+        InferenceEngine(cfg, params, batch_size=2, data_parallel=2,
+                        artifact_dir=str(tmp_path / "aot"), device="cpu")
     engine = InferenceEngine(cfg, params, batch_size=2, device="cpu")
     with pytest.raises(ValueError, match="larger than"):
         engine.predict_batch(*_requests(cfg, 3, seed=11))

@@ -3,8 +3,9 @@ serve.py``) against the JAX package's, on the CPU.
 
 Mirrors every test of ``tests/test_serve_http.py``: the real
 ``ThreadingHTTPServer`` of the port's CLI on port 0, ``--device cpu``,
-driven with urllib. The JAX CLI's data-parallel test becomes a check of the port's
-refusal (ROADMAP Queue 1 item 10); its artifact test serves through the
+driven with urllib. The JAX CLI's data-parallel test serves through the
+port's split-batch engine (ROADMAP Queue 1 item 10a), its sharded-bank
+test is a refusal (item 10b); its artifact test serves through the
 port's artifact. The
 served answers are held against JAX's ``VqaService`` built on the same
 parameters and store: the same answer wherever the top probability is
@@ -490,12 +491,20 @@ def test_feature_cache_lru_eviction_and_batched_gather(tmp_path):
 
 
 def test_data_parallel_is_refused(tmp_path):
-    """JAX's test serves over an 8-device mesh; the port refuses
-    ``--data_parallel`` > 1, naming its ROADMAP item."""
+    """JAX's ``test_service_with_data_parallel_matches_single_device``:
+    ``--data_parallel 8`` (eight replicas on the CPU here, JAX's emulated
+    devices there) answers as the single-device service, over the same
+    weights and store. Once the port's refusal, hence the name."""
     _workspace(tmp_path, n_answers=3)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve_cli.build_service(_args(tmp_path, n_answers=3,
-                                      data_parallel=8))
+    single, split = (serve_cli.build_service(_args(
+        tmp_path, n_answers=3, batch_size=8, data_parallel=n))
+        for n in (1, 8))
+    assert split.engine.data_parallel == 8
+    items = [{"question": q, "image_id": i} for q, i in
+             (("what color is the cat", 3), ("is the sky blue", 7),
+              ("what is the dog", 11), ("what color", 19), ("the cat", 3))]
+    got, want = split.predict_many(items), single.predict_many(items)
+    assert got == want and len(got) == len(items)
 
 
 @pytest.fixture(scope="module")
@@ -565,10 +574,10 @@ def test_device_bank_metrics_exported(server_bank):
 def test_sharded_device_bank_is_refused(tmp_path):
     """JAX's test shards the bank over a data mesh; the port refuses it
     (``--data_parallel`` > 1 with ``--device_cache_images``), naming
-    ROADMAP item 10, as ``DeviceFeatureCache(mesh=...)`` does."""
+    ROADMAP item 10b, as ``DeviceFeatureCache(mesh=...)`` does."""
     _workspace(tmp_path, n_answers=3, f16_dir="resnet152_f16",
                int8_dir="resnet152_all")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         serve_cli.build_service(_args(
             tmp_path, n_answers=3, device_cache_images=len(IMAGE_IDS),
             data_parallel=4))

@@ -23,7 +23,10 @@ fields, seeds and sizes.
   checkpoints and val(full=True) run (tests/test_torch_port_checkpoint.py
   holds them in full).
 - Item 6's switches run (``test_torch_port_solver_switches.py`` holds
-  them in full); what is not ported (item 10, multi-GPU) raises
+  them in full). Data parallelism (item 10a) trains over the ranks of a
+  process group (``test_torch_port_parallel*.py``); in one process
+  ``data_parallel > 1`` raises a ``ValueError`` naming torchrun, and what
+  is not ported (item 10b, tensor parallelism) raises
   ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -196,8 +199,10 @@ def test_train_runs_an_mfb_epoch_on_the_cpu(data, name, site):
 
 def test_hiecoatten_training_names_its_roadmap_item(data):
     """hieCoAtten trains now (item 7 is done), with gradient accumulation
-    too (item 6 is done); what its Solver still refuses names the item it
-    waits on, as for every family."""
+    too (item 6 is done), and data-parallel over a process group (item
+    10a, ``test_torch_port_parallel.py``). Without a process group
+    ``data_parallel=2`` names the launcher that makes one; tensor
+    parallelism names the item it waits on, as for every family."""
     from vqa_attention_networks_tpu_torch.models import TRAINABLE
     from vqa_attention_networks_tpu_torch.config import MODEL_NAMES
 
@@ -209,9 +214,11 @@ def test_hiecoatten_training_names_its_roadmap_item(data):
                         device="cpu")
         loss, _ = solver._train_step(next(solver.batches["train"].epoch(0)))
         assert np.isfinite(float(loss))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         Solver(cfg.replace(data_parallel=2), qa, store, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 10b"):
+        Solver(cfg.replace(model_parallel=2), qa, store, device="cpu")
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -320,6 +327,7 @@ def test_non_finite_loss_aborts_the_run(data):
     (dict(profile_steps=1), "item 6"),
     (dict(debug_nans=True), "item 6"),
     (dict(data_parallel=2, batch_size=16), "item 10"),
+    (dict(model_parallel=2), "item 10b"),
 ])
 def test_unported_switches_name_their_roadmap_item(data, switch, item,
                                                    tmp_path):
@@ -327,10 +335,17 @@ def test_unported_switches_name_their_roadmap_item(data, switch, item,
     refused until they were ported: each now trains an epoch with finite
     losses (``test_torch_port_solver_switches.py`` and
     ``test_torch_port_device_bank_train.py`` hold them against their
-    baselines and JAX). Item 10's still raise, naming it."""
+    baselines and JAX). Item 10a's data parallelism runs over the ranks of
+    a process group (``test_torch_port_parallel*.py``); in one process it
+    names the launcher that makes the group. Item 10b's tensor
+    parallelism still raises, naming it."""
     qa, store = data
     cfg = small_cfg(qa, profile_dir=str(tmp_path / "profile"), **switch)
     if item == "item 10":
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            Solver(cfg, qa, store, device="cpu")
+        return
+    if item == "item 10b":
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 {item}"):
             Solver(cfg, qa, store, device="cpu")

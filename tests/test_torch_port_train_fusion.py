@@ -423,3 +423,51 @@ def test_backward_builds_g_prod_once(monkeypatch, img_grad):
         assert img.grad.dtype == torch.bfloat16 and img.grad.shape == (n, l, d)
     else:
         assert img.grad is None
+
+
+# K2's plain mask at row0 = 0 before the row offset existed (dropout_mask(5,
+# 4, 196, 520, 0.1)): the offset keeps these bits
+MASK_ROW0_ZERO_DIGEST = (
+    "e8ad4d3f48b2692f6924373d0860e0976202a0348db7bbba84c83901e633a464")
+
+
+def test_mask_keeps_its_bits_at_row0_zero():
+    import hashlib
+
+    for mask in (tf.dropout_mask(5, 4, 196, 520, 0.1),
+                 tf.dropout_mask(5, 4, 196, 520, 0.1, row0=0)):
+        assert hashlib.sha256(mask.numpy().tobytes()).hexdigest() == \
+            MASK_ROW0_ZERO_DIGEST
+
+
+@pytest.mark.parametrize("row0", [1, 3])
+def test_row0_draws_the_global_rows(row0):
+    """A rank holding samples [row0, row0 + n) of a global batch draws
+    those rows of the global mask (counter ((row0 + n)*L + l)*F + c), in
+    the mask, the plain forward and every gradient; at another row0 it
+    draws other bits."""
+    n_all, n, l, d, f, k, seed, rate = 5, 2, 9, 16, 40, 5, 7, 0.3
+    whole = tf.dropout_mask(seed, n_all, l, f, rate)
+    part = tf.dropout_mask(seed, n, l, f, rate, row0=row0)
+    assert torch.equal(part, whole[row0:row0 + n])
+    assert not torch.equal(tf.dropout_mask(seed, n, l, f, rate), part)
+    g = torch.Generator().manual_seed(row0)
+    img = torch.randn(n_all, l, d, generator=g).to(torch.bfloat16)
+    w = torch.randn(d, f, generator=g, requires_grad=True)
+    b = torch.randn(f, generator=g, requires_grad=True)
+    q = torch.randn(n_all, f, generator=g, requires_grad=True)
+    cot = torch.randn(n_all, l, f // k, generator=g)
+    rows = slice(row0, row0 + n)
+    full = tf.train_grid_fuse(img, w, b, q, seed, k, rate)
+    (full[rows] * cot[rows]).sum().backward()
+    want = [x.grad.clone() for x in (w, b, q)]
+    for x in (w, b, q):
+        x.grad = None
+    got = tf.train_grid_fuse(img[rows], w, b, q[rows], seed, k, rate, row0)
+    (got * cot[rows]).sum().backward()
+    np.testing.assert_allclose(got.detach(), full[rows].detach(), rtol=1e-6,
+                               atol=1e-6)
+    for x, wg in zip((w, b), want[:2]):
+        np.testing.assert_allclose(x.grad, wg, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(q.grad[rows], want[2][rows], rtol=1e-5,
+                               atol=1e-6)

@@ -38,7 +38,15 @@ Slices ported so far, on one device:
   ``cli.export_serving``, ``cli.serve --aot_artifact``), whose graph calls
   K1, K4, K5 and K7 as ``torch.library`` custom ops (``torch.ops.vqa``).
 
-Not ported: more than one device (ROADMAP Queue 1 item 10).
+- data parallelism over the ranks of a ``torch.distributed`` process
+  group (``parallel/``, ``torchrun --nproc_per_node N``): the Solver's
+  training, full evaluation and checkpoints with JAX's global-batch
+  semantics, the replicated training bank, and
+  ``InferenceEngine(data_parallel=N)``, one batch split over N replicas.
+
+Not ported: tensor parallelism (the ``model`` mesh axis) and the sharded
+feature banks, training's ring exchange and ``DeviceFeatureCache(mesh=)``
+(ROADMAP Queue 1 item 10b).
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@
 testing`` (train_models.py:68-71). It writes ``results/<model>.txt`` (the
 reference's line), ``results/<model>.json`` (exact, top-3 and VQA-consensus
 accuracy with the per-type breakdowns) and
-``results/<model>_predictions.json`` (the leaderboard rows)."""
+``results/<model>_predictions.json`` (the leaderboard rows). Under
+``torchrun --nproc_per_node N`` each rank scores its slice of every batch
+and the primary writes the files (``cli.train``)."""
 
 from vqa_attention_networks_tpu_torch.cli.train import main as _train_main
 

@@ -12,7 +12,16 @@ under ``results/``.
 ``--grad_accum_steps``, ``--remat``, ``--device_feature_bank`` (with its
 budget) and an int8 store reach the Solver, which runs them
 (``train/solver.py``); ``--model_parallel`` > 1 reaches it too and is
-refused, naming ROADMAP Queue 1 item 10 (multi-GPU).
+refused, naming ROADMAP Queue 1 item 10b (tensor parallelism).
+
+Data parallelism (JAX ``cli/train.py:163-166``): the CLI joins the process
+group of its launcher before it builds the Solver, which then trains over
+every rank, each on its own device (NCCL between cards, gloo under
+``--device cpu``)::
+
+    torchrun --nproc_per_node N -m vqa_attention_networks_tpu_torch.cli.train
+
+Without a launcher it runs as one process.
 """
 
 import argparse
@@ -29,7 +38,7 @@ from vqa_attention_networks_tpu_torch.data.prepare import (
     load_qa_data,
     qa_artifact_path,
 )
-from vqa_attention_networks_tpu_torch.device import cuda_device
+from vqa_attention_networks_tpu_torch.parallel import distributed
 from vqa_attention_networks_tpu_torch.train.solver import Solver
 from vqa_attention_networks_tpu_torch.utils.torch_import import (
     import_state_dict,
@@ -92,9 +101,8 @@ def build_solver(args) -> Solver:
             print("WARNING: data/glove_table.npy not found; GloVe rows are "
                   "zero. Build it offline with cli.build_glove.")
 
-    device = (cuda_device() if args.device == "cuda"
-              else torch.device(args.device))
-    return Solver(cfg, qa_data, store, device=device,
+    return Solver(cfg, qa_data, store,
+                  device=distributed.rank_device(args.device),
                   glove_table=glove_table, log_dir="runs")
 
 
@@ -190,6 +198,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    joined = not distributed.is_initialized()
+    # before the Solver: it trains over the group's ranks
+    distributed.initialize_distributed(device=args.device)
+    joined = joined and distributed.is_initialized()
+    try:
+        _run(args)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args) -> None:
     solver = build_solver(args)
 
     if args.torch_checkpoint:

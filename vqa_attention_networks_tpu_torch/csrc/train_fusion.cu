@@ -18,11 +18,15 @@
 //   d_q[n,c]  = sum_l (g_pooled * (mask * inv_keep)) * z0   -> f32 [N, F]
 //
 // The mask is Philox4x32-10, key (seed, 0), counter (i, i >> 32, 0, 0) for
-// the flat element index i = m*F + c, kept iff word 0 < thr. It depends on
-// the element and the seed only, so the launches (and the plain
-// PyTorch version in ops/train_fusion.py) replay the same bits whatever
-// their tiling; thr == 0 means rate 0, and then no bits are drawn. z0 and
-// the mask never reach device memory: the only residual is out.
+// the flat element index i = (row0*L + m)*F + c, kept iff word 0 < thr.
+// row0 is the global index of the launch's first sample: a rank of a
+// data-parallel run holds samples [row0, row0 + N) of the global batch and
+// draws their bits, so W ranks draw the mask one process draws (row0 = 0
+// there, the bits this kernel always drew). It depends on the element and
+// the seed only, so the launches (and the plain PyTorch version in
+// ops/train_fusion.py) replay the same bits whatever their tiling; thr == 0
+// means rate 0, and then no bits are drawn. z0 and the mask never reach
+// device memory: the only residual is out.
 //
 // What bounds it on this card. Each of the forward, d_img, d_W and d_q is
 // a product of 2*N*L*D*F operations, 257 GFLOP at N = 64, L = 196,
@@ -193,7 +197,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                const float* __restrict__ q,  // [N, F]
                float* __restrict__ out,      // [M, O]
                int mrows, int l, int d, int f, uint32_t seed, uint32_t thr,
-               float inv_keep) {
+               float inv_keep, unsigned long long base) {
   using S = FwdShape<K>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -313,7 +317,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       float zd = __fmul_rn(z0, q[(size_t)n * f + c]);
       if (kMask && thr != 0u)
         zd = __fmul_rn(zd, keep_scale(seed, thr, inv_keep,
-                                      (unsigned long long)m * f + c));
+                                      base + (unsigned long long)m * f + c));
       pooled = j == 0 ? zd : __fadd_rn(pooled, zd);
     }
     out[(size_t)m * o_dim + o] = signed_sqrt(pooled);
@@ -335,7 +339,7 @@ __global__ void __launch_bounds__(kThreads)
                   bf16* __restrict__ gp,          // [M, F]
                   float* __restrict__ db_part,    // [ceil(M / 64), F]
                   int mrows, int l, int f, int k, uint32_t seed, uint32_t thr,
-                  float inv_keep) {
+                  float inv_keep, unsigned long long base) {
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= f) return;
   const int o_dim = f / k, o = c / k;
@@ -349,7 +353,7 @@ __global__ void __launch_bounds__(kThreads)
         g[po], y == 0.0f ? 0.0f : __fdiv_rn(0.5f, fmaxf(fabsf(y), 1e-20f)));
     if (thr != 0u)
       v = __fmul_rn(v, keep_scale(seed, thr, inv_keep,
-                                  (unsigned long long)m * f + c));
+                                  base + (unsigned long long)m * f + c));
     v = __fmul_rn(v, q[(size_t)(m / l) * f + c]);
     gp[(size_t)m * f + c] = __float2bfloat16(v);
     part = __fadd_rn(part, v);
@@ -704,7 +708,7 @@ __device__ __forceinline__ float d_q_rows(
     const float* z0_c, const float* __restrict__ g,
     const float* __restrict__ out, float bc, size_t m0, int r0, int r1,
     int o_dim, int c, int k, int f, uint32_t seed, uint32_t thr,
-    float inv_keep) {
+    float inv_keep, unsigned long long base) {
   const int o = c / k;
   float part = 0.0f;
 #pragma unroll 4
@@ -712,7 +716,8 @@ __device__ __forceinline__ float d_q_rows(
     const size_t po = (m0 + r) * o_dim + o;
     float gz = pooled_grad(g[po], out[po]);
     if (kMask)
-      gz = __fmul_rn(gz, keep_scale(seed, thr, inv_keep, (m0 + r) * f + c));
+      gz = __fmul_rn(gz,
+                     keep_scale(seed, thr, inv_keep, base + (m0 + r) * f + c));
     const float z0 = __fadd_rn(z0_c[r * kQZLd], bc);
     part = __fadd_rn(part, __fmul_rn(gz, z0));
   }
@@ -728,7 +733,7 @@ __global__ void __launch_bounds__(kQThreads, DqShape<kRowsN>::kBlocksPerSm)
                const float* __restrict__ b,    // [F]
                float* __restrict__ d_q,        // [N, F]
                int l, int d, int f, int k, uint32_t seed, uint32_t thr,
-               float inv_keep) {
+               float inv_keep, unsigned long long base) {
   using S = DqShape<kRowsN>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -835,14 +840,19 @@ __global__ void __launch_bounds__(kQThreads, DqShape<kRowsN>::kBlocksPerSm)
     const size_t m0 = (size_t)n * l;
     part = thr != 0u
                ? d_q_rows<true>(z0_c, g, out, b[c], m0, r0, r1, f / k, c, k,
-                                f, seed, thr, inv_keep)
+                                f, seed, thr, inv_keep, base)
                : d_q_rows<false>(z0_c, g, out, b[c], m0, r0, r1, f / k, c,
-                                 k, f, seed, thr, inv_keep);
+                                 k, f, seed, thr, inv_keep, base);
   }
   if (half == 1) half_s[cc] = part;
   __syncthreads();
   if (half == 0 && c < f)
     d_q[(size_t)n * f + c] = __fadd_rn(part, half_s[cc]);
+}
+
+// the mask counter of sample row0's first element
+unsigned long long mask_base(long long row0, int l, int f) {
+  return (unsigned long long)row0 * (unsigned long long)l * f;
 }
 
 bool dims_ok(int n, int l, int d, int f, int k) {
@@ -854,7 +864,8 @@ bool dims_ok(int n, int l, int d, int f, int k) {
 template <int K, bool kMask>
 int launch_fwd(const void* img, const void* w, const void* b, const void* q,
                void* out, int mrows, int l, int d, int f, uint32_t seed,
-               uint32_t thr, float inv_keep, cudaStream_t s) {
+               uint32_t thr, float inv_keep, unsigned long long base,
+               cudaStream_t s) {
   using S = FwdShape<K>;
   CUtensorMap img_map, w_map;
   const uint64_t img_dims[2] = {(uint64_t)d, (uint64_t)mrows};
@@ -879,7 +890,7 @@ int launch_fwd(const void* img, const void* w, const void* b, const void* q,
   fwd_kernel<K, kMask><<<grid, kFwdThreads, S::kSmem, s>>>(
       img_map, w_map, static_cast<const float*>(b),
       static_cast<const float*>(q), static_cast<float*>(out), mrows, l, d, f,
-      seed, thr, inv_keep);
+      seed, thr, inv_keep, base);
   return (int)cudaGetLastError();
 }
 
@@ -887,16 +898,16 @@ template <bool kMask>
 int launch_fwd_k(const void* img, const void* w, const void* b,
                  const void* q, void* out, int m, int l, int d, int f, int k,
                  uint32_t seed, uint32_t thr, float inv_keep,
-                 cudaStream_t s) {
+                 unsigned long long base, cudaStream_t s) {
   switch (k) {
-    case 1: return launch_fwd<1, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 2: return launch_fwd<2, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 3: return launch_fwd<3, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 4: return launch_fwd<4, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 5: return launch_fwd<5, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 6: return launch_fwd<6, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 7: return launch_fwd<7, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
-    case 8: return launch_fwd<8, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, s);
+    case 1: return launch_fwd<1, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
+    case 2: return launch_fwd<2, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
+    case 3: return launch_fwd<3, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
+    case 4: return launch_fwd<4, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
+    case 5: return launch_fwd<5, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
+    case 6: return launch_fwd<6, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
+    case 7: return launch_fwd<7, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
+    case 8: return launch_fwd<8, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -905,7 +916,7 @@ template <int kRowsN>
 int launch_d_q(const void* g, const void* out, const void* img,
                const void* w, const void* b, void* d_q, int n, int l, int d,
                int f, int k, uint32_t seed, uint32_t thr, float inv_keep,
-               void* stream) {
+               unsigned long long base, void* stream) {
   using S = DqShape<kRowsN>;
   CUtensorMap img_map, w_map;
   const uint64_t img_dims[3] = {(uint64_t)d, (uint64_t)l, (uint64_t)n};
@@ -930,7 +941,7 @@ int launch_d_q(const void* g, const void* out, const void* img,
                        reinterpret_cast<cudaStream_t>(stream)>>>(
       img_map, w_map, static_cast<const float*>(g),
       static_cast<const float*>(out), static_cast<const float*>(b),
-      static_cast<float*>(d_q), l, d, f, k, seed, thr, inv_keep);
+      static_cast<float*>(d_q), l, d, f, k, seed, thr, inv_keep, base);
   return (int)cudaGetLastError();
 }
 
@@ -938,13 +949,16 @@ int launch_d_q(const void* g, const void* out, const void* img,
 
 extern "C" {
 
+// row0 (>= 0): the global index of sample 0, which offsets the mask's
+// counter (the header); the entries that draw the mask take it
 int train_fusion_forward(const void* img, const void* w, const void* b,
                          const void* q, void* out, int n, int l, int d, int f,
                          int k, uint32_t seed, uint32_t thr, float inv_keep,
-                         void* stream) {
-  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+                         long long row0, void* stream) {
+  if (!dims_ok(n, l, d, f, k) || row0 < 0) return (int)cudaErrorInvalidValue;
   return launch_fwd_k<true>(img, w, b, q, out, n * l, l, d, f, k, seed, thr,
-                            inv_keep, reinterpret_cast<cudaStream_t>(stream));
+                            inv_keep, mask_base(row0, l, f),
+                            reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K5, the inference fusion (replaces _grid_fuse_pallas, vqa_attention_
@@ -956,7 +970,8 @@ int train_fusion_inference_forward(const void* img, const void* w,
                                    void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
   return launch_fwd_k<false>(img, w, b, q, out, n * l, l, d, f, k, 0u, 0u,
-                             1.0f, reinterpret_cast<cudaStream_t>(stream));
+                             1.0f, 0ull,
+                             reinterpret_cast<cudaStream_t>(stream));
 }
 
 // d_img from train_fusion_g_prod's bf16 g_prod [N*L, F] and bf16 W [D, F]
@@ -993,15 +1008,16 @@ int train_fusion_d_img(const void* gp, const void* w, void* d_img, int n,
 int train_fusion_g_prod(const void* g, const void* out, const void* q,
                         void* gp, void* db_part, int n, int l, int d, int f,
                         int k, uint32_t seed, uint32_t thr, float inv_keep,
-                        void* stream) {
-  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+                        long long row0, void* stream) {
+  if (!dims_ok(n, l, d, f, k) || row0 < 0) return (int)cudaErrorInvalidValue;
   const int m = n * l;
   const dim3 grid((f + kThreads - 1) / kThreads,
                   (m + kBuildRows - 1) / kBuildRows);
   g_prod_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(out),
       static_cast<const float*>(q), static_cast<bf16*>(gp),
-      static_cast<float*>(db_part), m, l, f, k, seed, thr, inv_keep);
+      static_cast<float*>(db_part), m, l, f, k, seed, thr, inv_keep,
+      mask_base(row0, l, f));
   return (int)cudaGetLastError();
 }
 
@@ -1028,12 +1044,13 @@ int train_fusion_d_w(const void* img, const void* gp, const void* db_part,
 int train_fusion_d_q(const void* g, const void* out, const void* img,
                      const void* w, const void* b, void* d_q, int n, int l,
                      int d, int f, int k, uint32_t seed, uint32_t thr,
-                     float inv_keep, void* stream) {
-  if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
+                     float inv_keep, long long row0, void* stream) {
+  if (!dims_ok(n, l, d, f, k) || row0 < 0) return (int)cudaErrorInvalidValue;
+  const unsigned long long base = mask_base(row0, l, f);
   return l <= 200 ? launch_d_q<200>(g, out, img, w, b, d_q, n, l, d, f, k,
-                                    seed, thr, inv_keep, stream)
+                                    seed, thr, inv_keep, base, stream)
                   : launch_d_q<kMaxRows>(g, out, img, w, b, d_q, n, l, d, f, k,
-                                       seed, thr, inv_keep, stream);
+                                       seed, thr, inv_keep, base, stream);
 }
 
 const char* train_fusion_error_string(int code) {

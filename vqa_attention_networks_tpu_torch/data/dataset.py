@@ -13,6 +13,9 @@ port's copy of ``vqa_attention_networks_tpu/data/dataset.py``).
   the device-bank feed (``device_bank=True``: no feature gather on the
   host, ``image_rows`` holds each row's dense index into the Solver's
   device-resident table, ``image_features`` is None).
+- ``feature_rows``: a rank of a data-parallel run gathers the features (or
+  bank rows) of its own rows of each batch only (``parallel/sharding.
+  step_rows``); every other field stays the global batch's.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ class Batch:
     """One host batch."""
 
     # [B, 196, 2048] (int8 under the int8 feed); None under the device
-    # bank, whose rows the Solver gathers on the device from image_rows
+    # bank, whose rows the Solver gathers on the device from image_rows.
+    # With VqaBatches(feature_rows=...) this, feature_scale and image_rows
+    # hold those rows only
     image_features: Optional[np.ndarray]
     questions: np.ndarray  # [B, T] int32
     answers: np.ndarray  # [B] int32 hard labels
@@ -81,6 +86,7 @@ class VqaBatches:
         seed: int = 0,
         feature_dtype=np.float32,
         device_bank: bool = False,
+        feature_rows: Optional[np.ndarray] = None,
     ):
         self.split = split
         self.store = store
@@ -90,6 +96,9 @@ class VqaBatches:
         self.shuffle = shuffle
         self.feature_dtype = feature_dtype
         self.seed = seed
+        # the rows of each batch whose features are gathered (all of them
+        # without it)
+        self.feature_rows = feature_rows
         self._epoch = 0
         # image_id -> store row once; a batch gather is then integer indexing
         self._rows = store.rows_for(split.image_ids)
@@ -124,12 +133,13 @@ class VqaBatches:
 
         has_n = split.soft_n is not None
         feats = scale = rows = None
+        fidx = idx if self.feature_rows is None else idx[self.feature_rows]
         if self._bank_rows is not None:
-            rows = self._bank_rows[idx]
+            rows = self._bank_rows[fidx]
         elif np.dtype(self.feature_dtype) == np.int8:
-            feats, scale = self.store.gather_rows_quantized(self._rows[idx])
+            feats, scale = self.store.gather_rows_quantized(self._rows[fidx])
         else:
-            feats = self.store.gather_rows(self._rows[idx],
+            feats = self.store.gather_rows(self._rows[fidx],
                                            dtype=self.feature_dtype)
         return Batch(
             image_features=feats,

@@ -18,18 +18,30 @@ Rounding points follow the JAX functions exactly:
   ``torch.backends.cuda.matmul.allow_tf32`` False, its default.
 
 ``dropout`` draws its mask from an explicit ``torch.Generator`` on x's
-device. ``BatchNorm`` (``layers.py:201-254``) computes its train-mode
-statistics in f32 over the ``valid`` rows and returns them raw: the
-momentum EMA into its running-stat buffers belongs to the train step
-(``train/solver.py`` ``merge_batch_stats``), never to the layer.
+device; a ``GlobalRows`` generator stands for some rows of a larger batch,
+and the mask is then those rows of the larger batch's. ``BatchNorm``
+(``layers.py:201-254``) computes its train-mode statistics in f32 over the
+``valid`` rows and returns them raw: the momentum EMA into its
+running-stat buffers belongs to the train step (``train/solver.py``
+``merge_batch_stats``), never to the layer.
+
+**Data parallelism.** A rank of a data-parallel run holds a slice of the
+global batch, and JAX computes over the global batch: a mean over the
+sharded axis is global. Two layers here see that: ``BatchNorm``, whose
+statistics sum over every rank's rows (a differentiable all-reduce, so the
+gradient flows through them as through JAX's global mean), and
+``dropout``, whose mask is the rank's rows of the mask one process draws
+for the whole batch (``GlobalRows``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 Params = Dict[str, torch.Tensor]
@@ -138,6 +150,9 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
+        # the ranks whose rows the train-mode statistics span
+        # (``span_batch_statistics``); this process's rows by default
+        self.ranks = Ranks()
 
     def forward(self, x: torch.Tensor, train: bool,
                 valid: Optional[torch.Tensor] = None,
@@ -147,10 +162,18 @@ class BatchNorm(nn.Module):
         rows where ``valid`` is set (all rows without it), computed in at
         least f32, detached; the output normalises by the biased variance.
         In eval mode the running buffers normalise and come back as the
-        statistics. The buffers are never written here."""
+        statistics. The buffers are never written here. Over ranks of
+        more than one (``self.ranks``, a data-parallel trainer's data axis)
+        the train-mode statistics are the global batch's, summed over them
+        (``_global_moments``), the same on every rank whatever its share of
+        pad rows."""
         if train:
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
-            if valid is not None:
+            group = self.ranks.group
+            if group is not None and dist.get_world_size(group) > 1:
+                mean, var, n = _global_moments(xs, valid, group)
+                unbiased = var * (n / torch.clamp_min(n - 1.0, 1.0))
+            elif valid is not None:
                 w = valid.to(xs.dtype)
                 n = torch.clamp_min(w.sum(), 1.0)
                 wn = (w / n)[:, None]
@@ -169,6 +192,64 @@ class BatchNorm(nn.Module):
         y = (x.to(mean.dtype) - mean) * torch.rsqrt(var + self.eps)
         y = y * self.scale + self.bias
         return y.to(x.dtype), stats
+
+
+class Ranks:
+    """The process group a batch norm's statistics span (None: this
+    process alone), held by reference: a copy of the model
+    (``copy.deepcopy``) spans the same ranks, and a process group cannot
+    be copied."""
+
+    def __init__(self, group=None):
+        self.group = group
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+def span_batch_statistics(model: nn.Module, group) -> None:
+    """Make every ``BatchNorm`` of ``model`` take its train-mode statistics
+    over the rows of every rank of ``group`` (a trainer's data axis), as
+    JAX's mean over a sharded batch axis is global."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.ranks = Ranks(group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks of a group, differentiable: a rank's input
+    reaches every rank's output, so its gradient is the sum of every
+    rank's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _global_moments(xs: torch.Tensor, valid: Optional[torch.Tensor], group):
+    """(mean, biased var, n) over the valid rows of every rank of
+    ``group``: the single-process expressions (each row weighted by
+    valid / n, then summed), with each sum taken over the ranks by a
+    differentiable all-reduce (``_AllReduceSum``)."""
+    w = (valid.to(xs.dtype) if valid is not None
+         else xs.new_ones(xs.shape[0]))
+    count = w.sum().detach().clone()
+    dist.all_reduce(count, group=group)
+    n = torch.clamp_min(count, 1.0)
+    wn = (w / n)[:, None]
+    mean = _AllReduceSum.apply(torch.sum(xs * wn, dim=0), group)
+    var = _AllReduceSum.apply(torch.sum(torch.square(xs - mean) * wn, dim=0),
+                              group)
+    return mean, var, n
 
 
 # --------------------------------------------------------------------------
@@ -244,19 +325,50 @@ def lstm(
     return torch.stack(hs, dim=1)
 
 
+@dataclass(frozen=True)
+class GlobalRows:
+    """A dropout generator for rows ``[row0, row0 + n)`` of a global batch
+    of ``rows`` rows, n being the batch the layer sees: a rank's slice of a
+    data-parallel batch. ``dropout`` draws the global batch's noise and
+    keeps these rows, and K2 offsets its mask counter by ``row0``
+    (``ops/grid_fusion.py``), so W ranks draw the masks that one process
+    draws for the whole batch."""
+
+    generator: torch.Generator
+    row0: int
+    rows: int
+
+
+Generator = Union[torch.Generator, GlobalRows]
+
+
+def first_row(generator: Optional[Generator]) -> int:
+    """The global index of the batch's first row (0 unless a
+    ``GlobalRows``)."""
+    return generator.row0 if isinstance(generator, GlobalRows) else 0
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[Generator] = None) -> torch.Tensor:
     """Inverted dropout, ``where(mask, x / keep, 0)`` with the mask drawn
     from ``generator`` (on x's device); a no-op when ``not train`` or
     ``rate <= 0`` (``layers.py:161-176``). ``keep`` is rounded to x's dtype
     before the division, as JAX rounds a Python scalar: at bf16,
-    x / bf16(0.9) and bf16(x / 0.9) differ on a third of the elements."""
+    x / bf16(0.9) and bf16(x / 0.9) differ on a third of the elements.
+    Under a ``GlobalRows`` generator the noise is drawn for the global
+    batch (dim 0 of x is the batch) and x's rows are taken from it."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if isinstance(generator, GlobalRows):
+        noise = torch.rand((generator.rows, *x.shape[1:]),
+                           generator=generator.generator, device=x.device)
+        noise = noise[generator.row0:generator.row0 + x.shape[0]]
+    else:
+        noise = torch.rand(x.shape, generator=generator, device=x.device)
+    mask = noise < keep
     keep_x = torch.tensor(keep, dtype=x.dtype).item()  # on the host
     return torch.where(mask, x / keep_x, torch.zeros_like(x))
 

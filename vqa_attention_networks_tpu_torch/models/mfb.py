@@ -97,6 +97,13 @@ class MFB(nn.Module):
             self.ques_att_multiconv = L.Dense(1024, 512)
             self.co_att_multiconv = L.Dense(1024, 512)
 
+    @property
+    def unused_in_training(self) -> bool:
+        """Under the reference quirk the stage-1 fusion is gradient-dead
+        (img_conv1d, ques_proj1 and co_att_* take no gradient): a
+        data-parallel trainer has to look for those parameters."""
+        return self.cfg.keep_reference_quirks
+
     def _att_logits(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """conv1x1 -> ReLU [-> conv1x1 -> ReLU] -> conv1x1, in x's dtype."""
         a = torch.relu(getattr(self, f"{name}_conv1")(x))

@@ -3,6 +3,17 @@ Hopper kernels beside them (``csrc/``, built by ``_build``)."""
 
 import os
 
+import torch
+
+
+def on_card(device):
+    """The current device set to ``device`` for a launch through a ctypes
+    library: the CUDA runtime launches a kernel, makes its tensor maps and
+    sets its attributes in the current device's context, whatever stream
+    it is given, so a kernel on another card than the current one (a
+    replica of the split engine) must be launched from there."""
+    return torch.cuda.device(device)
+
 
 def kernels_disabled() -> bool:
     """``VQA_DISABLE_PALLAS``, the JAX package's process-wide kill switch

@@ -36,7 +36,7 @@ import os
 import torch
 
 from vqa_attention_networks_tpu_torch.models.layers import matmul_f32
-from vqa_attention_networks_tpu_torch.ops import kernels_disabled
+from vqa_attention_networks_tpu_torch.ops import kernels_disabled, on_card
 from vqa_attention_networks_tpu_torch.ops.fusion import two_glimpse_pool
 
 _TILE_A = 256  # hidden units per MLP block (glimpse_attention.cu kMlpHidden)
@@ -132,12 +132,13 @@ def glimpse_attention_cuda(x, w1, b1, w2, b2, v, *,
                        device=x.device)
     out = torch.empty(n, g * d, dtype=torch.bfloat16, device=x.device)
     lib = _library()
-    rc = lib.glimpse_attention_launch(
-        x.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), w2f.data_ptr(),
-        b2f.data_ptr(), v.data_ptr(), part.data_ptr(), out.data_ptr(),
-        n, p, c, a, g, d, int(uniform_quirk),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with on_card(x.device):
+        rc = lib.glimpse_attention_launch(
+            x.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), w2f.data_ptr(),
+            b2f.data_ptr(), v.data_ptr(), part.data_ptr(), out.data_ptr(),
+            n, p, c, a, g, d, int(uniform_quirk),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"glimpse_attention launch failed: CUDA error {rc} "

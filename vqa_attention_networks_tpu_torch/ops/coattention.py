@@ -38,6 +38,8 @@ from typing import Tuple
 
 import torch
 
+from vqa_attention_networks_tpu_torch.ops import on_card
+
 _MAX_T = 32  # the kernel pads T to 32 rows, two m16 tiles of its products
 _MAX_L = 1024  # the kernel keeps C [32, L] and the logits in shared memory
 _MAX_SMEM = 232448  # bytes of shared memory a block can opt in to
@@ -173,12 +175,13 @@ def coattention_core_cuda(img, que, cv, cq, img_w, que_w, whv,
     av = torch.empty(n, l, dtype=torch.float32, device=dev)
     aq = torch.empty(n, t, dtype=torch.float32, device=dev)
     lib = _library()
-    rc = lib.coattention_launch(
-        img.data_ptr(), que.data_ptr(), cv.data_ptr(), cq.data_ptr(),
-        img_w.data_ptr(), que_w.data_ptr(), wv.data_ptr(), wq.data_ptr(),
-        v.data_ptr(), q.data_ptr(), av.data_ptr(), aq.data_ptr(),
-        n, l, t, e, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_card(dev):
+        rc = lib.coattention_launch(
+            img.data_ptr(), que.data_ptr(), cv.data_ptr(), cq.data_ptr(),
+            img_w.data_ptr(), que_w.data_ptr(), wv.data_ptr(), wq.data_ptr(),
+            v.data_ptr(), q.data_ptr(), av.data_ptr(), aq.data_ptr(),
+            n, l, t, e, torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"coattention launch failed: CUDA error {rc} "

@@ -32,7 +32,8 @@ dropout mask on the pre-pool product:
 - bf16 with ``rate > 0``: K2 (``ops/train_fusion.train_grid_fuse``), the
   kernels on a CUDA tensor and their plain version on a CPU tensor. (The
   JAX dispatch takes the composed chain on the CPU; both compute the same
-  function.)
+  function.) Under a ``layers.GlobalRows`` generator (a rank's slice of
+  a data-parallel batch) K2 draws its mask at the rows' global indices.
 - otherwise, or under either switch: the composed chain with its dropout
   from ``generator``.
 
@@ -50,10 +51,16 @@ from typing import Optional
 import torch
 
 from vqa_attention_networks_tpu_torch.models.layers import (
+    Generator,
     dropout,
+    first_row,
     signed_sqrt,
 )
-from vqa_attention_networks_tpu_torch.ops import kernels_disabled, train_fusion
+from vqa_attention_networks_tpu_torch.ops import (
+    kernels_disabled,
+    on_card,
+    train_fusion,
+)
 from vqa_attention_networks_tpu_torch.ops.fusion import (
     grid_fuse_pooled,
     grid_fuse_weight_contracted,
@@ -90,10 +97,11 @@ def inference_fusion_cuda(img: torch.Tensor, w: torch.Tensor,
     f = w_bf16.shape[1]
     out = torch.empty(n, l, f // k, dtype=torch.float32, device=img.device)
     lib = train_fusion.library()
-    rc = lib.train_fusion_inference_forward(
-        img.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), qf.data_ptr(),
-        out.data_ptr(), n, l, d, f, k,
-        torch.cuda.current_stream(img.device).cuda_stream)
+    with on_card(img.device):
+        rc = lib.train_fusion_inference_forward(
+            img.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), qf.data_ptr(),
+            out.data_ptr(), n, l, d, f, k,
+            torch.cuda.current_stream(img.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"train_fusion inference_forward launch failed: CUDA error {rc} "
@@ -133,7 +141,7 @@ def grid_fuse(
     rate: float = 0.0,
     site: str = "prepool",
     seed: Optional[int] = None,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[Generator] = None,
     reference_kernel: bool = False,
 ) -> torch.Tensor:
     """Eval: at bf16 K5 under ``VQA_FORCE_PALLAS`` and the weight-contracted
@@ -161,9 +169,13 @@ def grid_fuse(
             and not os.environ.get("VQA_COMPOSED_TRAIN_FUSION"):
         if seed is None:
             raise ValueError("the K2 training fusion needs a mask seed")
+        # a rank's slice of a data-parallel batch draws K2's mask at its
+        # rows' global indices (layers.GlobalRows)
+        row0 = first_row(generator)
         if reference_kernel:
             return train_fusion.train_grid_fuse_reference(
-                img, w, b, q_proj, seed, k, rate)
-        return train_fusion.train_grid_fuse(img, w, b, q_proj, seed, k, rate)
+                img, w, b, q_proj, seed, k, rate, row0)
+        return train_fusion.train_grid_fuse(img, w, b, q_proj, seed, k, rate,
+                                            row0)
     return grid_fuse_reference(img, w, b, q_proj, k, rate=rate,
                                generator=generator)

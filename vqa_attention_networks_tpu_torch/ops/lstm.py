@@ -48,7 +48,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from vqa_attention_networks_tpu_torch.ops import kernels_disabled
+from vqa_attention_networks_tpu_torch.ops import kernels_disabled, on_card
 
 _LANE = 128
 # the kernel's constants (csrc/lstm_scan.cu): hidden units per block, rows
@@ -239,12 +239,13 @@ def lstm_scan_cuda(x_proj: torch.Tensor, w_hh: torch.Tensor,
     c = None if geo.c_in_smem else torch.empty(
         n, hidden, dtype=torch.float32, device=xp.device)
     lib = _library()
-    rc = lib.lstm_scan_launch(
-        xp.data_ptr(), bias.contiguous().data_ptr(), w.data_ptr(),
-        out.data_ptr(), None if c is None else c.data_ptr(),
-        counter.data_ptr(), n, t, hidden,
-        geo.blocks, geo.rows_per_block, geo.stages, geo.smem_bytes,
-        torch.cuda.current_stream(xp.device).cuda_stream)
+    with on_card(xp.device):
+        rc = lib.lstm_scan_launch(
+            xp.data_ptr(), bias.contiguous().data_ptr(), w.data_ptr(),
+            out.data_ptr(), None if c is None else c.data_ptr(),
+            counter.data_ptr(), n, t, hidden,
+            geo.blocks, geo.rows_per_block, geo.stages, geo.smem_bytes,
+            torch.cuda.current_stream(xp.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_scan launch failed: CUDA error {rc} "
                            f"({lib.lstm_scan_error_string(rc).decode()})")

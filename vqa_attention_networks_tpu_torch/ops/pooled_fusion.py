@@ -58,6 +58,7 @@ from typing import Dict
 import torch
 
 from vqa_attention_networks_tpu_torch.models.layers import signed_sqrt
+from vqa_attention_networks_tpu_torch.ops import on_card
 
 _MAX_K = 7  # the d_W kernel keeps k accumulators per (d, o) in shared memory
 _MAX_ROWS = 208  # L rows a kernel holds (wgmma N; d_img's 13 tiles)
@@ -263,8 +264,9 @@ def _launch(name: str, pointers, dims, device) -> None:
     """Launch ``pooled_fusion_<name>`` on (n, l, d, f, k) = ``dims`` and
     count it; raises on a refused launch."""
     lib = library()
-    rc = getattr(lib, f"pooled_fusion_{name}")(
-        *pointers, *dims, torch.cuda.current_stream(device).cuda_stream)
+    with on_card(device):
+        rc = getattr(lib, f"pooled_fusion_{name}")(
+            *pointers, *dims, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"pooled_fusion {name} launch failed: CUDA error {rc} "

@@ -29,13 +29,17 @@ rounds to bf16 before the d_img and d_W products, with f32 accumulation
 arithmetic is f32, with the multiplies and adds unfused.
 
 The mask: Philox4x32-10 with key (seed, 0) and counter (i mod 2^32,
-i >> 32, 0, 0), where i = (n*L + l)*F + c is the flat element index; the
-element is kept iff word 0 of the output is below
-``thr_keep = min(int((1 - rate) * 2^32), 2^32 - 1)``. The mask depends on
-the element and the seed only, so the forward, the backward launches and
-the plain version replay the same bits whatever their tiling. (The TPU
-kernel seeded its on-core generator per tile; those bits cannot be
-reproduced here.) At rate 0 no bits are drawn.
+i >> 32, 0, 0), where i = ((row0 + n)*L + l)*F + c is the flat element
+index in the global batch; the element is kept iff word 0 of the output is
+below ``thr_keep = min(int((1 - rate) * 2^32), 2^32 - 1)``. ``row0`` is the
+global index of the call's first sample: 0 in one process, and a rank's
+first row in a data-parallel run, whose W ranks then draw exactly the mask
+one process draws for the whole batch (JAX's mask over a sharded batch is
+the global batch's). At row0 = 0 these are the bits K2 always drew. The
+mask depends on the element and the seed only, so the forward, the
+backward launches and the plain version replay the same bits whatever
+their tiling. (The TPU kernel seeded its on-core generator per tile;
+those bits cannot be reproduced here.) At rate 0 no bits are drawn.
 
 d_W/d_b and d_img share one operand on the card: ``g_prod_cuda`` builds
 g_prod once as bf16 [N*L, F], with the f32 d_b partial of each chunk of
@@ -66,6 +70,7 @@ from typing import Dict, Optional
 import torch
 
 from vqa_attention_networks_tpu_torch.models.layers import signed_sqrt
+from vqa_attention_networks_tpu_torch.ops import on_card
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -115,15 +120,16 @@ def philox_word0(seed: int, counter: torch.Tensor) -> torch.Tensor:
 
 
 def dropout_mask(seed: int, n: int, l: int, f: int, rate: float,
-                 device=None) -> torch.Tensor:
+                 device=None, row0: int = 0) -> torch.Tensor:
     """The K2 keep mask [n, l, f] (bool) for ``seed``: element (n, l, c)
-    is drawn at counter (n*l_dim + l)*f + c."""
+    is drawn at counter ((row0 + n)*l_dim + l)*f + c."""
     total = n * l * f
+    base = int(row0) * l * f
     thr = thr_keep(rate)
     out = torch.empty(total, dtype=torch.bool, device=device)
     for s in range(0, total, _MASK_CHUNK):
-        idx = torch.arange(s, min(s + _MASK_CHUNK, total), dtype=torch.int64,
-                           device=device)
+        idx = torch.arange(base + s, base + min(s + _MASK_CHUNK, total),
+                           dtype=torch.int64, device=device)
         out[s:s + idx.numel()] = philox_word0(seed, idx) < thr
     return out.reshape(n, l, f)
 
@@ -221,12 +227,18 @@ def d_q_reference(g, out, img, w_bf16, b, k: int, keep) -> torch.Tensor:
     return (_g_zd(g, out, k, keep) * _z0(img, w_bf16, b)).sum(dim=1)
 
 
+def _no_grads(ctx) -> tuple:
+    """None for each non-tensor input after (img, w, b, q): seed, k, rate
+    and, where the caller passed it, row0."""
+    return (None,) * (len(ctx.needs_input_grad) - 4)
+
+
 class _TrainGridFusePlain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, img, w, b, q, seed, k, rate):
+    def forward(ctx, img, w, b, q, seed, k, rate, row0=0):
         n, l, _ = img.shape
         w_bf16, bf, qf = operands(w, b, q)
-        mask = dropout_mask(seed, n, l, w.shape[1], rate, img.device) \
+        mask = dropout_mask(seed, n, l, w.shape[1], rate, img.device, row0) \
             if rate > 0 else None
         out = forward_reference(img, w_bf16, bf, qf, k, keep_scale(mask, rate))
         ctx.save_for_backward(img, w_bf16, bf, qf, out, mask)
@@ -245,13 +257,14 @@ class _TrainGridFusePlain(torch.autograd.Function):
         d_q = d_q_reference(g, out, img, w_bf16, bf, k, keep)
         w_dtype, b_dtype, q_dtype = ctx.dtypes
         return (d_img, d_w.to(w_dtype), d_b.to(b_dtype), d_q.to(q_dtype),
-                None, None, None)
+                *_no_grads(ctx))
 
 
 def train_grid_fuse_reference(img, w, b, q, seed: int, k: int,
-                              rate: float) -> torch.Tensor:
+                              rate: float, row0: int = 0) -> torch.Tensor:
     """K2's plain PyTorch version -> [N, L, O] f32, on any device."""
-    return _TrainGridFusePlain.apply(img, w, b, q, int(seed), k, float(rate))
+    return _TrainGridFusePlain.apply(img, w, b, q, int(seed), k, float(rate),
+                                     int(row0))
 
 
 # --------------------------------------------------------------------------
@@ -265,8 +278,8 @@ def library() -> ctypes.CDLL:
     lib = _build.load("train_fusion")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     f = ctypes.c_float
-    # pointers, then n, l, d, f, k, seed, thr, inv_keep, stream
-    tail = [i] * 5 + [u, u, f, p]
+    # pointers, then n, l, d, f, k, seed, thr, inv_keep, row0, stream
+    tail = [i] * 5 + [u, u, f, ctypes.c_longlong, p]
     lib.train_fusion_forward.argtypes = [p] * 5 + tail  # img w b q out
     # g_prod w d_img, n, l, d, f, stream
     lib.train_fusion_d_img.argtypes = [p] * 3 + [i] * 4 + [p]
@@ -330,11 +343,12 @@ def check_inputs(img, w_bf16, b, q, k: int, rate: float) -> None:
         raise ValueError(f"the K2 kernels take 0 <= rate < 1, got {rate}")
 
 
-def _call(name: str, *args) -> None:
-    """Launch ``train_fusion_<name>`` and count it; raises on a refused
-    launch."""
+def _call(name: str, device, *args) -> None:
+    """Launch ``train_fusion_<name>`` on ``device``'s card and count it;
+    raises on a refused launch."""
     lib = library()
-    rc = getattr(lib, f"train_fusion_{name}")(*args)
+    with on_card(device):
+        rc = getattr(lib, f"train_fusion_{name}")(*args)
     if rc != 0:
         raise RuntimeError(
             f"train_fusion {name} launch failed: CUDA error {rc} "
@@ -343,11 +357,13 @@ def _call(name: str, *args) -> None:
 
 
 def _launch(name: str, pointers, img, w_bf16, seed: int, k: int,
-            rate: float) -> None:
+            rate: float, row0: int) -> None:
     n, l, d = img.shape
     thr = thr_keep(rate) if rate > 0 else 0  # 0: rate 0, no bits drawn
-    _call(name, *pointers, n, l, d, w_bf16.shape[1], k, int(seed) & _MASK32,
-          thr, 1.0 / (1.0 - rate),
+    if row0 < 0:
+        raise ValueError(f"row0 is a sample index, got {row0}")
+    _call(name, img.device, *pointers, n, l, d, w_bf16.shape[1], k,
+          int(seed) & _MASK32, thr, 1.0 / (1.0 - rate), int(row0),
           torch.cuda.current_stream(img.device).cuda_stream)
 
 
@@ -361,21 +377,23 @@ def _check_grad(g, out, img, w_bf16, k: int) -> None:
                              f"{img.device}")
 
 
-# the kernel of each launch: operands as ``operands`` makes them
+# the kernel of each launch: operands as ``operands`` makes them; ``row0``
+# offsets the mask to the global batch's rows (the module's docstring)
 
 def forward_cuda(img, w_bf16, b, q, seed: int, k: int,
-                 rate: float) -> torch.Tensor:
+                 rate: float, row0: int = 0) -> torch.Tensor:
     check_inputs(img, w_bf16, b, q, k, rate)
     n, l, _ = img.shape
     out = torch.empty(n, l, w_bf16.shape[1] // k, dtype=torch.float32,
                       device=img.device)
     _launch("forward", (img.data_ptr(), w_bf16.data_ptr(), b.data_ptr(),
                         q.data_ptr(), out.data_ptr()), img, w_bf16, seed, k,
-            rate)
+            rate, row0)
     return out
 
 
-def g_prod_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
+def g_prod_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float,
+                row0: int = 0):
     """Launch the g_prod build -> (bf16 g_prod [N*L, F], f32 d_b partials
     [ceil(N*L / DB_CHUNK), F]), in scratch allocated here."""
     check_inputs(img, w_bf16, b, q, k, rate)
@@ -387,7 +405,7 @@ def g_prod_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
                            device=img.device)
     _launch("g_prod", (g.data_ptr(), out.data_ptr(), q.data_ptr(),
                        g_prod.data_ptr(), partials.data_ptr()), img, w_bf16,
-            seed, k, rate)
+            seed, k, rate, row0)
     return g_prod, partials
 
 
@@ -406,15 +424,16 @@ def d_img_from_operand_cuda(g_prod, w_bf16, n: int, l: int) -> torch.Tensor:
         raise ValueError("d_img takes a contiguous bf16 W, and W and g_prod "
                          "16-byte aligned")
     d_img = torch.empty(n, l, d, dtype=torch.bfloat16, device=g_prod.device)
-    _call("d_img", g_prod.data_ptr(), w_bf16.data_ptr(), d_img.data_ptr(),
-          n, l, d, f, torch.cuda.current_stream(g_prod.device).cuda_stream)
+    _call("d_img", g_prod.device, g_prod.data_ptr(), w_bf16.data_ptr(),
+          d_img.data_ptr(), n, l, d, f,
+          torch.cuda.current_stream(g_prod.device).cuda_stream)
     return d_img
 
 
 def d_img_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
-               rate: float) -> torch.Tensor:
+               rate: float, row0: int = 0) -> torch.Tensor:
     """d_img: the g_prod build, then the product over it."""
-    g_prod, _ = g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate)
+    g_prod, _ = g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate, row0)
     return d_img_from_operand_cuda(g_prod, w_bf16, *img.shape[:2])
 
 
@@ -434,27 +453,28 @@ def d_w_from_operand_cuda(img, g_prod, partials):
                          "g_prod_cuda makes them")
     d_w = torch.empty(d, f, dtype=torch.float32, device=img.device)
     d_b = torch.empty(f, dtype=torch.float32, device=img.device)
-    _call("d_w", img.data_ptr(), g_prod.data_ptr(), partials.data_ptr(),
-          d_w.data_ptr(), d_b.data_ptr(), n, l, d, f,
+    _call("d_w", img.device, img.data_ptr(), g_prod.data_ptr(),
+          partials.data_ptr(), d_w.data_ptr(), d_b.data_ptr(), n, l, d, f,
           torch.cuda.current_stream(img.device).cuda_stream)
     return d_w, d_b
 
 
-def d_w_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float):
+def d_w_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float,
+             row0: int = 0):
     """d_W and d_b: the g_prod build, then the product over it."""
     return d_w_from_operand_cuda(
-        img, *g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate))
+        img, *g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate, row0))
 
 
 def d_q_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
-             rate: float) -> torch.Tensor:
+             rate: float, row0: int = 0) -> torch.Tensor:
     check_inputs(img, w_bf16, b, q, k, rate)
     _check_grad(g, out, img, w_bf16, k)
     d_q = torch.empty(img.shape[0], w_bf16.shape[1], dtype=torch.float32,
                       device=img.device)
     _launch("d_q", (g.data_ptr(), out.data_ptr(), img.data_ptr(),
                     w_bf16.data_ptr(), b.data_ptr(), d_q.data_ptr()), img,
-            w_bf16, seed, k, rate)
+            w_bf16, seed, k, rate, row0)
     return d_q
 
 
@@ -465,11 +485,11 @@ class TrainGridFuse(torch.autograd.Function):
     and does not), for d_img."""
 
     @staticmethod
-    def forward(ctx, img, w, b, q, seed, k, rate):
+    def forward(ctx, img, w, b, q, seed, k, rate, row0=0):
         w_bf16, bf, qf = operands(w, b, q)
-        out = forward_cuda(img, w_bf16, bf, qf, seed, k, rate)
+        out = forward_cuda(img, w_bf16, bf, qf, seed, k, rate, row0)
         ctx.save_for_backward(img, w_bf16, bf, qf, out)
-        ctx.seed, ctx.k, ctx.rate = seed, k, rate
+        ctx.seed, ctx.k, ctx.rate, ctx.row0 = seed, k, rate, row0
         ctx.dtypes = (w.dtype, b.dtype, q.dtype)
         return out
 
@@ -477,7 +497,7 @@ class TrainGridFuse(torch.autograd.Function):
     def backward(ctx, g):
         img, w_bf16, bf, qf, out = ctx.saved_tensors
         args = (g.float().contiguous(), out, img, w_bf16, bf, qf, ctx.seed,
-                ctx.k, ctx.rate)
+                ctx.k, ctx.rate, ctx.row0)
         g_prod, partials = g_prod_cuda(*args)
         d_img = d_img_from_operand_cuda(g_prod, w_bf16, *img.shape[:2]) \
             if ctx.needs_input_grad[0] else None
@@ -485,13 +505,15 @@ class TrainGridFuse(torch.autograd.Function):
         d_q = d_q_cuda(*args)
         w_dtype, b_dtype, q_dtype = ctx.dtypes
         return (d_img, d_w.to(w_dtype), d_b.to(b_dtype), d_q.to(q_dtype),
-                None, None, None)
+                *_no_grads(ctx))
 
 
 def train_grid_fuse(img, w, b, q, seed: int, k: int,
-                    rate: float) -> torch.Tensor:
+                    rate: float, row0: int = 0) -> torch.Tensor:
     """Dispatching entry -> [N, L, O] f32: the plain version for a CPU
-    tensor, the kernels for a CUDA tensor."""
+    tensor, the kernels for a CUDA tensor. ``row0``: the global index of
+    img's first sample (the mask's offset)."""
     if img.device.type == "cpu":
-        return train_grid_fuse_reference(img, w, b, q, seed, k, rate)
-    return TrainGridFuse.apply(img, w, b, q, int(seed), k, float(rate))
+        return train_grid_fuse_reference(img, w, b, q, seed, k, rate, row0)
+    return TrainGridFuse.apply(img, w, b, q, int(seed), k, float(rate),
+                               int(row0))

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from vqa_attention_networks_tpu_torch.models.layers import signed_sqrt
+from vqa_attention_networks_tpu_torch.ops import on_card
 from vqa_attention_networks_tpu_torch.ops.fusion import refactor_output_major
 
 _LANE = 128
@@ -259,13 +260,14 @@ def stage1_coattention_cuda(img: torch.Tensor, q_proj: torch.Tensor,
     h1 = torch.empty(n, l, c, dtype=torch.bfloat16, device=img.device)
     out = torch.empty(n, g, d, dtype=torch.bfloat16, device=img.device)
     stream = torch.cuda.current_stream(img.device).cuda_stream
-    rc = lib.stage1_coattention_launch(
-        img.data_ptr(), sw.w3.data_ptr(), sw.b3.data_ptr(), q3.data_ptr(),
-        sw.c1w.data_ptr(), sw.c1b.data_ptr(), sw.c2w.data_ptr(),
-        sw.c2b.data_ptr(), z.data_ptr(), ssq.data_ptr(), h1.data_ptr(),
-        out.data_ptr(), n, l, d, sw.k, sw.o_pad, c, sw.c1w.shape[1], g, eps,
-        stream,
-    )
+    with on_card(img.device):
+        rc = lib.stage1_coattention_launch(
+            img.data_ptr(), sw.w3.data_ptr(), sw.b3.data_ptr(),
+            q3.data_ptr(), sw.c1w.data_ptr(), sw.c1b.data_ptr(),
+            sw.c2w.data_ptr(), sw.c2b.data_ptr(), z.data_ptr(),
+            ssq.data_ptr(), h1.data_ptr(), out.data_ptr(), n, l, d, sw.k,
+            sw.o_pad, c, sw.c1w.shape[1], g, eps, stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"stage1_coattention launch failed: CUDA error {rc} "

@@ -43,6 +43,7 @@ from vqa_attention_networks_tpu_torch.models.layers import (
     l2_normalize,
     signed_sqrt,
 )
+from vqa_attention_networks_tpu_torch.ops import on_card
 from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops.fusion import mfb_sumpool
 
@@ -101,10 +102,11 @@ def wq_grid_fuse_cuda(img: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     ssq = torch.empty(n, -(-o // lib.pooled_fusion_o_tile()),
                       dtype=torch.float32, device=dev)
     out = torch.empty(n, l, o, dtype=torch.bfloat16, device=dev)
-    rc = lib.pooled_fusion_wq_grid(
-        img.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), qb.data_ptr(),
-        z.data_ptr(), ssq.data_ptr(), out.data_ptr(), n, l, d, f, k, eps,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(dev):
+        rc = lib.pooled_fusion_wq_grid(
+            img.data_ptr(), w_bf16.data_ptr(), bf.data_ptr(), qb.data_ptr(),
+            z.data_ptr(), ssq.data_ptr(), out.data_ptr(), n, l, d, f, k,
+            eps, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"pooled_fusion_wq_grid launch failed: CUDA error {rc} "

@@ -1,5 +1,6 @@
-"""Batched inference engine on one device (port of ``InferenceEngine`` and
-``DeviceFeatureCache`` in ``vqa_attention_networks_tpu/serve.py``).
+"""Batched inference engine (port of ``InferenceEngine`` and
+``DeviceFeatureCache`` in ``vqa_attention_networks_tpu/serve.py``), on one
+device or split over several.
 
 - Any of the eight families (``models.get_model``), chosen by
   ``cfg.model_name``; each request's question length reaches the model as
@@ -32,8 +33,14 @@
   false) where the engine's own forward would call it, and the device
   feature cache, whose banked forward the artifact does not carry.
 
-Not ported yet: ``data_parallel > 1`` with its sharded bank (ROADMAP Queue
-1 item 10) raises ``NotImplementedError``.
+- ``data_parallel=N`` (JAX ``serve.py:231-270``): one process holds a
+  replica of the model on each of N devices (``cuda:0..N-1``, or the
+  devices named; N replicas on one named device are the counterpart of
+  JAX's emulated devices), splits each padded batch on dim 0, launches
+  every shard's forward before it fetches any result, and returns the
+  top-k in request order. The device feature cache with N > 1 is JAX's
+  sharded bank (``DeviceFeatureCache(mesh=...)``), ROADMAP Queue 1 item
+  10b, and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ from vqa_attention_networks_tpu_torch.weights import (
     to_jax_params,
 )
 
-_MULTI_GPU_ITEM = "ROADMAP Queue 1 item 10 (multi-GPU)"
+_SHARDED_BANK_ITEM = "ROADMAP Queue 1 item 10b (the sharded banks)"
 
 Fetch = Callable[[List[int]], Tuple[np.ndarray, np.ndarray]]
 
@@ -99,7 +106,7 @@ class DeviceFeatureCache:
       upload moved to a side stream would have to wait on an event
       recorded after the in-flight batch's gather.
     - ``mesh`` (the sharded bank of JAX's data-parallel engine) is
-      ROADMAP Queue 1 item 10 and raises ``NotImplementedError``.
+      ROADMAP Queue 1 item 10b and raises ``NotImplementedError``.
     """
 
     def __init__(self, cfg: Config, capacity: int,
@@ -110,7 +117,7 @@ class DeviceFeatureCache:
         if mesh is not None:
             raise NotImplementedError(
                 f"a device feature cache sharded over a mesh is not ported "
-                f"yet: {_MULTI_GPU_ITEM}")
+                f"yet: {_SHARDED_BANK_ITEM}")
         # the grid follows the store it is fed from, not the config: models
         # pool over whatever L the grid has
         l = num_regions if num_regions is not None else cfg.img_feature_dim
@@ -251,6 +258,28 @@ def trained_params(cfg: Config, directory: str):
     return to_jax_params(model)
 
 
+def replica_devices(device, n: int) -> List[torch.device]:
+    """The devices of ``n`` replicas: a list names them (its first ``n``);
+    one device with an index, or the CPU, holds all ``n``; a bare
+    ``cuda`` (the default) is ``cuda:0..n-1``. Raises, in JAX's words,
+    where fewer than ``n`` are visible."""
+    if isinstance(device, (list, tuple)):
+        devices = [torch.device(d) for d in device]
+        if len(devices) < n:
+            raise ValueError(f"data_parallel={n} but only {len(devices)} "
+                             "device(s) visible")
+        return devices[:n]
+    dev = torch.device(device) if device is not None else cuda_device()
+    if dev.type != "cuda" or dev.index is not None or n == 1:
+        return [dev] * n
+    cuda_device()  # raises without a card
+    count = torch.cuda.device_count()
+    if count < n:
+        raise ValueError(f"data_parallel={n} but only {count} device(s) "
+                         "visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -261,26 +290,43 @@ class InferenceEngine:
         artifact_dir: Optional[str] = None,
         input_dtype: str = "float16",
         data_parallel: int = 1,
-        device: Union[str, torch.device, None] = None,
+        device: Union[str, torch.device, Sequence, None] = None,
     ):
         """``params`` is a parameter tree in the JAX layout (numpy arrays),
         the same argument the JAX engine takes. ``device`` defaults to the
         card; the CPU runs only when asked for by name. ``artifact_dir``
-        serves the exported program there with these weights."""
-        if int(data_parallel) != 1:
-            raise NotImplementedError(
-                f"data_parallel serving is not ported yet: {_MULTI_GPU_ITEM}"
-            )
+        serves the exported program there with these weights.
+        ``data_parallel=N`` serves one logical batch split over N replicas
+        (``replica_devices(device, N)``)."""
+        self.data_parallel = int(data_parallel)
+        if self.data_parallel < 1:
+            raise ValueError(f"data_parallel={data_parallel}: at least 1")
+        if self.data_parallel > 1:
+            if artifact_dir is not None:
+                raise ValueError(
+                    "data_parallel serving splits the eager forward over "
+                    "replicas; an exported artifact is a fixed "
+                    "single-device program — export per-shard artifacts or "
+                    "drop one of the two options")
+            if batch_size % self.data_parallel:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by "
+                    f"data_parallel {self.data_parallel}")
         if input_dtype not in ("float16", "int8"):
             raise ValueError(f"input_dtype {input_dtype!r}: float16 or int8")
         self.cfg = cfg.replace(compute_dtype="bfloat16")
-        self.device = torch.device(device) if device is not None \
-            else cuda_device()
+        self.devices = replica_devices(device, self.data_parallel)
+        self.device = self.devices[0]
         self.batch_size = batch_size
         self.input_dtype = input_dtype
         self.topk = min(topk, cfg.a_vocab_size)
-        model = get_model(self.cfg.model_name)(self.cfg).to(self.device)
-        self.model = load_jax_params(model, params).eval()
+        # one replica a device, each with its own K1 layout (made by
+        # load_jax_params); self.model is the first
+        self.models = [
+            load_jax_params(get_model(self.cfg.model_name)(self.cfg).to(d),
+                            params).eval()
+            for d in self.devices]
+        self.model = self.models[0]
         self._cache: Optional[DeviceFeatureCache] = None
         self._artifact = artifact_dir
         if artifact_dir is None:
@@ -347,6 +393,10 @@ class InferenceEngine:
             raise ValueError(
                 "the device feature cache needs the eager engine; the "
                 "exported artifact is a fixed per-request-feed program")
+        if self.data_parallel > 1:
+            raise NotImplementedError(
+                "a device feature cache under data_parallel > 1 is JAX's "
+                f"sharded bank, not ported yet: {_SHARDED_BANK_ITEM}")
         self._cache = DeviceFeatureCache(
             self.cfg, capacity, num_regions=num_regions, channels=channels,
             device=self.device,
@@ -416,23 +466,30 @@ class InferenceEngine:
         )
         return [ques, qlen]
 
-    def _to_device(self, arrays) -> list:
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _to_device(self, arrays, device=None) -> list:
+        device = self.device if device is None else device
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in arrays]
 
     def _dispatch(self, image_features, questions, ques_length,
                   feature_scale):
-        """Pad, upload and launch one batch; returns (device results, n)."""
+        """Pad, upload and launch one batch; returns (device results of
+        each replica's shard, n): every shard is launched before any is
+        fetched."""
         feats, n = self._feature_args(image_features, feature_scale)
-        args = self._to_device(
-            [*feats, *self._question_args(questions, ques_length)])
-        with torch.inference_mode():
-            handles = self._fwd(self.model, *args)
+        arrays = [*feats, *self._question_args(questions, ques_length)]
+        shard = self.batch_size // self.data_parallel
+        handles = []
+        for i, (model, device) in enumerate(zip(self.models, self.devices)):
+            args = self._to_device(
+                [a[i * shard:(i + 1) * shard] for a in arrays], device)
+            with torch.inference_mode():
+                handles.append(self._fwd(model, *args))
         return handles, n
 
     def _dispatch_by_id(self, image_ids, questions, ques_length):
         """Resolve the slots (uploading misses) and launch one batch from
-        the bank; returns (device results, n)."""
+        the bank; returns (device results, as the one shard's, n)."""
         if self._cache is None:
             raise RuntimeError(
                 "call attach_feature_cache() before predict_*_by_id")
@@ -446,7 +503,7 @@ class InferenceEngine:
             with torch.inference_mode():
                 handles = self._fwd_bank(self.model, self._cache.rows,
                                          self._cache.scale, idx, ques, qlen)
-        return handles, n
+        return [handles], n
 
     def predict_batch_by_id(
         self,
@@ -505,8 +562,8 @@ class InferenceEngine:
             yield self._collect(*pending)
 
     def _collect(self, handles, n: int) -> List[Prediction]:
-        top_i = handles[0][:n].cpu().numpy()
-        top_p = handles[1][:n].cpu().numpy()
+        top_i = np.concatenate([h[0].cpu().numpy() for h in handles])[:n]
+        top_p = np.concatenate([h[1].cpu().numpy() for h in handles])[:n]
         return [
             Prediction(int(top_i[i, 0]), top_i[i], top_p[i]) for i in range(n)
         ]

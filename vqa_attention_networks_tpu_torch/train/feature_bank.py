@@ -1,8 +1,10 @@
 """The training feature bank (``Config.device_feature_bank``): the whole
-feature store in device memory, one copy on the one device (port of
+feature store in device memory, one copy on each rank's device (port of
 ``Solver._build_feature_bank`` in ``vqa_attention_networks_tpu/train/
-solver.py:369-534``, its replicated placement; the sharded ring is ROADMAP
-Queue 1 item 10).
+solver.py:369-534``, its replicated placement). Under data parallelism
+each rank uploads the whole store and looks up the rows of its own slice
+of each batch. The sharded bank and its ring exchange are ROADMAP Queue 1
+item 10b.
 
 Batches then carry dense row indices (``data/dataset.py``, ``device_bank=
 True``) and ``lookup`` gathers their rows on the device with

@@ -1,6 +1,13 @@
 """Loss functions and hit counts (port of
 ``vqa_attention_networks_tpu/train/losses.py``), with the same ``valid``
-mask: the pad rows of an epoch's last batch contribute nothing."""
+mask: the pad rows of an epoch's last batch contribute nothing.
+
+Each loss is a sum over the valid rows divided by their count. A rank of a
+data-parallel run holds a slice of the batch; it passes ``count``, the
+global batch's valid count (every rank holds the global ``valid`` on the
+host), and its loss is then its share of JAX's global mean, whatever the
+rank's own share of pad rows. The mean of the ranks' own means, which DDP
+would give, is not that mean on a padded batch."""
 
 from __future__ import annotations
 
@@ -10,8 +17,22 @@ import numpy as np
 import torch
 
 
+def _denominator(valid: Optional[torch.Tensor], count: Optional[int],
+                 like: torch.Tensor) -> torch.Tensor:
+    """max(count, 1), else the valid rows' count (clamped at 1), else the
+    batch's rows."""
+    if count is not None:
+        return torch.tensor(float(max(count, 1)), dtype=like.dtype,
+                            device=like.device)
+    if valid is not None:
+        return torch.clamp_min(valid.to(like.dtype).sum(), 1.0)
+    return torch.tensor(float(like.shape[0]), dtype=like.dtype,
+                        device=like.device)
+
+
 def soft_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor,
-                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       valid: Optional[torch.Tensor] = None,
+                       count: Optional[int] = None) -> torch.Tensor:
     """KLDivLoss(log_softmax(logits), targets) with reduction='mean': the
     mean over all N*A elements of ``t * (log t - log p)``, 0*log0 := 0
     (``losses.py:17-38``)."""
@@ -19,32 +40,28 @@ def soft_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor,
     t = soft_targets  # promotes with the logits' dtype, as in JAX
     log_t = torch.log(torch.where(t > 0, t, torch.ones_like(t)))
     elem = t * (log_t - log_probs)
+    n = _denominator(valid, count, elem)
     if valid is not None:
         elem = elem * valid[:, None].to(elem.dtype)
-        n = torch.clamp_min(valid.to(elem.dtype).sum(), 1.0)
-    else:
-        n = torch.tensor(float(logits.shape[0]), dtype=elem.dtype,
-                         device=elem.device)
     return elem.sum() / (n * logits.shape[-1])
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  valid: Optional[torch.Tensor] = None,
+                  count: Optional[int] = None) -> torch.Tensor:
     """nn.CrossEntropyLoss semantics: the mean NLL of log_softmax at the
     label."""
     log_probs = torch.log_softmax(logits, dim=-1)
     nll = -log_probs.gather(-1, labels.long()[:, None])[:, 0]
+    n = _denominator(valid, count, nll)
     if valid is not None:
         nll = nll * valid.to(nll.dtype)
-        n = torch.clamp_min(valid.to(nll.dtype).sum(), 1.0)
-    else:
-        n = torch.tensor(float(logits.shape[0]), dtype=nll.dtype,
-                         device=nll.device)
     return nll.sum() / n
 
 
 def soft_bce(logits: torch.Tensor, soft_labels: torch.Tensor,
-             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+             valid: Optional[torch.Tensor] = None,
+             count: Optional[int] = None) -> torch.Tensor:
     """The legacy trainer's 'soft BCE' (train_hfd.py:69-72), as JAX
     ``losses.py:57`` computes it: s = softmax(labels), p = softmax(logits),
     elementwise -s log p - (1-s) log(1-p), summed over answers, mean over
@@ -55,12 +72,9 @@ def soft_bce(logits: torch.Tensor, soft_labels: torch.Tensor,
     eps = torch.finfo(log_p.dtype).tiny
     log_1mp = torch.log(-torch.expm1(torch.clamp_max(log_p, -eps)))
     per_row = (-s * log_p - (1.0 - s) * log_1mp).sum(dim=-1)
+    n = _denominator(valid, count, per_row)
     if valid is not None:
         per_row = per_row * valid.to(per_row.dtype)
-        n = torch.clamp_min(valid.to(per_row.dtype).sum(), 1.0)
-    else:
-        n = torch.tensor(float(logits.shape[0]), dtype=per_row.dtype,
-                         device=per_row.device)
     return per_row.sum() / n
 
 

@@ -1,9 +1,10 @@
-"""Single-device ``Solver`` (port of ``vqa_attention_networks_tpu/train/
-solver.py``): the train step, ``train()`` over epochs with checkpoints and
-early stopping, ``val()`` on one batch or over the whole split with its
-results files, and the persistence of ``save_checkpoint`` / ``restore`` /
+"""The ``Solver`` (port of ``vqa_attention_networks_tpu/train/solver.py``):
+the train step, ``train()`` over epochs with checkpoints and early
+stopping, ``val()`` on one batch or over the whole split with its results
+files, and the persistence of ``save_checkpoint`` / ``restore`` /
 ``save``, for all eight families (``TRAINABLE``), at either
-``dropout_site``.
+``dropout_site``, on one device or data-parallel over the ranks of a
+process group.
 
 - **Parameters**: the family's ``init_params`` drawn from a
   ``torch.Generator`` seeded by ``cfg.seed``, or a JAX-layout tree
@@ -93,10 +94,31 @@ results files, and the persistence of ``save_checkpoint`` / ``restore`` /
 - TF32 stays off: f32 products are full f32, the counterpart of the JAX
   package's ``Precision.HIGHEST``.
 
-Not ported yet: ``data_parallel``/``model_parallel`` > 1 and with them
-the sharded bank (ROADMAP Queue 1 item 10) raise ``NotImplementedError``.
-``device_feature_bank_shard`` on the one device is the replicated bank, as
-in JAX on a one-device mesh.
+- **Data parallelism** (JAX's ``data`` mesh axis, ``solver.py:126-142``):
+  inside a process group (``parallel.initialize_distributed``, one rank a
+  device, ``torchrun --nproc_per_node N``) the Solver trains over the W
+  ranks, ``data_parallel`` defaulting to W. Every rank assembles the same
+  global batch and gathers the features of its own rows only
+  (``parallel/sharding.step_rows``: its slice of each micro-batch). The
+  model is wrapped in ``DistributedDataParallel`` (its gradient all-reduce
+  is JAX's), and the step keeps JAX's global-batch semantics: each loss is
+  the rank's valid rows' sum over the global micro-batch's valid count,
+  times W against DDP's averaging, so the gradient is the global mean of
+  a padded batch too; a batch norm's statistics are the global batch's
+  (``layers.BatchNorm`` over the mesh's data group, which every gathered
+  figure below spans too); the dropout masks, K2's included, are the
+  rank's rows of the masks one process draws (``layers.GlobalRows``);
+  micro-batches ``0..a-2`` run under ``no_sync()``; the batch-norm EMA
+  skips a micro-batch with no valid row in the global batch. The step's
+  loss and correct count, ``val()``'s sums and its predictions
+  (``host_fetch``) are gathered, so every rank holds the same figures and
+  stops early at the same epoch; the primary alone writes the results
+  files, the metrics and the checkpoints, which every rank restores.
+  ``model_parallel > 1`` and the sharded bank (``device_feature_bank_shard``
+  with W > 1) are ROADMAP Queue 1 item 10b and raise
+  ``NotImplementedError``; ``device_feature_bank_shard`` in one process, or
+  the bank under W ranks, is the replicated bank, a copy of the store on
+  each rank's device, as in JAX.
 """
 
 from __future__ import annotations
@@ -121,7 +143,6 @@ from vqa_attention_networks_tpu_torch.data.prepare import (
     ANSWER_TYPE_NAMES,
     QAData,
 )
-from vqa_attention_networks_tpu_torch.device import cuda_device
 from vqa_attention_networks_tpu_torch.models import (
     TRAINABLE,
     get_model,
@@ -130,6 +151,20 @@ from vqa_attention_networks_tpu_torch.models import (
     mfb,
     mhb_coatt,
     vis_lstm,
+)
+from vqa_attention_networks_tpu_torch.models.layers import (
+    GlobalRows,
+    span_batch_statistics,
+)
+from vqa_attention_networks_tpu_torch.parallel import distributed
+from vqa_attention_networks_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    TENSOR_PARALLEL_ITEM,
+    make_mesh,
+)
+from vqa_attention_networks_tpu_torch.parallel.sharding import (
+    shard_batch,
+    step_rows,
 )
 from vqa_attention_networks_tpu_torch.train.feature_bank import (
     FeatureBank,
@@ -151,7 +186,7 @@ from vqa_attention_networks_tpu_torch.utils.logging import (
 from vqa_attention_networks_tpu_torch.utils.timer import Timer
 from vqa_attention_networks_tpu_torch.weights import load_jax_params
 
-_MULTI_GPU_ITEM = "ROADMAP Queue 1 item 10 (multi-GPU)"
+_SHARDED_BANK_ITEM = "ROADMAP Queue 1 item 10b (the sharded banks)"
 # each family's random parameter tree (its ``init_params``)
 _INIT_PARAMS = {
     "mhb_coAtt": mhb_coatt.init_params,
@@ -220,6 +255,36 @@ def merge_batch_stats(model: torch.nn.Module,
                 running.copy_(merged)
 
 
+class TrainForward(torch.nn.Module):
+    """The training forward of ``model`` as a module: what
+    ``DistributedDataParallel`` wraps under data parallelism, with remat's
+    checkpoint inside it (``torch.utils.checkpoint``, non-reentrant, which
+    DDP needs). The dropout generator is made inside the checkpointed
+    function: under ``remat`` the forward runs again in the backward, and
+    a generator made from its seed there draws the same masks again (the
+    checkpoint restores only the default generators, which no mask draws
+    from)."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, img, ques, ques_length, valid, make_generator,
+                fusion_seed, reference_kernels: bool = False,
+                remat: bool = False):
+        def run(img, ques, ques_length, valid):
+            return self.model(img, ques, ques_length, train=True,
+                              valid=valid, generator=make_generator(),
+                              fusion_seed=fusion_seed,
+                              reference_kernels=reference_kernels, aux=True)
+
+        if remat:
+            return torch.utils.checkpoint.checkpoint(
+                run, img, ques, ques_length, valid, use_reentrant=False,
+                preserve_rng_state=False)
+        return run(img, ques, ques_length, valid)
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                loss_fn: Callable[[torch.Tensor, slice], torch.Tensor],
                img: torch.Tensor, ques: torch.Tensor,
@@ -228,47 +293,44 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    Callable[[], torch.Generator], int]],
                valid: Optional[torch.Tensor] = None,
                reference_kernels: bool = False, grad_accum_steps: int = 1,
-               remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+               remat: bool = False,
+               forward: Optional[torch.nn.Module] = None,
+               micro_live: Optional[torch.Tensor] = None,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step, the Solver's: ``grad_accum_steps`` micro-batches (rows
     ``rows = slice(i * m, (i + 1) * m)``, contiguous along dim 0), each a
     training forward, ``loss_fn(logits, rows)`` and its backward into
     ``.grad``; the summed gradients divided by ``a``, Adam at ``lr``, then
     each micro-batch's batch-norm statistics merged in order, skipping a
-    micro-batch of padding only. ``randomness(i)`` gives micro-batch i's
+    micro-batch of padding only (``micro_live[i]`` false; by default, no
+    valid row among its ``rows``). ``randomness(i)`` gives micro-batch i's
     (``None`` when ``a == 1``) dropout generator factory and K2 mask seed.
-    The generator is made inside the forward: under ``remat`` the forward
-    runs again in the backward (``torch.utils.checkpoint``), and a
-    generator made from its seed there draws the same masks again (the
-    checkpoint restores only the default generators, which no mask draws
-    from). Returns (loss, logits), detached: the micro-batches' mean loss
-    and their logits in batch order."""
+    ``forward`` is ``TrainForward(model)`` by default; a DDP-wrapped one
+    runs micro-batches ``0..a-2`` under its ``no_sync()``, so the gradients
+    are all-reduced once a step. Returns (loss, logits), detached: the
+    micro-batches' mean loss and their logits in batch order."""
     a = grad_accum_steps
     m = img.shape[0] // a
+    forward = forward if forward is not None else TrainForward(model)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.zero_grad(set_to_none=True)
-    live = (valid.reshape(a, m).any(1) if a > 1 and valid is not None
-            else None)
+    live = micro_live
+    if live is None and a > 1 and valid is not None:
+        live = valid.reshape(a, m).any(1)
     losses, logits_all, stats = [], [], []
     for i in range(a):
         rows = slice(i * m, (i + 1) * m)
         make_generator, fusion_seed = randomness(i if a > 1 else None)
-
-        def forward(img, ques, ques_length, valid):
-            return model(img, ques, ques_length, train=True, valid=valid,
-                         generator=make_generator(), fusion_seed=fusion_seed,
-                         reference_kernels=reference_kernels, aux=True)
-
         micro = [None if x is None else x[rows]
                  for x in (img, ques, ques_length, valid)]
-        if remat:
-            logits, aux = torch.utils.checkpoint.checkpoint(
-                forward, *micro, use_reentrant=False,
-                preserve_rng_state=False)
-        else:
-            logits, aux = forward(*micro)
-        loss = loss_fn(logits, rows)
-        loss.backward()
+        sync = (forward.no_sync() if i < a - 1 and hasattr(forward, "no_sync")
+                else contextlib.nullcontext())
+        with sync:
+            logits, aux = forward(*micro, make_generator, fusion_seed,
+                                  reference_kernels, remat)
+            loss = loss_fn(logits, rows)
+            loss.backward()
         losses.append(loss.detach())
         logits_all.append(logits.detach())
         stats.append(aux.get("batch_stats"))
@@ -286,13 +348,46 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     return sum(losses) / a, torch.cat(logits_all)
 
 
-def _check_ported(cfg: Config) -> None:
+def data_parallel_size(cfg: Config) -> int:
+    """The ranks the Solver trains over, by JAX's mesh rules: inside a
+    process group its world size (an explicit ``data_parallel`` must equal
+    it), 1 without one; raises where the batch does not split."""
     if cfg.model_name not in TRAINABLE:
         raise ValueError(f"the Solver does not train {cfg.model_name!r}")
-    if cfg.data_parallel > 1 or cfg.model_parallel > 1:
+    if cfg.model_parallel > 1:
         raise NotImplementedError(
-            "data_parallel / model_parallel > 1 is not ported to PyTorch "
-            f"yet: {_MULTI_GPU_ITEM}")
+            f"model_parallel={cfg.model_parallel} (tensor parallelism) is "
+            f"not ported to PyTorch yet: {TENSOR_PARALLEL_ITEM}")
+    world = distributed.world_size()
+    if not distributed.is_initialized():
+        if cfg.data_parallel > 1:
+            raise ValueError(
+                f"data_parallel={cfg.data_parallel} needs "
+                f"{cfg.data_parallel} ranks in a process group, one a "
+                f"device: start the run with torchrun --nproc_per_node "
+                f"{cfg.data_parallel} (the CLIs join it), or call "
+                "parallel.initialize_distributed() in each rank")
+        return 1
+    if cfg.data_parallel > 1 and cfg.data_parallel != world:
+        raise ValueError(
+            f"data_parallel={cfg.data_parallel} but the process group has "
+            f"{world} ranks: the data axis spans every rank")
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size={cfg.batch_size} not divisible by "
+                         f"data_parallel={world}")
+    micro = cfg.batch_size // cfg.grad_accum_steps
+    if micro % world:
+        raise ValueError(
+            f"a micro-batch of {micro} rows (batch_size={cfg.batch_size} / "
+            f"grad_accum_steps={cfg.grad_accum_steps}) does not split over "
+            f"data_parallel={world}")
+    if world > 1 and cfg.device_feature_bank and \
+            cfg.device_feature_bank_shard:
+        raise NotImplementedError(
+            "device_feature_bank_shard over more than one rank (the ring "
+            f"exchange) is not ported to PyTorch yet: {_SHARDED_BANK_ITEM}; "
+            "the replicated bank (device_feature_bank alone) runs")
+    return world
 
 
 class Solver:
@@ -310,16 +405,16 @@ class Solver:
         """``params`` is a JAX-layout tree (numpy arrays); without it the
         weights are drawn from ``cfg.seed``. ``glove_table`` ([q_vocab,
         emb_dim]) replaces mhb_coAtt's placeholder table under
-        ``cfg.glove``. ``device`` defaults to the card; the CPU runs only
-        when asked for by name. ``reference_kernels=True`` trains through
-        K2's or K3's plain version in place of the kernels, for the
-        comparisons of ``chip_smoke.py``. ``log_dir`` turns on the metric
-        writer (``<log_dir>/<model>/events.jsonl``)."""
+        ``cfg.glove``. ``device`` defaults to the card (in a process
+        group, ``cuda:LOCAL_RANK``); the CPU runs only when asked for by
+        name. ``reference_kernels=True`` trains through K2's or K3's plain
+        version in place of the kernels, for the comparisons of
+        ``chip_smoke.py``. ``log_dir`` turns on the metric writer
+        (``<log_dir>/<model>/events.jsonl``), on the primary rank."""
         cfg.validate()
-        _check_ported(cfg)
+        self.data_parallel = data_parallel_size(cfg)
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None \
-            else cuda_device()
+        self.device = distributed.rank_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if params is None:
@@ -329,10 +424,21 @@ class Solver:
                                                          np.float32))
         model = get_model(cfg.model_name)(cfg).to(self.device)
         self.model = load_jax_params(model, params)
+        self._forward: torch.nn.Module = TrainForward(self.model)
+        # the rows of each split's global batches this rank holds (None:
+        # all of them)
+        self._rows: Dict[str, Optional[np.ndarray]] = {"train": None,
+                                                       "val": None}
+        # the mesh, its data axis' process group and this rank's place on
+        # it (set by _join_data_parallel)
+        self.mesh, self._group, self._data_rank = None, None, 0
+        if distributed.is_initialized():
+            self._join_data_parallel()
         self.optimizer = make_optimizer(self.model, cfg)
         self.reference_kernels = reference_kernels
         self.writer = (MetricWriter(log_dir, run_name=cfg.model_name)
-                       if log_dir is not None else NullMetricWriter())
+                       if log_dir is not None and distributed.is_primary()
+                       else NullMetricWriter())
         self.step = 0
         self._rng_base = cfg.seed + 1
         # the feed (solver.py:188-216): f16 rows at bf16 compute (the model
@@ -358,6 +464,7 @@ class Solver:
                 shuffle=(cfg.shuffle and split == "train"), seed=cfg.seed,
                 feature_dtype=feature_dtype,
                 device_bank=self.bank is not None,
+                feature_rows=self._rows[split],
             )
             for split in ("train", "val")
         }
@@ -372,16 +479,52 @@ class Solver:
         self.i_patience = 0
         self.best_state: Optional[Dict[str, torch.Tensor]] = None
 
+    def _join_data_parallel(self) -> None:
+        """Wrap the training forward in DDP over the mesh's data axis and
+        take this rank's rows. The mesh's data group is the one set of
+        ranks every global figure spans: DDP's gradients, the batch norm's
+        statistics, the evaluation's sums and predictions. DDP broadcasts
+        rank 0's parameters and buffers; K1's layout is then made again
+        from them. The batch-norm buffers are merged by every rank from the
+        same global statistics (``merge_batch_stats``), so DDP does not
+        broadcast them again. A model whose training leaves parameters
+        without a gradient says so (``unused_in_training``, mfb under its
+        reference quirk): DDP then looks for them, which costs a walk of
+        the graph a step, so only there."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        cfg, world = self.cfg, self.data_parallel
+        self.mesh = make_mesh(world, cfg.model_parallel, self.device.type)
+        self._group = self.mesh.get_group(DATA_AXIS)
+        self._data_rank = rank = self.mesh.get_local_rank(DATA_AXIS)
+        span_batch_statistics(self.model, self._group)
+        self._forward = DistributedDataParallel(
+            self._forward,
+            device_ids=[self.device] if self.device.type == "cuda" else None,
+            broadcast_buffers=False,
+            find_unused_parameters=getattr(self.model, "unused_in_training",
+                                           False),
+            process_group=self._group)
+        if hasattr(self.model, "prepare"):
+            self.model.prepare()
+        if world > 1:
+            self._rows = {
+                "train": step_rows(cfg.batch_size, cfg.grad_accum_steps,
+                                   rank, world),
+                "val": step_rows(cfg.batch_size, 1, rank, world)}
+
     # ------------------------------------------------------------------
     # steps
     # ------------------------------------------------------------------
 
-    def _loss(self, logits, answers, soft, valid):
+    def _loss(self, logits, answers, soft, valid, count=None):
+        """The loss over ``valid``'s rows; ``count`` (data parallelism):
+        the global batch's valid count, its denominator."""
         if self.cfg.loss_override == "soft_bce":
-            return soft_bce(logits, soft, valid)
+            return soft_bce(logits, soft, valid, count)
         if self.cfg.soft_answer:
-            return soft_cross_entropy(logits, soft, valid)
-        return cross_entropy(logits, answers, valid)
+            return soft_cross_entropy(logits, soft, valid, count)
+        return cross_entropy(logits, answers, valid, count)
 
     def _labels(self, answers, soft):
         # soft-answer models score against the argmax'd distribution; one
@@ -389,7 +532,12 @@ class Solver:
         # val(full=True)
         return soft.argmax(-1) if self.cfg.soft_answer else answers
 
-    def _device_batch(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
+    def _device_batch(self, batch: Batch,
+                      split: str = "train") -> Tuple[torch.Tensor, ...]:
+        """This rank's rows of ``batch`` on the device."""
+        if self._rows[split] is not None:
+            batch = shard_batch(batch, self._rows[split])
+
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
@@ -409,43 +557,82 @@ class Solver:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _randomness(self, micro: Optional[int]):
+        """(dropout generator factory, K2 mask seed) of micro-batch
+        ``micro`` at ``self.step``. A rank holds rows ``[row0, row0 + m/W)``
+        of each global micro-batch of m rows: its generator stands for
+        those rows (``layers.GlobalRows``)."""
         gen_seed, fusion_seed = step_randomness(self._rng_base, self.step,
                                                 micro)
-        return (lambda: self._dropout_generator(gen_seed)), fusion_seed
+        if self.data_parallel == 1:
+            return (lambda: self._dropout_generator(gen_seed)), fusion_seed
+        m = self.cfg.batch_size // self.cfg.grad_accum_steps
+        row0 = self._data_rank * m // self.data_parallel
+        return (lambda: GlobalRows(self._dropout_generator(gen_seed), row0,
+                                   m)), fusion_seed
+
+    def _gathered(self, *values: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Scalars summed over the ranks (themselves in one process)."""
+        if self.data_parallel == 1:
+            return values
+        return tuple(distributed.all_reduce_sum(torch.stack(values),
+                                                self._group))
 
     def _train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``train_step`` at ``self.step`` -> (loss, correct count), on the
-        device."""
+        """``train_step`` at ``self.step`` -> (loss, correct count) of the
+        global batch, on the device."""
         img, ques, qlen, answers, valid, soft = self._device_batch(batch)
+        a, w = self.cfg.grad_accum_steps, self.data_parallel
+        counts = live = None
+        if w > 1:
+            # each micro-batch's valid count and liveness in the global
+            # batch (every rank holds its valid mask)
+            per_micro = batch.valid.reshape(a, -1).sum(1)
+            counts = [int(c) for c in per_micro]
+            live = torch.from_numpy(per_micro > 0).to(self.device)
+        m_local = img.shape[0] // a
+
+        def loss_fn(out, rows):
+            loss = self._loss(out, answers[rows],
+                              None if soft is None else soft[rows],
+                              valid[rows],
+                              None if counts is None
+                              else counts[rows.start // m_local])
+            # DDP averages the ranks' gradients; the ranks' shares sum
+            return loss if w == 1 else loss * w
+
         self.model.train()
         trap = (torch.autograd.set_detect_anomaly(True)
                 if self.cfg.debug_nans else contextlib.nullcontext())
         with trap:
             loss, logits = train_step(
-                self.model, self.optimizer,
-                lambda out, rows: self._loss(
-                    out, answers[rows], None if soft is None else soft[rows],
-                    valid[rows]),
+                self.model, self.optimizer, loss_fn,
                 img, ques, qlen, lr=learning_rate(self.cfg, self.step),
                 randomness=self._randomness, valid=valid,
                 reference_kernels=self.reference_kernels,
-                grad_accum_steps=self.cfg.grad_accum_steps,
-                remat=self.cfg.remat)
-        return loss, correct_count(logits, self._labels(answers, soft),
-                                   valid)
+                grad_accum_steps=a, remat=self.cfg.remat,
+                forward=self._forward, micro_live=live)
+        correct = correct_count(logits, self._labels(answers, soft), valid)
+        if w == 1:
+            return loss, correct
+        return self._gathered(loss / w, correct)
 
     def _eval_step(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
-        """The eval forward on one batch -> (loss, correct, top-3 correct,
-        per-row argmax), on the device."""
-        img, ques, qlen, answers, valid, soft = self._device_batch(batch)
+        """The eval forward on one batch -> (loss, correct, top-3 correct)
+        of the global batch, and this rank's per-row argmax, on the
+        device."""
+        img, ques, qlen, answers, valid, soft = self._device_batch(batch,
+                                                                   "val")
+        count = (int(batch.valid.sum()) if self.data_parallel > 1
+                 else None)
         self.model.eval()
         with torch.no_grad():
             logits = self.model(img, ques, qlen)
             labels = self._labels(answers, soft)
-            return (self._loss(logits, answers, soft, valid),
-                    correct_count(logits, labels, valid),
-                    topk_correct_count(logits, labels, k=3, valid=valid),
-                    logits.argmax(dim=-1))
+            sums = self._gathered(
+                self._loss(logits, answers, soft, valid, count),
+                correct_count(logits, labels, valid),
+                topk_correct_count(logits, labels, k=3, valid=valid))
+            return (*sums, logits.argmax(dim=-1))
 
     # ------------------------------------------------------------------
     # the epoch loop and validation (solver.py:581-891)
@@ -626,7 +813,8 @@ class Solver:
             n_batches += 1
             if not full:
                 break
-            preds = preds_d.cpu().numpy()
+            # the global batch's predictions on every rank
+            preds = distributed.host_fetch(preds_d, self._group)
             valid = batch.valid
             if batch.question_ids is not None:
                 # leaderboard rows: valid rows only (pad rows repeat ids)
@@ -672,10 +860,7 @@ class Solver:
         # the reference's denominator counts pad rows (solver.py:177)
         acc_ref = total_correct / max(n_batches * cfg.batch_size, 1)
         top3 = total_top3 / max(total_valid, 1)
-        os.makedirs(cfg.results_dir, exist_ok=True)
         base = os.path.join(cfg.results_dir, cfg.model_name)
-        with open(base + ".txt", "w") as f:
-            f.write("Evaluation accuracy: %.6f" % acc_ref)
         record = {"accuracy": acc_exact,
                   "accuracy_reference_denominator": acc_ref,
                   "top3_accuracy": top3, "num_examples": total_valid,
@@ -702,14 +887,20 @@ class Solver:
             record["per_question_type"] = {
                 names[t]: bucket(*stats) for t, stats in sorted(
                     qtype_stats.items(), key=lambda kv: names[kv[0]])}
-        with open(base + ".json", "w") as f:
-            json.dump(record, f)
-        if predictions:
-            # the official leaderboard schema: [{"question_id", "answer"}]
-            with open(base + "_predictions.json", "w") as f:
-                json.dump(predictions, f)
-            print(f"Wrote {len(predictions)} predictions in the official "
-                  f"submission format: {base}_predictions.json")
+        if distributed.is_primary():  # written once a run
+            os.makedirs(cfg.results_dir, exist_ok=True)
+            with open(base + ".txt", "w") as f:
+                f.write("Evaluation accuracy: %.6f" % acc_ref)
+            with open(base + ".json", "w") as f:
+                json.dump(record, f)
+            if predictions:
+                # the official leaderboard schema: [{"question_id",
+                # "answer"}]
+                with open(base + "_predictions.json", "w") as f:
+                    json.dump(predictions, f)
+                print(f"Wrote {len(predictions)} predictions in the "
+                      f"official submission format: "
+                      f"{base}_predictions.json")
         print(f"Evaluation accuracy: {acc_ref:.6f} (exact {acc_exact:.6f},"
               f" top-3 {top3:.6f}{consensus_note})")
         if have_types:

@@ -16,6 +16,11 @@ checkpoint whole and no half-written ``step_<n>``. The functions match the
 JAX module's by name and behaviour; where JAX takes a template tree to
 restore into, these return the saved tree (on the CPU) for the caller to
 load.
+
+In a process group (data parallelism) every rank holds the same state:
+the primary alone writes and prunes (JAX ``utils/checkpoint.py:72-75``),
+and the ranks then meet at a barrier, so a rank that goes on to restore
+finds the checkpoint whole. Every rank restores from the same directory.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ import tempfile
 from typing import Any, List, Optional
 
 import torch
+
+from vqa_attention_networks_tpu_torch.parallel.distributed import (
+    barrier,
+    is_primary,
+)
 
 STATE_FILE = "state.pt"
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -62,11 +72,15 @@ def save_checkpoint(directory: str, state: Any, step: int,
                     keep: Optional[int] = None) -> str:
     """Write one checkpoint; returns its path. ``keep`` bounds retention:
     after a successful write, the ``step_*`` directories older than the
-    newest ``keep`` are deleted. ``None`` keeps all."""
-    path = _write(_step_dir(directory, step), state)
-    if keep is not None and keep > 0:
-        for old in all_steps(directory)[:-keep]:
-            shutil.rmtree(_step_dir(directory, old), ignore_errors=True)
+    newest ``keep`` are deleted. ``None`` keeps all. The primary rank
+    writes; every rank returns after it has."""
+    path = _step_dir(directory, step)
+    if is_primary():
+        _write(path, state)
+        if keep is not None and keep > 0:
+            for old in all_steps(directory)[:-keep]:
+                shutil.rmtree(_step_dir(directory, old), ignore_errors=True)
+    barrier()
     return path
 
 
@@ -97,9 +111,13 @@ def restore_checkpoint(directory: str, step: Optional[int] = None) -> Any:
 
 def save_weights(directory: str, state_dict: Any) -> str:
     """Weights-only export (the analog of the reference's final ``.pth``,
-    solver.py:184-190): a module ``state_dict`` at ``<directory>/weights``."""
-    return _write(os.path.join(os.path.abspath(directory), "weights"),
-                  state_dict)
+    solver.py:184-190): a module ``state_dict`` at ``<directory>/weights``,
+    written by the primary rank."""
+    path = os.path.join(os.path.abspath(directory), "weights")
+    if is_primary():
+        _write(path, state_dict)
+    barrier()
+    return path
 
 
 def load_weights(directory: str) -> Any:
