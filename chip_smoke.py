@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards N   # phases 33-34 alone over N cards
+    python3 chip_smoke.py --cards N   # phases 33-37 alone over N cards
 
 Phases, one line each (a failing phase raises and the exit code is not 0):
 
@@ -257,12 +257,38 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     ``InferenceEngine(data_parallel=2)``, two replicas on ``cuda:0``,
     against ``data_parallel=1``: answers bit-equal, K1 twice a batch,
     qa-pairs/s of both;
+35. ``tp_train``: tensor parallelism at mesh (1, 2), two gloo ranks sharing
+    ``cuda:0``: full-width bf16 mhb_coAtt, batch 64, the fusion
+    projections split over the model axis, 3 steps at the pre-pool site
+    (K2 on each rank's 2,500 columns, zero-padded to 2,520, at its
+    ``col0``) and 2 at the pooled site (K3 on the padded shard), each
+    against one process: ``dp_gates`` (losses, the gathered first-step
+    gradient and its replicated layers' part, the masks gate by the kernel
+    at each rank's ``row0`` and ``col0``, one model, K2's or K3's launches
+    by kind); two controls that must fail: model rank 1 at col0 = 0 (the
+    masks gate) and no all-reduce in ``model_input``'s backward (the
+    replicated layers' gradient); each rank's ``val()`` (K1 once, on the
+    gathered weights) equal to one process's on those weights; each
+    rank's parameter, gradient and Adam bytes;
+36. ``sharded_bank_train``: two data ranks (gloo, ``cuda:0``), phase 4's
+    f16 store and its int8 twin, 2 steps from the host feed, the
+    replicated bank and the sharded bank: the losses bit-equal across the
+    three, each rank's bank bytes (half the store's), the ring lookup's ms
+    beside the replicated bank's;
+37. ``sharded_bank_serve``: phase 4's weights and requests by id from the
+    device cache split over ``InferenceEngine(data_parallel=2)``'s two
+    replicas on ``cuda:0`` (int8 twin of phase 4's store), at capacity
+    191 (rounded up to 192: evictions) and 256 (warm): answers bit-equal
+    to one replica's cache, K1 once a shard, the counts and slots those of
+    the same ids through a cache on the CPU;
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
 card's peak rate for their type, from this run's shapes; K2's and K3's
 d_img with the bare product's library time), nvidia-smi's
-line, and as the last line ``{"ok": true, "device": {...}}``. A switch
+line, and as the last line ``{"ok": true, "device": {...}}``. ``--cards N``
+runs phases 33-37 alone with a rank and a replica a card over NCCL (phase
+35 at (N/2, 2)). A switch
 (``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``) is set only inside the
 phase that needs it. With no card it exits non-zero before phase 2.
 """
@@ -387,6 +413,13 @@ TRAIN_AGREE_STEPS, TRAIN_LOSS_RTOL = 5, 1e-3
 # data parallelism (phases 33-34): dp_train's steps an arm, each arm's
 # ranks' deadline
 DP_STEPS, DP_RANK_TIMEOUT = 3, 240.0
+# tensor parallelism and the sharded banks (phases 35-37): the model axis,
+# tp_train's pooled-site steps, sharded_bank_train's steps a feed and its
+# lookup's timed repeats, sharded_bank_serve's small capacity (rounded up
+# to a multiple of the replicas)
+TP_MODEL, TP_POOLED_STEPS = 2, 2
+BANK_TRAIN_STEPS, BANK_LOOKUP_REPS = 2, 5
+SHARDED_BANK_SMALL = 191
 # a data-parallel arm's first-step gradient (after DDP's all-reduce) against
 # one process's: the relative L2 norm of the difference. On an H100 the
 # sound arms read 0 (one rank) and 2.6e-3 (two ranks: other summation
@@ -3491,34 +3524,102 @@ def l2(tree: dict) -> float:
                for v in tree.values()) ** 0.5
 
 
+def full_grads(solver) -> dict:
+    """The gradients left by the last backward (after DDP's all-reduce),
+    a tensor-parallel rank's shards gathered to the full tensors (every
+    rank of the model group calls this together); 0 where none."""
+    from vqa_attention_networks_tpu_torch.parallel import sharding, tensor
+
+    grads = {k: (torch.zeros_like(p) if p.grad is None
+                 else p.grad.detach().clone())
+             for k, p in solver.model.named_parameters()}
+    tp, split = sharding.model_shardings(solver.model)
+    for k, dim in split.items():
+        grads[k] = tensor.gather(grads[k], tp, dim)
+    return grads
+
+
+def replicated_names(cfg: Config) -> list:
+    """The parameters of ``cfg``'s model whole on every model rank that
+    take gradient through ``parallel.tensor.model_input`` (all but the
+    split fusion projections and the classifier after the gathers)."""
+    from vqa_attention_networks_tpu_torch.parallel.sharding import (
+        param_shardings,
+    )
+
+    with torch.device("meta"):  # names and shapes, no memory
+        model = get_model(cfg.model_name)(cfg)
+    split = param_shardings(model, cfg.fusion_dim)
+    return [k for k, v in split.items()
+            if v is None and not k.startswith("linear_pred")]
+
+
 def dp_train_arm(store_dir: str, out: str, fault: str = None,
-                 reference: str = None, batch: int = TRAIN_BATCH) -> dict:
+                 reference: str = None, batch: int = TRAIN_BATCH,
+                 model_parallel: int = 1, site: str = "prepool",
+                 steps: int = DP_STEPS, val: bool = False,
+                 blocks: int = 1, also: str = None) -> dict:
     """One arm's training in this process (a rank of a process group, or
     one process without one): ``Solver.train`` from phase 7's seed over
-    DP_STEPS global batches of ``batch`` rows (a multiple of TRAIN_BATCH),
-    with K2's counters set to 0 just before it; K2's forward calls recorded
-    as (seed, row0, rows), and the first step's gradient (after DDP's
-    all-reduce) kept. ``fault`` makes a control: ``"row0"``, rank 1 draws
+    ``steps`` global batches of ``batch`` rows (a multiple of
+    TRAIN_BATCH), at ``dropout_site`` ``site`` and ``model_parallel``,
+    with K2's and K3's counters set to 0 just before it; K2's forward calls
+    recorded as (seed, row0, rows, col0, f_total, columns), and the first
+    step's gradient (after DDP's all-reduce; a tensor-parallel rank's
+    gathered) kept. ``fault`` makes a control: ``"row0"``, rank 1 draws
     K2's mask at row0 = 0 (its rows' mask is then rank 0's); ``"count"``,
-    each rank's loss is over its own valid rows, not the global batch's.
-    ``reference``: one process's ``out``, whose final parameters and
-    first-step gradient this arm is held against; without it both are
-    saved beside ``out``. Writes the result to ``out`` as JSON."""
-    from vqa_attention_networks_tpu_torch.parallel import distributed
+    each rank's loss is over its own valid rows, not the global batch's;
+    ``"col0"``, model rank 1 draws K2's mask at col0 = 0 (its columns'
+    mask is then model rank 0's); ``"allreduce"``, the all-reduce over the
+    model group in ``model_input``'s backward is left out. ``reference``:
+    one process's ``out``, whose final parameters and first-step gradient
+    this arm is held against; without it both are saved beside ``out``.
+    ``val``: then one ``val()`` with K1's counter set to 0 just before it
+    (the gathered weights saved beside ``out`` by rank 0). ``blocks`` > 1
+    (one process): each fusion projection's product computed in that many
+    column blocks, concatenated, as the model axis splits it (the same
+    function; at bf16 cuBLAS rounds a product of another width otherwise,
+    which the signed sqrt near 0 amplifies in the gradient). ``also``:
+    a second reference whose first-step gradient the arm's is compared with,
+    for information. Writes the result to ``out`` as JSON."""
+    from vqa_attention_networks_tpu_torch.parallel import distributed, tensor
+    from vqa_attention_networks_tpu_torch.parallel.sharding import (
+        gather_state_dict,
+    )
 
-    cfg = dp_config(batch)
-    qa, _ = train_data(cfg, DP_STEPS * batch // TRAIN_BATCH)
+    cfg = dp_config(batch).replace(model_parallel=model_parallel,
+                                   dropout_site=site)
+    qa, _ = train_data(cfg, steps * batch // TRAIN_BATCH)
     store = FeatureStore(store_dir)
     params = init_params(cfg, torch.Generator().manual_seed(0))
     calls, real = [], tf.train_grid_fuse
     force_zero = fault == "row0" and distributed.rank() == 1
+    col_zero = fault == "col0" and distributed.rank() % model_parallel == 1
+    real_backward = tensor._ModelInput.backward
+    real_dense = layers.dense
 
-    def recorded(img, w, b, q, seed, k, rate, row0=0):
+    def blocked(x, weight, bias=None):
+        if weight.shape[0] != cfg.fusion_dim:
+            return real_dense(x, weight, bias)
+        w = weight.shape[0] // blocks
+        return torch.cat([real_dense(
+            x, weight[i * w:(i + 1) * w],
+            None if bias is None else bias[i * w:(i + 1) * w])
+            for i in range(blocks)], -1)
+
+    def recorded(img, w, b, q, seed, k, rate, row0=0, col0=0, f_total=None):
         row0 = 0 if force_zero else row0
-        calls.append([int(seed), int(row0), int(img.shape[0])])
-        return real(img, w, b, q, seed, k, rate, row0)
+        col0 = 0 if col_zero else col0
+        f_total = w.shape[1] if f_total is None else f_total
+        calls.append([int(seed), int(row0), int(img.shape[0]), int(col0),
+                      int(f_total), int(w.shape[1])])
+        return real(img, w, b, q, seed, k, rate, row0, col0, f_total)
 
     tf.train_grid_fuse = recorded
+    if fault == "allreduce":
+        tensor._ModelInput.backward = staticmethod(lambda ctx, g: (g, None))
+    if blocks > 1:
+        layers.dense = blocked
     try:
         solver = Solver(cfg, qa, store, params=params)
         if fault == "count":
@@ -3528,28 +3629,43 @@ def dp_train_arm(store_dir: str, out: str, fault: str = None,
         marks, grads = [], {}
 
         def on_step(step, loss):
-            if not grads:  # outside the timed steps 2..DP_STEPS
-                grads.update({
-                    k: (torch.zeros_like(p) if p.grad is None
-                        else p.grad.detach().clone())
-                    for k, p in solver.model.named_parameters()})
+            if not grads:  # outside the timed steps 2..steps
+                grads.update(full_grads(solver))
             torch.cuda.synchronize()
             marks.append((float(loss), time.perf_counter()))
 
-        for name in tf.launch_count:
-            tf.launch_count[name] = 0
+        for module in (tf, pf):
+            for name in module.launch_count:
+                module.launch_count[name] = 0
         solver.train(on_step=on_step)
-        launches = dict(tf.launch_count)
+        launches = dict((tf if site == "prepool" else pf).launch_count)
     finally:
         tf.train_grid_fuse = real
-    state = {k: v.detach() for k, v in solver.model.named_parameters()}
+        tensor._ModelInput.backward = real_backward
+        layers.dense = real_dense
+    names = [k for k, _ in solver.model.named_parameters()]
+    state = {k: v.detach() for k, v in gather_state_dict(solver.model).items()
+             if k in names}
     result = {
         "rank": distributed.rank(), "world": distributed.world_size(),
+        "model_parallel": model_parallel, "site": site,
         "losses": [m[0] for m in marks],
         "ms_per_step": (marks[-1][1] - marks[0][1]) * 1e3 / (len(marks) - 1),
         "k2_launches": launches, "k2_calls": calls,
         "params_l1": float(sum(v.double().abs().sum()
-                               for v in state.values()))}
+                               for v in state.values())),
+        "param_bytes": sum(p.nbytes for p in solver.model.parameters()),
+        "adam_bytes": sum(t.nbytes for s in solver.optimizer.state.values()
+                          for t in s.values() if torch.is_tensor(t)),
+        "grad_bytes": sum(p.grad.nbytes for p in solver.model.parameters()
+                          if p.grad is not None)}
+    if val:
+        wqf.launch_count = 0
+        result["val"] = list(solver.val())
+        result["k1_val_launches"] = wqf.launch_count
+        gathered = gather_state_dict(solver.model)  # every rank: collective
+        if distributed.rank() == 0:
+            torch.save(gathered, out + ".state.pt")
     if reference is not None:
         want = torch.load(reference + ".pt", map_location=solver.device)
         result["max_param_diff"] = max(
@@ -3558,6 +3674,20 @@ def dp_train_arm(store_dir: str, out: str, fault: str = None,
         result["grad_rel_diff"] = l2({k: grads[k] - want[k]
                                       for k in want}) / l2(want)
         result["grad_norm_ratio"] = l2(grads) / l2(want)
+        # the five parameters furthest from one process's (relative L2)
+        by_param = {k: l2({k: grads[k] - want[k]}) / max(l2({k: want[k]}),
+                                                          1e-30)
+                    for k in want}
+        result["worst_params"] = sorted(by_param.items(),
+                                        key=lambda kv: -kv[1])[:5]
+        whole = replicated_names(cfg)
+        result["replicated_grad_rel_diff"] = l2(
+            {k: grads[k] - want[k] for k in whole}) / l2(
+            {k: want[k] for k in whole})
+        if also is not None:
+            want = torch.load(also + ".grad.pt", map_location=solver.device)
+            result["also_grad_rel_diff"] = l2({k: grads[k] - want[k]
+                                               for k in want}) / l2(want)
     else:
         torch.save(state, out + ".pt")
         torch.save(grads, out + ".grad.pt")
@@ -3580,23 +3710,33 @@ def dp_rank(spec_path: str, rank: int) -> None:
                            world_size=spec["world"], rank=rank,
                            device=spec["devices"][rank],
                            backend=spec["backend"])
-    dp_train_arm(spec["store"], os.path.join(spec["work"],
-                                             f"{spec['arm']}_rank{rank}.json"),
-                 fault=spec["fault"], reference=spec["reference"],
-                 batch=spec["batch"])
+    # the spec's arm, then each arm of "then" in the same processes
+    for arm in [spec] + [dict(spec, **a) for a in spec.get("then", [])]:
+        out = os.path.join(arm["work"], f"{arm['arm']}_rank{rank}.json")
+        if arm.get("banks"):
+            bank_train_arm(arm, out)
+        else:
+            dp_train_arm(arm["store"], out, fault=arm["fault"],
+                         reference=arm["reference"], batch=arm["batch"],
+                         **arm.get("arm_kw", {}))
+        torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
 
 
 def dp_ranks(arm: str, world: int, backend: str, devices: list,
              store_dir: str, work: str, reference: str, fault: str = None,
-             batch: int = TRAIN_BATCH) -> list:
+             batch: int = TRAIN_BATCH, **extra) -> list:
     """Run ``world`` ranks of an arm, each a process of its own on its card
     (``devices[rank]``); a rank that fails or outlives DP_RANK_TIMEOUT
-    fails the phase (every rank is killed then)."""
+    fails the phase (every rank is killed then). ``extra``: ``arm_kw``
+    (``dp_train_arm``'s), or ``banks`` (``bank_train_arm``'s stores); and
+    ``then``, more arms (dicts of ``arm``, ``reference``, ``fault``,
+    ``arm_kw``) the same processes run after it, saving their starts. ->
+    the arm's ranks' results (with ``then``: each arm's, by name)."""
     spec = dict(arm=arm, world=world, backend=backend, store=store_dir,
                 work=work, reference=reference, fault=fault,
                 devices=devices, batch=batch,
-                rendezvous=f"file://{work}/{arm}_rendezvous")
+                rendezvous=f"file://{work}/{arm}_rendezvous", **extra)
     path = os.path.join(work, f"{arm}.json")
     with open(path, "w") as f:
         json.dump(spec, f)
@@ -3611,40 +3751,58 @@ def dp_ranks(arm: str, world: int, backend: str, devices: list,
     if failed:
         raise AssertionError(f"dp_train {arm}: a rank failed or outlived "
                              f"{DP_RANK_TIMEOUT} s:\n{failed}")
-    results = []
-    for r in range(world):
-        with open(os.path.join(work, f"{arm}_rank{r}.json")) as f:
-            results.append(json.load(f))
-    return results
+    results = {}
+    for name in [arm] + [a["arm"] for a in extra.get("then", [])]:
+        results[name] = []
+        for r in range(world):
+            with open(os.path.join(work, f"{name}_rank{r}.json")) as f:
+                results[name].append(json.load(f))
+    return results if extra.get("then") else results[arm]
 
 
 def k2_kernel_mask(seed: int, n: int, row0: int, rate: float,
-                   cfg: Config) -> torch.Tensor:
-    """The mask K2's forward kernel draws for ``n`` samples from ``row0``:
-    its output at k = 1 on zero features and weights, unit bias and q, is
-    sqrt(1 / keep) where it keeps an element and 0 where it drops one."""
-    l, d, f = cfg.img_feature_dim, cfg.img_feature_channel, cfg.fusion_dim
+                   cfg: Config, col0: int = 0, f_total: int = None,
+                   f: int = None) -> torch.Tensor:
+    """The mask K2's forward kernel draws for ``n`` samples from ``row0``
+    and ``f`` columns (the whole width by default) from ``col0`` of
+    ``f_total``: its output at k = 1 on zero features and weights, unit
+    bias and q, is sqrt(1 / keep) where it keeps an element and 0 where it
+    drops one (a width the kernel refuses launches zero-padded to a
+    multiple of 8, as the dispatcher pads a shard)."""
+    l, d = cfg.img_feature_dim, cfg.img_feature_channel
+    f = cfg.fusion_dim if f is None else f
+    f_pad = f + (-f % 8)
     dev = torch.device("cuda", 0)
     out = tf.forward_cuda(
         torch.zeros(n, l, d, dtype=torch.bfloat16, device=dev),
-        torch.zeros(d, f, dtype=torch.bfloat16, device=dev),
-        torch.ones(f, device=dev), torch.ones(n, f, device=dev), seed, 1,
-        rate, row0)
-    return out != 0
+        torch.zeros(d, f_pad, dtype=torch.bfloat16, device=dev),
+        torch.ones(f_pad, device=dev), torch.ones(n, f_pad, device=dev),
+        seed, 1, rate, row0, col0, f if f_total is None else f_total)
+    return out[..., :f] != 0
 
 
 def dp_masks_agree(ranks: list, single: dict, cfg: Config) -> list:
-    """The masks gate: each rank's first K2 call draws, by the kernel, the
-    rows of the one process's first mask that the rank holds. -> per rank
-    whether it does."""
-    seed, row0, rows = single["k2_calls"][0]
+    """The masks gate: each rank's first K2 call draws, by the kernel at the
+    row and column offsets it passed, the block of the one process's first
+    mask that the rank holds: data rank d's rows and, under tensor
+    parallelism, model rank m's columns. -> per rank whether it does."""
+    seed, row0, rows = single["k2_calls"][0][:3]
     whole = k2_kernel_mask(seed, rows, row0, cfg.dropout_fusion, cfg)
     agree = []
     for r in ranks:
-        r_seed, r_row0, n = r["k2_calls"][0]
-        lo = r["rank"] * n
-        part = k2_kernel_mask(r_seed, n, r_row0, cfg.dropout_fusion, cfg)
-        agree.append(r_seed == seed and torch.equal(part, whole[lo:lo + n]))
+        # f: the launch's width, a shard's zero-padded; its block of the
+        # whole mask is f_total / M columns wide
+        r_seed, r_row0, n, r_col0, f_total, f = r["k2_calls"][0]
+        mp = r.get("model_parallel", 1)
+        fw = f_total // mp
+        lo, c0 = (r["rank"] // mp) * n, (r["rank"] % mp) * fw
+        part = k2_kernel_mask(r_seed, n, r_row0, cfg.dropout_fusion, cfg,
+                              r_col0, f_total, f)[..., :fw]
+        agree.append(r_seed == seed and f_total == whole.shape[-1]
+                     and torch.equal(part, whole[lo:lo + n, :, c0:c0 + fw]))
+        del part
+    del whole
+    torch.cuda.empty_cache()
     return agree
 
 
@@ -3654,18 +3812,27 @@ def dp_loss_rel_diff(ranks: list, single: dict) -> list:
                    / np.abs(want)).max()) for r in ranks]
 
 
-def dp_gates(ranks: list, single: dict, masks: list) -> dict:
-    """A data-parallel arm's gates against one process at the same global
-    batch -> gate -> passed: the losses within TRAIN_LOSS_RTOL; the first
-    step's gradient within DP_GRAD_RTOL (relative L2); the masks gate;
-    every rank one model; K2 launched once a step by kind in each rank."""
-    return {
+def dp_gates(ranks: list, single: dict, masks: list = None,
+             per_step: dict = None) -> dict:
+    """A data- or tensor-parallel arm's gates against one process at the
+    same global batch -> gate -> passed: the losses within
+    TRAIN_LOSS_RTOL; the first step's gradient within DP_GRAD_RTOL
+    (relative L2), and under tensor parallelism the replicated layers'
+    part of it too (``replicated_names``); the masks gate (where K2 draws
+    them); every rank one model (the gathered parameters); K2's (or K3's)
+    launches once a step by kind in each rank (``per_step``)."""
+    gates = {
         "losses": max(dp_loss_rel_diff(ranks, single)) <= TRAIN_LOSS_RTOL,
         "gradient": max(r["grad_rel_diff"] for r in ranks) <= DP_GRAD_RTOL,
-        "masks": all(masks),
         "one_model": len({r["params_l1"] for r in ranks}) == 1,
-        "k2_launches": all(r["k2_launches"] == dp_per_step()
+        "k2_launches": all(r["k2_launches"] == (per_step or dp_per_step())
                            for r in ranks)}
+    if masks is not None:
+        gates["masks"] = all(masks)
+    if ranks[0].get("model_parallel", 1) > 1:
+        gates["replicated_gradient"] = max(
+            r["replicated_grad_rel_diff"] for r in ranks) <= DP_GRAD_RTOL
+    return gates
 
 
 def dp_train_phase(store_dir: str, smi: str, cards: int = 1) -> dict:
@@ -3698,12 +3865,14 @@ def dp_train_phase(store_dir: str, smi: str, cards: int = 1) -> dict:
         reference = os.path.join(work, "single.json")
         single = dp_train_arm(store_dir, reference, batch=batch)
         torch.cuda.empty_cache()
-        runs = {name: dp_ranks(name, *spec, store_dir, work, reference,
-                               batch=batch)
-                for name, spec in arms.items()}
-        for name, fault in controls.items():
-            runs[name] = dp_ranks(name, *faulty, store_dir, work, reference,
-                                  fault=fault, batch=batch)
+        # the controls run in the faulty arm's rank processes, after it
+        then = [dict(arm=name, reference=reference, fault=fault)
+                for name, fault in controls.items()]
+        runs = {}
+        for name, spec in arms.items():
+            got = dp_ranks(name, *spec, store_dir, work, reference,
+                           batch=batch, then=then if spec is faulty else [])
+            runs.update(got if isinstance(got, dict) else {name: got})
         masks = {name: dp_masks_agree(ranks, single, cfg)
                  for name, ranks in runs.items()}
     gates = {name: dp_gates(ranks, single, masks[name])
@@ -3803,12 +3972,347 @@ def dp_serve_phase(cfg: Config, params, store, smi: str,
     return launches
 
 
+def tp_arms(cards: int) -> tuple:
+    """(ranks, backend, devices) of the tensor-parallel arms: two gloo
+    ranks sharing ``cuda:0`` on one card, else a NCCL rank a card."""
+    if cards == 1:
+        return 2, "gloo", ["cuda:0"] * 2
+    return cards, "nccl", [f"cuda:{i}" for i in range(cards)]
+
+
+def tp_train_phase(store_dir: str, smi: str, cards: int = 1) -> dict:
+    """Phase 35, ``tp_train``: tensor parallelism at mesh (1, 2) on one card
+    (two gloo ranks sharing ``cuda:0``), (N/2, 2) over N cards (NCCL): the
+    Solver on full-width bf16 mhb_coAtt, the fusion projections split over
+    the model axis, global batch 64 a data replica, DP_STEPS steps at the
+    pre-pool site (K2 on each rank's 2,500 columns, zero-padded to 2,520)
+    and TP_POOLED_STEPS at the pooled site (K3 on the padded shard). Each
+    arm is held against one process at the same batch whose fusion
+    projections compute their products in the same two column blocks
+    (``dp_train_arm(blocks=2)``): at bf16 a product of another width
+    rounds otherwise, and the signed sqrt near 0 amplifies that in every
+    gradient upstream of it (one plain process against the blocked one:
+    ``also_grad_rel_diff``, 0.305 on an H100). Gates (``dp_gates``): the
+    losses, the first step's gradient gathered from the shards and its
+    replicated layers' part, one model, K2's or K3's launches a step by
+    kind in every rank; at the pre-pool site the masks gate (each rank's K2
+    mask, drawn by the kernel at its ``row0`` and ``col0``, is its block of
+    one process's). Two controls that must fail: ``control_col0``, model
+    rank 1 drawing at col0 = 0 (the masks gate rejects model rank 1
+    alone), and ``control_allreduce``, no all-reduce over the model group
+    in ``model_input``'s backward (the replicated layers' gradient gate
+    rejects it). Then each rank's ``val()`` (K1 once, on the gathered
+    weights) against one process's ``val()`` on the gathered weights, and
+    each rank's parameter, gradient and Adam bytes beside one process's.
+    -> the sound arms' launches: {"K2": by kind, "K3": by kind, "K1": n}."""
+    world, backend, devices = tp_arms(cards)
+    batch = TRAIN_BATCH * max(world // TP_MODEL, 1)
+    cfg = dp_config(batch)
+    spec = (world, backend, devices)
+    pooled = dict(site="pooled", steps=TP_POOLED_STEPS)
+    pooled_step = {"forward": TP_POOLED_STEPS, "g_pooled": TP_POOLED_STEPS,
+                   "d_w": TP_POOLED_STEPS, "d_img": 0}
+    with tempfile.TemporaryDirectory() as work:
+        ref = {name: os.path.join(work, f"{name}.json") for name in
+               ("single", "blocked", "blocked_pooled")}
+        single = dp_train_arm(store_dir, ref["single"], batch=batch)
+        blocked = dp_train_arm(store_dir, ref["blocked"], batch=batch,
+                               blocks=TP_MODEL)
+        blocked_pooled = dp_train_arm(store_dir, ref["blocked_pooled"],
+                                      batch=batch, blocks=TP_MODEL, **pooled)
+        grads = [torch.load(ref[name] + ".grad.pt", map_location="cuda:0")
+                 for name in ("single", "blocked")]
+        blocked_gap = l2({k: grads[1][k] - v for k, v in grads[0].items()}) \
+            / l2(grads[0])
+        del grads
+        torch.cuda.empty_cache()
+        tp = dict(model_parallel=TP_MODEL, also=ref["single"])
+
+        def arm(name, reference, fault=None, **kw):
+            return dict(arm=name, reference=reference, fault=fault,
+                        arm_kw=dict(tp, **kw))
+
+        # the four arms in one pair of rank processes, one after the other
+        runs = dp_ranks("tp", *spec, store_dir, work, ref["blocked"],
+                        batch=batch, arm_kw=dict(tp, val=True), then=[
+                            arm("tp_pooled", ref["blocked_pooled"],
+                                **dict(pooled, also=None)),
+                            arm("control_col0", ref["blocked"], "col0"),
+                            arm("control_allreduce", ref["blocked"],
+                                "allreduce")])
+        masks = {name: dp_masks_agree(ranks, single, cfg)
+                 for name, ranks in runs.items() if name != "tp_pooled"}
+        # one process's val() on the ranks' gathered weights
+        qa, _ = train_data(cfg, DP_STEPS * batch // TRAIN_BATCH)
+        one = Solver(cfg, qa, FeatureStore(store_dir),
+                     params=init_params(cfg, torch.Generator().manual_seed(0)))
+        one.set_weights(torch.load(os.path.join(work, "tp_rank0.json")
+                                   + ".state.pt", map_location="cuda:0"))
+        wqf.launch_count = 0
+        one_val = list(one.val())
+        one_k1 = wqf.launch_count
+        del one
+        torch.cuda.empty_cache()
+    gates = {name: dp_gates(ranks, blocked_pooled if name == "tp_pooled"
+                            else blocked, masks.get(name),
+                            pooled_step if name == "tp_pooled" else None)
+             for name, ranks in runs.items()}
+    val_equal = [r["val"][1] == one_val[1] and abs(r["val"][0] - one_val[0])
+                 <= 1e-6 * abs(one_val[0]) for r in runs["tp"]]
+    fields = dict(
+        model="mhb_coAtt", mesh=[world // TP_MODEL, TP_MODEL], batch=batch,
+        steps=DP_STEPS, pooled_steps=TP_POOLED_STEPS,
+        rate=cfg.dropout_fusion, single_losses=single["losses"],
+        blocked_losses=blocked["losses"],
+        blocked_pooled_losses=blocked_pooled["losses"],
+        single_ms_per_step=single["ms_per_step"],
+        blocked_ms_per_step=blocked["ms_per_step"],
+        blocked_pooled_ms_per_step=blocked_pooled["ms_per_step"],
+        blocked_vs_single_grad_rel_diff=blocked_gap,
+        single_bytes={k: single[k] for k in ("param_bytes", "grad_bytes",
+                                             "adam_bytes")},
+        grad_rtol=DP_GRAD_RTOL, loss_rtol=TRAIN_LOSS_RTOL,
+        one_process_val=one_val, one_process_k1_val_launches=one_k1,
+        val_equal=val_equal)
+    for name, ranks in runs.items():
+        fields[name] = dict(
+            world=len(ranks), losses=[r["losses"] for r in ranks],
+            loss_rel_diff=dp_loss_rel_diff(
+                ranks, blocked_pooled if name == "tp_pooled" else blocked),
+            grad_rel_diff=[r["grad_rel_diff"] for r in ranks],
+            replicated_grad_rel_diff=[r["replicated_grad_rel_diff"]
+                                      for r in ranks],
+            grad_rel_diff_to_plain_process=[r.get("also_grad_rel_diff")
+                                            for r in ranks],
+            grad_norm_ratio=[r["grad_norm_ratio"] for r in ranks],
+            worst_params=ranks[0]["worst_params"],
+            max_param_diff=[r["max_param_diff"] for r in ranks],
+            ms_per_step=[r["ms_per_step"] for r in ranks],
+            bytes=[{k: r[k] for k in ("param_bytes", "grad_bytes",
+                                      "adam_bytes")} for r in ranks],
+            launches=[r["k2_launches"] for r in ranks],
+            k2_first_call=[r["k2_calls"][0] if r["k2_calls"] else None
+                           for r in ranks],
+            masks_agree=masks.get(name), gates=gates[name])
+        if name == "tp":
+            fields[name].update(val=[r["val"] for r in ranks],
+                                k1_val_launches=[r["k1_val_launches"]
+                                                 for r in ranks])
+    say("tp_train", **fields,
+        note=("two ranks share one card: correctness, not scaling"
+              if cards == 1 else f"a rank a card over {cards} cards"),
+        card=smi)
+    for name in ("tp", "tp_pooled"):
+        if not all(gates[name].values()):
+            raise AssertionError(f"tp_train: the {name} arm failed a gate: "
+                                 f"{gates[name]}")
+    if masks["control_col0"] != [r % TP_MODEL != 1 for r in range(world)]:
+        raise AssertionError("tp_train: the masks gate does not reject the "
+                             "column-offset control's model rank 1 alone")
+    if gates["control_allreduce"]["replicated_gradient"]:
+        raise AssertionError("tp_train: the replicated layers' gradient gate "
+                             "does not reject the control without the model "
+                             "group's all-reduce")
+    if not all(val_equal) or one_k1 != 1 or any(
+            r["k1_val_launches"] != 1 for r in runs["tp"]):
+        raise AssertionError("tp_train: a rank's val() is not one process's "
+                             "on the gathered weights, or K1 did not launch "
+                             "once a val batch")
+    return {"K2": {key: sum(r["k2_launches"][key] for r in runs["tp"])
+                   for key in dp_per_step()},
+            "K3": {key: sum(r["k2_launches"][key] for r in runs["tp_pooled"])
+                   for key in pooled_step},
+            "K1": sum(r["k1_val_launches"] for r in runs["tp"])}
+
+
+def bank_train_arm(spec: dict, out: str) -> None:
+    """A rank of ``sharded_bank_train``: for each store of ``spec["banks"]``
+    (f16, int8), BANK_TRAIN_STEPS steps of the data-parallel Solver (dp_train's
+    configuration) from the host feed, the replicated bank and the sharded
+    bank: the losses, the rank's bank bytes, and the ring lookup's ms
+    (a batch's rows, median of BANK_LOOKUP_REPS, every rank calling it
+    together) beside the replicated bank's local lookup. Writes JSON."""
+    from vqa_attention_networks_tpu_torch.parallel import distributed
+
+    cfg = dp_config(spec["batch"])
+    qa, _ = train_data(cfg, BANK_TRAIN_STEPS * spec["batch"] // TRAIN_BATCH)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    result = {"rank": distributed.rank(), "world": distributed.world_size()}
+    feeds = {"host": {}, "replicated": dict(device_feature_bank=True),
+             "sharded": dict(device_feature_bank=True,
+                             device_feature_bank_shard=True)}
+    for kind, store_dir in spec["banks"].items():
+        store = FeatureStore(store_dir)
+        for feed, kw in feeds.items():
+            losses = []
+            solver = Solver(cfg.replace(**kw), qa, store, params=params)
+            for name in tf.launch_count:
+                tf.launch_count[name] = 0
+            solver.train(on_step=lambda s, loss: losses.append(float(loss)))
+            entry = {"losses": losses, "k2_launches": dict(tf.launch_count)}
+            if solver.bank is not None:
+                entry["bank_bytes"] = solver.bank.nbytes
+                batch = next(iter(solver.batches["train"].epoch(0)))
+                # the rank's rows of the batch (the feed sliced them)
+                rows = torch.from_numpy(np.ascontiguousarray(
+                    batch.image_rows)).to(solver.device).long()
+                ms = []
+                for _ in range(BANK_LOOKUP_REPS):
+                    distributed.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    solver.bank.lookup(rows)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                entry["lookup_ms"] = float(np.median(ms))
+                entry["lookup_rows"] = int(rows.shape[0])
+            result[f"{kind}_{feed}"] = entry
+            del solver
+            torch.cuda.empty_cache()
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def sharded_bank_train_phase(store_dir: str, smi: str,
+                             cards: int = 1) -> dict:
+    """Phase 36, ``sharded_bank_train``: the sharded training bank over the
+    data ranks, two gloo ranks sharing ``cuda:0`` on one card (N NCCL
+    ranks over N cards), on phase 4's f16 store and its int8 twin:
+    BANK_TRAIN_STEPS steps of dp_train's Solver from the host feed, the
+    replicated bank and the sharded bank. Gates: each rank's losses
+    bit-equal across the three feeds; a rank's sharded bank 1/D of the
+    replicated one (the store padded to a multiple of D). Reports each
+    rank's bank bytes and the ring lookup's ms beside the replicated
+    bank's lookup. -> K2's launches in every rank and feed, by kind."""
+    world = 2 if cards == 1 else cards
+    backend = "gloo" if cards == 1 else "nccl"
+    devices = (["cuda:0"] * 2 if cards == 1
+               else [f"cuda:{i}" for i in range(cards)])
+    batch = TRAIN_BATCH * (1 if cards == 1 else cards)
+    with tempfile.TemporaryDirectory() as work:
+        int8 = os.path.join(work, "int8")
+        quantize_store(store_dir, int8)
+        ranks = dp_ranks("banks", world, backend, devices, store_dir, work,
+                         None, batch=batch,
+                         banks={"f16": store_dir, "int8": int8})
+    equal, ratio = {}, {}
+    for kind in ("f16", "int8"):
+        equal[kind] = all(
+            r[f"{kind}_{feed}"]["losses"] == r[f"{kind}_host"]["losses"]
+            for r in ranks for feed in ("replicated", "sharded"))
+        ratio[kind] = [r[f"{kind}_replicated"]["bank_bytes"]
+                       / r[f"{kind}_sharded"]["bank_bytes"] for r in ranks]
+    say("sharded_bank_train", model="mhb_coAtt", data_ranks=world,
+        batch=batch, steps=BANK_TRAIN_STEPS, images=N_IMAGES,
+        runs={k: v for k, v in ranks[0].items()
+              if k not in ("rank", "world")},
+        bank_bytes={f"{k}_{f}": [r[f"{k}_{f}"]["bank_bytes"] for r in ranks]
+                    for k in ("f16", "int8")
+                    for f in ("replicated", "sharded")},
+        lookup_ms={f"{k}_{f}": [r[f"{k}_{f}"]["lookup_ms"] for r in ranks]
+                   for k in ("f16", "int8")
+                   for f in ("replicated", "sharded")},
+        bit_equal=equal, replicated_over_sharded_bytes=ratio,
+        note=("two ranks share one card: the ring goes through the host "
+              "(gloo)" if cards == 1 else f"NCCL over {cards} cards"),
+        card=smi)
+    if not all(equal.values()):
+        raise AssertionError("sharded_bank_train: a feed's losses are not "
+                             f"bit-equal to the host feed's: {equal}")
+    want = world * -(-N_IMAGES // world) / N_IMAGES
+    if any(abs(x - world / want) > 1e-9 for v in ratio.values() for x in v):
+        raise AssertionError(f"sharded_bank_train: a rank's sharded bank is "
+                             f"not 1/{world} of the store: {ratio}")
+    runs = [r[k] for r in ranks for k in r if k not in ("rank", "world")]
+    per_step = {key: n * BANK_TRAIN_STEPS // DP_STEPS
+                for key, n in dp_per_step().items()}
+    if any(run["k2_launches"] != per_step for run in runs):
+        raise AssertionError("sharded_bank_train: K2 did not launch once a "
+                             "step by kind in every rank and feed")
+    return {key: sum(run["k2_launches"][key] for run in runs)
+            for key in per_step}
+
+
+def sharded_bank_serve_phase(cfg: Config, params, store_dir: str, smi: str,
+                             cards: int = 1) -> int:
+    """Phase 37, ``sharded_bank_serve``: full-width bf16 mhb_coAtt (phase
+    4's weights) served by id from the device feature cache split over the
+    replicas of ``InferenceEngine(data_parallel=2)`` on ``cuda:0`` (N over
+    N cards), phase 4's 2048 requests from the int8 twin of its store, at
+    capacity SHARDED_BANK_SMALL (rounded up to a multiple of the replicas:
+    the eviction regime) and N_IMAGES (warm: every request a hit), against
+    one replica's cache at the rounded capacity. Gates: answers bit-equal
+    to one replica's; K1 once a shard; the hits, misses, evictions and
+    slots those of the same id sequence through a cache on the CPU (JAX's
+    rules); the capacity rounded up. -> K1's launches in the split runs."""
+    image_ids, ques = traffic(cfg)
+    n_req = len(ques)
+    spans = [slice(s, s + BATCH) for s in range(0, n_req, BATCH)]
+    id_batches = [image_ids[s] for s in spans]
+    replicas = 2 if cards == 1 else cards
+    k1, fields = 0, {}
+    with tempfile.TemporaryDirectory() as work:
+        store = quantize_store(store_dir, os.path.join(work, "int8"))
+        engines = {n: InferenceEngine(
+            cfg, params, batch_size=BATCH, topk=5, input_dtype="int8",
+            data_parallel=n,
+            device=[torch.device("cuda", 0)] * n if cards == 1 else None)
+            for n in (1, replicas)}
+        for name, capacity in (("eviction", SHARDED_BANK_SMALL),
+                               ("warm", N_IMAGES)):
+            rounded = -(-capacity // replicas) * replicas
+            runs, states = {}, {}
+            for n, engine in engines.items():
+                cache = engine.attach_feature_cache(
+                    rounded if n == 1 else capacity, store.gather_quantized)
+                runs[n] = stream(engine, lambda e=engine:
+                                 e.predict_stream_by_id(
+                                     (image_ids[s], ques[s], None)
+                                     for s in spans), {"K1": wqf},
+                                 after_warm_up=cache.reset_stats)
+                states[n] = cache_state(cache)
+                states[n]["capacity"] = cache.capacity
+            replayed = replayed_state(cfg, rounded, id_batches)
+            replayed["capacity"] = rounded
+            equal = bit_equal(runs[replicas][0], runs[1][0])
+            launches = runs[replicas][2]["K1"]
+            k1 += launches
+            same = states[replicas] == replayed
+            for state in states.values():
+                state.pop("slots")
+            fields[name] = dict(
+                capacity_asked=capacity, capacity=rounded,
+                bit_equal=equal, k1_launches=launches,
+                counts=states[replicas], counts_one_replica=states[1],
+                counts_and_slots_equal_cpu_cache=same,
+                qa_pairs_per_s={n: n_req / r[1] for n, r in runs.items()})
+            if not equal or not same or launches != replicas * N_BATCHES:
+                raise AssertionError(
+                    f"sharded_bank_serve ({name}): answers not bit-equal to "
+                    "one replica's, counts or slots not the CPU cache's, or "
+                    f"K1 launched {launches} times for {N_BATCHES} batches "
+                    f"of {replicas} shards")
+        del engines
+        torch.cuda.empty_cache()
+    say("sharded_bank_serve", model="mhb_coAtt", requests=n_req,
+        batch=BATCH, replicas=replicas,
+        devices="cuda:0 x2" if cards == 1 else f"cuda:0..{cards - 1}",
+        **fields, card=smi)
+    if fields["eviction"]["counts"]["evictions"] == 0 or \
+            fields["warm"]["counts"]["misses"] != 0:
+        raise AssertionError("sharded_bank_serve: the small bank never "
+                             "evicted, or the warm one missed")
+    return k1
+
+
 def cards_main(cards: int) -> None:
-    """``chip_smoke.py --cards N``: phases 33 and 34 alone over N cards of
-    one host, a rank and a replica a card (``dp_train_phase`` and
-    ``dp_serve_phase`` with ``cards``): global batch 64 a card over NCCL
-    against one card at that batch, and the split engine on its default
-    devices. Builds K1 and K2 only; prints the phases' lines and
+    """``chip_smoke.py --cards N``: phases 33-37 alone over N cards of one
+    host, a rank and a replica a card (``dp_train_phase``,
+    ``dp_serve_phase``, ``tp_train_phase``, ``sharded_bank_train_phase``
+    and ``sharded_bank_serve_phase`` with ``cards``): global batch 64 a
+    card over NCCL against one card at that batch, tensor parallelism at
+    (N/2, 2), the banks over N, and the split engine on its default
+    devices. Builds K1, K2 and K3 only; prints the phases' lines and
     nvidia-smi's; a failed gate raises."""
     _, smi = card()
     if torch.cuda.device_count() < cards:
@@ -3816,17 +4320,20 @@ def cards_main(cards: int) -> None:
                          f"{torch.cuda.device_count()} card(s) visible")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    names = ("stage1_coattention", "train_fusion")
+    names = ("stage1_coattention", "train_fusion", "pooled_fusion")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.build, names))
     cfg = Config()
+    params = served_params(cfg, torch.Generator().manual_seed(0))
     with tempfile.TemporaryDirectory() as tmp:
         store = make_synthetic_feature_store(tmp, list(range(N_IMAGES)))
         dp_train_phase(tmp, smi, cards)
         torch.cuda.empty_cache()
-        dp_serve_phase(cfg, served_params(cfg,
-                                          torch.Generator().manual_seed(0)),
-                       store, smi, cards)
+        dp_serve_phase(cfg, params, store, smi, cards)
+        if cards % TP_MODEL == 0 or cards == 1:
+            tp_train_phase(tmp, smi, cards)
+        sharded_bank_train_phase(tmp, smi, cards)
+        sharded_bank_serve_phase(cfg, params, tmp, smi, cards)
     print(smi)
 
 
@@ -4115,6 +4622,27 @@ def main() -> None:
         t0 = time.perf_counter()
         launches["K1"] += dp_serve_phase(cfg, params, store, smi)
         say("dp_serve_time", seconds=time.perf_counter() - t0)
+
+        # phase 35: tensor parallelism at (1, 2), K2 and K3 on the shards,
+        # K1 on the gathered weights
+        t0 = time.perf_counter()
+        tp = tp_train_phase(tmp, smi)
+        for kernel in ("K2", "K3"):
+            for key, n in tp[kernel].items():
+                train_launches[kernel][key] += n
+        launches["K1"] += tp["K1"]
+        say("tp_train_time", seconds=time.perf_counter() - t0)
+
+        # phase 36: the sharded training bank over two data ranks (K2)
+        t0 = time.perf_counter()
+        for key, n in sharded_bank_train_phase(tmp, smi).items():
+            train_launches["K2"][key] += n
+        say("sharded_bank_train_time", seconds=time.perf_counter() - t0)
+
+        # phase 37: the device cache split over two replicas (K1)
+        t0 = time.perf_counter()
+        launches["K1"] += sharded_bank_serve_phase(cfg, params, tmp, smi)
+        say("sharded_bank_serve_time", seconds=time.perf_counter() - t0)
 
     # phase 21: their f32 forwards on the card against the CPU's
     families_agree(dev)

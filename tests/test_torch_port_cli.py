@@ -16,8 +16,8 @@ feature extractor):
 - ``evaluate`` detects ``--mode`` by token;
 - the default device is the card (an error without one); the Solver's
   switches (``--grad_accum_steps``, ``--remat``, ``--device_feature_bank``)
-  train, and ``--model_parallel`` > 1 reaches its refusal (ROADMAP Queue 1
-  item 10b, tensor parallelism);
+  train, and ``--model_parallel`` > 1 (ROADMAP Queue 1 item 10b, tensor
+  parallelism) asks for its ranks in one process;
 - under ``torchrun --nproc_per_node 2`` (gloo CPU ranks) ``evaluate``
   writes the one process's results files and ``train`` one checkpoint
   directory a step and one metric stream.
@@ -229,7 +229,9 @@ def test_cli_solver_switches_train(workspace, flags, capsys):
 
 @pytest.mark.parametrize("flags,error", [
     ([], RuntimeError),  # the default device: the card
-    (["--model_parallel", "2"], NotImplementedError),
+    # tensor parallelism (ROADMAP item 10b, refused until it was ported)
+    # needs its ranks: one process names the launcher
+    (["--model_parallel", "2"], ValueError),
 ])
 def test_cli_refusals(workspace, flags, error):
     data_dir, _ = workspace
@@ -241,19 +243,19 @@ def test_cli_refusals(workspace, flags, error):
         match = "CUDA"
     else:
         common += ["--device", "cpu"]
-        match = "ROADMAP Queue 1 item 10b"
+        match = "torchrun --nproc_per_node 2"
     with pytest.raises(error, match=match):
         train.main(common + flags)
 
 
-def _torchrun(module, argv, cwd):
-    """``torchrun --standalone --nproc_per_node 2 -m <module> argv`` (gloo
-    ranks on the CPU under ``--device cpu``), failing past 180 s."""
+def _torchrun(module, argv, cwd, ranks=2):
+    """``torchrun --standalone --nproc_per_node <ranks> -m <module> argv``
+    (gloo ranks on the CPU under ``--device cpu``), failing past 180 s."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     try:
         run = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", "2", "-m", module, *argv], cwd=cwd,
+             "--nproc_per_node", str(ranks), "-m", module, *argv], cwd=cwd,
             env=env, capture_output=True, text=True, timeout=180)
     except subprocess.TimeoutExpired:
         pytest.fail(f"torchrun {module} outlived 180 s")
@@ -292,3 +294,30 @@ def test_cli_under_torchrun(workspace, tmp_path, capsys):
         written = f.read().splitlines()
     with open(tmp_path / "runs" / "iBOWIMG" / "events.jsonl") as f:
         assert len(written) == len(f.read().splitlines())
+
+
+def test_cli_trains_on_a_model_axis_with_the_sharded_bank(workspace,
+                                                        tmp_path):
+    """``cli.train --model_parallel 2 --device_feature_bank 1
+    --device_feature_bank_shard 1`` under 4 ranks reaches the Solver on a
+    (2, 2) mesh with the bank split over the 2 data ranks. iBOWIMG has no
+    fusion projection, so its model axis holds replicas: the weights it
+    exports equal, bit for bit, those of 2 data-parallel ranks from the
+    host feed."""
+    data_dir, _ = workspace
+    common = _common(data_dir) + ["--num_epoch", "1",
+                                  "--checkpoint_every_steps", "0"]
+    runs = {}
+    for name, ranks, flags in (
+            ("mesh", 4, ["--model_parallel", "2", "--device_feature_bank",
+                         "1", "--device_feature_bank_shard", "1"]),
+            ("data", 2, [])):
+        where = tmp_path / f"run_{name}"
+        where.mkdir()
+        out = _torchrun("vqa_attention_networks_tpu_torch.cli.train",
+                        common + flags, str(where), ranks)
+        assert out.count("Training done") == ranks
+        runs[name] = ckpt.load_weights(str(where / "models" / "iBOWIMG"))
+    assert runs["mesh"].keys() == runs["data"].keys()
+    for key, value in runs["data"].items():
+        assert torch.equal(runs["mesh"][key], value), key

@@ -2,7 +2,8 @@
 ``vqa_attention_networks_tpu_torch/train/feature_bank.py``): the twin of
 the JAX package's ``tests/test_device_bank_train.py`` on the CPU, less its
 data-parallel case, which ``test_torch_port_parallel.py`` holds over two
-ranks, and its sharded cases (ROADMAP Queue 1 item 10b).
+ranks, and its sharded cases, which ``test_torch_port_sharded_banks.py``
+holds over four.
 
 The bank holds exactly the bytes the host feed would ship (int8 rows and
 f16 scales, or f16 rows) and applies the same dequant, so training from

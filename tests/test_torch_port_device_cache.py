@@ -195,8 +195,13 @@ def test_a_batch_over_the_capacity_is_refused():
     assert (cache.hits, cache.misses) == (0, 0)
     # repeats of two ids fit
     assert len(engine.predict_batch_by_id([0, 1, 0], ques)) == 3
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        DeviceFeatureCache(port_config(cfg), 4, mesh=object(), device="cpu")
+    # split over two devices (JAX's mesh=, once ROADMAP item 10b's
+    # refusal): the capacity rounds up to an even count, and the same
+    # capacity check holds
+    split = DeviceFeatureCache(port_config(cfg), 3, devices=["cpu"] * 2)
+    assert split.capacity == 4 and len(split.blocks) == 2
+    with pytest.raises(ValueError, match="distinct images"):
+        split.ensure(range(5), lambda i: (rows[i], scale[i]))
     with pytest.raises(ValueError, match="capacity"):
         DeviceFeatureCache(port_config(cfg), 0, device="cpu")
 

@@ -1191,3 +1191,105 @@ def test_kernels_launch_on_their_tensors_card():
     for g, w_ in zip(got, want):
         assert g.device == one and torch.equal(g.cpu(), w_.cpu())
     assert torch.isfinite(after).all()
+
+
+def _k2_shard_mask(seed, n, col0, f_total, f, l=196, d=2048, rate=0.1):
+    """The mask K2's forward draws for columns [col0, col0 + f) of a
+    global width f_total (k = 1, zero features and weights, unit bias and
+    q), at the launch's own width: f padded to a multiple of 8."""
+    f_pad = f + (-f % 8)
+    z = torch.zeros(n, l, d, dtype=torch.bfloat16, device="cuda")
+    wz = torch.zeros(d, f_pad, dtype=torch.bfloat16, device="cuda")
+    out = tf.forward_cuda(z, wz, torch.ones(f_pad, device="cuda"),
+                          torch.ones(n, f_pad, device="cuda"), seed, 1, rate,
+                          0, col0, f_total)
+    return out[..., :f] != 0
+
+
+@pytest.mark.parametrize("m", [0, 1])
+def test_k2_shard_launches_draw_their_columns_of_one_processes(m):
+    """Tensor-parallel rank m of 2 holds 2500 of the 5000 fusion columns,
+    which K2 takes zero-padded to 2520 (``ops/fusion.on_padded_columns``,
+    as the dispatcher pads them). At ``col0`` = 2500 m and ``f_total`` =
+    5000 its mask is the whole launch's columns bit for bit, and so is the
+    g_prod build; the forward, d_W, d_b and d_q hold the whole launch's
+    columns at ``K2_RTOL``. At ``col0`` = 0 rank 1 would draw rank 0's
+    mask."""
+    from vqa_attention_networks_tpu_torch.ops.fusion import (
+        on_padded_columns,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, f, k, seed, rate = 4, 5000, K, 21, 0.1
+    img, w, b, q = _k2_bits_inputs(seed=5, n=n)
+    cols, outs = slice(m * 2500, (m + 1) * 2500), slice(m * 500, (m + 1) * 500)
+    whole = _k2_shard_mask(seed, n, 0, f, f)
+    assert torch.equal(whole, _k2_kernel_mask(seed, n, 0)[..., :f])
+    part = _k2_shard_mask(seed, n, m * 2500, f, 2500)
+    assert torch.equal(part, whole[..., cols])
+    if m == 1:
+        assert not torch.equal(_k2_shard_mask(seed, n, 0, f, 2500), part)
+    g = torch.randn(n, 196, f // k, generator=torch.Generator().manual_seed(
+        6)).cuda()
+
+    def launches(w_, b_, q_, g_, col0, f_total):
+        out = tf.forward_cuda(img, w_, b_, q_, seed, k, rate, 0, col0,
+                              f_total)
+        args = (g_, out, img, w_, b_, q_, seed, k, rate, 0, col0, f_total)
+        g_prod, partials = tf.g_prod_cuda(*args)
+        d_w, d_b = tf.d_w_from_operand_cuda(img, g_prod, partials)
+        return {"forward": out, "g_prod": g_prod.reshape(n, 196, -1),
+                "d_w": d_w, "d_b": d_b, "d_q": tf.d_q_cuda(*args)}
+
+    full = launches(w, b, q, g, 0, f)
+    widths = []
+    on_padded_columns(lambda w_, b_, q_: widths.append(w_.shape[1]) or q_,
+                      w[:, cols], b[cols], q[:, cols], k)
+    pad = widths[0] - 2500  # the dispatcher's padding: 20 columns
+
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, pad)).contiguous()
+
+    shard = launches(padded(w[:, cols]), padded(b[cols]), padded(q[:, cols]),
+                     torch.nn.functional.pad(g[..., outs], (0, pad // k)),
+                     m * 2500, f)
+    torch.cuda.synchronize()
+    assert shard["forward"].shape[-1] == 504  # the padded launch's width
+    assert torch.equal(shard["g_prod"][..., :2500].view(torch.int16),
+                       full["g_prod"][..., cols].view(torch.int16))
+    for name in ("forward", "d_w", "d_b", "d_q"):
+        got = shard[name][..., :2500 if name != "forward" else 500]
+        want = full[name][..., cols if name != "forward" else outs]
+        got, want = _k2_view(name, got), _k2_view(name, want)
+        assert (got - want).abs().max() <= K2_RTOL[name] * \
+            want.abs().max(), name
+
+
+def test_k3_on_a_padded_shard_gives_its_columns_of_one_processes():
+    """K3 on rank 1's 2500 of 5000 columns, zero-padded to 2520 by
+    ``on_padded_columns``: its pooled outputs are the whole launch's
+    outputs 500..999 (K3 draws no mask; its f32 sums per output are the
+    same), and the padded outputs are 0."""
+    from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
+    from vqa_attention_networks_tpu_torch.ops.fusion import (
+        on_padded_columns,
+    )
+
+    img, w_bf16, b, q, _ = _k3_inputs(8, 196, 2048, 1000, seed=4)
+    full = pf.forward_cuda(img, w_bf16, b, q, K)
+    cols = slice(2500, 5000)
+    padded = []
+
+    def shard(w_, b_, q_):
+        out = pf.forward_cuda(img, w_.contiguous(), b_.contiguous(),
+                              q_.contiguous(), K)
+        padded.append(out)
+        return out
+
+    got = on_padded_columns(shard, w_bf16[:, cols], b[cols], q[:, cols], K)
+    torch.cuda.synchronize()
+    assert padded[0].shape[-1] == 504 and bool((padded[0][..., 500:] == 0)
+                                               .all())
+    want = full[..., 500:]
+    assert (got * got.abs() - want * want.abs()).abs().max() <= \
+        1e-4 * (want * want.abs()).abs().max()

@@ -22,7 +22,7 @@ against one port process at the same global batch.
   micro-batch i; remat under 2 ranks bit-equal to the run without it.
 - The replicated training bank under 2 ranks equals the host feed, losses
   and the full evaluation exactly (JAX ``test_device_bank_train.py:89``);
-  the sharded bank names ROADMAP Queue 1 item 10b.
+  so does the sharded bank, half the store on each rank.
 - K1's layout after DDP's broadcast: rank 1 starts from other weights, and
   ``val()`` on both ranks gives one process's ``val()`` with rank 0's.
 - A checkpoint written under 2 ranks: one ``step_<n>`` directory, restored
@@ -144,7 +144,8 @@ def spawned(tmp_path_factory):
     np.savez(other, **flatten(_jax_params(dict(layout["cfg"], seed=7))))
     layout["params_rank1"] = other
     case("bank_shard", dict(bank, device_feature_bank=True,
-                            device_feature_bank_shard=True), raises=True)
+                            device_feature_bank_shard=True), train=True,
+         val="full", store=int8)
     case("ckpt", cfg_fields(qa, model_name="iBOWIMG", out_dir=str(
         root / "models"), **WIDTHS), train=True, checkpoint=True,
          log_dir=str(root / "runs"))
@@ -377,11 +378,19 @@ def test_every_family_trains_under_two_ranks(spawned, name):
 
 
 def test_sharded_bank_under_two_ranks_names_item_10b(spawned):
-    """The sharded training bank (its ring exchange) waits for ROADMAP
-    Queue 1 item 10b; over two ranks the Solver says so."""
-    for got in _ranks(spawned, "bank_shard"):
-        assert str(got["raised"]).startswith("NotImplementedError")
-        assert "ROADMAP Queue 1 item 10b" in str(got["raised"])
+    """The sharded training bank (its ring exchange, ROADMAP Queue 1 item
+    10b, which it waited for until it was ported) over two ranks: each
+    rank holds half the store's rows, and the losses, the full evaluation
+    and the parameters equal the host feed's, bit for bit."""
+    for host, bank in zip(_ranks(spawned, "host"),
+                          _ranks(spawned, "bank_shard")):
+        np.testing.assert_array_equal(bank["losses"], host["losses"])
+        np.testing.assert_array_equal(bank["val"], host["val"])
+        for key, value in _params(host).items():
+            np.testing.assert_array_equal(_params(bank)[key], value)
+    shard, whole = (_ranks(spawned, name)[0]["bank_bytes"]
+                    for name in ("bank_shard", "bank"))
+    assert 2 * shard == whole
 
 
 def test_k1_layout_follows_the_broadcast_weights(spawned):

@@ -15,6 +15,7 @@ group, for the one-process run a case is compared with.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -108,8 +109,7 @@ def recorded_masks(record: Dict[str, list]):
             twin = torch.Generator(device=inner.device)
             twin.set_state(inner.get_state())
             if isinstance(generator, layers.GlobalRows):
-                twin = layers.GlobalRows(twin, generator.row0,
-                                         generator.rows)
+                twin = dataclasses.replace(generator, generator=twin)
             ones = torch.ones_like(x)
             record["dropout"].append(
                 (real_dropout(ones, rate, train, twin) != 0).cpu().numpy())
@@ -137,7 +137,12 @@ def run_case(case: Dict[str, Any], qa, store, rank: int = 0,
     gradients come back under ``g/``, the parameters under ``p/``; with
     ``"raises": true`` the Solver's refusal, under ``raised``; with
     ``"resume_step": s`` a second Solver restores step s and trains to the
-    end (``resumed_losses``, parameters under ``q/``). Returns its
+    end (``resumed_losses``, parameters under ``q/``); with ``"restore":
+    true`` the Solver restores the latest checkpoint of ``cfg.out_dir``
+    first; with ``"eval_inputs": path`` the eval forward's logits on that
+    ``.npz``'s ``img`` and ``ques`` come back under ``logits``; with
+    ``"shapes": true`` each parameter's local shape under ``shape/``, and
+    ``"bank_bytes"`` the training bank's bytes on this rank. Returns its
     arrays (and writes them to ``out``)."""
     import torch
 
@@ -175,6 +180,18 @@ def run_case(case: Dict[str, Any], qa, store, rank: int = 0,
                      **arrays)
         return arrays
     losses = []
+    if case.get("restore"):
+        solver.restore()
+    if case.get("shapes"):
+        for name, p in solver.model.named_parameters():
+            arrays[f"shape/{name}"] = np.asarray(p.shape)
+    if solver.bank is not None:
+        arrays["bank_bytes"] = np.asarray(solver.bank.nbytes)
+    if "eval_inputs" in case:
+        with np.load(case["eval_inputs"]) as f:
+            img, ques = (torch.from_numpy(f[k]) for k in ("img", "ques"))
+        with torch.no_grad():
+            arrays["logits"] = solver.eval_model()(img, ques).numpy()
     if case.get("val_first"):
         arrays["val_first"] = np.asarray(solver.val())
     with masks:

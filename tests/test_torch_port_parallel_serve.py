@@ -8,8 +8,8 @@ and the data-parallel dry run (``parallel/dryrun.py``), on the CPU.
   bf16 ``mhb_coAtt`` (K1's plain version on the CPU); and iBOWIMG as the
   JAX engine's 8-way data-parallel one does (its answers and top-k ids).
 - JAX's validation errors: a batch that does not split, fewer devices than
-  replicas, an artifact; the device feature cache under N > 1 names item
-  10b.
+  replicas, an artifact; the device feature cache under N > 1 is split
+  over the replicas (item 10b; ``test_torch_port_sharded_banks.py``).
 - ``cli.serve --data_parallel 8`` answers as the single-device service
   (JAX ``tests/test_serve_http.py:564``): ``test_torch_port_serve_http.py::
   test_data_parallel_is_refused``, named for what it checked before.
@@ -123,8 +123,10 @@ def test_split_engine_validation():
                         artifact_dir="/nonexistent", device="cpu")
     engine = InferenceEngine(port, params, batch_size=8, data_parallel=2,
                              input_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        engine.attach_feature_cache(4, lambda ids: None)
+    # the device cache under data_parallel=2 is JAX's sharded bank (ROADMAP
+    # item 10b, refused until it was ported): split over the 2 replicas
+    bank = engine.attach_feature_cache(5, lambda ids: None)
+    assert bank.capacity == 6 and [b.shape[0] for b in bank.blocks] == [3, 3]
 
 
 @pytest.mark.parametrize("n", [2, 4])

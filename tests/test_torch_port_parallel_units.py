@@ -86,10 +86,21 @@ def test_a_ranks_device(no_launcher, monkeypatch):
 
 
 def test_the_mesh_needs_a_group_and_has_no_model_axis_yet(no_launcher):
+    """A mesh needs a process group, with a model axis too (ROADMAP item
+    10b, refused until it was ported; the name is the refusal's); a model
+    axis must divide mfb_out (``test_torch_port_tensor_parallel.py`` runs
+    the (2, 2) mesh)."""
+    from vqa_attention_networks_tpu_torch.parallel.sharding import (
+        check_model_axis,
+    )
+
     with pytest.raises(ValueError, match="torchrun --nproc_per_node N"):
         make_mesh(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10b"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node N"):
         make_mesh(1, model=2)
+    check_model_axis(Config(), 4)  # 1000 outputs, 250 a rank
+    with pytest.raises(ValueError, match="does not divide mfb_out=1000"):
+        check_model_axis(Config(), 3)
 
 
 def test_the_rows_a_rank_holds():

@@ -5,8 +5,8 @@ Mirrors every test of ``tests/test_serve_http.py``: the real
 ``ThreadingHTTPServer`` of the port's CLI on port 0, ``--device cpu``,
 driven with urllib. The JAX CLI's data-parallel test serves through the
 port's split-batch engine (ROADMAP Queue 1 item 10a), its sharded-bank
-test is a refusal (item 10b); its artifact test serves through the
-port's artifact. The
+test through the port's bank split over the replicas (item 10b); its
+artifact test serves through the port's artifact. The
 served answers are held against JAX's ``VqaService`` built on the same
 parameters and store: the same answer wherever the top probability is
 clearly above the next, and every probability within ``PROB_ATOL`` (bf16
@@ -572,15 +572,26 @@ def test_device_bank_metrics_exported(server_bank):
 
 
 def test_sharded_device_bank_is_refused(tmp_path):
-    """JAX's test shards the bank over a data mesh; the port refuses it
-    (``--data_parallel`` > 1 with ``--device_cache_images``), naming
-    ROADMAP item 10b, as ``DeviceFeatureCache(mesh=...)`` does."""
+    """JAX's test shards the bank over a data mesh: ``--data_parallel 4``
+    with ``--device_cache_images`` splits the bank over the 4 replicas
+    (capacity rounded up to a multiple of 4) and answers by id as the
+    one-replica bank service does. Once the port's refusal (ROADMAP item
+    10b), hence the name."""
     _workspace(tmp_path, n_answers=3, f16_dir="resnet152_f16",
                int8_dir="resnet152_all")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        serve_cli.build_service(_args(
-            tmp_path, n_answers=3, device_cache_images=len(IMAGE_IDS),
-            data_parallel=4))
+    single, split = (serve_cli.build_service(_args(
+        tmp_path, n_answers=3, batch_size=8,
+        device_cache_images=len(IMAGE_IDS) + 1, data_parallel=n))
+        for n in (1, 4))
+    bank = split.engine._cache
+    assert bank is not None and len(bank.blocks) == 4
+    assert bank.capacity == 8  # 5 rounded up to a multiple of 4
+    items = [{"question": q, "image_id": i} for q, i in
+             (("what color is the cat", 3), ("is the sky blue", 7),
+              ("what is the dog", 11), ("what color", 19), ("the cat", 3))]
+    got, want = split.predict_many(items), single.predict_many(items)
+    assert got == want and len(got) == len(items)
+    assert bank.hits + bank.misses == len(items)
 
 
 def test_device_bank_requires_int8_store(tmp_path):

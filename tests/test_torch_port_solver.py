@@ -25,9 +25,9 @@ fields, seeds and sizes.
 - Item 6's switches run (``test_torch_port_solver_switches.py`` holds
   them in full). Data parallelism (item 10a) trains over the ranks of a
   process group (``test_torch_port_parallel*.py``); in one process
-  ``data_parallel > 1`` raises a ``ValueError`` naming torchrun, and what
-  is not ported (item 10b, tensor parallelism) raises
-  ``NotImplementedError`` naming its ROADMAP item.
+  ``data_parallel > 1`` or ``model_parallel > 1`` (item 10b, tensor
+  parallelism, ``test_torch_port_tensor_parallel.py``) raises a
+  ``ValueError`` naming torchrun.
 """
 
 import dataclasses
@@ -202,7 +202,8 @@ def test_hiecoatten_training_names_its_roadmap_item(data):
     too (item 6 is done), and data-parallel over a process group (item
     10a, ``test_torch_port_parallel.py``). Without a process group
     ``data_parallel=2`` names the launcher that makes one; tensor
-    parallelism names the item it waits on, as for every family."""
+    parallelism (item 10b, refused until it was ported) needs its ranks
+    too, as for every family."""
     from vqa_attention_networks_tpu_torch.models import TRAINABLE
     from vqa_attention_networks_tpu_torch.config import MODEL_NAMES
 
@@ -216,8 +217,7 @@ def test_hiecoatten_training_names_its_roadmap_item(data):
         assert np.isfinite(float(loss))
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         Solver(cfg.replace(data_parallel=2), qa, store, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 10b"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         Solver(cfg.replace(model_parallel=2), qa, store, device="cpu")
 
 
@@ -338,7 +338,9 @@ def test_unported_switches_name_their_roadmap_item(data, switch, item,
     baselines and JAX). Item 10a's data parallelism runs over the ranks of
     a process group (``test_torch_port_parallel*.py``); in one process it
     names the launcher that makes the group. Item 10b's tensor
-    parallelism still raises, naming it."""
+    parallelism, refused until it was ported, runs over a process group
+    too (``test_torch_port_tensor_parallel.py``): in one process it names
+    the launcher."""
     qa, store = data
     cfg = small_cfg(qa, profile_dir=str(tmp_path / "profile"), **switch)
     if item == "item 10":
@@ -346,8 +348,7 @@ def test_unported_switches_name_their_roadmap_item(data, switch, item,
             Solver(cfg, qa, store, device="cpu")
         return
     if item == "item 10b":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 {item}"):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
             Solver(cfg, qa, store, device="cpu")
         return
     metrics = Solver(cfg, qa, store, device="cpu").train()

@@ -42,11 +42,13 @@ Slices ported so far, on one device:
   group (``parallel/``, ``torchrun --nproc_per_node N``): the Solver's
   training, full evaluation and checkpoints with JAX's global-batch
   semantics, the replicated training bank, and
-  ``InferenceEngine(data_parallel=N)``, one batch split over N replicas.
-
-Not ported: tensor parallelism (the ``model`` mesh axis) and the sharded
-feature banks, training's ring exchange and ``DeviceFeatureCache(mesh=)``
-(ROADMAP Queue 1 item 10b).
+  ``InferenceEngine(data_parallel=N)``, one batch split over N replicas;
+- tensor parallelism over the ``model`` mesh axis (``parallel/tensor.py``,
+  ``parallel/sharding.py``: the fusion projections column-split as JAX's
+  ``_leaf_spec`` places them, K2 and K3 on the shards), and the sharded
+  feature banks: training's ring exchange over the data ranks
+  (``train/feature_bank.py``) and the serving cache split over the
+  engine's replicas (``serve.DeviceFeatureCache(devices=...)``).
 """
 
 __version__ = "0.1.0"

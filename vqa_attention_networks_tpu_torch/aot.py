@@ -2,8 +2,9 @@
 ``vqa_attention_networks_tpu/aot.py``).
 
 - ``serving_forward``: model -> softmax -> top-k over one fixed batch, for
-  the f16 and the int8 feed, and ``serving_forward_banked``, the device
-  feature cache's.
+  the f16 and the int8 feed, ``serving_forward_banked``, the device
+  feature cache's, and ``serving_forward_banked_sharded``, the cache's
+  split over the replicas of the data-parallel engine.
 - ``export_serving`` / ``save_serving_artifact`` / ``load_serving_artifact``
   (JAX ``aot.py:184-287``): ``torch.export.export`` of ``serving_forward``
   at one fixed batch, written as ``serving.pt2`` beside ``serving.json``,
@@ -44,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -107,13 +108,68 @@ def serving_forward_banked(cfg: Config, topk: int) -> Callable[
     int8 ``serving_forward`` unchanged, so the banked path cannot drift
     from the per-request feed: the same bytes give the same answers. JAX
     gathers in-graph outside any Pallas kernel (``aot.py:101-119``); here
-    it is ``index_select``. The sharded bank's forward is ROADMAP Queue 1
-    item 10 (multi-GPU)."""
+    it is ``index_select``. The sharded bank's forward is
+    ``serving_forward_banked_sharded``."""
     base = serving_forward(cfg, topk, "int8")
 
     def fwd(model, bank_rows, bank_scale, idx, ques, qlen):
         return base(model, bank_rows.index_select(0, idx),
                     bank_scale.index_select(0, idx), ques, qlen)
+
+    return fwd
+
+
+def ring_gather(row_blocks: Sequence[torch.Tensor],
+                scale_blocks: Sequence[torch.Tensor],
+                idx: Sequence[torch.Tensor]
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """JAX's ring gather of ``serving_forward_banked_sharded`` over the N
+    devices of a split bank: block i (on its device) holds slots ``[i*C/N,
+    (i+1)*C/N)``, and shard i's slot indices ``idx[i]`` start on device i.
+    Each shard's (indices, int8-row accumulator, scale accumulator) moves
+    from device to device around the ring; at each stop the local block
+    fills the slots it owns by ``torch.where`` (no float math: bit-exact,
+    and int8 rows travel at half the f16 bytes). N moves bring each triple
+    home. -> (rows [B/N, L, D] int8, scales [B/N, D] f16) of each shard,
+    on its device."""
+    n = len(row_blocks)
+    per = row_blocks[0].shape[0]
+    devices = [b.device for b in row_blocks]
+    state = [(i, torch.zeros((i.shape[0], *r.shape[1:]), dtype=r.dtype,
+                             device=i.device),
+              torch.zeros((i.shape[0], *s.shape[1:]), dtype=s.dtype,
+                          device=i.device))
+             for i, r, s in zip(idx, row_blocks, scale_blocks)]
+    for step in range(n):
+        for k, (slots, rows, scale) in enumerate(state):
+            d = (k + step) % n  # the device shard k's triple is on
+            local = slots - d * per
+            owned = (local >= 0) & (local < per)
+            safe = local.clamp(0, per - 1)
+            rows = torch.where(owned[:, None, None],
+                               row_blocks[d].index_select(0, safe), rows)
+            scale = torch.where(owned[:, None],
+                                scale_blocks[d].index_select(0, safe), scale)
+            nxt = devices[(d + 1) % n]
+            state[k] = (slots.to(nxt), rows.to(nxt), scale.to(nxt))
+    return [s[1] for s in state], [s[2] for s in state]
+
+
+def serving_forward_banked_sharded(cfg: Config, topk: int) -> Callable[
+        ..., List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """The banked serving forward of a bank split over the split engine's
+    N replicas (JAX ``aot.py:122-185``): ``fwd(models, row_blocks,
+    scale_blocks, idx, ques, qlen)``, each a list of N (replica i's model,
+    block, slots, questions and lengths on device i), gathers each shard's
+    rows and scales around the devices (``ring_gather``), then runs the
+    same int8 ``serving_forward`` on each replica: one source of truth
+    with the per-request feed and the one-device bank. -> each shard's
+    (top ids, top probabilities)."""
+    base = serving_forward(cfg, topk, "int8")
+
+    def fwd(models, row_blocks, scale_blocks, idx, ques, qlen):
+        rows, scale = ring_gather(row_blocks, scale_blocks, idx)
+        return [base(*args) for args in zip(models, rows, scale, ques, qlen)]
 
     return fwd
 

@@ -26,8 +26,8 @@ PyTorch versions, as the tests do; nothing falls back to the CPU by
 itself). ``--data_parallel N`` serves each batch split over N replicas
 (``serve.InferenceEngine(data_parallel=N)``: ``cuda:0..N-1``, or N
 replicas on the CPU under ``--device cpu``); with ``--device_cache_images``
-it is JAX's sharded bank (ROADMAP Queue 1 item 10b) and raises
-``NotImplementedError``.
+the device bank is JAX's sharded one, split over the replicas (its
+capacity rounded up to a multiple of N).
 
 Endpoints:
   GET  /healthz            -> {"status": "ok", ..., "latency": {...}}
@@ -326,11 +326,6 @@ class VqaService:
             1 if self.int8 else 2
         ) + (store.channels * 2 if self.int8 else 0)
         self.cache = FeatureCache(feature_cache_mb << 20, grid_bytes)
-        if device_cache_images and data_parallel > 1:
-            raise NotImplementedError(
-                "--device_cache_images with --data_parallel > 1 is JAX's "
-                "sharded device bank, not ported yet: ROADMAP Queue 1 item "
-                "10b (the sharded banks)")
         self.engine = InferenceEngine(
             cfg, params, batch_size=batch_size, topk=topk,
             artifact_dir=artifact_dir,
@@ -830,8 +825,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--data_parallel", type=int, default=1,
                         help="split each served batch over N replicas "
                              "(cuda:0..N-1; N replicas on the CPU under "
-                             "--device cpu); not with --device_cache_images "
-                             "(the sharded bank, ROADMAP Queue 1 item 10b)")
+                             "--device cpu); with --device_cache_images the "
+                             "bank splits over the replicas too")
     parser.add_argument("--aot_artifact", type=str, default=None,
                         help="serve the exported program in this directory "
                              "(cli.export_serving) with the weights of "

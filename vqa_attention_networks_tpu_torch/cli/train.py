@@ -10,18 +10,21 @@ and the weights export under ``models/<model>/``, the metric stream under
 under ``results/``.
 
 ``--grad_accum_steps``, ``--remat``, ``--device_feature_bank`` (with its
-budget) and an int8 store reach the Solver, which runs them
-(``train/solver.py``); ``--model_parallel`` > 1 reaches it too and is
-refused, naming ROADMAP Queue 1 item 10b (tensor parallelism).
+budget and ``--device_feature_bank_shard``) and an int8 store reach the
+Solver, which runs them (``train/solver.py``).
 
-Data parallelism (JAX ``cli/train.py:163-166``): the CLI joins the process
-group of its launcher before it builds the Solver, which then trains over
-every rank, each on its own device (NCCL between cards, gloo under
-``--device cpu``)::
+Data and tensor parallelism (JAX ``cli/train.py:163-166``): the CLI joins
+the process group of its launcher before it builds the Solver, which then
+trains over every rank, each on its own device (NCCL between cards, gloo
+under ``--device cpu``), on a ``(N / M, M)`` mesh for ``--model_parallel
+M``::
 
-    torchrun --nproc_per_node N -m vqa_attention_networks_tpu_torch.cli.train
+    torchrun --nproc_per_node N -m vqa_attention_networks_tpu_torch.cli.train \
+        --model_parallel M --device_feature_bank 1 \
+        --device_feature_bank_shard 1
 
-Without a launcher it runs as one process.
+Without a launcher it runs as one process (``--model_parallel`` > 1 then
+asks for the launcher).
 """
 
 import argparse

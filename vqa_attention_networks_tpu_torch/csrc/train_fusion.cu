@@ -18,11 +18,15 @@
 //   d_q[n,c]  = sum_l (g_pooled * (mask * inv_keep)) * z0   -> f32 [N, F]
 //
 // The mask is Philox4x32-10, key (seed, 0), counter (i, i >> 32, 0, 0) for
-// the flat element index i = (row0*L + m)*F + c, kept iff word 0 < thr.
-// row0 is the global index of the launch's first sample: a rank of a
-// data-parallel run holds samples [row0, row0 + N) of the global batch and
-// draws their bits, so W ranks draw the mask one process draws (row0 = 0
-// there, the bits this kernel always drew). It depends on the element and
+// the flat element index i = (row0*L + m)*F_total + col0 + c, kept iff
+// word 0 < thr. row0 is the global index of the launch's first sample: a
+// rank of a data-parallel run holds samples [row0, row0 + N) of the global
+// batch. col0 and F_total place the launch's F columns in the global
+// fusion width: a rank of a tensor-parallel run holds columns [col0, col0 +
+// F) of F_total. So the ranks draw the mask one process draws (row0 = col0
+// = 0 and F_total = F there, the bits this kernel always drew; a shard
+// padded with zero columns draws bits for them that no output reads).
+// It depends on the element and
 // the seed only, so the launches (and the plain PyTorch version in
 // ops/train_fusion.py) replay the same bits whatever their tiling; thr == 0
 // means rate 0, and then no bits are drawn. z0 and the mask never reach
@@ -197,7 +201,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                const float* __restrict__ q,  // [N, F]
                float* __restrict__ out,      // [M, O]
                int mrows, int l, int d, int f, uint32_t seed, uint32_t thr,
-               float inv_keep, unsigned long long base) {
+               float inv_keep, unsigned long long base, int f_mask) {
   using S = FwdShape<K>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -317,7 +321,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       float zd = __fmul_rn(z0, q[(size_t)n * f + c]);
       if (kMask && thr != 0u)
         zd = __fmul_rn(zd, keep_scale(seed, thr, inv_keep,
-                                      base + (unsigned long long)m * f + c));
+                                      base + (unsigned long long)m * f_mask +
+                                          c));
       pooled = j == 0 ? zd : __fadd_rn(pooled, zd);
     }
     out[(size_t)m * o_dim + o] = signed_sqrt(pooled);
@@ -339,7 +344,7 @@ __global__ void __launch_bounds__(kThreads)
                   bf16* __restrict__ gp,          // [M, F]
                   float* __restrict__ db_part,    // [ceil(M / 64), F]
                   int mrows, int l, int f, int k, uint32_t seed, uint32_t thr,
-                  float inv_keep, unsigned long long base) {
+                  float inv_keep, unsigned long long base, int f_mask) {
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= f) return;
   const int o_dim = f / k, o = c / k;
@@ -353,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
         g[po], y == 0.0f ? 0.0f : __fdiv_rn(0.5f, fmaxf(fabsf(y), 1e-20f)));
     if (thr != 0u)
       v = __fmul_rn(v, keep_scale(seed, thr, inv_keep,
-                                  base + (unsigned long long)m * f + c));
+                                  base + (unsigned long long)m * f_mask + c));
     v = __fmul_rn(v, q[(size_t)(m / l) * f + c]);
     gp[(size_t)m * f + c] = __float2bfloat16(v);
     part = __fadd_rn(part, v);
@@ -707,7 +712,7 @@ template <bool kMask>
 __device__ __forceinline__ float d_q_rows(
     const float* z0_c, const float* __restrict__ g,
     const float* __restrict__ out, float bc, size_t m0, int r0, int r1,
-    int o_dim, int c, int k, int f, uint32_t seed, uint32_t thr,
+    int o_dim, int c, int k, int f_mask, uint32_t seed, uint32_t thr,
     float inv_keep, unsigned long long base) {
   const int o = c / k;
   float part = 0.0f;
@@ -717,7 +722,8 @@ __device__ __forceinline__ float d_q_rows(
     float gz = pooled_grad(g[po], out[po]);
     if (kMask)
       gz = __fmul_rn(gz,
-                     keep_scale(seed, thr, inv_keep, base + (m0 + r) * f + c));
+                     keep_scale(seed, thr, inv_keep,
+                                base + (m0 + r) * f_mask + c));
     const float z0 = __fadd_rn(z0_c[r * kQZLd], bc);
     part = __fadd_rn(part, __fmul_rn(gz, z0));
   }
@@ -733,7 +739,7 @@ __global__ void __launch_bounds__(kQThreads, DqShape<kRowsN>::kBlocksPerSm)
                const float* __restrict__ b,    // [F]
                float* __restrict__ d_q,        // [N, F]
                int l, int d, int f, int k, uint32_t seed, uint32_t thr,
-               float inv_keep, unsigned long long base) {
+               float inv_keep, unsigned long long base, int f_mask) {
   using S = DqShape<kRowsN>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -840,9 +846,9 @@ __global__ void __launch_bounds__(kQThreads, DqShape<kRowsN>::kBlocksPerSm)
     const size_t m0 = (size_t)n * l;
     part = thr != 0u
                ? d_q_rows<true>(z0_c, g, out, b[c], m0, r0, r1, f / k, c, k,
-                                f, seed, thr, inv_keep, base)
+                                f_mask, seed, thr, inv_keep, base)
                : d_q_rows<false>(z0_c, g, out, b[c], m0, r0, r1, f / k, c,
-                                 k, f, seed, thr, inv_keep, base);
+                                 k, f_mask, seed, thr, inv_keep, base);
   }
   if (half == 1) half_s[cc] = part;
   __syncthreads();
@@ -850,9 +856,16 @@ __global__ void __launch_bounds__(kQThreads, DqShape<kRowsN>::kBlocksPerSm)
     d_q[(size_t)n * f + c] = __fadd_rn(part, half_s[cc]);
 }
 
-// the mask counter of sample row0's first element
-unsigned long long mask_base(long long row0, int l, int f) {
-  return (unsigned long long)row0 * (unsigned long long)l * f;
+// the mask counter of sample row0's first element at column col0
+unsigned long long mask_base(long long row0, int l, int f_total,
+                             long long col0) {
+  return (unsigned long long)row0 * (unsigned long long)l * f_total +
+         (unsigned long long)col0;
+}
+
+// a launch's columns [col0, col0 + f) inside the global width f_total
+bool cols_ok(long long col0, int f_total) {
+  return col0 >= 0 && f_total >= 1 && col0 < f_total;
 }
 
 bool dims_ok(int n, int l, int d, int f, int k) {
@@ -865,7 +878,7 @@ template <int K, bool kMask>
 int launch_fwd(const void* img, const void* w, const void* b, const void* q,
                void* out, int mrows, int l, int d, int f, uint32_t seed,
                uint32_t thr, float inv_keep, unsigned long long base,
-               cudaStream_t s) {
+               int f_mask, cudaStream_t s) {
   using S = FwdShape<K>;
   CUtensorMap img_map, w_map;
   const uint64_t img_dims[2] = {(uint64_t)d, (uint64_t)mrows};
@@ -890,7 +903,7 @@ int launch_fwd(const void* img, const void* w, const void* b, const void* q,
   fwd_kernel<K, kMask><<<grid, kFwdThreads, S::kSmem, s>>>(
       img_map, w_map, static_cast<const float*>(b),
       static_cast<const float*>(q), static_cast<float*>(out), mrows, l, d, f,
-      seed, thr, inv_keep, base);
+      seed, thr, inv_keep, base, f_mask);
   return (int)cudaGetLastError();
 }
 
@@ -898,16 +911,16 @@ template <bool kMask>
 int launch_fwd_k(const void* img, const void* w, const void* b,
                  const void* q, void* out, int m, int l, int d, int f, int k,
                  uint32_t seed, uint32_t thr, float inv_keep,
-                 unsigned long long base, cudaStream_t s) {
+                 unsigned long long base, int f_mask, cudaStream_t s) {
   switch (k) {
-    case 1: return launch_fwd<1, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
-    case 2: return launch_fwd<2, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
-    case 3: return launch_fwd<3, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
-    case 4: return launch_fwd<4, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
-    case 5: return launch_fwd<5, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
-    case 6: return launch_fwd<6, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
-    case 7: return launch_fwd<7, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
-    case 8: return launch_fwd<8, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, s);
+    case 1: return launch_fwd<1, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, f_mask, s);
+    case 2: return launch_fwd<2, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, f_mask, s);
+    case 3: return launch_fwd<3, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, f_mask, s);
+    case 4: return launch_fwd<4, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, f_mask, s);
+    case 5: return launch_fwd<5, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, f_mask, s);
+    case 6: return launch_fwd<6, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, f_mask, s);
+    case 7: return launch_fwd<7, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, f_mask, s);
+    case 8: return launch_fwd<8, kMask>(img, w, b, q, out, m, l, d, f, seed, thr, inv_keep, base, f_mask, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -916,7 +929,7 @@ template <int kRowsN>
 int launch_d_q(const void* g, const void* out, const void* img,
                const void* w, const void* b, void* d_q, int n, int l, int d,
                int f, int k, uint32_t seed, uint32_t thr, float inv_keep,
-               unsigned long long base, void* stream) {
+               unsigned long long base, int f_mask, void* stream) {
   using S = DqShape<kRowsN>;
   CUtensorMap img_map, w_map;
   const uint64_t img_dims[3] = {(uint64_t)d, (uint64_t)l, (uint64_t)n};
@@ -941,7 +954,8 @@ int launch_d_q(const void* g, const void* out, const void* img,
                        reinterpret_cast<cudaStream_t>(stream)>>>(
       img_map, w_map, static_cast<const float*>(g),
       static_cast<const float*>(out), static_cast<const float*>(b),
-      static_cast<float*>(d_q), l, d, f, k, seed, thr, inv_keep, base);
+      static_cast<float*>(d_q), l, d, f, k, seed, thr, inv_keep, base,
+      f_mask);
   return (int)cudaGetLastError();
 }
 
@@ -949,16 +963,19 @@ int launch_d_q(const void* g, const void* out, const void* img,
 
 extern "C" {
 
-// row0 (>= 0): the global index of sample 0, which offsets the mask's
-// counter (the header); the entries that draw the mask take it
+// row0 (>= 0): the global index of sample 0; col0 (>= 0) and f_total: the
+// global index of column 0 and the global width. They place the mask's
+// counter (the header); the entries that draw the mask take them
 int train_fusion_forward(const void* img, const void* w, const void* b,
                          const void* q, void* out, int n, int l, int d, int f,
                          int k, uint32_t seed, uint32_t thr, float inv_keep,
-                         long long row0, void* stream) {
-  if (!dims_ok(n, l, d, f, k) || row0 < 0) return (int)cudaErrorInvalidValue;
+                         long long row0, long long col0, int f_total,
+                         void* stream) {
+  if (!dims_ok(n, l, d, f, k) || row0 < 0 || !cols_ok(col0, f_total))
+    return (int)cudaErrorInvalidValue;
   return launch_fwd_k<true>(img, w, b, q, out, n * l, l, d, f, k, seed, thr,
-                            inv_keep, mask_base(row0, l, f),
-                            reinterpret_cast<cudaStream_t>(stream));
+                            inv_keep, mask_base(row0, l, f_total, col0),
+                            f_total, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K5, the inference fusion (replaces _grid_fuse_pallas, vqa_attention_
@@ -970,7 +987,7 @@ int train_fusion_inference_forward(const void* img, const void* w,
                                    void* stream) {
   if (!dims_ok(n, l, d, f, k)) return (int)cudaErrorInvalidValue;
   return launch_fwd_k<false>(img, w, b, q, out, n * l, l, d, f, k, 0u, 0u,
-                             1.0f, 0ull,
+                             1.0f, 0ull, f,
                              reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -1008,8 +1025,10 @@ int train_fusion_d_img(const void* gp, const void* w, void* d_img, int n,
 int train_fusion_g_prod(const void* g, const void* out, const void* q,
                         void* gp, void* db_part, int n, int l, int d, int f,
                         int k, uint32_t seed, uint32_t thr, float inv_keep,
-                        long long row0, void* stream) {
-  if (!dims_ok(n, l, d, f, k) || row0 < 0) return (int)cudaErrorInvalidValue;
+                        long long row0, long long col0, int f_total,
+                        void* stream) {
+  if (!dims_ok(n, l, d, f, k) || row0 < 0 || !cols_ok(col0, f_total))
+    return (int)cudaErrorInvalidValue;
   const int m = n * l;
   const dim3 grid((f + kThreads - 1) / kThreads,
                   (m + kBuildRows - 1) / kBuildRows);
@@ -1017,7 +1036,7 @@ int train_fusion_g_prod(const void* g, const void* out, const void* q,
       static_cast<const float*>(g), static_cast<const float*>(out),
       static_cast<const float*>(q), static_cast<bf16*>(gp),
       static_cast<float*>(db_part), m, l, f, k, seed, thr, inv_keep,
-      mask_base(row0, l, f));
+      mask_base(row0, l, f_total, col0), f_total);
   return (int)cudaGetLastError();
 }
 
@@ -1044,13 +1063,17 @@ int train_fusion_d_w(const void* img, const void* gp, const void* db_part,
 int train_fusion_d_q(const void* g, const void* out, const void* img,
                      const void* w, const void* b, void* d_q, int n, int l,
                      int d, int f, int k, uint32_t seed, uint32_t thr,
-                     float inv_keep, long long row0, void* stream) {
-  if (!dims_ok(n, l, d, f, k) || row0 < 0) return (int)cudaErrorInvalidValue;
-  const unsigned long long base = mask_base(row0, l, f);
+                     float inv_keep, long long row0, long long col0,
+                     int f_total, void* stream) {
+  if (!dims_ok(n, l, d, f, k) || row0 < 0 || !cols_ok(col0, f_total))
+    return (int)cudaErrorInvalidValue;
+  const unsigned long long base = mask_base(row0, l, f_total, col0);
   return l <= 200 ? launch_d_q<200>(g, out, img, w, b, d_q, n, l, d, f, k,
-                                    seed, thr, inv_keep, base, stream)
+                                    seed, thr, inv_keep, base, f_total,
+                                    stream)
                   : launch_d_q<kMaxRows>(g, out, img, w, b, d_q, n, l, d, f, k,
-                                       seed, thr, inv_keep, base, stream);
+                                       seed, thr, inv_keep, base, f_total,
+                                       stream);
 }
 
 const char* train_fusion_error_string(int code) {

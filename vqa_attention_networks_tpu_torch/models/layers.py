@@ -31,11 +31,14 @@ sharded axis is global. Two layers here see that: ``BatchNorm``, whose
 statistics sum over every rank's rows (a differentiable all-reduce, so the
 gradient flows through them as through JAX's global mean), and
 ``dropout``, whose mask is the rank's rows of the mask one process draws
-for the whole batch (``GlobalRows``).
+for the whole batch (``GlobalRows``). Under tensor parallelism a rank also
+holds a column block of the fusion activations, and its mask is that
+block of the one process's (``columns``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
@@ -328,15 +331,20 @@ def lstm(
 @dataclass(frozen=True)
 class GlobalRows:
     """A dropout generator for rows ``[row0, row0 + n)`` of a global batch
-    of ``rows`` rows, n being the batch the layer sees: a rank's slice of a
-    data-parallel batch. ``dropout`` draws the global batch's noise and
-    keeps these rows, and K2 offsets its mask counter by ``row0``
-    (``ops/grid_fusion.py``), so W ranks draw the masks that one process
-    draws for the whole batch."""
+    of ``rows`` rows (None: the n rows the layer sees), n being the batch
+    the layer sees: a rank's slice of a data-parallel batch; and, with
+    ``col_shards`` > 1, for column block ``col_shard`` of ``col_shards``
+    of the last axis: a rank's columns of a tensor-parallel activation
+    (``columns``). ``dropout`` draws the global array's noise and keeps
+    this block, and K2 offsets its mask counter by ``row0`` and the
+    block's first column (``ops/grid_fusion.py``), so the ranks draw the
+    masks that one process draws for the whole array."""
 
     generator: torch.Generator
-    row0: int
-    rows: int
+    row0: int = 0
+    rows: Optional[int] = None
+    col_shard: int = 0
+    col_shards: int = 1
 
 
 Generator = Union[torch.Generator, GlobalRows]
@@ -348,6 +356,28 @@ def first_row(generator: Optional[Generator]) -> int:
     return generator.row0 if isinstance(generator, GlobalRows) else 0
 
 
+def first_column(generator: Optional[Generator],
+                 width: int) -> Tuple[int, int]:
+    """(global index of the first column, global width) of an activation
+    whose last axis, ``width`` wide here, the generator's column block
+    stands for: (0, width) unless a ``GlobalRows`` with column shards."""
+    if isinstance(generator, GlobalRows):
+        return generator.col_shard * width, generator.col_shards * width
+    return 0, width
+
+
+def columns(generator: Optional[Generator], tp) -> Optional[Generator]:
+    """The generator for an activation whose last axis is split over the
+    model axis ``tp`` (``parallel.tensor.TensorParallel``): this rank's
+    column block of it. ``generator`` itself without a model axis."""
+    if tp is None or tp.size == 1 or generator is None:
+        return generator
+    if isinstance(generator, GlobalRows):
+        return dataclasses.replace(generator, col_shard=tp.rank,
+                                   col_shards=tp.size)
+    return GlobalRows(generator, col_shard=tp.rank, col_shards=tp.size)
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[Generator] = None) -> torch.Tensor:
     """Inverted dropout, ``where(mask, x / keep, 0)`` with the mask drawn
@@ -356,16 +386,25 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     before the division, as JAX rounds a Python scalar: at bf16,
     x / bf16(0.9) and bf16(x / 0.9) differ on a third of the elements.
     Under a ``GlobalRows`` generator the noise is drawn for the global
-    batch (dim 0 of x is the batch) and x's rows are taken from it."""
+    batch (dim 0 of x is the batch) and x's rows are taken from it, and,
+    with column shards, for the whole last axis, of which x's block is
+    taken."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep = 1.0 - rate
     if isinstance(generator, GlobalRows):
-        noise = torch.rand((generator.rows, *x.shape[1:]),
-                           generator=generator.generator, device=x.device)
+        rows = x.shape[0] if generator.rows is None else generator.rows
+        shape = [rows, *x.shape[1:]]
+        width = shape[-1]
+        shape[-1] *= generator.col_shards
+        noise = torch.rand(shape, generator=generator.generator,
+                           device=x.device)
         noise = noise[generator.row0:generator.row0 + x.shape[0]]
+        if generator.col_shards > 1:
+            c0 = generator.col_shard * width
+            noise = noise[..., c0:c0 + width]
     else:
         noise = torch.rand(x.shape, generator=generator, device=x.device)
     mask = noise < keep

@@ -25,6 +25,10 @@ under ``VQA_FORCE_PALLAS``; in training K2 at ``dropout_site="prepool"``
 (``ops/grid_fusion.py``). Attribute names are the JAX param-tree keys
 (``weights.load_jax_params``); ``init_params`` draws a tree in the JAX
 layout.
+
+Under tensor parallelism (``tp``) the training forward computes the rank's
+column block of each fusion and gathers it after the signed sqrt, as
+``models/mhb_coatt.py`` does; the eval forward refuses a shard.
 """
 
 from __future__ import annotations
@@ -40,7 +44,14 @@ from vqa_attention_networks_tpu_torch.ops.fusion import (
     mfb_fuse_pool,
     two_glimpse_pool,
 )
+from vqa_attention_networks_tpu_torch.models.mhb_coatt import (
+    refuse_sharded_eval,
+)
 from vqa_attention_networks_tpu_torch.ops.grid_fusion import grid_fuse
+from vqa_attention_networks_tpu_torch.parallel.tensor import (
+    gather_columns,
+    model_input,
+)
 
 
 def _is_multilayer(cfg: Config) -> bool:
@@ -75,6 +86,8 @@ class MFB(nn.Module):
     """Eval forward of mfb / mfb-multilayer: (img [N, L, D], ques [N, T])
     -> f32 logits [N, a_vocab]. Parameters are allocated empty; load them
     with ``weights.load_jax_params``."""
+
+    tp = None  # the model axis (parallel.sharding.shard_params)
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -139,28 +152,34 @@ class MFB(nn.Module):
         dtype = L.DTYPES[cfg.compute_dtype]
         n = ques.shape[0]
         img = img.to(dtype)
+        if not train:
+            refuse_sharded_eval(self)
+        block = L.columns(generator, self.tp)
 
         h_seq = self.lstm(torch.tanh(self.word_embedding(ques, dtype)))
         h_seq = L.dropout(h_seq, cfg.dropout_lstm, train, generator)
         q_att_logits = self._att_logits("ques_att", h_seq)  # [N, T, 2]
-        q_att = two_glimpse_pool(q_att_logits, h_seq, uniform_quirk=quirk)
-        fused = grid_fuse(img, self.img_conv1d.weight.t(),
-                          self.img_conv1d.bias, self.ques_proj1(q_att),
-                          cfg.mfb_factor, train=train,
-                          rate=cfg.dropout_fusion, site=cfg.dropout_site,
-                          seed=fusion_seed, generator=generator,
-                          reference_kernel=reference_kernels)
+        q_att = model_input(
+            two_glimpse_pool(q_att_logits, h_seq, uniform_quirk=quirk),
+            self.tp)
+        fused = gather_columns(grid_fuse(
+            img, self.img_conv1d.weight.t(), self.img_conv1d.bias,
+            self.ques_proj1(q_att), cfg.mfb_factor, train=train,
+            rate=cfg.dropout_fusion, site=cfg.dropout_site, seed=fusion_seed,
+            generator=block, reference_kernel=reference_kernels), self.tp)
         # L2 over the flattened grid; the co-attention MLP computes in
         # fused's dtype (at bf16: f32 out of K5, K2 or the composed chain,
         # bf16 out of the weight-contracted fusion and the pooled site),
         # the pool over the raw image grid
         fused = L.l2_normalize(fused.reshape(n, -1)).reshape(fused.shape)
         co_att_logits = self._att_logits("co_att", fused)  # [N, L, 2]
-        v_att = two_glimpse_pool(co_att_logits, img, uniform_quirk=quirk)
+        v_att = model_input(
+            two_glimpse_pool(co_att_logits, img, uniform_quirk=quirk),
+            self.tp)
 
-        final = L.l2_normalize(mfb_fuse_pool(
+        final = L.l2_normalize(gather_columns(mfb_fuse_pool(
             self.ques_proj2(q_att), self.img_proj2(v_att), cfg.mfb_factor,
-            rate=cfg.dropout_fusion, train=train, generator=generator))
+            rate=cfg.dropout_fusion, train=train, generator=block), self.tp))
         logits = self.linear_pred(final).float()
         if aux:
             return logits, {"q_att_logits": q_att_logits,

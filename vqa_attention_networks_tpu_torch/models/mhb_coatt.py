@@ -24,6 +24,17 @@ pooled site (bf16).
 the mean-pooled grid, the LSTM's state at the last question token (it
 reads ``ques_length``), and two cascaded MFB fusions. It runs no kernel of
 the port, as the JAX function runs no Pallas kernel.
+
+**Tensor parallelism** (``tp``, set by ``parallel.sharding.shard_params``):
+the fusion projections hold their rank's block of output columns, and the
+training forward computes its block of each fusion (projection, Hadamard
+product, dropout, k-pool, signed sqrt; K2 or K3 on the shard), then
+gathers the pooled output (``parallel.tensor.gather_columns``) before the
+L2 norms, the co-attention and the classifier, which run replicated. The
+inputs of the sharded projections pass ``parallel.tensor.model_input``, so
+the replicated layers before them take the whole gradient. The eval
+forward needs whole rows (the grid L2, K1): a tensor-parallel trainer
+evaluates a model on the gathered weights (``train/solver.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +55,20 @@ from vqa_attention_networks_tpu_torch.ops.fusion import (
 from vqa_attention_networks_tpu_torch.ops.grid_fusion import grid_fuse
 from vqa_attention_networks_tpu_torch.ops import kernels_disabled
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
+from vqa_attention_networks_tpu_torch.parallel.tensor import (
+    gather_columns,
+    model_input,
+    sharded,
+)
+
+
+def refuse_sharded_eval(model: nn.Module) -> None:
+    """The eval forward of a tensor-parallel shard raises."""
+    if sharded(model.tp):
+        raise RuntimeError(
+            f"{type(model).__name__}: the eval forward of a tensor-parallel "
+            "shard needs the whole fusion width; evaluate the gathered "
+            "weights (train.solver.Solver.eval_model)")
 
 _STAGE1_FIELDS = ("w3", "b3", "c1w", "c1b", "c2w", "c2b")
 
@@ -77,6 +102,8 @@ class MHBCoAtt(nn.Module):
     """Eval forward of mhb_coAtt: (img [N, L, D], ques [N, T]) -> f32
     logits [N, a_vocab]. Parameters are allocated empty; load them with
     ``weights.load_jax_params``, which also lays out the K1 weights."""
+
+    tp = None  # the model axis (parallel.sharding.shard_params)
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -119,7 +146,10 @@ class MHBCoAtt(nn.Module):
         wrapper redoes this on every call; in eager PyTorch that would copy
         42 MB per batch). Called at load, and again by ``stage1_weights``
         whenever the parameters changed since. The buffers move with the
-        module."""
+        module. A tensor-parallel shard has no layout (its eval forward
+        refuses)."""
+        if sharded(self.tp):
+            return
         with torch.no_grad():
             sw = wqf.prepare_stage1_weights(
                 self.img_conv1d.weight.t(), self.img_conv1d.bias,
@@ -153,13 +183,16 @@ class MHBCoAtt(nn.Module):
 
     def _output_fusion(self, stage: str, q_att: torch.Tensor,
                        v_att: torch.Tensor, train: bool = False,
-                       generator: Optional[torch.Generator] = None,
+                       generator: Optional[L.Generator] = None,
                        ) -> torch.Tensor:
+        """Under tensor parallelism q_att and v_att have passed
+        ``model_input`` and ``generator`` is the column block's; the
+        pooled block is gathered before the L2 norm."""
         q_proj = getattr(self, f"ques_proj{stage}")(q_att)
         v_proj = getattr(self, f"img_proj{stage}")(v_att)
-        return L.l2_normalize(mfb_fuse_pool(
+        return L.l2_normalize(gather_columns(mfb_fuse_pool(
             q_proj, v_proj, self.cfg.mfb_factor, rate=self.cfg.dropout_fusion,
-            train=train, generator=generator))
+            train=train, generator=generator), self.tp))
 
     def forward(
         self,
@@ -198,6 +231,7 @@ class MHBCoAtt(nn.Module):
             logits = self._train_forward(img, h_seq, generator, fusion_seed,
                                          reference_kernels)
             return (logits, {}) if aux else logits
+        refuse_sharded_eval(self)
         q_att = glimpse_attention(
             h_seq, self.ques_att_conv1.weight, self.ques_att_conv1.bias,
             self.ques_att_conv2.weight, self.ques_att_conv2.bias, h_seq,
@@ -233,30 +267,35 @@ class MHBCoAtt(nn.Module):
                        generator: Optional[torch.Generator],
                        fusion_seed: Optional[int],
                        reference_kernel: bool) -> torch.Tensor:
-        """``mhb_coatt.py:127-202`` at ``train=True``."""
+        """``mhb_coatt.py:127-202`` at ``train=True``; under tensor
+        parallelism each fusion is the rank's column block, gathered after
+        its signed sqrt."""
         cfg = self.cfg
         n = h_seq.shape[0]
         h_seq = L.dropout(h_seq, cfg.dropout_lstm, True, generator)
         # the question glimpse composed, not glimpse_attention (:132-138)
         q_logits = self.ques_att_conv2(torch.relu(self.ques_att_conv1(h_seq)))
-        q_att = two_glimpse_pool(q_logits, h_seq, uniform_quirk=False)
+        q_att = model_input(two_glimpse_pool(q_logits, h_seq,
+                                             uniform_quirk=False), self.tp)
         q_proj = self.ques_proj1(q_att)
+        block = L.columns(generator, self.tp)
 
-        fused = grid_fuse(
+        fused = gather_columns(grid_fuse(
             img, self.img_conv1d.weight.t(), self.img_conv1d.bias, q_proj,
             cfg.mfb_factor, train=True, rate=cfg.dropout_fusion,
-            site=cfg.dropout_site, seed=fusion_seed, generator=generator,
+            site=cfg.dropout_site, seed=fusion_seed, generator=block,
             reference_kernel=reference_kernel,
-        )
+        ), self.tp)
         fused = L.l2_normalize(fused.reshape(n, -1)).reshape(fused.shape)
         # the convs compute in fused's dtype (:181-188): at bf16 that is f32
         # at the pre-pool site (K2 and the composed chain return f32) and
         # bf16 at the pooled site (grid_fuse_pooled casts to img's dtype)
         co_logits = self.co_att_conv2(torch.relu(self.co_att_conv1(fused)))
-        v_att = two_glimpse_pool(co_logits, img, uniform_quirk=False)
+        v_att = model_input(two_glimpse_pool(co_logits, img,
+                                             uniform_quirk=False), self.tp)
 
-        out2 = self._output_fusion("2", q_att, v_att, True, generator)
-        out3 = self._output_fusion("3", q_att, v_att, True, generator)
+        out2 = self._output_fusion("2", q_att, v_att, True, block)
+        out3 = self._output_fusion("3", q_att, v_att, True, block)
         return self.linear_pred(torch.cat([out2, out3], dim=-1)).float()
 
 
@@ -283,6 +322,8 @@ class MHB(nn.Module):
     """MHB: (img [N, L, D], ques [N, T], ques_length [N]) -> f32 logits
     [N, a_vocab]. Parameters are allocated empty; load them with
     ``weights.load_jax_params``."""
+
+    tp = None  # the model axis (parallel.sharding.shard_params)
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -329,13 +370,23 @@ class MHB(nn.Module):
         last = torch.clamp(ques_length.long(), 1, t) - 1
         h_last = h_seq[torch.arange(n, device=h_seq.device), last]
         h_last = L.dropout(h_last, cfg.dropout_lstm, train, generator)
+        if not train:
+            refuse_sharded_eval(self)
+        # under tensor parallelism: the rank's column block of each fusion
+        # (the projections' inputs pass model_input), gathered after its
+        # signed sqrt
+        h_last = model_input(h_last, self.tp)
+        img_pooled = model_input(img_pooled, self.tp)
+        block = L.columns(generator, self.tp)
 
         z1 = self.linear_q_1(h_last) * self.linear_i_1(img_pooled)
-        z1_dropped = L.dropout(z1, cfg.dropout_fusion, train, generator)
-        m1 = L.l2_normalize(L.signed_sqrt(mfb_sumpool(z1_dropped, k)))
+        z1_dropped = L.dropout(z1, cfg.dropout_fusion, train, block)
+        m1 = L.l2_normalize(gather_columns(
+            L.signed_sqrt(mfb_sumpool(z1_dropped, k)), self.tp))
         # stage 2 re-multiplies stage 1's dropped pre-pool product
         z2 = self.linear_q_2(h_last) * self.linear_i_2(img_pooled)
-        z2 = L.dropout(z2 * z1_dropped, cfg.dropout_fusion, train, generator)
-        m2 = L.l2_normalize(L.signed_sqrt(mfb_sumpool(z2, k)))
+        z2 = L.dropout(z2 * z1_dropped, cfg.dropout_fusion, train, block)
+        m2 = L.l2_normalize(gather_columns(
+            L.signed_sqrt(mfb_sumpool(z2, k)), self.tp))
         logits = self.linear_out(torch.cat([m1, m2], dim=-1)).float()
         return (logits, {}) if aux else logits

@@ -3,12 +3,17 @@
 training fusion ``grid_fuse_pooled``.
 
 The fusion axis is output-major: channel ``c = o*k + j`` of the o*k-wide
-product pools into output ``o`` (the reference's permute + view).
+product pools into output ``o`` (the reference's permute + view). So a
+tensor-parallel rank's block of F/M channels holds whole k-groups, and its
+product, dropout (a ``layers.columns`` generator: its block of the one
+process's mask), k-pool and signed sqrt are its block of the one
+process's (``mfb_fuse_pool`` on a shard, ``parallel/tensor.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +49,25 @@ def mfb_fuse_pool(a: torch.Tensor, b: torch.Tensor, k: int, *,
     """Hadamard -> dropout (training) -> k-sum-pool -> signed sqrt."""
     z = dropout(a * b, rate, train, generator)
     return signed_sqrt(mfb_sumpool(z, k))
+
+
+def on_padded_columns(fuse: Callable[..., torch.Tensor], w: torch.Tensor,
+                      b: torch.Tensor, q_proj: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """``fuse(w, b, q_proj)`` -> [..., O], with W [D, F], b [F] and q
+    [N, F] zero-padded to a multiple of lcm(8, k) columns and the output
+    trimmed to the O = F/k real outputs. K2 and K3 read rows of W as
+    16-byte vectors and refuse F % 8 != 0, which a tensor-parallel shard
+    of the 5000-wide fusion can be (2500 at M = 2, 1250 at M = 4). A padded
+    column gives z = 0, so its output is signed_sqrt(0) = 0, its gradients
+    are 0 (g_pooled's zero rule), and its mask bits are read by nothing.
+    A no-op pad when F is already such a multiple."""
+    f = w.shape[1]
+    pad = -f % math.lcm(8, k)
+    if not pad:
+        return fuse(w, b, q_proj)
+    out = fuse(F.pad(w, (0, pad)), F.pad(b, (0, pad)), F.pad(q_proj, (0, pad)))
+    return out[..., :f // k]
 
 
 def grid_fuse_weight_contracted(
@@ -88,7 +112,9 @@ def grid_fuse_pooled(
     - bf16: K3 (``ops/pooled_fusion.pooled_grid_fuse``, the kernels on a
       CUDA tensor, the plain version on a CPU tensor or with
       ``reference_kernel=True``), whatever the rate; its f32 map is cast to
-      bf16 before the dropout. Under ``VQA_DISABLE_PALLAS`` (read at each
+      bf16 before the dropout. On the card a width the kernels do not
+      take (a tensor-parallel shard's) is zero-padded
+      (``on_padded_columns``). Under ``VQA_DISABLE_PALLAS`` (read at each
       call, as the JAX gate ``pallas_pooled_fusion.py:527`` reads it) the
       composed chain runs instead: ``grid_fuse_weight_contracted``, then
       the dropout (``fusion.py:181-200``).
@@ -100,10 +126,16 @@ def grid_fuse_pooled(
     if img.dtype == torch.bfloat16:
         if kernels_disabled():
             fused = grid_fuse_weight_contracted(img, w, b, q_proj, k)
+        elif reference_kernel:
+            fused = pooled_fusion.pooled_grid_fuse_reference(
+                img, w, b, q_proj, k).to(img.dtype)
+        elif img.device.type == "cuda":
+            fused = on_padded_columns(
+                lambda w_, b_, q_: pooled_fusion.pooled_grid_fuse(
+                    img, w_, b_, q_, k), w, b, q_proj, k).to(img.dtype)
         else:
-            fuse = (pooled_fusion.pooled_grid_fuse_reference
-                    if reference_kernel else pooled_fusion.pooled_grid_fuse)
-            fused = fuse(img, w, b, q_proj, k).to(img.dtype)
+            fused = pooled_fusion.pooled_grid_fuse(img, w, b, q_proj,
+                                                   k).to(img.dtype)
         return dropout(fused, rate, True, generator)
     n, _, d = img.shape
     o = w.shape[1] // k

@@ -33,7 +33,11 @@ dropout mask on the pre-pool product:
   kernels on a CUDA tensor and their plain version on a CPU tensor. (The
   JAX dispatch takes the composed chain on the CPU; both compute the same
   function.) Under a ``layers.GlobalRows`` generator (a rank's slice of
-  a data-parallel batch) K2 draws its mask at the rows' global indices.
+  a data-parallel batch, or its column block of a tensor-parallel
+  fusion) K2 draws its mask at the rows' and columns' global indices
+  (``row0``, ``col0``, ``f_total``). On the card a shard's width that K2
+  does not take (F % 8 != 0) is zero-padded to one it does
+  (``ops/fusion.on_padded_columns``), never sent to the composed chain.
 - otherwise, or under either switch: the composed chain with its dropout
   from ``generator``.
 
@@ -53,6 +57,7 @@ import torch
 from vqa_attention_networks_tpu_torch.models.layers import (
     Generator,
     dropout,
+    first_column,
     first_row,
     signed_sqrt,
 )
@@ -65,6 +70,7 @@ from vqa_attention_networks_tpu_torch.ops.fusion import (
     grid_fuse_pooled,
     grid_fuse_weight_contracted,
     mfb_sumpool,
+    on_padded_columns,
 )
 
 # K5 launches made by grid_fuse (one per call on a CUDA tensor)
@@ -169,13 +175,17 @@ def grid_fuse(
             and not os.environ.get("VQA_COMPOSED_TRAIN_FUSION"):
         if seed is None:
             raise ValueError("the K2 training fusion needs a mask seed")
-        # a rank's slice of a data-parallel batch draws K2's mask at its
-        # rows' global indices (layers.GlobalRows)
-        row0 = first_row(generator)
+        # a rank's block of a data- or tensor-parallel fusion draws K2's
+        # mask at its rows' and columns' global indices (layers.GlobalRows)
+        place = (first_row(generator), *first_column(generator, w.shape[1]))
         if reference_kernel:
             return train_fusion.train_grid_fuse_reference(
-                img, w, b, q_proj, seed, k, rate, row0)
+                img, w, b, q_proj, seed, k, rate, *place)
+        if img.device.type == "cuda":
+            return on_padded_columns(
+                lambda w_, b_, q_: train_fusion.train_grid_fuse(
+                    img, w_, b_, q_, seed, k, rate, *place), w, b, q_proj, k)
         return train_fusion.train_grid_fuse(img, w, b, q_proj, seed, k, rate,
-                                            row0)
+                                            *place)
     return grid_fuse_reference(img, w, b, q_proj, k, rate=rate,
                                generator=generator)

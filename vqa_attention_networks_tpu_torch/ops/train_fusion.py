@@ -29,17 +29,21 @@ rounds to bf16 before the d_img and d_W products, with f32 accumulation
 arithmetic is f32, with the multiplies and adds unfused.
 
 The mask: Philox4x32-10 with key (seed, 0) and counter (i mod 2^32,
-i >> 32, 0, 0), where i = ((row0 + n)*L + l)*F + c is the flat element
-index in the global batch; the element is kept iff word 0 of the output is
-below ``thr_keep = min(int((1 - rate) * 2^32), 2^32 - 1)``. ``row0`` is the
-global index of the call's first sample: 0 in one process, and a rank's
-first row in a data-parallel run, whose W ranks then draw exactly the mask
-one process draws for the whole batch (JAX's mask over a sharded batch is
-the global batch's). At row0 = 0 these are the bits K2 always drew. The
-mask depends on the element and the seed only, so the forward, the
-backward launches and the plain version replay the same bits whatever
-their tiling. (The TPU kernel seeded its on-core generator per tile;
-those bits cannot be reproduced here.) At rate 0 no bits are drawn.
+i >> 32, 0, 0), where i = ((row0 + n)*L + l)*F_total + col0 + c is the
+flat element index in the global batch and the global fusion width; the
+element is kept iff word 0 of the output is below ``thr_keep =
+min(int((1 - rate) * 2^32), 2^32 - 1)``. ``row0`` is the global index of
+the call's first sample: 0 in one process, and a rank's first row in a
+data-parallel run. ``col0`` and ``f_total`` place the call's F columns in
+the global width: 0 and F in one process, a rank's first column and the
+whole width in a tensor-parallel run (``parallel/tensor.py``). So the ranks
+draw exactly the mask one process draws (JAX's mask over a sharded array
+is the global array's). At row0 = col0 = 0 and f_total = F these are the
+bits K2 always drew. The mask depends on the element and the seed only,
+so the forward, the backward launches and the plain version replay the
+same bits whatever their tiling. (The TPU kernel seeded its on-core
+generator per tile; those bits cannot be reproduced here.) At rate 0 no
+bits are drawn.
 
 d_W/d_b and d_img share one operand on the card: ``g_prod_cuda`` builds
 g_prod once as bf16 [N*L, F], with the f32 d_b partial of each chunk of
@@ -120,17 +124,29 @@ def philox_word0(seed: int, counter: torch.Tensor) -> torch.Tensor:
 
 
 def dropout_mask(seed: int, n: int, l: int, f: int, rate: float,
-                 device=None, row0: int = 0) -> torch.Tensor:
+                 device=None, row0: int = 0, col0: int = 0,
+                 f_total: Optional[int] = None) -> torch.Tensor:
     """The K2 keep mask [n, l, f] (bool) for ``seed``: element (n, l, c)
-    is drawn at counter ((row0 + n)*l_dim + l)*f + c."""
+    is drawn at counter ((row0 + n)*l_dim + l)*f_total + col0 + c
+    (``f_total`` defaults to f)."""
+    f_total = f if f_total is None else int(f_total)
     total = n * l * f
-    base = int(row0) * l * f
     thr = thr_keep(rate)
     out = torch.empty(total, dtype=torch.bool, device=device)
-    for s in range(0, total, _MASK_CHUNK):
-        idx = torch.arange(base + s, base + min(s + _MASK_CHUNK, total),
-                           dtype=torch.int64, device=device)
-        out[s:s + idx.numel()] = philox_word0(seed, idx) < thr
+    if f_total == f and col0 == 0:  # one run of counters
+        base = int(row0) * l * f
+        for s in range(0, total, _MASK_CHUNK):
+            idx = torch.arange(base + s, base + min(s + _MASK_CHUNK, total),
+                               dtype=torch.int64, device=device)
+            out[s:s + idx.numel()] = philox_word0(seed, idx) < thr
+        return out.reshape(n, l, f)
+    cols = torch.arange(f, dtype=torch.int64, device=device) + int(col0)
+    rows = max(1, _MASK_CHUNK // f)
+    for s in range(0, n * l, rows):
+        m = torch.arange(s, min(s + rows, n * l), dtype=torch.int64,
+                         device=device) + int(row0) * l
+        idx = (m[:, None] * f_total + cols).reshape(-1)
+        out[s * f:s * f + idx.numel()] = philox_word0(seed, idx) < thr
     return out.reshape(n, l, f)
 
 
@@ -229,17 +245,18 @@ def d_q_reference(g, out, img, w_bf16, b, k: int, keep) -> torch.Tensor:
 
 def _no_grads(ctx) -> tuple:
     """None for each non-tensor input after (img, w, b, q): seed, k, rate
-    and, where the caller passed it, row0."""
+    and, where the caller passed them, row0, col0 and f_total."""
     return (None,) * (len(ctx.needs_input_grad) - 4)
 
 
 class _TrainGridFusePlain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, img, w, b, q, seed, k, rate, row0=0):
+    def forward(ctx, img, w, b, q, seed, k, rate, row0=0, col0=0,
+                f_total=None):
         n, l, _ = img.shape
         w_bf16, bf, qf = operands(w, b, q)
-        mask = dropout_mask(seed, n, l, w.shape[1], rate, img.device, row0) \
-            if rate > 0 else None
+        mask = dropout_mask(seed, n, l, w.shape[1], rate, img.device, row0,
+                            col0, f_total) if rate > 0 else None
         out = forward_reference(img, w_bf16, bf, qf, k, keep_scale(mask, rate))
         ctx.save_for_backward(img, w_bf16, bf, qf, out, mask)
         ctx.k, ctx.rate = k, rate
@@ -261,10 +278,12 @@ class _TrainGridFusePlain(torch.autograd.Function):
 
 
 def train_grid_fuse_reference(img, w, b, q, seed: int, k: int,
-                              rate: float, row0: int = 0) -> torch.Tensor:
+                              rate: float, row0: int = 0, col0: int = 0,
+                              f_total: Optional[int] = None) -> torch.Tensor:
     """K2's plain PyTorch version -> [N, L, O] f32, on any device."""
     return _TrainGridFusePlain.apply(img, w, b, q, int(seed), k, float(rate),
-                                     int(row0))
+                                     int(row0), int(col0),
+                                     _width(w, f_total))
 
 
 # --------------------------------------------------------------------------
@@ -278,8 +297,10 @@ def library() -> ctypes.CDLL:
     lib = _build.load("train_fusion")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     f = ctypes.c_float
-    # pointers, then n, l, d, f, k, seed, thr, inv_keep, row0, stream
-    tail = [i] * 5 + [u, u, f, ctypes.c_longlong, p]
+    # pointers, then n, l, d, f, k, seed, thr, inv_keep, row0, col0,
+    # f_total, stream
+    ll = ctypes.c_longlong
+    tail = [i] * 5 + [u, u, f, ll, ll, i, p]
     lib.train_fusion_forward.argtypes = [p] * 5 + tail  # img w b q out
     # g_prod w d_img, n, l, d, f, stream
     lib.train_fusion_d_img.argtypes = [p] * 3 + [i] * 4 + [p]
@@ -356,15 +377,25 @@ def _call(name: str, device, *args) -> None:
     launch_count[name] += 1
 
 
+def _width(w, f_total: Optional[int]) -> int:
+    """The global fusion width: W's own unless a shard names it."""
+    return int(w.shape[-1] if f_total is None else f_total)
+
+
 def _launch(name: str, pointers, img, w_bf16, seed: int, k: int,
-            rate: float, row0: int) -> None:
+            rate: float, row0: int, col0: int, f_total: Optional[int]
+            ) -> None:
     n, l, d = img.shape
     thr = thr_keep(rate) if rate > 0 else 0  # 0: rate 0, no bits drawn
+    f_total = _width(w_bf16, f_total)
     if row0 < 0:
         raise ValueError(f"row0 is a sample index, got {row0}")
+    if not 0 <= col0 < f_total:
+        raise ValueError(f"col0 {col0} is not a column of the global width "
+                         f"{f_total}")
     _call(name, img.device, *pointers, n, l, d, w_bf16.shape[1], k,
-          int(seed) & _MASK32, thr, 1.0 / (1.0 - rate), int(row0),
-          torch.cuda.current_stream(img.device).cuda_stream)
+          int(seed) & _MASK32, thr, 1.0 / (1.0 - rate), int(row0), int(col0),
+          f_total, torch.cuda.current_stream(img.device).cuda_stream)
 
 
 def _check_grad(g, out, img, w_bf16, k: int) -> None:
@@ -377,23 +408,25 @@ def _check_grad(g, out, img, w_bf16, k: int) -> None:
                              f"{img.device}")
 
 
-# the kernel of each launch: operands as ``operands`` makes them; ``row0``
-# offsets the mask to the global batch's rows (the module's docstring)
+# the kernel of each launch: operands as ``operands`` makes them; ``row0``,
+# ``col0`` and ``f_total`` place the mask in the global batch and width
+# (the module's docstring)
 
 def forward_cuda(img, w_bf16, b, q, seed: int, k: int,
-                 rate: float, row0: int = 0) -> torch.Tensor:
+                 rate: float, row0: int = 0, col0: int = 0,
+                 f_total: Optional[int] = None) -> torch.Tensor:
     check_inputs(img, w_bf16, b, q, k, rate)
     n, l, _ = img.shape
     out = torch.empty(n, l, w_bf16.shape[1] // k, dtype=torch.float32,
                       device=img.device)
     _launch("forward", (img.data_ptr(), w_bf16.data_ptr(), b.data_ptr(),
                         q.data_ptr(), out.data_ptr()), img, w_bf16, seed, k,
-            rate, row0)
+            rate, row0, col0, f_total)
     return out
 
 
 def g_prod_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float,
-                row0: int = 0):
+                row0: int = 0, col0: int = 0, f_total: Optional[int] = None):
     """Launch the g_prod build -> (bf16 g_prod [N*L, F], f32 d_b partials
     [ceil(N*L / DB_CHUNK), F]), in scratch allocated here."""
     check_inputs(img, w_bf16, b, q, k, rate)
@@ -405,7 +438,7 @@ def g_prod_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float,
                            device=img.device)
     _launch("g_prod", (g.data_ptr(), out.data_ptr(), q.data_ptr(),
                        g_prod.data_ptr(), partials.data_ptr()), img, w_bf16,
-            seed, k, rate, row0)
+            seed, k, rate, row0, col0, f_total)
     return g_prod, partials
 
 
@@ -431,9 +464,11 @@ def d_img_from_operand_cuda(g_prod, w_bf16, n: int, l: int) -> torch.Tensor:
 
 
 def d_img_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
-               rate: float, row0: int = 0) -> torch.Tensor:
+               rate: float, row0: int = 0, col0: int = 0,
+               f_total: Optional[int] = None) -> torch.Tensor:
     """d_img: the g_prod build, then the product over it."""
-    g_prod, _ = g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate, row0)
+    g_prod, _ = g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate, row0,
+                            col0, f_total)
     return d_img_from_operand_cuda(g_prod, w_bf16, *img.shape[:2])
 
 
@@ -460,21 +495,23 @@ def d_w_from_operand_cuda(img, g_prod, partials):
 
 
 def d_w_cuda(g, out, img, w_bf16, b, q, seed: int, k: int, rate: float,
-             row0: int = 0):
+             row0: int = 0, col0: int = 0, f_total: Optional[int] = None):
     """d_W and d_b: the g_prod build, then the product over it."""
     return d_w_from_operand_cuda(
-        img, *g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate, row0))
+        img, *g_prod_cuda(g, out, img, w_bf16, b, q, seed, k, rate, row0,
+                          col0, f_total))
 
 
 def d_q_cuda(g, out, img, w_bf16, b, q, seed: int, k: int,
-             rate: float, row0: int = 0) -> torch.Tensor:
+             rate: float, row0: int = 0, col0: int = 0,
+             f_total: Optional[int] = None) -> torch.Tensor:
     check_inputs(img, w_bf16, b, q, k, rate)
     _check_grad(g, out, img, w_bf16, k)
     d_q = torch.empty(img.shape[0], w_bf16.shape[1], dtype=torch.float32,
                       device=img.device)
     _launch("d_q", (g.data_ptr(), out.data_ptr(), img.data_ptr(),
                     w_bf16.data_ptr(), b.data_ptr(), d_q.data_ptr()), img,
-            w_bf16, seed, k, rate, row0)
+            w_bf16, seed, k, rate, row0, col0, f_total)
     return d_q
 
 
@@ -485,11 +522,14 @@ class TrainGridFuse(torch.autograd.Function):
     and does not), for d_img."""
 
     @staticmethod
-    def forward(ctx, img, w, b, q, seed, k, rate, row0=0):
+    def forward(ctx, img, w, b, q, seed, k, rate, row0=0, col0=0,
+                f_total=None):
         w_bf16, bf, qf = operands(w, b, q)
-        out = forward_cuda(img, w_bf16, bf, qf, seed, k, rate, row0)
+        out = forward_cuda(img, w_bf16, bf, qf, seed, k, rate, row0, col0,
+                           f_total)
         ctx.save_for_backward(img, w_bf16, bf, qf, out)
-        ctx.seed, ctx.k, ctx.rate, ctx.row0 = seed, k, rate, row0
+        ctx.seed, ctx.k, ctx.rate = seed, k, rate
+        ctx.place = (row0, col0, f_total)
         ctx.dtypes = (w.dtype, b.dtype, q.dtype)
         return out
 
@@ -497,7 +537,7 @@ class TrainGridFuse(torch.autograd.Function):
     def backward(ctx, g):
         img, w_bf16, bf, qf, out = ctx.saved_tensors
         args = (g.float().contiguous(), out, img, w_bf16, bf, qf, ctx.seed,
-                ctx.k, ctx.rate, ctx.row0)
+                ctx.k, ctx.rate, *ctx.place)
         g_prod, partials = g_prod_cuda(*args)
         d_img = d_img_from_operand_cuda(g_prod, w_bf16, *img.shape[:2]) \
             if ctx.needs_input_grad[0] else None
@@ -508,12 +548,15 @@ class TrainGridFuse(torch.autograd.Function):
                 *_no_grads(ctx))
 
 
-def train_grid_fuse(img, w, b, q, seed: int, k: int,
-                    rate: float, row0: int = 0) -> torch.Tensor:
+def train_grid_fuse(img, w, b, q, seed: int, k: int, rate: float,
+                    row0: int = 0, col0: int = 0,
+                    f_total: Optional[int] = None) -> torch.Tensor:
     """Dispatching entry -> [N, L, O] f32: the plain version for a CPU
     tensor, the kernels for a CUDA tensor. ``row0``: the global index of
-    img's first sample (the mask's offset)."""
+    img's first sample; ``col0`` and ``f_total``: the global index of W's
+    first column and the global width (the mask's place)."""
     if img.device.type == "cpu":
-        return train_grid_fuse_reference(img, w, b, q, seed, k, rate, row0)
+        return train_grid_fuse_reference(img, w, b, q, seed, k, rate, row0,
+                                         col0, f_total)
     return TrainGridFuse.apply(img, w, b, q, int(seed), k, float(rate),
-                               int(row0))
+                               int(row0), int(col0), _width(w, f_total))

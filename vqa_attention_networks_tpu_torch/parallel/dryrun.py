@@ -1,14 +1,15 @@
-"""A data-parallel dry run over CPU ranks: the twin of ``dryrun_multichip``
-in ``__graft_entry__.py`` (its ``data`` axis; the ``model`` axis is
-ROADMAP Queue 1 item 10b).
+"""A dry run over CPU ranks: the twin of ``dryrun_multichip`` in
+``__graft_entry__.py``, on its mesh: ``('data', 'model') = (N/2, 2)`` when
+N is even, else ``(N, 1)``.
 
 N processes join a gloo process group through a ``file://`` store. Each
 builds the Solver at tiny widths over the same synthetic data and runs one
 full training step (loss, gradient and its all-reduce, Adam, the
-batch-norm merge) and one ``val()``, for ``mhb_coAtt`` and for iBOWIMG
-(whose batch norm takes global statistics). The parent then checks that
-every rank holds the same loss, validation figures and parameters, and
-that they are finite.
+batch-norm merge) and one ``val()``, for ``mhb_coAtt`` (its fusion
+projections split over the model axis) and for iBOWIMG (whose batch norm
+takes global statistics). The parent then checks that every rank holds
+the same loss, validation figures and parameters (gathered), and that
+they are finite.
 
     python -m vqa_attention_networks_tpu_torch.parallel.dryrun --ranks 4
 """
@@ -30,16 +31,23 @@ MODELS = ("mhb_coAtt", "iBOWIMG")
 _MODULE = "vqa_attention_networks_tpu_torch.parallel.dryrun"
 
 
+def mesh_shape(n_ranks: int) -> Tuple[int, int]:
+    """``dryrun_multichip``'s mesh: (N/2, 2) when N is even, else (N, 1)."""
+    model = 2 if n_ranks % 2 == 0 else 1
+    return n_ranks // model, model
+
+
 def _config(model_name: str, qa, n_ranks: int):
     from vqa_attention_networks_tpu_torch.config import Config
 
+    data, model = mesh_shape(n_ranks)
     return Config(
         model_name=model_name, q_vocab_size=qa.q_vocab_size,
         a_vocab_size=qa.a_vocab_size, hidden_dim=32, emb_dim=16,
         embed_size=32, img_feature_channel=64,
         max_question_length=qa.max_question_length, mfb_factor=5,
         mfb_out=8, batch_size=2 * n_ranks, checkpoint_every_steps=0,
-        prefetch_workers=1, data_parallel=n_ranks,
+        prefetch_workers=1, data_parallel=data, model_parallel=model,
     ).validate()
 
 
@@ -74,6 +82,7 @@ def _rank(rank: int, n_ranks: int, work: str) -> None:
         initialize_distributed,
     )
     from vqa_attention_networks_tpu_torch.train.solver import Solver
+    from vqa_attention_networks_tpu_torch.weights import to_jax_params
 
     initialize_distributed(init_method=f"file://{work}/rendezvous",
                            world_size=n_ranks, rank=rank, device="cpu")
@@ -86,13 +95,17 @@ def _rank(rank: int, n_ranks: int, work: str) -> None:
             next(solver.batches["train"].epoch(0)))
         solver.step += 1
         val_loss, val_acc = solver.val()
+        tree = to_jax_params(solver.model)  # the shards gathered
+
+        def l1(node) -> float:
+            return sum(l1(v) if isinstance(v, dict)
+                       else float(np.abs(v.astype(np.float64)).sum())
+                       for v in node.values())
+
         out[name] = {
             "loss": float(loss), "correct": float(correct),
-            "val": [val_loss, val_acc],
-            "params_l1": float(sum(p.detach().double().abs().sum()
-                                   for p in solver.model.parameters())),
-            "buffers_l1": float(sum(b.double().abs().sum()
-                                    for b in solver.model.buffers())),
+            "val": [val_loss, val_acc], "mesh": list(mesh_shape(n_ranks)),
+            "params_l1": l1(tree),
         }
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)

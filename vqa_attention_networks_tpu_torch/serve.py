@@ -39,8 +39,9 @@ device or split over several.
   JAX's emulated devices), splits each padded batch on dim 0, launches
   every shard's forward before it fetches any result, and returns the
   top-k in request order. The device feature cache with N > 1 is JAX's
-  sharded bank (``DeviceFeatureCache(mesh=...)``), ROADMAP Queue 1 item
-  10b, and raises ``NotImplementedError``.
+  sharded bank (``DeviceFeatureCache(mesh=...)``): the cache splits its
+  slots over the replicas' devices and the banked forward gathers each
+  shard's slots around them (``aot.serving_forward_banked_sharded``).
 """
 
 from __future__ import annotations
@@ -62,8 +63,6 @@ from vqa_attention_networks_tpu_torch.weights import (
     load_jax_params,
     to_jax_params,
 )
-
-_SHARDED_BANK_ITEM = "ROADMAP Queue 1 item 10b (the sharded banks)"
 
 Fetch = Callable[[List[int]], Tuple[np.ndarray, np.ndarray]]
 
@@ -105,19 +104,20 @@ class DeviceFeatureCache:
       one: stream order puts the rewrite after the in-flight gather. An
       upload moved to a side stream would have to wait on an event
       recorded after the in-flight batch's gather.
-    - ``mesh`` (the sharded bank of JAX's data-parallel engine) is
-      ROADMAP Queue 1 item 10b and raises ``NotImplementedError``.
+    - ``devices`` (N > 1, the split engine's replica devices; the port of
+      JAX's ``mesh``): the slots split over the devices, capacity rounded
+      up to a multiple of N, device i holding slots ``[i*C/N, (i+1)*C/N)``
+      (``blocks``, ``scale_blocks``), so the capacity scales with the
+      replicas. The LRU bookkeeping is the same, over global slots; a miss
+      is written into its owner's block alone; the lookup is the ring of
+      ``aot.serving_forward_banked_sharded``.
     """
 
     def __init__(self, cfg: Config, capacity: int,
                  num_regions: Optional[int] = None,
                  channels: Optional[int] = None,
-                 mesh=None,
-                 device: Union[str, torch.device, None] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a device feature cache sharded over a mesh is not ported "
-                f"yet: {_SHARDED_BANK_ITEM}")
+                 device: Union[str, torch.device, None] = None,
+                 devices: Optional[Sequence] = None):
         # the grid follows the store it is fed from, not the config: models
         # pool over whatever L the grid has
         l = num_regions if num_regions is not None else cfg.img_feature_dim
@@ -125,12 +125,20 @@ class DeviceFeatureCache:
         self.capacity = int(capacity)
         if self.capacity < 1:
             raise ValueError(f"capacity {capacity}: at least 1")
-        self.device = torch.device(device) if device is not None \
-            else cuda_device()
-        self._rows = torch.zeros((self.capacity, l, d), dtype=torch.int8,
-                                 device=self.device)
-        self._scale = torch.zeros((self.capacity, d), dtype=torch.float16,
-                                  device=self.device)
+        if devices is not None:
+            self.devices = [torch.device(x) for x in devices]
+        else:
+            self.devices = [torch.device(device) if device is not None
+                            else cuda_device()]
+        self.device = self.devices[0]
+        ways = len(self.devices)
+        # pad the capacity so every device holds an equal block
+        self.capacity = -(-self.capacity // ways) * ways
+        per = self.capacity // ways
+        self.blocks = [torch.zeros((per, l, d), dtype=torch.int8, device=x)
+                       for x in self.devices]
+        self.scale_blocks = [torch.zeros((per, d), dtype=torch.float16,
+                                         device=x) for x in self.devices]
         self._staging: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._staged: Optional[torch.cuda.Event] = None
         self._slot: dict = {}  # image_id -> slot
@@ -151,12 +159,24 @@ class DeviceFeatureCache:
         self.uploads = 0
 
     @property
+    def sharded(self) -> bool:
+        return len(self.blocks) > 1
+
+    @property
     def rows(self) -> torch.Tensor:
-        return self._rows
+        """The bank's int8 rows (one device's; ``blocks`` when sharded)."""
+        self._one_device()
+        return self.blocks[0]
 
     @property
     def scale(self) -> torch.Tensor:
-        return self._scale
+        self._one_device()
+        return self.scale_blocks[0]
+
+    def _one_device(self) -> None:
+        if self.sharded:
+            raise ValueError("a sharded cache holds blocks (blocks, "
+                             "scale_blocks), one a device")
 
     def _touch(self, image_id) -> None:
         self._tick += 1
@@ -178,11 +198,25 @@ class DeviceFeatureCache:
                 slots: np.ndarray) -> None:
         """Write ``rows`` [k, L, D] int8 and ``scale`` [k, D] f16 into the
         bank's ``slots``: one copy of each to the device, on the current
-        stream."""
+        stream; sharded, one copy of each owner's rows to its device,
+        written into its block alone."""
+        if self.sharded:
+            per = self.blocks[0].shape[0]
+            owner = slots // per
+            for b in np.unique(owner):
+                sel = owner == b
+                dev = self.devices[b]
+                idx = torch.from_numpy((slots[sel] % per).astype(
+                    np.int64)).to(dev)
+                self.blocks[b].index_copy_(
+                    0, idx, torch.from_numpy(rows[sel]).to(dev))
+                self.scale_blocks[b].index_copy_(
+                    0, idx, torch.from_numpy(scale[sel]).to(dev))
+            return
         idx = torch.from_numpy(slots.astype(np.int64)).to(self.device)
         if self.device.type != "cuda":
-            self._rows.index_copy_(0, idx, torch.from_numpy(rows))
-            self._scale.index_copy_(0, idx, torch.from_numpy(scale))
+            self.rows.index_copy_(0, idx, torch.from_numpy(rows))
+            self.scale.index_copy_(0, idx, torch.from_numpy(scale))
             return
         k = len(slots)
         if self._staging is None or self._staging[0].shape[0] < k:
@@ -199,10 +233,10 @@ class DeviceFeatureCache:
         host_rows, host_scale = (b[:k] for b in self._staging)
         host_rows.numpy()[...] = rows
         host_scale.numpy()[...] = scale
-        self._rows.index_copy_(0, idx,
-                               host_rows.to(self.device, non_blocking=True))
-        self._scale.index_copy_(0, idx,
-                                host_scale.to(self.device, non_blocking=True))
+        self.rows.index_copy_(0, idx,
+                              host_rows.to(self.device, non_blocking=True))
+        self.scale.index_copy_(0, idx,
+                               host_scale.to(self.device, non_blocking=True))
         self._staged = torch.cuda.Event()
         self._staged.record()
 
@@ -383,7 +417,9 @@ class InferenceEngine:
         engine's device) and the ``predict_*_by_id`` entry points.
         ``fetch(missing_ids) -> (int8 rows, scales)``, typically the int8
         store's ``gather_quantized``. Needs the int8 engine: the bank holds
-        the quantized layout."""
+        the quantized layout. Under ``data_parallel=N`` the bank is split
+        over the N replicas' devices (capacity rounded up to a multiple of
+        N) and read through ``aot.serving_forward_banked_sharded``."""
         if self.input_dtype != "int8":
             raise ValueError(
                 "the device feature cache stores the quantized layout — "
@@ -393,13 +429,9 @@ class InferenceEngine:
             raise ValueError(
                 "the device feature cache needs the eager engine; the "
                 "exported artifact is a fixed per-request-feed program")
-        if self.data_parallel > 1:
-            raise NotImplementedError(
-                "a device feature cache under data_parallel > 1 is JAX's "
-                f"sharded bank, not ported yet: {_SHARDED_BANK_ITEM}")
         self._cache = DeviceFeatureCache(
             self.cfg, capacity, num_regions=num_regions, channels=channels,
-            device=self.device,
+            devices=self.devices,
         )
         self._fetch = fetch
         # held across ensure() and the dispatch: another thread's eviction
@@ -407,7 +439,10 @@ class InferenceEngine:
         # enqueue of its gather (stream order then makes the gather read
         # the slots ensure() resolved)
         self._bank_lock = threading.Lock()
-        self._fwd_bank = aot.serving_forward_banked(self.cfg, self.topk)
+        self._fwd_bank = (
+            aot.serving_forward_banked_sharded(self.cfg, self.topk)
+            if self.data_parallel > 1
+            else aot.serving_forward_banked(self.cfg, self.topk))
         return self._cache
 
     def _pad(self, arr: np.ndarray, fill=0) -> Tuple[np.ndarray, int]:
@@ -489,21 +524,33 @@ class InferenceEngine:
 
     def _dispatch_by_id(self, image_ids, questions, ques_length):
         """Resolve the slots (uploading misses) and launch one batch from
-        the bank; returns (device results, as the one shard's, n)."""
+        the bank; returns (device results of each replica's shard, n)."""
         if self._cache is None:
             raise RuntimeError(
                 "call attach_feature_cache() before predict_*_by_id")
-        ques, qlen = self._to_device(
-            self._question_args(questions, ques_length))
+        arrays = self._question_args(questions, ques_length)
+        shard = self.batch_size // self.data_parallel
+        args = [self._to_device([a[i * shard:(i + 1) * shard]
+                                 for a in arrays], device)
+                for i, device in enumerate(self.devices)]
         with self._bank_lock:
             idx = self._cache.ensure(image_ids, self._fetch)
             # padding gathers slot 0: harmless, dropped by n
             idx, n = self._pad(idx.astype(np.int64))
-            (idx,) = self._to_device([idx])
+            idx = [self._to_device([idx[i * shard:(i + 1) * shard]],
+                                   device)[0]
+                   for i, device in enumerate(self.devices)]
             with torch.inference_mode():
-                handles = self._fwd_bank(self.model, self._cache.rows,
-                                         self._cache.scale, idx, ques, qlen)
-        return [handles], n
+                if self.data_parallel > 1:
+                    handles = self._fwd_bank(
+                        self.models, self._cache.blocks,
+                        self._cache.scale_blocks, idx,
+                        [a[0] for a in args], [a[1] for a in args])
+                else:
+                    handles = [self._fwd_bank(
+                        self.model, self._cache.rows, self._cache.scale,
+                        idx[0], *args[0])]
+        return handles, n
 
     def predict_batch_by_id(
         self,

@@ -114,10 +114,27 @@ process group.
   (``host_fetch``) are gathered, so every rank holds the same figures and
   stops early at the same epoch; the primary alone writes the results
   files, the metrics and the checkpoints, which every rank restores.
-  ``model_parallel > 1`` and the sharded bank (``device_feature_bank_shard``
-  with W > 1) are ROADMAP Queue 1 item 10b and raise
-  ``NotImplementedError``; ``device_feature_bank_shard`` in one process, or
-  the bank under W ranks, is the replicated bank, a copy of the store on
+- **Tensor parallelism** (JAX's ``model`` mesh axis, ``solver.py:126-187``):
+  with ``model_parallel = M`` the world is a ``(W, M)`` mesh
+  (``parallel.make_mesh``), each data replica M ranks. Every "global"
+  figure above spans the data axis only (its group is the mesh's data
+  group: model ranks hold the same rows). The fusion projections are
+  column-split over the model group (``parallel.sharding.shard_params``,
+  JAX's ``_leaf_spec``), and the training forward computes each rank's
+  block of every fusion and gathers it (``parallel/tensor.py``); Adam runs
+  on the shards, elementwise, as JAX gives each moment its parameter's
+  sharding. The replicated parameters stay bit-equal across the model
+  group. The eval forward needs whole rows (the grid L2, K1): ``val()``
+  runs it on ``eval_model()``, a replica made from the gathered weights at
+  each ``val()``, K1's layout with it, and each model rank scores its data
+  shard. Checkpoints, the best snapshot and the weights export hold the
+  gathered tensors (Adam's moments too), so a checkpoint restores on any
+  mesh, one process included; ``set_weights`` takes a full state dict.
+- **The sharded bank** (``device_feature_bank_shard`` over W > 1 data
+  ranks, ``train/feature_bank.py``): each data rank holds a row block of
+  the store and the lookup is JAX's ring exchange around the data group,
+  bit-equal to the replicated bank and the host feed. In one process, or
+  without the flag, the bank is the replicated one, a copy of the store on
   each rank's device, as in JAX.
 """
 
@@ -159,13 +176,20 @@ from vqa_attention_networks_tpu_torch.models.layers import (
 from vqa_attention_networks_tpu_torch.parallel import distributed
 from vqa_attention_networks_tpu_torch.parallel.mesh import (
     DATA_AXIS,
-    TENSOR_PARALLEL_ITEM,
+    MODEL_AXIS,
     make_mesh,
 )
 from vqa_attention_networks_tpu_torch.parallel.sharding import (
+    check_model_axis,
+    gather_optimizer_state,
+    gather_state_dict,
+    local_optimizer_state,
+    local_state_dict,
     shard_batch,
+    shard_params,
     step_rows,
 )
+from vqa_attention_networks_tpu_torch.parallel.tensor import TensorParallel
 from vqa_attention_networks_tpu_torch.train.feature_bank import (
     FeatureBank,
     dequantize,
@@ -186,7 +210,6 @@ from vqa_attention_networks_tpu_torch.utils.logging import (
 from vqa_attention_networks_tpu_torch.utils.timer import Timer
 from vqa_attention_networks_tpu_torch.weights import load_jax_params
 
-_SHARDED_BANK_ITEM = "ROADMAP Queue 1 item 10b (the sharded banks)"
 # each family's random parameter tree (its ``init_params``)
 _INIT_PARAMS = {
     "mhb_coAtt": mhb_coatt.init_params,
@@ -348,46 +371,51 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     return sum(losses) / a, torch.cat(logits_all)
 
 
-def data_parallel_size(cfg: Config) -> int:
-    """The ranks the Solver trains over, by JAX's mesh rules: inside a
-    process group its world size (an explicit ``data_parallel`` must equal
-    it), 1 without one; raises where the batch does not split."""
+def mesh_shape(cfg: Config) -> Tuple[int, int]:
+    """The (data, model) mesh the Solver trains over, by JAX's mesh rules:
+    inside a process group the model axis is ``model_parallel`` and the
+    data axis the rest of the world (an explicit ``data_parallel`` must
+    equal it); (1, 1) without one. Raises where the world, the batch or
+    the fusion does not split."""
     if cfg.model_name not in TRAINABLE:
         raise ValueError(f"the Solver does not train {cfg.model_name!r}")
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={cfg.model_parallel} (tensor parallelism) is "
-            f"not ported to PyTorch yet: {TENSOR_PARALLEL_ITEM}")
-    world = distributed.world_size()
+    model = cfg.model_parallel
+    if model < 1:
+        raise ValueError(f"model_parallel={model}: at least 1")
     if not distributed.is_initialized():
-        if cfg.data_parallel > 1:
+        if cfg.data_parallel > 1 or model > 1:
+            ranks = max(cfg.data_parallel, 1) * model
+            asked = " x ".join(
+                f"{name}={v}" for name, v in (
+                    ("data_parallel", cfg.data_parallel),
+                    ("model_parallel", model)) if v > 1)
             raise ValueError(
-                f"data_parallel={cfg.data_parallel} needs "
-                f"{cfg.data_parallel} ranks in a process group, one a "
+                f"{asked} needs {ranks} ranks in a process group, one a "
                 f"device: start the run with torchrun --nproc_per_node "
-                f"{cfg.data_parallel} (the CLIs join it), or call "
+                f"{ranks} (the CLIs join it), or call "
                 "parallel.initialize_distributed() in each rank")
-        return 1
-    if cfg.data_parallel > 1 and cfg.data_parallel != world:
+        return 1, 1
+    world = distributed.world_size()
+    if world % model:
+        raise ValueError(f"model_parallel={model} does not divide the "
+                         f"process group's {world} ranks")
+    data = world // model
+    if cfg.data_parallel > 1 and cfg.data_parallel != data:
         raise ValueError(
             f"data_parallel={cfg.data_parallel} but the process group has "
-            f"{world} ranks: the data axis spans every rank")
-    if cfg.batch_size % world:
+            f"{world} ranks: the data axis spans every rank of a model "
+            f"coordinate ({data} at model_parallel={model})")
+    check_model_axis(cfg, model)
+    if cfg.batch_size % data:
         raise ValueError(f"batch_size={cfg.batch_size} not divisible by "
-                         f"data_parallel={world}")
+                         f"data_parallel={data}")
     micro = cfg.batch_size // cfg.grad_accum_steps
-    if micro % world:
+    if micro % data:
         raise ValueError(
             f"a micro-batch of {micro} rows (batch_size={cfg.batch_size} / "
             f"grad_accum_steps={cfg.grad_accum_steps}) does not split over "
-            f"data_parallel={world}")
-    if world > 1 and cfg.device_feature_bank and \
-            cfg.device_feature_bank_shard:
-        raise NotImplementedError(
-            "device_feature_bank_shard over more than one rank (the ring "
-            f"exchange) is not ported to PyTorch yet: {_SHARDED_BANK_ITEM}; "
-            "the replicated bank (device_feature_bank alone) runs")
-    return world
+            f"data_parallel={data}")
+    return data, model
 
 
 class Solver:
@@ -412,7 +440,7 @@ class Solver:
         ``chip_smoke.py``. ``log_dir`` turns on the metric writer
         (``<log_dir>/<model>/events.jsonl``), on the primary rank."""
         cfg.validate()
-        self.data_parallel = data_parallel_size(cfg)
+        self.data_parallel, self.model_parallel = mesh_shape(cfg)
         self.cfg = cfg
         self.device = distributed.rank_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -430,10 +458,14 @@ class Solver:
         self._rows: Dict[str, Optional[np.ndarray]] = {"train": None,
                                                        "val": None}
         # the mesh, its data axis' process group and this rank's place on
-        # it (set by _join_data_parallel)
+        # it, the model axis (set by _join_mesh)
         self.mesh, self._group, self._data_rank = None, None, 0
+        self.tp: Optional[TensorParallel] = None
+        # eval_model()'s replica on the gathered weights (tensor
+        # parallelism)
+        self._full: Optional[torch.nn.Module] = None
         if distributed.is_initialized():
-            self._join_data_parallel()
+            self._join_mesh()
         self.optimizer = make_optimizer(self.model, cfg)
         self.reference_kernels = reference_kernels
         self.writer = (MetricWriter(log_dir, run_name=cfg.model_name)
@@ -451,10 +483,14 @@ class Solver:
                          else np.float16 if bf16 else np.float32)
         self.bank: Optional[FeatureBank] = None
         if cfg.device_feature_bank:
+            sharded = cfg.device_feature_bank_shard and self.data_parallel > 1
             self.bank = FeatureBank(
                 store, self._dequant_dtype if quantized
                 else torch.float16 if bf16 else torch.float32,
-                cfg.device_feature_bank_budget, self.device)
+                cfg.device_feature_bank_budget, self.device,
+                shard=((self._data_rank, self.data_parallel) if sharded
+                       else None),
+                group=self._group, data_size=self.data_parallel)
         self.profile_trace: Optional[str] = None  # set by train()
         self.batches = {
             split: VqaBatches(
@@ -479,14 +515,18 @@ class Solver:
         self.i_patience = 0
         self.best_state: Optional[Dict[str, torch.Tensor]] = None
 
-    def _join_data_parallel(self) -> None:
-        """Wrap the training forward in DDP over the mesh's data axis and
-        take this rank's rows. The mesh's data group is the one set of
-        ranks every global figure spans: DDP's gradients, the batch norm's
-        statistics, the evaluation's sums and predictions. DDP broadcasts
-        rank 0's parameters and buffers; K1's layout is then made again
-        from them. The batch-norm buffers are merged by every rank from the
-        same global statistics (``merge_batch_stats``), so DDP does not
+    def _join_mesh(self) -> None:
+        """Build the ``(data, model)`` mesh, cut the model to this rank's
+        shards on the model axis (``parallel.sharding.shard_params``, which
+        first broadcasts the model group's first rank's model), wrap the
+        training forward in DDP over the mesh's data axis and take this
+        rank's rows. The mesh's data group is the one set of ranks every
+        global figure spans: DDP's gradients, the batch norm's statistics,
+        the evaluation's sums and predictions. DDP broadcasts the data
+        group's rank 0's parameters and buffers; K1's layout is then made
+        again from them (a shard has none). The batch-norm buffers are
+        merged by every rank from the same global statistics
+        (``merge_batch_stats``), so DDP does not
         broadcast them again. A model whose training leaves parameters
         without a gradient says so (``unused_in_training``, mfb under its
         reference quirk): DDP then looks for them, which costs a walk of
@@ -494,9 +534,14 @@ class Solver:
         from torch.nn.parallel import DistributedDataParallel
 
         cfg, world = self.cfg, self.data_parallel
-        self.mesh = make_mesh(world, cfg.model_parallel, self.device.type)
+        self.mesh = make_mesh(world, self.model_parallel, self.device.type)
         self._group = self.mesh.get_group(DATA_AXIS)
         self._data_rank = rank = self.mesh.get_local_rank(DATA_AXIS)
+        if self.model_parallel > 1:
+            self.tp = TensorParallel(self.mesh.get_group(MODEL_AXIS),
+                                     self.mesh.get_local_rank(MODEL_AXIS),
+                                     self.model_parallel)
+            shard_params(self.model, self.tp, cfg.fusion_dim)
         span_batch_statistics(self.model, self._group)
         self._forward = DistributedDataParallel(
             self._forward,
@@ -616,17 +661,35 @@ class Solver:
             return loss, correct
         return self._gathered(loss / w, correct)
 
-    def _eval_step(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
-        """The eval forward on one batch -> (loss, correct, top-3 correct)
-        of the global batch, and this rank's per-row argmax, on the
-        device."""
+    def eval_model(self) -> torch.nn.Module:
+        """The model the eval forward runs: the trained one, or under
+        tensor parallelism a replica on the gathered weights, loaded again
+        at each call (a collective over the model group: its ranks call
+        this together), so its K1 layout follows every change of the
+        shards (a step, ``restore()``, ``set_weights``)."""
+        if self.tp is None:
+            return self.model
+        state = gather_state_dict(self.model)
+        if self._full is None:
+            self._full = get_model(self.cfg.model_name)(self.cfg).to(
+                self.device)
+        self._full.load_state_dict(state)
+        if hasattr(self._full, "prepare"):
+            self._full.prepare()
+        return self._full.eval()
+
+    def _eval_step(self, batch: Batch, model: torch.nn.Module
+                   ) -> Tuple[torch.Tensor, ...]:
+        """The eval forward of ``model`` (``eval_model()``) on one batch ->
+        (loss, correct, top-3 correct) of the global batch, and this rank's
+        per-row argmax, on the device."""
         img, ques, qlen, answers, valid, soft = self._device_batch(batch,
                                                                    "val")
         count = (int(batch.valid.sum()) if self.data_parallel > 1
                  else None)
-        self.model.eval()
+        model.eval()
         with torch.no_grad():
-            logits = self.model(img, ques, qlen)
+            logits = model(img, ques, qlen)
             labels = self._labels(answers, soft)
             sums = self._gathered(
                 self._loss(logits, answers, soft, valid, count),
@@ -781,7 +844,7 @@ class Solver:
             # a copy: the optimizer updates the parameters in place, so
             # references would follow the live weights
             self.best_state = {k: v.detach().clone()
-                               for k, v in self.model.state_dict().items()}
+                               for k, v in self._model_state().items()}
         else:
             self.i_patience += 1
         return self.i_patience >= self.cfg.patience
@@ -801,8 +864,9 @@ class Solver:
         loss = loss_sum = total_correct = total_top3 = total_consensus = 0.0
         have_consensus = have_types = False
         total_valid = n_batches = 0
+        model = self.eval_model()
         for batch in self.batches["val"].epoch():
-            loss_d, correct_d, top3_d, preds_d = self._eval_step(batch)
+            loss_d, correct_d, top3_d, preds_d = self._eval_step(batch, model)
             n_valid = int(batch.valid.sum())
             loss = float(loss_d)
             # valid-weighted: the split's mean, not the last batch's
@@ -921,16 +985,22 @@ class Solver:
         return os.path.join(self.cfg.out_dir, self.cfg.model_name)
 
     def set_weights(self, state_dict: Mapping[str, torch.Tensor]) -> None:
-        """Load a module ``state_dict`` (parameters and running buffers)
-        into the model, then lay out K1's weights again."""
-        self.model.load_state_dict(state_dict)
+        """Load a module ``state_dict`` (parameters and running buffers,
+        the full tensors) into the model, a tensor-parallel rank its shards
+        of it, then lay out K1's weights again."""
+        self.model.load_state_dict(local_state_dict(self.model, state_dict))
         if hasattr(self.model, "prepare"):
             self.model.prepare()
 
+    def _model_state(self) -> Dict[str, torch.Tensor]:
+        """The module's ``state_dict``, a tensor-parallel model's gathered
+        (every rank of the model group calls this together)."""
+        return gather_state_dict(self.model)
+
     def _state(self) -> Dict[str, Any]:
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": self._model_state(),
+            "optimizer": gather_optimizer_state(self.model, self.optimizer),
             "step": self.step,
             "early_stop": {"min_val_loss": self.min_val_loss,
                            "best_val_acc": self.best_val_acc,
@@ -951,7 +1021,8 @@ class Solver:
         FileNotFoundError when there is none."""
         state = ckpt.restore_checkpoint(self.checkpoint_dir, step)
         self.set_weights(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.load_state_dict(
+            local_optimizer_state(self.model, state["optimizer"]))
         self.step = int(state["step"])
         es = state["early_stop"]
         self.min_val_loss = float(es["min_val_loss"])
@@ -966,7 +1037,7 @@ class Solver:
         path = self.save_checkpoint()
         ckpt.save_weights(self.checkpoint_dir,
                           self.best_state if self.best_state is not None
-                          else self.model.state_dict())
+                          else self._model_state())
         return path
 
     def close(self) -> None:

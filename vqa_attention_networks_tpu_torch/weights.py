@@ -14,6 +14,11 @@ there, so both directions carry them. A child module that is not a layer
 under its name.
 Reference ``.pth`` checkpoints reach the same tree through the port's
 ``utils/torch_import.import_state_dict``.
+
+A tensor-parallel model (``parallel.sharding.shard_params``) holds its
+rank's rows of the fusion projections: ``to_jax_params`` gathers them
+(every rank of the model group calls it together), so it gives the whole
+model's tree.
 """
 
 from __future__ import annotations
@@ -25,6 +30,10 @@ import torch
 from torch import nn
 
 from vqa_attention_networks_tpu_torch.models import layers as L
+from vqa_attention_networks_tpu_torch.parallel.sharding import (
+    gather_state_dict,
+    model_shardings,
+)
 
 # layer class -> {JAX leaf: (attribute, transpose)}
 _LEAVES = {
@@ -114,10 +123,16 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
 def to_jax_params(module: nn.Module) -> Dict[str, Any]:
     """The module's parameters and persistent buffers as a nested dict of
     numpy arrays in the JAX layout (``[in, out]`` projections), in their
-    own dtype."""
+    own dtype; a tensor-parallel model's split leaves gathered."""
     tree: Dict[str, Any] = {}
+    _, split = model_shardings(module)
+    full = {}
+    if split:
+        state = gather_state_dict(module)
+        full = {id(p): state[n] for n, p in module.named_parameters()
+                if n in split}
     for path, (tensor, transpose) in _module_leaves(module).items():
-        value = tensor.detach()
+        value = full.get(id(tensor), tensor).detach()
         value = (value.t() if transpose else value).cpu().numpy().copy()
         *parents, leaf = path.split("/")
         node = tree
