@@ -24,6 +24,7 @@ from typing import Dict, Iterable, Sequence
 import numpy as np
 
 from vqa_attention_networks_tpu_torch.data import native
+from vqa_attention_networks_tpu_torch.utils import trace
 
 FEATURES_FILE = "features.bin"
 INDEX_FILE = "index.json"
@@ -215,23 +216,27 @@ class FeatureStore:
         return self.gather_rows_quantized(self.rows_for(image_ids))
 
     def gather_rows(self, rows: np.ndarray, dtype=np.float32) -> np.ndarray:
-        if self.quantized:
-            if np.dtype(dtype) == np.int8:
-                return np.asarray(self.features[rows])
-            # host-side dequant, so every float consumer reads an int8
-            # store unchanged
-            q = self.features[rows].astype(np.float32)
-            s = self.scales[rows].astype(np.float32)
-            return (q * s[:, None, :]).astype(dtype)
-        if self.features.dtype == np.float16:
-            out = None
-            if np.dtype(dtype) == np.float32:
-                out = native.gather_f16_to_f32(self.features, np.asarray(rows))
-            elif np.dtype(dtype) == np.float16:
-                out = native.gather_f16(self.features, np.asarray(rows))
-            if out is not None:
-                return out
-        return np.asarray(self.features[rows], dtype=dtype)
+        """Grids of the row handles ``rows`` in ``dtype`` (span
+        ``store.gather``, ``utils/trace.py``)."""
+        with trace.span("store.gather"):
+            if self.quantized:
+                if np.dtype(dtype) == np.int8:
+                    return np.asarray(self.features[rows])
+                # host-side dequant, so every float consumer reads an int8
+                # store unchanged
+                q = self.features[rows].astype(np.float32)
+                s = self.scales[rows].astype(np.float32)
+                return (q * s[:, None, :]).astype(dtype)
+            if self.features.dtype == np.float16:
+                out = None
+                if np.dtype(dtype) == np.float32:
+                    out = native.gather_f16_to_f32(self.features,
+                                                   np.asarray(rows))
+                elif np.dtype(dtype) == np.float16:
+                    out = native.gather_f16(self.features, np.asarray(rows))
+                if out is not None:
+                    return out
+            return np.asarray(self.features[rows], dtype=dtype)
 
 
 class CombinedFeatureStore:

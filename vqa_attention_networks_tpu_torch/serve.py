@@ -42,6 +42,13 @@ device or split over several.
   sharded bank (``DeviceFeatureCache(mesh=...)``): the cache splits its
   slots over the replicas' devices and the banked forward gathers each
   shard's slots around them (``aot.serving_forward_banked_sharded``).
+- While a ``torch.profiler`` session records, the engine records spans
+  (``utils/trace.py``), each batch under its own id: ``serve.dispatch``
+  around a batch's dispatch, with ``serve.h2d`` (each copy to the device;
+  counter ``serve.h2d_bytes``), ``bank.ensure`` and ``serve.launch`` (the
+  forward's launches) inside it; ``serve.collect`` around its collection,
+  with ``serve.result_wait`` (the copies back, which wait for the device)
+  inside it.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from vqa_attention_networks_tpu_torch.device import cuda_device
 from vqa_attention_networks_tpu_torch.models import get_model
 from vqa_attention_networks_tpu_torch.ops import kernels_disabled
 from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
+from vqa_attention_networks_tpu_torch.utils import trace
 from vqa_attention_networks_tpu_torch.weights import (
     load_jax_params,
     to_jax_params,
@@ -247,37 +255,38 @@ class DeviceFeatureCache:
         signature of the int8 store's ``gather_quantized``
         (``data/feature_store.py``). The distinct ids of a batch must fit
         the capacity (the cache never evicts the batch it assembles)."""
-        ids = [int(i) for i in image_ids]
-        batch_ids = set(ids)
-        if len(batch_ids) > self.capacity:
-            raise ValueError(
-                f"batch has {len(batch_ids)} distinct images but the "
-                f"device cache holds {self.capacity}"
-            )
-        missing = sorted({i for i in ids if i not in self._slot})
-        if missing:
-            rows, scale = fetch(missing)
-            rows = np.ascontiguousarray(rows)
-            scale = np.ascontiguousarray(scale, dtype=np.float16)
-            if rows.dtype != np.int8:
-                raise TypeError(f"fetch gave {rows.dtype} rows: the bank "
-                                "holds the int8 layout")
-            slots = np.empty(len(missing), dtype=np.int32)
-            for j, image_id in enumerate(missing):
-                slots[j] = self._take_slot(batch_ids)
-                self._slot[image_id] = int(slots[j])
+        with trace.span("bank.ensure"):
+            ids = [int(i) for i in image_ids]
+            batch_ids = set(ids)
+            if len(batch_ids) > self.capacity:
+                raise ValueError(
+                    f"batch has {len(batch_ids)} distinct images but the "
+                    f"device cache holds {self.capacity}"
+                )
+            missing = sorted({i for i in ids if i not in self._slot})
+            if missing:
+                rows, scale = fetch(missing)
+                rows = np.ascontiguousarray(rows)
+                scale = np.ascontiguousarray(scale, dtype=np.float16)
+                if rows.dtype != np.int8:
+                    raise TypeError(f"fetch gave {rows.dtype} rows: the bank "
+                                    "holds the int8 layout")
+                slots = np.empty(len(missing), dtype=np.int32)
+                for j, image_id in enumerate(missing):
+                    slots[j] = self._take_slot(batch_ids)
+                    self._slot[image_id] = int(slots[j])
+                    self._touch(image_id)
+                self._upload(rows, scale, slots)
+                self.uploads += 1
+            # hits: requests that needed no upload (a repeat of an id missed in
+            # this batch still saves its transfer, so it counts)
+            self.misses += len(missing)
+            self.hits += len(ids) - len(missing)
+            idx = np.empty(len(ids), dtype=np.int32)
+            for pos, image_id in enumerate(ids):
                 self._touch(image_id)
-            self._upload(rows, scale, slots)
-            self.uploads += 1
-        # hits: requests that needed no upload (a repeat of an id missed in
-        # this batch still saves its transfer, so it counts)
-        self.misses += len(missing)
-        self.hits += len(ids) - len(missing)
-        idx = np.empty(len(ids), dtype=np.int32)
-        for pos, image_id in enumerate(ids):
-            self._touch(image_id)
-            idx[pos] = self._slot[image_id]
-        return idx
+                idx[pos] = self._slot[image_id]
+            return idx
 
 
 def trained_params(cfg: Config, directory: str):
@@ -362,6 +371,9 @@ class InferenceEngine:
             for d in self.devices]
         self.model = self.models[0]
         self._cache: Optional[DeviceFeatureCache] = None
+        # batches dispatched and collected, in order: the ids of their
+        # spans (utils/trace.py)
+        self._dispatched = self._collected = 0
         self._artifact = artifact_dir
         if artifact_dir is None:
             self._fwd = aot.serving_forward(self.cfg, self.topk, input_dtype)
@@ -503,24 +515,30 @@ class InferenceEngine:
 
     def _to_device(self, arrays, device=None) -> list:
         device = self.device if device is None else device
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in arrays]
+        with trace.span("serve.h2d"):
+            host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+            if trace.recording():
+                trace.count("serve.h2d_bytes", sum(t.nbytes for t in host))
+            return [t.to(device) for t in host]
 
     def _dispatch(self, image_features, questions, ques_length,
                   feature_scale):
         """Pad, upload and launch one batch; returns (device results of
         each replica's shard, n): every shard is launched before any is
         fetched."""
-        feats, n = self._feature_args(image_features, feature_scale)
-        arrays = [*feats, *self._question_args(questions, ques_length)]
-        shard = self.batch_size // self.data_parallel
-        handles = []
-        for i, (model, device) in enumerate(zip(self.models, self.devices)):
-            args = self._to_device(
-                [a[i * shard:(i + 1) * shard] for a in arrays], device)
-            with torch.inference_mode():
-                handles.append(self._fwd(model, *args))
-        return handles, n
+        self._dispatched += 1
+        with trace.span("serve.dispatch", self._dispatched):
+            feats, n = self._feature_args(image_features, feature_scale)
+            arrays = [*feats, *self._question_args(questions, ques_length)]
+            shard = self.batch_size // self.data_parallel
+            handles = []
+            for i, (model, device) in enumerate(zip(self.models,
+                                                    self.devices)):
+                args = self._to_device(
+                    [a[i * shard:(i + 1) * shard] for a in arrays], device)
+                with torch.inference_mode(), trace.span("serve.launch"):
+                    handles.append(self._fwd(model, *args))
+            return handles, n
 
     def _dispatch_by_id(self, image_ids, questions, ques_length):
         """Resolve the slots (uploading misses) and launch one batch from
@@ -528,29 +546,31 @@ class InferenceEngine:
         if self._cache is None:
             raise RuntimeError(
                 "call attach_feature_cache() before predict_*_by_id")
-        arrays = self._question_args(questions, ques_length)
-        shard = self.batch_size // self.data_parallel
-        args = [self._to_device([a[i * shard:(i + 1) * shard]
-                                 for a in arrays], device)
-                for i, device in enumerate(self.devices)]
-        with self._bank_lock:
-            idx = self._cache.ensure(image_ids, self._fetch)
-            # padding gathers slot 0: harmless, dropped by n
-            idx, n = self._pad(idx.astype(np.int64))
-            idx = [self._to_device([idx[i * shard:(i + 1) * shard]],
-                                   device)[0]
-                   for i, device in enumerate(self.devices)]
-            with torch.inference_mode():
-                if self.data_parallel > 1:
-                    handles = self._fwd_bank(
-                        self.models, self._cache.blocks,
-                        self._cache.scale_blocks, idx,
-                        [a[0] for a in args], [a[1] for a in args])
-                else:
-                    handles = [self._fwd_bank(
-                        self.model, self._cache.rows, self._cache.scale,
-                        idx[0], *args[0])]
-        return handles, n
+        self._dispatched += 1
+        with trace.span("serve.dispatch", self._dispatched):
+            arrays = self._question_args(questions, ques_length)
+            shard = self.batch_size // self.data_parallel
+            args = [self._to_device([a[i * shard:(i + 1) * shard]
+                                     for a in arrays], device)
+                    for i, device in enumerate(self.devices)]
+            with self._bank_lock:
+                idx = self._cache.ensure(image_ids, self._fetch)
+                # padding gathers slot 0: harmless, dropped by n
+                idx, n = self._pad(idx.astype(np.int64))
+                idx = [self._to_device([idx[i * shard:(i + 1) * shard]],
+                                       device)[0]
+                       for i, device in enumerate(self.devices)]
+                with torch.inference_mode(), trace.span("serve.launch"):
+                    if self.data_parallel > 1:
+                        handles = self._fwd_bank(
+                            self.models, self._cache.blocks,
+                            self._cache.scale_blocks, idx,
+                            [a[0] for a in args], [a[1] for a in args])
+                    else:
+                        handles = [self._fwd_bank(
+                            self.model, self._cache.rows, self._cache.scale,
+                            idx[0], *args[0])]
+            return handles, n
 
     def predict_batch_by_id(
         self,
@@ -609,8 +629,14 @@ class InferenceEngine:
             yield self._collect(*pending)
 
     def _collect(self, handles, n: int) -> List[Prediction]:
-        top_i = np.concatenate([h[0].cpu().numpy() for h in handles])[:n]
-        top_p = np.concatenate([h[1].cpu().numpy() for h in handles])[:n]
-        return [
-            Prediction(int(top_i[i, 0]), top_i[i], top_p[i]) for i in range(n)
-        ]
+        """The top-k of the oldest batch dispatched and not yet collected,
+        copied to the host (which waits for the device there)."""
+        self._collected += 1
+        with trace.span("serve.collect", self._collected):
+            with trace.span("serve.result_wait"):
+                top_i = np.concatenate([h[0].cpu().numpy()
+                                        for h in handles])[:n]
+                top_p = np.concatenate([h[1].cpu().numpy()
+                                        for h in handles])[:n]
+            return [Prediction(int(top_i[i, 0]), top_i[i], top_p[i])
+                    for i in range(n)]

@@ -1,21 +1,16 @@
-"""Time a checkout's training step, or its kernels, on the card.
+"""Time a checkout's kernels on the card.
 
-    python3 vqa_attention_networks_tpu_torch/step_time.py [--root DIR] [--site prepool|pooled] [--kernels [NAME ...]]
+    python3 vqa_attention_networks_tpu_torch/step_time.py [--root DIR] [--kernels [NAME ...]]
 
 imports the port from DIR (by default the checkout that holds this file),
 so that two checkouts of the port, one of them unpacked with
 ``git archive``, can be timed by turns on the same card: run it for each,
-in the order A, B, B, A, and compare within the one machine.
+in the order A, B, B, A, and compare within the one machine. (A training
+step is the benchmark's: ``port_bench``'s ``mhb_coatt.train_prepool``.)
 
-- By default it trains full-width bf16 mhb_coAtt with ``Solver.train`` from
-  random weights (seed 0) on synthetic data, batch 64, with dropout and
-  the fusion at the pre-pool site (K2) or, under ``--site pooled``, at the
-  pooled site (K3), and prints one JSON line: ms per step over steps 5 to
-  the last (synchronised at both ends), training qa-pairs/s and the
-  per-step losses.
-- With ``--kernels`` it times, with ``chip_smoke.py``'s inputs, timers and
-  tolerances (the ``chip_smoke.py`` beside this package, run on DIR's
-  port), one JSON line each: K1 at N = 256, by CUDA events and each of its
+- It times, with ``chip_smoke.py``'s inputs, timers and tolerances (the
+  ``chip_smoke.py`` beside this package, run on DIR's port), one JSON line
+  each: K1 at N = 256, by CUDA events and each of its
   launches' device time; K5 at N = 256, with ``torch.matmul`` on the bare
   product img @ bf16(W) beside it for information; K2's forward, d_q and
   d_img at N = 64, rate 0.1; K3's d_W/d_b/d_q (four launches) and d_img at
@@ -46,10 +41,7 @@ import argparse
 import importlib.util
 import json
 import os
-import subprocess
 import sys
-import tempfile
-import time
 
 KERNEL_ITERS = 10  # timed calls of each kernel, after one warm-up
 KERNELS = {"K1", "K5", "K2", "K3", "K4", "K6", "K7"}
@@ -61,26 +53,18 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=here,
                         help="the checkout whose port is timed")
-    parser.add_argument("--steps", type=int, default=30)
-    parser.add_argument("--batch", type=int, default=64)
-    parser.add_argument("--site", default="prepool",
-                        choices=("prepool", "pooled"),
-                        help="the training fusion's dropout site")
-    parser.add_argument("--kernels", nargs="*", default=None,
+    parser.add_argument("--kernels", nargs="*", default=[],
                         metavar="NAME",
-                        help="time the kernels (all, or the ones named: "
-                             "K1 K5 K2 K3 K4 K6 K7), not the step")
+                        help="time the kernels named (K1 K5 K2 K3 K4 K6 "
+                             "K7); all of them without a name")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     # the port from ``root``, and none of this file's neighbours as
     # top-level modules
     sys.path[:] = [root] + [p for p in sys.path
                             if os.path.abspath(p or ".") != package]
-    if args.kernels is not None:
-        time_kernels(os.path.join(here, "chip_smoke.py"), root,
-                     set(args.kernels) or KERNELS)
-    else:
-        time_step(root, args.steps, args.batch, args.site)
+    time_kernels(os.path.join(here, "chip_smoke.py"), root,
+                 set(args.kernels) or KERNELS)
 
 
 def time_kernels(harness: str, root: str, names: set) -> None:
@@ -256,57 +240,6 @@ def time_kernels(harness: str, root: str, names: set) -> None:
             shape=dict(zip("npcad", shape)))
         del a7, got, want
         torch.cuda.empty_cache()
-
-
-def time_step(root: str, steps: int, batch: int, site: str) -> None:
-    """The training step of full-width bf16 mhb_coAtt, one JSON line."""
-    import numpy as np
-    import torch
-
-    from vqa_attention_networks_tpu_torch.config import Config
-    from vqa_attention_networks_tpu_torch.data.feature_store import (
-        make_synthetic_feature_store)
-    from vqa_attention_networks_tpu_torch.data.prepare import (
-        make_synthetic_qa_data)
-    from vqa_attention_networks_tpu_torch.models.mhb_coatt import init_params
-    from vqa_attention_networks_tpu_torch.train.solver import Solver
-
-    if not torch.cuda.is_available():
-        sys.exit("step_time.py times the card: no CUDA device")
-    cfg = Config(compute_dtype="bfloat16", num_epoch=1,
-                 batch_size=batch, dropout_site=site)
-    params = init_params(cfg, torch.Generator().manual_seed(0))
-    images = 256
-    qa = make_synthetic_qa_data(
-        np.random.default_rng(0), n_train=steps * batch,
-        n_val=batch, q_vocab_words=cfg.q_vocab_size - 2,
-        num_answers=cfg.a_vocab_size, max_len=cfg.max_question_length,
-        num_images=images)
-    marks, losses = {}, []
-    first, last = 5, steps - 1
-
-    def on_step(step, loss):
-        losses.append(float(loss))
-        if step in (first, last):
-            torch.cuda.synchronize()
-            marks[step] = time.perf_counter()
-
-    with tempfile.TemporaryDirectory() as tmp:
-        store = make_synthetic_feature_store(tmp, list(range(images)))
-        Solver(cfg, qa, store, params=params).train(on_step=on_step)
-    ms = (marks[last] - marks[first]) * 1e3 / (last - first)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=False).stdout.strip().splitlines()
-    print(json.dumps({
-        "root": root, "model": cfg.model_name, "dropout_site":
-        cfg.dropout_site, "batch": batch, "steps_timed":
-        f"{first}..{last}", "ms_per_step": ms,
-        "qa_pairs_per_s": batch * 1e3 / ms, "losses": losses,
-        "card": card[0] if card else None}), flush=True)
-    if not np.isfinite(losses).all():
-        sys.exit("a training loss is not finite")
 
 
 if __name__ == "__main__":

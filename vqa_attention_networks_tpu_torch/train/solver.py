@@ -62,7 +62,11 @@ process group.
 - **Profiler and NaN trap** (``solver.py:122-124, 592-637``):
   ``cfg.profile_steps`` runs ``torch.profiler`` (CPU, and CUDA on the card)
   over the first steps of ``train()`` up to step ``profile_steps``, waits
-  for the last one and writes a Chrome trace under ``cfg.profile_dir``;
+  for the last one and writes a Chrome trace under ``cfg.profile_dir``,
+  which holds the step's spans (``utils/trace.py``: ``train.feed_wait``,
+  ``train.step`` and inside it ``train.device_batch``, ``train.forward``,
+  ``train.backward``, ``train.optimizer``), recorded whenever a profiler
+  records;
   ``cfg.debug_nans`` runs each step under
   ``torch.autograd.set_detect_anomaly``, which raises at the backward op
   that made a NaN. A non-finite epoch loss raises ``FloatingPointError``
@@ -144,7 +148,8 @@ import contextlib
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Iterator, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -203,6 +208,7 @@ from vqa_attention_networks_tpu_torch.train.losses import (
     vqa_consensus_scores,
 )
 from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
+from vqa_attention_networks_tpu_torch.utils import trace
 from vqa_attention_networks_tpu_torch.utils.logging import (
     MetricWriter,
     NullMetricWriter,
@@ -350,22 +356,25 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         sync = (forward.no_sync() if i < a - 1 and hasattr(forward, "no_sync")
                 else contextlib.nullcontext())
         with sync:
-            logits, aux = forward(*micro, make_generator, fusion_seed,
-                                  reference_kernels, remat)
-            loss = loss_fn(logits, rows)
-            loss.backward()
+            with trace.span("train.forward"):
+                logits, aux = forward(*micro, make_generator, fusion_seed,
+                                      reference_kernels, remat)
+                loss = loss_fn(logits, rows)
+            with trace.span("train.backward"):
+                loss.backward()
         losses.append(loss.detach())
         logits_all.append(logits.detach())
         stats.append(aux.get("batch_stats"))
-    if a > 1:
-        # the mean gradient, as JAX's sum over the scan divided by a
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(a)
-    optimizer.step()
-    for i, batch_stats in enumerate(stats):
-        merge_batch_stats(model, batch_stats,
-                          None if live is None else live[i])
+    with trace.span("train.optimizer"):
+        if a > 1:
+            # the mean gradient, as JAX's sum over the scan divided by a
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(a)
+        optimizer.step()
+        for i, batch_stats in enumerate(stats):
+            merge_batch_stats(model, batch_stats,
+                              None if live is None else live[i])
     if a == 1:
         return losses[0], logits_all[0]
     return sum(losses) / a, torch.cat(logits_all)
@@ -624,42 +633,45 @@ class Solver:
 
     def _train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """``train_step`` at ``self.step`` -> (loss, correct count) of the
-        global batch, on the device."""
-        img, ques, qlen, answers, valid, soft = self._device_batch(batch)
-        a, w = self.cfg.grad_accum_steps, self.data_parallel
-        counts = live = None
-        if w > 1:
-            # each micro-batch's valid count and liveness in the global
-            # batch (every rank holds its valid mask)
-            per_micro = batch.valid.reshape(a, -1).sum(1)
-            counts = [int(c) for c in per_micro]
-            live = torch.from_numpy(per_micro > 0).to(self.device)
-        m_local = img.shape[0] // a
+        global batch, on the device (span ``train.step``)."""
+        with trace.span("train.step", self.step):
+            with trace.span("train.device_batch"):
+                (img, ques, qlen, answers, valid,
+                 soft) = self._device_batch(batch)
+            a, w = self.cfg.grad_accum_steps, self.data_parallel
+            counts = live = None
+            if w > 1:
+                # each micro-batch's valid count and liveness in the global
+                # batch (every rank holds its valid mask)
+                per_micro = batch.valid.reshape(a, -1).sum(1)
+                counts = [int(c) for c in per_micro]
+                live = torch.from_numpy(per_micro > 0).to(self.device)
+            m_local = img.shape[0] // a
 
-        def loss_fn(out, rows):
-            loss = self._loss(out, answers[rows],
-                              None if soft is None else soft[rows],
-                              valid[rows],
-                              None if counts is None
-                              else counts[rows.start // m_local])
-            # DDP averages the ranks' gradients; the ranks' shares sum
-            return loss if w == 1 else loss * w
+            def loss_fn(out, rows):
+                loss = self._loss(out, answers[rows],
+                                  None if soft is None else soft[rows],
+                                  valid[rows],
+                                  None if counts is None
+                                  else counts[rows.start // m_local])
+                # DDP averages the ranks' gradients; the ranks' shares sum
+                return loss if w == 1 else loss * w
 
-        self.model.train()
-        trap = (torch.autograd.set_detect_anomaly(True)
-                if self.cfg.debug_nans else contextlib.nullcontext())
-        with trap:
-            loss, logits = train_step(
-                self.model, self.optimizer, loss_fn,
-                img, ques, qlen, lr=learning_rate(self.cfg, self.step),
-                randomness=self._randomness, valid=valid,
-                reference_kernels=self.reference_kernels,
-                grad_accum_steps=a, remat=self.cfg.remat,
-                forward=self._forward, micro_live=live)
-        correct = correct_count(logits, self._labels(answers, soft), valid)
-        if w == 1:
-            return loss, correct
-        return self._gathered(loss / w, correct)
+            self.model.train()
+            trap = (torch.autograd.set_detect_anomaly(True)
+                    if self.cfg.debug_nans else contextlib.nullcontext())
+            with trap:
+                loss, logits = train_step(
+                    self.model, self.optimizer, loss_fn,
+                    img, ques, qlen, lr=learning_rate(self.cfg, self.step),
+                    randomness=self._randomness, valid=valid,
+                    reference_kernels=self.reference_kernels,
+                    grad_accum_steps=a, remat=self.cfg.remat,
+                    forward=self._forward, micro_live=live)
+            correct = correct_count(logits, self._labels(answers, soft), valid)
+            if w == 1:
+                return loss, correct
+            return self._gathered(loss / w, correct)
 
     def eval_model(self) -> torch.nn.Module:
         """The model the eval forward runs: the trained one, or under
@@ -783,7 +795,7 @@ class Solver:
         else:
             stream = prefetch(
                 self.batches["train"].epoch(epoch, start_batch=start_b))
-        for batch in stream:
+        for batch in self._waited(stream):
             loss_d, correct_d = self._train_step(batch)
             if on_step is not None:
                 on_step(self.step, loss_d)
@@ -826,6 +838,17 @@ class Solver:
                   f"for {cfg.patience} epochs, stopping")
             return last, True
         return last, False
+
+    def _waited(self, stream: Iterator[Batch]) -> Iterator[Batch]:
+        """``stream``'s batches, each wait for the next under the span
+        ``train.feed_wait`` of the step it feeds."""
+        batches = iter(stream)
+        while True:
+            with trace.span("train.feed_wait", self.step):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            yield batch
 
     def _early_stop(self, val_loss: float, val_acc: float) -> bool:
         """Record one epoch's val metric (loss, solver.py:160-172, or acc,
