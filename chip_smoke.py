@@ -189,14 +189,17 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     at capacity 512 (the eviction regime) and at 1,024 (after a warm-up
     pass and ``reset_stats``, every request a hit). Gates: the top-k ids
     and probabilities bit-equal to ``predict_stream`` with the
-    per-request int8 feed; K1 once a batch; hits + misses = requests,
-    and the counts and slots equal those of the same id sequence through
-    a second ``DeviceFeatureCache`` on the CPU; a control: the first
-    batch's slots swapped in pairs on the card must flip its answers
-    (``flips``) and swapping back restores them bit for bit; hieCoAtten
-    by id, K4 once a batch, bit-equal to its int8 feed. Times:
-    qa-pairs/s and the device share of a batch for the f16 feed, the
-    int8 feed and both by-id runs; the cost of a miss upload from pinned
+    per-request int8 feed; K1's three kernels once a batch, counted on
+    the card in a CUDA profile of the measured pass (by id they run from
+    a replay of the engine's CUDA graph, which no host call launches);
+    hits + misses = requests, and the counts and slots equal those of the
+    same id sequence through a second ``DeviceFeatureCache`` on the CPU;
+    a control: the first batch's slots swapped in pairs on the card must
+    flip its answers (``flips``) and swapping back restores them bit for
+    bit; hieCoAtten by id, K4 once a batch on the card, bit-equal to its
+    int8 feed. Times (under that profile): qa-pairs/s and the device
+    share of a batch for the f16 feed, the int8 feed and both by-id
+    runs; the cost of a miss upload from pinned
     host memory, fitted as a + bytes / BW over 1 to 256 misses;
 29. ``serve_http``: the port's ``cli.serve`` in process
     (``build_service`` + ``ThreadingHTTPServer`` on 127.0.0.1, a free
@@ -208,9 +211,9 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     ``flips`` of the int8 forward (the share bit-equal to
     ``predict_batch_by_id`` of a second engine printed), /healthz and
     /metrics counting the requests and the bank's hits and misses, an
-    unknown image id 400, K1 launches equal to the engine calls. Times:
-    HTTP qa-pairs/s, p50/p99 request latency (``LatencyStats``), batch
-    occupancy;
+    unknown image id 400, K1's kernels run on the card once an engine
+    call (a CUDA profile of the load). Times: HTTP qa-pairs/s, p50/p99
+    request latency (``LatencyStats``), batch occupancy;
 30. ``backbone``: ResNet-152 at full depth at 448 and VGG-19's pool4 tap
     at 224, random weights from a seed, f32 on the card (TF32 off)
     against f32 on the CPU at N = 2 (relative error < 1e-4), and each
@@ -2586,22 +2589,57 @@ def int8_logits(engine, store, image_ids, ques) -> torch.Tensor:
         return engine.model(img, qs, qlen)
 
 
-def stream(engine, batches, counters: dict, after_warm_up=None) -> tuple:
+# the kernels one launch of K1 and of K4 runs, by the names a CUDA profile
+# gives them (csrc/stage1_coattention.cu, csrc/coattention.cu)
+K1_KERNELS = ("stage1_grid_kernel", "stage1_hidden_kernel",
+              "stage1_pool_kernel")
+K4_KERNELS = ("coattention_kernel",)
+
+
+def device_launches(prof, kernels: dict) -> dict:
+    """Launches of hand-written kernels counted on the card, in the CUDA
+    profile ``prof``: ``kernels`` maps a key to the kernels one launch runs
+    once each (K1's three), and the key reads how often they ran. A CUDA
+    graph's replay runs kernels that no host call launches, so a host
+    counter cannot see them. Raises where a key's kernels ran unequally
+    often."""
+    import re
+
+    runs = {key: [0] * len(names) for key, names in kernels.items()}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for key, names in kernels.items():
+            for i, name in enumerate(names):
+                if re.search(rf"\b{name}\b", e.name):
+                    runs[key][i] += 1
+    for key, counts in runs.items():
+        if len(set(counts)) != 1:
+            raise AssertionError(f"{key}'s kernels {kernels[key]} ran "
+                                 f"{counts} times: not once each a launch")
+    return {key: counts[0] for key, counts in runs.items()}
+
+
+def stream(engine, batches, kernels: dict, after_warm_up=None) -> tuple:
     """One measured pass of ``batches`` (a function returning the stream)
     after a warm-up pass and ``after_warm_up()``: (predictions, seconds,
-    launches). Each counter module is set to 0 just before the measured
-    pass and read just after."""
+    launches). The measured pass runs under a CUDA profile, and
+    ``launches`` counts ``kernels`` in it on the card
+    (``device_launches``): by id on one card the engine replays a CUDA
+    graph, which the warm-up pass captured. The seconds hold the
+    profiler's cost."""
+    from torch.profiler import ProfilerActivity, profile
+
     list(batches())
     torch.cuda.synchronize()
     if after_warm_up is not None:
         after_warm_up()
-    for module in counters.values():
-        module.launch_count = 0
-    t0 = time.perf_counter()
-    preds = [p for batch in batches() for p in batch]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return preds, seconds, {k: m.launch_count for k, m in counters.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        preds = [p for batch in batches() for p in batch]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return preds, seconds, device_launches(prof, kernels)
 
 
 def bit_equal(a: list, b: list) -> bool:
@@ -2676,7 +2714,9 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
     (the eviction regime) and at BANK_IMAGES (after a warm-up pass and
     ``reset_stats``, every request a hit), beside the per-request f16 and
     int8 feeds (``predict_stream``) on the same requests. Gates: by id
-    bit-equal to the int8 feed; K1 once a batch; hits + misses = requests,
+    bit-equal to the int8 feed; K1's three kernels once a batch on the
+    card (from a replay of the graph, which the warm-up pass captured);
+    hits + misses = requests,
     with the counts and slots of the same id sequence through a second
     cache on the CPU; a control: the first batch's slots swapped in pairs
     on the device must flip its answers. Then hieCoAtten by id (K4 once a
@@ -2713,7 +2753,8 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
                             / (seconds * 1e3), launches=launches, **extra)
 
     engine16 = InferenceEngine(cfg, params, batch_size=BATCH, topk=5)
-    preds16, seconds, launches = stream(engine16, f16_batches, {"K1": wqf})
+    preds16, seconds, launches = stream(engine16, f16_batches,
+                                        {"K1": K1_KERNELS})
     img, qs, qlen = engine16._to_device(
         [engine16._to_f16(f16_store.gather(id_batches[0], np.float16)),
          *engine16._question_args(ques[spans[0]], None)])
@@ -2726,7 +2767,8 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
 
     engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5,
                              input_dtype="int8")
-    preds8, seconds, launches = stream(engine, int8_batches, {"K1": wqf})
+    preds8, seconds, launches = stream(engine, int8_batches,
+                                       {"K1": K1_KERNELS})
     rows, scale = engine._to_device(list(store.gather_quantized(
         id_batches[0])))
     with torch.inference_mode():
@@ -2739,7 +2781,7 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
     for name, capacity in (("by_id_capacity_512", BANK_SMALL),
                            ("by_id_hit_rate_1", BANK_IMAGES)):
         cache = engine.attach_feature_cache(capacity, store.gather_quantized)
-        preds, seconds, launches = stream(engine, by_id, {"K1": wqf},
+        preds, seconds, launches = stream(engine, by_id, {"K1": K1_KERNELS},
                                           after_warm_up=cache.reset_stats)
         state = cache_state(cache)
         k1_launches += launches["K1"]
@@ -2759,8 +2801,8 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
             raise AssertionError(f"serve_bank: {name}'s answers are not "
                                  "bit-equal to the int8 feed's")
         if launches["K1"] != N_BATCHES:
-            raise AssertionError(f"serve_bank: K1 launched "
-                                 f"{launches['K1']} times in {N_BATCHES} "
+            raise AssertionError(f"serve_bank: K1 ran {launches['K1']} "
+                                 f"times on the card in {N_BATCHES} "
                                  "batches")
         if state["hits"] + state["misses"] != n_req or not same_as_cpu:
             raise AssertionError(f"serve_bank: {name}: hits + misses != "
@@ -2808,20 +2850,22 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
     del engine, cache, caches
     torch.cuda.empty_cache()
 
-    # hieCoAtten by id: K4 once a batch, bit-equal to its int8 feed
+    # hieCoAtten by id: K4 once a batch on the card, bit-equal to its
+    # int8 feed
     hie_cfg = Config(model_name="hieCoAtten")
     hie_params = hie_served_params(hie_cfg)
     engine = InferenceEngine(hie_cfg, hie_params, batch_size=BATCH, topk=5,
                              input_dtype="int8")
-    preds8, _, _ = stream(engine, int8_batches, {"K4": co})
+    preds8, _, _ = stream(engine, int8_batches, {"K4": K4_KERNELS})
     engine.attach_feature_cache(BANK_IMAGES, store.gather_quantized)
-    preds, seconds, launches = stream(engine, by_id, {"K4": co})
+    preds, seconds, launches = stream(engine, by_id, {"K4": K4_KERNELS})
     fields["hiecoatten_by_id"] = dict(
         launches=launches, qa_pairs_per_s=n_req / seconds,
         bit_equal_to_int8_feed=bit_equal(preds, preds8))
     if launches["K4"] != N_BATCHES or not bit_equal(preds, preds8):
-        raise AssertionError("serve_bank: hieCoAtten by id did not launch "
-                             "K4 once a batch, or is not its int8 feed's")
+        raise AssertionError("serve_bank: hieCoAtten by id did not run K4 "
+                             "once a batch on the card, or is not its "
+                             "int8 feed's")
     del engine
     torch.cuda.empty_cache()
 
@@ -2908,8 +2952,11 @@ def serve_http_phase(cfg: Config, params, store, ws: str, dev,
     forward's logits (the bit-equal share with ``predict_batch_by_id`` of a
     second engine on the same weights printed), bulk order kept (each item
     held against its own request), /healthz and /metrics counting the
-    requests and the bank's hits and misses, an unknown id 400, K1 launches
-    equal to the engine calls. Returns K1's launches."""
+    requests and the bank's hits and misses, an unknown id 400, K1's
+    kernels run on the card (a CUDA profile of the load) once an engine
+    call. Returns K1's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
     image_ids, ques = bank_traffic(cfg)
     n_req = len(ques)
     vocab, text = http_vocab(cfg)
@@ -2936,18 +2983,19 @@ def serve_http_phase(cfg: Config, params, store, ws: str, dev,
         torch.cuda.synchronize()
         service.bank.reset_stats()
         before = service.stats.snapshot()
-        wqf.launch_count = 0
         with open(spec_path, "w") as f:
             json.dump({"url": url, "items": items, "n_single": n_single,
                        "bulks": bulks, "clients": HTTP_CLIENTS}, f)
         # the clients run in a process of their own, as users' would: in
         # this one they would share the server's interpreter lock
-        subprocess.run([sys.executable, script, spec_path],
-                       check=True, timeout=900)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            subprocess.run([sys.executable, script, spec_path],
+                           check=True, timeout=900)
+            torch.cuda.synchronize()
         with open(spec_path + ".out") as f:
             load = json.load(f)
         out, seconds = load["out"], load["seconds"]
-        k1 = wqf.launch_count
+        k1 = device_launches(prof, {"K1": K1_KERNELS})["K1"]
         snap = service.stats.snapshot()
         bank = {"hits": service.bank.hits, "misses": service.bank.misses,
                 "evictions": service.bank.evictions}
@@ -3002,8 +3050,8 @@ def serve_http_phase(cfg: Config, params, store, ws: str, dev,
         raise AssertionError(f"serve_http: {n_flips} answers flip against "
                              "the engine's forward")
     if k1 != batches or batches < n_req // BATCH:
-        raise AssertionError(f"serve_http: K1 launched {k1} times in "
-                             f"{batches} engine calls")
+        raise AssertionError(f"serve_http: K1 ran {k1} times on the card "
+                             f"in {batches} engine calls")
     if bank["hits"] + bank["misses"] != n_req or \
             metric.get(f"vqa_device_bank_hits_total{label}") != bank["hits"]:
         raise AssertionError("serve_http: the bank's counters disagree")
@@ -3945,7 +3993,7 @@ def dp_serve_phase(cfg: Config, params, store, smi: str,
         device=[torch.device("cuda", 0)] * n if cards == 1 else None)
         for n in (1, replicas)}
     runs = {n: stream(e, lambda e=e: e.predict_stream(batches()),
-                      {"K1": wqf})
+                      {"K1": K1_KERNELS})
             for n, e in engines.items()}
     preds = {n: r[0] for n, r in runs.items()}
     equal = bit_equal(preds[replicas], preds[1])
@@ -4268,7 +4316,8 @@ def sharded_bank_serve_phase(cfg: Config, params, store_dir: str, smi: str,
                 runs[n] = stream(engine, lambda e=engine:
                                  e.predict_stream_by_id(
                                      (image_ids[s], ques[s], None)
-                                     for s in spans), {"K1": wqf},
+                                     for s in spans),
+                                 {"K1": K1_KERNELS},
                                  after_warm_up=cache.reset_stats)
                 states[n] = cache_state(cache)
                 states[n]["capacity"] = cache.capacity

@@ -21,3 +21,17 @@ def kernels_disabled() -> bool:
     every JAX dispatch reads it: when set, each kernel dispatch of the port
     takes the composed chain that the JAX dispatch takes instead."""
     return bool(os.environ.get("VQA_DISABLE_PALLAS"))
+
+
+# the environment switches the ops read at each call to pick a kernel's
+# route: the kill switch, K5 (``grid_fusion``), K7 (``attention``) and K2's
+# composed chain (``grid_fusion``)
+ROUTE_SWITCHES = ("VQA_DISABLE_PALLAS", "VQA_FORCE_PALLAS",
+                  "VQA_PALLAS_GLIMPSE", "VQA_COMPOSED_TRAIN_FUSION")
+
+
+def route_switches() -> tuple:
+    """Whether each of ``ROUTE_SWITCHES`` is set, as the ops read it now:
+    a forward captured once (``serve.BankGraph``) keeps the routes it was
+    captured under, so it is stale when this changes."""
+    return tuple(bool(os.environ.get(k)) for k in ROUTE_SWITCHES)

@@ -17,6 +17,12 @@ device or split over several.
   before the device finishes, so the host assembles batch t+1 while the
   device runs batch t; ``_collect`` is where the results are copied to the
   host, which waits for the device.
+- By id on one card the banked forward is a CUDA graph (``BankGraph``):
+  a batch's padded inputs go to its static buffers through pinned memory
+  without a wait, one replay runs the forward, and the top-k comes back
+  into pinned host memory behind an event, so the host builds batch t's
+  ``Prediction``s while the card runs batch t+1. The split engine, the
+  exported artifact, the per-request feed and the CPU run eagerly.
 - The device feature cache (``attach_feature_cache``,
   ``predict_batch_by_id``, ``predict_stream_by_id``): the int8 rows and f16
   scales of recently served images stay in device memory, and a request
@@ -46,16 +52,19 @@ device or split over several.
   (``utils/trace.py``), each batch under its own id: ``serve.dispatch``
   around a batch's dispatch, with ``serve.h2d`` (each copy to the device;
   counter ``serve.h2d_bytes``), ``bank.ensure`` and ``serve.launch`` (the
-  forward's launches) inside it; ``serve.collect`` around its collection,
-  with ``serve.result_wait`` (the copies back, which wait for the device)
-  inside it.
+  forward's launches, or the graph's replay) inside it; ``serve.collect``
+  around its collection, with ``serve.result_wait`` (the copies back, or
+  the wait for a replayed batch's event) inside it. Counters
+  ``serve.graph_captures`` and ``serve.graph_replays``: one a capture of
+  the graph (recaptures included), one a replayed batch.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -64,7 +73,10 @@ from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch import aot
 from vqa_attention_networks_tpu_torch.device import cuda_device
 from vqa_attention_networks_tpu_torch.models import get_model
-from vqa_attention_networks_tpu_torch.ops import kernels_disabled
+from vqa_attention_networks_tpu_torch.ops import (
+    kernels_disabled,
+    route_switches,
+)
 from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
 from vqa_attention_networks_tpu_torch.utils import trace
 from vqa_attention_networks_tpu_torch.weights import (
@@ -80,6 +92,24 @@ class Prediction:
     answer_id: int
     top_ids: np.ndarray  # [k]
     top_probs: np.ndarray  # [k]
+
+
+class TopK(NamedTuple):
+    """A dispatched shard's top-k: device tensors still to be copied to the
+    host, or (``done`` set) pinned host tensors that hold it once the event
+    ``done`` has fired."""
+    ids: torch.Tensor  # [b, k]
+    probs: torch.Tensor  # [b, k]
+    done: Optional[torch.cuda.Event] = None
+
+
+def _host_tensors(arrays) -> List[torch.Tensor]:
+    """Host arrays as tensors for a copy to the device, their bytes counted
+    under ``serve.h2d_bytes``."""
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if trace.recording():
+        trace.count("serve.h2d_bytes", sum(t.nbytes for t in host))
+    return host
 
 
 class DeviceFeatureCache:
@@ -106,12 +136,13 @@ class DeviceFeatureCache:
       the buffer is written again the host waits on the event recorded
       after that copy, so a copy still in flight never reads rows of the
       next batch.
-    - The uploads run on the current stream, the stream of the forward.
-      ``predict_stream_by_id`` keeps one batch in flight, and a slot that
-      batch still gathers from may be evicted and rewritten for the next
-      one: stream order puts the rewrite after the in-flight gather. An
-      upload moved to a side stream would have to wait on an event
-      recorded after the in-flight batch's gather.
+    - The uploads run on the current stream, the stream of the forward
+      and of ``BankGraph``'s replay. ``predict_stream_by_id`` keeps a
+      batch in flight, and a slot that batch still gathers from may be
+      evicted and rewritten for the next one: stream order puts the
+      rewrite after the in-flight gather. An upload moved to a side
+      stream would have to wait on an event recorded after the in-flight
+      batch's gather.
     - ``devices`` (N > 1, the split engine's replica devices; the port of
       JAX's ``mesh``): the slots split over the devices, capacity rounded
       up to a multiple of N, device i holding slots ``[i*C/N, (i+1)*C/N)``
@@ -289,6 +320,109 @@ class DeviceFeatureCache:
             return idx
 
 
+class BankGraph:
+    """The one-device banked forward (``aot.serving_forward_banked``) of an
+    engine, captured in a CUDA graph and replayed once a batch.
+
+    - The graph reads static device buffers (``inputs``: the slot indices
+      [B] int64, the questions [B, T] int32 and their lengths [B] int32)
+      and the bank's ``rows`` and ``scale``, which ``DeviceFeatureCache``
+      allocates once; its top-k ids and probabilities are static too.
+    - ``load`` copies a batch into ``inputs`` from pinned memory without
+      a wait, after the batch's miss uploads, on the current stream;
+      ``replay`` runs the graph there and copies the top-k into pinned host
+      tensors of that batch, then records an event after those copies.
+      Stream order keeps the next batch's copies from overwriting this
+      batch's inputs or outputs before it has used them, and PyTorch's
+      caching host allocator reuses a pinned block only once its copy ran.
+    - Captured on first use, and again where the graph would go stale: the
+      question length T changed, a switch of the kernels' routes was
+      flipped (``ops.route_switches``), or a parameter K1's layout is made
+      from was written (``MHBCoAtt._stage1_state``): the layout is made
+      again, at new addresses. The other families' graphs read their parameters
+      in place. Warm-up runs on a side stream first, as
+      ``torch.cuda.graphs`` requires, and lays K1's weights out there.
+    - ``captures`` and ``replays`` count what it did, as the cache counts
+      its hits.
+    """
+
+    WARMUP = 2  # forwards on a side stream before a capture
+
+    def __init__(self, fwd: Callable, model: torch.nn.Module,
+                 cache: DeviceFeatureCache, batch_size: int):
+        self._fwd = fwd
+        self._model = model
+        self._cache = cache
+        self.device = cache.device
+        self.batch_size = batch_size
+        self.inputs: Tuple[torch.Tensor, ...] = ()
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Tuple[torch.Tensor, ...] = ()
+        self._key: Optional[tuple] = None
+        self.captures = self.replays = 0
+
+    def _state(self, seq_len: int) -> tuple:
+        stage1 = getattr(self._model, "_stage1_state", None)
+        return (seq_len, route_switches(),
+                stage1() if stage1 is not None else None)
+
+    def stale(self, seq_len: int) -> bool:
+        return self._graph is None or self._state(seq_len) != self._key
+
+    def _forward(self):
+        idx, ques, qlen = self.inputs
+        with torch.inference_mode():
+            return self._fwd(self._model, self._cache.rows,
+                             self._cache.scale, idx, ques, qlen)
+
+    def capture(self, seq_len: int) -> None:
+        """(Re)capture the forward at question length ``seq_len``."""
+        dev = self.device
+        with torch.cuda.device(dev):
+            # no replay of the old graph in flight when its pool goes
+            torch.cuda.synchronize(dev)
+            self._graph, self._out = None, ()
+            b = self.batch_size
+            # valid until the first batch's copies: slot 0, pad tokens
+            self.inputs = (
+                torch.zeros(b, dtype=torch.int64, device=dev),
+                torch.zeros((b, seq_len), dtype=torch.int32, device=dev),
+                torch.ones(b, dtype=torch.int32, device=dev))
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    self._forward()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self._key = self._state(seq_len)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the HTTP server's other threads may launch
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._out = self._forward()
+        self._graph = graph
+        self.captures += 1
+
+    def load(self, host: Sequence[torch.Tensor]) -> None:
+        """Copy a batch's padded host tensors (slot indices, questions,
+        lengths) into ``inputs`` through pinned memory, without a wait."""
+        for dst, t in zip(self.inputs, host):
+            dst.copy_(t.pin_memory(), non_blocking=True)
+
+    def replay(self) -> TopK:
+        """Run the graph on what ``inputs`` hold -> its top-k in pinned
+        host memory, behind the event after their copies."""
+        self._graph.replay()
+        host = []
+        for t in self._out:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        self.replays += 1
+        return TopK(host[0], host[1], done)
+
+
 def trained_params(cfg: Config, directory: str):
     """The weights ``cli.train`` exported under ``directory``
     (``<model_dir>/<model_name>``, ``utils/checkpoint.load_weights``) as
@@ -371,6 +505,7 @@ class InferenceEngine:
             for d in self.devices]
         self.model = self.models[0]
         self._cache: Optional[DeviceFeatureCache] = None
+        self._graph: Optional[BankGraph] = None
         # batches dispatched and collected, in order: the ids of their
         # spans (utils/trace.py)
         self._dispatched = self._collected = 0
@@ -431,7 +566,9 @@ class InferenceEngine:
         store's ``gather_quantized``. Needs the int8 engine: the bank holds
         the quantized layout. Under ``data_parallel=N`` the bank is split
         over the N replicas' devices (capacity rounded up to a multiple of
-        N) and read through ``aot.serving_forward_banked_sharded``."""
+        N) and read through ``aot.serving_forward_banked_sharded``; on
+        one card the banked forward is captured in a ``BankGraph`` at the
+        first batch."""
         if self.input_dtype != "int8":
             raise ValueError(
                 "the device feature cache stores the quantized layout — "
@@ -455,6 +592,10 @@ class InferenceEngine:
             aot.serving_forward_banked_sharded(self.cfg, self.topk)
             if self.data_parallel > 1
             else aot.serving_forward_banked(self.cfg, self.topk))
+        self._graph = (BankGraph(self._fwd_bank, self.model, self._cache,
+                                 self.batch_size)
+                       if self.device.type == "cuda"
+                       and self.data_parallel == 1 else None)
         return self._cache
 
     def _pad(self, arr: np.ndarray, fill=0) -> Tuple[np.ndarray, int]:
@@ -516,10 +657,7 @@ class InferenceEngine:
     def _to_device(self, arrays, device=None) -> list:
         device = self.device if device is None else device
         with trace.span("serve.h2d"):
-            host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-            if trace.recording():
-                trace.count("serve.h2d_bytes", sum(t.nbytes for t in host))
-            return [t.to(device) for t in host]
+            return [t.to(device) for t in _host_tensors(arrays)]
 
     def _dispatch(self, image_features, questions, ques_length,
                   feature_scale):
@@ -537,7 +675,7 @@ class InferenceEngine:
                 args = self._to_device(
                     [a[i * shard:(i + 1) * shard] for a in arrays], device)
                 with torch.inference_mode(), trace.span("serve.launch"):
-                    handles.append(self._fwd(model, *args))
+                    handles.append(TopK(*self._fwd(model, *args)))
             return handles, n
 
     def _dispatch_by_id(self, image_ids, questions, ques_length):
@@ -549,6 +687,8 @@ class InferenceEngine:
         self._dispatched += 1
         with trace.span("serve.dispatch", self._dispatched):
             arrays = self._question_args(questions, ques_length)
+            if self._graph is not None:
+                return self._replay_by_id(image_ids, arrays)
             shard = self.batch_size // self.data_parallel
             args = [self._to_device([a[i * shard:(i + 1) * shard]
                                      for a in arrays], device)
@@ -562,15 +702,35 @@ class InferenceEngine:
                        for i, device in enumerate(self.devices)]
                 with torch.inference_mode(), trace.span("serve.launch"):
                     if self.data_parallel > 1:
-                        handles = self._fwd_bank(
+                        handles = [TopK(*h) for h in self._fwd_bank(
                             self.models, self._cache.blocks,
                             self._cache.scale_blocks, idx,
-                            [a[0] for a in args], [a[1] for a in args])
+                            [a[0] for a in args], [a[1] for a in args])]
                     else:
-                        handles = [self._fwd_bank(
+                        handles = [TopK(*self._fwd_bank(
                             self.model, self._cache.rows, self._cache.scale,
-                            idx[0], *args[0])]
+                            idx[0], *args[0]))]
             return handles, n
+
+    def _replay_by_id(self, image_ids, arrays):
+        """``_dispatch_by_id`` through the graph: the slots, then the
+        copies into its inputs, the replay and the copies out, all under
+        the bank's lock (another thread's batch must not write the static
+        buffers in between). -> ([its ``TopK``], n)."""
+        graph = self._graph
+        with self._bank_lock:
+            idx = self._cache.ensure(image_ids, self._fetch)
+            idx, n = self._pad(idx.astype(np.int64))
+            seq_len = arrays[0].shape[1]
+            if graph.stale(seq_len):
+                graph.capture(seq_len)
+                trace.count("serve.graph_captures", 1)
+            with trace.span("serve.h2d"):
+                graph.load(_host_tensors([idx, *arrays]))
+            with trace.span("serve.launch"):
+                handle = graph.replay()
+            trace.count("serve.graph_replays", 1)
+        return [handle], n
 
     def predict_batch_by_id(
         self,
@@ -589,8 +749,10 @@ class InferenceEngine:
                                 Optional[np.ndarray]]],
     ) -> Iterator[List[Prediction]]:
         """``predict_stream`` over (image_ids, questions, qlen) items
-        served from the device bank, one batch in flight: a batch's miss
-        uploads are enqueued behind the in-flight batch's forward."""
+        served from the device bank: batch t+1's miss uploads, copies in,
+        forward (on one card a replay) and copies out are enqueued behind
+        batch t's before t is collected, so the device runs t+1 while the
+        host builds t's ``Prediction``s."""
         pending = None
         for image_ids, questions, ques_length in batches:
             handles = self._dispatch_by_id(image_ids, questions, ques_length)
@@ -630,13 +792,20 @@ class InferenceEngine:
 
     def _collect(self, handles, n: int) -> List[Prediction]:
         """The top-k of the oldest batch dispatched and not yet collected,
-        copied to the host (which waits for the device there)."""
+        on the host. A handle of device tensors is copied here, behind
+        whatever the stream holds (the next batch's forward too, once it
+        is dispatched); a replayed batch's pinned tensors are read once the
+        event after their copies has fired, which waits for that batch
+        alone."""
         self._collected += 1
         with trace.span("serve.collect", self._collected):
             with trace.span("serve.result_wait"):
-                top_i = np.concatenate([h[0].cpu().numpy()
+                for h in handles:
+                    if h.done is not None:
+                        h.done.synchronize()
+                top_i = np.concatenate([h.ids.cpu().numpy()
                                         for h in handles])[:n]
-                top_p = np.concatenate([h[1].cpu().numpy()
+                top_p = np.concatenate([h.probs.cpu().numpy()
                                         for h in handles])[:n]
             return [Prediction(int(top_i[i, 0]), top_i[i], top_p[i])
                     for i in range(n)]
