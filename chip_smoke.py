@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N   # phases 33-37 alone over N cards
+    python3 chip_smoke.py --mcan      # phase 38 alone
 
 Phases, one line each (a failing phase raises and the exit code is not 0):
 
@@ -284,6 +285,21 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     191 (rounded up to 192: evictions) and 256 (warm): answers bit-equal
     to one replica's cache, K1 once a shard, the counts and slots those of
     the same ids through a cache on the CPU;
+38. ``mcan`` (after phase 32, on phase 28's int8 store): N1 (MCAN's fused
+    residual + LayerNorm, ``ops/mcan_norm.py``) against its composed form
+    at MCAN-large's three shapes at N = 256 (the grid, [50,176, 1,024]; the
+    words, [3,584, 1,024]; the head, [256, 2,048]): within one bf16 ulp +
+    2^-16 (``n1_within``), under 1% of outputs differing, bit-equal
+    reruns; on rows of a spread of ~1e-3, where eps is not negligible, the
+    same, and a control: a norm with eps under the root must be rejected
+    on most outputs; N1 and its composed form timed at the grid's shape.
+    Then MCAN-large (``port_bench/configs/mcan_large.json``, random
+    weights) served by id from the device feature cache
+    (``predict_stream_by_id``, BANK_IMAGES images, 8 batches of 256)
+    beside the per-request int8 feed on the same requests. Gates: by id
+    bit-equal to the int8 feed; N1's kernel 31 times a batch on the card
+    in the CUDA profile of each measured pass (``stream``; by id from the
+    replays of the engine's CUDA graph, one a batch);
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -291,7 +307,8 @@ card's peak rate for their type, from this run's shapes; K2's and K3's
 d_img with the bare product's library time), nvidia-smi's
 line, and as the last line ``{"ok": true, "device": {...}}``. ``--cards N``
 runs phases 33-37 alone with a rank and a replica a card over NCCL (phase
-35 at (N/2, 2)). A switch
+35 at (N/2, 2)); ``--mcan`` runs phase 38 alone on a bank of its own and
+prints N1's line of the kernels. A switch
 (``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``) is set only inside the
 phase that needs it. With no card it exits non-zero before phase 2.
 """
@@ -342,6 +359,7 @@ from vqa_attention_networks_tpu_torch.ops import coattention as co
 from vqa_attention_networks_tpu_torch.ops import fusion
 from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
 from vqa_attention_networks_tpu_torch.ops import lstm as k8
+from vqa_attention_networks_tpu_torch.ops import mcan_norm
 from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
@@ -4354,6 +4372,201 @@ def sharded_bank_serve_phase(cfg: Config, params, store_dir: str, smi: str,
     return k1
 
 
+def kernel_entry(name, source, replaces, n_launches, err, run, bnd,
+                 library_ms=None) -> dict:
+    """A kernel's entry of the kernels line. library_ms: one PyTorch call
+    beside the kernel: K8's computes its function (torch.nn.LSTM); K2's
+    and K3's d_img the bare product over the operand, for information
+    (K3's without the wq build)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n_launches,
+            "max_abs_err": err, "ms": run[0], "plain_ms": run[1],
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": library_ms}
+
+
+# N1, MCAN's fused residual + LayerNorm (phase 38): the kernel's name in a
+# CUDA profile (both of its template instances), its launches in one
+# MCAN forward (12 over the words, 18 over the grid, 1 in the head), and
+# MCAN-large's three norm shapes at N = BATCH
+N1_SOURCE = "vqa_attention_networks_tpu_torch/csrc/mcan_layernorm.cu"
+N1_REPLACES = ("none: the composed add_layernorm_composed "
+               "(vqa_attention_networks_tpu_torch/ops/mcan_norm.py)")
+N1_KERNELS = ("add_layernorm_kernel",)
+N1_PER_FORWARD = 31
+N1_SHAPES = {"grid": (BATCH * 196, 1024), "words": (BATCH * 14, 1024),
+             "head": (BATCH, 2048)}
+N1_MAX_DIFFERING = 0.01
+MCAN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "port_bench", "configs", "mcan_large.json")
+
+
+def n1_inputs(rows: int, d: int, seed: int, dev, spread: float = 1.0):
+    """bf16 x and r of the given spread, f32 gains about 1 and biases."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, r = (spread * torch.randn(rows, d, generator=g, device=dev)
+            for _ in range(2))
+    w = 1.0 + 0.5 * torch.randn(d, generator=g, device=dev)
+    b = 0.1 * torch.randn(d, generator=g, device=dev)
+    return x.to(torch.bfloat16), r.to(torch.bfloat16), w, b
+
+
+def n1_within(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """N1 against its composed form: both round z = x + r to bf16 and keep
+    the statistics in f32, so they differ in the order of the f32 sums
+    alone: one bf16 ulp of the output, and 2^-16 besides near 0, where the
+    output is the difference of terms of order 1 (the card test's
+    tolerance, ``tests/test_torch_port_mcan.py``)."""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    return (got - want).abs() <= ulp + 2.0 ** -16
+
+
+def n1_eps_under_the_root(x, r, w, b) -> torch.Tensor:
+    """The control: the unbiased variance with eps under the root, what
+    MCAN's norm is not."""
+    z = (x + r).float()
+    y = w * (z - z.mean(-1, keepdim=True)) / torch.sqrt(
+        z.var(-1, keepdim=True) + mcan_norm.EPS) + b
+    return y.to(x.dtype)
+
+
+def n1_check(dev) -> float:
+    """N1 against its composed form at MCAN-large's three shapes and on
+    rows of a tiny spread, with the eps control there -> max |diff|."""
+    cases = {name: (rows, d, 1.0) for name, (rows, d) in N1_SHAPES.items()}
+    cases["tiny_spread"] = (N1_SHAPES["words"][0], 1024, 1e-3)
+    max_err = 0.0
+    for i, (name, (rows, d, spread)) in enumerate(cases.items()):
+        x, r, w, b = n1_inputs(rows, d, 38 + i, dev, spread)
+        got = mcan_norm.add_layernorm(x, r, w, b)
+        again = mcan_norm.add_layernorm(x, r, w, b)
+        want = mcan_norm.add_layernorm_composed(x, r, w, b)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        ok = bool(n1_within(got, want).all())
+        differing = float((diff > 0).float().mean())
+        fields = {}
+        if spread < 1.0:
+            fields["eps_under_root_rejected_share"] = float(
+                (~n1_within(n1_eps_under_the_root(x, r, w, b), want))
+                .float().mean())
+        say("n1_check", case=name, rows=rows, d=d, spread=spread,
+            max_abs_diff=float(diff.max()), differing_share=differing,
+            within_tolerance=ok, rerun_bit_equal=bool(torch.equal(got,
+                                                                  again)),
+            finite=bool(torch.isfinite(got.float()).all()), **fields)
+        if not ok or differing >= N1_MAX_DIFFERING or \
+                not torch.isfinite(got.float()).all():
+            raise AssertionError(f"N1 disagrees with its composed form at "
+                                 f"{name} [{rows}, {d}]")
+        if not torch.equal(got, again):
+            raise AssertionError("N1 is not deterministic across reruns")
+        if fields and fields["eps_under_root_rejected_share"] < 0.5:
+            raise AssertionError("n1_check: a norm with eps under the root "
+                                 "passes the tolerance")
+        max_err = max(max_err, float(diff.max()))
+        del x, r, got, again, want, diff
+    return max_err
+
+
+def n1_time(dev) -> tuple:
+    """N1 and its composed form at the grid's shape (CUDA events,
+    interleaved) -> (times, bound): the bound reads x and r and writes the
+    output once, and the parameters, at HBM_BYTES_PER_S."""
+    x, r, w, b = n1_inputs(*N1_SHAPES["grid"], 38, dev)
+    run = interleaved_ms(lambda: mcan_norm.add_layernorm(x, r, w, b),
+                         lambda: mcan_norm.add_layernorm_composed(x, r, w, b),
+                         10)
+    return run, bound(nbytes(x, r, w, b) + x.numel() * x.element_size(), {})
+
+
+def mcan_serve(stores: tuple, dev, smi: str) -> int:
+    """MCAN-large served by id from the device feature cache beside the
+    per-request int8 feed, on phase 28's requests -> N1's launches in both
+    measured passes. Gates: by id bit-equal to the int8 feed, N1 31 times
+    a batch on the card in each, and by id one graph replay a batch."""
+    with open(MCAN_CONFIG) as f:
+        cfg = Config(**json.load(f)["fields"]).validate()
+    params = init_params(cfg, torch.Generator().manual_seed(38))
+    store = stores[1]
+    image_ids, ques = bank_traffic(cfg)
+    spans = [slice(s, s + BATCH) for s in range(0, len(ques), BATCH)]
+    engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5,
+                             input_dtype="int8")
+
+    def int8_batches():
+        def items():
+            for s in spans:
+                rows, scale = store.gather_quantized(image_ids[s])
+                yield rows, ques[s], None, scale
+
+        return engine.predict_stream(items())
+
+    def by_id():
+        return engine.predict_stream_by_id(
+            (image_ids[s], ques[s], None) for s in spans)
+
+    preds8, feed_s, feed = stream(engine, int8_batches, {"N1": N1_KERNELS})
+    engine.attach_feature_cache(BANK_IMAGES, store.gather_quantized)
+    warm = []
+    preds, seconds, launches = stream(
+        engine, by_id, {"N1": N1_KERNELS},
+        after_warm_up=lambda: warm.append(engine._graph.replays))
+    replays = engine._graph.replays - warm[0]
+    want = N1_PER_FORWARD * N_BATCHES
+    same = bit_equal(preds, preds8)
+    say("mcan_serve", model="mcan", config="mcan_large", requests=len(ques),
+        batch=BATCH, images=BANK_IMAGES, n1_launches_int8_feed=feed["N1"],
+        n1_launches_by_id=launches["N1"], n1_launches_expected=want,
+        graph_replays=replays, bit_equal_to_int8_feed=same,
+        int8_feed_qa_pairs_per_s=len(ques) / feed_s,
+        by_id_qa_pairs_per_s=len(ques) / seconds, card=smi)
+    if feed["N1"] != want or launches["N1"] != want:
+        raise AssertionError(f"mcan_serve: N1 ran {feed['N1']} (int8 feed) "
+                             f"and {launches['N1']} (by id) times on the "
+                             f"card, not {N1_PER_FORWARD} a batch")
+    if replays != N_BATCHES or not same:
+        raise AssertionError("mcan_serve: by id did not replay the graph "
+                             "once a batch, or is not the int8 feed's")
+    del engine
+    torch.cuda.empty_cache()
+    return feed["N1"] + launches["N1"]
+
+
+def mcan_phase(stores: tuple, dev, smi: str) -> dict:
+    """Phase 38: N1's check and times, then MCAN-large served by id ->
+    N1's kernels-line fields (launches, err, time, bound)."""
+    err = n1_check(dev)
+    run, bnd = n1_time(dev)
+    say("time", kernel="N1", shape=list(N1_SHAPES["grid"]), kernel_ms=run[0],
+        plain_ms=run[1], kernel_runs_ms=run[2], plain_runs_ms=run[3],
+        bound_ms=bnd[0], bound_by=bnd[1], card=smi)
+    torch.cuda.empty_cache()
+    return {"err": err, "time": run, "bound": bnd,
+            "launches": mcan_serve(stores, dev, smi)}
+
+
+def mcan_main() -> None:
+    """``chip_smoke.py --mcan``: phase 38 alone, N1 built alone, on a bank
+    of BANK_IMAGES images of its own; prints the phase's lines, the
+    kernels line with N1's entry, nvidia-smi's line and the last line."""
+    card_name, smi = card()
+    dev = torch.device("cuda", 0)
+    _, seconds, _ = _build.build("mcan_layernorm")
+    say("build", kernel="mcan_layernorm", seconds=round(seconds, 2))
+    with tempfile.TemporaryDirectory() as ws:
+        n1 = mcan_phase(bank_stores(ws, Config()), dev, smi)
+    print(json.dumps({"kernels": [kernel_entry(
+        "mcan_add_layernorm", N1_SOURCE, N1_REPLACES, n1["launches"],
+        n1["err"], n1["time"], n1["bound"])]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card_name,
+        "count": torch.cuda.device_count()}}))
+
+
 def cards_main(cards: int) -> None:
     """``chip_smoke.py --cards N``: phases 33-37 alone over N cards of one
     host, a rank and a replica a card (``dp_train_phase``,
@@ -4398,7 +4611,8 @@ def main() -> None:
 
     # phase 2: build, one nvcc per source, all started together
     names = ("stage1_coattention", "train_fusion", "coattention",
-             "glimpse_attention", "pooled_fusion", "lstm_scan")
+             "glimpse_attention", "pooled_fusion", "lstm_scan",
+             "mcan_layernorm")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds, log) in zip(names, built):
@@ -4814,30 +5028,27 @@ def main() -> None:
                                      smi).items():
             launches[key] += n
         say("artifact_time", seconds=time.perf_counter() - t0)
+
+        # phase 38: MCAN-large: N1 against its composed form, then served
+        # by id (N1)
+        t0 = time.perf_counter()
+        n1 = mcan_phase(stores, dev, smi)
+        launches["N1"] = n1["launches"]
+        say("mcan_time", seconds=time.perf_counter() - t0)
         del stores
 
-    def entry(name, source, replaces, n_launches, err, run, bnd,
-              library_ms=None) -> dict:
-        # library_ms: one PyTorch call beside the kernel: K8's computes its
-        # function (torch.nn.LSTM); K2's and K3's d_img the bare product
-        # over the operand, for information (K3's without the wq build)
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n_launches,
-                "max_abs_err": err, "ms": run[0], "plain_ms": run[1],
-                "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": library_ms}
-
-    kernels = [entry("stage1_coattention", K1_SOURCE, K1_REPLACES,
-                     launches["K1"], max_err, times[BATCH], k1_bound)]
+    kernels = [kernel_entry("stage1_coattention", K1_SOURCE, K1_REPLACES,
+                            launches["K1"], max_err, times[BATCH],
+                            k1_bound)]
     for launch, replaces in K2_REPLACES.items():
-        kernels.append(entry(
+        kernels.append(kernel_entry(
             f"train_fusion_{launch}", K2_SOURCE, replaces,
             train_launches["K2"][launch],
             max(k2_err["d_w"], k2_err["d_b"], k2_err["d_b_partials"])
             if launch == "d_w" else k2_err[launch], k2_times[launch],
             k2_bounds[launch], k2_library.get(launch)))
     for launch, replaces in K3_REPLACES.items():
-        kernels.append(entry(
+        kernels.append(kernel_entry(
             f"pooled_fusion_{launch}", K3_SOURCE, replaces,
             train_launches["K3"][launch],
             max(k3_err["d_w"], k3_err["d_b"], k3_err["d_q"])
@@ -4845,18 +5056,21 @@ def main() -> None:
             if launch == "g_pooled" else k3_err[launch], k3_times[launch],
             k3_bounds[launch], k3_library.get(launch)))
     kernels += [
-        entry("coattention", K4_SOURCE, K4_REPLACES, launches["K4"], k4_err,
-              k4_time, k4_bound),
-        entry("inference_fusion", K5_SOURCE, K5_REPLACES, launches["K5"],
-              k5_err, k5_time, k5_bound),
+        kernel_entry("coattention", K4_SOURCE, K4_REPLACES, launches["K4"],
+                     k4_err, k4_time, k4_bound),
+        kernel_entry("inference_fusion", K5_SOURCE, K5_REPLACES,
+                     launches["K5"], k5_err, k5_time, k5_bound),
         # both call shapes launch it; ms and bound at the co-attention's
-        entry("glimpse_attention", K7_SOURCE, K7_REPLACES, launches["K7"],
-              k7_err, k7_times["co_attention"], k7_bounds["co_attention"]),
-        entry("wq_grid_fusion", K6_SOURCE, K6_REPLACES, launches["K6"],
-              k6_err, k6_times, k6_bound),
+        kernel_entry("glimpse_attention", K7_SOURCE, K7_REPLACES,
+                     launches["K7"], k7_err, k7_times["co_attention"],
+                     k7_bounds["co_attention"]),
+        kernel_entry("wq_grid_fusion", K6_SOURCE, K6_REPLACES,
+                     launches["K6"], k6_err, k6_times, k6_bound),
         # one call of the scan: one persistent launch
-        entry("lstm_scan", K8_SOURCE, K8_REPLACES, launches["K8"], k8_err,
-              k8_times, k8_bound, library_ms=k8_library_ms),
+        kernel_entry("lstm_scan", K8_SOURCE, K8_REPLACES, launches["K8"],
+                     k8_err, k8_times, k8_bound, library_ms=k8_library_ms),
+        kernel_entry("mcan_add_layernorm", N1_SOURCE, N1_REPLACES,
+                     launches["N1"], n1["err"], n1["time"], n1["bound"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -4871,5 +5085,7 @@ if __name__ == "__main__":
         dp_rank(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--cards"]:
         cards_main(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--mcan"]:
+        mcan_main()
     else:
         main()

@@ -1,8 +1,8 @@
 """The port's exported serving artifact (``vqa_attention_networks_tpu_torch/
 aot.py``, ``serve.InferenceEngine(artifact_dir=...)``,
 ``cli/export_serving.py`` and ``cli.serve --aot_artifact``) against the
-eager engine and the JAX package's artifact, on the CPU, and the four
-custom ops the exported graph calls (K1, K4, K5, K7).
+eager engine and the JAX package's artifact, on the CPU, and the five
+custom ops the exported graph calls (K1, K4, K5, K7, MCAN's norm).
 
 - The artifact's program and the eager engine run the same ops on the same
   values: their answers are bit-equal, for the f16 and the int8 feed.
@@ -42,6 +42,7 @@ from vqa_attention_networks_tpu_torch.cli import serve as serve_cli
 from vqa_attention_networks_tpu_torch.ops import attention as att
 from vqa_attention_networks_tpu_torch.ops import coattention as co
 from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
+from vqa_attention_networks_tpu_torch.ops import mcan_norm
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
 from vqa_attention_networks_tpu_torch.train.solver import init_params
@@ -347,12 +348,20 @@ def _k7_args(g):
         x, w1, b1, w2, b2, v, uniform_quirk=True)
 
 
+def _norm_args(g):
+    x = torch.randn(2, 5, 16, generator=g).to(torch.bfloat16)
+    r = torch.randn(2, 5, 16, generator=g).to(torch.bfloat16)
+    w, b = torch.randn(16, generator=g), torch.randn(16, generator=g)
+    return (x, r, w, b, 1e-6), mcan_norm.add_layernorm_composed(x, r, w, b)
+
+
 @pytest.mark.parametrize("op,make", [
     (wqf.stage1_coattention_op, _k1_args),
     (co.coattention_core_op, _k4_args),
     (gf.inference_fusion_op, _k5_args),
     (att.glimpse_attention_op, _k7_args),
-], ids=["K1", "K4", "K5", "K7"])
+    (mcan_norm.add_layernorm_op, _norm_args),
+], ids=["K1", "K4", "K5", "K7", "mcan_norm"])
 def test_custom_op_passes_opcheck_and_is_its_plain_version(op, make):
     args, plain = make(torch.Generator().manual_seed(0))
     torch.library.opcheck(op, args)

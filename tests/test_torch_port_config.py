@@ -59,7 +59,13 @@ def test_config_validation_errors_match(kw):
         jax_config.Config(**kw).validate()
     with pytest.raises(ValueError) as got:
         port_config.Config(**kw).validate()
-    assert str(got.value) == str(want.value)
+    expected = str(want.value)
+    if kw.get("model_name") == "nope":
+        # the port lists its own families too (PORT_MODEL_NAMES: the JAX
+        # package's eight, then mcan)
+        expected = expected.replace(str(jax_config.MODEL_NAMES),
+                                    str(port_config.PORT_MODEL_NAMES))
+    assert str(got.value) == expected
 
 
 def test_valid_configs_pass_in_both():

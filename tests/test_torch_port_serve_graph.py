@@ -19,8 +19,8 @@ the graph's top-k is bit-equal to ``aot.serving_forward_banked`` called
 eagerly on the same bank and inputs, over full batches, a partial one,
 batches with misses, two batches in flight through
 ``predict_stream_by_id``, and a parameter written in place (mhb_coAtt
-captures again; hieCoAtten reads it in place). Every family captures and
-agrees. Run them there with ``python -m pytest
+captures again; hieCoAtten reads it in place). Every family, mcan too,
+captures and agrees. Run them there with ``python -m pytest
 tests/test_torch_port_serve_graph.py -q --noconftest``.
 
 This file imports neither JAX nor the JAX package.
@@ -34,7 +34,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from vqa_attention_networks_tpu_torch import aot
-from vqa_attention_networks_tpu_torch.config import MODEL_NAMES, Config
+from vqa_attention_networks_tpu_torch.config import PORT_MODEL_NAMES, Config
 from vqa_attention_networks_tpu_torch.data.feature_store import (
     quantize_features,
 )
@@ -327,7 +327,7 @@ def test_graph_is_bit_equal_to_the_eager_banked_forward(card, family):
     assert trace.counters()["serve.graph_replays"] == 1
 
 
-@pytest.mark.parametrize("family", MODEL_NAMES)
+@pytest.mark.parametrize("family", PORT_MODEL_NAMES)
 def test_every_family_serves_from_the_graph(card, family):
     engine = card_engine(family)
     cfg = engine.cfg

@@ -205,9 +205,9 @@ def test_hiecoatten_training_names_its_roadmap_item(data):
     parallelism (item 10b, refused until it was ported) needs its ranks
     too, as for every family."""
     from vqa_attention_networks_tpu_torch.models import TRAINABLE
-    from vqa_attention_networks_tpu_torch.config import MODEL_NAMES
+    from vqa_attention_networks_tpu_torch.config import PORT_MODEL_NAMES
 
-    assert TRAINABLE == MODEL_NAMES
+    assert TRAINABLE == PORT_MODEL_NAMES
     qa, store = data
     cfg = small_cfg(qa, model_name="hieCoAtten", **WIDTHS)
     for accum in (1, 2):

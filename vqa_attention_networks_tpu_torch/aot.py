@@ -22,7 +22,8 @@ without copying the 42 MB layout on every call, so the program takes
 the buffers as inputs and the engine lays them out once, after it loads
 the weights.
 
-**The kernels.** K1, K4, K5 and K7 are ``torch.library`` custom ops
+**The kernels.** K1, K4, K5, K7 and MCAN's residual + LayerNorm are
+``torch.library`` custom ops
 (``torch.ops.vqa.*``, ``ops/``), each with a CPU implementation (its plain
 version), a CUDA one (the hand-written kernel) and a fake one (its output
 shapes). The exported graph calls the ops; which implementation runs is
@@ -30,8 +31,8 @@ decided when the program runs, by the device of its inputs. The switches
 that choose whether an op is called at all (``VQA_DISABLE_PALLAS``,
 ``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``, ``Config.fast_path``) are
 read when the graph is traced, as JAX reads them at trace time.
-``fast_path_traced`` in the metadata says whether the graph calls K1 or K4
-(``FAST_PATH_OPS``).
+``fast_path_traced`` in the metadata says whether the graph calls K1, K4
+or MCAN's norm (``FAST_PATH_OPS``).
 
 JAX's ``platforms`` argument and its ``tpu_lowering`` context are not
 ported: they let a build box without a TPU trace the TPU's graph. Here
@@ -58,12 +59,13 @@ _PROGRAM = "serving.pt2"
 _META = "serving.json"
 
 # families whose bf16 serving forward calls a kernel: mhb_coAtt K1
-# (models/mhb_coatt.py), hieCoAtten K4 (models/hiecoatten.py); the others
-# serve the composed graph by design, so fast_path_traced=False is
-# expected for them
-FAST_PATH_MODELS = frozenset({"mhb_coAtt", "hieCoAtten"})
+# (models/mhb_coatt.py), hieCoAtten K4 (models/hiecoatten.py), mcan its
+# residual + LayerNorm (models/mcan.py); the others serve the composed
+# graph by design, so fast_path_traced=False is expected for them
+FAST_PATH_MODELS = frozenset({"mhb_coAtt", "hieCoAtten", "mcan"})
 # the ops whose presence in the graph sets fast_path_traced
-FAST_PATH_OPS = ("vqa.stage1_coattention", "vqa.coattention_core")
+FAST_PATH_OPS = ("vqa.stage1_coattention", "vqa.coattention_core",
+                 "vqa.mcan_add_layernorm")
 
 
 def serving_forward(cfg: Config, topk: int,
@@ -274,7 +276,8 @@ def save_serving_artifact(out_dir: str, cfg: Config, params,
         "compute_dtype": cfg.compute_dtype,
         # the device the graph's own tensors are made on
         "device": device.type,
-        # whether the graph calls K1 or K4: the fast path was traced
+        # whether the graph calls K1, K4 or MCAN's norm: the fast path
+        # was traced
         "fast_path_traced": any(op.startswith(FAST_PATH_OPS) for op in ops),
         "kernel_ops": sorted(op for op in ops if op.startswith("vqa.")),
         "config": dataclasses.asdict(cfg),
@@ -295,6 +298,7 @@ def load_serving_artifact(artifact_dir: str) -> Tuple[Callable,
         attention,
         coattention,
         grid_fusion,
+        mcan_norm,
         wq_fusion,
     )
 

@@ -33,6 +33,18 @@ MODEL_NAMES = (
 # (the reference's train_models.py:30-33, solver.py:26-29).
 SOFT_ANSWER_MODELS = ("mhb", "mhb_coAtt")
 
+# The families the port has and the JAX package has not, after the shared
+# eight: MCAN-large (Yu et al., "Deep Modular Co-Attention Networks for
+# VQA", arXiv:1906.10770; ``models/mcan.py``). ``MODEL_NAMES`` stays the JAX
+# package's tuple, so a configuration of the eight means the same run in
+# both; ``Config.validate``, the registry and the Solver take these too.
+PORT_MODEL_NAMES = MODEL_NAMES + ("mcan",)
+
+# Models trained on VQA scores (min(annotator count, 4) -> 0, .3, .6, .9,
+# 1) under a summed sigmoid BCE (``train/losses.vqa_score_bce``): MCAN's
+# recipe. They read the soft answers too.
+SCORE_MODELS = ("mcan",)
+
 
 @dataclass(frozen=True)
 class Config:
@@ -53,8 +65,13 @@ class Config:
     mfb_factor: int = 5
     mfb_out: int = 1000
 
-    # hieCoAtten / iBOWIMG / attentionNet embed width
+    # hieCoAtten / iBOWIMG / attentionNet embed width; mcan: the width of
+    # AttFlat's MLP (FLAT_MLP_SIZE, 512 in both published sizes)
     embed_size: int = 512
+    # attentionNet: its alternating attention layers; mcan: L, the depth of
+    # the encoder and of the decoder (6 each). mcan's head width (64), FFN
+    # width (4 x hidden_dim) and flat output (2 x hidden_dim) are fixed
+    # ratios of hidden_dim (its d), constants of models/mcan.py
     att_num: int = 6
 
     # --- image features ----------------------------------------------------
@@ -80,6 +97,8 @@ class Config:
 
     # dropout rates
     dropout_lstm: float = 0.3
+    # mcan: DROPOUT_R, every dropout of the model (attention maps, the
+    # residual branches, the FFN's and AttFlat's hidden layers)
     dropout_fusion: float = 0.1
     dropout_default: float = 0.5
 
@@ -141,7 +160,7 @@ class Config:
     def soft_answer(self) -> bool:
         # soft_bce consumes soft targets whatever the model
         return (
-            self.model_name in SOFT_ANSWER_MODELS
+            self.model_name in SOFT_ANSWER_MODELS + SCORE_MODELS
             or self.loss_override == "soft_bce"
         )
 
@@ -158,9 +177,10 @@ class Config:
         return dataclasses.replace(self, **kwargs)
 
     def validate(self) -> "Config":
-        if self.model_name not in MODEL_NAMES:
+        if self.model_name not in PORT_MODEL_NAMES:
             raise ValueError(
-                f"model {self.model_name!r} not supported; choose from {MODEL_NAMES}"
+                f"model {self.model_name!r} not supported; choose from "
+                f"{PORT_MODEL_NAMES}"
             )
         if self.img_feature_dim != 196:
             raise ValueError("img_feature_dim must be 196 (14x14 ResNet grid)")

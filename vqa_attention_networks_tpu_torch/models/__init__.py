@@ -1,6 +1,8 @@
 """Model registry (port of ``vqa_attention_networks_tpu/models/__init__.py``).
 
-All eight families are ported, and the Solver trains each of them. Every
+All eight families are ported, and MCAN besides (``models/mcan.py``),
+which the port has and the JAX package has not
+(``config.PORT_MODEL_NAMES``); the Solver trains each of them. Every
 family's ``forward(img, ques, ques_length=None, *, train, valid,
 generator, fusion_seed, reference_kernels, aux)`` takes the same arguments,
 the counterpart of the JAX ``apply`` signature: only MHB reads
@@ -8,10 +10,10 @@ the counterpart of the JAX ``apply`` signature: only MHB reads
 ``aux=True`` each returns (logits, aux) as ``apply`` does.
 """
 
-from vqa_attention_networks_tpu_torch.config import MODEL_NAMES
+from vqa_attention_networks_tpu_torch.config import PORT_MODEL_NAMES
 
 # the families the Solver trains
-TRAINABLE = MODEL_NAMES
+TRAINABLE = PORT_MODEL_NAMES
 
 
 def get_model(name: str):
@@ -48,5 +50,10 @@ def get_model(name: str):
         )
 
         return AttentionNet
-    raise ValueError(f"model {name!r} not supported; have {list(MODEL_NAMES)}")
+    if name == "mcan":
+        from vqa_attention_networks_tpu_torch.models.mcan import MCAN
+
+        return MCAN
+    raise ValueError(
+        f"model {name!r} not supported; have {list(PORT_MODEL_NAMES)}")
 

@@ -85,6 +85,10 @@ def embedding_init(generator: torch.Generator, vocab: int, dim: int) -> Params:
     return {"table": xavier_uniform(generator, (vocab, dim), dim, vocab)}
 
 
+def layernorm_init(dim: int) -> Params:
+    return {"w": torch.ones(dim), "b": torch.zeros(dim)}
+
+
 def batchnorm_init(dim: int) -> Params:
     return {"scale": torch.ones(dim), "bias": torch.zeros(dim),
             "mean": torch.zeros(dim), "var": torch.ones(dim)}
@@ -139,6 +143,18 @@ class LSTM(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return lstm(x, self.weight_ih, self.weight_hh, self.bias_ih,
                     self.bias_hh)
+
+
+class LayerNorm(nn.Module):
+    """MCAN's LayerNorm's parameters (mcan-vqa's ``a_2``, ``b_2``): the
+    gain ``weight`` and the ``bias``, leaves ``w`` and ``b`` of the tree,
+    neither transposed. A port-only layer (the JAX package has no MCAN);
+    ``ops/mcan_norm.py`` computes the norm."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
 
 
 class BatchNorm(nn.Module):

@@ -2,7 +2,8 @@
 ``vqa_attention_networks_tpu/train/losses.py``), with the same ``valid``
 mask: the pad rows of an epoch's last batch contribute nothing.
 
-Each loss is a sum over the valid rows divided by their count. A rank of a
+Each loss but MCAN's (``vqa_score_bce``, a sum) is a sum over the valid rows
+divided by their count. A rank of a
 data-parallel run holds a slice of the batch; it passes ``count``, the
 global batch's valid count (every rank holds the global ``valid`` on the
 host), and its loss is then its share of JAX's global mean, whatever the
@@ -15,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _denominator(valid: Optional[torch.Tensor], count: Optional[int],
@@ -76,6 +78,39 @@ def soft_bce(logits: torch.Tensor, soft_labels: torch.Tensor,
     if valid is not None:
         per_row = per_row * valid.to(per_row.dtype)
     return per_row.sum() / n
+
+
+# VQA's accuracy of an answer given by c annotators, mcan-vqa's get_score:
+# 0, 0.3, 0.6, 0.9, then 1 for four or more
+VQA_SCORES = (0.0, 0.3, 0.6, 0.9, 1.0)
+# annotators a question where a split gives no in-vocab count (VQA's ten)
+ANNOTATORS = 10
+
+
+def vqa_scores(soft: torch.Tensor,
+               soft_n: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each answer's VQA score [N, A] from the soft answers [N, A] (each
+    answer's share of the in-vocab annotators) and their count ``soft_n``
+    [N] (``ANNOTATORS`` where None): ``get_score(rint(share * n))``."""
+    n = (torch.full((soft.shape[0],), float(ANNOTATORS), device=soft.device)
+         if soft_n is None else soft_n.to(torch.float32))
+    count = torch.round(soft.float() * n[:, None]).clamp(0, 4).long()
+    table = torch.tensor(VQA_SCORES, dtype=torch.float32, device=soft.device)
+    return table[count]
+
+
+def vqa_score_bce(logits: torch.Tensor, scores: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None,
+                  count: Optional[int] = None) -> torch.Tensor:
+    """MCAN's loss (mcan-vqa ``train_engine``: ``BCELoss(reduction='sum')``
+    of the sigmoid): ``BCEWithLogits(logits, scores)`` summed over the
+    answers and the valid rows, in f32. A sum, so a data-parallel rank's
+    loss is its share of the global batch's without ``count``."""
+    elem = F.binary_cross_entropy_with_logits(
+        logits.float(), scores.float(), reduction="none")
+    if valid is not None:
+        elem = elem * valid[:, None].to(elem.dtype)
+    return elem.sum()
 
 
 def correct_count(logits: torch.Tensor, labels: torch.Tensor,

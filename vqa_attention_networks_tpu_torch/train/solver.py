@@ -2,7 +2,7 @@
 the train step, ``train()`` over epochs with checkpoints and early
 stopping, ``val()`` on one batch or over the whole split with its results
 files, and the persistence of ``save_checkpoint`` / ``restore`` /
-``save``, for all eight families (``TRAINABLE``), at either
+``save``, for all eight families and MCAN (``TRAINABLE``), at either
 ``dropout_site``, on one device or data-parallel over the ranks of a
 process group.
 
@@ -27,8 +27,9 @@ process group.
 - **The train step** (``solver.py:269-347``): the training forward (given
   the batch's ``ques_length``, which MHB reads, and its ``valid`` mask,
   which masks the pad rows out of a batch norm's statistics), the loss
-  with its ``valid`` mask (soft cross entropy, cross entropy, or
-  ``soft_bce`` under ``loss_override``), backward, Adam, then
+  with its ``valid`` mask (soft cross entropy, cross entropy,
+  ``soft_bce`` under ``loss_override``, or for MCAN its summed sigmoid BCE
+  over VQA scores, ``losses.vqa_score_bce``), backward, Adam, then
   ``merge_batch_stats``: the momentum-0.1 EMA of the step's batch-norm
   statistics into the layers' running buffers (``_merge_batch_stats``,
   ``solver.py:70-107``; a no-op for the families without batch norm). Its
@@ -154,7 +155,7 @@ from typing import (Any, Callable, Dict, Iterator, Mapping, Optional,
 import numpy as np
 import torch
 
-from vqa_attention_networks_tpu_torch.config import Config
+from vqa_attention_networks_tpu_torch.config import SCORE_MODELS, Config
 from vqa_attention_networks_tpu_torch.data.dataset import (
     Batch,
     VqaBatches,
@@ -170,6 +171,7 @@ from vqa_attention_networks_tpu_torch.models import (
     get_model,
     hiecoatten,
     ibowimg,
+    mcan,
     mfb,
     mhb_coatt,
     vis_lstm,
@@ -206,6 +208,8 @@ from vqa_attention_networks_tpu_torch.train.losses import (
     soft_cross_entropy,
     topk_correct_count,
     vqa_consensus_scores,
+    vqa_score_bce,
+    vqa_scores,
 )
 from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
 from vqa_attention_networks_tpu_torch.utils import trace
@@ -226,6 +230,7 @@ _INIT_PARAMS = {
     "visLstm": vis_lstm.init_params,
     "iBOWIMG": ibowimg.ibowimg_init_params,
     "attentionNet": ibowimg.attention_net_init_params,
+    "mcan": mcan.init_params,
 }
 BN_MOMENTUM = 0.1  # torch nn.BatchNorm1d's default
 
@@ -391,6 +396,11 @@ def mesh_shape(cfg: Config) -> Tuple[int, int]:
     model = cfg.model_parallel
     if model < 1:
         raise ValueError(f"model_parallel={model}: at least 1")
+    if model > 1 and cfg.model_name == "mcan":
+        raise ValueError(
+            f"model_parallel={model}: tensor parallelism splits the MFB "
+            "fusions' columns (mfb_out), and mcan has none; train mcan "
+            "with model_parallel=1")
     if not distributed.is_initialized():
         if cfg.data_parallel > 1 or model > 1:
             ranks = max(cfg.data_parallel, 1) * model
@@ -576,6 +586,8 @@ class Solver:
         the global batch's valid count, its denominator."""
         if self.cfg.loss_override == "soft_bce":
             return soft_bce(logits, soft, valid, count)
+        if self.cfg.model_name in SCORE_MODELS:
+            return vqa_score_bce(logits, soft, valid, count)
         if self.cfg.soft_answer:
             return soft_cross_entropy(logits, soft, valid, count)
         return cross_entropy(logits, answers, valid, count)
@@ -583,8 +595,12 @@ class Solver:
     def _labels(self, answers, soft):
         # soft-answer models score against the argmax'd distribution; one
         # definition for the device tensors and the host arrays of
-        # val(full=True)
-        return soft.argmax(-1) if self.cfg.soft_answer else answers
+        # val(full=True). A score model's device soft holds its scores,
+        # which tie at 1 from four annotators on: it scores against the
+        # hard labels
+        if self.cfg.soft_answer and self.cfg.model_name not in SCORE_MODELS:
+            return soft.argmax(-1)
+        return answers
 
     def _device_batch(self, batch: Batch,
                       split: str = "train") -> Tuple[torch.Tensor, ...]:
@@ -597,6 +613,10 @@ class Solver:
 
         soft = (put(batch.soft_answers) if batch.soft_answers is not None
                 else None)
+        if soft is not None and self.cfg.model_name in SCORE_MODELS:
+            # a score model's loss reads each answer's VQA score
+            soft = vqa_scores(soft, None if batch.soft_n is None
+                              else put(batch.soft_n))
         if self.bank is not None:
             img = self.bank.lookup(put(batch.image_rows).long())
         elif batch.feature_scale is not None:

@@ -45,6 +45,7 @@ _LEAVES = {
         "b_ih": ("bias_ih", False),
         "b_hh": ("bias_hh", False),
     },
+    L.LayerNorm: {"w": ("weight", False), "b": ("bias", False)},
     L.BatchNorm: {
         "scale": ("scale", False),
         "bias": ("bias", False),
