@@ -293,13 +293,22 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     reruns; on rows of a spread of ~1e-3, where eps is not negligible, the
     same, and a control: a norm with eps under the root must be rejected
     on most outputs; N1 and its composed form timed at the grid's shape.
+    N2 (MCAN's attention, ``ops/mcan_attention.py``) at MCAN-large's three
+    attention shapes at N = 256, 16 heads ([196 x 196], [196 x 14],
+    [14 x 14]), random key masks and sample 0's all masked: no further
+    from the f32 composed attention than the composed bf16 form plus one
+    bf16 ulp, bit-equal reruns; N2, its composed form and PyTorch's
+    ``scaled_dot_product_attention`` (``library_ms``) timed at each shape
+    beside its bound, and their sums over a forward's 18 calls.
     Then MCAN-large (``port_bench/configs/mcan_large.json``, random
     weights) served by id from the device feature cache
     (``predict_stream_by_id``, BANK_IMAGES images, 8 batches of 256)
     beside the per-request int8 feed on the same requests. Gates: by id
-    bit-equal to the int8 feed; N1's kernel 31 times a batch on the card
-    in the CUDA profile of each measured pass (``stream``; by id from the
-    replays of the engine's CUDA graph, one a batch);
+    bit-equal to the int8 feed; N1's kernel 31 and N2's 18 times a batch
+    on the card in the CUDA profile of each measured pass (``stream``; by
+    id from the replays of the engine's CUDA graph, one a batch); by id's
+    answers within the MCAN cell's ``logit_err`` limit of the composed
+    forward's logits (``reference_kernels=True``) on the same grids;
 
 then a JSON line of the kernels (each with its bound: the larger of its
 inputs and outputs moved once at 3.35 TB/s and its operations at the
@@ -308,7 +317,7 @@ d_img with the bare product's library time), nvidia-smi's
 line, and as the last line ``{"ok": true, "device": {...}}``. ``--cards N``
 runs phases 33-37 alone with a rank and a replica a card over NCCL (phase
 35 at (N/2, 2)); ``--mcan`` runs phase 38 alone on a bank of its own and
-prints N1's line of the kernels. A switch
+prints N1's and N2's line of the kernels. A switch
 (``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``) is set only inside the
 phase that needs it. With no card it exits non-zero before phase 2.
 """
@@ -318,6 +327,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -329,6 +339,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from port_bench.check import serve_numbers
 from vqa_attention_networks_tpu_torch.aot import save_serving_artifact
 from vqa_attention_networks_tpu_torch.cli import evaluate as cli_evaluate
 from vqa_attention_networks_tpu_torch.cli import extract_features as cli_extract
@@ -359,6 +370,7 @@ from vqa_attention_networks_tpu_torch.ops import coattention as co
 from vqa_attention_networks_tpu_torch.ops import fusion
 from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
 from vqa_attention_networks_tpu_torch.ops import lstm as k8
+from vqa_attention_networks_tpu_torch.ops import mcan_attention
 from vqa_attention_networks_tpu_torch.ops import mcan_norm
 from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
@@ -372,6 +384,7 @@ from vqa_attention_networks_tpu_torch.serve import (
     DeviceFeatureCache,
     InferenceEngine,
 )
+from vqa_attention_networks_tpu_torch.train.feature_bank import dequantize
 from vqa_attention_networks_tpu_torch.train.solver import Solver, init_params
 from vqa_attention_networks_tpu_torch.utils import checkpoint as ckpt
 from vqa_attention_networks_tpu_torch.weights import (
@@ -4399,6 +4412,22 @@ N1_SHAPES = {"grid": (BATCH * 196, 1024), "words": (BATCH * 14, 1024),
 N1_MAX_DIFFERING = 0.01
 MCAN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "port_bench", "configs", "mcan_large.json")
+# the limit of the MCAN cell's logit_err, which phase 38 holds the by-id
+# answers to against the composed forward's logits
+MCAN_WORKLOAD = os.path.join(os.path.dirname(MCAN_CONFIG), os.pardir,
+                             "workloads", "mcan_large.serve_byid.json")
+
+# N2, MCAN's attention (phase 38): the kernel's name in a CUDA profile,
+# its launches in one MCAN forward (6 encoder, 6 decoder self- and 6
+# guided attentions), and MCAN-large's three attention shapes at N = BATCH
+# as (heads, Lq, Lk), each run 6 times a forward
+N2_SOURCE = "vqa_attention_networks_tpu_torch/csrc/mcan_attention.cu"
+N2_REPLACES = ("none: the composed attention_composed "
+               "(vqa_attention_networks_tpu_torch/ops/mcan_attention.py)")
+N2_KERNELS = ("mcan_attention_kernel",)
+N2_PER_FORWARD = 18
+N2_SHAPES = {"grid_self": (16, 196, 196), "guided": (16, 196, 14),
+             "words_self": (16, 14, 14)}
 
 
 def n1_inputs(rows: int, d: int, seed: int, dev, spread: float = 1.0):
@@ -4482,11 +4511,112 @@ def n1_time(dev) -> tuple:
     return run, bound(nbytes(x, r, w, b) + x.numel() * x.element_size(), {})
 
 
-def mcan_serve(stores: tuple, dev, smi: str) -> int:
+def n2_inputs(heads: int, lq: int, lk: int, seed: int, dev) -> tuple:
+    """bf16 q [BATCH, Lq, 64 heads], k and v [BATCH, Lk, 64 heads] of unit
+    variance and a random key mask (each sample its own masked share),
+    sample 0's keys all masked."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = mcan_attention.HEAD_DIM * heads
+    q, k, v = (torch.randn(BATCH, length, d, generator=g, device=dev)
+               .to(torch.bfloat16) for length in (lq, lk, lk))
+    share = torch.rand(BATCH, 1, generator=g, device=dev)
+    mask = torch.rand(BATCH, lk, generator=g, device=dev) < share
+    mask[0] = True
+    return q, k, v, mask
+
+
+def n2_check(dev) -> float:
+    """N2 at MCAN-large's three attention shapes against the f32 composed
+    attention (TF32 off): its largest error no larger than the composed
+    bf16 form's plus one bf16 ulp of the output's magnitude (the card
+    test's gate, ``tests/test_torch_port_mcan_attention.py``), finite,
+    bit-equal reruns -> its largest error."""
+    max_err = 0.0
+    for i, (name, (heads, lq, lk)) in enumerate(N2_SHAPES.items()):
+        q, k, v, mask = n2_inputs(heads, lq, lk, 380 + i, dev)
+        got = mcan_attention.attention(q, k, v, mask)
+        again = mcan_attention.attention(q, k, v, mask)
+        want = mcan_attention.attention_composed(
+            q.float(), k.float(), v.float(), mask, heads)
+        composed = mcan_attention.attention_composed(q, k, v, mask, heads)
+        torch.cuda.synchronize()
+        err = float((got.float() - want).abs().max())
+        composed_err = float((composed.float() - want).abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+        finite = bool(torch.isfinite(got.float()).all())
+        say("n2_check", case=name, shape=[BATCH, heads, lq, lk],
+            max_abs_err=err, composed_bf16_max_abs_err=composed_err,
+            ulp=ulp, mean_abs_err=float((got.float() - want).abs().mean()),
+            composed_bf16_mean_abs_err=float(
+                (composed.float() - want).abs().mean()),
+            rerun_bit_equal=bool(torch.equal(got, again)), finite=finite)
+        if err > composed_err + ulp or not finite:
+            raise AssertionError(f"N2 rounds more than the composed form at "
+                                 f"{name}: {err} > {composed_err} + {ulp}")
+        if not torch.equal(got, again):
+            raise AssertionError("N2 is not deterministic across reruns")
+        max_err = max(max_err, err)
+        del q, k, v, got, again, want, composed
+    return max_err
+
+
+def n2_time(dev, smi: str) -> dict:
+    """N2, its composed form (interleaved, CUDA events) and PyTorch's
+    ``scaled_dot_product_attention`` (the yardstick the port never calls;
+    the same heads' views in, the [N, Lq, d] layout out) at each shape ->
+    {shape: (times, bound, library ms)}, and the forward's sums (each
+    shape 6 times). A bound reads q, k, v and the mask and writes the
+    output once, and counts the two products in bf16."""
+    import torch.nn.functional as F
+
+    out = {}
+    for i, (name, (heads, lq, lk)) in enumerate(N2_SHAPES.items()):
+        q, k, v, mask = n2_inputs(heads, lq, lk, 380 + i, dev)
+        d = q.shape[-1]
+
+        def sdpa():
+            def split(x):
+                return x.view(BATCH, x.shape[1], heads, -1).transpose(1, 2)
+
+            o = F.scaled_dot_product_attention(
+                split(q), split(k), split(v),
+                attn_mask=~mask[:, None, None, :])
+            return o.transpose(1, 2).reshape(BATCH, lq, d)
+
+        run = interleaved_ms(
+            lambda: mcan_attention.attention(q, k, v, mask),
+            lambda: mcan_attention.attention_composed(q, k, v, mask, heads),
+            10)
+        sdpa()
+        library_ms = time_ms(sdpa, 10)
+        bnd = bound(nbytes(q, k, v, mask) + q.numel() * q.element_size(),
+                    {"bf16": 4.0 * BATCH * heads * lq * lk
+                     * mcan_attention.HEAD_DIM})
+        say("time", kernel="N2", case=name, shape=[BATCH, heads, lq, lk],
+            kernel_ms=run[0], plain_ms=run[1], kernel_runs_ms=run[2],
+            plain_runs_ms=run[3], library_ms=library_ms,
+            library="torch.nn.functional.scaled_dot_product_attention",
+            bound_ms=bnd[0], bound_by=bnd[1], card=smi)
+        out[name] = (run, bnd, library_ms)
+        del q, k, v, mask
+    per = N2_PER_FORWARD // len(N2_SHAPES)
+    say("time", kernel="N2", case="forward", calls=N2_PER_FORWARD,
+        kernel_ms=per * sum(r[0][0] for r in out.values()),
+        plain_ms=per * sum(r[0][1] for r in out.values()),
+        library_ms=per * sum(r[2] for r in out.values()),
+        bound_ms=per * sum(r[1][0] for r in out.values()), card=smi)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mcan_serve(stores: tuple, dev, smi: str) -> dict:
     """MCAN-large served by id from the device feature cache beside the
-    per-request int8 feed, on phase 28's requests -> N1's launches in both
-    measured passes. Gates: by id bit-equal to the int8 feed, N1 31 times
-    a batch on the card in each, and by id one graph replay a batch."""
+    per-request int8 feed, on phase 28's requests -> N1's and N2's launches
+    in both measured passes. Gates: by id bit-equal to the int8 feed, N1
+    31 and N2 18 times a batch on the card in each, by id one graph replay
+    a batch, and its answers within the MCAN cell's ``logit_err`` limit of
+    the composed forward's logits (``reference_kernels``: no kernel) on
+    the same dequantised grids."""
     with open(MCAN_CONFIG) as f:
         cfg = Config(**json.load(f)["fields"]).validate()
     params = init_params(cfg, torch.Generator().manual_seed(38))
@@ -4508,59 +4638,94 @@ def mcan_serve(stores: tuple, dev, smi: str) -> int:
         return engine.predict_stream_by_id(
             (image_ids[s], ques[s], None) for s in spans)
 
-    preds8, feed_s, feed = stream(engine, int8_batches, {"N1": N1_KERNELS})
+    kernels = {"N1": N1_KERNELS, "N2": N2_KERNELS}
+    preds8, feed_s, feed = stream(engine, int8_batches, kernels)
     engine.attach_feature_cache(BANK_IMAGES, store.gather_quantized)
     warm = []
     preds, seconds, launches = stream(
-        engine, by_id, {"N1": N1_KERNELS},
+        engine, by_id, kernels,
         after_warm_up=lambda: warm.append(engine._graph.replays))
     replays = engine._graph.replays - warm[0]
-    want = N1_PER_FORWARD * N_BATCHES
+    per = {"N1": N1_PER_FORWARD, "N2": N2_PER_FORWARD}
     same = bit_equal(preds, preds8)
+    with torch.no_grad():
+        composed = []
+        for s in spans:
+            rows, scale = store.gather_quantized(image_ids[s])
+            img = dequantize(torch.from_numpy(rows).to(dev),
+                             torch.from_numpy(scale).to(dev), torch.bfloat16)
+            composed.append(engine.model(
+                img, torch.from_numpy(ques[s]).long().to(dev),
+                reference_kernels=True).float())
+    with open(MCAN_WORKLOAD) as f:
+        limit = json.load(f)["limits"]["logit_err"]
+    err = serve_numbers(np.stack([p.top_ids for p in preds]),
+                        np.stack([p.top_probs for p in preds]),
+                        torch.cat(composed))["logit_err"]
     say("mcan_serve", model="mcan", config="mcan_large", requests=len(ques),
         batch=BATCH, images=BANK_IMAGES, n1_launches_int8_feed=feed["N1"],
-        n1_launches_by_id=launches["N1"], n1_launches_expected=want,
+        n1_launches_by_id=launches["N1"],
+        n1_launches_expected=N1_PER_FORWARD * N_BATCHES,
+        n2_launches_int8_feed=feed["N2"], n2_launches_by_id=launches["N2"],
+        n2_launches_expected=N2_PER_FORWARD * N_BATCHES,
         graph_replays=replays, bit_equal_to_int8_feed=same,
+        logit_err_vs_composed=err, logit_err_limit=limit,
         int8_feed_qa_pairs_per_s=len(ques) / feed_s,
         by_id_qa_pairs_per_s=len(ques) / seconds, card=smi)
-    if feed["N1"] != want or launches["N1"] != want:
-        raise AssertionError(f"mcan_serve: N1 ran {feed['N1']} (int8 feed) "
-                             f"and {launches['N1']} (by id) times on the "
-                             f"card, not {N1_PER_FORWARD} a batch")
+    for key, n in per.items():
+        if feed[key] != n * N_BATCHES or launches[key] != n * N_BATCHES:
+            raise AssertionError(f"mcan_serve: {key} ran {feed[key]} (int8 "
+                                 f"feed) and {launches[key]} (by id) times "
+                                 f"on the card, not {n} a batch")
     if replays != N_BATCHES or not same:
         raise AssertionError("mcan_serve: by id did not replay the graph "
                              "once a batch, or is not the int8 feed's")
+    if not err <= limit:
+        raise AssertionError(f"mcan_serve: by id's logit_err {err} against "
+                             f"the composed forward is over {limit}")
     del engine
     torch.cuda.empty_cache()
-    return feed["N1"] + launches["N1"]
+    return {key: feed[key] + launches[key] for key in per}
 
 
 def mcan_phase(stores: tuple, dev, smi: str) -> dict:
-    """Phase 38: N1's check and times, then MCAN-large served by id ->
-    N1's kernels-line fields (launches, err, time, bound)."""
+    """Phase 38: N1's and N2's checks and times, then MCAN-large served by
+    id -> the kernels-line entries of N1 and N2 (N2's time, bound and
+    library time at the grid's self-attention)."""
     err = n1_check(dev)
     run, bnd = n1_time(dev)
     say("time", kernel="N1", shape=list(N1_SHAPES["grid"]), kernel_ms=run[0],
         plain_ms=run[1], kernel_runs_ms=run[2], plain_runs_ms=run[3],
         bound_ms=bnd[0], bound_by=bnd[1], card=smi)
     torch.cuda.empty_cache()
-    return {"err": err, "time": run, "bound": bnd,
-            "launches": mcan_serve(stores, dev, smi)}
+    n2_err = n2_check(dev)
+    n2 = n2_time(dev, smi)["grid_self"]
+    launches = mcan_serve(stores, dev, smi)
+    return [kernel_entry("mcan_add_layernorm", N1_SOURCE, N1_REPLACES,
+                         launches["N1"], err, run, bnd),
+            kernel_entry("mcan_attention", N2_SOURCE, N2_REPLACES,
+                         launches["N2"], n2_err, n2[0], n2[1],
+                         library_ms=n2[2])]
 
 
 def mcan_main() -> None:
-    """``chip_smoke.py --mcan``: phase 38 alone, N1 built alone, on a bank
-    of BANK_IMAGES images of its own; prints the phase's lines, the
-    kernels line with N1's entry, nvidia-smi's line and the last line."""
+    """``chip_smoke.py --mcan``: phase 38 alone, N1 and N2 built alone, on
+    a bank of BANK_IMAGES images of its own; prints the phase's lines (the
+    builds with ptxas's registers and spills), the kernels line with N1's
+    and N2's entries, nvidia-smi's line and the last line."""
     card_name, smi = card()
     dev = torch.device("cuda", 0)
-    _, seconds, _ = _build.build("mcan_layernorm")
-    say("build", kernel="mcan_layernorm", seconds=round(seconds, 2))
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 references
+    names = ("mcan_layernorm", "mcan_attention")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(_build.build, names))
+    for name, (_, seconds, log) in zip(names, built):
+        say("build", kernel=name, seconds=round(seconds, 2),
+            ptxas=[ln.strip() for ln in log.splitlines()
+                   if any(key in ln for key in ("registers", "spill"))])
     with tempfile.TemporaryDirectory() as ws:
-        n1 = mcan_phase(bank_stores(ws, Config()), dev, smi)
-    print(json.dumps({"kernels": [kernel_entry(
-        "mcan_add_layernorm", N1_SOURCE, N1_REPLACES, n1["launches"],
-        n1["err"], n1["time"], n1["bound"])]}))
+        entries = mcan_phase(bank_stores(ws, Config()), dev, smi)
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_name,
@@ -4612,7 +4777,7 @@ def main() -> None:
     # phase 2: build, one nvcc per source, all started together
     names = ("stage1_coattention", "train_fusion", "coattention",
              "glimpse_attention", "pooled_fusion", "lstm_scan",
-             "mcan_layernorm")
+             "mcan_layernorm", "mcan_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds, log) in zip(names, built):
@@ -5032,8 +5197,7 @@ def main() -> None:
         # phase 38: MCAN-large: N1 against its composed form, then served
         # by id (N1)
         t0 = time.perf_counter()
-        n1 = mcan_phase(stores, dev, smi)
-        launches["N1"] = n1["launches"]
+        mcan_entries = mcan_phase(stores, dev, smi)
         say("mcan_time", seconds=time.perf_counter() - t0)
         del stores
 
@@ -5069,8 +5233,7 @@ def main() -> None:
         # one call of the scan: one persistent launch
         kernel_entry("lstm_scan", K8_SOURCE, K8_REPLACES, launches["K8"],
                      k8_err, k8_times, k8_bound, library_ms=k8_library_ms),
-        kernel_entry("mcan_add_layernorm", N1_SOURCE, N1_REPLACES,
-                     launches["N1"], n1["err"], n1["time"], n1["bound"]),
+        *mcan_entries,
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

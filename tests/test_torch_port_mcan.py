@@ -400,19 +400,30 @@ def test_the_solver_refuses_tensor_parallel_mcan(data):
 
 
 def test_export_serving_of_mcan(tmp_path, monkeypatch):
-    """bf16: the exported graph calls the norm op (``fast_path_traced``),
-    and the artifact serves the eager engine's answers bit for bit."""
+    """bf16: the exported graph calls the norm op and the attention op
+    (``fast_path_traced``), the attention one node a layer's attention (6
+    at two layers a stack: 2 encoder, 2 x 2 decoder), with no score map's
+    softmax left; the artifact serves the eager engine's answers bit for
+    bit."""
     monkeypatch.delenv("VQA_DISABLE_PALLAS", raising=False)
     cfg = small_cfg(compute_dtype="bfloat16")
     tree = params_for(cfg)
     b = 4
     exported = aot.export_serving(cfg, tree, b, device="cpu")
-    assert "vqa.mcan_add_layernorm.default" in aot.graph_ops(exported)
+    ops = aot.graph_ops(exported)
+    assert "vqa.mcan_add_layernorm.default" in ops
+    assert "vqa.mcan_attention.default" in ops
+    targets = [str(node.target) for node in exported.graph.nodes
+               if node.op == "call_function"]
+    assert targets.count("vqa.mcan_attention.default") == 3 * cfg.att_num
+    # what stays composed: AttFlat's two softmaxes and the serving head's
+    assert sum("softmax" in t for t in targets) == 3
     aot.save_serving_artifact(str(tmp_path / "aot"), cfg, tree, b,
                               device="cpu")
     meta = json.loads((tmp_path / "aot" / "serving.json").read_text())
     assert meta["fast_path_traced"] is True
-    assert meta["kernel_ops"] == ["vqa.mcan_add_layernorm.default"]
+    assert meta["kernel_ops"] == ["vqa.mcan_add_layernorm.default",
+                                  "vqa.mcan_attention.default"]
     img, ques = inputs()
     feats = img.numpy().astype(np.float16)
     kw = dict(batch_size=b, topk=5, device="cpu")

@@ -32,7 +32,7 @@ that choose whether an op is called at all (``VQA_DISABLE_PALLAS``,
 ``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``, ``Config.fast_path``) are
 read when the graph is traced, as JAX reads them at trace time.
 ``fast_path_traced`` in the metadata says whether the graph calls K1, K4
-or MCAN's norm (``FAST_PATH_OPS``).
+or MCAN's norm or attention (``FAST_PATH_OPS``).
 
 JAX's ``platforms`` argument and its ``tpu_lowering`` context are not
 ported: they let a build box without a TPU trace the TPU's graph. Here
@@ -60,12 +60,13 @@ _META = "serving.json"
 
 # families whose bf16 serving forward calls a kernel: mhb_coAtt K1
 # (models/mhb_coatt.py), hieCoAtten K4 (models/hiecoatten.py), mcan its
-# residual + LayerNorm (models/mcan.py); the others serve the composed
-# graph by design, so fast_path_traced=False is expected for them
+# residual + LayerNorm and its attention (models/mcan.py); the others
+# serve the composed graph by design, so fast_path_traced=False is
+# expected for them
 FAST_PATH_MODELS = frozenset({"mhb_coAtt", "hieCoAtten", "mcan"})
 # the ops whose presence in the graph sets fast_path_traced
 FAST_PATH_OPS = ("vqa.stage1_coattention", "vqa.coattention_core",
-                 "vqa.mcan_add_layernorm")
+                 "vqa.mcan_add_layernorm", "vqa.mcan_attention")
 
 
 def serving_forward(cfg: Config, topk: int,
@@ -298,6 +299,7 @@ def load_serving_artifact(artifact_dir: str) -> Tuple[Callable,
         attention,
         coattention,
         grid_fusion,
+        mcan_attention,
         mcan_norm,
         wq_fusion,
     )

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's pipelined kernels:
-// mbarriers, TMA tile loads, wgmma and its shared-memory descriptors, and
-// the host-side tensor-map encoder.
+// mbarriers, TMA tile loads and stores, wgmma and its shared-memory
+// descriptors, and the host-side tensor-map encoder.
 //
 // - mbarrier: a wait on a parity passes once the phase of that parity has
 //   completed; a barrier starts in phase 0 and completes a phase when its
@@ -126,6 +126,37 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"((uint32_t)leader)
       : "memory");
+}
+
+// a box at coordinates (c0, c1, c2) from shared memory to the tensor,
+// stored by the thread whose `leader` is true (elements outside the tensor
+// are not written); it joins the thread's next bulk_commit group. Writes
+// to `src` by the generic proxy must be fenced first (fence_proxy_async)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, bool leader) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3, %4}], [%1];\n}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"((uint32_t)leader)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the thread's bulk stores but the newest kPending have read their source
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// make the thread's shared-memory writes visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -268,6 +299,7 @@ struct WgmmaRS;
     }                                                                      \
   };
 
+HOPPER_WGMMA_SS(16, 8, 1, 8, 9, 10, 11, 12)
 HOPPER_WGMMA_SS(32, 16, 2, 16, 17, 18, 19, 20)
 HOPPER_WGMMA_SS(64, 32, 4, 32, 33, 34, 35, 36)
 HOPPER_WGMMA_SS(96, 48, 6, 48, 49, 50, 51, 52)
@@ -278,6 +310,7 @@ HOPPER_WGMMA_SS(200, 100, 12H, 100, 101, 102, 103, 104)
 HOPPER_WGMMA_SS(208, 104, 13, 104, 105, 106, 107, 108)
 HOPPER_WGMMA_SS(224, 112, 14, 112, 113, 114, 115, 116)
 HOPPER_WGMMA_SS(256, 128, 16, 128, 129, 130, 131, 132)
+HOPPER_WGMMA_RS(64, 4, 32, 33, 34, 35, 36, 37, 38)
 HOPPER_WGMMA_RS(128, 8, 64, 65, 66, 67, 68, 69, 70)
 HOPPER_WGMMA_RS(208, 13, 104, 105, 106, 107, 108, 109, 110)
 

@@ -46,12 +46,17 @@ Departures from mcan-vqa:
 - **Rounding** (bf16): each projection is ``F.linear`` with its bias
   added before the product is rounded; q is scaled by 1/8 before its
   product with k (exact at a head width of 64); each residual sum is
-  rounded to bf16, and the norm's statistics and affine map are f32.
+  rounded to bf16, and the norm's statistics and affine map are f32. The
+  composed attention rounds the scores and the map to bf16; the fused one
+  keeps both in f32 and rounds the map once, for its product with v.
 
 Dispatch: in eval at bf16, unless ``VQA_DISABLE_PALLAS`` is set (read at
 each call), every residual add and LayerNorm is one call of the op
-``vqa.mcan_add_layernorm`` (``ops/mcan_norm.py``), the fused kernel on the
-card; training, f32 and ``reference_kernels`` run the composed form.
+``vqa.mcan_add_layernorm`` (``ops/mcan_norm.py``), and every attention
+whose heads are 64 wide over at most 256 keys one call of the op
+``vqa.mcan_attention`` (``ops/mcan_attention.py``), the fused kernels on
+the card; training, f32, ``reference_kernels`` and narrower heads run the
+composed forms.
 Spans ``mcan.encoder`` (embedding, LSTM, encoder), ``mcan.decoder`` (the
 image projection and the decoder) and ``mcan.head`` (AttFlat, the norm and
 the classifier) record while a profiler records (``utils/trace.py``).
@@ -62,7 +67,6 @@ Parameters are flat top-level layers (``enc0_mhatt_q``, ``dec5_ffn_out``,
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import torch
@@ -72,13 +76,12 @@ from torch import nn
 from vqa_attention_networks_tpu_torch.config import Config
 from vqa_attention_networks_tpu_torch.models import layers as L
 from vqa_attention_networks_tpu_torch.ops import kernels_disabled
-from vqa_attention_networks_tpu_torch.ops import mcan_norm
+from vqa_attention_networks_tpu_torch.ops import mcan_attention, mcan_norm
 from vqa_attention_networks_tpu_torch.utils import trace
 
 HEAD_DIM = 64  # MCAN's HIDDEN_SIZE_HEAD, at both published sizes
 FFN_RATIO = 4  # FF_SIZE = 4 * HIDDEN_SIZE
 FLAT_RATIO = 2  # FLAT_OUT_SIZE = 2 * HIDDEN_SIZE
-MASK_FILL = -1e9  # mcan-vqa's masked_fill value
 
 
 def num_heads(d: int) -> int:
@@ -165,22 +168,18 @@ class MCAN(nn.Module):
                                                 layer.bias)
 
     def _mha(self, prefix: str, q_in: torch.Tensor, kv_in: torch.Tensor,
-             mask: torch.Tensor, drop) -> torch.Tensor:
-        n, lq, d = q_in.shape
-        lk = kv_in.shape[1]
-        h = num_heads(d)
-        dh = d // h
-
-        def split(x, length):
-            return x.view(n, length, h, dh).transpose(1, 2)
-
-        v = split(self._linear(f"{prefix}_v", kv_in), lk)
-        k = split(self._linear(f"{prefix}_k", kv_in), lk)
-        q = split(self._linear(f"{prefix}_q", q_in), lq) / math.sqrt(dh)
-        scores = torch.matmul(q, k.transpose(-2, -1))  # [N, h, lq, lk]
-        scores = scores.masked_fill(mask[:, None, None, :], MASK_FILL)
-        att = drop(torch.softmax(scores, dim=-1))
-        out = torch.matmul(att, v).transpose(1, 2).reshape(n, lq, d)
+             mask: torch.Tensor, drop, fused: bool) -> torch.Tensor:
+        """``merge(attention)``: the op (the kernel on the card) when
+        ``fused`` and the heads are 64 wide over at most 256 keys, else the
+        composed form, with ``drop`` on the attention map."""
+        h = num_heads(q_in.shape[-1])
+        v = self._linear(f"{prefix}_v", kv_in)
+        k = self._linear(f"{prefix}_k", kv_in)
+        q = self._linear(f"{prefix}_q", q_in)
+        if fused and mcan_attention.supported(q.shape[-1] // h, k.shape[1]):
+            out = mcan_attention.attention(q, k, v, mask)
+        else:
+            out = mcan_attention.attention_composed(q, k, v, mask, h, drop)
         return self._linear(f"{prefix}_merge", out)
 
     def _ffn(self, prefix: str, x: torch.Tensor, drop) -> torch.Tensor:
@@ -192,7 +191,8 @@ class MCAN(nn.Module):
         p = f"attflat_{side}"
         att = self._linear(f"{p}_out", drop(torch.relu(
             self._linear(f"{p}_fc", z))))  # [N, L, 1]
-        att = torch.softmax(att.masked_fill(mask[:, :, None], MASK_FILL),
+        att = torch.softmax(att.masked_fill(mask[:, :, None],
+                                            mcan_attention.MASK_FILL),
                             dim=1)
         return self._linear(f"{p}_merge", (att * z).sum(1))
 
@@ -214,7 +214,7 @@ class MCAN(nn.Module):
         """-> f32 logits [N, a_vocab]; with ``aux=True``, (logits, {}).
         ``train=True`` draws every dropout mask from ``generator`` in the
         forward's order; ``reference_kernels=True`` runs the composed norm
-        in place of the kernel."""
+        and attention in place of the kernels."""
         cfg = self.cfg
         dtype = L.DTYPES[cfg.compute_dtype]
         rate = cfg.dropout_fusion
@@ -233,7 +233,7 @@ class MCAN(nn.Module):
             for i in range(cfg.att_num):
                 p = f"enc{i}"
                 y = self._norm(f"{p}_norm1", y, drop(self._mha(
-                    f"{p}_mhatt", y, y, mask_q, drop)), fused)
+                    f"{p}_mhatt", y, y, mask_q, drop, fused)), fused)
                 y = self._norm(f"{p}_norm2", y,
                                drop(self._ffn(f"{p}_ffn", y, drop)), fused)
         with trace.span("mcan.decoder"):
@@ -241,9 +241,9 @@ class MCAN(nn.Module):
             for i in range(cfg.att_num):
                 p = f"dec{i}"
                 x = self._norm(f"{p}_norm1", x, drop(self._mha(
-                    f"{p}_mhatt1", x, x, mask_x, drop)), fused)
+                    f"{p}_mhatt1", x, x, mask_x, drop, fused)), fused)
                 x = self._norm(f"{p}_norm2", x, drop(self._mha(
-                    f"{p}_mhatt2", x, y, mask_q, drop)), fused)
+                    f"{p}_mhatt2", x, y, mask_q, drop, fused)), fused)
                 x = self._norm(f"{p}_norm3", x,
                                drop(self._ffn(f"{p}_ffn", x, drop)), fused)
         with trace.span("mcan.head"):
