@@ -1,18 +1,24 @@
-"""Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a).
+"""Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a): the
+card's correctness gates. It times nothing: a kernel's time is
+``vqa_attention_networks_tpu_torch/step_time.py``'s, an end-to-end rate
+``port_bench``'s. Each kernel's inputs and tolerance are
+``vqa_attention_networks_tpu_torch/ops/card_cases.py``'s.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N   # phases 33-37 alone over N cards
     python3 chip_smoke.py --mcan      # phase 38 alone
 
-Phases, one line each (a failing phase raises and the exit code is not 0):
+Phases, one line each (a failing phase raises and the exit code is not 0);
+the numbers 5, 8, 12, 22 and 26, once timing phases, are left unused, so
+that a number names the same phase in older records:
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
 2. build the hand-written kernels from ``vqa_attention_networks_tpu_torch/
-   csrc`` into ``build/kernels/`` and print the seconds it took;
+   csrc`` into ``build/kernels/`` and print ptxas's registers and spills;
 3. K1 (stage-1 fusion + co-attention) against its plain PyTorch version on
    the card at production shapes, N = 8, 256 and 1024: max and mean |diff|,
-   failing past the tolerance of ``within``; the kernel's z and h1 scratch
-   against the plain version's; and a control: the inputs peak the
+   failing past the tolerance of ``card_cases.within``; the kernel's z and
+   h1 scratch against the plain version's; and a control: the inputs peak the
    attention over the 196 regions, and the check must reject the uniform
    mean of img on most elements, since that is what a kernel with a dead
    fusion or hidden stage would give;
@@ -24,9 +30,6 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
    the same forward with the plain K1, at most 0.1% (``flips``); a control
    that the gate counts the answers of a uniform attention as flips; and,
    for information only, flips against ``fast_path="composed"``;
-5. times: K1 and its plain version at N = 256 and 1024 (CUDA events after
-   warm-up), at N = 256 each of K1's three launches apart (device time,
-   ``torch.profiler``), and the end-to-end qa-pairs/s of step 4;
 6. K2 (the training fusion with pre-pool dropout, forward and backward)
    against its plain PyTorch version at production widths (L=196, D=2048,
    F=5000, k=5), N = 8 and 64, rate 0.1 and 0: each launch (forward, the
@@ -43,14 +46,6 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
    steps, the repeated batch's falling), K2's launch counts in the kernel
    run, and ``val()`` against a model freshly loaded with the trained
    weights;
-8. times: each K2 launch and its plain version at N = 64 (d_img and
-   d_W/d_b as the product alone and with the g_prod build, d_W/d_b's two
-   launches' shares, and beside d_img ``torch.matmul`` on the bare
-   product), the forward, backward and forward + backward through the
-   autograd functions, and ms per training step and training qa-pairs/s of
-   the kernel and plain runs; then one pre-pool training step under
-   ``torch.profiler``: the device's busy share of the step and its five
-   longest kernels;
 9. K3 (the pooled-site training fusion: forward, the g_pooled build, and
    the d_img and d_W/d_b/d_q products over it) against its plain PyTorch
    version at production widths (L=196, D=2048, O=1000, k=5), N = 8 and
@@ -73,12 +68,6 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     same runs and gates; then one quirk-on mfb step, in which no gradient
     reaches ``img_conv1d`` or ``ques_proj1`` and K3's backward never
     launches;
-12. times: each K3 launch and its plain version at N = 64 (d_img as the
-    product alone and with the build, and ``torch.bmm`` on the bare
-    product beside it), and the device time of each of d_W/d_b/d_q's four
-    launches, the build included (``torch.profiler``; each
-    training run of phases 7, 10 and 11 prints its ms per step and
-    training qa-pairs/s, kernel and plain, as it ends);
 13. K4 (hieCoAtten's co-attention core) against its plain version at
     N = 8 and 256, L = 196, T = 22, E = 512, on v, q, av and aq, with inputs
     that peak both softmaxes (the largest av well above 1/196) and a
@@ -108,15 +97,14 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     launch counts and flips against the plain versions;
 19. full-width mhb, visLstm, iBOWIMG and attentionNet (random weights,
     no kernel on their paths, as in JAX) served through ``predict_stream``
-    at batch 256 (2048 requests, each with its question length): qa-pairs/s,
-    the device forward's ms per batch and its share of the wall time, and
-    the gate that every served answer is the top of the same forward (one
-    bf16 ulp, ``flips``); for MHB the lengths used, and a control: with
+    at batch 256 (2048 requests, each with its question length): the gate
+    that every served answer is the top of the same forward (one bf16 ulp,
+    ``flips``); for MHB the lengths used, and a control: with
     every length set to T the answers must change (the lengths reach it);
 20. training of hieCoAtten (the composed chain with its five dropouts),
     mhb, visLstm, iBOWIMG and attentionNet through ``Solver.train``:
     full width, bf16, batch 64, 10 steps, then 10 on one repeated batch:
-    ms per step and qa-pairs/s, finite losses, the repeated batch's loss
+    finite losses, the repeated batch's loss
     falling, ``val()`` equal to a fresh load's, the batch norms' running
     statistics moved (iBOWIMG, attentionNet), no training kernel launched;
 21. ``families_agree``: the f32 forward of each of those four families
@@ -125,11 +113,6 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     the CPU (TF32 off), each against the same forward at f64 on the CPU:
     the card within 1e-5 of the largest |logit| (the bound of the CPU
     tests against JAX) or within 4x the CPU's own f32 error;
-22. times: K4, K5 and K7 against their plain versions at N = 256 (K4's
-    device time, by events queued behind a spin; K7's two launches and
-    its wrapper's cast apart, by the profiler), and
-    beside K5, for information, ``torch.matmul`` on the bare product
-    img @ bf16(W) (``matmul_ms``), which no path of the port calls;
 23. K6 (the standalone wq fusion + grid-flat L2) against its plain version
     at production widths (L=196, D=2048, F=5000, k=5), N = 8, 256 and 1024,
     held as pooled = out * |out|, bit-equal reruns, and two controls that
@@ -153,14 +136,6 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     N = 256 (the launch count set to 0 just before: one launch), with the
     port's composed ``layers.lstm`` on the same weights beside it for
     information;
-26. times: K6 and its plain version at N = 256 and 1024, with the torch
-    composed weight-contracted chain + L2 for information, and at N = 256
-    the device time of each of K6's two launches (the forward with its
-    sums of squares, and the scale launch); K8's scan and
-    the whole ``lstm_seq`` against their plain versions at N = 256, and
-    ``torch.nn.LSTM`` (cuDNN, input projection included) on the same
-    weights and input: K8's library time, and the device times of both
-    calls (``torch.profiler``) in K8_ROUNDS interleaved rounds;
 27. ``cli``: the command line from corpus to results files, in process, in
     a temporary workspace: ``tools/gen_corpus.py`` (640 train and 192 val
     questions, a subprocess), the port's ``cli.prepare_data`` with
@@ -179,10 +154,7 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     prepared val split, accuracies in [0, 1], the per-type counts summing
     to it) and ``_predictions.json`` (one row per val question id); for
     information the same evaluation under ``VQA_DISABLE_PALLAS=1`` (the
-    share of predictions that differ, both accuracies); and the seconds of
-    ``prepare_data``, ms per training step and training qa-pairs/s through
-    the CLI (its last epoch), evaluation qa-pairs/s and the device share of
-    an evaluated batch;
+    share of predictions that differ, both accuracies);
 28. ``serve_bank``: full-width bf16 mhb_coAtt (phase 4's weights) served
     by id from the device feature cache (``predict_stream_by_id``) over
     8 batches of 256 from an int8 store of 1,024 synthetic images
@@ -198,10 +170,7 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     a control: the first batch's slots swapped in pairs on the card must
     flip its answers (``flips``) and swapping back restores them bit for
     bit; hieCoAtten by id, K4 once a batch on the card, bit-equal to its
-    int8 feed. Times (under that profile): qa-pairs/s and the device
-    share of a batch for the f16 feed, the int8 feed and both by-id
-    runs; the cost of a miss upload from pinned
-    host memory, fitted as a + bytes / BW over 1 to 256 misses;
+    int8 feed;
 29. ``serve_http``: the port's ``cli.serve`` in process
     (``build_service`` + ``ThreadingHTTPServer`` on 127.0.0.1, a free
     port): the same weights saved by ``checkpoint.save_weights`` and
@@ -213,12 +182,11 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     ``predict_batch_by_id`` of a second engine printed), /healthz and
     /metrics counting the requests and the bank's hits and misses, an
     unknown image id 400, K1's kernels run on the card once an engine
-    call (a CUDA profile of the load). Times: HTTP qa-pairs/s, p50/p99
-    request latency (``LatencyStats``), batch occupancy;
+    call (a CUDA profile of the load); the batch occupancy;
 30. ``backbone``: ResNet-152 at full depth at 448 and VGG-19's pool4 tap
     at 224, random weights from a seed, f32 on the card (TF32 off)
     against f32 on the CPU at N = 2 (relative error < 1e-4), and each
-    extractor at bf16 on a batch of 32 (images/s); if PIL imports, one
+    extractor at bf16 on a batch of 32 (its grid); if PIL imports, one
     PNG through /predict_image and through ``cli.predict`` (bf16, K1
     once), each answer the top of the forward on that image's grid, and
     8 PNGs through ``cli.extract_features``, whose store rows equal
@@ -231,16 +199,15 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     arm; at f64 and dropout 0, one step's gradients against a=1's), remat
     (bit-equal parameters, K2's forward twice a step, the peak memory of
     both), the device feature bank on the f16 store and its int8 twin
-    (bit-equal to each host feed; ms a step and the device's share of a
-    step, both feeds), ``profile_steps=2`` (a trace that names K2's
+    (bit-equal to each host feed), ``profile_steps=2`` (a trace that names K2's
     kernels) and ``debug_nans`` (a sound step passes, a NaN weight
     raises);
 32. ``artifact`` (after phase 30, on phase 28's stores and requests):
     mhb_coAtt (phase 4's weights) and hieCoAtten exported at batch 256 for
     both feeds (``aot.save_serving_artifact``), served by
     ``InferenceEngine(artifact_dir=...)`` beside the eager engine: the
-    answers bit-equal, K1 or K4 once per call, ``fast_path_traced``; the
-    export's seconds and both forwards' device ms;
+    answers bit-equal, K1 or K4 once per call on the card,
+    ``fast_path_traced``;
 33. ``dp_train`` (after phase 31, on phase 4's store): the data-parallel
     Solver, full-width bf16 mhb_coAtt at the pre-pool site, rate 0.1,
     global batch 64, 3 steps, against one process without a process group:
@@ -254,13 +221,12 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     by kind. Two controls on (b)'s ranks: rank 1 drawing at row0 = 0, which
     the masks gate must reject, and each rank's loss over its own valid
     rows, which the gradient gate must reject. Losses, gradient and
-    parameter differences, K2's launches per rank and ms a step per arm
-    (two ranks on one card: correctness, not scaling); only (a)'s and (b)'s
-    launches reach the kernels line;
+    parameter differences, K2's launches per rank (two ranks on one card:
+    correctness, not scaling); only (a)'s and (b)'s launches reach the
+    kernels line;
 34. ``dp_serve``: phase 4's weights and 2048 requests through
     ``InferenceEngine(data_parallel=2)``, two replicas on ``cuda:0``,
-    against ``data_parallel=1``: answers bit-equal, K1 twice a batch,
-    qa-pairs/s of both;
+    against ``data_parallel=1``: answers bit-equal, K1 twice a batch;
 35. ``tp_train``: tensor parallelism at mesh (1, 2), two gloo ranks sharing
     ``cuda:0``: full-width bf16 mhb_coAtt, batch 64, the fusion
     projections split over the model axis, 3 steps at the pre-pool site
@@ -277,8 +243,7 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
 36. ``sharded_bank_train``: two data ranks (gloo, ``cuda:0``), phase 4's
     f16 store and its int8 twin, 2 steps from the host feed, the
     replicated bank and the sharded bank: the losses bit-equal across the
-    three, each rank's bank bytes (half the store's), the ring lookup's ms
-    beside the replicated bank's;
+    three, each rank's bank bytes (half the store's);
 37. ``sharded_bank_serve``: phase 4's weights and requests by id from the
     device cache split over ``InferenceEngine(data_parallel=2)``'s two
     replicas on ``cuda:0`` (int8 twin of phase 4's store), at capacity
@@ -292,14 +257,11 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     2^-16 (``n1_within``), under 1% of outputs differing, bit-equal
     reruns; on rows of a spread of ~1e-3, where eps is not negligible, the
     same, and a control: a norm with eps under the root must be rejected
-    on most outputs; N1 and its composed form timed at the grid's shape.
-    N2 (MCAN's attention, ``ops/mcan_attention.py``) at MCAN-large's three
-    attention shapes at N = 256, 16 heads ([196 x 196], [196 x 14],
-    [14 x 14]), random key masks and sample 0's all masked: no further
-    from the f32 composed attention than the composed bf16 form plus one
-    bf16 ulp, bit-equal reruns; N2, its composed form and PyTorch's
-    ``scaled_dot_product_attention`` (``library_ms``) timed at each shape
-    beside its bound, and their sums over a forward's 18 calls.
+    on most outputs. N2 (MCAN's attention, ``ops/mcan_attention.py``) at
+    MCAN-large's three attention shapes at N = 256, 16 heads ([196 x 196],
+    [196 x 14], [14 x 14]), random key masks and sample 0's all masked:
+    no further from the f32 composed attention than the composed bf16
+    form plus one bf16 ulp (``n2_within``), bit-equal reruns.
     Then MCAN-large (``port_bench/configs/mcan_large.json``, random
     weights) served by id from the device feature cache
     (``predict_stream_by_id``, BANK_IMAGES images, 8 batches of 256)
@@ -310,11 +272,10 @@ Phases, one line each (a failing phase raises and the exit code is not 0):
     answers within the MCAN cell's ``logit_err`` limit of the composed
     forward's logits (``reference_kernels=True``) on the same grids;
 
-then a JSON line of the kernels (each with its bound: the larger of its
-inputs and outputs moved once at 3.35 TB/s and its operations at the
-card's peak rate for their type, from this run's shapes; K2's and K3's
-d_img with the bare product's library time), nvidia-smi's
-line, and as the last line ``{"ok": true, "device": {...}}``. ``--cards N``
+then a JSON line of the kernels (each with its source, the TPU kernel it
+replaces, its launches on the main paths and its largest error against
+its plain version), nvidia-smi's line, and as the last line
+``{"ok": true, "device": {...}}``. ``--cards N``
 runs phases 33-37 alone with a rank and a replica a card over NCCL (phase
 35 at (N/2, 2)); ``--mcan`` runs phase 38 alone on a bank of its own and
 prints N1's and N2's line of the kernels. A switch
@@ -327,13 +288,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -366,8 +325,8 @@ from vqa_attention_networks_tpu_torch.models import layers, resnet, vgg
 from vqa_attention_networks_tpu_torch.models.extractor import GridExtractor
 from vqa_attention_networks_tpu_torch.ops import _build
 from vqa_attention_networks_tpu_torch.ops import attention as att
+from vqa_attention_networks_tpu_torch.ops import card_cases as cc
 from vqa_attention_networks_tpu_torch.ops import coattention as co
-from vqa_attention_networks_tpu_torch.ops import fusion
 from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
 from vqa_attention_networks_tpu_torch.ops import lstm as k8
 from vqa_attention_networks_tpu_torch.ops import mcan_attention
@@ -376,6 +335,22 @@ from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.ops import wq_grid_fusion as wqg
+from vqa_attention_networks_tpu_torch.ops.card_cases import (
+    BATCH,
+    TRAIN_BATCH,
+    card,
+    k2_view,
+    k2_within,
+    k3_within,
+    k4_within,
+    k6_within,
+    k7_within,
+    k8_within,
+    n1_within,
+    n2_within,
+    randn,
+    within,
+)
 from vqa_attention_networks_tpu_torch.parallel.dryrun import (
     failures,
     run_processes,
@@ -392,24 +367,8 @@ from vqa_attention_networks_tpu_torch.weights import (
     to_jax_params,
 )
 
-# K1's output against its plain version, per glimpse row of D outputs:
-# |diff| <= ATOL + RTOL_ROW * max |row|. The two share their rounding points
-# and differ only in the order of their f32 sums, so ~0.7% of h1 lands one
-# bf16 ulp apart. Through c2w such a flip moves the logits, and with them
-# the (peaked) attention, which moves every output of the row by up to
-# ~1.2% of the row's largest magnitude: an output near 0 from cancellation
-# moves as much as a large one. RTOL_ROW is four bf16 ulps (2^-5).
-ATOL, RTOL_ROW = 2e-3, 2.0 ** -5
-# the kernel's scratch: z is held before its signed sqrt (z * |z| is
-# img @ wq + bq, f32; near 0 the sqrt would turn an f32 summation-order
-# difference e into sqrt(e)); h1 (bf16) to one bf16 ulp plus H1_ATOL: the
-# two norms of z differ by an f32 ulp (another summation order), so a zb
-# at a bf16 rounding boundary rounds apart, and each such flip moves h1 by
-# |c1w| * ulp(zb), about 1.2e-4 at most at these inputs
-POOLED_ATOL, POOLED_RTOL = 1e-4, 1e-4
-H1_ATOL, H1_RTOL = 5e-4, 2.0 ** -7
 MAX_FLIP_RATE = 1e-3
-BATCH, N_BATCHES, N_IMAGES = 256, 8, 256
+N_BATCHES, N_IMAGES = 8, 256
 K1_SOURCE = "vqa_attention_networks_tpu_torch/csrc/stage1_coattention.cu"
 K1_REPLACES = "vqa_attention_networks_tpu/ops/pallas_wq_fusion.py:205"
 K2_SOURCE = "vqa_attention_networks_tpu_torch/csrc/train_fusion.cu"
@@ -422,23 +381,8 @@ K2_REPLACES = {
     "d_w": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:140",
     "d_q": "vqa_attention_networks_tpu/ops/pallas_train_fusion.py:140",
 }
-K2_RATES, K2_NS, K2_K = (0.1, 0.0), (8, 64), 5
-K2_FORCED_ZEROS = 100  # outputs of region 0 of sample 0 that pool to 0
-# K2 against its plain version, per tensor: |diff| <= RTOL * max |plain|.
-# The two share every rounding point and differ only in the order of
-# their f32 sums: the forward's D=2048 contraction, d_W's and d_b's sums
-# over N*L rows, d_q's over L rows and its recomputed z0. Those orders
-# move a result by a few f32 ulps of the largest terms, far below 1e-4 of
-# the tensor's largest value. The forward is held as pooled = out * |out|
-# (before the signed sqrt, which turns an f32 difference e near 0 into
-# sqrt(e)). d_img is bf16: a summation-order difference can move an
-# element across a bf16 rounding boundary, one bf16 ulp (2^-8 relative),
-# so its bound is 2^-7 of the largest |d_img|.
-K2_RTOL = {"forward": 1e-4, "d_w": 1e-4, "d_b": 1e-4, "d_q": 1e-4,
-           "d_img": 2.0 ** -7, "d_b_partials": 1e-4}
-# d_W/d_b at N=64, rate 0.1: the most the two launches may take together
-K2_DW_TARGET_MS = 3.0
-TRAIN_STEPS, TRAIN_BATCH = 20, 64
+K2_RATES, K2_NS = (0.1, 0.0), (8, 64)
+TRAIN_STEPS = 20
 # the kernel and plain training runs see the same weights, batches and
 # masks and differ in the order of K2's f32 sums; bf16 roundings
 # downstream and Adam's sign-like first steps amplify that, so their
@@ -448,11 +392,11 @@ TRAIN_AGREE_STEPS, TRAIN_LOSS_RTOL = 5, 1e-3
 # ranks' deadline
 DP_STEPS, DP_RANK_TIMEOUT = 3, 240.0
 # tensor parallelism and the sharded banks (phases 35-37): the model axis,
-# tp_train's pooled-site steps, sharded_bank_train's steps a feed and its
-# lookup's timed repeats, sharded_bank_serve's small capacity (rounded up
-# to a multiple of the replicas)
+# tp_train's pooled-site steps, sharded_bank_train's steps a feed,
+# sharded_bank_serve's small capacity (rounded up to a multiple of the
+# replicas)
 TP_MODEL, TP_POOLED_STEPS = 2, 2
-BANK_TRAIN_STEPS, BANK_LOOKUP_REPS = 2, 5
+BANK_TRAIN_STEPS = 2
 SHARDED_BANK_SMALL = 191
 # a data-parallel arm's first-step gradient (after DDP's all-reduce) against
 # one process's: the relative L2 norm of the difference. On an H100 the
@@ -467,24 +411,6 @@ K5_SOURCE = K2_SOURCE  # train_fusion_inference_forward
 K5_REPLACES = "vqa_attention_networks_tpu/ops/pallas_fusion.py:85"
 K7_SOURCE = "vqa_attention_networks_tpu_torch/csrc/glimpse_attention.cu"
 K7_REPLACES = "vqa_attention_networks_tpu/ops/pallas_attention.py:67"
-# K4 and K7 against their plain versions: the two share their rounding
-# points and differ in the order of their f32 sums, which can move an
-# element of C, Hv or Hq (K4), or of the hidden layer or the bf16 output
-# (K7), across a bf16 rounding boundary (2^-8 relative) and with it a
-# logit of a peaked softmax by ~2^-8 |whv| ~ 1.5e-3. 2^-7 of the largest
-# value bounds what that does to K4's pooled v and q and to each glimpse
-# row of K7. K4's maps are held element by element, at 2^-6 of each
-# value (a logit shift d moves av[l] by at most ~2 d av[l]) plus 1e-6:
-# held at 2^-7 of the largest value instead, a uniform map would pass on
-# most elements of a peaked one. K5 is the K2 forward without the mask:
-# pooled = out * |out| within K2's 1e-4.
-K4_RTOL = K7_RTOL_ROW = 2.0 ** -7
-K4_MAP_RTOL, K4_MAP_ATOL = 2.0 ** -6, 1e-6
-K5_RTOL = K2_RTOL["forward"]
-K4_SHAPE = dict(l=196, t=22, e=512)
-# (N, P, C, A, D) of K7's two call shapes on mhb_coAtt's eval path
-K7_SHAPES = {"question": (256, 22, 1024, 512, 1024),
-             "co_attention": (256, 196, 1000, 512, 2048)}
 K3_SOURCE = "vqa_attention_networks_tpu_torch/csrc/pooled_fusion.cu"
 # the pallas_call each K3 launch replaces (pallas_pooled_fusion.py)
 K3_REPLACES = {
@@ -496,15 +422,6 @@ K3_REPLACES = {
     "d_w": "vqa_attention_networks_tpu/ops/pallas_pooled_fusion.py:295",
 }
 K3_NS = (8, 64)
-# K3 against its plain version, per tensor: |diff| <= K3_RTOL * max |plain|.
-# The two share every rounding point (wq's f32 sum over j in order and its
-# bf16 rounding, bf16 g_pooled, f32 products) and differ only in the order
-# of their f32 sums: the D=2048 contraction of the forward, the O=1000 of
-# d_img, the L=196 of d_wq, and d_W's, d_b's and d_q's sums over N and D.
-# That moves a result by a few f32 ulps of its largest terms, far below 1e-4
-# of the tensor's largest value; the forward is held as pooled = out * |out|.
-# d_img stays f32 here (the autograd function casts it to img's dtype).
-K3_RTOL = 1e-4
 K3_DEAD_OUTPUTS = 3  # outputs with zero weights and bias in k3_check
 # the training runs of each training fusion's path: mfb is trained with the
 # quirk off (with it the stage-1 fusion is gradient-dead, and K2's or K3's
@@ -534,33 +451,11 @@ K8_SOURCE = "vqa_attention_networks_tpu_torch/csrc/lstm_scan.cu"
 K8_REPLACES = "vqa_attention_networks_tpu/ops/pallas_lstm.py:74"
 K6_NS = (8, 256, 1024)
 K8_NS = (8, 256, 1024, 2048)
-K6_TIME_NS = (BATCH, 1024)
-# K6 against its plain version, per element of pooled = out * |out|: the
-# two share their rounding points and differ in the order of their f32
-# sums (the D=2048 contraction and the norm over 196,000 values), which
-# can move an element of the bf16 output across a rounding boundary: one
-# ulp, at most 2^-7 of its value, 2^-6 once squared. K6_ATOL of the
-# largest value covers the f32 difference of a pooled value near 0. The
-# backward is the composed chain's VJP on the same inputs, on the same
-# card, in both runs: held at K6_GRAD_RTOL of each gradient's largest value.
-K6_RTOL, K6_ATOL = 2.0 ** -6, 1e-4
-K6_GRAD_N, K6_GRAD_RTOL = 64, 1e-6
-# K8 against its plain version. Each step is held on its own: the plain
-# recurrence fed the kernel's own h carry (``h_carry``) must give the
-# kernel's output within one bf16 ulp plus K8_STEP_ATOL. The two share their
-# rounding points (bf16 xp and h, f32 gates and c) and differ in the order
-# of the recurrent product's f32 sums (H=1024) and in the last bits of
-# expf/tanhf: a few f32 ulps of a gate, which can round an h the other way
-# at a bf16 boundary. Run free, the two scans drift further apart, because
-# such a flip feeds the later steps through W_hh (2^-8 at most over 22
-# steps on an H100, on ~12% of the outputs), so the free-running
-# outputs are held at K8_FREE_ATOL only. The check's inputs keep the gate
-# pre-activations off the sigmoid's flat tails (|x| < K8_LIVE on at least
-# K8_LIVE_SHARE of them), where a wrong gate would be invisible.
-K8_STEP_ATOL, K8_FREE_ATOL = 1e-6, 2.0 ** -6
+K6_GRAD_N = 64
+# K8's check keeps the gate pre-activations off the sigmoid's flat tails
+# (|x| < K8_LIVE on at least K8_LIVE_SHARE of them), where a wrong gate
+# would be invisible
 K8_LIVE, K8_LIVE_SHARE = 3.0, 0.5
-K8_SHAPE = dict(t=22, e=300, h=1024)  # mhb_coAtt: T, emb_dim, hidden_dim
-K8_ROUNDS = 5  # of the device times of lstm_seq and cuDNN's nn.LSTM
 # the cli phase: tools/gen_corpus.py's questions (train, val), prepare's
 # --num_answer (more than the corpus's answers), 2 epochs of batch
 # TRAIN_BATCH with a checkpoint every CLI_EVERY steps, and the mid-epoch
@@ -569,21 +464,18 @@ CLI_CORPUS, CLI_NUM_ANSWER = (640, 192), 1000
 CLI_EPOCHS, CLI_EVERY, CLI_RESUME_STEP = 2, 4, 12
 # serving by id (phase 28) and over HTTP (29): BANK_IMAGES synthetic images
 # at 196 x 2048 in an int8 store, each asked ~BANK_REUSE questions; the
-# eviction regime's capacity; the miss counts the upload cost is fitted
-# over, each the median of MISS_REPS; HTTP_CLIENTS concurrent clients, bulk
-# calls of HTTP_BULK items, the batching window
+# eviction regime's capacity; HTTP_CLIENTS concurrent clients, bulk calls
+# of HTTP_BULK items, the batching window
 BANK_IMAGES, BANK_REUSE, BANK_SMALL = 1024, 3, 512
-MISS_COUNTS, MISS_REPS = tuple(2 ** i for i in range(9)), 5
 HTTP_CLIENTS, HTTP_BULK, HTTP_WAIT_MS = 64, 16, 5.0
-# the Solver's switches (31): steps an arm; the profiled steps of a
-# step's device share; a=2's f64 gradients against a=1's, each within
-# SWITCH_GRAD_RTOL of its largest value plus SWITCH_GRAD_ATOL of the
-# model's largest gradient (the same mean of the same products, summed
-# over 64 rows or over two halves of 32: f64 summation order, ~1e-13 of
-# the terms; the atol holds the gradients that are 0 up to rounding). At
-# f32, summation noise on those is a large share of their own largest
-# value (PERF.md); K2's kernels by name
-SWITCH_STEPS, SHARE_STEPS = 10, 3
+# the Solver's switches (31): steps an arm; a=2's f64 gradients against
+# a=1's, each within SWITCH_GRAD_RTOL of its largest value plus
+# SWITCH_GRAD_ATOL of the model's largest gradient (the same mean of the
+# same products, summed over 64 rows or over two halves of 32: f64
+# summation order, ~1e-13 of the terms; the atol holds the gradients that
+# are 0 up to rounding). At f32, summation noise on those is a large share
+# of their own largest value (PERF.md); K2's kernels by name
+SWITCH_STEPS = 10
 SWITCH_GRAD_RTOL, SWITCH_GRAD_ATOL = 1e-9, 1e-9
 K2_KERNELS = ("fwd_kernel", "g_prod_kernel", "d_w_gemm_kernel",
               "d_q_kernel")
@@ -595,33 +487,28 @@ STORE_RTOL = 2.0 ** -10
 # the HTTP load of phase 29, a stdlib script run in a process of its own:
 # argv[1] names a JSON spec (url, items, the singles' count, the bulk calls'
 # item positions, the clients); it writes <spec>.out with every result in
-# the items' order, the seconds of the load, the client-side latency
-# percentiles and the failed requests
+# the items' order and the failed requests
 HTTP_LOAD = r"""
-import json, sys, time, urllib.error, urllib.request
+import json, sys, urllib.error, urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 with open(sys.argv[1]) as f:
     spec = json.load(f)
 url, items, clients = spec["url"], spec["items"], spec["clients"]
-out, latency, errors = [None] * len(items), [], []
+out, errors = [None] * len(items), []
 
 
 def post(payload):
     req = urllib.request.Request(url + "/predict", json.dumps(payload).encode(),
                                  {"Content-Type": "application/json"})
-    t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=600) as resp:
-            body = json.loads(resp.read())
+            return json.loads(resp.read())
     except urllib.error.HTTPError as e:
         errors.append([e.code, e.read().decode(errors="replace")[:200]])
-        return None
     except OSError as e:  # a refused or reset connection
         errors.append([type(e).__name__, str(e)])
-        return None
-    latency.append(time.perf_counter() - t0)
-    return body
+    return None
 
 
 def client(c):
@@ -633,69 +520,17 @@ def client(c):
             out[pos] = result
 
 
-t0 = time.perf_counter()
 with ThreadPoolExecutor(clients) as pool:
     list(pool.map(client, range(clients)))
-seconds = time.perf_counter() - t0
-ms = sorted(x * 1e3 for x in latency)
-pct = {f"p{q}_ms": ms[min(len(ms) - 1, int(q / 100 * len(ms)))]
-       for q in (50, 99)} if ms else {}
 if any(r is None for r in out):
     errors.append("missing results")
 with open(sys.argv[1] + ".out", "w") as f:
-    json.dump({"out": out, "seconds": seconds, "latency_ms": pct,
-               "errors": errors}, f)
+    json.dump({"out": out, "errors": errors}, f)
 """
-# the card's rates for the bounds (H100 SXM data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields), flush=True)
-
-
-def card() -> tuple:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible; this script needs an "
-              "NVIDIA card", file=sys.stderr)
-        sys.exit(1)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    return torch.cuda.get_device_name(0), smi
-
-
-def k1_inputs(n: int, seed: int, cfg: Config, device) -> tuple:
-    """Random production-shape K1 inputs: bf16 img, f32 q and weights."""
-    rng = np.random.default_rng(seed)
-    d, f = cfg.img_feature_channel, cfg.fusion_dim
-    o, c = cfg.mfb_out, 512
-
-    def t(shape, scale):
-        x = rng.standard_normal(shape, dtype=np.float32) * scale
-        return torch.from_numpy(x).to(device)
-
-    img = t((n, cfg.img_feature_dim, d), 0.5).to(torch.bfloat16)
-    q = t((n, f), 0.5)
-    # after the grid-flat L2 norm zb is ~2.5e-3 per element: c1w ~ N(0, 1)
-    # with no bias and c2w ~ 3 N(0, 1) make the logits span several units
-    # over the 196 regions, so the attention is peaked
-    sw = wqf.prepare_stage1_weights(
-        t((d, f), 0.02), t((f,), 0.05), t((o, c), 1.0), t((c,), 0.0),
-        t((c, 2), 3.0), t((2,), 0.05), cfg.mfb_factor,
-    )
-    return img, q, sw
-
-
-def within(got: torch.Tensor, want: torch.Tensor, d: int) -> torch.Tensor:
-    """Elementwise: is ``got`` within the tolerance of ``want`` [N, G*D]?"""
-    got = got.float().reshape(got.shape[0], -1, d)
-    want = want.float().reshape(got.shape)
-    scale = want.abs().amax(-1, keepdim=True)
-    return (got - want).abs() <= ATOL + RTOL_ROW * scale
 
 
 def uniform_rejected(img: torch.Tensor, out: torch.Tensor) -> float:
@@ -730,74 +565,12 @@ def scratch_diff(got, want, atol, rtol) -> tuple:
     return ok, float(diff.max()), float((diff == 0).float().mean())
 
 
-def host_ms(fn, iters: int) -> float:
-    """The host's ms to issue one call of ``fn``: the wall clock around
-    ``iters`` calls, read before the device is waited for."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    issued = (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
-    return issued
-
-
-def time_ms(fn, iters: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def k2_inputs(n: int, seed: int, cfg: Config, device) -> tuple:
-    """Random production-width K2 inputs: bf16 img and q (q_proj is bf16
-    in the bf16 model), f32 W and b, and an f32 cotangent g. Region 0 of
-    sample 0 is all zeros and the bias of the first K2_FORCED_ZEROS outputs
-    is 0 (the model's initial bias), so those outputs pool to exactly 0
-    with the mask on: where pooled is 0 because all k factors were dropped
-    the mask zeroes g_prod anyway, and only these show g_pooled's zero
-    rule (in d_b and d_img)."""
-    rng = np.random.default_rng(seed)
-    d, f = cfg.img_feature_channel, cfg.fusion_dim
-
-    def t(shape, scale):
-        x = rng.standard_normal(shape, dtype=np.float32) * scale
-        return torch.from_numpy(x).to(device)
-
-    img = t((n, cfg.img_feature_dim, d), 0.5)
-    img[0, 0] = 0.0
-    b = t((f,), 0.05)
-    b[:K2_FORCED_ZEROS * cfg.mfb_factor] = 0.0
-    q = t((n, f), 0.5).to(torch.bfloat16)
-    g = t((n, cfg.img_feature_dim, cfg.mfb_out), 1.0)
-    return img.to(torch.bfloat16), t((d, f), 0.02), b, q, g
-
-
-def k2_view(name: str, x: torch.Tensor) -> torch.Tensor:
-    """What the check compares: f32, and the forward as pooled =
-    out * |out|."""
-    x = x.float()
-    return x * x.abs() if name == "forward" else x
-
-
-def k2_within(name: str, got: torch.Tensor,
-              want: torch.Tensor) -> torch.Tensor:
-    """Elementwise: is ``got`` within K2_RTOL[name] of ``want``'s largest
-    magnitude?"""
-    got, want = k2_view(name, got), k2_view(name, want)
-    return (got - want).abs() <= K2_RTOL[name] * want.abs().max()
-
-
 def k2_launches(img, w_bf16, b, q, g, seed, rate) -> dict:
     """Every K2 launch once; the backward ones on the kernel's own forward
     output, d_img and d_W/d_b over one g_prod build, as the backward runs
     them."""
-    got = {"forward": tf.forward_cuda(img, w_bf16, b, q, seed, K2_K, rate)}
-    args = (g, got["forward"], img, w_bf16, b, q, seed, K2_K, rate)
+    got = {"forward": tf.forward_cuda(img, w_bf16, b, q, seed, cc.K, rate)}
+    args = (g, got["forward"], img, w_bf16, b, q, seed, cc.K, rate)
     got["g_prod"], got["d_b_partials"] = tf.g_prod_cuda(*args)
     got["d_img"] = tf.d_img_from_operand_cuda(got["g_prod"], w_bf16,
                                               *img.shape[:2])
@@ -809,19 +582,19 @@ def k2_launches(img, w_bf16, b, q, g, seed, rate) -> dict:
 
 def k2_plain(img, w_bf16, b, q, g, out, keep) -> dict:
     """The plain version of every K2 launch; the backward ones on ``out``."""
-    want = {"forward": tf.forward_reference(img, w_bf16, b, q, K2_K, keep),
-            "d_img": tf.d_img_reference(g, out, w_bf16, q, K2_K, keep)}
+    want = {"forward": tf.forward_reference(img, w_bf16, b, q, cc.K, keep),
+            "d_img": tf.d_img_reference(g, out, w_bf16, q, cc.K, keep)}
     want["g_prod"], want["d_b_partials"] = tf.g_prod_reference(
-        g, out, q, K2_K, keep)
-    want["d_w"], want["d_b"] = tf.d_w_reference(g, out, img, q, K2_K, keep)
-    want["d_q"] = tf.d_q_reference(g, out, img, w_bf16, b, K2_K, keep)
+        g, out, q, cc.K, keep)
+    want["d_w"], want["d_b"] = tf.d_w_reference(g, out, img, q, cc.K, keep)
+    want["d_q"] = tf.d_q_reference(g, out, img, w_bf16, b, cc.K, keep)
     return want
 
 
-def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
+def k2_check(n: int, rate: float, device) -> dict:
     """K2 at production widths against its plain version, with controls;
     raises on a failure. Returns max |diff| per launch."""
-    img, w, b, q, g = k2_inputs(n, 100 + n, cfg, device)
+    img, w, b, q, g = cc.k2_inputs(n, 100 + n, device)
     l, f = img.shape[1], w.shape[1]
     seed = 1234 + n
     w_bf16, bf, qf = tf.operands(w, b, q)
@@ -870,11 +643,11 @@ def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
     # (seen once: true pooled -3.9e-7 from terms of +-0.1)
     zero = torch.zeros_like(out, dtype=torch.bool)
     if mask is not None:
-        zero |= ~mask.reshape(*out.shape, K2_K).any(-1)
-    zero[0, 0, :K2_FORCED_ZEROS] = True
+        zero |= ~mask.reshape(*out.shape, cc.K).any(-1)
+    zero[0, 0, :cc.K2_FORCED_ZEROS] = True
     dropped = int(zero.sum())
-    forced = min(K2_FORCED_ZEROS, out.shape[-1])
-    expect = rate ** K2_K * (out.numel() - forced) + forced
+    forced = min(cc.K2_FORCED_ZEROS, out.shape[-1])
+    expect = rate ** cc.K * (out.numel() - forced) + forced
     in_both = bool((out[zero] == 0).all() and (want["forward"][zero] == 0)
                    .all())
     fields["zeros"] = {"kernel": int((out == 0).sum()),
@@ -887,8 +660,8 @@ def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
     # taken as 1e-20, the clamp alone), and at rate > 0 a mask that does
     # not replay and a backward without the mask
     clamped = torch.where(out == 0, torch.full_like(out, 1e-20), out)
-    no_rule_w, no_rule_b = tf.d_w_reference(g, clamped, img, qf, K2_K, keep)
-    no_rule_img = tf.d_img_reference(g, clamped, w_bf16, qf, K2_K, keep)
+    no_rule_w, no_rule_b = tf.d_w_reference(g, clamped, img, qf, cc.K, keep)
+    no_rule_img = tf.d_img_reference(g, clamped, w_bf16, qf, cc.K, keep)
     controls = {
         "d_w_d_b_without_zero_rule_rejected": not bool(
             k2_within("d_w", no_rule_w, want["d_w"]).all()
@@ -897,11 +670,11 @@ def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
             k2_within("d_img", no_rule_img, want["d_img"]).all()),
     }
     if rate > 0:
-        other = tf.forward_reference(img, w_bf16, bf, qf, K2_K, tf.keep_scale(
+        other = tf.forward_reference(img, w_bf16, bf, qf, cc.K, tf.keep_scale(
             tf.dropout_mask(seed + 1, n, l, f, rate, device), rate))
         controls["other_seed_rejected_share"] = 1.0 - float(
             k2_within("forward", other, want["forward"]).float().mean())
-        no_mask = tf.d_w_reference(g, out, img, qf, K2_K, None)[0]
+        no_mask = tf.d_w_reference(g, out, img, qf, cc.K, None)[0]
         controls["d_w_without_mask_rejected"] = not bool(
             k2_within("d_w", no_mask, want["d_w"]).all())
     fields["controls"] = controls
@@ -914,277 +687,40 @@ def k2_check(n: int, rate: float, cfg: Config, device) -> dict:
     return max_abs
 
 
-def device_ms(fn, iters: int = 5) -> dict:
-    """The card's kernel time per call of ``fn`` from one torch.profiler
-    trace of ``iters`` calls after a warm-up, without the host's time
-    between launches, by two formulas: ``ms``, all the device time the
-    trace recorded over ``iters``, and ``ms_per_launch``, each kernel's
-    mean time per recorded launch times its launches per call
-    (round(count / iters)), which a launch the trace did not record does
-    not lower. ``unrecorded`` names the kernels whose recorded launches
-    are not a multiple of ``iters``: where it is empty the two agree. The
-    times are None where the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    total_us = sum(e.self_device_time_total for e in events)
-    scaled_us = sum(e.self_device_time_total / e.count
-                    * max(1, round(e.count / iters)) for e in events)
-    return {"ms": total_us / iters / 1e3 if total_us > 0 else None,
-            "ms_per_launch": scaled_us / 1e3 if scaled_us > 0 else None,
-            "unrecorded": [e.key[:60] for e in events if e.count % iters]}
-
-
-def device_ms_by_kernel(fn, iters: int = 5) -> dict:
-    """Each kernel's device time per call of ``fn`` (ms) from one
-    torch.profiler trace of ``iters`` calls after a warm-up, by kernel
-    name (its first 60 characters; kernels whose names agree that far are
-    summed): the time of each launch of a multi-launch kernel, apart.
-    Late in a long run the profiler can drop records, so each kernel's
-    time is its mean per recorded launch times its launches per call
-    (round(count / iters)), as ``device_ms``'s ``ms_per_launch``; it can
-    also drop every record of a kernel, which then is missing. A call's
-    whole device time comes from ``launch_ms``, which needs no profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.key_averages():
-        if getattr(e, "self_device_time_total", 0) > 0:
-            key = e.key[:60]
-            times[key] = times.get(key, 0.0) + (
-                e.self_device_time_total / e.count
-                * max(1, round(e.count / iters)) / 1e3)
-    return times
-
-
-def launch_ms(fn, iters: int = 10) -> float:
-    """The device ms of one call of ``fn`` (all its launches): CUDA events
-    around each call, both queued behind a spin on the card so that the
-    host's enqueue falls outside the interval, averaged over ``iters``
-    calls after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(stop)
-    return total / iters
-
-
-def interleaved_ms(kernel, plain, iters: int = 3) -> tuple:
-    """kernel/plain/plain/kernel after one warm-up call of each -> (kernel
-    ms, plain ms, all four runs)."""
-    kernel(), plain()
-    plain_a = time_ms(plain, iters)
-    kernel_a = time_ms(kernel, iters)
-    kernel_b = time_ms(kernel, iters)
-    plain_b = time_ms(plain, iters)
-    return ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2,
-            [kernel_a, kernel_b], [plain_a, plain_b])
-
-
-def k2_time(cfg: Config, device, smi: str, rate: float = 0.1) -> tuple:
-    """Each K2 launch against its plain version at N=64 (the plain
-    backward is handed the mask, as the kernel replays it), d_img and
-    d_W/d_b each as the product over the g_prod operand and with the build
-    (``d_img_total``, ``d_w_total``), d_W/d_b's two launches' shares, then
-    forward, backward (d_W + d_b + d_q) and both through the autograd
-    functions, where the plain forward draws its mask. Beside d_img, for
-    information, ``torch.matmul(g_prod, bf16(W)^T)`` with bf16 out, the
-    bare product, which the port never calls. Returns (times, bounds,
-    library ms) by launch; a bound counts the launch's product (2 N L D F
-    operations in bf16; the g_prod build's 4 f32 operations an element) and
-    its operands and results, not the mask's integer work."""
-    n, seed = TRAIN_BATCH, 7
-    img, w, b, q, g = k2_inputs(n, 3, cfg, device)
-    w_bf16, bf, qf = tf.operands(w, b, q)
-    keep = tf.keep_scale(tf.dropout_mask(seed, n, img.shape[1], w.shape[1],
-                                         rate, device), rate)
-    out = tf.forward_cuda(img, w_bf16, bf, qf, seed, K2_K, rate)
-    args = (g, out, img, w_bf16, bf, qf, seed, K2_K, rate)
-    g_prod, parts = tf.g_prod_cuda(*args)
-    pairs = {
-        "forward": (lambda: tf.forward_cuda(img, w_bf16, bf, qf, seed, K2_K,
-                                            rate),
-                    lambda: tf.forward_reference(img, w_bf16, bf, qf, K2_K,
-                                                 keep)),
-        "d_img": (lambda: tf.d_img_from_operand_cuda(g_prod, w_bf16, n,
-                                                     img.shape[1]),
-                  lambda: tf.d_img_from_operand_reference(g_prod, w_bf16, n,
-                                                          img.shape[1])),
-        "d_img_total": (lambda: tf.d_img_cuda(*args),
-                        lambda: tf.d_img_reference(g, out, w_bf16, qf, K2_K,
-                                                   keep)),
-        "g_prod": (lambda: tf.g_prod_cuda(*args),
-                   lambda: tf.g_prod_reference(g, out, qf, K2_K, keep)),
-        "d_w": (lambda: tf.d_w_from_operand_cuda(img, g_prod, parts),
-                lambda: (tf.d_w_from_operand_reference(img, g_prod),
-                         parts.sum(0))),
-        "d_w_total": (lambda: tf.d_w_cuda(*args),
-                      lambda: tf.d_w_reference(g, out, img, qf, K2_K, keep)),
-        "d_q": (lambda: tf.d_q_cuda(*args),
-                lambda: tf.d_q_reference(g, out, img, w_bf16, bf, K2_K,
-                                         keep)),
-    }
-    l, d = img.shape[1:]
-    f = w.shape[1]
-    ops = {"bf16": 2 * n * l * d * f}
-    bounds = {
-        "forward": bound(nbytes(img, w_bf16, bf, qf, out), ops),
-        "d_img": bound(nbytes(g_prod, w_bf16, img), ops),  # d_img ~ img
-        "d_img_total": bound(nbytes(g, out, w_bf16, qf, img), ops),
-        "g_prod": bound(nbytes(g, out, qf, g_prod, parts),
-                        {"f32": 4 * n * l * f}),
-        "d_w": bound(nbytes(img, g_prod, parts) + 4 * (d * f + f), ops),
-        "d_w_total": bound(nbytes(g, out, img, qf) + 4 * (d * f + f), ops),
-        "d_q": bound(nbytes(g, out, img, w_bf16, bf) + 4 * n * f, ops),
-    }
-    times = {}
-    for name, (kernel, plain) in pairs.items():
-        times[name] = interleaved_ms(kernel, plain)
-        say("k2_time", launch=name, n=n, rate=rate, kernel_ms=times[name][0],
-            plain_ms=times[name][1], kernel_runs_ms=times[name][2],
-            plain_runs_ms=times[name][3], bound_ms=bounds[name][0],
-            bound_by=bounds[name][1], card=smi)
-    # d_W/d_b: the two launches timed one by one, and their sum
-    parts_ms = {key: times[key][0] for key in ("g_prod", "d_w")}
-    say("k2_time", launch="d_w/d_b", n=n, rate=rate,
-        kernel_ms_sum_of_launches=sum(parts_ms.values()),
-        kernel_ms_both_in_one_call=times["d_w_total"][0],
-        share_by_launch={key: v / sum(parts_ms.values())
-                         for key, v in parts_ms.items()},
-        plain_ms=times["d_w_total"][1], bound_ms=bounds["d_w_total"][0],
-        target_ms=K2_DW_TARGET_MS, card=smi)
-    w_t = w_bf16.t()
-    torch.matmul(g_prod, w_t)  # warm-up
-    library = {"d_img": time_ms(lambda: torch.matmul(g_prod, w_t), 10)}
-    say("k2_time", launch="d_img", library="torch.matmul(g_prod, bf16(W)^T)",
-        library_ms=library["d_img"], kernel_ms=times["d_img"][0], card=smi)
-    del g_prod, parts, w_t
-
-    wr, br, qr = (x.clone().requires_grad_(True) for x in (w, b, q))
-    fns = {"kernel": tf.TrainGridFuse.apply,
-           "plain": tf.train_grid_fuse_reference}
-    outs = {k: fn(img, wr, br, qr, seed, K2_K, rate) for k, fn in fns.items()}
-
-    def fwd(k):
-        return lambda: fns[k](img, wr, br, qr, seed, K2_K, rate)
-
-    def bwd(k):
-        return lambda: torch.autograd.grad(outs[k], (wr, br, qr), g,
-                                           retain_graph=True)
-
-    def both(k):
-        return lambda: torch.autograd.grad(fwd(k)(), (wr, br, qr), g)
-
-    for name, make in (("forward", fwd), ("backward", bwd),
-                       ("forward+backward", both)):
-        k_ms, p_ms, k_runs, p_runs = interleaved_ms(make("kernel"),
-                                                    make("plain"))
-        say("k2_time", autograd=name, n=n, rate=rate, kernel_ms=k_ms,
-            plain_ms=p_ms, kernel_runs_ms=k_runs, plain_runs_ms=p_runs,
-            card=smi)
-    return times, bounds, library
-
-
-def train_profile(cfg: Config, params, store, smi: str) -> None:
-    """One pre-pool training step of full-width bf16 mhb_coAtt at batch
-    TRAIN_BATCH, after two warm-up steps, under torch.profiler: the
-    device's busy share of the step (the time of its kernels and copies
-    over the step's wall time, synchronised at both ends; the batches are
-    gathered on the host beforehand) and the five device kernels that took
-    longest, by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    cfg = cfg.replace(num_epoch=1, batch_size=TRAIN_BATCH)
-    qa, _ = train_data(cfg, 3)
-    solver = Solver(cfg, qa, store, params=params)
-    batches = list(solver.batches["train"].epoch(0))
-    for batch in batches[:2]:
-        solver._train_step(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loss, _ = solver._train_step(batches[2])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:5]
-    say("train_profile", model=cfg.model_name, dropout_site=cfg.dropout_site,
-        batch=TRAIN_BATCH, loss=float(loss), step_wall_ms=wall_ms,
-        device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
-        top_kernels=[{"name": e.key[:120], "calls": e.count,
-                      "device_ms": e.self_device_time_total / 1e3}
-                     for e in top], card=smi)
-    if not np.isfinite(float(loss)) or busy_ms <= 0:
-        raise AssertionError("train_profile: the profiled step is not "
-                             "finite or recorded no device time")
-    del solver
-
-
 def k3_launches(img, w_bf16, b, q, g) -> dict:
     """Every K3 launch once; the backward ones on the kernel's own forward
     output, d_img and d_W/d_b/d_q over one g_pooled build, as the backward
     runs them."""
-    got = {"forward": pf.forward_cuda(img, w_bf16, b, q, K2_K)}
-    args = (g, got["forward"], img, w_bf16, b, q, K2_K)
+    got = {"forward": pf.forward_cuda(img, w_bf16, b, q, cc.K)}
+    args = (g, got["forward"], img, w_bf16, b, q, cc.K)
     got["g_pooled"], got["d_bq"] = pf.g_pooled_cuda(*args)
     got["d_img"] = pf.d_img_from_gp_cuda(got["g_pooled"], img, w_bf16, b, q,
-                                         K2_K)
+                                         cc.K)
     got["d_w"], got["d_b"], got["d_q"] = pf.d_w_from_gp_cuda(
-        got["g_pooled"], got["d_bq"], img, w_bf16, b, q, K2_K)
+        got["g_pooled"], got["d_bq"], img, w_bf16, b, q, cc.K)
     return got
 
 
 def k3_plain(img, w_bf16, b, q, g, out) -> dict:
     """The plain version of every K3 launch; the backward ones on ``out``."""
-    want = {"forward": pf.forward_reference(img, w_bf16, b, q, K2_K),
-            "d_img": pf.d_img_reference(g, out, w_bf16, q, K2_K)}
+    want = {"forward": pf.forward_reference(img, w_bf16, b, q, cc.K),
+            "d_img": pf.d_img_reference(g, out, w_bf16, q, cc.K)}
     want["g_pooled"], want["d_bq"] = pf.g_pooled_reference(g, out)
     want["d_w"], want["d_b"], want["d_q"] = pf.d_w_reference(
-        g, out, img, w_bf16, b, q, K2_K)
+        g, out, img, w_bf16, b, q, cc.K)
     return want
 
 
-def k3_within(name: str, got: torch.Tensor,
-              want: torch.Tensor) -> torch.Tensor:
-    """Elementwise: is ``got`` within K3_RTOL of ``want``'s largest
-    magnitude (the forward as pooled = out * |out|)?"""
-    got, want = k2_view(name, got), k2_view(name, want)
-    return (got - want).abs() <= K3_RTOL * want.abs().max()
-
-
-def k3_check(n: int, cfg: Config, device) -> dict:
+def k3_check(n: int, device) -> dict:
     """K3 at production widths against its plain version, with controls;
     raises on a failure. Returns max |diff| per launch. The inputs are
     K2's (region 0 of sample 0 is all zeros and the bias of the first
-    K2_FORCED_ZEROS outputs is 0, so those outputs pool to exactly 0 in
+    card_cases.K2_FORCED_ZEROS outputs is 0, so they pool to exactly 0 in
     that row), and the last K3_DEAD_OUTPUTS outputs, at the ragged edge of
     every O tile, have zero weights and bias, so they pool to exactly 0 in
     every row: the places where g_pooled's zero rule acts."""
-    img, w, b, q, g = k2_inputs(n, 300 + n, cfg, device)
-    dead = slice(w.shape[1] - K3_DEAD_OUTPUTS * K2_K, None)
+    img, w, b, q, g = cc.k2_inputs(n, 300 + n, device)
+    dead = slice(w.shape[1] - K3_DEAD_OUTPUTS * cc.K, None)
     w[:, dead] = 0.0
     b[dead] = 0.0
     w_bf16, bf, qb = pf.operands(w, b, q)
@@ -1227,7 +763,7 @@ def k3_check(n: int, cfg: Config, device) -> dict:
                    ("within_tolerance", "rerun_bit_equal", "finite")):
             failed.append(name)
     forced = torch.zeros_like(out, dtype=torch.bool)
-    forced[0, 0, :K2_FORCED_ZEROS] = True
+    forced[0, 0, :cc.K2_FORCED_ZEROS] = True
     forced[..., -K3_DEAD_OUTPUTS:] = True
     fields["zeros"] = {
         "kernel": int((out == 0).sum()),
@@ -1241,13 +777,13 @@ def k3_check(n: int, cfg: Config, device) -> dict:
     # q in d_W, and g_pooled without its zero rule (out == 0 taken as
     # 1e-20, the clamp alone): d_W and d_b see it at the dead outputs
     # (img is not 0 there), d_img at the zero region (wq is not 0 there)
-    perm = pf.forward_reference(img, w_bf16, bf, qb.roll(1, 0), K2_K)
+    perm = pf.forward_reference(img, w_bf16, bf, qb.roll(1, 0), cc.K)
     other_q = pf.d_w_reference(g, out, img, w_bf16, bf, qb.roll(1, 0),
-                               K2_K)[0]
+                               cc.K)[0]
     clamped = torch.where(out == 0, torch.full_like(out, 1e-20), out)
     no_rule_w, no_rule_b, _ = pf.d_w_reference(g, clamped, img, w_bf16, bf,
-                                               qb, K2_K)
-    no_rule_img = pf.d_img_reference(g, clamped, w_bf16, qb, K2_K)
+                                               qb, cc.K)
+    no_rule_img = pf.d_img_reference(g, clamped, w_bf16, qb, cc.K)
     controls = {
         "permuted_q_rejected_share": 1.0 - float(
             k3_within("forward", perm, want["forward"]).float().mean()),
@@ -1269,95 +805,6 @@ def k3_check(n: int, cfg: Config, device) -> dict:
     if failed:
         raise AssertionError(f"K3 fails {failed} at N={n}")
     return max_abs
-
-
-def k3_time(cfg: Config, device, smi: str) -> tuple:
-    """Each K3 launch against its plain version at N=64 (CUDA events after
-    warm-up, kernel/plain/plain/kernel): the forward, the g_pooled build,
-    d_img as the product over its operand and with the build
-    (``d_img_total``), and d_W/d_b/d_q with the build (the four launches it
-    took before the build was its own entry) with each launch's device
-    time. Beside d_img, for information, ``torch.bmm`` of bf16 g_pooled
-    [N, L, O] against a materialised bf16 wq^T [N, O, D] with bf16 out,
-    the bare product without the wq build, which the port never calls.
-    Returns (times, bounds, library ms) by launch: a bound counts the
-    launch's product (2 N L D O operations in bf16), its f32 elementwise
-    work (the wq build, 2 N k D O, in the forward and d_img; d_W's and
-    d_q's contractions with q and W, 4 N D F, in d_W; the zero rule's 3
-    operations an element in g_pooled) and its operands and results moved
-    once."""
-    n = TRAIN_BATCH
-    img, w, b, q, g = k2_inputs(n, 3, cfg, device)
-    w_bf16, bf, qb = pf.operands(w, b, q)
-    out = pf.forward_cuda(img, w_bf16, bf, qb, K2_K)
-    args = (g, out, img, w_bf16, bf, qb, K2_K)
-    gp, d_bq = pf.g_pooled_cuda(*args)
-    pairs = {
-        "forward": (lambda: pf.forward_cuda(img, w_bf16, bf, qb, K2_K),
-                    lambda: pf.forward_reference(img, w_bf16, bf, qb, K2_K)),
-        "g_pooled": (lambda: pf.g_pooled_cuda(*args),
-                     lambda: pf.g_pooled_reference(g, out)),
-        "d_img": (lambda: pf.d_img_from_gp_cuda(gp, img, w_bf16, bf, qb,
-                                                K2_K),
-                  lambda: pf.d_img_from_gp_reference(gp, w_bf16, qb, K2_K)),
-        "d_img_total": (lambda: pf.d_img_cuda(*args),
-                        lambda: pf.d_img_reference(g, out, w_bf16, qb,
-                                                   K2_K)),
-        "d_w": (lambda: pf.d_w_cuda(*args),
-                lambda: pf.d_w_reference(g, out, img, w_bf16, bf, qb, K2_K)),
-    }
-    l, d = img.shape[1:]
-    f = w.shape[1]
-    prod = {"bf16": 2 * n * l * d * (f // K2_K)}
-    build = dict(prod, f32=2 * n * d * f)  # 2 N k D O = 2 N D F
-    bounds = {
-        "forward": bound(nbytes(img, w_bf16, bf, qb, out), build),
-        "g_pooled": bound(nbytes(g, out, gp, d_bq), {"f32": 3 * g.numel()}),
-        "d_img": bound(nbytes(gp, w_bf16, qb) + 4 * img.numel(), build),
-        "d_img_total": bound(nbytes(g, out, w_bf16, qb) + 4 * img.numel(),
-                             build),
-        "d_w": bound(nbytes(g, out, img, w_bf16, bf, qb)
-                     + 4 * (d * f + f + n * f), dict(prod, f32=4 * n * d * f)),
-    }
-    times = {}
-    for name, (kernel, plain) in pairs.items():
-        times[name] = interleaved_ms(kernel, plain)
-        # d_W/d_b/d_q is four launches: each one's device time apart
-        by_launch = device_ms_by_kernel(kernel) if name == "d_w" else None
-        say("k3_time", launch=name, n=n, kernel_ms=times[name][0],
-            plain_ms=times[name][1], kernel_runs_ms=times[name][2],
-            plain_runs_ms=times[name][3], bound_ms=bounds[name][0],
-            bound_by=bounds[name][1], device_ms_by_launch=by_launch,
-            card=smi)
-    gp_o = gp[..., :f // K2_K].contiguous()
-    wq_t = pf.contracted_weights(w_bf16, qb, K2_K).to(
-        torch.bfloat16).transpose(1, 2).contiguous()
-    torch.bmm(gp_o, wq_t)  # warm-up
-    library = {"d_img": time_ms(lambda: torch.bmm(gp_o, wq_t), 10)}
-    say("k3_time", launch="d_img",
-        library="torch.bmm(bf16 g_pooled, bf16 wq^T), not the kernel's "
-                "function (no wq build, bf16 out)",
-        library_ms=library["d_img"], kernel_ms=times["d_img"][0], card=smi)
-    return times, bounds, library
-
-
-def nbytes(*tensors) -> int:
-    """Bytes of the distinct tensors given (a tensor passed twice, as the
-    question glimpse passes h_seq as x and v, is read once)."""
-    seen = {t.data_ptr(): t for t in tensors}
-    return sum(t.numel() * t.element_size() for t in seen.values())
-
-
-def bound(moved: int, ops: dict) -> tuple:
-    """(ms, "bytes" or "operations"): the least time this card could take
-    for work that moves ``moved`` bytes (each input read once, each output
-    written once) and does ``ops`` operations by type, each type at its
-    peak rate."""
-    by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()) * 1e3
-    if by_bytes >= by_ops:
-        return by_bytes, "bytes"
-    return by_ops, "operations"
 
 
 @contextlib.contextmanager
@@ -1410,7 +857,7 @@ def serve_phase(phase: str, cfg: Config, params, store, counters: dict,
     ``control`` (a parameter tree that blinds the kernel's stage), the
     control's answers must count as flips at 10x that rate; ``info`` maps
     a label to a Config whose forward is compared for information only.
-    Raises on a failed gate."""
+    Raises on a failed gate; returns the launches."""
     engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5)
     image_ids, ques = traffic(cfg)
     n_req = len(ques)
@@ -1424,10 +871,8 @@ def serve_phase(phase: str, cfg: Config, params, store, counters: dict,
     torch.cuda.synchronize()
     for module in counters.values():
         module.launch_count = 0
-    t0 = time.perf_counter()
     preds = [p for batch in engine.predict_stream(batches()) for p in batch]
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = {name: module.launch_count for name, module in counters.items()}
     answers = np.array([p.answer_id for p in preds])
     probs = np.stack([p.top_probs for p in preds])
@@ -1456,18 +901,11 @@ def serve_phase(phase: str, cfg: Config, params, store, counters: dict,
                 n_blind += flips(plain, blind(img, qt, reference_kernels=True)
                                  .argmax(-1))
     del others, blind
-    # the device's share of the run: one batch's forward, already on the
-    # device, timed with CUDA events, against the wall time per batch
-    with torch.inference_mode():
-        forward_ms = time_ms(lambda: engine.model(img, qt), 3)
     fields = dict(model=cfg.model_name, requests=n_req, batch=BATCH,
                   launches=launches, flips_vs_plain=n_flips,
                   flip_rate=n_flips / n_req,
                   argmax_differs_info_only=n_argmax,
-                  distinct_answers=int(len(np.unique(answers))),
-                  qa_pairs_per_s=n_req / seconds, seconds=seconds,
-                  wall_ms_per_batch=seconds * 1e3 / N_BATCHES,
-                  device_forward_ms_per_batch=forward_ms, card=smi)
+                  distinct_answers=int(len(np.unique(answers))), card=smi)
     if control is not None:
         fields["control_flip_rate"] = n_blind / n_req
     for label, n in info_flips.items():
@@ -1482,41 +920,13 @@ def serve_phase(phase: str, cfg: Config, params, store, counters: dict,
     if n_flips / n_req > MAX_FLIP_RATE:
         raise AssertionError(f"{phase}: {n_flips} top-1 flips against the "
                              "plain versions")
-    return {"launches": launches, "qa_pairs_per_s": n_req / seconds}
-
-
-def randn(rng, shape, scale, device, dtype=torch.float32) -> torch.Tensor:
-    x = rng.standard_normal(shape, dtype=np.float32) * scale
-    return torch.from_numpy(x).to(device).to(dtype)
-
-
-def k4_inputs(n: int, seed: int, device) -> tuple:
-    """bf16 K4 inputs whose two softmaxes are peaked."""
-    rng = np.random.default_rng(seed)
-    l, t, e = K4_SHAPE["l"], K4_SHAPE["t"], K4_SHAPE["e"]
-    bf = torch.bfloat16
-    return (randn(rng, (n, l, e), 0.5, device, bf),
-            randn(rng, (n, t, e), 0.5, device, bf),
-            randn(rng, (n, l, e), 0.3, device, bf),
-            randn(rng, (n, t, e), 0.3, device, bf),
-            randn(rng, (n, l, e), 0.5, device, bf),
-            randn(rng, (n, t, e), 0.5, device, bf),
-            randn(rng, (e, 1), 0.4, device, bf),
-            randn(rng, (e, 1), 0.4, device, bf))
-
-
-def k4_within(name: str, got: torch.Tensor,
-              want: torch.Tensor) -> torch.Tensor:
-    """Elementwise: is K4's output ``name`` within its tolerance?"""
-    if name in ("av", "aq"):
-        return (got - want).abs() <= K4_MAP_RTOL * want.abs() + K4_MAP_ATOL
-    return (got - want).abs() <= K4_RTOL * want.abs().max()
+    return launches
 
 
 def k4_check(n: int, dev) -> float:
     """K4 against its plain version with its controls; raises on a
     failure. Returns the largest |diff| over (v, q, av, aq)."""
-    args = k4_inputs(n, 40 + n, dev)
+    args = cc.k4_inputs(n, 40 + n, dev)
     got = co.coattention_core_cuda(*args)
     again = co.coattention_core_cuda(*args)
     want = co.coattention_core_reference(*args)
@@ -1540,12 +950,12 @@ def k4_check(n: int, dev) -> float:
                 and rec["finite"]):
             failed.append(name)
     av_peak = float(got[2].max(1).values.mean())
-    say("k4_check", n=n, **K4_SHAPE, av_max_mean=av_peak,
-        uniform_av=1.0 / K4_SHAPE["l"], **fields)
+    say("k4_check", n=n, **cc.K4_SHAPE, av_max_mean=av_peak,
+        uniform_av=1.0 / cc.K4_SHAPE["l"], **fields)
     if failed:
         raise AssertionError(f"K4 disagrees with its plain version on "
                              f"{failed} at N={n}")
-    if av_peak < 10.0 / K4_SHAPE["l"]:
+    if av_peak < 10.0 / cc.K4_SHAPE["l"]:
         raise AssertionError("the K4 inputs do not peak the region softmax")
     if min(rec["uniform_control_rejected_share"] for rec in fields.values()
            if isinstance(rec, dict)) < 0.5:
@@ -1553,28 +963,18 @@ def k4_check(n: int, dev) -> float:
     return max_abs
 
 
-def k5_inputs(n: int, seed: int, cfg: Config, device) -> tuple:
-    """Production-width K5 inputs: bf16 img and q, f32 W and b."""
-    rng = np.random.default_rng(seed)
-    d, f = cfg.img_feature_channel, cfg.fusion_dim
-    return (randn(rng, (n, cfg.img_feature_dim, d), 0.5, device,
-                  torch.bfloat16),
-            randn(rng, (d, f), 0.02, device), randn(rng, (f,), 0.05, device),
-            randn(rng, (n, f), 0.5, device, torch.bfloat16))
-
-
-def k5_check(n: int, cfg: Config, dev) -> float:
+def k5_check(n: int, dev) -> float:
     """K5 against grid_fuse_reference, bit-equal reruns, and the control
     (q permuted across samples); raises on a failure. Returns max |diff|
     of the output."""
-    img, w, b, q = k5_inputs(n, 50 + n, cfg, dev)
-    k = cfg.mfb_factor
+    img, w, b, q = cc.k5_inputs(n, 50 + n, dev)
+    k = cc.K
     got = gf.inference_fusion_cuda(img, w, b, q, k)
     again = gf.inference_fusion_cuda(img, w, b, q, k)
     want = gf.grid_fuse_reference(img, w, b, q, k)
     torch.cuda.synchronize()
     pooled, want_pooled = got * got.abs(), want * want.abs()
-    tol = K5_RTOL * want_pooled.abs().max()
+    tol = cc.K5_RTOL * want_pooled.abs().max()
     ok = bool(((pooled - want_pooled).abs() <= tol).all())
     perm = gf.grid_fuse_reference(img, w, b, q.roll(1, 0), k)
     rejected = float(((perm * perm.abs() - want_pooled).abs() > tol)
@@ -1594,39 +994,18 @@ def k5_check(n: int, cfg: Config, dev) -> float:
     return max_abs
 
 
-def k7_inputs(shape: tuple, seed: int, device) -> tuple:
-    """K7 inputs at one call shape, with the softmax over P peaked: bf16 x
-    and v (the question glimpse pools x itself, as mhb_coAtt pools h_seq),
-    f32 W1 [A, C], b1, W2 [G=2, A], b2."""
-    n, p, c, a, d = shape
-    rng = np.random.default_rng(seed)
-    x = randn(rng, (n, p, c), 1.0, device, torch.bfloat16)
-    v = x if d == c else randn(rng, (n, p, d), 0.5, device, torch.bfloat16)
-    return (x, randn(rng, (a, c), 2.0 / c ** 0.5, device),
-            randn(rng, (a,), 0.1, device), randn(rng, (2, a), 0.2, device),
-            randn(rng, (2,), 0.1, device), v)
-
-
-def k7_within(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """Elementwise, per glimpse row [N, 2, D]: is K7's ``got`` within
-    K7_RTOL_ROW of the row's largest |value| in ``want``?"""
-    n = got.shape[0]
-    g, w = got.float().reshape(n, 2, -1), want.float().reshape(n, 2, -1)
-    return (g - w).abs() <= K7_RTOL_ROW * w.abs().amax(-1, keepdim=True)
-
-
 def k7_check(shape_name: str, quirk: bool, dev) -> float:
     """K7 against its plain version at one call shape and quirk mode, with
     the uniform-pool control; raises on a failure. Returns max |diff|."""
-    shape = K7_SHAPES[shape_name]
+    shape = cc.K7_SHAPES[shape_name]
     n, _, _, _, d = shape
-    args = k7_inputs(shape, 70, dev)
+    args = cc.k7_inputs(shape, 70, dev)
     got = att.glimpse_attention_cuda(*args, uniform_quirk=quirk)
     again = att.glimpse_attention_cuda(*args, uniform_quirk=quirk)
     want = att.glimpse_attention_reference(*args, uniform_quirk=quirk)
     torch.cuda.synchronize()
     g, w = got.float().reshape(n, 2, d), want.float().reshape(n, 2, d)
-    tol = K7_RTOL_ROW * w.abs().amax(-1, keepdim=True)
+    tol = cc.K7_RTOL_ROW * w.abs().amax(-1, keepdim=True)
     ok = bool(k7_within(got, want).all())
     fields = dict(shape=shape_name, n=n, uniform_quirk=quirk,
                   max_abs_diff=float((g - w).abs().max()),
@@ -1673,28 +1052,18 @@ def dead_fusion_check(cfg: Config, params, store, dev) -> None:
 
 
 def train_run(cfg: Config, qa, store, params, **solver_kw) -> dict:
-    """``Solver.train`` from ``params``: per-step losses, ms per step over
-    steps 4..last (synchronised at both ends), the launch counts of K2 and
-    K3 in the run (each set to 0 just before it), and the solver."""
+    """``Solver.train`` from ``params``: per-step losses, the launch counts
+    of K2 and K3 in the run (each set to 0 just before it), and the
+    solver."""
     solver = Solver(cfg, qa, store, params=params, **solver_kw)
-    losses, marks = [], {}
-    steps = cfg.num_epoch * len(solver.batches["train"])
-
-    def on_step(step, loss):
-        losses.append(loss)
-        if step in (4, steps - 1):
-            torch.cuda.synchronize()
-            marks[step] = time.perf_counter()
-
+    losses = []
     for counts in TRAIN_COUNTERS.values():
         for name in counts:
             counts[name] = 0
-    metrics = solver.train(on_step=on_step)
-    ms = (marks[steps - 1] - marks[4]) * 1e3 / (steps - 5)
-    return {"losses": [float(x) for x in losses], "ms_per_step": ms,
-            "qa_pairs_per_s": cfg.batch_size * 1e3 / ms,
+    solver.train(on_step=lambda step, loss: losses.append(loss))
+    return {"losses": [float(x) for x in losses],
             "launches": {k: dict(v) for k, v in TRAIN_COUNTERS.items()},
-            "metrics": metrics, "solver": solver}
+            "solver": solver}
 
 
 def train_data(cfg: Config, steps: int) -> tuple:
@@ -1753,7 +1122,7 @@ def train_phase(phase: str, cfg: Config, params, store, smi: str,
         plain_run_launches=plain["launches"],
         val_after_training=val, val_fresh_load=val_fresh,
         val_untrained_info=val_untrained,
-        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20, card=smi)
     if not (np.isfinite(k_loss).all() and np.isfinite(p_loss).all()):
         raise AssertionError(f"{phase}: a training loss is not finite")
     if (rel[:TRAIN_AGREE_STEPS] > TRAIN_LOSS_RTOL).any():
@@ -1770,12 +1139,6 @@ def train_phase(phase: str, cfg: Config, params, store, smi: str,
     if val != val_fresh or val == val_untrained:
         raise AssertionError(f"{phase}: val() after training does not score "
                              "the trained weights")
-    for name, r in (("kernel", run), ("plain", plain)):
-        say(f"{phase}_time", run=name, model=cfg.model_name,
-            dropout_site=cfg.dropout_site, ms_per_step=r["ms_per_step"],
-            qa_pairs_per_s=r["qa_pairs_per_s"], steps_timed=f"4..{steps - 1}",
-            batch=TRAIN_BATCH, epoch_qa_pairs_per_s_info=r["metrics"]["qps"],
-            card=smi)
     return run
 
 
@@ -1810,7 +1173,7 @@ def dead_gradient_check(cfg: Config, params, store) -> None:
     del solver
 
 
-def serve_family(name: str, store, dev, smi: str) -> dict:
+def serve_family(name: str, store, dev, smi: str) -> None:
     """A family with no kernel on its path, served at full width through
     ``predict_stream`` (batch BATCH, BATCH * N_BATCHES requests, after a
     warm-up pass), each request with its question length. Gates: well
@@ -1830,11 +1193,7 @@ def serve_family(name: str, store, dev, smi: str) -> dict:
             yield feats, ques[s:s + BATCH], lengths[s:s + BATCH]
 
     list(engine.predict_stream(batches(qlen)))  # warm-up pass
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     preds = [p for b in engine.predict_stream(batches(qlen)) for p in b]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     answers = np.array([p.answer_id for p in preds])
     probs = np.stack([p.top_probs for p in preds])
     if len(preds) != n_req or not np.isfinite(probs).all() or (
@@ -1847,15 +1206,9 @@ def serve_family(name: str, store, dev, smi: str) -> dict:
         served = torch.from_numpy(answers[s:s + BATCH]).to(dev)
         with torch.inference_mode():
             n_flips += flips(engine.model(*args), served)
-    with torch.inference_mode():
-        forward_ms = time_ms(lambda: engine.model(*args), 3)
     fields = dict(model=name, requests=n_req, batch=BATCH,
                   kernels_on_path="none", flips_vs_direct_forward=n_flips,
-                  distinct_answers=int(len(np.unique(answers))),
-                  qa_pairs_per_s=n_req / seconds, seconds=seconds,
-                  wall_ms_per_batch=seconds * 1e3 / N_BATCHES,
-                  device_forward_ms_per_batch=forward_ms,
-                  device_share=forward_ms * N_BATCHES / (seconds * 1e3))
+                  distinct_answers=int(len(np.unique(answers))))
     if name == "mhb":
         full = np.full_like(qlen, cfg.max_question_length)
         changed = np.array([p.answer_id for b in engine.predict_stream(
@@ -1875,8 +1228,6 @@ def serve_family(name: str, store, dev, smi: str) -> dict:
                              "question lengths")
     del engine
     torch.cuda.empty_cache()
-    return {"qa_pairs_per_s": n_req / seconds,
-            "device_forward_ms": forward_ms}
 
 
 def train_family(name: str, store, smi: str) -> dict:
@@ -1907,10 +1258,9 @@ def train_family(name: str, store, smi: str) -> dict:
     losses, r_loss = np.array(run["losses"]), repeated["losses"]
     no_launch = {k: {key: 0 for key in counts}
                  for k, counts in TRAIN_COUNTERS.items()}
-    say(f"train_{name}_time", model=name, steps=steps, batch=TRAIN_BATCH,
-        compute_dtype="bfloat16", ms_per_step=run["ms_per_step"],
-        qa_pairs_per_s=run["qa_pairs_per_s"], steps_timed=f"4..{steps - 1}",
-        losses=run["losses"], repeated_batch_losses=r_loss,
+    say(f"train_{name}", model=name, steps=steps, batch=TRAIN_BATCH,
+        compute_dtype="bfloat16", losses=run["losses"],
+        repeated_batch_losses=r_loss,
         val_after_training=val, val_fresh_load=val_fresh,
         running_stats_moved_max=stats, launches=run["launches"],
         peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20, card=smi)
@@ -1990,34 +1340,11 @@ def families_agree(dev) -> None:
         rel_err_vs_f64=results, bound=AGREE_RTOL, margin=AGREE_MARGIN)
 
 
-def k6_inputs(n: int, seed: int, cfg: Config, dev) -> tuple:
-    """Production-width K6 inputs, drawn on the card from a seeded
-    generator (N=1024's img is 411M values, seconds of a host draw): bf16
-    img, f32 W, b and q."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    d, f = cfg.img_feature_channel, cfg.fusion_dim
-
-    def t(shape, scale):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
-    return (t((n, cfg.img_feature_dim, d), 0.5).to(torch.bfloat16),
-            t((d, f), 0.02), t((f,), 0.05), t((n, f), 0.5))
-
-
-def k6_within(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """Elementwise: is K6's ``got`` within the tolerance of ``want``, held
-    as pooled = out * |out|?"""
-    got, want = got.float(), want.float()
-    got, want = got * got.abs(), want * want.abs()
-    return (got - want).abs() <= K6_RTOL * want.abs() + \
-        K6_ATOL * want.abs().max()
-
-
-def k6_check(n: int, cfg: Config, dev) -> float:
+def k6_check(n: int, dev) -> float:
     """K6 at production widths against its plain version, with its two
     controls; raises on a failure. Returns max |diff| of the output."""
-    img, w, b, q = k6_inputs(n, 60 + n, cfg, dev)
-    k = cfg.mfb_factor
+    img, w, b, q = cc.k6_inputs(n, 60 + n, dev)
+    k = cc.K
     got = wqg.wq_grid_fuse_cuda(img, w, b, q, k)
     again = wqg.wq_grid_fuse_cuda(img, w, b, q, k)
     want = wqg.wq_grid_fuse_reference(img, w, b, q, k)
@@ -2052,16 +1379,16 @@ def k6_check(n: int, cfg: Config, dev) -> float:
     return max_abs
 
 
-def k6_path(cfg: Config, dev) -> int:
+def k6_path(dev) -> int:
     """K6's path: its entry ``wq_grid_fuse``, forward (the kernel) and
     backward (the composed chain's VJP), at N = K6_GRAD_N, with its launch
     count set to 0 just before; the gradients against
     ``composed_reference``'s on the card. Raises on a failure; returns the
     launches."""
-    img, w, b, q = k6_inputs(K6_GRAD_N, 61, cfg, dev)
+    img, w, b, q = cc.k6_inputs(K6_GRAD_N, 61, dev)
     args = [x.float().requires_grad_(True) if i else x.requires_grad_(True)
             for i, x in enumerate((img, w, b, q))]
-    k = cfg.mfb_factor
+    k = cc.K
     rng = np.random.default_rng(62)
     g = randn(rng, (K6_GRAD_N, img.shape[1], w.shape[1] // k), 1.0, dev,
               torch.bfloat16)
@@ -2077,7 +1404,7 @@ def k6_path(cfg: Config, dev) -> int:
         fields[name] = {"max_rel_diff": rel, "dtype": str(dtype),
                         "finite": bool(torch.isfinite(got).all()),
                         "nonzero_share": float((got != 0).float().mean())}
-        ok &= (rel <= K6_GRAD_RTOL and fields[name]["finite"]
+        ok &= (rel <= cc.K6_GRAD_RTOL and fields[name]["finite"]
                and dtype == x.dtype)
     say("k6_path", entry="wq_grid_fuse", n=K6_GRAD_N, launches=launches,
         gradients=fields)
@@ -2087,28 +1414,6 @@ def k6_path(cfg: Config, dev) -> int:
         raise AssertionError("K6's backward disagrees with the composed "
                              "chain's VJP")
     return launches
-
-
-def k8_inputs(n: int, seed: int, dev) -> tuple:
-    """x [n, T, E] bf16 and the LSTM's weights in layers.LSTM's layout
-    (f32): xp ~ N(0, 1) and W_hh ~ N(0, 4/H), so that h @ W_hh^T is about
-    half a unit: the gates stay off the sigmoid's flat tails, and W_hh's
-    blocks matter (its i and f blocks swapped move most outputs)."""
-    t, e, h = K8_SHAPE["t"], K8_SHAPE["e"], K8_SHAPE["h"]
-    rng = np.random.default_rng(seed)
-    return (randn(rng, (n, t, e), 1.0, dev, torch.bfloat16),
-            randn(rng, (4 * h, e), e ** -0.5, dev),
-            randn(rng, (4 * h, h), 2.0 * h ** -0.5, dev),
-            randn(rng, (4 * h,), 0.1, dev), randn(rng, (4 * h,), 0.1, dev))
-
-
-def k8_within(got: torch.Tensor, forced: torch.Tensor) -> torch.Tensor:
-    """Elementwise: is each step of ``got`` within one bf16 ulp plus
-    K8_STEP_ATOL of ``forced``, the plain steps fed ``got``'s carry?"""
-    got, forced = got.float(), forced.float()
-    ulp = torch.exp2(torch.floor(torch.log2(forced.abs().clamp_min(1e-30)))
-                     - 7)
-    return (got - forced).abs() <= ulp + K8_STEP_ATOL
 
 
 def k8_steps_rejected(out: torch.Tensor, xp: torch.Tensor,
@@ -2122,28 +1427,27 @@ def k8_steps_rejected(out: torch.Tensor, xp: torch.Tensor,
 def k8_check(n: int, dev) -> float:
     """K8's scan against its plain version, step by step and run free, with
     its controls; raises on a failure. Returns the free-running max |diff|."""
-    x, w_ih, w_hh, b_ih, b_hh = k8_inputs(n, 80 + n, dev)
-    # the kernel's inputs as lstm_seq gives them: the projection without
-    # its bias, and the bias, which the kernel adds; the plain version
-    # takes the whole input projection
+    x, w_ih, w_hh, b_ih, b_hh = cc.k8_inputs(n, 80 + n, dev)
+    # the kernel's inputs as lstm_seq gives them; the plain version takes
+    # the whole input projection
     xp = k8.input_projection(x, w_ih, b_ih, b_hh)
-    bias = (b_ih + b_hh).to(torch.bfloat16)
     geo, counter = k8_geometry(n)
-    got = k8.lstm_scan_cuda(k8._project(x, w_ih), w_hh, bias, counter)
-    again = k8.lstm_scan_cuda(k8._project(x, w_ih), w_hh, bias)
+    got = k8.lstm_scan_cuda(*cc.k8_scan_inputs(x, w_ih, w_hh, b_ih, b_hh),
+                            counter)
+    again = k8.lstm_scan_cuda(*cc.k8_scan_inputs(x, w_ih, w_hh, b_ih, b_hh))
     torch.cuda.synchronize()
     arrivals = int(counter.sum())
     want = k8.lstm_scan_reference(xp, w_hh)
     forced = k8.lstm_scan_reference(xp, w_hh, h_carry=got)
     torch.cuda.synchronize()
     max_abs = float((got.float() - want.float()).abs().max())
-    ok = bool(k8_within(got, forced).all()) and max_abs <= K8_FREE_ATOL
+    ok = bool(k8_within(got, forced).all()) and max_abs <= cc.K8_FREE_ATOL
     # the pre-activations the plain run saw: its h carry is its bf16 output
     h_prev = torch.cat([torch.zeros_like(want[:, :1]), want[:, :-1]], 1)
     pre = xp.float() + h_prev.float() @ w_hh.to(torch.bfloat16).float().t()
     live = float((pre.abs() < K8_LIVE).float().mean())
     del pre
-    h = K8_SHAPE["h"]
+    h = cc.K8_SHAPE["h"]
     swapped = k8.lstm_scan_reference(
         xp, torch.cat([w_hh[h:2 * h], w_hh[:h], w_hh[2 * h:]]))
     controls = {
@@ -2151,7 +1455,7 @@ def k8_check(n: int, dev) -> float:
         "shifted_one_step_rejected_share": k8_steps_rejected(h_prev, xp,
                                                              w_hh)}
     del swapped, h_prev
-    say("k8_check", n=n, **K8_SHAPE, blocks=geo.blocks,
+    say("k8_check", n=n, **cc.K8_SHAPE, blocks=geo.blocks,
         smem_bytes_per_block=geo.smem_bytes, c_in_smem=geo.c_in_smem,
         ring_stages=geo.stages,
         barriers=geo.barriers, barrier_arrivals=arrivals,
@@ -2181,7 +1485,7 @@ def k8_path(dev) -> int:
     holds it, and, for information only, against the port's composed
     ``layers.lstm`` on the same weights (gates and c in bf16). Raises on a
     failure; returns the launches."""
-    args = k8_inputs(BATCH, 90, dev)
+    args = cc.k8_inputs(BATCH, 90, dev)
     k8.launch_count = 0
     with torch.inference_mode():
         got = k8.lstm_seq(*args)
@@ -2194,8 +1498,8 @@ def k8_path(dev) -> int:
         forced = k8.lstm_scan_reference(xp, args[2], h_carry=got)
         composed = layers.lstm(*args)
     max_abs = float((got.float() - want.float()).abs().max())
-    ok = bool(k8_within(got, forced).all()) and max_abs <= K8_FREE_ATOL
-    say("k8_path", entry="lstm_seq", n=BATCH, **K8_SHAPE, launches=launches,
+    ok = bool(k8_within(got, forced).all()) and max_abs <= cc.K8_FREE_ATOL
+    say("k8_path", entry="lstm_seq", n=BATCH, **cc.K8_SHAPE, launches=launches,
         blocks=geo.blocks, smem_bytes_per_block=geo.smem_bytes,
         c_in_smem=geo.c_in_smem, ring_stages=geo.stages,
         barriers=geo.barriers, within_tolerance=ok,
@@ -2214,150 +1518,11 @@ def k8_geometry(n: int) -> tuple:
     """K8's geometry at N = n on this card, and zeroed barrier counters
     for a launch to count its arrivals in (every block at every barrier:
     barriers x blocks)."""
-    geo = k8.geometry(n, K8_SHAPE["t"], K8_SHAPE["h"],
+    geo = k8.geometry(n, cc.K8_SHAPE["t"], cc.K8_SHAPE["h"],
                       torch.cuda.get_device_properties(0)
                       .multi_processor_count)
-    groups = geo.blocks // (K8_SHAPE["h"] // geo.units_per_block)
+    groups = geo.blocks // (cc.K8_SHAPE["h"] // geo.units_per_block)
     return geo, torch.zeros(groups, dtype=torch.int32, device="cuda")
-
-
-def k6_time(cfg: Config, dev, smi: str) -> tuple:
-    """K6 against its plain version at N = BATCH and 1024 (kernel/plain/
-    plain/kernel), with the torch composed weight-contracted chain + grid
-    L2 for information. Returns (times at BATCH, bound at BATCH): the
-    product (2 N L D O, bf16) and the f32 wq build (2 N k D O) counted at
-    their peak rates, img, W, b, q and the bf16 output moved once."""
-    k = cfg.mfb_factor
-    for n in K6_TIME_NS:
-        img, w, b, q = k6_inputs(n, 6, cfg, dev)
-        _, l, d = img.shape
-        o = w.shape[1] // k
-
-        def composed():
-            z = fusion.grid_fuse_weight_contracted(img, w, b, q, k)
-            return layers.l2_normalize(z.reshape(n, -1)).reshape(z.shape)
-
-        run = interleaved_ms(lambda: wqg.wq_grid_fuse_cuda(img, w, b, q, k),
-                             lambda: wqg.wq_grid_fuse_reference(img, w, b, q,
-                                                                k))
-        # the forward and the scale launch apart, at N = BATCH
-        by_launch = device_ms_by_kernel(
-            lambda: wqg.wq_grid_fuse_cuda(img, w, b, q, k)) \
-            if n == BATCH else None
-        composed()
-        composed_ms = time_ms(composed, 3)
-        bnd = bound(nbytes(img, *pf.operands(w, b, q)) + 2 * n * l * o,
-                    {"bf16": 2 * n * l * d * o, "f32": 2 * n * k * d * o})
-        say("k6_time", n=n, kernel_ms=run[0], plain_ms=run[1],
-            kernel_runs_ms=run[2], plain_runs_ms=run[3], bound_ms=bnd[0],
-            bound_by=bnd[1], composed_chain_ms_info=composed_ms,
-            device_ms_by_launch=by_launch, card=smi)
-        if n == BATCH:
-            times, k6_bound = run, bnd
-        del img, w, b, q
-        torch.cuda.empty_cache()
-    return times, k6_bound
-
-
-def k8_time(dev, smi: str) -> tuple:
-    """K8's scan and the whole ``lstm_seq`` against their plain versions at
-    N = BATCH, and ``torch.nn.LSTM`` (cuDNN) on the same weights and input,
-    at bf16 if cuDNN takes bf16, else at f16. Returns (scan times, scan
-    bound, cuDNN ms): the bound counts the recurrent products (2 N T H 4H,
-    bf16) and xp, W_hh and the output moved once; the 22 dependent steps
-    are a latency floor it does not count.
-
-    The device times of ``lstm_seq`` and cuDNN's call are taken in
-    K8_ROUNDS rounds, the order of the two alternating, each time by both
-    of ``device_ms``'s formulas from one trace. ``lstm_seq`` is called as
-    a caller holding layers.LSTM's f32 weights calls it (its W_ih is cast
-    to bf16 inside the call), and, for information, with W_ih already in
-    bf16 as the library holds it."""
-    x, w_ih, w_hh, b_ih, b_hh = k8_inputs(BATCH, 9, dev)
-    w_bf16, w_ih_bf16 = w_hh.to(torch.bfloat16), w_ih.to(torch.bfloat16)
-    xp = k8._project(x, w_ih)
-    bias = (b_ih + b_hh).to(torch.bfloat16)
-    n, t, h = BATCH, K8_SHAPE["t"], K8_SHAPE["h"]
-    scan = interleaved_ms(lambda: k8.lstm_scan_cuda(xp, w_bf16, bias),
-                          lambda: k8.lstm_scan_reference(xp + bias, w_bf16),
-                          10)
-    seq = interleaved_ms(
-        lambda: k8.lstm_seq(x, w_ih, w_bf16, b_ih, b_hh),
-        lambda: k8.lstm_scan_reference(
-            k8.input_projection(x, w_ih, b_ih, b_hh), w_bf16), 10)
-    scan_bound = bound(nbytes(xp, w_bf16) + 2 * n * t * h,
-                       {"bf16": 2 * n * t * h * 4 * h})
-    # the yardstick: one PyTorch call for the same function; at::lstm takes
-    # cuDNN only for a dtype torch.cudnn_is_acceptable accepts
-    dtype = (torch.bfloat16 if torch.cudnn_is_acceptable(x)
-             else torch.float16)
-    net = torch.nn.LSTM(K8_SHAPE["e"], h, batch_first=True).to(dev, dtype)
-    with torch.no_grad():
-        for name, value in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
-                            ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
-            getattr(net, name).copy_(value)
-    net.flatten_parameters()
-    x_lib = x.to(dtype)
-    with torch.inference_mode():
-        lib_out = net(x_lib)[0]
-        library_ms = time_ms(lambda: net(x_lib), 10)
-        want = k8.lstm_seq(x, w_ih, w_bf16, b_ih, b_hh)
-        # the device time alone of cuDNN's call and of K8's entry (the
-        # call's time above includes the host's, and at bf16 nn.LSTM
-        # compacts its weights on every call: its flatten_parameters()
-        # skips a dtype that torch.backends.cudnn.is_acceptable does not
-        # list)
-        calls = {"cudnn": lambda: net(x_lib),
-                 "lstm_seq": lambda: k8.lstm_seq(x, w_ih, w_bf16, b_ih,
-                                                 b_hh),
-                 "lstm_seq_bf16_w_ih_info": lambda: k8.lstm_seq(
-                     x, w_ih_bf16, w_bf16, b_ih, b_hh)}
-        rounds = []
-        for r in range(K8_ROUNDS):
-            names = list(calls) if r % 2 == 0 else list(calls)[::-1]
-            rounds.append({name: device_ms(calls[name], 10)
-                           for name in names})
-        # for information: the scan alone, the input projection as
-        # lstm_seq's plain path runs it (E padded to a multiple of 8) and
-        # unpadded, and cuDNN at f16, where the weights stay flattened
-        device = {"scan": device_ms(lambda: k8.lstm_scan_cuda(xp, w_bf16,
-                                                              bias), 10),
-                  "projection": device_ms(
-                      lambda: k8.input_projection(x, w_ih, b_ih, b_hh), 10),
-                  "projection_unpadded": device_ms(
-                      lambda: torch.matmul(x, w_ih.to(x.dtype).t())
-                      + (b_ih + b_hh).to(x.dtype), 10)}
-        net16, x16 = net.half(), x.half()
-        net16.flatten_parameters()
-        net16(x16)
-        f16_ms = time_ms(lambda: net16(x16), 10)
-        device["cudnn_f16"] = device_ms(lambda: net16(x16))
-
-    def ratios(formula, name="lstm_seq"):
-        got = [r[name][formula] / r["cudnn"][formula] for r in rounds
-               if r[name][formula] and r["cudnn"][formula]]
-        return got if len(got) == len(rounds) else None
-
-    say("k8_time", n=n, **K8_SHAPE, scan_kernel_ms=scan[0],
-        scan_plain_ms=scan[1], scan_kernel_runs_ms=scan[2],
-        scan_plain_runs_ms=scan[3], lstm_seq_kernel_ms=seq[0],
-        lstm_seq_plain_ms=seq[1], lstm_seq_kernel_runs_ms=seq[2],
-        lstm_seq_plain_runs_ms=seq[3], bound_ms=scan_bound[0],
-        bound_by=scan_bound[1],
-        bound_note="the 22 dependent steps are a latency floor the bound "
-                   "does not count",
-        cudnn_lstm_ms=library_ms, cudnn_dtype=str(dtype),
-        cudnn_lstm_f16_ms_info=f16_ms, device_ms_rounds=rounds,
-        device_ms_info=device,
-        lstm_seq_over_cudnn_device_by_round=ratios("ms"),
-        lstm_seq_over_cudnn_device_by_round_per_launch_formula=ratios(
-            "ms_per_launch"),
-        lstm_seq_bf16_w_ih_over_cudnn_device_by_round_info=ratios(
-            "ms", "lstm_seq_bf16_w_ih_info"),
-        cudnn_includes_input_projection=True,
-        cudnn_vs_kernel_max_abs_diff_info=float(
-            (lib_out.float() - want.float()).abs().max()), card=smi)
-    return scan, scan_bound, library_ms
 
 
 def cli_counts() -> dict:
@@ -2366,17 +1531,16 @@ def cli_counts() -> dict:
             "K3": dict(pf.launch_count)}
 
 
-def cli_run(fn, argv) -> tuple:
+def cli_run(fn, argv) -> dict:
     """Call a CLI's ``main(argv)`` with every counter of ``cli_counts`` set
-    to 0 just before -> (its counts just after, seconds)."""
+    to 0 just before -> its counts just after."""
     wqf.launch_count = 0
     for counts in TRAIN_COUNTERS.values():
         for name in counts:
             counts[name] = 0
-    t0 = time.perf_counter()
     fn(argv)
     torch.cuda.synchronize()
-    return cli_counts(), time.perf_counter() - t0
+    return cli_counts()
 
 
 def events(path: str) -> list:
@@ -2413,19 +1577,15 @@ def cli_phase(smi: str) -> dict:
                         "--n_train", str(CLI_CORPUS[0]), "--n_val",
                         str(CLI_CORPUS[1])],
                        check=True, capture_output=True, timeout=300)
-        t0 = time.perf_counter()
         prepare_data.main(["--data_dir", data, "--num_answer",
                            str(CLI_NUM_ANSWER)])
-        prepare_s = time.perf_counter() - t0
         qa = load_qa_data(qa_artifact_path(data, 2, CLI_NUM_ANSWER))
         train_ids = sorted(set(qa.train.image_ids.tolist()))
         val_ids = sorted(set(qa.val.image_ids.tolist()) - set(train_ids))
-        t0 = time.perf_counter()
         for split, ids in (("train", train_ids), ("val", val_ids)):
             make_synthetic_feature_store(
                 os.path.join(data, f"resnet152_{split}"), ids,
                 seed=len(split))
-        store_s = time.perf_counter() - t0
         if not qa.a_vocab_size < CLI_NUM_ANSWER:
             raise AssertionError("cli: the corpus has no fewer answers than "
                                  "--num_answer")
@@ -2439,12 +1599,10 @@ def cli_phase(smi: str) -> dict:
         val_batches = -(-len(qa.val) // TRAIN_BATCH)
 
         # the straight run
-        trained, train_s = cli_run(cli_train.main, train_flags)
-        run_events = events(f"runs/{model}/events.jsonl")
+        trained = cli_run(cli_train.main, train_flags)
         losses = {e["step"]: (e["train loss"], e["val loss"])
-                  for e in run_events if e["tag"] == f"{model}/loss"}
-        qps = [e["value"] for e in run_events
-               if e["tag"] == f"{model}/qa_pairs_per_sec"]
+                  for e in events(f"runs/{model}/events.jsonl")
+                  if e["tag"] == f"{model}/loss"}
         kept = ckpt.all_steps(f"models/{model}")
 
         # the mid-epoch resume, in a second workspace holding only the
@@ -2454,8 +1612,7 @@ def cli_phase(smi: str) -> dict:
                         os.path.join(resume_ws, "models", model,
                                      f"step_{CLI_RESUME_STEP}"))
         with contextlib.chdir(resume_ws):
-            resumed, resume_s = cli_run(cli_train.main,
-                                        train_flags + ["--resume"])
+            resumed = cli_run(cli_train.main, train_flags + ["--resume"])
             resume_events = events(f"runs/{model}/events.jsonl")
             got = ckpt.restore_checkpoint(f"models/{model}", steps)
         want = ckpt.restore_checkpoint(f"models/{model}", steps)
@@ -2471,35 +1628,11 @@ def cli_phase(smi: str) -> dict:
         del got, want
 
         # the evaluation, then for information without the kernels
-        evaluated, evaluate_s = cli_run(cli_evaluate.main, flags)
+        evaluated = cli_run(cli_evaluate.main, flags)
         txt, record, preds = cli_results(model)
         with switches(VQA_DISABLE_PALLAS="1"):
-            plain_counts, _ = cli_run(cli_evaluate.main, flags)
+            plain_counts = cli_run(cli_evaluate.main, flags)
         _, plain_record, plain_preds = cli_results(model)
-
-        # the evaluation's rate: the CLI's own Solver, restored, one full
-        # sweep timed; the device share: one val batch's forward, on the
-        # device, against the wall time per batch
-        solver = cli_train.build_solver(cli_train.parse_args(
-            flags + ["--mode", "testing"]))
-        solver.restore()
-        t0 = time.perf_counter()
-        solver.val(full=True)
-        torch.cuda.synchronize()
-        sweep_s = time.perf_counter() - t0
-        # one checkpoint write of the restored state, as train() makes it
-        t0 = time.perf_counter()
-        path = solver.save_checkpoint()
-        checkpoint_s = time.perf_counter() - t0
-        checkpoint_mb = os.path.getsize(
-            os.path.join(path, ckpt.STATE_FILE)) / 2 ** 20
-        batch = next(iter(solver.batches["val"].epoch()))
-        img, ques, qlen = solver._device_batch(batch)[:3]
-        with torch.inference_mode():
-            solver.model(img, ques, qlen)
-            forward_ms = time_ms(lambda: solver.model(img, ques, qlen), 3)
-        solver.close()
-        del solver, img, ques, qlen
         torch.cuda.empty_cache()
 
     n_val = len(qa.val)
@@ -2508,14 +1641,13 @@ def cli_phase(smi: str) -> dict:
     qids = qa.val.question_ids.tolist()
     differ_share = float(np.mean([p["answer"] != q["answer"]
                                   for p, q in zip(preds, plain_preds)]))
-    train_ms = 1e3 * len(qa.train) / qps[-1] / iters
     say("cli", model=model, corpus=list(CLI_CORPUS),
         prepared_questions=[len(qa.train), len(qa.val)],
         prepared_note="prepare drops the questions whose answer the UNK "
                       "slot displaces (the corpus's least frequent answer)",
         answer_vocab=qa.a_vocab_size, num_answer_flag=CLI_NUM_ANSWER,
-        images=[len(train_ids), len(val_ids)], prepare_s=prepare_s,
-        store_s=store_s, steps=steps, iters_per_epoch=iters,
+        images=[len(train_ids), len(val_ids)], steps=steps,
+        iters_per_epoch=iters,
         train_launches=trained, resume_launches=resumed,
         evaluate_launches=evaluated, plain_evaluate_launches=plain_counts,
         epoch_losses=losses, checkpoints_kept=kept,
@@ -2529,20 +1661,6 @@ def cli_phase(smi: str) -> dict:
         plain_vqa_consensus_accuracy_info=plain_record[
             "vqa_consensus_accuracy"],
         predictions_differ_share_info=differ_share, card=smi)
-    say("cli_time", train_wall_s=train_s, resume_wall_s=resume_s,
-        evaluate_wall_s=evaluate_s,
-        train_ms_per_step=train_ms,
-        train_qa_pairs_per_s=qps[-1], epoch_qa_pairs_per_s=qps,
-        timed="the last epoch's steps, checkpoints included, through "
-              "cli.train",
-        checkpoint_write_s=checkpoint_s, checkpoint_mib=checkpoint_mb,
-        checkpoints_in_last_epoch=len([s for s in range(iters + 1, steps + 1)
-                                       if s % CLI_EVERY == 0]),
-        evaluate_qa_pairs_per_s=n_val / sweep_s,
-        evaluate_wall_ms_per_batch=sweep_s * 1e3 / val_batches,
-        device_forward_ms_per_batch=forward_ms,
-        device_share=forward_ms / (sweep_s * 1e3 / val_batches),
-        batch=TRAIN_BATCH, card=smi)
     if not all(np.isfinite(v).all() for v in losses.values()):
         raise AssertionError("cli: a training loss is not finite")
     if (trained["K2"] != {k: steps * v for k, v in k2_want.items()}
@@ -2653,12 +1771,10 @@ def device_launches(prof, kernels: dict) -> dict:
 
 def stream(engine, batches, kernels: dict, after_warm_up=None) -> tuple:
     """One measured pass of ``batches`` (a function returning the stream)
-    after a warm-up pass and ``after_warm_up()``: (predictions, seconds,
-    launches). The measured pass runs under a CUDA profile, and
-    ``launches`` counts ``kernels`` in it on the card
-    (``device_launches``): by id on one card the engine replays a CUDA
-    graph, which the warm-up pass captured. The seconds hold the
-    profiler's cost."""
+    after a warm-up pass and ``after_warm_up()``: (predictions, launches).
+    The measured pass runs under a CUDA profile, and ``launches`` counts
+    ``kernels`` in it on the card (``device_launches``): by id on one card
+    the engine replays a CUDA graph, which the warm-up pass captured."""
     from torch.profiler import ProfilerActivity, profile
 
     list(batches())
@@ -2666,11 +1782,9 @@ def stream(engine, batches, kernels: dict, after_warm_up=None) -> tuple:
     if after_warm_up is not None:
         after_warm_up()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         preds = [p for batch in batches() for p in batch]
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    return preds, seconds, device_launches(prof, kernels)
+    return preds, device_launches(prof, kernels)
 
 
 def bit_equal(a: list, b: list) -> bool:
@@ -2703,40 +1817,6 @@ def replayed_state(cfg: Config, capacity: int, id_batches) -> dict:
     return cache_state(cache)
 
 
-def miss_upload_fit(cfg: Config, dev) -> dict:
-    """The device side of a batch of k misses, for k in MISS_COUNTS: one
-    ``non_blocking`` copy of k int8 rows and f16 scales from pre-staged
-    pinned host memory, then ``index_copy_`` into a bank (what
-    ``DeviceFeatureCache._upload`` enqueues), timed by CUDA events, the
-    median of MISS_REPS; fitted by least squares as ms = a + bytes / BW."""
-    l, d = cfg.img_feature_dim, cfg.img_feature_channel
-    kmax = max(MISS_COUNTS)
-    bank = DeviceFeatureCache(cfg, kmax, device=dev)
-    gen = torch.Generator().manual_seed(31)
-    rows = torch.randint(-127, 128, (kmax, l, d), generator=gen,
-                         dtype=torch.int8).pin_memory()
-    scale = torch.rand((kmax, d), generator=gen).half().pin_memory()
-    ms, moved = [], []
-    for k in MISS_COUNTS:
-        idx = torch.randperm(kmax, generator=gen)[:k].to(dev)
-
-        def upload():
-            bank.rows.index_copy_(0, idx, rows[:k].to(dev, non_blocking=True))
-            bank.scale.index_copy_(0, idx,
-                                   scale[:k].to(dev, non_blocking=True))
-
-        upload()
-        ms.append(float(np.median([time_ms(upload, 1)
-                                   for _ in range(MISS_REPS)])))
-        moved.append(k * (l * d + 2 * d))
-    slope, a = np.polyfit(np.array(moved, np.float64), np.array(ms), 1)
-    fit = {"a_ms": float(a), "bandwidth_gb_per_s": float(1e-6 / slope),
-           "bytes_per_miss": l * d + 2 * d,
-           "ms_by_misses": dict(zip(map(str, MISS_COUNTS), ms))}
-    del bank, rows, scale
-    return fit
-
-
 def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
                      smi: str) -> dict:
     """Phase 28: full-width bf16 mhb_coAtt served by id from the device
@@ -2751,13 +1831,13 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
     with the counts and slots of the same id sequence through a second
     cache on the CPU; a control: the first batch's slots swapped in pairs
     on the device must flip its answers. Then hieCoAtten by id (K4 once a
-    batch, bit-equal to its int8 feed), and the fitted cost of a miss."""
+    batch, bit-equal to its int8 feed)."""
     f16_store, store = stores
     image_ids, ques = bank_traffic(cfg)
     n_req = len(ques)
     spans = [slice(s, s + BATCH) for s in range(0, n_req, BATCH)]
     id_batches = [image_ids[s] for s in spans]
-    fields, runs = {}, {}
+    fields = {}
 
     def f16_batches():
         return engine16.predict_stream(
@@ -2776,58 +1856,31 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
         return engine.predict_stream_by_id(
             (image_ids[s], ques[s], None) for s in spans)
 
-    def rate(name, seconds, forward_ms, launches, **extra):
-        fields[name] = dict(qa_pairs_per_s=n_req / seconds,
-                            wall_ms_per_batch=seconds * 1e3 / N_BATCHES,
-                            device_forward_ms_per_batch=forward_ms,
-                            device_share=forward_ms * N_BATCHES
-                            / (seconds * 1e3), launches=launches, **extra)
-
     engine16 = InferenceEngine(cfg, params, batch_size=BATCH, topk=5)
-    preds16, seconds, launches = stream(engine16, f16_batches,
-                                        {"K1": K1_KERNELS})
-    img, qs, qlen = engine16._to_device(
-        [engine16._to_f16(f16_store.gather(id_batches[0], np.float16)),
-         *engine16._question_args(ques[spans[0]], None)])
-    with torch.inference_mode():
-        forward_ms = time_ms(lambda: engine16._fwd(engine16.model, img, qs,
-                                                   qlen), 3)
-    rate("f16_feed", seconds, forward_ms, launches)
-    del engine16, img
+    fields["f16_feed"] = dict(launches=stream(engine16, f16_batches,
+                                              {"K1": K1_KERNELS})[1])
+    del engine16
     torch.cuda.empty_cache()
 
     engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5,
                              input_dtype="int8")
-    preds8, seconds, launches = stream(engine, int8_batches,
-                                       {"K1": K1_KERNELS})
-    rows, scale = engine._to_device(list(store.gather_quantized(
-        id_batches[0])))
-    with torch.inference_mode():
-        forward_ms = time_ms(lambda: engine._fwd(engine.model, rows, scale,
-                                                 qs, qlen), 3)
-    rate("int8_feed", seconds, forward_ms, launches)
-    del rows, scale
+    preds8, launches = stream(engine, int8_batches, {"K1": K1_KERNELS})
+    fields["int8_feed"] = dict(launches=launches)
 
     k1_launches, caches = 0, {}
     for name, capacity in (("by_id_capacity_512", BANK_SMALL),
                            ("by_id_hit_rate_1", BANK_IMAGES)):
         cache = engine.attach_feature_cache(capacity, store.gather_quantized)
-        preds, seconds, launches = stream(engine, by_id, {"K1": K1_KERNELS},
-                                          after_warm_up=cache.reset_stats)
+        preds, launches = stream(engine, by_id, {"K1": K1_KERNELS},
+                                 after_warm_up=cache.reset_stats)
         state = cache_state(cache)
         k1_launches += launches["K1"]
         same_as_cpu = state == replayed_state(cfg, capacity, id_batches)
-        idx = engine._to_device([cache.ensure(id_batches[0],
-                                              store.gather_quantized)
-                                 .astype(np.int64)])[0]
-        with torch.inference_mode():
-            forward_ms = time_ms(lambda: engine._fwd_bank(
-                engine.model, cache.rows, cache.scale, idx, qs, qlen), 3)
         state.pop("slots")
-        rate(name, seconds, forward_ms, launches, capacity=capacity,
-             hit_rate=state["hits"] / n_req, **state,
-             counts_and_slots_equal_cpu_cache=same_as_cpu,
-             bit_equal_to_int8_feed=bit_equal(preds, preds8))
+        fields[name] = dict(launches=launches, capacity=capacity,
+                            hit_rate=state["hits"] / n_req, **state,
+                            counts_and_slots_equal_cpu_cache=same_as_cpu,
+                            bit_equal_to_int8_feed=bit_equal(preds, preds8))
         if not bit_equal(preds, preds8):
             raise AssertionError(f"serve_bank: {name}'s answers are not "
                                  "bit-equal to the int8 feed's")
@@ -2887,12 +1940,11 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
     hie_params = hie_served_params(hie_cfg)
     engine = InferenceEngine(hie_cfg, hie_params, batch_size=BATCH, topk=5,
                              input_dtype="int8")
-    preds8, _, _ = stream(engine, int8_batches, {"K4": K4_KERNELS})
+    preds8, _ = stream(engine, int8_batches, {"K4": K4_KERNELS})
     engine.attach_feature_cache(BANK_IMAGES, store.gather_quantized)
-    preds, seconds, launches = stream(engine, by_id, {"K4": K4_KERNELS})
+    preds, launches = stream(engine, by_id, {"K4": K4_KERNELS})
     fields["hiecoatten_by_id"] = dict(
-        launches=launches, qa_pairs_per_s=n_req / seconds,
-        bit_equal_to_int8_feed=bit_equal(preds, preds8))
+        launches=launches, bit_equal_to_int8_feed=bit_equal(preds, preds8))
     if launches["K4"] != N_BATCHES or not bit_equal(preds, preds8):
         raise AssertionError("serve_bank: hieCoAtten by id did not run K4 "
                              "once a batch on the card, or is not its "
@@ -2900,7 +1952,6 @@ def serve_bank_phase(cfg: Config, params, stores: tuple, dev,
     del engine
     torch.cuda.empty_cache()
 
-    fields["miss_upload"] = miss_upload_fit(cfg, dev)
     say("serve_bank", model="mhb_coAtt", requests=n_req, batch=BATCH,
         images=BANK_IMAGES, questions_per_image=BANK_REUSE,
         distinct_images=int(len(np.unique(image_ids))), **fields, card=smi)
@@ -3025,7 +2076,7 @@ def serve_http_phase(cfg: Config, params, store, ws: str, dev,
             torch.cuda.synchronize()
         with open(spec_path + ".out") as f:
             load = json.load(f)
-        out, seconds = load["out"], load["seconds"]
+        out = load["out"]
         k1 = device_launches(prof, {"K1": K1_KERNELS})["K1"]
         snap = service.stats.snapshot()
         bank = {"hits": service.bank.hits, "misses": service.bank.misses,
@@ -3066,10 +2117,6 @@ def serve_http_phase(cfg: Config, params, store, ws: str, dev,
     fields = dict(
         requests=n_req, clients=HTTP_CLIENTS, singles=n_single,
         bulk_calls=len(bulks), bulk_items=HTTP_BULK, batch=BATCH,
-        max_wait_ms=HTTP_WAIT_MS, qa_pairs_per_s=n_req / seconds,
-        seconds=seconds, client_latency=load["latency_ms"],
-        request_latency=snap["request"],
-        queue_wait=snap["queue_wait"], dispatch=snap["dispatch"],
         batch_occupancy=snap["batch_occupancy"], engine_calls=batches,
         launches={"K1": k1}, bank=bank, flips_vs_int8_forward=n_flips,
         flip_rate=n_flips / n_req, bit_equal_share=n_equal / n_req,
@@ -3129,7 +2176,7 @@ def backbone_phase(cfg: Config, params, ws: str, dev, smi: str) -> int:
     224, random weights from a seed, f32 on the card (TF32 off) against
     f32 on the CPU at N = BACKBONE_N (relative error < BACKBONE_REL_ERR,
     the bound of ``tests/test_torch_parity.py``); the extractor's serving
-    dtype (bf16) on a batch of EXTRACT_BATCH: images/s. If PIL imports:
+    dtype (bf16) on a batch of EXTRACT_BATCH: its grid. If PIL imports:
     one PNG through /predict_image (a server with ``--backbone_weights``)
     and through ``cli.predict`` (bf16, K1 once), each answer the top of
     the forward on that image's grid, and N_PNG PNGs through
@@ -3158,20 +2205,13 @@ def backbone_phase(cfg: Config, params, ws: str, dev, smi: str) -> int:
     torchvision_npz(trunk.cpu(), npz)
     del trunk, vtrunk
 
-    # the serving dtype's rate: uint8 images through each extractor
+    # the serving dtype: uint8 images through each extractor
     for name, size in (("resnet152", 448), ("vgg19", 224)):
         ex = GridExtractor(name, npz if name == "resnet152" else None,
                            device=dev)
         u8 = rng.integers(0, 256, (EXTRACT_BATCH, size, size, 3),
                           dtype=np.uint8)
-        ex.batch(u8)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            out = ex.batch(u8)
-        torch.cuda.synchronize()
-        seconds = (time.perf_counter() - t0) / 3
-        fields[f"{name}_bf16_images_per_s"] = EXTRACT_BATCH / seconds
+        out = ex.batch(u8)
         fields[f"{name}_grid"] = list(out.shape[1:])
         del ex, out
     torch.cuda.empty_cache()
@@ -3306,30 +2346,6 @@ def same_params(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
-def step_share(solver, batches) -> dict:
-    """The device's busy share of a training step: SHARE_STEPS steps of
-    ``solver`` on host batches assembled beforehand (so the wall time holds
-    each step's own H2D copies, as ``train_profile``'s), after two warm-up
-    steps, under torch.profiler: the device time of its kernels and copies
-    over the wall time, synchronised at both ends."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for batch in batches[:2]:
-        solver._train_step(batch)
-    torch.cuda.synchronize()
-    timed = batches[2:2 + SHARE_STEPS]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch in timed:
-            solver._train_step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / len(timed)
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.self_device_time_total > 0) / 1e3 / len(timed)
-    return {"profiled_ms_per_step": wall_ms, "device_busy_ms": busy_ms,
-            "device_share": busy_ms / wall_ms}
-
-
 def train_switches_phase(params, store, store_dir: str, work_dir: str,
                          smi: str) -> dict:
     """Phase 31: the Solver's switches on full-width bf16 mhb_coAtt at the
@@ -3346,9 +2362,7 @@ def train_switches_phase(params, store, store_dir: str, work_dir: str,
       forward twice a step (the recomputation), its backward once; the
       peak memory of both runs;
     - the device feature bank, on the f16 store and on its int8 twin: the
-      parameters bit-equal to the host feed's of the same store; ms a step
-      (``train``, steps 4..last) and the device's share of a profiled
-      step (``step_share``) beside the host feed's, both feeds;
+      parameters bit-equal to the host feed's of the same store;
     - ``profile_steps=2``: the trace is written and names K2's kernels;
     - ``debug_nans``: a sound step passes the trap, a NaN put into a
       weight raises at the backward.
@@ -3372,9 +2386,8 @@ def train_switches_phase(params, store, store_dir: str, work_dir: str,
         result["params"] = solver_params(solver)
         peak_mib = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
         k2 = result["launches"]["K2"]
-        fields[name] = {"losses": result["losses"],
-                        "ms_per_step": result["ms_per_step"],
-                        "k2_launches": k2, "run_peak_mib": peak_mib}
+        fields[name] = {"losses": result["losses"], "k2_launches": k2,
+                        "run_peak_mib": peak_mib}
         if want is not None:
             counted.append(k2)
             if k2 != want or any(result["launches"]["K3"].values()):
@@ -3447,11 +2460,8 @@ def train_switches_phase(params, store, store_dir: str, work_dir: str,
                                 device_feature_bank=True)
         equal = same_params(bank["params"], host["params"])
         fields[f"bank_{feed}"].update(
-            bit_equal_to_host_feed=equal, bank_mib=bank_solver.bank.nbytes
-            / 2 ** 20, host_feed_ms_per_step=host["ms_per_step"])
-        for name, solver in (("host", host_solver), ("bank", bank_solver)):
-            fields[f"bank_{feed}"][f"{name}_step_share"] = step_share(
-                solver, list(solver.batches["train"].epoch(1)))
+            bit_equal_to_host_feed=equal,
+            bank_mib=bank_solver.bank.nbytes / 2 ** 20)
         if not equal or bank["losses"] != host["losses"]:
             raise AssertionError(f"train_switches: the {feed} bank's run is "
                                  "not bit-equal to the host feed's")
@@ -3504,26 +2514,21 @@ def artifact_phase(cfg: Config, params, stores: tuple, ws: str, dev,
     artifact_dir=...)`` and served phase 28's requests
     (``predict_stream``, 2,048 requests) beside the eager engine. Gates:
     the answers bit-equal to the eager engine's; ``fast_path_traced``; K1
-    (mhb_coAtt) or K4 (hieCoAtten) once per artifact call. Times: the
-    export's seconds, qa-pairs/s of both engines, and on one resident
-    batch the program's forward beside the eager one: ``forward_ms``, CUDA
-    events around 5 calls back to back (the host's launches included),
-    ``host_ms``, the host's time to issue one call (``host_ms``), and
-    ``device_ms``, the device time of its kernels (``device_ms``)."""
+    (mhb_coAtt) or K4 (hieCoAtten) once per artifact call, counted on the
+    card."""
     f16_store, store = stores
     image_ids, ques = bank_traffic(cfg)
     spans = [slice(s, s + BATCH) for s in range(0, len(ques), BATCH)]
     hie_cfg = Config(model_name="hieCoAtten")
     fields, launches = {}, {"K1": 0, "K4": 0}
-    for name, fcfg, fparams, key, module in (
-            ("mhb_coAtt", cfg, params, "K1", wqf),
-            ("hieCoAtten", hie_cfg, hie_served_params(hie_cfg), "K4", co)):
+    for name, fcfg, fparams, key, kernels in (
+            ("mhb_coAtt", cfg, params, "K1", K1_KERNELS),
+            ("hieCoAtten", hie_cfg, hie_served_params(hie_cfg), "K4",
+             K4_KERNELS)):
         for feed in ("float16", "int8"):
             out = os.path.join(ws, f"aot_{name}_{feed}")
-            t0 = time.perf_counter()
             save_serving_artifact(out, fcfg.replace(compute_dtype="bfloat16"),
                                   fparams, BATCH, 5, feed, dev)
-            export_s = time.perf_counter() - t0
             with open(os.path.join(out, "serving.json")) as f:
                 meta = json.load(f)
 
@@ -3534,8 +2539,7 @@ def artifact_phase(cfg: Config, params, stores: tuple, ws: str, dev,
                 return f16_store.gather(image_ids[s], np.float16), ques[s], \
                     None
 
-            rec = {"export_s": export_s,
-                   "fast_path_traced": meta["fast_path_traced"],
+            rec = {"fast_path_traced": meta["fast_path_traced"],
                    "kernel_ops": meta["kernel_ops"]}
             preds = {}
             for kind in ("eager", "artifact"):
@@ -3543,26 +2547,11 @@ def artifact_phase(cfg: Config, params, stores: tuple, ws: str, dev,
                     fcfg, fparams, batch_size=BATCH, topk=5,
                     input_dtype=feed,
                     artifact_dir=out if kind == "artifact" else None)
-                preds[kind], seconds, counts = stream(
+                preds[kind], counts = stream(
                     engine, lambda: engine.predict_stream(
-                        items(s) for s in spans), {key: module})
-                first = items(spans[0])
-                args = engine._to_device(
-                    [*first[:1], *first[3:],
-                     *engine._question_args(first[1], None)])
-                with torch.inference_mode():
-                    def forward():
-                        engine._fwd(engine.model, *args)
-
-                    forward_ms = time_ms(forward, 5)
-                    issue_ms = host_ms(forward, 5)
-                    device = device_ms(forward)
-                rec[kind] = {"qa_pairs_per_s": len(ques) / seconds,
-                             "forward_ms": forward_ms,
-                             "host_ms": issue_ms,
-                             "device_ms": device["ms_per_launch"],
-                             "launches": counts}
-                del engine, args
+                        items(s) for s in spans), {key: kernels})
+                rec[kind] = {"launches": counts}
+                del engine
             launches[key] += counts[key]  # the artifact engine's
             rec["bit_equal_to_eager"] = bit_equal(preds["artifact"],
                                                   preds["eager"])
@@ -3705,13 +2694,12 @@ def dp_train_arm(store_dir: str, out: str, fault: str = None,
             own = solver._loss
             solver._loss = (lambda logits, answers, soft, valid, count=None:
                             own(logits, answers, soft, valid))
-        marks, grads = [], {}
+        losses, grads = [], {}
 
         def on_step(step, loss):
-            if not grads:  # outside the timed steps 2..steps
+            if not grads:
                 grads.update(full_grads(solver))
-            torch.cuda.synchronize()
-            marks.append((float(loss), time.perf_counter()))
+            losses.append(float(loss))
 
         for module in (tf, pf):
             for name in module.launch_count:
@@ -3728,8 +2716,7 @@ def dp_train_arm(store_dir: str, out: str, fault: str = None,
     result = {
         "rank": distributed.rank(), "world": distributed.world_size(),
         "model_parallel": model_parallel, "site": site,
-        "losses": [m[0] for m in marks],
-        "ms_per_step": (marks[-1][1] - marks[0][1]) * 1e3 / (len(marks) - 1),
+        "losses": losses,
         "k2_launches": launches, "k2_calls": calls,
         "params_l1": float(sum(v.double().abs().sum()
                                for v in state.values())),
@@ -3839,34 +2826,13 @@ def dp_ranks(arm: str, world: int, backend: str, devices: list,
     return results if extra.get("then") else results[arm]
 
 
-def k2_kernel_mask(seed: int, n: int, row0: int, rate: float,
-                   cfg: Config, col0: int = 0, f_total: int = None,
-                   f: int = None) -> torch.Tensor:
-    """The mask K2's forward kernel draws for ``n`` samples from ``row0``
-    and ``f`` columns (the whole width by default) from ``col0`` of
-    ``f_total``: its output at k = 1 on zero features and weights, unit
-    bias and q, is sqrt(1 / keep) where it keeps an element and 0 where it
-    drops one (a width the kernel refuses launches zero-padded to a
-    multiple of 8, as the dispatcher pads a shard)."""
-    l, d = cfg.img_feature_dim, cfg.img_feature_channel
-    f = cfg.fusion_dim if f is None else f
-    f_pad = f + (-f % 8)
-    dev = torch.device("cuda", 0)
-    out = tf.forward_cuda(
-        torch.zeros(n, l, d, dtype=torch.bfloat16, device=dev),
-        torch.zeros(d, f_pad, dtype=torch.bfloat16, device=dev),
-        torch.ones(f_pad, device=dev), torch.ones(n, f_pad, device=dev),
-        seed, 1, rate, row0, col0, f if f_total is None else f_total)
-    return out[..., :f] != 0
-
-
 def dp_masks_agree(ranks: list, single: dict, cfg: Config) -> list:
     """The masks gate: each rank's first K2 call draws, by the kernel at the
     row and column offsets it passed, the block of the one process's first
     mask that the rank holds: data rank d's rows and, under tensor
     parallelism, model rank m's columns. -> per rank whether it does."""
     seed, row0, rows = single["k2_calls"][0][:3]
-    whole = k2_kernel_mask(seed, rows, row0, cfg.dropout_fusion, cfg)
+    whole = cc.k2_kernel_mask(seed, rows, row0, cfg.dropout_fusion)
     agree = []
     for r in ranks:
         # f: the launch's width, a shard's zero-padded; its block of the
@@ -3875,8 +2841,8 @@ def dp_masks_agree(ranks: list, single: dict, cfg: Config) -> list:
         mp = r.get("model_parallel", 1)
         fw = f_total // mp
         lo, c0 = (r["rank"] // mp) * n, (r["rank"] % mp) * fw
-        part = k2_kernel_mask(r_seed, n, r_row0, cfg.dropout_fusion, cfg,
-                              r_col0, f_total, f)[..., :fw]
+        part = cc.k2_kernel_mask(r_seed, n, r_row0, cfg.dropout_fusion,
+                                 col0=r_col0, f_total=f_total, f=f)[..., :fw]
         agree.append(r_seed == seed and f_total == whole.shape[-1]
                      and torch.equal(part, whole[lo:lo + n, :, c0:c0 + fw]))
         del part
@@ -3959,8 +2925,6 @@ def dp_train_phase(store_dir: str, smi: str, cards: int = 1) -> dict:
     fields = dict(
         model="mhb_coAtt", cards=cards, batch=batch, steps=DP_STEPS,
         rate=cfg.dropout_fusion, single_losses=single["losses"],
-        single_ms_per_step=single["ms_per_step"],
-        single_qa_pairs_per_s=batch * 1e3 / single["ms_per_step"],
         single_k2_launches=single["k2_launches"],
         grad_rtol=DP_GRAD_RTOL, loss_rtol=TRAIN_LOSS_RTOL)
     for name, ranks in runs.items():
@@ -3970,9 +2934,6 @@ def dp_train_phase(store_dir: str, smi: str, cards: int = 1) -> dict:
             grad_rel_diff=[r["grad_rel_diff"] for r in ranks],
             grad_norm_ratio=[r["grad_norm_ratio"] for r in ranks],
             max_param_diff=[r["max_param_diff"] for r in ranks],
-            ms_per_step=[r["ms_per_step"] for r in ranks],
-            qa_pairs_per_s=batch * 1e3 / max(r["ms_per_step"]
-                                             for r in ranks),
             k2_launches=[r["k2_launches"] for r in ranks],
             k2_first_call=[r["k2_calls"][0] for r in ranks],
             masks_agree=masks[name], gates=gates[name])
@@ -4030,13 +2991,12 @@ def dp_serve_phase(cfg: Config, params, store, smi: str,
     equal = bit_equal(preds[replicas], preds[1])
     flipped = sum(a.answer_id != b.answer_id
                   for a, b in zip(preds[replicas], preds[1]))
-    launches = runs[replicas][2]["K1"]
+    launches = runs[replicas][1]["K1"]
     say("dp_serve", model="mhb_coAtt", requests=n_req, batch=BATCH,
         replicas=replicas,
         devices="cuda:0 x2" if cards == 1 else f"cuda:0..{cards - 1}",
         bit_equal=equal, answers_differ=flipped, k1_launches=launches,
-        k1_launches_one_replica=runs[1][2]["K1"],
-        qa_pairs_per_s={n: n_req / r[1] for n, r in runs.items()},
+        k1_launches_one_replica=runs[1][1]["K1"],
         note=("two replicas share one card: correctness, not scaling"
               if cards == 1 else f"a replica a card over {cards} cards"),
         card=smi)
@@ -4144,9 +3104,6 @@ def tp_train_phase(store_dir: str, smi: str, cards: int = 1) -> dict:
         rate=cfg.dropout_fusion, single_losses=single["losses"],
         blocked_losses=blocked["losses"],
         blocked_pooled_losses=blocked_pooled["losses"],
-        single_ms_per_step=single["ms_per_step"],
-        blocked_ms_per_step=blocked["ms_per_step"],
-        blocked_pooled_ms_per_step=blocked_pooled["ms_per_step"],
         blocked_vs_single_grad_rel_diff=blocked_gap,
         single_bytes={k: single[k] for k in ("param_bytes", "grad_bytes",
                                              "adam_bytes")},
@@ -4166,7 +3123,6 @@ def tp_train_phase(store_dir: str, smi: str, cards: int = 1) -> dict:
             grad_norm_ratio=[r["grad_norm_ratio"] for r in ranks],
             worst_params=ranks[0]["worst_params"],
             max_param_diff=[r["max_param_diff"] for r in ranks],
-            ms_per_step=[r["ms_per_step"] for r in ranks],
             bytes=[{k: r[k] for k in ("param_bytes", "grad_bytes",
                                       "adam_bytes")} for r in ranks],
             launches=[r["k2_launches"] for r in ranks],
@@ -4208,9 +3164,7 @@ def bank_train_arm(spec: dict, out: str) -> None:
     """A rank of ``sharded_bank_train``: for each store of ``spec["banks"]``
     (f16, int8), BANK_TRAIN_STEPS steps of the data-parallel Solver (dp_train's
     configuration) from the host feed, the replicated bank and the sharded
-    bank: the losses, the rank's bank bytes, and the ring lookup's ms
-    (a batch's rows, median of BANK_LOOKUP_REPS, every rank calling it
-    together) beside the replicated bank's local lookup. Writes JSON."""
+    bank: the losses and the rank's bank bytes. Writes JSON."""
     from vqa_attention_networks_tpu_torch.parallel import distributed
 
     cfg = dp_config(spec["batch"])
@@ -4231,20 +3185,6 @@ def bank_train_arm(spec: dict, out: str) -> None:
             entry = {"losses": losses, "k2_launches": dict(tf.launch_count)}
             if solver.bank is not None:
                 entry["bank_bytes"] = solver.bank.nbytes
-                batch = next(iter(solver.batches["train"].epoch(0)))
-                # the rank's rows of the batch (the feed sliced them)
-                rows = torch.from_numpy(np.ascontiguousarray(
-                    batch.image_rows)).to(solver.device).long()
-                ms = []
-                for _ in range(BANK_LOOKUP_REPS):
-                    distributed.barrier()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    solver.bank.lookup(rows)
-                    torch.cuda.synchronize()
-                    ms.append((time.perf_counter() - t0) * 1e3)
-                entry["lookup_ms"] = float(np.median(ms))
-                entry["lookup_rows"] = int(rows.shape[0])
             result[f"{kind}_{feed}"] = entry
             del solver
             torch.cuda.empty_cache()
@@ -4261,8 +3201,7 @@ def sharded_bank_train_phase(store_dir: str, smi: str,
     replicated bank and the sharded bank. Gates: each rank's losses
     bit-equal across the three feeds; a rank's sharded bank 1/D of the
     replicated one (the store padded to a multiple of D). Reports each
-    rank's bank bytes and the ring lookup's ms beside the replicated
-    bank's lookup. -> K2's launches in every rank and feed, by kind."""
+    rank's bank bytes. -> K2's launches in every rank and feed, by kind."""
     world = 2 if cards == 1 else cards
     backend = "gloo" if cards == 1 else "nccl"
     devices = (["cuda:0"] * 2 if cards == 1
@@ -4288,9 +3227,6 @@ def sharded_bank_train_phase(store_dir: str, smi: str,
         bank_bytes={f"{k}_{f}": [r[f"{k}_{f}"]["bank_bytes"] for r in ranks]
                     for k in ("f16", "int8")
                     for f in ("replicated", "sharded")},
-        lookup_ms={f"{k}_{f}": [r[f"{k}_{f}"]["lookup_ms"] for r in ranks]
-                   for k in ("f16", "int8")
-                   for f in ("replicated", "sharded")},
         bit_equal=equal, replicated_over_sharded_bytes=ratio,
         note=("two ranks share one card: the ring goes through the host "
               "(gloo)" if cards == 1 else f"NCCL over {cards} cards"),
@@ -4355,7 +3291,7 @@ def sharded_bank_serve_phase(cfg: Config, params, store_dir: str, smi: str,
             replayed = replayed_state(cfg, rounded, id_batches)
             replayed["capacity"] = rounded
             equal = bit_equal(runs[replicas][0], runs[1][0])
-            launches = runs[replicas][2]["K1"]
+            launches = runs[replicas][1]["K1"]
             k1 += launches
             same = states[replicas] == replayed
             for state in states.values():
@@ -4364,8 +3300,7 @@ def sharded_bank_serve_phase(cfg: Config, params, store_dir: str, smi: str,
                 capacity_asked=capacity, capacity=rounded,
                 bit_equal=equal, k1_launches=launches,
                 counts=states[replicas], counts_one_replica=states[1],
-                counts_and_slots_equal_cpu_cache=same,
-                qa_pairs_per_s={n: n_req / r[1] for n, r in runs.items()})
+                counts_and_slots_equal_cpu_cache=same)
             if not equal or not same or launches != replicas * N_BATCHES:
                 raise AssertionError(
                     f"sharded_bank_serve ({name}): answers not bit-equal to "
@@ -4385,30 +3320,21 @@ def sharded_bank_serve_phase(cfg: Config, params, store_dir: str, smi: str,
     return k1
 
 
-def kernel_entry(name, source, replaces, n_launches, err, run, bnd,
-                 library_ms=None) -> dict:
-    """A kernel's entry of the kernels line. library_ms: one PyTorch call
-    beside the kernel: K8's computes its function (torch.nn.LSTM); K2's
-    and K3's d_img the bare product over the operand, for information
-    (K3's without the wq build)."""
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n_launches,
-            "max_abs_err": err, "ms": run[0], "plain_ms": run[1],
-            "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_ms": library_ms}
+def kernel_entry(name, source, replaces, n_launches, err) -> dict:
+    """A kernel's entry of the kernels line (its times are
+    ``vqa_attention_networks_tpu_torch/step_time.py``'s)."""
+    return {"name": name, "source": source, "replaces": replaces,
+            "launches": n_launches, "max_abs_err": err}
 
 
 # N1, MCAN's fused residual + LayerNorm (phase 38): the kernel's name in a
-# CUDA profile (both of its template instances), its launches in one
-# MCAN forward (12 over the words, 18 over the grid, 1 in the head), and
-# MCAN-large's three norm shapes at N = BATCH
+# CUDA profile (both of its template instances) and its launches in one
+# MCAN forward (12 over the words, 18 over the grid, 1 in the head)
 N1_SOURCE = "vqa_attention_networks_tpu_torch/csrc/mcan_layernorm.cu"
 N1_REPLACES = ("none: the composed add_layernorm_composed "
                "(vqa_attention_networks_tpu_torch/ops/mcan_norm.py)")
 N1_KERNELS = ("add_layernorm_kernel",)
 N1_PER_FORWARD = 31
-N1_SHAPES = {"grid": (BATCH * 196, 1024), "words": (BATCH * 14, 1024),
-             "head": (BATCH, 2048)}
 N1_MAX_DIFFERING = 0.01
 MCAN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "port_bench", "configs", "mcan_large.json")
@@ -4417,39 +3343,14 @@ MCAN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 MCAN_WORKLOAD = os.path.join(os.path.dirname(MCAN_CONFIG), os.pardir,
                              "workloads", "mcan_large.serve_byid.json")
 
-# N2, MCAN's attention (phase 38): the kernel's name in a CUDA profile,
+# N2, MCAN's attention (phase 38): the kernel's name in a CUDA profile and
 # its launches in one MCAN forward (6 encoder, 6 decoder self- and 6
-# guided attentions), and MCAN-large's three attention shapes at N = BATCH
-# as (heads, Lq, Lk), each run 6 times a forward
+# guided attentions)
 N2_SOURCE = "vqa_attention_networks_tpu_torch/csrc/mcan_attention.cu"
 N2_REPLACES = ("none: the composed attention_composed "
                "(vqa_attention_networks_tpu_torch/ops/mcan_attention.py)")
 N2_KERNELS = ("mcan_attention_kernel",)
 N2_PER_FORWARD = 18
-N2_SHAPES = {"grid_self": (16, 196, 196), "guided": (16, 196, 14),
-             "words_self": (16, 14, 14)}
-
-
-def n1_inputs(rows: int, d: int, seed: int, dev, spread: float = 1.0):
-    """bf16 x and r of the given spread, f32 gains about 1 and biases."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    x, r = (spread * torch.randn(rows, d, generator=g, device=dev)
-            for _ in range(2))
-    w = 1.0 + 0.5 * torch.randn(d, generator=g, device=dev)
-    b = 0.1 * torch.randn(d, generator=g, device=dev)
-    return x.to(torch.bfloat16), r.to(torch.bfloat16), w, b
-
-
-def n1_within(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
-    """N1 against its composed form: both round z = x + r to bf16 and keep
-    the statistics in f32, so they differ in the order of the f32 sums
-    alone: one bf16 ulp of the output, and 2^-16 besides near 0, where the
-    output is the difference of terms of order 1 (the card test's
-    tolerance, ``tests/test_torch_port_mcan.py``)."""
-    got, want = got.float(), want.float()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        want.abs().clamp_min(2.0 ** -126))) - 7)
-    return (got - want).abs() <= ulp + 2.0 ** -16
 
 
 def n1_eps_under_the_root(x, r, w, b) -> torch.Tensor:
@@ -4464,11 +3365,12 @@ def n1_eps_under_the_root(x, r, w, b) -> torch.Tensor:
 def n1_check(dev) -> float:
     """N1 against its composed form at MCAN-large's three shapes and on
     rows of a tiny spread, with the eps control there -> max |diff|."""
-    cases = {name: (rows, d, 1.0) for name, (rows, d) in N1_SHAPES.items()}
-    cases["tiny_spread"] = (N1_SHAPES["words"][0], 1024, 1e-3)
+    cases = {name: (rows, d, 1.0)
+             for name, (rows, d) in cc.N1_SHAPES.items()}
+    cases["tiny_spread"] = (cc.N1_SHAPES["words"][0], 1024, 1e-3)
     max_err = 0.0
     for i, (name, (rows, d, spread)) in enumerate(cases.items()):
-        x, r, w, b = n1_inputs(rows, d, 38 + i, dev, spread)
+        x, r, w, b = cc.n1_inputs(rows, d, 38 + i, dev, spread)
         got = mcan_norm.add_layernorm(x, r, w, b)
         again = mcan_norm.add_layernorm(x, r, w, b)
         want = mcan_norm.add_layernorm_composed(x, r, w, b)
@@ -4500,40 +3402,14 @@ def n1_check(dev) -> float:
     return max_err
 
 
-def n1_time(dev) -> tuple:
-    """N1 and its composed form at the grid's shape (CUDA events,
-    interleaved) -> (times, bound): the bound reads x and r and writes the
-    output once, and the parameters, at HBM_BYTES_PER_S."""
-    x, r, w, b = n1_inputs(*N1_SHAPES["grid"], 38, dev)
-    run = interleaved_ms(lambda: mcan_norm.add_layernorm(x, r, w, b),
-                         lambda: mcan_norm.add_layernorm_composed(x, r, w, b),
-                         10)
-    return run, bound(nbytes(x, r, w, b) + x.numel() * x.element_size(), {})
-
-
-def n2_inputs(heads: int, lq: int, lk: int, seed: int, dev) -> tuple:
-    """bf16 q [BATCH, Lq, 64 heads], k and v [BATCH, Lk, 64 heads] of unit
-    variance and a random key mask (each sample its own masked share),
-    sample 0's keys all masked."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    d = mcan_attention.HEAD_DIM * heads
-    q, k, v = (torch.randn(BATCH, length, d, generator=g, device=dev)
-               .to(torch.bfloat16) for length in (lq, lk, lk))
-    share = torch.rand(BATCH, 1, generator=g, device=dev)
-    mask = torch.rand(BATCH, lk, generator=g, device=dev) < share
-    mask[0] = True
-    return q, k, v, mask
-
-
 def n2_check(dev) -> float:
     """N2 at MCAN-large's three attention shapes against the f32 composed
     attention (TF32 off): its largest error no larger than the composed
-    bf16 form's plus one bf16 ulp of the output's magnitude (the card
-    test's gate, ``tests/test_torch_port_mcan_attention.py``), finite,
-    bit-equal reruns -> its largest error."""
+    bf16 form's plus one bf16 ulp of the output's magnitude
+    (``n2_within``), finite, bit-equal reruns -> its largest error."""
     max_err = 0.0
-    for i, (name, (heads, lq, lk)) in enumerate(N2_SHAPES.items()):
-        q, k, v, mask = n2_inputs(heads, lq, lk, 380 + i, dev)
+    for i, (name, (heads, lq, lk)) in enumerate(cc.N2_SHAPES.items()):
+        q, k, v, mask = cc.n2_inputs(BATCH, heads, lq, lk, 380 + i, dev)
         got = mcan_attention.attention(q, k, v, mask)
         again = mcan_attention.attention(q, k, v, mask)
         want = mcan_attention.attention_composed(
@@ -4542,71 +3418,23 @@ def n2_check(dev) -> float:
         torch.cuda.synchronize()
         err = float((got.float() - want).abs().max())
         composed_err = float((composed.float() - want).abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+        ok = n2_within(got, want, composed)
         finite = bool(torch.isfinite(got.float()).all())
         say("n2_check", case=name, shape=[BATCH, heads, lq, lk],
             max_abs_err=err, composed_bf16_max_abs_err=composed_err,
-            ulp=ulp, mean_abs_err=float((got.float() - want).abs().mean()),
+            within_tolerance=ok,
+            mean_abs_err=float((got.float() - want).abs().mean()),
             composed_bf16_mean_abs_err=float(
                 (composed.float() - want).abs().mean()),
             rerun_bit_equal=bool(torch.equal(got, again)), finite=finite)
-        if err > composed_err + ulp or not finite:
+        if not ok or not finite:
             raise AssertionError(f"N2 rounds more than the composed form at "
-                                 f"{name}: {err} > {composed_err} + {ulp}")
+                                 f"{name}: {err} against {composed_err}")
         if not torch.equal(got, again):
             raise AssertionError("N2 is not deterministic across reruns")
         max_err = max(max_err, err)
         del q, k, v, got, again, want, composed
     return max_err
-
-
-def n2_time(dev, smi: str) -> dict:
-    """N2, its composed form (interleaved, CUDA events) and PyTorch's
-    ``scaled_dot_product_attention`` (the yardstick the port never calls;
-    the same heads' views in, the [N, Lq, d] layout out) at each shape ->
-    {shape: (times, bound, library ms)}, and the forward's sums (each
-    shape 6 times). A bound reads q, k, v and the mask and writes the
-    output once, and counts the two products in bf16."""
-    import torch.nn.functional as F
-
-    out = {}
-    for i, (name, (heads, lq, lk)) in enumerate(N2_SHAPES.items()):
-        q, k, v, mask = n2_inputs(heads, lq, lk, 380 + i, dev)
-        d = q.shape[-1]
-
-        def sdpa():
-            def split(x):
-                return x.view(BATCH, x.shape[1], heads, -1).transpose(1, 2)
-
-            o = F.scaled_dot_product_attention(
-                split(q), split(k), split(v),
-                attn_mask=~mask[:, None, None, :])
-            return o.transpose(1, 2).reshape(BATCH, lq, d)
-
-        run = interleaved_ms(
-            lambda: mcan_attention.attention(q, k, v, mask),
-            lambda: mcan_attention.attention_composed(q, k, v, mask, heads),
-            10)
-        sdpa()
-        library_ms = time_ms(sdpa, 10)
-        bnd = bound(nbytes(q, k, v, mask) + q.numel() * q.element_size(),
-                    {"bf16": 4.0 * BATCH * heads * lq * lk
-                     * mcan_attention.HEAD_DIM})
-        say("time", kernel="N2", case=name, shape=[BATCH, heads, lq, lk],
-            kernel_ms=run[0], plain_ms=run[1], kernel_runs_ms=run[2],
-            plain_runs_ms=run[3], library_ms=library_ms,
-            library="torch.nn.functional.scaled_dot_product_attention",
-            bound_ms=bnd[0], bound_by=bnd[1], card=smi)
-        out[name] = (run, bnd, library_ms)
-        del q, k, v, mask
-    per = N2_PER_FORWARD // len(N2_SHAPES)
-    say("time", kernel="N2", case="forward", calls=N2_PER_FORWARD,
-        kernel_ms=per * sum(r[0][0] for r in out.values()),
-        plain_ms=per * sum(r[0][1] for r in out.values()),
-        library_ms=per * sum(r[2] for r in out.values()),
-        bound_ms=per * sum(r[1][0] for r in out.values()), card=smi)
-    torch.cuda.empty_cache()
-    return out
 
 
 def mcan_serve(stores: tuple, dev, smi: str) -> dict:
@@ -4639,10 +3467,10 @@ def mcan_serve(stores: tuple, dev, smi: str) -> dict:
             (image_ids[s], ques[s], None) for s in spans)
 
     kernels = {"N1": N1_KERNELS, "N2": N2_KERNELS}
-    preds8, feed_s, feed = stream(engine, int8_batches, kernels)
+    preds8, feed = stream(engine, int8_batches, kernels)
     engine.attach_feature_cache(BANK_IMAGES, store.gather_quantized)
     warm = []
-    preds, seconds, launches = stream(
+    preds, launches = stream(
         engine, by_id, kernels,
         after_warm_up=lambda: warm.append(engine._graph.replays))
     replays = engine._graph.replays - warm[0]
@@ -4669,9 +3497,7 @@ def mcan_serve(stores: tuple, dev, smi: str) -> dict:
         n2_launches_int8_feed=feed["N2"], n2_launches_by_id=launches["N2"],
         n2_launches_expected=N2_PER_FORWARD * N_BATCHES,
         graph_replays=replays, bit_equal_to_int8_feed=same,
-        logit_err_vs_composed=err, logit_err_limit=limit,
-        int8_feed_qa_pairs_per_s=len(ques) / feed_s,
-        by_id_qa_pairs_per_s=len(ques) / seconds, card=smi)
+        logit_err_vs_composed=err, logit_err_limit=limit, card=smi)
     for key, n in per.items():
         if feed[key] != n * N_BATCHES or launches[key] != n * N_BATCHES:
             raise AssertionError(f"mcan_serve: {key} ran {feed[key]} (int8 "
@@ -4689,23 +3515,17 @@ def mcan_serve(stores: tuple, dev, smi: str) -> dict:
 
 
 def mcan_phase(stores: tuple, dev, smi: str) -> dict:
-    """Phase 38: N1's and N2's checks and times, then MCAN-large served by
-    id -> the kernels-line entries of N1 and N2 (N2's time, bound and
-    library time at the grid's self-attention)."""
+    """Phase 38: N1's and N2's checks, then MCAN-large served by id -> the
+    kernels-line entries of N1 and N2."""
     err = n1_check(dev)
-    run, bnd = n1_time(dev)
-    say("time", kernel="N1", shape=list(N1_SHAPES["grid"]), kernel_ms=run[0],
-        plain_ms=run[1], kernel_runs_ms=run[2], plain_runs_ms=run[3],
-        bound_ms=bnd[0], bound_by=bnd[1], card=smi)
     torch.cuda.empty_cache()
     n2_err = n2_check(dev)
-    n2 = n2_time(dev, smi)["grid_self"]
+    torch.cuda.empty_cache()
     launches = mcan_serve(stores, dev, smi)
     return [kernel_entry("mcan_add_layernorm", N1_SOURCE, N1_REPLACES,
-                         launches["N1"], err, run, bnd),
+                         launches["N1"], err),
             kernel_entry("mcan_attention", N2_SOURCE, N2_REPLACES,
-                         launches["N2"], n2_err, n2[0], n2[1],
-                         library_ms=n2[2])]
+                         launches["N2"], n2_err)]
 
 
 def mcan_main() -> None:
@@ -4719,9 +3539,8 @@ def mcan_main() -> None:
     names = ("mcan_layernorm", "mcan_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
-    for name, (_, seconds, log) in zip(names, built):
-        say("build", kernel=name, seconds=round(seconds, 2),
-            ptxas=[ln.strip() for ln in log.splitlines()
+    for name, (_, _, log) in zip(names, built):
+        say("build", kernel=name, ptxas=[ln.strip() for ln in log.splitlines()
                    if any(key in ln for key in ("registers", "spill"))])
     with tempfile.TemporaryDirectory() as ws:
         entries = mcan_phase(bank_stores(ws, Config()), dev, smi)
@@ -4780,19 +3599,19 @@ def main() -> None:
              "mcan_layernorm", "mcan_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
-    for name, (path, seconds, log) in zip(names, built):
+    for name, (path, _, log) in zip(names, built):
         ptxas = [ln.strip() for ln in log.splitlines()
                  if any(key in ln for key in ("registers", "spill", "arning",
                                               "(C75"))]
         say("build", kernel=name,
             library=str(path.relative_to(_build.BUILD_DIR.parents[1])),
-            seconds=round(seconds, 2), arch="sm_90a", ptxas=ptxas)
+            arch="sm_90a", ptxas=ptxas)
 
     # phase 3: K1 against its plain version at production shapes
     cfg = Config()
     max_err = 0.0
     for n in (8, 256, 1024):
-        img, q, sw = k1_inputs(n, seed=n, cfg=cfg, device=dev)
+        img, q, sw = cc.k1_inputs(n, n, dev)
         got, z, h1 = wqf.stage1_coattention_cuda(img, q, sw,
                                                  intermediates=True)
         want, want_z, want_h1 = wqf.stage1_coattention_reference(
@@ -4803,8 +3622,10 @@ def main() -> None:
         diff = (got - want).abs()
         ok = bool(within(got, want, img.shape[2]).all())
         z_ok, z_max, z_equal = scratch_diff(
-            z * z.abs(), want_z * want_z.abs(), POOLED_ATOL, POOLED_RTOL)
-        h1_ok, h1_max, h1_equal = scratch_diff(h1, want_h1, H1_ATOL, H1_RTOL)
+            z * z.abs(), want_z * want_z.abs(), cc.POOLED_ATOL,
+            cc.POOLED_RTOL)
+        h1_ok, h1_max, h1_equal = scratch_diff(h1, want_h1, cc.H1_ATOL,
+                                               cc.H1_RTOL)
         max_err = max(max_err, float(diff.max()))
         say("k1_check", n=n, max_abs_diff=float(diff.max()),
             mean_abs_diff=float(diff.mean()), within_tolerance=ok,
@@ -4838,54 +3659,16 @@ def main() -> None:
         blind = dict(params, co_att_conv2={"w": torch.zeros(512, 2),
                                            "b": torch.zeros(2)})
         bf16_cfg = cfg.replace(compute_dtype="bfloat16")
-        served = serve_phase(
+        launches["K1"] += serve_phase(
             "serve", cfg, params, store, {"K1": wqf}, dev, smi,
             control=blind,
-            info={"composed": bf16_cfg.replace(fast_path="composed")})
-        launches["K1"] += served["launches"]["K1"]
-        e2e = {"mhb_coAtt": served["qa_pairs_per_s"]}
-
-        # phase 5: K1 times, on this card at its power limit
-        times = {}
-        for n in (BATCH, 1024):
-            img, q, sw = k1_inputs(n, seed=n, cfg=cfg, device=dev)
-
-            def kernel():
-                wqf.stage1_coattention(img, q, sw)
-
-            def plain():
-                wqf.stage1_coattention_reference(img, q, sw)
-
-            kernel(), plain()  # warm-up
-            plain_a = time_ms(plain, 3)
-            kernel_a = time_ms(kernel, 10)
-            kernel_b = time_ms(kernel, 10)
-            plain_b = time_ms(plain, 3)
-            times[n] = ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2)
-            if n == BATCH:
-                _, l, d = img.shape
-                c, g = sw.c1w.shape[1], sw.c2w.shape[1]
-                k1_bound = bound(
-                    nbytes(img, q, sw.w3, sw.b3, sw.c1w, sw.c1b, sw.c2w,
-                           sw.c2b) + 2 * n * g * d,
-                    {"bf16": 2 * n * l * (d * sw.o + sw.o * c + c * g
-                                          + g * d),
-                     "f32": 2 * n * sw.k * d * sw.o})  # the wq build
-            # at N=256, each of K1's launches apart (device time)
-            by_launch = device_ms_by_kernel(kernel) if n == BATCH else None
-            say("k1_time", n=n, kernel_ms=times[n][0], plain_ms=times[n][1],
-                kernel_runs_ms=[kernel_a, kernel_b],
-                plain_runs_ms=[plain_a, plain_b],
-                device_ms_by_launch=by_launch, card=smi)
-            del img, q, sw
-        say("e2e", model="mhb_coAtt", qa_pairs_per_s=e2e["mhb_coAtt"],
-            batch=BATCH, requests=BATCH * N_BATCHES, card=smi)
+            info={"composed": bf16_cfg.replace(fast_path="composed")})["K1"]
 
         # phase 6: K2 against its plain version at production widths
         k2_err = {}
         for n in K2_NS:
             for rate in K2_RATES:
-                for name, err in k2_check(n, rate, cfg, dev).items():
+                for name, err in k2_check(n, rate, dev).items():
                     k2_err[name] = max(k2_err.get(name, 0.0), err)
         torch.cuda.empty_cache()
 
@@ -4896,17 +3679,10 @@ def main() -> None:
                             TRAIN_STEPS, "K2")]
         torch.cuda.empty_cache()
 
-        # phase 8: K2 times at the training batch, then one pre-pool
-        # training step under the profiler
-        k2_times, k2_bounds, k2_library = k2_time(cfg, dev, smi)
-        torch.cuda.empty_cache()
-        train_profile(bf16_train, train_params, store, smi)
-        torch.cuda.empty_cache()
-
         # phase 9: K3 against its plain version at production widths
         k3_err = {}
         for n in K3_NS:
-            for name, err in k3_check(n, cfg, dev).items():
+            for name, err in k3_check(n, dev).items():
                 k3_err[name] = max(k3_err.get(name, 0.0), err)
         torch.cuda.empty_cache()
 
@@ -4936,10 +3712,6 @@ def main() -> None:
                      for key in counts}
             for kernel, counts in TRAIN_COUNTERS.items()}
 
-        # phase 12: K3 times at the training batch
-        k3_times, k3_bounds, k3_library = k3_time(cfg, dev, smi)
-        torch.cuda.empty_cache()
-
         # phase 13: K4 against its plain version
         k4_err = max(k4_check(n, dev) for n in (8, BATCH))
 
@@ -4947,22 +3719,17 @@ def main() -> None:
         # embedding drawn at 8x xavier so both maps are peaked; control:
         # whv and whq zeroed give uniform maps
         hie_cfg = Config(model_name="hieCoAtten")
-        hie_params = hiecoatten.init_params(
-            hie_cfg, torch.Generator().manual_seed(1))
-        for key, leaf in (("fc_Whv", "w"), ("fc_Whq", "w"),
-                          ("que_emb", "table")):
-            hie_params[key][leaf] = hie_params[key][leaf] * 8.0
+        hie_params = hie_served_params(hie_cfg)
         zero_att = {"w": torch.zeros(hie_cfg.embed_size, 1),
                     "b": torch.zeros(1)}
-        served = serve_phase(
+        launches["K4"] += serve_phase(
             "serve_hiecoatten", hie_cfg, hie_params, store, {"K4": co}, dev,
-            smi, control=dict(hie_params, fc_Whv=zero_att, fc_Whq=zero_att))
-        launches["K4"] += served["launches"]["K4"]
-        e2e["hieCoAtten"] = served["qa_pairs_per_s"]
+            smi, control=dict(hie_params, fc_Whv=zero_att,
+                              fc_Whq=zero_att))["K4"]
         torch.cuda.empty_cache()
 
         # phase 15: K5 against its plain version
-        k5_err = max(k5_check(n, cfg, dev) for n in (8, BATCH))
+        k5_err = max(k5_check(n, dev) for n in (8, BATCH))
         torch.cuda.empty_cache()
 
         # phase 16: mfb and mfb-multilayer served under VQA_FORCE_PALLAS
@@ -4985,18 +3752,16 @@ def main() -> None:
                 "w": torch.zeros_like(mfb_params["img_conv1d"]["w"]),
                 "b": torch.zeros_like(mfb_params["img_conv1d"]["b"])})
             with switches(VQA_FORCE_PALLAS="1"):
-                served = serve_phase(f"serve_{name}", mfb_cfg, mfb_params,
-                                     store, {"K5": gf}, dev, smi,
-                                     control=dead)
+                launches["K5"] += serve_phase(
+                    f"serve_{name}", mfb_cfg, mfb_params, store, {"K5": gf},
+                    dev, smi, control=dead)["K5"]
                 if name == "mfb":
                     dead_fusion_check(mfb_cfg, mfb_params, store, dev)
-            launches["K5"] += served["launches"]["K5"]
-            e2e[name] = served["qa_pairs_per_s"]
             del mfb_params, dead
             torch.cuda.empty_cache()
 
         # phase 17: K7 against its plain version at both call shapes
-        k7_err = max(k7_check(shape, quirk, dev) for shape in K7_SHAPES
+        k7_err = max(k7_check(shape, quirk, dev) for shape in cc.K7_SHAPES
                      for quirk in (False, True))
         torch.cuda.empty_cache()
 
@@ -5005,22 +3770,18 @@ def main() -> None:
         with switches(VQA_PALLAS_GLIMPSE="1"):
             served = serve_phase("serve_glimpse", cfg, params, store,
                                  {"K1": wqf, "K7": att}, dev, smi)
-        for key in ("K1", "K7"):
-            launches[key] += served["launches"][key]
-        e2e["mhb_coAtt_glimpse"] = served["qa_pairs_per_s"]
         composed_cfg = cfg.replace(fast_path="composed")
         with switches(VQA_PALLAS_GLIMPSE="1", VQA_FORCE_PALLAS="1"):
-            served = serve_phase("serve_composed", composed_cfg, params,
-                                 store, {"K5": gf, "K7": att}, dev, smi)
-        for key in ("K5", "K7"):
-            launches[key] += served["launches"][key]
-        e2e["mhb_coAtt_composed"] = served["qa_pairs_per_s"]
+            composed = serve_phase("serve_composed", composed_cfg, params,
+                                   store, {"K5": gf, "K7": att}, dev, smi)
+        for key, n in (*served.items(), *composed.items()):
+            launches[key] += n
         torch.cuda.empty_cache()
 
         # phase 19: mhb, visLstm, iBOWIMG and attentionNet served (no
         # kernel on their paths)
         for name in FAMILIES_SERVED:
-            e2e[name] = serve_family(name, store, dev, smi)["qa_pairs_per_s"]
+            serve_family(name, store, dev, smi)
 
         # phase 20: hieCoAtten and those four trained
         for name in FAMILIES_TRAINED:
@@ -5028,7 +3789,6 @@ def main() -> None:
             torch.cuda.empty_cache()
 
         # phase 31: the Solver's switches (K2), on phase 7's weights
-        t0 = time.perf_counter()
         switch_params = init_params(bf16_train,
                                     torch.Generator().manual_seed(0))
         with tempfile.TemporaryDirectory() as work:
@@ -5037,120 +3797,45 @@ def main() -> None:
                 train_launches["K2"][key] += n
         del switch_params
         torch.cuda.empty_cache()
-        say("train_switches_time", seconds=time.perf_counter() - t0)
 
         # phase 33: data-parallel training, K2 in every rank, on phase
         # 4's store
-        t0 = time.perf_counter()
         for key, n in dp_train_phase(tmp, smi).items():
             train_launches["K2"][key] += n
-        say("dp_train_time", seconds=time.perf_counter() - t0)
 
         # phase 34: the split-batch engine, two replicas on the card (K1)
-        t0 = time.perf_counter()
         launches["K1"] += dp_serve_phase(cfg, params, store, smi)
-        say("dp_serve_time", seconds=time.perf_counter() - t0)
 
         # phase 35: tensor parallelism at (1, 2), K2 and K3 on the shards,
         # K1 on the gathered weights
-        t0 = time.perf_counter()
         tp = tp_train_phase(tmp, smi)
         for kernel in ("K2", "K3"):
             for key, n in tp[kernel].items():
                 train_launches[kernel][key] += n
         launches["K1"] += tp["K1"]
-        say("tp_train_time", seconds=time.perf_counter() - t0)
 
         # phase 36: the sharded training bank over two data ranks (K2)
-        t0 = time.perf_counter()
         for key, n in sharded_bank_train_phase(tmp, smi).items():
             train_launches["K2"][key] += n
-        say("sharded_bank_train_time", seconds=time.perf_counter() - t0)
 
         # phase 37: the device cache split over two replicas (K1)
-        t0 = time.perf_counter()
         launches["K1"] += sharded_bank_serve_phase(cfg, params, tmp, smi)
-        say("sharded_bank_serve_time", seconds=time.perf_counter() - t0)
 
     # phase 21: their f32 forwards on the card against the CPU's
     families_agree(dev)
     torch.cuda.empty_cache()
 
-    # phase 22: K4, K5 and K7 against their plain versions at N=256
-    a4 = k4_inputs(BATCH, 4, dev)
-    n, l, e = a4[0].shape
-    t = a4[1].shape[1]
-    k4_bound = bound(nbytes(*a4) + 4 * n * (2 * e + l + t),
-                     {"bf16": 2 * n * (3 * t * l * e + 2 * (l + t) * e)})
-    k4_time = interleaved_ms(lambda: co.coattention_core_cuda(*a4),
-                             lambda: co.coattention_core_reference(*a4), 10)
-    k4_device = launch_ms(lambda: co.coattention_core_cuda(*a4))
-    del a4
-    a5 = k5_inputs(BATCH, 5, cfg, dev)
-    k = cfg.mfb_factor
-    w_bf16, b5, q5 = tf.operands(*a5[1:])
-    n, l, d = a5[0].shape
-    f = w_bf16.shape[1]
-    k5_bound = bound(nbytes(a5[0], w_bf16, b5, q5) + 4 * n * l * (f // k),
-                     {"bf16": 2 * n * l * d * f})
-    k5_time = interleaved_ms(lambda: gf.inference_fusion_cuda(*a5, k),
-                             lambda: gf.grid_fuse_reference(*a5, k))
-    # for information: torch.matmul on the bare product img @ bf16(W),
-    # which no path of the port calls
-    flat = a5[0].reshape(-1, d)
-    torch.matmul(flat, w_bf16)  # warm-up
-    matmul_ms = time_ms(lambda: torch.matmul(flat, w_bf16), 10)
-    del a5, w_bf16, b5, q5, flat
-    torch.cuda.empty_cache()
-    k7_times, k7_bounds, k7_launches = {}, {}, {}
-    for shape_name, (n, p, c, a, d) in K7_SHAPES.items():
-        a7 = k7_inputs((n, p, c, a, d), 7, dev)
-        k7_bounds[shape_name] = bound(
-            nbytes(a7[0], a7[1].to(torch.bfloat16), a7[2],
-                   a7[3].to(torch.bfloat16), a7[4], a7[5]) + 2 * n * 2 * d,
-            {"bf16": 2 * n * p * (c * a + a * 2 + 2 * d)})
-
-        def kernel():
-            return att.glimpse_attention_cuda(*a7, uniform_quirk=False)
-
-        k7_times[shape_name] = interleaved_ms(
-            kernel, lambda: att.glimpse_attention_reference(
-                *a7, uniform_quirk=False), 10)
-        # its two launches and the wrapper's cast of W1 apart
-        k7_launches[shape_name] = device_ms_by_kernel(kernel)
-        del a7
-    for name, (run, bnd) in {"K4": (k4_time, k4_bound),
-                             "K5": (k5_time, k5_bound),
-                             **{f"K7_{s}": (k7_times[s], k7_bounds[s])
-                                for s in K7_SHAPES}}.items():
-        extra = {"matmul_ms": matmul_ms} if name == "K5" else {}
-        if name == "K4":
-            extra["device_ms"] = k4_device
-        if name.startswith("K7_"):
-            extra["device_ms_by_launch"] = k7_launches[name[3:]]
-        say("time", kernel=name, n=BATCH, kernel_ms=run[0], plain_ms=run[1],
-            kernel_runs_ms=run[2], plain_runs_ms=run[3], bound_ms=bnd[0],
-            bound_by=bnd[1], **extra, card=smi)
-    say("e2e_served", qa_pairs_per_s=e2e, batch=BATCH,
-        requests=BATCH * N_BATCHES, card=smi)
-    torch.cuda.empty_cache()
-
     # phase 23: K6 against its plain version at production widths
-    k6_err = max(k6_check(n, cfg, dev) for n in K6_NS)
+    k6_err = max(k6_check(n, dev) for n in K6_NS)
     torch.cuda.empty_cache()
 
     # phase 24: K6's path, its entry forward and backward
-    launches["K6"] = k6_path(cfg, dev)
+    launches["K6"] = k6_path(dev)
     torch.cuda.empty_cache()
 
     # phase 25: K8 against its plain version, then its path
     k8_err = max(k8_check(n, dev) for n in K8_NS)
     launches["K8"] = k8_path(dev)
-    torch.cuda.empty_cache()
-
-    # phase 26: K6 and K8 times, and cuDNN's LSTM beside K8
-    k6_times, k6_bound = k6_time(cfg, dev, smi)
-    k8_times, k8_bound, k8_library_ms = k8_time(dev, smi)
     torch.cuda.empty_cache()
 
     # phase 27: the command line, corpus to results files (K2 and K1)
@@ -5163,76 +3848,58 @@ def main() -> None:
     # phases 28-30 share one workspace: the stores, the vocab, the weights
     with tempfile.TemporaryDirectory() as ws:
         os.makedirs(os.path.join(ws, "data"))
-        t0 = time.perf_counter()
         stores = bank_stores(os.path.join(ws, "data"), cfg)
-        say("bank_store", images=BANK_IMAGES,
-            seconds=time.perf_counter() - t0)
 
         # phase 28: mhb_coAtt (K1) and hieCoAtten (K4) served by id
-        t0 = time.perf_counter()
         by_id = serve_bank_phase(cfg, params, stores, dev, smi)
         launches["K1"] += by_id["K1"]
         launches["K4"] += by_id["K4"]
-        say("serve_bank_time", seconds=time.perf_counter() - t0)
 
         # phase 29: the HTTP server in process (K1)
-        t0 = time.perf_counter()
         launches["K1"] += serve_http_phase(cfg, params, stores[1], ws, dev,
                                            smi)
-        say("serve_http_time", seconds=time.perf_counter() - t0)
 
         # phase 30: the backbones, /predict_image, cli.predict (K1) and
         # cli.extract_features
-        t0 = time.perf_counter()
         launches["K1"] += backbone_phase(cfg, params, ws, dev, smi)
-        say("backbone_time", seconds=time.perf_counter() - t0)
 
         # phase 32: the exported serving artifact (K1, K4)
-        t0 = time.perf_counter()
         for key, n in artifact_phase(cfg, params, stores, ws, dev,
                                      smi).items():
             launches[key] += n
-        say("artifact_time", seconds=time.perf_counter() - t0)
 
-        # phase 38: MCAN-large: N1 against its composed form, then served
-        # by id (N1)
-        t0 = time.perf_counter()
+        # phase 38: MCAN-large: N1 and N2 against their composed forms,
+        # then served by id
         mcan_entries = mcan_phase(stores, dev, smi)
-        say("mcan_time", seconds=time.perf_counter() - t0)
         del stores
 
     kernels = [kernel_entry("stage1_coattention", K1_SOURCE, K1_REPLACES,
-                            launches["K1"], max_err, times[BATCH],
-                            k1_bound)]
+                            launches["K1"], max_err)]
     for launch, replaces in K2_REPLACES.items():
         kernels.append(kernel_entry(
             f"train_fusion_{launch}", K2_SOURCE, replaces,
             train_launches["K2"][launch],
             max(k2_err["d_w"], k2_err["d_b"], k2_err["d_b_partials"])
-            if launch == "d_w" else k2_err[launch], k2_times[launch],
-            k2_bounds[launch], k2_library.get(launch)))
+            if launch == "d_w" else k2_err[launch]))
     for launch, replaces in K3_REPLACES.items():
         kernels.append(kernel_entry(
             f"pooled_fusion_{launch}", K3_SOURCE, replaces,
             train_launches["K3"][launch],
             max(k3_err["d_w"], k3_err["d_b"], k3_err["d_q"])
             if launch == "d_w" else max(k3_err["g_pooled"], k3_err["d_bq"])
-            if launch == "g_pooled" else k3_err[launch], k3_times[launch],
-            k3_bounds[launch], k3_library.get(launch)))
+            if launch == "g_pooled" else k3_err[launch]))
     kernels += [
         kernel_entry("coattention", K4_SOURCE, K4_REPLACES, launches["K4"],
-                     k4_err, k4_time, k4_bound),
+                     k4_err),
         kernel_entry("inference_fusion", K5_SOURCE, K5_REPLACES,
-                     launches["K5"], k5_err, k5_time, k5_bound),
-        # both call shapes launch it; ms and bound at the co-attention's
+                     launches["K5"], k5_err),
         kernel_entry("glimpse_attention", K7_SOURCE, K7_REPLACES,
-                     launches["K7"], k7_err, k7_times["co_attention"],
-                     k7_bounds["co_attention"]),
+                     launches["K7"], k7_err),
         kernel_entry("wq_grid_fusion", K6_SOURCE, K6_REPLACES,
-                     launches["K6"], k6_err, k6_times, k6_bound),
+                     launches["K6"], k6_err),
         # one call of the scan: one persistent launch
         kernel_entry("lstm_scan", K8_SOURCE, K8_REPLACES, launches["K8"],
-                     k8_err, k8_times, k8_bound, library_ms=k8_library_ms),
+                     k8_err),
         *mcan_entries,
     ]
     print(json.dumps({"kernels": kernels}))
@@ -5241,7 +3908,6 @@ def main() -> None:
         "platform": "gpu", "kind": card_name,
         "count": torch.cuda.device_count(),
     }}))
-
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 33, started there

@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX or of the JAX package, and chip_smoke.py
+"""The port imports nothing of JAX or of the JAX package, loads no file by
+its path (so nothing above it, such as chip_smoke.py), and chip_smoke.py
 refuses to run without a card or without the repository around it."""
 
 import ast
@@ -67,12 +68,45 @@ def _imports_of(path):
             yield node.module
 
 
-def _port_sources():
+def _package_sources():
     root = os.path.join(ROOT, "vqa_attention_networks_tpu_torch")
     for dirpath, _, files in os.walk(root):
         yield from (os.path.join(dirpath, f) for f in files
                     if f.endswith(".py"))
+
+
+def _port_sources():
+    yield from _package_sources()
     yield os.path.join(ROOT, "chip_smoke.py")
+
+
+# what runs Python code from a file named by its path, not from a module
+# named by its import path: importlib's and imp's file loaders, runpy's
+# run_path, and the builtin exec
+PATH_LOADERS = ("spec_from_file_location", "SourceFileLoader",
+                "SourcelessFileLoader", "load_source", "run_path")
+
+
+def _path_loads(path):
+    """Each way the file loads code other than by importing a module of the
+    port by name: a use of ``PATH_LOADERS``, a call of ``exec``, and an
+    import of ``chip_smoke``, by statement or by a name in a string."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr in PATH_LOADERS:
+            yield node.attr
+        elif isinstance(node, ast.Name) and node.id in PATH_LOADERS:
+            yield node.id
+        elif isinstance(node, ast.alias) and node.name in PATH_LOADERS:
+            yield node.name
+        elif isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
+                and node.func.id == "exec":
+            yield "exec"
+        elif isinstance(node, ast.Constant) and node.value == "chip_smoke":
+            yield "chip_smoke"
+    yield from (name for name in _imports_of(path)
+                if name.split(".")[0] == "chip_smoke")
 
 
 def test_no_port_source_imports_the_jax_package():
@@ -93,6 +127,33 @@ def test_the_import_scan_sees_a_jax_package_import(tmp_path):
     assert list(_imports_of(str(path))) == [
         "vqa_attention_networks_tpu.config",
         "vqa_attention_networks_tpu.data"]
+
+
+def test_no_package_module_loads_a_file_by_its_path():
+    """The package depends on nothing above it: no module runs a file by
+    its path or imports ``chip_smoke`` (the card tools draw their cases
+    from ``ops/card_cases.py``, inside it)."""
+    sources = list(_package_sources())
+    assert len(sources) >= 25
+    bad = [(os.path.relpath(path, ROOT), how) for path in sources
+           for how in _path_loads(path)]
+    assert not bad, bad
+
+
+def test_the_path_load_scan_sees_each_form(tmp_path):
+    # control: the scan flags every form it looks for
+    path = tmp_path / "probe.py"
+    path.write_text(
+        "import importlib.util, runpy, chip_smoke\n"
+        "from importlib.machinery import SourceFileLoader\n"
+        "from chip_smoke import k4_inputs\n"
+        "spec = importlib.util.spec_from_file_location('m', 'chip_smoke.py')\n"
+        "runpy.run_path('chip_smoke.py')\n"
+        "exec(open('chip_smoke.py').read())\n"
+        "importlib.import_module('chip_smoke')\n")
+    assert sorted(_path_loads(str(path))) == sorted([
+        "SourceFileLoader", "spec_from_file_location", "run_path", "exec",
+        "chip_smoke", "chip_smoke", "chip_smoke"])
 
 
 def test_solver_import_leaves_jax_out():

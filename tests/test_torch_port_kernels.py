@@ -4,23 +4,20 @@ PyTorch versions.
 These need an NVIDIA card (sm_90a) and the CUDA toolkit; without a card
 they skip. Kernel and plain version share their rounding points and differ
 only in the order of their f32 sums, which can move an intermediate across
-a bf16 boundary. The kernel's scratch is held at: z before its signed sqrt
-(z * |z| is img @ wq + bq in f32) atol/rtol 1e-4, h1 one bf16 ulp plus
-5e-4 (a zb at a rounding boundary may round apart under the two norms,
-moving h1 by |c1w| * ulp(zb)). The
-output is held per glimpse row at atol 2e-3 + four bf16 ulps (2^-5) of the
-row's largest magnitude: a 1-ulp flip of h1 moves the logits through c2w,
-and the peaked attention then moves every output of the row by up to ~1.2%
-of that magnitude. The inputs peak the attention over the L regions, so a
-fault upstream of the softmax moves the output well past the tolerance.
+a bf16 boundary. Each kernel is held to its tolerance in
+``ops/card_cases.py``, where each is explained, and its inputs come from
+there too (``chip_smoke.py`` and ``step_time.py`` use the same): K1's
+scratch z before its signed sqrt, and h1, to one bf16 ulp plus a little;
+its output per glimpse row at atol + four bf16 ulps of the row's largest
+magnitude, on inputs that peak the attention over the L regions, so that
+a fault upstream of the softmax moves the output well past the tolerance.
 
 K2 (forward, d_img, d_W/d_b, d_q) shares every rounding point with its
 plain version and differs in the order of its f32 sums only; each launch
-is held per tensor at ``K2_RTOL`` of the plain result's largest |value|
-(the forward as pooled = out * |out|; d_img, bf16, at 2^-7: one bf16 ulp
-of the largest value, plus slack), the backward launches on the kernel's
-own forward output. d_W/d_b's first launch, the g_prod build, is
-elementwise with no sum but the d_b partials: its bf16 operand is held
+is held per tensor at ``card_cases.K2_RTOL`` of the plain result's largest
+|value| (the forward as pooled = out * |out|), the backward launches on
+the kernel's own forward output. d_W/d_b's first launch, the g_prod build,
+is elementwise with no sum but the d_b partials: its bf16 operand is held
 bit for bit.
 """
 
@@ -30,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from vqa_attention_networks_tpu_torch.ops import card_cases as cc
 from vqa_attention_networks_tpu_torch.ops import train_fusion as tf
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 
@@ -38,10 +36,7 @@ pytestmark = pytest.mark.skipif(
     reason="needs an NVIDIA card (the CUDA kernel has no CPU mode)",
 )
 
-ATOL, RTOL_ROW = 2e-3, 2.0 ** -5
-POOLED_TOL = 1e-4
-H1_ATOL, H1_RTOL = 5e-4, 2.0 ** -7
-K, C, G, L = 5, 512, 2, 196
+K, C, G, L = cc.K, cc.C, 2, cc.L
 
 
 def _inputs(n, d, o, seed=0, device="cuda", l=L, k=K, g=G, c=C):
@@ -63,13 +58,6 @@ def _inputs(n, d, o, seed=0, device="cuda", l=L, k=K, g=G, c=C):
     return img, q, sw
 
 
-def _within(got, want, d):
-    got = got.float().reshape(got.shape[0], -1, d)
-    want = want.float().reshape(got.shape)
-    return (got - want).abs() <= ATOL + RTOL_ROW * want.abs().amax(
-        -1, keepdim=True)
-
-
 @pytest.mark.parametrize("n,d,o", [(4, 128, 100), (8, 2048, 1000)],
                          ids=["small", "production"])
 def test_kernel_matches_plain_version(n, d, o):
@@ -85,12 +73,13 @@ def test_kernel_matches_plain_version(n, d, o):
     assert torch.isfinite(got.float()).all()
     # control: the check rejects most of a uniform-attention output
     uniform = img.float().mean(1, keepdim=True).expand(n, G, d)
-    assert (~_within(uniform, want, d)).float().mean() >= 0.5
+    assert (~cc.within(uniform, want, d)).float().mean() >= 0.5
     torch.testing.assert_close(z * z.abs(), want_z * want_z.abs(),
-                               atol=POOLED_TOL, rtol=POOLED_TOL)
-    torch.testing.assert_close(h1.float(), want_h1.float(), atol=H1_ATOL,
-                               rtol=H1_RTOL)
-    assert _within(got, want, d).all()
+                               atol=cc.POOLED_ATOL,
+                               rtol=cc.POOLED_RTOL)
+    torch.testing.assert_close(h1.float(), want_h1.float(),
+                               atol=cc.H1_ATOL, rtol=cc.H1_RTOL)
+    assert cc.within(got, want, d).all()
     # no atomics: a rerun gives the same bits
     assert torch.equal(got, wqf.stage1_coattention(img, q, sw))
 
@@ -114,10 +103,11 @@ def test_k1_edges_match_plain_version(n, l, d, o, k, c):
         img, q, sw, intermediates=True)
     assert got.shape == (n, G * d) and torch.isfinite(got.float()).all()
     torch.testing.assert_close(z * z.abs(), want_z * want_z.abs(),
-                               atol=POOLED_TOL, rtol=POOLED_TOL)
-    torch.testing.assert_close(h1.float(), want_h1.float(), atol=H1_ATOL,
-                               rtol=H1_RTOL)
-    assert _within(got, want, d).all()
+                               atol=cc.POOLED_ATOL,
+                               rtol=cc.POOLED_RTOL)
+    torch.testing.assert_close(h1.float(), want_h1.float(),
+                               atol=cc.H1_ATOL, rtol=cc.H1_RTOL)
+    assert cc.within(got, want, d).all()
     assert torch.equal(got, wqf.stage1_coattention_cuda(img, q, sw))
 
 
@@ -153,27 +143,12 @@ def test_wrapper_raises_on_inputs_it_does_not_take():
         assert wqf.stage1_coattention_cuda(img, q, sw).shape == (n, g * d)
 
 
-K2_RTOL = {"forward": 1e-4, "d_img": 2.0 ** -7, "d_w": 1e-4, "d_b": 1e-4,
-           "d_q": 1e-4}
-
-
 def _k2_inputs(n, d, o, seed=0, device="cuda", l=L, k=K):
-    rng = np.random.default_rng(seed)
-
-    def t(shape, scale):
-        return torch.from_numpy(
-            rng.standard_normal(shape).astype(np.float32) * scale
-        ).to(device)
-
-    img = t((n, l, d), 0.5).to(torch.bfloat16)
-    w_bf16, b, q = tf.operands(t((d, o * k), 0.02), t((o * k,), 0.05),
-                               t((n, o * k), 0.5).to(torch.bfloat16))
-    return img, w_bf16, b, q, t((n, l, o), 1.0)
-
-
-def _k2_view(name, x):
-    x = x.float()
-    return x * x.abs() if name == "forward" else x
+    """``card_cases.k2_inputs`` without the forced zeros, as K2's launches
+    take them: bf16 img, the operands (bf16 W, f32 b and q), f32 g."""
+    img, w, b, q, g = cc.k2_inputs(n, seed, device, l=l, d=d, o=o, k=k,
+                                   zeros=0)
+    return (img, *tf.operands(w, b, q), g)
 
 
 # besides the small and production shapes, d_q's edges: N = 1, 3, 65; L =
@@ -217,10 +192,9 @@ def test_k2_launches_match_plain_versions(n, l, d, o, k, rate):
             "d_w": d_w, "d_b": d_b,
             "d_q": tf.d_q_reference(g, out, img, w_bf16, b, k, keep)}
     again = launches()
-    for name, tol in K2_RTOL.items():
-        a, b_ = _k2_view(name, got[name]), _k2_view(name, want[name])
-        assert torch.isfinite(a).all(), name
-        assert (a - b_).abs().max() <= tol * b_.abs().max(), name
+    for name in want:
+        assert torch.isfinite(got[name].float()).all(), name
+        assert cc.k2_within(name, got[name], want[name]).all(), name
         # no atomics: a rerun gives the same bits
         assert torch.equal(got[name], again[name]), name
     assert torch.equal(got["g_prod"], again["g_prod"])
@@ -254,8 +228,7 @@ def test_forward_kernel_edges_match_plain_version(n, l, d, o, k, rate):
         k5 = gf.inference_fusion_cuda(img, w_bf16.float(), b, q, k)
         assert torch.equal(k5, got)
     assert got.shape == (n, l, o) and torch.isfinite(got).all()
-    a, b_ = _k2_view("forward", got), _k2_view("forward", want)
-    assert (a - b_).abs().max() <= K2_RTOL["forward"] * b_.abs().max()
+    assert cc.k2_within("forward", got, want).all()
     assert torch.equal(got, tf.forward_cuda(img, w_bf16, b, q, seed, k, rate))
     if rate > 0:  # the mask replays: all k factors dropped gives 0
         dropped = ~tf.dropout_mask(seed, n, l, o * k, rate,
@@ -297,22 +270,21 @@ def test_k2_backward_with_img_grad_builds_g_prod_once():
                                          img.device), 0.1)
     want = tf.d_img_reference(g, out.detach(), w_bf16, q, K, keep)
     assert img.grad.dtype == torch.bfloat16
-    assert (img.grad.float() - want.float()).abs().max() <= \
-        K2_RTOL["d_img"] * want.float().abs().max()
+    assert cc.k2_within("d_img", img.grad, want).all()
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.0])
 def test_k2_d_img_matches_plain_version_at_chip_smoke_inputs(rate):
-    """K2's d_img product over the g_prod operand at ``chip_smoke``'s
-    N = 64 inputs (``k2_time``'s): within ``k2_check``'s tolerance of the
-    plain version, the same as the build-and-product call, and a rerun
-    gives the same sha256."""
+    """K2's d_img product over the g_prod operand at the card inputs of
+    N = 64 that ``chip_smoke.py``'s K2 check and ``step_time.py`` take
+    (``card_cases.k2_inputs``): within K2's tolerance of the plain version,
+    the same as the build-and-product call, and a rerun gives the same
+    sha256."""
     import hashlib
 
-    smoke = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, dev, n, seed = smoke.Config(), torch.device("cuda"), 64, 7
-    img, w, b, q, g = smoke.k2_inputs(n, 3, cfg, dev)
+    dev, n, seed = torch.device("cuda"), 64, 7
+    img, w, b, q, g = cc.k2_inputs(n, 3, dev)
     w_bf16, bf, qf = tf.operands(w, b, q)
     l, f = img.shape[1], w.shape[1]
     keep = tf.keep_scale(tf.dropout_mask(seed, n, l, f, rate, dev), rate) \
@@ -324,7 +296,7 @@ def test_k2_d_img_matches_plain_version_at_chip_smoke_inputs(rate):
     want = tf.d_img_reference(g, out, w_bf16, qf, K, keep)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.isfinite(got.float()).all()
-    assert bool(smoke.k2_within("d_img", got, want).all())
+    assert bool(cc.k2_within("d_img", got, want).all())
     assert torch.equal(got, tf.d_img_cuda(*args))
 
     def digest(x):
@@ -366,33 +338,19 @@ def test_k2_wrappers_raise_on_inputs_they_do_not_take():
                                              img.device), 0.1)
         want = tf.d_q_reference(g, out, img, w_bf16, b, k, keep)
         assert d_q.shape == (n, o * k) and torch.isfinite(d_q).all()
-        assert (d_q - want).abs().max() <= \
-            K2_RTOL["d_q"] * want.abs().max()
+        assert cc.k2_within("d_q", d_q, want).all()
 
 
 # --------------------------------------------------------------------------
 # K4, K5, K7 (the hieCoAtten core, the inference fusion, the glimpse block)
 # --------------------------------------------------------------------------
 
-# K4 and K7 against their plain versions: the two share their rounding
-# points (bf16 roundings of C, Hv, Hq in K4, of the hidden layer, the
-# weights and the output in K7) and differ in the order of their f32 sums,
-# which can move an element across a bf16 rounding boundary (2^-8
-# relative) and with it a logit of a peaked softmax: 2^-7 of the largest
-# value bounds it for K4's v and q and K7's glimpse rows; K4's maps are
-# held element by element at 2^-6 of each value plus 1e-6 (so that a
-# uniform map cannot pass on the near-zero elements of a peaked one). K5
-# is K2's forward without the mask: pooled = out * |out| at 1e-4 of its
-# largest value, summation order only.
-K4_RTOL = K7_RTOL_ROW = 2.0 ** -7
-K4_MAP_RTOL, K4_MAP_ATOL = 2.0 ** -6, 1e-6
-K5_RTOL = 1e-4
-
-
-def _k4_within(i, got, want):
-    if i >= 2:  # av, aq
-        return (got - want).abs() <= K4_MAP_RTOL * want.abs() + K4_MAP_ATOL
-    return (got - want).abs() <= K4_RTOL * want.abs().max()
+# K4, K5 and K7 against their plain versions: ``card_cases``' K4 (v and q
+# at 2^-7 of the largest value, the maps element by element at 2^-6 of
+# each value plus 1e-6, so that a uniform map cannot pass on the near-zero
+# elements of a peaked one), K5 (K2's forward) and K7 (each glimpse row at
+# 2^-7 of its largest value) tolerances
+K4_NAMES = ("v", "q", "av", "aq")
 
 
 def _bf16(rng, shape, scale, device="cuda"):
@@ -403,7 +361,12 @@ def _bf16(rng, shape, scale, device="cuda"):
 def _k4_inputs(n, l, t, e, seed=0, misalign=False):
     """K4's inputs; ``misalign`` places each activation 4 bytes past a
     16-byte boundary (contiguous all the same), so the kernel copies rows
-    4 bytes at a time."""
+    4 bytes at a time. A draw of this test's own, not
+    ``card_cases.k4_inputs``: at ``k4_inputs(8, 0)`` the plain f32
+    version, which these cases hold K4 to, puts one av element 1.8% from
+    the f64 version (``k4_precision.f64_version``), past the map
+    tolerance, where K4 agrees with the f64 version to 1e-8 (ROADMAP,
+    Queue 3, K4's precision)."""
     rng = np.random.default_rng(seed)
 
     def act(shape, scale):
@@ -451,10 +414,11 @@ def test_k4_matches_plain_version(n, l, t, e, misalign):
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == torch.float32 and g.shape == w.shape, i
         assert torch.isfinite(g).all(), i
-        assert _k4_within(i, g, w).all(), i
+        assert cc.k4_within(K4_NAMES[i], g, w).all(), i
         if controlled[i]:
             # control: uniform maps are rejected on most elements
-            assert (~_k4_within(i, flat[i], w)).float().mean() > 0.5, i
+            assert (~cc.k4_within(K4_NAMES[i], flat[i], w)).float().mean() \
+                > 0.5, i
     if l > 1 and e > 2:
         # the inputs peak the region map. Not at E = 2, where a logit sums
         # two products of |Hv| <= 1 with whv: there the uniform control
@@ -488,21 +452,6 @@ def test_k4_wrapper_raises_on_inputs_it_does_not_take():
         co.coattention_core_cuda(*odd)
 
 
-def _chip_smoke():
-    """``chip_smoke.py`` of this checkout, for its K4 inputs and
-    tolerance (the script runs nothing at import)."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke_k4", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-K4_NAMES = ("v", "q", "av", "aq")
 # K4's mean |error| against the f64 version as a ratio to the plain f32
 # version's (k4_precision.py's formula), over the 8 (seed, output) pairs of
 # seeds 4 and 5: their geometric mean at most K4_F64_GEO_MARGIN, each at
@@ -513,18 +462,18 @@ K4_F64_GEO_MARGIN, K4_F64_PAIR_MARGIN = 2.0, 4.0
 
 
 def test_k4_matches_plain_version_at_chip_smoke_inputs():
-    """At ``chip_smoke.k4_inputs(256, seed=4)``, where K4 with its
-    mma.sync products summed inside the tensor cores put 2 aq elements
-    past the tolerance, every output within ``k4_check``'s tolerance."""
+    """At ``card_cases.k4_inputs(256, seed=4)`` (``chip_smoke.py``'s K4
+    inputs), where K4 with its mma.sync products summed inside the tensor
+    cores put 2 aq elements past the tolerance, every output within K4's
+    tolerance."""
     from vqa_attention_networks_tpu_torch.ops import coattention as co
 
-    smoke = _chip_smoke()
-    args = smoke.k4_inputs(256, 4, torch.device("cuda"))
+    args = cc.k4_inputs(256, 4, torch.device("cuda"))
     got = co.coattention_core_cuda(*args)
     want = co.coattention_core_reference(*args)
     torch.cuda.synchronize()
     for name, g, w in zip(K4_NAMES, got, want):
-        outside = int((~smoke.k4_within(name, g, w)).sum())
+        outside = int((~cc.k4_within(name, g, w)).sum())
         assert outside == 0, (name, outside)
 
 
@@ -535,11 +484,10 @@ def test_k4_error_against_f64_is_no_more_than_the_plain_versions():
     from vqa_attention_networks_tpu_torch.k4_precision import f64_version
     from vqa_attention_networks_tpu_torch.ops import coattention as co
 
-    smoke = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     ratios = {}
     for seed in (4, 5):
-        args = smoke.k4_inputs(256, seed, torch.device("cuda"))
+        args = cc.k4_inputs(256, seed, torch.device("cuda"))
         ref = f64_version(*args)
         kernel = co.coattention_core_cuda(*args)
         plain = co.coattention_core_reference(*args)
@@ -572,12 +520,12 @@ def test_k5_matches_plain_version(n, d, o):
     assert got.dtype == torch.float32 and got.shape == (n, L, o)
     pooled, want_pooled = got * got.abs(), want * want.abs()
     assert (pooled - want_pooled).abs().max() <= \
-        K5_RTOL * want_pooled.abs().max()
+        cc.K5_RTOL * want_pooled.abs().max()
     assert torch.equal(got, gf.inference_fusion_cuda(img, w, b, q, K))
     # control: q permuted across samples is rejected
     perm = gf.grid_fuse_reference(img, w, b, q.flip(0), K)
     assert (perm * perm.abs() - want_pooled).abs().max() > \
-        100 * K5_RTOL * want_pooled.abs().max()
+        100 * cc.K5_RTOL * want_pooled.abs().max()
 
 
 def _k7_inputs(n, p, c, a, g, d, seed=2):
@@ -604,15 +552,12 @@ def _check_k7(n, p, c, a, g, d, quirk):
     assert att.launch_count == before + 1
     want = att.glimpse_attention_reference(*args, uniform_quirk=quirk)
     assert got.dtype == torch.bfloat16 and got.shape == (n, g * d)
-    rows_g = got.float().reshape(n, g, d)
-    rows_w = want.float().reshape(n, g, d)
-    tol = K7_RTOL_ROW * rows_w.abs().amax(-1, keepdim=True)
-    assert ((rows_g - rows_w).abs() <= tol).all()
+    assert cc.k7_within(got, want, g).all()
     assert torch.equal(got, att.glimpse_attention_cuda(
         *args, uniform_quirk=quirk))
     if not quirk and p > 1:  # a uniform pool is rejected on most elements
         uniform = args[5].float().mean(1, keepdim=True).expand(n, g, d)
-        assert ((uniform - rows_w).abs() > tol).float().mean() > 0.5
+        assert (~cc.k7_within(uniform, want, g)).float().mean() > 0.5
 
 
 @pytest.mark.parametrize("quirk", [False, True], ids=["softmax", "quirk"])
@@ -659,13 +604,11 @@ def test_k7_wrapper_raises_on_inputs_it_does_not_take():
 # K3 (the pooled-site training fusion: forward, d_img, d_W/d_b/d_q)
 # --------------------------------------------------------------------------
 
-# K3 shares every rounding point with its plain version (wq's f32 sum over
-# j in order and its bf16 rounding, bf16 g_pooled, f32 products) and
-# differs in the order of its f32 sums only: each launch is held per tensor
-# at 1e-4 of the plain result's largest |value|, the forward as
-# pooled = out * |out|; the backward launches on the kernel's own forward
-# output
-K3_RTOL = 1e-4
+# K3 shares every rounding point with its plain version and differs in the
+# order of its f32 sums only: each launch is held per tensor at
+# ``card_cases.K3_RTOL`` of the plain result's largest |value|, the forward
+# as pooled = out * |out|; the backward launches on the kernel's own
+# forward output
 
 
 def _k3_inputs(n, l, d, o, seed=0, k=K):
@@ -717,11 +660,9 @@ def test_k3_launches_match_plain_versions(n, l, d, o, k):
             "d_b": d_b, "d_q": d_q}
     again = launches()
     for name in want:
-        a, b_ = got[name].float(), want[name].float()
-        assert a.shape == b_.shape and torch.isfinite(a).all(), name
-        if name == "forward":
-            a, b_ = a * a.abs(), b_ * b_.abs()
-        assert (a - b_).abs().max() <= K3_RTOL * b_.abs().max(), name
+        assert got[name].shape == want[name].shape, name
+        assert torch.isfinite(got[name].float()).all(), name
+        assert cc.k3_within(name, got[name], want[name]).all(), name
         # no atomics: a rerun gives the same bits
         assert torch.equal(got[name], again[name]), name
     # control: q permuted across samples (across channels at N = 1) is
@@ -730,7 +671,7 @@ def test_k3_launches_match_plain_versions(n, l, d, o, k):
                                 q.flip(0) if n > 1 else q.roll(1, 1), k)
     pooled = out * out.abs()
     assert (perm * perm.abs() - pooled).abs().max() > \
-        100 * K3_RTOL * pooled.abs().max()
+        100 * cc.K3_RTOL * pooled.abs().max()
 
 
 # the forward's geometry: every K (1 to 7, one template each), an O tile
@@ -751,15 +692,14 @@ def test_k3_forward_edges_match_plain_version(n, l, d, o, k):
     out = pf.forward_cuda(img, w_bf16, b, q, k)
     want = pf.forward_reference(img, w_bf16, b, q, k)
     assert out.shape == want.shape and torch.isfinite(out).all()
-    pooled, want_pooled = out * out.abs(), want * want.abs()
-    assert (pooled - want_pooled).abs().max() <= \
-        K3_RTOL * want_pooled.abs().max()
+    assert cc.k3_within("forward", out, want).all()
     assert torch.equal(out, pf.forward_cuda(img, w_bf16, b, q, k))
     # control: q permuted across samples (across channels at N = 1)
     perm = pf.forward_reference(img, w_bf16, b,
                                 q.flip(0) if n > 1 else q.roll(1, 1), k)
+    want_pooled = want * want.abs()
     assert (perm * perm.abs() - want_pooled).abs().max() > \
-        100 * K3_RTOL * want_pooled.abs().max()
+        100 * cc.K3_RTOL * want_pooled.abs().max()
 
 
 # K3's own forward (``pooled_fusion_forward``) at N = 64 and production
@@ -825,18 +765,17 @@ def test_k3_backward_with_img_grad_forms_g_pooled_once():
 
 
 def test_k3_d_img_matches_plain_version_at_chip_smoke_inputs():
-    """K3's d_img product over the g_pooled operand at ``chip_smoke``'s
-    N = 64 inputs (``k3_time``'s): within ``k3_check``'s tolerance of the
-    plain version, the same as the build-and-product call, and a rerun
-    gives the same sha256."""
+    """K3's d_img product over the g_pooled operand at the card inputs of
+    N = 64 that ``step_time.py`` times it on (``card_cases.k2_inputs``):
+    within K3's tolerance of the plain version, the same as the
+    build-and-product call, and a rerun gives the same sha256."""
     import hashlib
 
     from vqa_attention_networks_tpu_torch.ops import pooled_fusion as pf
 
-    smoke = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, dev = smoke.Config(), torch.device("cuda")
-    img, w, b, q, g = smoke.k2_inputs(64, 3, cfg, dev)
+    dev = torch.device("cuda")
+    img, w, b, q, g = cc.k2_inputs(64, 3, dev)
     w_bf16, bf, qb = pf.operands(w, b, q)
     out = pf.forward_cuda(img, w_bf16, bf, qb, K)
     args = (g, out, img, w_bf16, bf, qb, K)
@@ -846,7 +785,7 @@ def test_k3_d_img_matches_plain_version_at_chip_smoke_inputs():
     want = pf.d_img_reference(g, out, w_bf16, qb, K)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.isfinite(got).all()
-    assert bool(smoke.k3_within("d_img", got, want).all())
+    assert bool(cc.k3_within("d_img", got, want).all())
     assert torch.equal(got, pf.d_img_cuda(*args))
 
     def digest(x):
@@ -886,57 +825,23 @@ def test_k3_wrappers_raise_on_inputs_they_do_not_take():
         out = pf.forward_cuda(img, w_bf16, b, q, k)
         got = pf.d_w_cuda(g, out, img, w_bf16, b, q, k)
         want = pf.d_w_reference(g, out, img, w_bf16, b, q, k)
-        for a, b_ in zip(got, want):
+        for name, a, b_ in zip(("d_w", "d_b", "d_q"), got, want):
             assert a.shape == b_.shape and torch.isfinite(a).all()
-            assert (a - b_).abs().max() <= K3_RTOL * b_.abs().max()
+            assert cc.k3_within(name, a, b_).all()
 
 
 # --------------------------------------------------------------------------
 # K6 (the standalone wq fusion + grid L2) and K8 (the LSTM scan)
 # --------------------------------------------------------------------------
 
-# K6 against its plain version, per element of pooled = out * |out|: the
-# two share their rounding points and differ in the order of their f32
-# sums (the D contraction and the norm), which can move an element of the
-# bf16 output by one ulp (2^-7 of its value at most, 2^-6 once squared);
-# 1e-4 of the largest value covers the f32 difference of a pooled value
-# near 0. The backward is the composed chain's VJP on the same inputs, on
-# the same card: held at 1e-6 of each gradient's largest magnitude.
-K6_RTOL, K6_ATOL = 2.0 ** -6, 1e-4
-K6_GRAD_RTOL = 1e-6
-# K8 against its plain version, step by step: the plain recurrence fed the
-# kernel's own h carry must give each output within one bf16 ulp plus
-# 1e-6. The two share their rounding points (bf16 xp and h, f32 gates and
-# c) and differ in the order of the recurrent product's f32 sums and the
-# last bits of expf/tanhf, which can round an h the other way at a bf16
-# boundary. Run free, such a flip feeds the later steps through W_hh, so
-# the free-running outputs are held at 2^-6 only.
-K8_STEP_ATOL, K8_FREE_ATOL = 1e-6, 2.0 ** -6
-
-
-def _k8_steps_within(got, forced):
-    got, forced = got.float(), forced.float()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        forced.abs().clamp_min(1e-30))) - 7)
-    return (got - forced).abs() <= ulp + K8_STEP_ATOL
+# K6 (the forward per element of pooled = out * |out|, the backward the
+# composed chain's VJP) and K8 (each step against the plain recurrence fed
+# the kernel's own h carry, the free-running outputs at K8_FREE_ATOL) are
+# held at ``card_cases``' tolerances
 
 
 def _k6_inputs(n, l, d, o, seed=0, k=K):
-    rng = np.random.default_rng(seed)
-
-    def t(shape, scale):
-        return torch.from_numpy(
-            rng.standard_normal(shape).astype(np.float32) * scale).cuda()
-
-    return (t((n, l, d), 0.5).to(torch.bfloat16), t((d, o * k), 0.02),
-            t((o * k,), 0.05), t((n, o * k), 0.5))
-
-
-def _k6_within(got, want):
-    got, want = got.float(), want.float()
-    got, want = got * got.abs(), want * want.abs()
-    return (got - want).abs() <= K6_RTOL * want.abs() + \
-        K6_ATOL * want.abs().max()
+    return cc.k6_inputs(n, seed, "cuda", l=l, d=d, o=o, k=k)
 
 
 # O tiles of 64 (O = 104, 200, 1000: a partial last tile), odd L, N = 1,
@@ -958,7 +863,7 @@ def test_k6_matches_plain_version(n, l, d, o, k):
     want = wqg.wq_grid_fuse_reference(img, w, b, q, k)
     assert got.dtype == torch.bfloat16 and got.shape == (n, l, o)
     assert torch.isfinite(got.float()).all()
-    assert _k6_within(got, want).all()
+    assert cc.k6_within(got, want).all()
     # no atomics: a rerun gives the same bits
     assert torch.equal(got, wqg.wq_grid_fuse_cuda(img, w, b, q, k))
     # controls: a per-row norm, and q permuted across samples (N > 1)
@@ -967,7 +872,7 @@ def test_k6_matches_plain_version(n, l, d, o, k):
         controls.append(wqg.wq_grid_fuse_reference(img, w, b, q.roll(1, 0),
                                                    k))
     for control in controls:
-        assert (~_k6_within(control, want)).float().mean() > 0.5
+        assert (~cc.k6_within(control, want)).float().mean() > 0.5
 
 
 def test_k6_backward_is_the_composed_chain():
@@ -983,7 +888,7 @@ def test_k6_backward_is_the_composed_chain():
     for got, ref, x in zip(grads, want, args):
         assert got.dtype == x.dtype and torch.isfinite(got.float()).all()
         assert (got.float() - ref.float()).abs().max() <= \
-            K6_GRAD_RTOL * ref.float().abs().max()
+            cc.K6_GRAD_RTOL * ref.float().abs().max()
 
 
 def test_k6_wrapper_raises_on_inputs_it_does_not_take():
@@ -1003,15 +908,9 @@ def test_k6_wrapper_raises_on_inputs_it_does_not_take():
 
 
 def _k8_inputs(n, t, h, seed=0):
-    """xp without its bias, W_hh and the bf16 bias."""
-    rng = np.random.default_rng(seed)
-    xp = torch.from_numpy(rng.standard_normal((n, t, 4 * h)).astype(
-        np.float32)).cuda().to(torch.bfloat16)
-    w_hh = torch.from_numpy((rng.standard_normal((4 * h, h))
-                             / np.sqrt(h)).astype(np.float32)).cuda()
-    bias = torch.from_numpy(0.1 * rng.standard_normal(4 * h).astype(
-        np.float32)).cuda().to(torch.bfloat16)
-    return xp, w_hh, bias
+    """The scan's inputs from ``card_cases.k8_inputs`` at (T, H): xp
+    without its bias, W_hh and the bf16 bias."""
+    return cc.k8_scan_inputs(*cc.k8_inputs(n, seed, "cuda", t=t, h=h))
 
 
 @pytest.mark.parametrize("n,t,h", [(5, 3, 128), (70, 22, 1024),
@@ -1039,35 +938,27 @@ def test_k8_matches_plain_version(n, t, h):
     forced = lstm.lstm_scan_reference(xpb, w_hh, h_carry=got)
     assert got.dtype == torch.bfloat16 and got.shape == (n, t, h)
     assert torch.isfinite(got.float()).all()
-    assert _k8_steps_within(got, forced).all()
-    assert (got.float() - want.float()).abs().max() <= K8_FREE_ATOL
+    assert cc.k8_within(got, forced).all()
+    assert (got.float() - want.float()).abs().max() <= cc.K8_FREE_ATOL
     assert torch.equal(got, lstm.lstm_scan_cuda(xp, w_hh, bias))
     # control: a carry off by one step is rejected on most elements
     shifted = torch.cat([torch.zeros_like(want[:, :1]), want[:, :-1]], 1)
     forced = lstm.lstm_scan_reference(xpb, w_hh, h_carry=shifted)
-    assert (~_k8_steps_within(shifted, forced)).float().mean() > 0.5
+    assert (~cc.k8_within(shifted, forced)).float().mean() > 0.5
 
 
 def test_k8_entry_launches_the_kernel():
     from vqa_attention_networks_tpu_torch.ops import lstm
 
-    rng = np.random.default_rng(3)
-    n, t, e, h = 6, 4, 30, 128
-
-    def f(shape, scale):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32) * scale).cuda()
-
-    x = f((n, t, e), 1.0).to(torch.bfloat16)
-    w_ih, w_hh = f((4 * h, e), e ** -0.5), f((4 * h, h), h ** -0.5)
-    b_ih, b_hh = f((4 * h,), 0.1), f((4 * h,), 0.1)
+    h = 128
+    x, w_ih, w_hh, b_ih, b_hh = cc.k8_inputs(6, 3, "cuda", t=4, e=30, h=h)
     assert lstm.supported(x, h)
     before = lstm.launch_count
     got = lstm.lstm_seq(x, w_ih, w_hh, b_ih, b_hh)
     assert lstm.launch_count == before + 1
     forced = lstm.lstm_scan_reference(
         lstm.input_projection(x, w_ih, b_ih, b_hh), w_hh, h_carry=got)
-    assert _k8_steps_within(got, forced).all()
+    assert cc.k8_within(got, forced).all()
 
 
 def test_k8_wrapper_raises_on_inputs_it_does_not_take():
@@ -1123,14 +1014,6 @@ def _k2_bits_inputs(seed=11, n=8, l=196, d=2048, f=5000):
     return img, w, b, q
 
 
-def _k2_kernel_mask(seed, n, row0, l=196, d=2048, f=5000, rate=0.1):
-    z = torch.zeros(n, l, d, dtype=torch.bfloat16, device="cuda")
-    wz = torch.zeros(d, f, dtype=torch.bfloat16, device="cuda")
-    return tf.forward_cuda(z, wz, torch.ones(f, device="cuda"),
-                           torch.ones(n, f, device="cuda"), seed, 1, rate,
-                           row0) != 0
-
-
 @pytest.mark.parametrize("row0", [None, 0])
 def test_k2_forward_keeps_its_bits(row0):
     import hashlib
@@ -1138,7 +1021,7 @@ def test_k2_forward_keeps_its_bits(row0):
     img, w, b, q = _k2_bits_inputs()
     extra = () if row0 is None else (row0,)
     out = tf.forward_cuda(img, w, b, q, 5, K, 0.1, *extra)
-    mask = _k2_kernel_mask(5, 8, 0)
+    mask = cc.k2_kernel_mask(5, 8, 0)
     torch.cuda.synchronize()
     assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == \
         K2_FORWARD_DIGEST
@@ -1155,11 +1038,11 @@ def test_k2_row0_draws_the_global_rows():
     tail = (img[4:].contiguous(), w, b, q[4:].contiguous(), 9, K, 0.1)
     half = tf.forward_cuda(*tail, 4)
     wrong = tf.forward_cuda(*tail, 0)
-    whole_mask = _k2_kernel_mask(9, 8, 0)
+    whole_mask = cc.k2_kernel_mask(9, 8, 0)
     torch.cuda.synchronize()
     assert torch.equal(full[4:], half)
     assert not torch.equal(full[4:], wrong)
-    assert torch.equal(_k2_kernel_mask(9, 4, 4), whole_mask[4:])
+    assert torch.equal(cc.k2_kernel_mask(9, 4, 4), whole_mask[4:])
     g = torch.randn(4, 196, 1000, generator=torch.Generator().manual_seed(
         5)).cuda()
     keep = tf.keep_scale(tf.dropout_mask(9, 4, 196, 5000, 0.1, "cuda",
@@ -1193,19 +1076,6 @@ def test_kernels_launch_on_their_tensors_card():
     assert torch.isfinite(after).all()
 
 
-def _k2_shard_mask(seed, n, col0, f_total, f, l=196, d=2048, rate=0.1):
-    """The mask K2's forward draws for columns [col0, col0 + f) of a
-    global width f_total (k = 1, zero features and weights, unit bias and
-    q), at the launch's own width: f padded to a multiple of 8."""
-    f_pad = f + (-f % 8)
-    z = torch.zeros(n, l, d, dtype=torch.bfloat16, device="cuda")
-    wz = torch.zeros(d, f_pad, dtype=torch.bfloat16, device="cuda")
-    out = tf.forward_cuda(z, wz, torch.ones(f_pad, device="cuda"),
-                          torch.ones(n, f_pad, device="cuda"), seed, 1, rate,
-                          0, col0, f_total)
-    return out[..., :f] != 0
-
-
 @pytest.mark.parametrize("m", [0, 1])
 def test_k2_shard_launches_draw_their_columns_of_one_processes(m):
     """Tensor-parallel rank m of 2 holds 2500 of the 5000 fusion columns,
@@ -1213,8 +1083,8 @@ def test_k2_shard_launches_draw_their_columns_of_one_processes(m):
     as the dispatcher pads them). At ``col0`` = 2500 m and ``f_total`` =
     5000 its mask is the whole launch's columns bit for bit, and so is the
     g_prod build; the forward, d_W, d_b and d_q hold the whole launch's
-    columns at ``K2_RTOL``. At ``col0`` = 0 rank 1 would draw rank 0's
-    mask."""
+    columns at ``card_cases.K2_RTOL``. At ``col0`` = 0 rank 1 would draw
+    rank 0's mask."""
     from vqa_attention_networks_tpu_torch.ops.fusion import (
         on_padded_columns,
     )
@@ -1223,12 +1093,13 @@ def test_k2_shard_launches_draw_their_columns_of_one_processes(m):
     n, f, k, seed, rate = 4, 5000, K, 21, 0.1
     img, w, b, q = _k2_bits_inputs(seed=5, n=n)
     cols, outs = slice(m * 2500, (m + 1) * 2500), slice(m * 500, (m + 1) * 500)
-    whole = _k2_shard_mask(seed, n, 0, f, f)
-    assert torch.equal(whole, _k2_kernel_mask(seed, n, 0)[..., :f])
-    part = _k2_shard_mask(seed, n, m * 2500, f, 2500)
+    whole = cc.k2_kernel_mask(seed, n, col0=0, f_total=f, f=f)
+    assert torch.equal(whole, cc.k2_kernel_mask(seed, n, 0)[..., :f])
+    part = cc.k2_kernel_mask(seed, n, col0=m * 2500, f_total=f, f=2500)
     assert torch.equal(part, whole[..., cols])
     if m == 1:
-        assert not torch.equal(_k2_shard_mask(seed, n, 0, f, 2500), part)
+        assert not torch.equal(cc.k2_kernel_mask(seed, n, col0=0, f_total=f,
+                                                 f=2500), part)
     g = torch.randn(n, 196, f // k, generator=torch.Generator().manual_seed(
         6)).cuda()
 
@@ -1260,9 +1131,7 @@ def test_k2_shard_launches_draw_their_columns_of_one_processes(m):
     for name in ("forward", "d_w", "d_b", "d_q"):
         got = shard[name][..., :2500 if name != "forward" else 500]
         want = full[name][..., cols if name != "forward" else outs]
-        got, want = _k2_view(name, got), _k2_view(name, want)
-        assert (got - want).abs().max() <= K2_RTOL[name] * \
-            want.abs().max(), name
+        assert cc.k2_within(name, got, want).all(), name
 
 
 def test_k3_on_a_padded_shard_gives_its_columns_of_one_processes():

@@ -50,6 +50,7 @@ from vqa_attention_networks_tpu_torch.config import (
 )
 from vqa_attention_networks_tpu_torch.models import TRAINABLE, get_model
 from vqa_attention_networks_tpu_torch.models import mcan
+from vqa_attention_networks_tpu_torch.ops import card_cases as cc
 from vqa_attention_networks_tpu_torch.ops import mcan_norm
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
 from vqa_attention_networks_tpu_torch.train.losses import (
@@ -538,12 +539,8 @@ def test_fused_norm_kernel_on_the_card(card, rows, d):
     ulp apart (2^-7 to 2^-8 of its magnitude), and under 1% do. Near 0 an
     output is the difference of terms of order 1, whose f32 rounding in
     another order leaves ~1e-6 that no ulp of the tiny output covers:
-    2^-16 besides."""
-    g = torch.Generator(device=card).manual_seed(rows + d)
-    x = torch.randn(rows, d, generator=g, device=card).to(torch.bfloat16)
-    r = torch.randn(rows, d, generator=g, device=card).to(torch.bfloat16)
-    w = 1.0 + 0.5 * torch.randn(d, generator=g, device=card)
-    b = 0.1 * torch.randn(d, generator=g, device=card)
+    2^-16 besides (``card_cases.n1_within``)."""
+    x, r, w, b = cc.n1_inputs(rows, d, rows + d, card)
     before = mcan_norm.launch_count
     got = mcan_norm.add_layernorm(x, r, w, b)
     torch.cuda.synchronize()
@@ -551,11 +548,7 @@ def test_fused_norm_kernel_on_the_card(card, rows, d):
     want = mcan_norm.add_layernorm_composed(x, r, w, b)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     diff = (got.float() - want.float()).abs()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        want.float().abs().clamp_min(2.0 ** -126))) - 7)
-    excess = diff - ulp - 2.0 ** -16
-    assert float(excess.max()) <= 0, (float(excess.max()),
-                                      float(want.flatten()[excess.argmax()]))
+    assert cc.n1_within(got, want).all(), float(diff.max())
     assert float((diff > 0).float().mean()) < 0.01
     with pytest.raises(TypeError, match="bf16"):
         mcan_norm.add_layernorm(x.float(), r.float(), w, b)
@@ -569,13 +562,9 @@ def test_fused_norm_kernel_adds_eps_to_the_std_on_the_card(card):
                                   torch.Generator(device=card).manual_seed(5),
                                   card)
     x, r = x.to(torch.bfloat16), r.to(torch.bfloat16)
-    got = mcan_norm.add_layernorm(x, r, w, b).float()
-    want = mcan_norm.add_layernorm_composed(x, r, w, b).float()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        want.abs().clamp_min(2.0 ** -126))) - 7)
-    diff = (got - want).abs()
-    assert float((diff - ulp - 2.0 ** -16).max()) <= 0
-    assert float((diff > 0).float().mean()) < 0.01
-    wrong = eps_under_the_root(x, r, w, b).float()
-    assert float(((wrong - want).abs() > ulp + 2.0 ** -16).float().mean()) \
-        > 0.5
+    got = mcan_norm.add_layernorm(x, r, w, b)
+    want = mcan_norm.add_layernorm_composed(x, r, w, b)
+    assert cc.n1_within(got, want).all()
+    assert float((got.float() != want.float()).float().mean()) < 0.01
+    wrong = eps_under_the_root(x, r, w, b)
+    assert float((~cc.n1_within(wrong, want)).float().mean()) > 0.5

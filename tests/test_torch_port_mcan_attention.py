@@ -33,6 +33,7 @@ import torch
 
 from test_torch_port_mcan import inputs, model_for, params_for, small_cfg
 from vqa_attention_networks_tpu_torch.models import mcan
+from vqa_attention_networks_tpu_torch.ops import card_cases as cc
 from vqa_attention_networks_tpu_torch.ops import mcan_attention
 
 
@@ -245,7 +246,8 @@ def test_the_kernel_rounds_no_more_than_the_composed_form(card, n, heads,
     """bf16 in and out, random key masks, sample 0's keys all masked: the
     kernel's largest error against the f32 composed attention is at most
     the composed bf16 form's on the same inputs plus one bf16 ulp of the
-    output's magnitude; reruns give the same bits."""
+    output's magnitude (``card_cases.n2_within``); reruns give the same
+    bits."""
     q, k, v, mask = attention_inputs(n, heads, lq, lk, seed=lq * lk + n,
                                      dtype=torch.bfloat16, device=card)
     before = mcan_attention.launch_count
@@ -258,10 +260,9 @@ def test_the_kernel_rounds_no_more_than_the_composed_form(card, n, heads,
     want = mcan_attention.attention_composed(q.float(), k.float(), v.float(),
                                              mask, heads)
     composed = mcan_attention.attention_composed(q, k, v, mask, heads)
-    err = float((got.float() - want).abs().max())
-    composed_err = float((composed.float() - want).abs().max())
-    ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
-    assert err <= composed_err + ulp, (err, composed_err, ulp)
+    assert cc.n2_within(got, want, composed), (
+        float((got.float() - want).abs().max()),
+        float((composed.float() - want).abs().max()))
     assert torch.isfinite(got.float()).all()
 
 

@@ -4,24 +4,23 @@
 
 imports the port from DIR (by default the checkout that holds this file),
 as ``step_time.py`` does, so that two checkouts' K4 can be held against
-the same reference in one call. For each seed it draws ``chip_smoke.py``'s
-K4 inputs at N = 256 (``k4_inputs(256, seed)``, the checkout's own
-``chip_smoke.py``) and runs DIR's kernel, the plain f32 version
-(``coattention_core_reference``) and an f64 version with the same bf16
+the same reference in one call; DIR's port must hold ``ops/card_cases.py``.
+For each seed it draws K4's card inputs at N = 256
+(``card_cases.k4_inputs(256, seed)``) and runs DIR's kernel, the plain f32
+version (``coattention_core_reference``) and an f64 version with the same bf16
 rounding points: C, Hv and Hq rounded to bf16 (through f32, as the f32
 versions round) after a tanh of an f64 sum, the logits, softmaxes and
 pools in f64. One JSON line a seed: for the kernel and the plain version,
 per output (v, q, av, aq), the largest and the mean |error| against the
-f64 version and the elements outside ``chip_smoke.py``'s K4 tolerance
-(``k4_within``) against it, and the elements outside that tolerance of
-the kernel against the plain version (what ``chip_smoke.py`` holds). The
-card's name and power limit are on every line.
+f64 version and the elements outside K4's tolerance
+(``card_cases.k4_within``) against it, and the elements outside that
+tolerance of the kernel against the plain version (what ``chip_smoke.py``
+holds). The card's name and power limit are on every line.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import sys
@@ -58,9 +57,8 @@ def f64_version(img, que, cv, cq, img_w, que_w, whv, whq) -> tuple:
 
 def main() -> None:
     package = os.path.dirname(os.path.abspath(__file__))
-    here = os.path.dirname(package)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--root", default=here,
+    parser.add_argument("--root", default=os.path.dirname(package),
                         help="the checkout whose kernel is held")
     parser.add_argument("--seeds", type=int, nargs="+",
                         default=[4, 5, 6, 7, 296])
@@ -68,33 +66,30 @@ def main() -> None:
     root = os.path.abspath(args.root)
     sys.path[:] = [root] + [p for p in sys.path
                             if os.path.abspath(p or ".") != package]
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(here, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     import torch
 
+    from vqa_attention_networks_tpu_torch.ops import card_cases as cc
     from vqa_attention_networks_tpu_torch.ops import coattention as co
 
-    _, smi = smoke.card()  # exits when no card is visible
+    _, smi = cc.card()  # exits when no card is visible
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     for seed in args.seeds:
-        a4 = smoke.k4_inputs(BATCH, seed, dev)
+        a4 = cc.k4_inputs(BATCH, seed, dev)
         ref = f64_version(*a4)
         plain = co.coattention_core_reference(*a4)
         kernel = co.coattention_core_cuda(*a4)
         torch.cuda.synchronize()
-        line = {"root": root, "seed": seed, "n": BATCH, **smoke.K4_SHAPE}
+        line = {"root": root, "seed": seed, "n": BATCH, **cc.K4_SHAPE}
         for label, got in (("kernel", kernel), ("plain", plain)):
             line[label] = {
                 name: {"max_abs_err": float((g.double() - r).abs().max()),
                        "mean_abs_err": float((g.double() - r).abs().mean()),
                        "outside_tolerance": int(
-                           (~smoke.k4_within(name, g.double(), r)).sum())}
+                           (~cc.k4_within(name, g.double(), r)).sum())}
                 for name, g, r in zip(NAMES, got, ref)}
         line["kernel_vs_plain_outside_tolerance"] = {
-            name: int((~smoke.k4_within(name, g, p)).sum())
+            name: int((~cc.k4_within(name, g, p)).sum())
             for name, g, p in zip(NAMES, kernel, plain)}
         line["card"] = smi
         print(json.dumps(line), flush=True)
