@@ -11,7 +11,10 @@ One packed binary per store, written by either package and read by both:
     <dir>/index.json      {"image_ids": [...], "shape": [...], "dtype": ...}
 
 A batch gather is one fancy-index into a memmap (or one native call,
-``data/native.py``): no per-item Python or file I/O.
+``data/native.py``): no per-item Python or file I/O. In a process that has
+initialised CUDA, a float gather of an f16 store writes into page-locked
+memory from PyTorch's caching host allocator (``host_empty``), which the
+serving engine copies to the card without a wait.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from os.path import join
 from typing import Dict, Iterable, Sequence
 
 import numpy as np
+import torch
 
 from vqa_attention_networks_tpu_torch.data import native
 from vqa_attention_networks_tpu_torch.utils import trace
@@ -29,6 +33,24 @@ from vqa_attention_networks_tpu_torch.utils import trace
 FEATURES_FILE = "features.bin"
 INDEX_FILE = "index.json"
 SCALES_FILE = "scales.bin"  # int8 stores: per-image-per-channel f16 scales
+
+
+_PINNED_DTYPES = {np.dtype(np.float16): torch.float16,
+                  np.dtype(np.float32): torch.float32}
+
+
+def host_empty(shape: tuple, dtype) -> np.ndarray:
+    """An uninitialised array for a float gather's grids. Where the process
+    has initialised CUDA, it is the ``ndarray`` view of a page-locked tensor
+    from PyTorch's caching host allocator: its pages are faulted in once and
+    reused by later gathers of the same size, and a copy to the card made
+    through the tensor (``serve._host_tensor``) needs no wait; the
+    allocator hands the block out again only once that copy has run. Else,
+    and for other dtypes, ``np.empty``."""
+    pinned = _PINNED_DTYPES.get(np.dtype(dtype))
+    if pinned is None or not torch.cuda.is_initialized():
+        return np.empty(shape, dtype)
+    return torch.empty(shape, dtype=pinned, pin_memory=True).numpy()
 
 
 def quantize_features(features: np.ndarray):
@@ -227,15 +249,14 @@ class FeatureStore:
                 q = self.features[rows].astype(np.float32)
                 s = self.scales[rows].astype(np.float32)
                 return (q * s[:, None, :]).astype(dtype)
-            if self.features.dtype == np.float16:
-                out = None
-                if np.dtype(dtype) == np.float32:
-                    out = native.gather_f16_to_f32(self.features,
-                                                   np.asarray(rows))
-                elif np.dtype(dtype) == np.float16:
-                    out = native.gather_f16(self.features, np.asarray(rows))
-                if out is not None:
-                    return out
+            gather = {np.dtype(np.float32): native.gather_f16_to_f32,
+                      np.dtype(np.float16): native.gather_f16,
+                      }.get(np.dtype(dtype))
+            if (self.features.dtype == np.float16 and gather is not None
+                    and native.get_lib() is not None):
+                rows = np.asarray(rows)
+                return gather(self.features, rows, out=host_empty(
+                    (len(rows), *self.features.shape[1:]), dtype))
             return np.asarray(self.features[rows], dtype=dtype)
 
 
@@ -281,8 +302,8 @@ class CombinedFeatureStore:
 
     def gather_rows(self, rows: np.ndarray, dtype=np.float32) -> np.ndarray:
         store_idx, local = self._split(rows)
-        out = np.empty((len(local), self.num_regions, self.channels),
-                       dtype=dtype)
+        out = host_empty((len(local), self.num_regions, self.channels),
+                         dtype)
         for si in np.unique(store_idx):
             sel = store_idx == si
             out[sel] = self.stores[int(si)].gather_rows(local[sel], dtype)

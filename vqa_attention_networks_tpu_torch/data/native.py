@@ -125,9 +125,25 @@ def _check_gather_args(src: np.ndarray, rows: np.ndarray) -> np.ndarray:
     return rows
 
 
-def gather_f16_to_f32(src: np.ndarray,
-                      rows: np.ndarray) -> Optional[np.ndarray]:
-    """Fused gather + widen of f16 rows; None without the library."""
+def _output(out: Optional[np.ndarray], shape: tuple,
+            dtype) -> np.ndarray:
+    """``out`` checked against the gather's result (the C gathers write
+    ``prod(shape)`` elements through its pointer), or a new array."""
+    if out is None:
+        return np.empty(shape, dtype)
+    if out.shape != shape or out.dtype != dtype:
+        raise ValueError(f"out of {out.shape} {out.dtype}, the gather gives "
+                         f"{shape} {np.dtype(dtype)}")
+    if not out.flags["C_CONTIGUOUS"] or not out.flags["WRITEABLE"]:
+        raise ValueError("out must be C-contiguous and writeable")
+    return out
+
+
+def gather_f16_to_f32(src: np.ndarray, rows: np.ndarray,
+                      out: Optional[np.ndarray] = None,
+                      ) -> Optional[np.ndarray]:
+    """Fused gather + widen of f16 rows, into ``out`` where given; None
+    without the library."""
     lib = get_lib()
     if lib is None:
         return None
@@ -136,7 +152,7 @@ def gather_f16_to_f32(src: np.ndarray,
                         f"{src.dtype}")
     rows = _check_gather_args(src, rows)
     row_elems = int(np.prod(src.shape[1:]))
-    out = np.empty((len(rows), *src.shape[1:]), np.float32)
+    out = _output(out, (len(rows), *src.shape[1:]), np.float32)
     lib.vqa_gather_f16_to_f32_mt(
         src.ctypes.data, rows, len(rows), row_elems,
         out.reshape(len(rows), -1), num_threads(),
@@ -144,11 +160,11 @@ def gather_f16_to_f32(src: np.ndarray,
     return out
 
 
-def _gather_u16(src: np.ndarray, rows: np.ndarray, pairs: int,
-                dtype) -> np.ndarray:
+def _gather_u16(src: np.ndarray, rows: np.ndarray, pairs: int, dtype,
+                out: Optional[np.ndarray] = None) -> np.ndarray:
     lib = get_lib()
     rows = _check_gather_args(src, rows)
-    out = np.empty((len(rows), *src.shape[1:]), dtype)
+    out = _output(out, (len(rows), *src.shape[1:]), dtype)
     lib.vqa_gather_rows_u16_mt(
         src.ctypes.data, rows, len(rows), pairs,
         out.reshape(len(rows), -1).view(np.uint16), num_threads(),
@@ -156,14 +172,17 @@ def _gather_u16(src: np.ndarray, rows: np.ndarray, pairs: int,
     return out
 
 
-def gather_f16(src: np.ndarray, rows: np.ndarray) -> Optional[np.ndarray]:
+def gather_f16(src: np.ndarray, rows: np.ndarray,
+               out: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
     """Raw f16 row gather (the bf16 feed ships the store's dtype to the
-    device unwidened); None without the library."""
+    device unwidened), into ``out`` where given; None without the
+    library."""
     if get_lib() is None:
         return None
     if src.dtype != np.float16:
         raise TypeError(f"gather_f16 takes an f16 source, got {src.dtype}")
-    return _gather_u16(src, rows, int(np.prod(src.shape[1:])), np.float16)
+    return _gather_u16(src, rows, int(np.prod(src.shape[1:])), np.float16,
+                       out)
 
 
 def gather_i8(src: np.ndarray, rows: np.ndarray) -> Optional[np.ndarray]:

@@ -16,7 +16,10 @@ device or split over several.
 - ``predict_stream`` keeps one batch in flight: PyTorch's launches return
   before the device finishes, so the host assembles batch t+1 while the
   device runs batch t; ``_collect`` is where the results are copied to the
-  host, which waits for the device.
+  host, which waits for the device. A whole batch of page-locked features
+  (a store's float gather once CUDA is initialised,
+  ``data/feature_store.host_empty``) goes to the card without a wait,
+  through the tensor that owns its memory (``_host_tensor``).
 - By id on one card the banked forward is a CUDA graph (``BankGraph``):
   a batch's padded inputs go to its static buffers through pinned memory
   without a wait, one replay runs the forward, and the top-k comes back
@@ -51,7 +54,9 @@ device or split over several.
 - While a ``torch.profiler`` session records, the engine records spans
   (``utils/trace.py``), each batch under its own id: ``serve.dispatch``
   around a batch's dispatch, with ``serve.h2d`` (each copy to the device;
-  counter ``serve.h2d_bytes``), ``bank.ensure`` and ``serve.launch`` (the
+  counter ``serve.h2d_bytes``, and ``serve.h2d_pinned_bytes`` for the
+  bytes ``_to_device`` copied to a card without a wait from page-locked
+  memory), ``bank.ensure`` and ``serve.launch`` (the
   forward's launches, or the graph's replay) inside it; ``serve.collect``
   around its collection, with ``serve.result_wait`` (the copies back, or
   the wait for a replayed batch's event) inside it. Counters
@@ -103,10 +108,34 @@ class TopK(NamedTuple):
     done: Optional[torch.cuda.Event] = None
 
 
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a tensor. Where its memory belongs to a torch tensor (an
+    array from ``Tensor.numpy()``, or a view of one, such as a shard's
+    slice), the tensor lies on that owner's storage at the array's offset
+    and shape: PyTorch's caching host allocator records a non-blocking
+    copy's event only for a copy made through the owning storage, and
+    without that event a page-locked block freed while its copy is in
+    flight could be handed to the next gather and overwritten."""
+    a = np.ascontiguousarray(a)
+    t = torch.from_numpy(a)
+    owner = a.base
+    while isinstance(owner, np.ndarray):
+        owner = owner.base
+    if not isinstance(owner, torch.Tensor):
+        return t
+    storage = owner.untyped_storage()
+    offset, rest = divmod(a.ctypes.data - storage.data_ptr(), a.itemsize)
+    if rest or offset < 0 or (offset * a.itemsize + a.nbytes
+                              > storage.nbytes()):
+        return t
+    return torch.empty(0, dtype=t.dtype).set_(storage, offset, t.shape,
+                                              t.stride())
+
+
 def _host_tensors(arrays) -> List[torch.Tensor]:
-    """Host arrays as tensors for a copy to the device, their bytes counted
-    under ``serve.h2d_bytes``."""
-    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    """Host arrays as tensors for a copy to the device (``_host_tensor``),
+    their bytes counted under ``serve.h2d_bytes``."""
+    host = [_host_tensor(a) for a in arrays]
     if trace.recording():
         trace.count("serve.h2d_bytes", sum(t.nbytes for t in host))
     return host
@@ -655,9 +684,25 @@ class InferenceEngine:
         return [ques, qlen]
 
     def _to_device(self, arrays, device=None) -> list:
-        device = self.device if device is None else device
+        """The host arrays on ``device``. To a card, a page-locked array
+        (a float gather's, ``feature_store.host_empty``) is copied without
+        a wait, its bytes counted under ``serve.h2d_pinned_bytes``; the
+        others (user arrays, padded batches, casts, the questions) keep
+        the blocking copy, made first, so that it does not wait for the
+        non-blocking ones."""
+        device = torch.device(self.device if device is None else device)
         with trace.span("serve.h2d"):
-            return [t.to(device) for t in _host_tensors(arrays)]
+            host = _host_tensors(arrays)
+            if device.type != "cuda":
+                return [t.to(device) for t in host]
+            pinned = [t.is_pinned() for t in host]
+            out = [None] * len(host)
+            for i in sorted(range(len(host)), key=pinned.__getitem__):
+                out[i] = host[i].to(device, non_blocking=pinned[i])
+            if trace.recording():
+                trace.count("serve.h2d_pinned_bytes", sum(
+                    t.nbytes for t, p in zip(host, pinned) if p))
+            return out
 
     def _dispatch(self, image_features, questions, ques_length,
                   feature_scale):
@@ -779,7 +824,11 @@ class InferenceEngine:
     ) -> Iterator[List[Prediction]]:
         """Pipelined streaming with one batch in flight. Items are
         (features, questions, qlen) or (features, questions, qlen,
-        feature_scale) for the int8 feed."""
+        feature_scale) for the int8 feed. Whole batches of page-locked
+        features (a store's float gather in a process that uses the card,
+        ``feature_store.host_empty``) are copied to the card without a
+        wait, so an array handed in must not be written until its batch
+        has been collected."""
         pending = None
         for item in batches:
             feature_scale = item[3] if len(item) > 3 else None

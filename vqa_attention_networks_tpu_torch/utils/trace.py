@@ -7,6 +7,11 @@ open spans where their work happens (README, "Tracing"):
         ...
     trace.count("serve.h2d_bytes", n)
 
+Counters: ``serve.h2d_bytes`` (every copy to the device of the serving
+engine), ``serve.h2d_pinned_bytes`` (those of its copies that
+``InferenceEngine._to_device`` made to a card without a wait, from
+page-locked memory), ``serve.graph_captures`` and ``serve.graph_replays``.
+
 A span records only while a ``torch.profiler`` session records: it reads
 the profiler's own enabled flag once at its entry. So spans join whatever
 profile is being taken (a benchmark's traced stretch, the Solver's
