@@ -7,6 +7,7 @@ card's correctness gates. It times nothing: a kernel's time is
     python3 chip_smoke.py
     python3 chip_smoke.py --cards N   # phases 33-37 alone over N cards
     python3 chip_smoke.py --mcan      # phase 38 alone
+    python3 chip_smoke.py --ban       # phase 39 alone
 
 Phases, one line each (a failing phase raises and the exit code is not 0);
 the numbers 5, 8, 12, 22 and 26, once timing phases, are left unused, so
@@ -271,6 +272,23 @@ that a number names the same phase in older records:
     id from the replays of the engine's CUDA graph, one a batch); by id's
     answers within the MCAN cell's ``logit_err`` limit of the composed
     forward's logits (``reference_kernels=True``) on the same grids;
+39. ``ban`` (after phase 38, on phase 28's int8 store): N3 (BAN's
+    attention map, ``ops/ban_attention.py``) at N = 256 at BAN-8's shape
+    ([196 cells x 14 words] x 8 glimpses, K = 3,840) and at the port's
+    default widths (22 words x 6 glimpses, K = 3,072), random grid masks:
+    each entry within one bf16 ulp of the map at the kernel's own rounding
+    points and each glimpse summing to 1 (``n3_within``), bit-equal
+    reruns, the map without h_bias within f32 rounding of the map with it,
+    and three controls that must fail the tolerance (``n3_controls``: the
+    mask ignored, each glimpse's max taken per word, a glimpse normalised
+    per warpgroup). Then BAN-8 (``port_bench/configs/ban8.json``, the
+    benchmark's weights from a seed) served by id beside the per-request
+    int8 feed, as phase 38: by id bit-equal to the int8 feed, N3 once a
+    batch on the card in each measured pass (by id one graph replay a
+    batch), the by-id pass's memory above what it started from under one
+    [256, 8, 196, 3,840] bf16 tensor (ban-vqa's h (x) av), and the
+    answers' ``logit_err`` against the float32 reference under
+    ``BAN_LOGIT_ERR``, over which the float8 control must read;
 
 then a JSON line of the kernels (each with its source, the TPU kernel it
 replaces, its launches on the main paths and its largest error against
@@ -278,7 +296,8 @@ its plain version), nvidia-smi's line, and as the last line
 ``{"ok": true, "device": {...}}``. ``--cards N``
 runs phases 33-37 alone with a rank and a replica a card over NCCL (phase
 35 at (N/2, 2)); ``--mcan`` runs phase 38 alone on a bank of its own and
-prints N1's and N2's line of the kernels. A switch
+prints N1's and N2's line of the kernels, ``--ban`` phase 39 alone and
+N3's. A switch
 (``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``) is set only inside the
 phase that needs it. With no card it exits non-zero before phase 2.
 """
@@ -298,7 +317,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from port_bench.check import serve_numbers
+from port_bench import inputs as bench_inputs
+from port_bench.check import serve_numbers, top_k
+from port_bench.reference import ban as ban_reference
+from port_bench.reference import common as bench_common
 from vqa_attention_networks_tpu_torch.aot import save_serving_artifact
 from vqa_attention_networks_tpu_torch.cli import evaluate as cli_evaluate
 from vqa_attention_networks_tpu_torch.cli import extract_features as cli_extract
@@ -325,6 +347,7 @@ from vqa_attention_networks_tpu_torch.models import layers, resnet, vgg
 from vqa_attention_networks_tpu_torch.models.extractor import GridExtractor
 from vqa_attention_networks_tpu_torch.ops import _build
 from vqa_attention_networks_tpu_torch.ops import attention as att
+from vqa_attention_networks_tpu_torch.ops import ban_attention
 from vqa_attention_networks_tpu_torch.ops import card_cases as cc
 from vqa_attention_networks_tpu_torch.ops import coattention as co
 from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
@@ -3551,6 +3574,197 @@ def mcan_main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+# N3, BAN's attention map (phase 39): the kernel's name in a CUDA profile
+# and its launches in one BAN forward
+N3_SOURCE = "vqa_attention_networks_tpu_torch/csrc/ban_attention.cu"
+N3_REPLACES = ("none: the composed attention_map_composed "
+               "(vqa_attention_networks_tpu_torch/ops/ban_attention.py)")
+N3_KERNELS = ("ban_attention_kernel",)
+N3_PER_FORWARD = 1
+BAN_CONFIG = os.path.join(os.path.dirname(MCAN_CONFIG), "ban8.json")
+# phase 39's gate on BAN-8's served answers: their logit_err against the
+# float32 reference (``port_bench/reference/ban.py``) on the phase's weights
+# (seed 39), grids and questions, set between the program's reading there
+# and the float8 control's (the reference with float8 e4m3 products),
+# which must read over it
+BAN_LOGIT_ERR = 0.2
+
+
+def n3_check(dev) -> float:
+    """N3 at BAN-8's shape and at the port's default widths (three
+    warpgroups), N = 256, against its map at its own rounding points
+    (``n3_exact``, TF32 off): ``n3_within`` entry by entry, bit-equal
+    reruns; the exact map without h_bias (the kernel leaves it out) within
+    f32 rounding of the map with it; each control of ``n3_controls`` (the
+    mask ignored, each glimpse's max taken per word, a glimpse normalised
+    per warpgroup) outside the tolerance -> N3's largest error."""
+    worst = 0.0
+    for name, shape in (("ban8", cc.N3_SHAPE),
+                        ("defaults", cc.N3_DEFAULT_SHAPE)):
+        av, aq, h, hb, mask = cc.n3_inputs(BATCH, 39, dev, **shape)
+        got = ban_attention.attention_map(av, aq, h, hb, mask)
+        again = ban_attention.attention_map(av, aq, h, hb, mask)
+        exact = cc.n3_exact(av, aq, h, hb, mask)
+        no_bias = cc.n3_exact(av, aq, h, torch.zeros_like(hb), mask)
+        composed = ban_attention.attention_map_composed(av, aq, h, hb, mask)
+        controls = {c: cc.n3_within(m, exact) for c, m in
+                    cc.n3_controls(av, aq, h, hb, mask).items()}
+        torch.cuda.synchronize()
+        err = float((got.float() - exact).abs().max())
+        rel = float(((got.float() - exact).abs()
+                     / exact.abs().clamp_min(cc.N3_FLOOR)).max())
+        bias_err = float((no_bias - exact).abs().max())
+        ok = cc.n3_within(got, exact)
+        say("n3_check", shape_name=name, shape=[BATCH, *shape.values()],
+            max_abs_err=err, max_rel_err=rel,
+            composed_bf16_max_abs_err=float((composed.float() - exact)
+                                            .abs().max()),
+            h_bias_max_abs_effect=bias_err, within_tolerance=ok,
+            controls_within=controls,
+            rerun_bit_equal=bool(torch.equal(got, again)))
+        if not ok:
+            raise AssertionError(f"N3 at {name}'s shape is off its map at "
+                                 f"its own rounding: {err} ({rel} of an "
+                                 "entry)")
+        if not torch.equal(got, again):
+            raise AssertionError("N3 is not deterministic across reruns")
+        if bias_err > 1e-6 or len(controls) < 3 or any(controls.values()):
+            raise AssertionError(f"n3_check: h_bias moves the map by "
+                                 f"{bias_err}, or a control passes: "
+                                 f"{controls}")
+        worst = max(worst, err)
+        del av, aq, got, again, exact, no_bias, composed
+        torch.cuda.empty_cache()
+    return worst
+
+
+def ban_serve(stores: tuple, dev, smi: str) -> int:
+    """BAN-8 served by id from the device feature cache beside the
+    per-request int8 feed, on phase 28's requests, with the benchmark's
+    weights from a seed -> N3's launches in both measured passes. Gates:
+    by id bit-equal to the int8 feed, N3 once a batch on the card in each,
+    by id one graph replay a batch, the by-id pass's memory above its
+    start under one [256, 8, 196, 3,840] bf16 tensor, and its answers'
+    ``logit_err`` against the float32 reference on the same grids under
+    BAN_LOGIT_ERR, over which the float8 control must read."""
+    with open(BAN_CONFIG) as f:
+        fields = json.load(f)["fields"]
+    cfg = Config(**fields).validate()
+    params = bench_inputs.tree(bench_inputs.weights(
+        ban_reference.param_shapes(fields), 39, dev))
+    store = stores[1]
+    image_ids, ques = bank_traffic(cfg)
+    spans = [slice(s, s + BATCH) for s in range(0, len(ques), BATCH)]
+    engine = InferenceEngine(cfg, params, batch_size=BATCH, topk=5,
+                             input_dtype="int8")
+
+    def int8_batches():
+        def items():
+            for s in spans:
+                rows, scale = store.gather_quantized(image_ids[s])
+                yield rows, ques[s], None, scale
+
+        return engine.predict_stream(items())
+
+    def by_id():
+        return engine.predict_stream_by_id(
+            (image_ids[s], ques[s], None) for s in spans)
+
+    kernels = {"N3": N3_KERNELS}
+    preds8, feed = stream(engine, int8_batches, kernels)
+    engine.attach_feature_cache(BANK_IMAGES, store.gather_quantized)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    warm = []
+    preds, launches = stream(
+        engine, by_id, kernels,
+        after_warm_up=lambda: warm.append(engine._graph.replays))
+    above = torch.cuda.max_memory_allocated() - start
+    replays = engine._graph.replays - warm[0]
+    same = bit_equal(preds, preds8)
+    bench_common.exact_products()
+    leaves_of = {f"{layer}/{leaf}": torch.as_tensor(v, device=dev)
+                 for layer, leaves in params.items()
+                 for leaf, v in leaves.items()}
+    logits = {"float32": [], "float8": []}
+    with torch.no_grad():
+        for s in spans:
+            rows, scale = store.gather_quantized(image_ids[s])
+            img = dequantize(torch.from_numpy(rows).to(dev),
+                             torch.from_numpy(scale).to(dev), torch.float32)
+            q = torch.from_numpy(ques[s]).long().to(dev)
+            for name, out in logits.items():
+                out.append(ban_reference.forward(
+                    leaves_of, img, q, fields,
+                    bench_common.Precision(name)).cpu())
+    want = torch.cat(logits["float32"])
+    err = serve_numbers(np.stack([p.top_ids for p in preds]),
+                        np.stack([p.top_probs for p in preds]),
+                        want)["logit_err"]
+    err8 = serve_numbers(*top_k(torch.cat(logits["float8"]), 5),
+                         want)["logit_err"]
+    einsum_bytes = BATCH * cfg.att_num * cfg.img_feature_dim * 3 * \
+        cfg.hidden_dim * 2
+    say("ban_serve", model="ban", config="ban8", requests=len(ques),
+        batch=BATCH, images=BANK_IMAGES, n3_launches_int8_feed=feed["N3"],
+        n3_launches_by_id=launches["N3"],
+        n3_launches_expected=N3_PER_FORWARD * N_BATCHES,
+        graph_replays=replays, bit_equal_to_int8_feed=same,
+        by_id_bytes_above_start=above, einsum_operand_bytes=einsum_bytes,
+        logit_err_vs_reference=err, logit_err_float8=err8,
+        logit_err_limit=BAN_LOGIT_ERR, card=smi)
+    n = N3_PER_FORWARD * N_BATCHES
+    if feed["N3"] != n or launches["N3"] != n:
+        raise AssertionError(f"ban_serve: N3 ran {feed['N3']} (int8 feed) "
+                             f"and {launches['N3']} (by id) times on the "
+                             f"card, not {N3_PER_FORWARD} a batch")
+    if replays != N_BATCHES or not same:
+        raise AssertionError("ban_serve: by id did not replay the graph "
+                             "once a batch, or is not the int8 feed's")
+    if above >= einsum_bytes:
+        raise AssertionError(f"ban_serve: the by-id pass took {above} bytes "
+                             f"above its start, an h (x) av tensor's worth")
+    if not err <= BAN_LOGIT_ERR < err8:
+        raise AssertionError(f"ban_serve: by id's logit_err {err} against "
+                             f"the reference is over {BAN_LOGIT_ERR}, or "
+                             f"the float8 control's {err8} is not")
+    del engine
+    torch.cuda.empty_cache()
+    return feed["N3"] + launches["N3"]
+
+
+def ban_phase(stores: tuple, dev, smi: str) -> list:
+    """Phase 39: N3's check, then BAN-8 served by id -> the kernels-line
+    entry of N3."""
+    err = n3_check(dev)
+    torch.cuda.empty_cache()
+    launches = ban_serve(stores, dev, smi)
+    return [kernel_entry("ban_attention", N3_SOURCE, N3_REPLACES, launches,
+                         err)]
+
+
+def ban_main() -> None:
+    """``chip_smoke.py --ban``: phase 39 alone, N3 built alone, on a bank of
+    BANK_IMAGES images of its own; prints the phase's lines (the build with
+    ptxas's registers and spills), the kernels line with N3's entry,
+    nvidia-smi's line and the last line."""
+    card_name, smi = card()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 references
+    _, _, log = _build.build("ban_attention")
+    say("build", kernel="ban_attention", ptxas=[
+        ln.strip() for ln in log.splitlines()
+        if any(key in ln for key in ("registers", "spill"))])
+    with tempfile.TemporaryDirectory() as ws:
+        entries = ban_phase(bank_stores(ws, Config()), dev, smi)
+    print(json.dumps({"kernels": entries}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card_name,
+        "count": torch.cuda.device_count()}}))
+
+
 def cards_main(cards: int) -> None:
     """``chip_smoke.py --cards N``: phases 33-37 alone over N cards of one
     host, a rank and a replica a card (``dp_train_phase``,
@@ -3596,7 +3810,7 @@ def main() -> None:
     # phase 2: build, one nvcc per source, all started together
     names = ("stage1_coattention", "train_fusion", "coattention",
              "glimpse_attention", "pooled_fusion", "lstm_scan",
-             "mcan_layernorm", "mcan_attention")
+             "mcan_layernorm", "mcan_attention", "ban_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, _, log) in zip(names, built):
@@ -3871,6 +4085,9 @@ def main() -> None:
         # phase 38: MCAN-large: N1 and N2 against their composed forms,
         # then served by id
         mcan_entries = mcan_phase(stores, dev, smi)
+
+        # phase 39: BAN-8: N3 against its composed form, then served by id
+        ban_entries = ban_phase(stores, dev, smi)
         del stores
 
     kernels = [kernel_entry("stage1_coattention", K1_SOURCE, K1_REPLACES,
@@ -3901,6 +4118,7 @@ def main() -> None:
         kernel_entry("lstm_scan", K8_SOURCE, K8_REPLACES, launches["K8"],
                      k8_err),
         *mcan_entries,
+        *ban_entries,
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -3916,5 +4134,7 @@ if __name__ == "__main__":
         cards_main(int(sys.argv[2]))
     elif sys.argv[1:2] == ["--mcan"]:
         mcan_main()
+    elif sys.argv[1:2] == ["--ban"]:
+        ban_main()
     else:
         main()

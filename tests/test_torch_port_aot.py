@@ -1,8 +1,9 @@
 """The port's exported serving artifact (``vqa_attention_networks_tpu_torch/
 aot.py``, ``serve.InferenceEngine(artifact_dir=...)``,
 ``cli/export_serving.py`` and ``cli.serve --aot_artifact``) against the
-eager engine and the JAX package's artifact, on the CPU, and the five
-custom ops the exported graph calls (K1, K4, K5, K7, MCAN's norm).
+eager engine and the JAX package's artifact, on the CPU, and the six
+custom ops the exported graph calls (K1, K4, K5, K7, MCAN's norm, BAN's
+attention map).
 
 - The artifact's program and the eager engine run the same ops on the same
   values: their answers are bit-equal, for the f16 and the int8 feed.
@@ -42,7 +43,7 @@ from vqa_attention_networks_tpu_torch.cli import serve as serve_cli
 from vqa_attention_networks_tpu_torch.ops import attention as att
 from vqa_attention_networks_tpu_torch.ops import coattention as co
 from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
-from vqa_attention_networks_tpu_torch.ops import mcan_norm
+from vqa_attention_networks_tpu_torch.ops import ban_attention, mcan_norm
 from vqa_attention_networks_tpu_torch.ops import wq_fusion as wqf
 from vqa_attention_networks_tpu_torch.serve import InferenceEngine
 from vqa_attention_networks_tpu_torch.train.solver import init_params
@@ -355,13 +356,24 @@ def _norm_args(g):
     return (x, r, w, b, 1e-6), mcan_norm.add_layernorm_composed(x, r, w, b)
 
 
+def _ban_args(g):
+    av = torch.relu(torch.randn(2, 7, 64, generator=g)).to(torch.bfloat16)
+    aq = torch.relu(torch.randn(2, 3, 64, generator=g)).to(torch.bfloat16)
+    h, hb = torch.randn(2, 64, generator=g), torch.randn(2, generator=g)
+    mask = torch.zeros(2, 7, dtype=torch.bool)
+    mask[1, 2] = True
+    return (av, aq, h, hb, mask), ban_attention.attention_map_composed(
+        av, aq, h, hb, mask)
+
+
 @pytest.mark.parametrize("op,make", [
     (wqf.stage1_coattention_op, _k1_args),
     (co.coattention_core_op, _k4_args),
     (gf.inference_fusion_op, _k5_args),
     (att.glimpse_attention_op, _k7_args),
     (mcan_norm.add_layernorm_op, _norm_args),
-], ids=["K1", "K4", "K5", "K7", "mcan_norm"])
+    (ban_attention.attention_map_op, _ban_args),
+], ids=["K1", "K4", "K5", "K7", "mcan_norm", "ban_attention"])
 def test_custom_op_passes_opcheck_and_is_its_plain_version(op, make):
     args, plain = make(torch.Generator().manual_seed(0))
     torch.library.opcheck(op, args)

@@ -4,7 +4,7 @@
 tolerance against its plain version, for ``chip_smoke.py`` (the gates),
 ``step_time.py`` (the timer), ``k4_precision.py`` and the card tests.
 Here, for each kernel (K1, K2's forward, d_img, d_W/d_b and d_q, K3, K4,
-K5, K6, K7, K8, N1, N2), the inputs are drawn at a small shape on the CPU
+K5, K6, K7, K8, N1, N2, N3), the inputs are drawn at a small shape on the CPU
 and the plain version run on them: the tolerance predicate accepts that
 output against itself and rejects it with one element moved past the
 tolerance. And the two tools that time or hold kernels on the card exit
@@ -122,11 +122,18 @@ def _n2():
     return want, lambda got: cc.n2_within(got, f32, want)
 
 
+def _n3():
+    av, aq, h, hb, mask = cc.n3_inputs(2, 0, CPU, l=7, t=3, g=2, k=64)
+    exact = cc.n3_exact(av, aq, h, hb, mask)
+    return exact.to(torch.bfloat16), lambda got: cc.n3_within(got, exact)
+
+
 CASES = {"K1": _k1, "K2_forward": _k2("forward"), "K2_d_img": _k2("d_img"),
          "K2_d_w": _k2("d_w"), "K2_d_b": _k2("d_b"), "K2_d_q": _k2("d_q"),
          "K3_forward": _k3("forward"), "K3_d_img": _k3("d_img"),
          "K3_d_w": _k3("d_w"), "K4_v": _k4("v"), "K4_av": _k4("av"),
-         "K5": _k5, "K6": _k6, "K7": _k7, "K8": _k8, "N1": _n1, "N2": _n2}
+         "K5": _k5, "K6": _k6, "K7": _k7, "K8": _k8, "N1": _n1, "N2": _n2,
+         "N3": _n3}
 
 
 def _moved(x: torch.Tensor) -> torch.Tensor:
@@ -162,13 +169,13 @@ def test_the_card_tools_refuse_to_run_without_a_card(script):
 
 
 def test_step_time_times_every_kernel():
-    """K1 to K8, N1 and N2, and K2's four launches and K8's entry apart."""
+    """K1 to K8, N1 to N3, and K2's four launches and K8's entry apart."""
     from vqa_attention_networks_tpu_torch import step_time
 
     assert set(step_time.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K6",
-                                      "K7", "K8", "N1", "N2"}
+                                      "K7", "K8", "N1", "N2", "N3"}
     assert step_time.KERNELS["K2"] == ("K2_forward", "K2_d_q", "K2_d_img",
                                        "K2_d_w")
     assert "K8_lstm_seq" in step_time.KERNELS["K8"]
     lines = [line for lines in step_time.KERNELS.values() for line in lines]
-    assert len(lines) == len(set(lines)) == 21
+    assert len(lines) == len(set(lines)) == 22

@@ -22,7 +22,8 @@ without copying the 42 MB layout on every call, so the program takes
 the buffers as inputs and the engine lays them out once, after it loads
 the weights.
 
-**The kernels.** K1, K4, K5, K7 and MCAN's residual + LayerNorm are
+**The kernels.** K1, K4, K5, K7, MCAN's residual + LayerNorm and
+attention and BAN's attention map are
 ``torch.library`` custom ops
 (``torch.ops.vqa.*``, ``ops/``), each with a CPU implementation (its plain
 version), a CUDA one (the hand-written kernel) and a fake one (its output
@@ -32,7 +33,7 @@ that choose whether an op is called at all (``VQA_DISABLE_PALLAS``,
 ``VQA_FORCE_PALLAS``, ``VQA_PALLAS_GLIMPSE``, ``Config.fast_path``) are
 read when the graph is traced, as JAX reads them at trace time.
 ``fast_path_traced`` in the metadata says whether the graph calls K1, K4
-or MCAN's norm or attention (``FAST_PATH_OPS``).
+MCAN's norm or attention, or BAN's map (``FAST_PATH_OPS``).
 
 JAX's ``platforms`` argument and its ``tpu_lowering`` context are not
 ported: they let a build box without a TPU trace the TPU's graph. Here
@@ -60,13 +61,15 @@ _META = "serving.json"
 
 # families whose bf16 serving forward calls a kernel: mhb_coAtt K1
 # (models/mhb_coatt.py), hieCoAtten K4 (models/hiecoatten.py), mcan its
-# residual + LayerNorm and its attention (models/mcan.py); the others
+# residual + LayerNorm and its attention (models/mcan.py), ban its
+# attention map N3 (models/ban.py); the others
 # serve the composed graph by design, so fast_path_traced=False is
 # expected for them
-FAST_PATH_MODELS = frozenset({"mhb_coAtt", "hieCoAtten", "mcan"})
+FAST_PATH_MODELS = frozenset({"mhb_coAtt", "hieCoAtten", "mcan", "ban"})
 # the ops whose presence in the graph sets fast_path_traced
 FAST_PATH_OPS = ("vqa.stage1_coattention", "vqa.coattention_core",
-                 "vqa.mcan_add_layernorm", "vqa.mcan_attention")
+                 "vqa.mcan_add_layernorm", "vqa.mcan_attention",
+                 "vqa.ban_attention")
 
 
 def serving_forward(cfg: Config, topk: int,
@@ -297,6 +300,7 @@ def load_serving_artifact(artifact_dir: str) -> Tuple[Callable,
     # the ops the graph calls must be registered before it loads
     from vqa_attention_networks_tpu_torch.ops import (  # noqa: F401
         attention,
+        ban_attention,
         coattention,
         grid_fusion,
         mcan_attention,

@@ -35,15 +35,18 @@ SOFT_ANSWER_MODELS = ("mhb", "mhb_coAtt")
 
 # The families the port has and the JAX package has not, after the shared
 # eight: MCAN-large (Yu et al., "Deep Modular Co-Attention Networks for
-# VQA", arXiv:1906.10770; ``models/mcan.py``). ``MODEL_NAMES`` stays the JAX
+# VQA", arXiv:1906.10770; ``models/mcan.py``) and BAN (Kim et al.,
+# "Bilinear Attention Networks", arXiv:1805.07932; ``models/ban.py``: H is
+# ``hidden_dim``, a word table ``emb_dim`` wide, G glimpses ``att_num``).
+# ``MODEL_NAMES`` stays the JAX
 # package's tuple, so a configuration of the eight means the same run in
 # both; ``Config.validate``, the registry and the Solver take these too.
-PORT_MODEL_NAMES = MODEL_NAMES + ("mcan",)
+PORT_MODEL_NAMES = MODEL_NAMES + ("mcan", "ban")
 
 # Models trained on VQA scores (min(annotator count, 4) -> 0, .3, .6, .9,
 # 1) under a summed sigmoid BCE (``train/losses.vqa_score_bce``): MCAN's
-# recipe. They read the soft answers too.
-SCORE_MODELS = ("mcan",)
+# recipe, and ban-vqa's. They read the soft answers too.
+SCORE_MODELS = ("mcan", "ban")
 
 
 @dataclass(frozen=True)

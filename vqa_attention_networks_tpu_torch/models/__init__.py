@@ -1,7 +1,7 @@
 """Model registry (port of ``vqa_attention_networks_tpu/models/__init__.py``).
 
-All eight families are ported, and MCAN besides (``models/mcan.py``),
-which the port has and the JAX package has not
+All eight families are ported, and MCAN (``models/mcan.py``) and BAN
+(``models/ban.py``) besides, which the port has and the JAX package has not
 (``config.PORT_MODEL_NAMES``); the Solver trains each of them. Every
 family's ``forward(img, ques, ques_length=None, *, train, valid,
 generator, fusion_seed, reference_kernels, aux)`` takes the same arguments,
@@ -54,6 +54,10 @@ def get_model(name: str):
         from vqa_attention_networks_tpu_torch.models.mcan import MCAN
 
         return MCAN
+    if name == "ban":
+        from vqa_attention_networks_tpu_torch.models.ban import BAN
+
+        return BAN
     raise ValueError(
         f"model {name!r} not supported; have {list(PORT_MODEL_NAMES)}")
 

@@ -157,6 +157,34 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(dim))
 
 
+class WNDense(nn.Module):
+    """A weight-normalised projection, ``weight_norm(Linear, dim=None)``:
+    the direction ``weight_v`` [out, in], one scalar gain ``weight_g`` for
+    the whole matrix and the ``bias``, leaves ``v``, ``g`` and ``b`` of the
+    tree. The weight is ``weight_norm(weight_g, weight_v)``. A port-only
+    layer (the JAX package has no BAN)."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.weight_v = nn.Parameter(torch.empty(d_out, d_in))
+        self.weight_g = nn.Parameter(torch.empty(()))
+        self.bias = nn.Parameter(torch.empty(d_out))
+
+
+class GRU(nn.Module):
+    """One-layer GRU, gates r, z, n, with ``nn.GRU``'s parameter names (less
+    the ``_l0`` suffix), leaves ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh`` as
+    the LSTM's. A port-only layer (BAN's question encoder); ``gru``
+    computes it."""
+
+    def __init__(self, d_in: int, hidden: int):
+        super().__init__()
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden, d_in))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden, hidden))
+        self.bias_ih = nn.Parameter(torch.empty(3 * hidden))
+        self.bias_hh = nn.Parameter(torch.empty(3 * hidden))
+
+
 class BatchNorm(nn.Module):
     """BatchNorm1d over axis 0: ``scale`` and ``bias`` are parameters,
     ``mean`` and ``var`` f32 buffers of running statistics, leaves of the
@@ -340,6 +368,33 @@ def lstm(
     hs = []
     for step in range(t):
         h, c = lstm_cell(x_proj[:, step], h, c, w_hh_t)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``weight_norm(dim=None)``'s weight: ``g v / ||v||_F`` in f32."""
+    return v * (g / torch.linalg.vector_norm(v))
+
+
+def gru(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+        b_ih: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """``nn.GRU``'s recurrence from a zero state -> all hidden states
+    [N, T, H] in x's dtype: r = sigmoid(x_r + h_r), z = sigmoid(x_z + h_z),
+    n = tanh(x_n + r h_n), h = (1 - z) n + z h, with x_* = x W_ih + b_ih
+    (hoisted out of the loop) and h_* = h W_hh + b_hh, each projection's
+    bias added before its product is rounded. The weights in x's dtype."""
+    n, t, _ = x.shape
+    hidden = w_hh.shape[1]
+    xp = torch.nn.functional.linear(x, w_ih, b_ih).chunk(3, dim=-1)
+    h = x.new_zeros(n, hidden)
+    hs = []
+    for step in range(t):
+        hr, hz, hn = torch.nn.functional.linear(h, w_hh, b_hh).chunk(3, -1)
+        r = torch.sigmoid(xp[0][:, step] + hr)
+        z = torch.sigmoid(xp[1][:, step] + hz)
+        c = torch.tanh(xp[2][:, step] + r * hn)
+        h = (1 - z) * c + z * h
         hs.append(h)
     return torch.stack(hs, dim=1)
 

@@ -141,6 +141,9 @@ class MHBCoAtt(nn.Module):
         return tuple((p._version, p.data_ptr())
                      for p in self._stage1_params())
 
+    # what serve.BankGraph compares to know the layout stale
+    _derived_state = _stage1_state
+
     def prepare(self) -> None:
         """Lay out img_conv1d / co_att_conv1 / co_att_conv2 for K1 (the JAX
         wrapper redoes this on every call; in eager PyTorch that would copy

@@ -1,6 +1,6 @@
 """What each hand-written kernel is checked on, and held to, on the card.
 
-For K1 to K8, N1 and N2: the inputs its check and its timing draw, at the
+For K1 to K8 and N1 to N3: the inputs its check and its timing draw, at the
 shapes the port runs (from a seed, on the device given, any device), and
 the tolerance of the kernel against its plain version. ``chip_smoke.py``
 gates on them, ``step_time.py`` times on them (its ``agrees``),
@@ -117,6 +117,22 @@ N1_SHAPES = {"grid": (BATCH * 196, 1024), "words": (BATCH * 14, 1024),
              "head": (BATCH, 2048)}
 N2_SHAPES = {"grid_self": (16, 196, 196), "guided": (16, 196, 14),
              "words_self": (16, 14, 14)}
+# BAN-8's attention map (N3) at N = BATCH: L cells, T words, G glimpses,
+# K = 3 H of BiAttention's projections; and at the port's default widths
+# (``Config()``: 22 words, 6 glimpses, H 1,024), which take the kernel's
+# three-warpgroup shape
+N3_SHAPE = dict(l=196, t=14, g=8, k=3 * 1280)
+N3_DEFAULT_SHAPE = dict(l=_WIDTHS.img_feature_dim,
+                        t=_WIDTHS.max_question_length, g=_WIDTHS.att_num,
+                        k=3 * _WIDTHS.hidden_dim)
+# N3 against its map at its own rounding points (``n3_exact``), entry by
+# entry: P is rounded to bf16 once (half a bf16 ulp of the entry), and S's
+# f32 sums in another order move an entry by ~1e-5 of itself, so one bf16
+# ulp of the entry; f32's smallest normal besides, under which the
+# kernel's exp flushes to 0. Each glimpse's sum: the entries' roundings
+# move it by at most 2^-8.
+N3_FLOOR = 2.0 ** -126
+N3_SUM_ATOL = 2.0 ** -8
 
 
 def card() -> tuple:
@@ -377,3 +393,79 @@ def n2_within(got: torch.Tensor, want: torch.Tensor,
     composed_err = float((composed.float() - want).abs().max())
     ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
     return err <= composed_err + ulp
+
+
+def n3_inputs(n: int, seed: int, device, *, l: int = N3_SHAPE["l"],
+              t: int = N3_SHAPE["t"], g: int = N3_SHAPE["g"],
+              k: int = N3_SHAPE["k"]) -> tuple:
+    """N3 inputs: bf16 av [N, L, K] and aq [N, T, K] as ReLU outputs, f32
+    h [G, K] and hb [G], and a grid mask [N, L] (each sample its own share
+    of masked cells, below one half). At K = 3,840 the scores spread by ~3
+    over a glimpse's L T pairs, so each map is peaked, as ban-vqa's h_mat
+    draws it."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    av = torch.relu(0.6 * torch.randn(n, l, k, generator=gen, device=device))
+    aq = torch.relu(0.4 * torch.randn(n, t, k, generator=gen, device=device))
+    h = 0.4 * torch.randn(g, k, generator=gen, device=device)
+    hb = torch.randn(g, generator=gen, device=device)
+    share = 0.5 * torch.rand(n, 1, generator=gen, device=device)
+    mask = torch.rand(n, l, generator=gen, device=device) < share
+    return av.to(torch.bfloat16), aq.to(torch.bfloat16), h, hb, mask
+
+
+def n3_exact(av: torch.Tensor, aq: torch.Tensor, h: torch.Tensor,
+             hb: torch.Tensor, mask: torch.Tensor,
+             max_rows: int = 0) -> torch.Tensor:
+    """N3's map at its own rounding points, f32 [N, G, L, T], not rounded:
+    the scaled words rounded to bf16 (``bf16(h aq)``, as the kernel forms
+    them), S in f32 from the bf16 operands (TF32 off), hb added, the masked
+    joint softmax in f32. ``max_rows`` (a control, 0 for the map) takes
+    each glimpse's max per word row, not over the glimpse."""
+    n, l, k = av.shape
+    t, g = aq.shape[1], h.shape[0]
+    a = (aq.float()[:, None] * h.float()[None, :, None, :]).to(
+        torch.bfloat16).float().reshape(n, g * t, k)
+    s = torch.bmm(a, av.float().transpose(1, 2)).reshape(n, g, t, l)
+    s = s.transpose(2, 3) + hb.float()[None, :, None, None]
+    s = s.masked_fill(mask[:, None, :, None], float("-inf"))
+    if max_rows:
+        s = s - s.amax(2, keepdim=True)  # [N, G, 1, T]: each word's own
+    p = torch.exp(s - s.amax((2, 3), keepdim=True))
+    return p / p.sum((2, 3), keepdim=True)
+
+
+def n3_controls(av: torch.Tensor, aq: torch.Tensor, h: torch.Tensor,
+                hb: torch.Tensor, mask: torch.Tensor) -> dict:
+    """Maps a faulty kernel could give, each rounded to bf16 as N3's, each
+    of which ``n3_within`` must reject against ``n3_exact``:
+    ``mask_ignored``, masked cells scored; ``row_max``, each glimpse's max
+    taken per word (wrong off the peaks only: the sum is still joint);
+    ``warpgroup_sum`` (where a glimpse's rows straddle warpgroup 0 and 1,
+    rows 63 and 64), the rows of each warpgroup normalised alone."""
+    exact = n3_exact(av, aq, h, hb, mask)
+    t = aq.shape[1]
+    out = {"mask_ignored": n3_exact(av, aq, h, hb, torch.zeros_like(mask)),
+           "row_max": n3_exact(av, aq, h, hb, mask, max_rows=1)}
+    g = 64 // t
+    if 64 % t and g < h.shape[0]:
+        split = exact.clone()
+        part = split[:, g]  # [N, L, T]: words below 64 - g t in warpgroup 0
+        cut = 64 - g * t
+        for words in (slice(0, cut), slice(cut, t)):
+            part[..., words] /= part[..., words].sum((1, 2), keepdim=True)
+        out["warpgroup_sum"] = split
+    return {name: m.to(torch.bfloat16) for name, m in out.items()}
+
+
+def n3_within(got: torch.Tensor, exact: torch.Tensor) -> bool:
+    """Is N3's ``got`` within one bf16 ulp of each entry of ``exact``
+    (``n3_exact``) plus f32's smallest normal, and does each glimpse of it
+    sum to 1 within ``N3_SUM_ATOL``? A masked cell's entries, 0 in
+    ``exact``, must be 0."""
+    want = exact.float()
+    diff = (got.float() - want).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(N3_FLOOR)))
+                     - 7)
+    sums = got.float().sum((2, 3))
+    return bool((diff <= ulp + N3_FLOOR).all()
+                and ((sums - 1).abs() <= N3_SUM_ATOL).all())

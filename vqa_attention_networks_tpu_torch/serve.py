@@ -366,10 +366,11 @@ class BankGraph:
       caching host allocator reuses a pinned block only once its copy ran.
     - Captured on first use, and again where the graph would go stale: the
       question length T changed, a switch of the kernels' routes was
-      flipped (``ops.route_switches``), or a parameter K1's layout is made
-      from was written (``MHBCoAtt._stage1_state``): the layout is made
-      again, at new addresses. The other families' graphs read their parameters
-      in place. Warm-up runs on a side stream first, as
+      flipped (``ops.route_switches``), or a parameter that a family forms
+      derived weights from was written (``_derived_state``: K1's layout of
+      ``MHBCoAtt``, BAN's weight-normalised weights): they are formed
+      again, at new addresses. The other families' graphs read their
+      parameters in place. Warm-up runs on a side stream first, as
       ``torch.cuda.graphs`` requires, and lays K1's weights out there.
     - ``captures`` and ``replays`` count what it did, as the cache counts
       its hits.
@@ -391,9 +392,9 @@ class BankGraph:
         self.captures = self.replays = 0
 
     def _state(self, seq_len: int) -> tuple:
-        stage1 = getattr(self._model, "_stage1_state", None)
+        derived = getattr(self._model, "_derived_state", None)
         return (seq_len, route_switches(),
-                stage1() if stage1 is not None else None)
+                derived() if derived is not None else None)
 
     def stale(self, seq_len: int) -> bool:
         return self._graph is None or self._state(seq_len) != self._key

@@ -18,7 +18,9 @@ d_W/d_b/d_q (the g_pooled build and three launches) and d_img at N = 64
 and its forward at N = 64 and 256; K4 at N = 256 (its elements outside
 the tolerance by output); K6 at N = 256; K7 at its two call shapes; K8's
 scan and its entry ``lstm_seq`` at N = 256; N1 at MCAN-large's three norm
-shapes and N2 at its three attention shapes, N = 256. Each line says
+shapes and N2 at its three attention shapes, N = 256; N3 at BAN-8's
+shape, N = 256 (``library`` the map as ban-vqa composes it, one
+``torch.einsum`` and the masked softmax). Each line says
 whether the kernel agreed with its plain version on the same inputs
 (``agrees``, by ``card_cases``' tolerance) and whether a rerun gave the
 same bits, and gives the call's time three ways: ``events_ms``, calls
@@ -57,6 +59,7 @@ KERNELS = {
     "K8": ("K8", "K8_lstm_seq"),
     "N1": ("N1_grid", "N1_words", "N1_head"),
     "N2": ("N2_grid_self", "N2_guided", "N2_words_self"),
+    "N3": ("N3",),
 }
 # the card's rates for the bounds (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -168,6 +171,7 @@ def time_kernels(root: str, names: set) -> None:
     """Time and check the kernels of ``names`` on the port that
     ``sys.path`` reaches first."""
     from vqa_attention_networks_tpu_torch.ops import attention as att
+    from vqa_attention_networks_tpu_torch.ops import ban_attention as ban
     from vqa_attention_networks_tpu_torch.ops import card_cases as cc
     from vqa_attention_networks_tpu_torch.ops import coattention as co
     from vqa_attention_networks_tpu_torch.ops import grid_fusion as gf
@@ -462,6 +466,28 @@ def time_kernels(root: str, names: set) -> None:
             library=("torch.nn.functional.scaled_dot_product_attention",
                      sdpa), n=n, shape=[n, heads, lq, lk])
         del q, kk, v, mask
+
+    if "N3" in names:
+        av, aq, h, hb, mask = cc.n3_inputs(n, 390, dev)
+        g, (_, l, kh), t = h.shape[0], av.shape, aq.shape[1]
+        h16 = h.to(torch.bfloat16)
+
+        def einsum():
+            s_ = torch.einsum("gk,bvk,bqk->bgvq", h16, av, aq)
+            s_ = s_ + hb.to(s_.dtype)[None, :, None, None]
+            s_ = s_.masked_fill(mask[:, None, :, None], float("-inf"))
+            return torch.softmax(s_.reshape(n, g, l * t).float(), -1)
+
+        say("N3", lambda: ban.attention_map(av, aq, h, hb, mask),
+            lambda: ban.attention_map_composed(av, aq, h, hb, mask),
+            cc.n3_within(ban.attention_map(av, aq, h, hb, mask),
+                         cc.n3_exact(av, aq, h, hb, mask)),
+            (nbytes(av, aq, h, mask) + 2 * n * g * l * t,
+             {"bf16": 2.0 * n * g * t * l * kh}),
+            library=("torch.einsum('gk,bvk,bqk->bgvq') + masked softmax "
+                     "(ban-vqa's BCNet)", einsum),
+            n=n, shape=[n, g, l, t, kh])
+        del av, aq, h, hb, mask
 
 
 if __name__ == "__main__":

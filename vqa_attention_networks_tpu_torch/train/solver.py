@@ -168,6 +168,7 @@ from vqa_attention_networks_tpu_torch.data.prepare import (
 )
 from vqa_attention_networks_tpu_torch.models import (
     TRAINABLE,
+    ban,
     get_model,
     hiecoatten,
     ibowimg,
@@ -231,6 +232,7 @@ _INIT_PARAMS = {
     "iBOWIMG": ibowimg.ibowimg_init_params,
     "attentionNet": ibowimg.attention_net_init_params,
     "mcan": mcan.init_params,
+    "ban": ban.init_params,
 }
 BN_MOMENTUM = 0.1  # torch nn.BatchNorm1d's default
 
@@ -396,11 +398,11 @@ def mesh_shape(cfg: Config) -> Tuple[int, int]:
     model = cfg.model_parallel
     if model < 1:
         raise ValueError(f"model_parallel={model}: at least 1")
-    if model > 1 and cfg.model_name == "mcan":
+    if model > 1 and cfg.model_name in ("mcan", "ban"):
         raise ValueError(
             f"model_parallel={model}: tensor parallelism splits the MFB "
-            "fusions' columns (mfb_out), and mcan has none; train mcan "
-            "with model_parallel=1")
+            f"fusions' columns (mfb_out), and {cfg.model_name} has none; "
+            f"train {cfg.model_name} with model_parallel=1")
     if not distributed.is_initialized():
         if cfg.data_parallel > 1 or model > 1:
             ranks = max(cfg.data_parallel, 1) * model

@@ -3,7 +3,9 @@
 The JAX package keeps parameters as nested dicts with projections stored
 ``[in, out]`` (``models/layers.py``); the port keeps PyTorch's ``[out, in]``.
 ``load_jax_params`` maps one onto the other, strictly: a missing key, an
-unexpected key or a wrong shape raises. It is how the tests hand one set of
+unexpected key or a wrong shape raises. One leaf may be left out: a
+weight-normalised layer's gain ``g``, which then takes ``weight_norm``'s
+own first value, its direction's norm (the weight is the direction). It is how the tests hand one set of
 weights to both packages, and how ``chip_smoke.py`` loads random weights.
 ``to_jax_params`` is its inverse: the module's parameters as a tree of
 numpy arrays in the JAX layout, so a test can hold the parameters after a
@@ -46,6 +48,17 @@ _LEAVES = {
         "b_hh": ("bias_hh", False),
     },
     L.LayerNorm: {"w": ("weight", False), "b": ("bias", False)},
+    L.WNDense: {
+        "v": ("weight_v", True),
+        "g": ("weight_g", False),
+        "b": ("bias", False),
+    },
+    L.GRU: {
+        "w_ih": ("weight_ih", True),
+        "w_hh": ("weight_hh", True),
+        "b_ih": ("bias_ih", False),
+        "b_hh": ("bias_hh", False),
+    },
     L.BatchNorm: {
         "scale": ("scale", False),
         "bias": ("bias", False),
@@ -96,6 +109,14 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     module lays out derived weights (``prepare``), it does so once here."""
     targets = _module_leaves(module)
     given = dict(_flatten(params))
+    gains = {id(m.weight_g) for m in module.modules()
+             if isinstance(m, L.WNDense)}
+    for path, (tensor, _) in targets.items():
+        layer = path.rpartition("/")[0]
+        if (id(tensor) in gains and path not in given
+                and f"{layer}/v" in given):
+            given[path] = np.linalg.norm(np.asarray(given[f"{layer}/v"],
+                                                    np.float64))
     missing = sorted(set(targets) - set(given))
     unexpected = sorted(set(given) - set(targets))
     if missing or unexpected:
